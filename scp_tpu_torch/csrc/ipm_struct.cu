@@ -1,0 +1,641 @@
+// Fused structured interior-point kernel for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernel scp_tpu/ops/pallas_linalg.py::
+// ipm_iterate_lane_struct (built by make_ipm_iter_kernel with g_struct and
+// n_iters): ALL fixed Mehrotra predictor-corrector iterations of every QP of
+// a batch in one launch. Per iteration: slab matvecs, analytic KKT diagonal,
+// Jacobi-scaled KKT matrix formed from the pair / obstacle row slabs + the
+// block-diagonal P + the box diagonal, rank-1 Schur elimination of the slack
+// variable, Cholesky on nu = n - 1 columns, predictor + corrector (+ n_cor
+// Gondzio correctors with per-instance acceptance), step lengths,
+// sigma = (mu_aff / mu)^3, the exact (1 - alpha) primal-residual recurrence
+// and freeze-on-stall / converged / non-finite.
+//
+// Design. ONE CTA PER QP INSTANCE. The whole per-instance working set —
+// the nu x nu factor, the slabs, the P blocks and ~20 vectors — lives in
+// dynamic shared memory for the whole solve (about 66 KB at P = 6,
+// hp = hu = 20, V = 4, so three CTAs share an SM); it is read from device
+// memory once and the state is written back once. The iteration loop is a
+// plain `for` inside the CTA. Tensors are instance-major, so a CTA reads
+// contiguous stretches. Shapes and the pair / obstacle-vehicle tables are
+// runtime arguments: one compiled kernel serves every shape.
+//
+// What bounds it on this card: arithmetic and barrier latency, not memory.
+// Per QP at the bench shape, with the slabs lower-triangular, an iteration
+// needs ~0.32 MFLOP of non-tensor f32 (Cholesky 80^3/3 ~0.17, K formation
+// ~0.09, slab matvecs ~0.03, four 80^2 substitutions ~0.03, vector algebra
+// ~0.01; chip_smoke.py::k1_work counts them) against ~35 KB of device-memory
+// traffic per SOLVE; at B = 1024 and 7 iterations that is ~2.3 GFLOP and
+// ~36 MB, i.e. ~35 us at the card's f32 rate (67 TFLOP/s) and ~10 us at its
+// memory rate. The kernel sits far
+// above that bound because the factorization and the substitutions are
+// sequential chains (one block barrier per Cholesky column, one warp barrier
+// pair per substitution column) and because B = 256 / 64 (the straggler
+// phases) launch fewer CTAs than the card has SM slots. Three CTAs per SM
+// overlap one instance's barrier stalls with another's arithmetic; a
+// blocked factorization and multi-instance CTAs are later work.
+//
+// No fast-math: the Jacobi scaling (1/sqrt of the analytic diagonal) and
+// barrier ratios z/s up to 1e10 are why f32 works at all here.
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include "chol.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// Built with -DSCP_PROFILE_SECTIONS (scripts/torch_k1_sections.py) the
+// kernel adds up, for block 0, the clock cycles between section marks;
+// without it the marks compile to nothing.
+#ifdef SCP_PROFILE_SECTIONS
+__device__ unsigned long long g_section_cycles[16];
+#define SECTION_INIT() long long section_t0 = clock64()
+#define SECTION(i)                                         \
+  do {                                                     \
+    __syncthreads();                                       \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {             \
+      const long long section_t1 = clock64();              \
+      g_section_cycles[i] += section_t1 - section_t0;      \
+      section_t0 = section_t1;                             \
+    }                                                      \
+  } while (0)
+#else
+#define SECTION_INIT()
+#define SECTION(i)
+#endif
+enum { kSecLoad, kSecDiag, kSecForm, kSecChol, kSecRhs, kSecSolve,
+       kSecVector, kSecUpdate, kSecStore, kSecCount };
+
+struct Shape {
+  int P, S, hp, hu, V;      // pairs, single-block slabs, horizon, block, vehicles
+  int nu, n, mg, m, ldk;    // derived
+  int lower_tri;            // slabs are zero for u > k
+};
+
+__host__ __device__ inline Shape make_shape(int P, int S, int hp, int hu,
+                                            int V, int lower_tri) {
+  Shape d;
+  d.P = P; d.S = S; d.hp = hp; d.hu = hu; d.V = V;
+  d.nu = V * hu;
+  d.n = d.nu + 1;
+  d.mg = (P + S) * hp;
+  d.m = d.mg + 2 * d.n;
+  d.ldk = d.nu | 1;
+  d.lower_tri = lower_tri;
+  return d;
+}
+
+// Shared-memory carve (in 4-byte words); must match ipm_kernel.py::smem_bytes.
+__host__ __device__ inline long smem_words(const Shape& d) {
+  long w = 0;
+  w += (long)d.nu * d.ldk;                 // K / factor
+  w += 2L * d.P * d.hp * d.hu;             // gi, gj
+  w += (long)d.S * d.hp * d.hu;            // gob
+  w += (long)d.V * d.hu * d.hu;            // pb
+  w += d.mg;                               // gsl
+  w += 9L * d.m;                           // s z rp w a1 a2 a3 dz ds
+  w += 9L * d.n;                           // q pdiag x px dsc kb rhs dx dinv
+  w += 64;                                 // reduction scratch
+  w += (long)d.V * d.V + 2L * d.P + d.S;   // pair_of, pair i / j, obst veh
+  return w;
+}
+
+__device__ inline float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ inline float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Block-wide sum / min of one value per thread; every thread gets the result.
+__device__ inline float block_sum(float v, float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarp = blockDim.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = 0.0f;
+  for (int w = 0; w < nwarp; ++w) t += red[w];
+  return t;
+}
+
+__device__ inline float block_min(float v, float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarp = blockDim.x >> 5;
+  v = warp_min(v);
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = red[0];
+  for (int w = 1; w < nwarp; ++w) t = fminf(t, red[w]);
+  return t;
+}
+
+// -v / dv where the step shrinks the variable, +inf elsewhere. A NaN step is
+// not "< 0" and maps to +inf, as in the TPU kernel; the update then goes
+// non-finite and the finite check freezes the instance.
+__device__ inline float step_ratio(float v, float dv) {
+  return dv < 0.0f ? -v / dv : CUDART_INF_F;
+}
+
+struct Smem {
+  float *K, *gi, *gj, *gob, *pb, *gsl;
+  float *s, *z, *rp, *w, *a1, *a2, *a3, *dz, *ds;
+  float *q, *pdiag, *x, *px, *dsc, *kb, *rhs, *dx, *dinv;
+  float* red;
+  int *pair_of, *pi, *pj, *ov;
+};
+
+__device__ inline Smem carve(float* base, const Shape& d) {
+  Smem sm;
+  float* p = base;
+  sm.K = p; p += (long)d.nu * d.ldk;
+  sm.gi = p; p += (long)d.P * d.hp * d.hu;
+  sm.gj = p; p += (long)d.P * d.hp * d.hu;
+  sm.gob = p; p += (long)d.S * d.hp * d.hu;
+  sm.pb = p; p += (long)d.V * d.hu * d.hu;
+  sm.gsl = p; p += d.mg;
+  sm.s = p; p += d.m;   sm.z = p; p += d.m;   sm.rp = p; p += d.m;
+  sm.w = p; p += d.m;   sm.a1 = p; p += d.m;  sm.a2 = p; p += d.m;
+  sm.a3 = p; p += d.m;  sm.dz = p; p += d.m;  sm.ds = p; p += d.m;
+  sm.q = p; p += d.n;   sm.pdiag = p; p += d.n;  sm.x = p; p += d.n;
+  sm.px = p; p += d.n;  sm.dsc = p; p += d.n;    sm.kb = p; p += d.n;
+  sm.rhs = p; p += d.n; sm.dx = p; p += d.n;     sm.dinv = p; p += d.n;
+  sm.red = p; p += 64;
+  int* ip = reinterpret_cast<int*>(p);
+  sm.pair_of = ip; ip += d.V * d.V;
+  sm.pi = ip; ip += d.P;  sm.pj = ip; ip += d.P;  sm.ov = ip;
+  return sm;
+}
+
+// sum_rows vec[row] * g[row, col]  (SQ: * g^2) over every slab row that
+// touches column `c` (< nu) — the column walk of G^T v and of diag(G^T W G).
+template <bool SQ>
+__device__ inline float col_accum(const Smem& sm, const Shape& d,
+                                  const float* vec, int c) {
+  const int v = c / d.hu, u = c - v * d.hu;
+  const int k0 = d.lower_tri ? u : 0;
+  const int slab = d.hp * d.hu;
+  float acc = 0.0f;
+  for (int p = 0; p < d.P; ++p) {
+    const float* g = nullptr;
+    if (sm.pi[p] == v) g = sm.gi + p * slab;
+    else if (sm.pj[p] == v) g = sm.gj + p * slab;
+    if (!g) continue;
+    const float* vr = vec + p * d.hp;
+#pragma unroll 4
+    for (int k = k0; k < d.hp; ++k) {
+      const float gv = g[k * d.hu + u];
+      acc += vr[k] * (SQ ? gv * gv : gv);
+    }
+  }
+  for (int o = 0; o < d.S; ++o) {
+    if (sm.ov[o] != v) continue;
+    const float* g = sm.gob + o * slab;
+    const float* vr = vec + (d.P + o) * d.hp;
+#pragma unroll 4
+    for (int k = k0; k < d.hp; ++k) {
+      const float gv = g[k * d.hu + u];
+      acc += vr[k] * (SQ ? gv * gv : gv);
+    }
+  }
+  return acc;
+}
+
+// (G x)[r] for slab row r (< mg), slack column included.
+__device__ inline float row_dot(const Smem& sm, const Shape& d,
+                                const float* xv, int r) {
+  const int blk = r / d.hp, k = r - blk * d.hp;
+  const int umax = d.lower_tri ? min(k + 1, d.hu) : d.hu;
+  float acc = 0.0f;
+  if (blk < d.P) {
+    const float* gi = sm.gi + (blk * d.hp + k) * d.hu;
+    const float* gj = sm.gj + (blk * d.hp + k) * d.hu;
+    const float* xi = xv + sm.pi[blk] * d.hu;
+    const float* xj = xv + sm.pj[blk] * d.hu;
+    for (int u = 0; u < umax; ++u) acc += gi[u] * xi[u];
+    float acc2 = 0.0f;
+    for (int u = 0; u < umax; ++u) acc2 += gj[u] * xj[u];
+    acc += acc2;
+  } else {
+    const int o = blk - d.P;
+    const float* g = sm.gob + (o * d.hp + k) * d.hu;
+    const float* xo = xv + sm.ov[o] * d.hu;
+    for (int u = 0; u < umax; ++u) acc += g[u] * xo[u];
+  }
+  return acc + sm.gsl[r] * xv[d.nu];
+}
+
+// rhs[c] = -(px + q + Ghat^T v) with Ghat = [G; I; -I]; `v` spans all m rows.
+__device__ inline void build_rhs(const Smem& sm, const Shape& d,
+                                 const float* v, bool with_cost) {
+  for (int c = threadIdx.x; c < d.n; c += blockDim.x) {
+    float gt;
+    if (c < d.nu) {
+      gt = col_accum<false>(sm, d, v, c);
+    } else {
+      gt = 0.0f;
+      for (int r = 0; r < d.mg; ++r) gt += sm.gsl[r] * v[r];
+    }
+    const float box = v[d.mg + c], boxl = v[d.mg + d.n + c];
+    const float head = with_cost ? (sm.px[c] + sm.q[c]) + gt : gt;
+    sm.rhs[c] = -((head + box) - boxl);
+  }
+}
+
+// dx = K^-1 rhs through the Jacobi scaling and the bordered back-
+// substitution for the slack; in place in sm.rhs. All threads call.
+__device__ inline void solve_kkt(const Smem& sm, const Shape& d,
+                                 float inv_kappa) {
+  __syncthreads();
+  const float rw = sm.dsc[d.nu] * sm.rhs[d.nu];
+  __syncthreads();
+  for (int c = threadIdx.x; c < d.nu; c += blockDim.x)
+    sm.rhs[c] = sm.dsc[c] * sm.rhs[c] - sm.kb[c] * (inv_kappa * rw);
+  scpk::chol_solve_inplace(sm.K, d.nu, d.ldk, sm.dinv, sm.rhs);
+  float part = 0.0f;
+  for (int c = threadIdx.x; c < d.nu; c += blockDim.x)
+    part += sm.kb[c] * sm.rhs[c];
+  const float dot = block_sum(part, sm.red);
+  const float xw = (rw - dot) * inv_kappa;
+  __syncthreads();
+  for (int c = threadIdx.x; c < d.n; c += blockDim.x)
+    sm.rhs[c] = sm.dsc[c] * (c < d.nu ? sm.rhs[c] : xw);
+  __syncthreads();
+}
+
+// out[r] = (Ghat x)[r] over all m rows.
+__device__ inline void ghat_mv(const Smem& sm, const Shape& d,
+                               const float* xv, float* out) {
+  for (int r = threadIdx.x; r < d.m; r += blockDim.x) {
+    float v;
+    if (r < d.mg) v = row_dot(sm, d, xv, r);
+    else if (r < d.mg + d.n) v = xv[r - d.mg];
+    else v = -xv[r - d.mg - d.n];
+    out[r] = v;
+  }
+}
+
+// min(1, 0.99 * min ratio) over the s rows and the z rows.
+__device__ inline float step_length(const Smem& sm, const Shape& d,
+                                    const float* ds, const float* dz) {
+  float r = CUDART_INF_F;
+  for (int i = threadIdx.x; i < d.m; i += blockDim.x) {
+    r = fminf(r, step_ratio(sm.s[i], ds[i]));
+    r = fminf(r, step_ratio(sm.z[i], dz[i]));
+  }
+  return fminf(1.0f, 0.99f * block_min(r, sm.red));
+}
+
+__device__ inline void copy_in(float* dst, const float* src, long count) {
+  for (long i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
+}
+
+struct Args {
+  const float *gi, *gj, *gob, *gsl, *pb, *q, *pdiag;
+  const float *x, *sg, *su, *sl, *zg, *zu, *zl, *rpg, *rpu, *rpl, *scal;
+  const int *pair_idx, *obst_veh;
+  float *xo, *sgo, *suo, *slo, *zgo, *zuo, *zlo, *rpgo, *rpuo, *rplo, *scalo;
+  int n_iters, n_cor;
+  float tol, tol_stall, reg_rel;
+};
+
+__global__ void __launch_bounds__(kThreads)
+ipm_struct_kernel(Args a, Shape d) {
+  extern __shared__ float smem_base[];
+  const Smem sm = carve(smem_base, d);
+  const long b = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarp = nt >> 5;
+  const int slab = d.hp * d.hu;
+  const int mg = d.mg, n = d.n, nu = d.nu, m = d.m;
+
+  SECTION_INIT();
+  // ---- load the instance ----
+  copy_in(sm.gi, a.gi + b * d.P * slab, (long)d.P * slab);
+  copy_in(sm.gj, a.gj + b * d.P * slab, (long)d.P * slab);
+  if (d.S) copy_in(sm.gob, a.gob + b * d.S * slab, (long)d.S * slab);
+  copy_in(sm.pb, a.pb + b * d.V * d.hu * d.hu, (long)d.V * d.hu * d.hu);
+  copy_in(sm.gsl, a.gsl + b * mg, mg);
+  copy_in(sm.q, a.q + b * n, n);
+  copy_in(sm.pdiag, a.pdiag + b * n, n);
+  copy_in(sm.x, a.x + b * n, n);
+  copy_in(sm.s, a.sg + b * mg, mg);
+  copy_in(sm.s + mg, a.su + b * n, n);
+  copy_in(sm.s + mg + n, a.sl + b * n, n);
+  copy_in(sm.z, a.zg + b * mg, mg);
+  copy_in(sm.z + mg, a.zu + b * n, n);
+  copy_in(sm.z + mg + n, a.zl + b * n, n);
+  copy_in(sm.rp, a.rpg + b * mg, mg);
+  copy_in(sm.rp + mg, a.rpu + b * n, n);
+  copy_in(sm.rp + mg + n, a.rpl + b * n, n);
+  for (int i = tid; i < d.V * d.V; i += nt) sm.pair_of[i] = -1;
+  for (int p = tid; p < d.P; p += nt) {
+    sm.pi[p] = a.pair_idx[2 * p];
+    sm.pj[p] = a.pair_idx[2 * p + 1];
+  }
+  for (int o = tid; o < d.S; o += nt) sm.ov[o] = a.obst_veh[o];
+  __syncthreads();
+  for (int p = tid; p < d.P; p += nt)
+    sm.pair_of[sm.pi[p] * d.V + sm.pj[p]] = p;
+  float mu_prev = a.scal[b * 2];
+  bool frozen = a.scal[b * 2 + 1] > 0.5f;
+  const float inv_kappa = 1.0f / (1.0f + a.reg_rel);
+  const float one_reg = 1.0f + a.reg_rel;
+  float mu = mu_prev;
+  __syncthreads();
+  SECTION(kSecLoad);
+
+  for (int it = 0; it < a.n_iters; ++it) {
+    // ---- barrier weights and mu ----
+    float part = 0.0f;
+    for (int r = tid; r < m; r += nt) {
+      sm.w[r] = sm.z[r] / sm.s[r];
+      part += sm.s[r] * sm.z[r];
+    }
+    mu = block_sum(part, sm.red) / (float)m;
+
+    // ---- P x, analytic KKT diagonal, Jacobi scale ----
+    for (int c = tid; c < n; c += nt) {
+      float px, gsq;
+      if (c < nu) {
+        const int v = c / d.hu, u = c - v * d.hu;
+        const float* prow = sm.pb + (v * d.hu + u) * d.hu;
+        const float* xb = sm.x + v * d.hu;
+        px = 0.0f;
+        for (int t = 0; t < d.hu; ++t) px += prow[t] * xb[t];
+        gsq = col_accum<true>(sm, d, sm.w, c);
+      } else {
+        px = sm.pdiag[c] * sm.x[c];
+        gsq = 0.0f;
+        for (int r = 0; r < mg; ++r) gsq += sm.w[r] * sm.gsl[r] * sm.gsl[r];
+      }
+      const float dbox = sm.w[mg + c] + sm.w[mg + n + c];
+      const float dk = sm.pdiag[c] + gsq + dbox;
+      sm.px[c] = px;
+      sm.dsc[c] = 1.0f / sqrtf(fmaxf(dk, 1e-30f));
+    }
+    // ---- scaled border column of the eliminated slack ----
+    for (int r = tid; r < mg; r += nt) sm.a1[r] = sm.w[r] * sm.gsl[r];
+    __syncthreads();
+    for (int c = tid; c < nu; c += nt)
+      sm.kb[c] = sm.dsc[c] * col_accum<false>(sm, d, sm.a1, c) * sm.dsc[nu];
+    __syncthreads();
+    SECTION(kSecDiag);
+
+    // ---- form the scaled, bordered KKT matrix (lower triangle) ----
+    for (int r = warp; r < nu; r += nwarp) {
+      const int vr = r / d.hu, ar = r - vr * d.hu;
+      for (int c = lane; c <= r; c += 32) {
+        const int vc = c / d.hu, ac = c - vc * d.hu;
+        const int k0 = d.lower_tri ? max(ar, ac) : 0;
+        float acc = 0.0f;
+        if (vr == vc) {
+          for (int p = 0; p < d.P; ++p) {
+            const float* g = nullptr;
+            if (sm.pi[p] == vr) g = sm.gi + p * slab;
+            else if (sm.pj[p] == vr) g = sm.gj + p * slab;
+            if (!g) continue;
+            const float* wr = sm.w + p * d.hp;
+#pragma unroll 4
+            for (int k = k0; k < d.hp; ++k)
+              acc += wr[k] * g[k * d.hu + ar] * g[k * d.hu + ac];
+          }
+          for (int o = 0; o < d.S; ++o) {
+            if (sm.ov[o] != vr) continue;
+            const float* g = sm.gob + o * slab;
+            const float* wr = sm.w + (d.P + o) * d.hp;
+#pragma unroll 4
+            for (int k = k0; k < d.hp; ++k)
+              acc += wr[k] * g[k * d.hu + ar] * g[k * d.hu + ac];
+          }
+          acc += sm.pb[(vr * d.hu + ar) * d.hu + ac];
+        } else {
+          const int p = sm.pair_of[vc * d.V + vr];
+          if (p >= 0) {
+            const float* gr = sm.gj + p * slab;
+            const float* gc = sm.gi + p * slab;
+            const float* wr = sm.w + p * d.hp;
+#pragma unroll 4
+            for (int k = k0; k < d.hp; ++k)
+              acc += wr[k] * gr[k * d.hu + ar] * gc[k * d.hu + ac];
+          }
+        }
+        const float border = (inv_kappa * sm.kb[r]) * sm.kb[c];
+        sm.K[r * d.ldk + c] =
+            (r == c) ? one_reg - border
+                     : acc * (sm.dsc[r] * sm.dsc[c]) - border;
+      }
+    }
+    SECTION(kSecForm);
+    scpk::chol_lower_inplace(sm.K, nu, d.ldk, sm.dinv);
+    SECTION(kSecChol);
+
+    // ---- predictor: rc = s z  =>  t = w rp - z ----
+    for (int r = tid; r < m; r += nt) {
+      const float t = sm.w[r] * sm.rp[r] - sm.z[r];
+      sm.a3[r] = sm.z[r] + t;
+    }
+    __syncthreads();
+    build_rhs(sm, d, sm.a3, true);
+    SECTION(kSecRhs);
+    solve_kkt(sm, d, inv_kappa);
+    SECTION(kSecSolve);
+    ghat_mv(sm, d, sm.rhs, sm.a3);
+    __syncthreads();
+    for (int r = tid; r < m; r += nt) {
+      const float dza = sm.w[r] * (sm.a3[r] + sm.rp[r]) - sm.z[r];
+      sm.a2[r] = dza;
+      sm.a1[r] = -sm.s[r] - sm.s[r] * dza / sm.z[r];
+    }
+    __syncthreads();
+    float a_p, a_d;
+    {
+      float rs = CUDART_INF_F, rz = CUDART_INF_F;
+      for (int r = tid; r < m; r += nt) {
+        rs = fminf(rs, step_ratio(sm.s[r], sm.a1[r]));
+        rz = fminf(rz, step_ratio(sm.z[r], sm.a2[r]));
+      }
+      a_p = fminf(1.0f, 0.99f * block_min(rs, sm.red));
+      a_d = fminf(1.0f, 0.99f * block_min(rz, sm.red));
+    }
+    part = 0.0f;
+    for (int r = tid; r < m; r += nt)
+      part += (sm.s[r] + a_p * sm.a1[r]) * (sm.z[r] + a_d * sm.a2[r]);
+    const float mu_aff = block_sum(part, sm.red) / (float)m;
+    float sigma = mu_aff / fmaxf(mu, 1e-30f);
+    sigma = sigma * sigma * sigma;
+    const float smu = sigma * mu;
+
+    // ---- corrector: rc = s z + ds_a dz_a - sigma mu ----
+    for (int r = tid; r < m; r += nt) {
+      const float rc = sm.s[r] * sm.z[r] + sm.a1[r] * sm.a2[r] - smu;
+      sm.a1[r] = rc;
+      const float t = sm.w[r] * sm.rp[r] - rc / sm.s[r];
+      sm.a3[r] = sm.z[r] + t;
+    }
+    __syncthreads();
+    SECTION(kSecVector);
+    build_rhs(sm, d, sm.a3, true);
+    SECTION(kSecRhs);
+    solve_kkt(sm, d, inv_kappa);
+    SECTION(kSecSolve);
+    ghat_mv(sm, d, sm.rhs, sm.a3);
+    for (int c = tid; c < n; c += nt) sm.dx[c] = sm.rhs[c];
+    __syncthreads();
+    for (int r = tid; r < m; r += nt) {
+      const float rc = sm.a1[r];
+      const float dz = sm.w[r] * (sm.a3[r] + sm.rp[r]) - rc / sm.s[r];
+      sm.dz[r] = dz;
+      sm.ds[r] = -(rc + sm.s[r] * dz) / sm.z[r];
+    }
+    __syncthreads();
+    float alpha = step_length(sm, d, sm.ds, sm.dz);
+
+    // ---- Gondzio centrality correctors on the same factor ----
+    for (int cor = 0; cor < a.n_cor; ++cor) {
+      const float at = fminf(alpha + 0.1f, 1.0f);
+      const float lo = 0.1f * smu, hi = 10.0f * smu;
+      __syncthreads();
+      for (int r = tid; r < m; r += nt) {
+        const float v = (sm.s[r] + at * sm.ds[r]) * (sm.z[r] + at * sm.dz[r]);
+        const float drc = v - fminf(fmaxf(v, lo), hi);
+        sm.a1[r] = drc;
+        sm.a2[r] = -drc / sm.s[r];
+      }
+      __syncthreads();
+      SECTION(kSecVector);
+      build_rhs(sm, d, sm.a2, false);
+      SECTION(kSecRhs);
+      solve_kkt(sm, d, inv_kappa);
+      SECTION(kSecSolve);
+      ghat_mv(sm, d, sm.rhs, sm.a3);
+      __syncthreads();
+      for (int r = tid; r < m; r += nt) {
+        const float dzc = sm.w[r] * sm.a3[r] + sm.a2[r];
+        const float dsc = -(sm.a1[r] + sm.s[r] * dzc) / sm.z[r];
+        sm.a2[r] = sm.dz[r] + dzc;
+        sm.a1[r] = sm.ds[r] + dsc;
+      }
+      __syncthreads();
+      const float alpha2 = step_length(sm, d, sm.a1, sm.a2);
+      if (alpha2 >= alpha + 0.01f) {  // uniform over the CTA
+        for (int r = tid; r < m; r += nt) {
+          sm.dz[r] = sm.a2[r];
+          sm.ds[r] = sm.a1[r];
+        }
+        for (int c = tid; c < n; c += nt) sm.dx[c] += sm.rhs[c];
+        alpha = alpha2;
+      }
+    }
+    __syncthreads();
+
+    SECTION(kSecVector);
+    // ---- step, finite check, freeze bookkeeping ----
+    float bad = 0.0f;
+    for (int c = tid; c < n; c += nt)
+      if (!isfinite(sm.x[c] + alpha * sm.dx[c])) bad = 1.0f;
+    for (int r = tid; r < m; r += nt) {
+      if (!isfinite(sm.s[r] + alpha * sm.ds[r])) bad = 1.0f;
+      if (!isfinite(sm.z[r] + alpha * sm.dz[r])) bad = 1.0f;
+    }
+    const bool ok = block_sum(bad, sm.red) == 0.0f;
+    const bool stalled = (mu > 0.7f * mu_prev) && (mu < a.tol_stall);
+    const bool converged = mu < a.tol;
+    frozen = frozen || stalled || converged || !ok;
+    if (!frozen) {
+      const float shrink = 1.0f - alpha;
+      for (int c = tid; c < n; c += nt) sm.x[c] += alpha * sm.dx[c];
+      for (int r = tid; r < m; r += nt) {
+        sm.s[r] += alpha * sm.ds[r];
+        sm.z[r] += alpha * sm.dz[r];
+        sm.rp[r] *= shrink;
+      }
+    }
+    mu_prev = mu;
+    __syncthreads();
+    SECTION(kSecUpdate);
+  }
+
+  // ---- write the state back ----
+  for (int c = tid; c < n; c += nt) {
+    a.xo[b * n + c] = sm.x[c];
+    a.suo[b * n + c] = sm.s[mg + c];
+    a.slo[b * n + c] = sm.s[mg + n + c];
+    a.zuo[b * n + c] = sm.z[mg + c];
+    a.zlo[b * n + c] = sm.z[mg + n + c];
+    a.rpuo[b * n + c] = sm.rp[mg + c];
+    a.rplo[b * n + c] = sm.rp[mg + n + c];
+  }
+  for (int r = tid; r < mg; r += nt) {
+    a.sgo[b * mg + r] = sm.s[r];
+    a.zgo[b * mg + r] = sm.z[r];
+    a.rpgo[b * mg + r] = sm.rp[r];
+  }
+  if (tid == 0) {
+    a.scalo[b * 2] = mu;
+    a.scalo[b * 2 + 1] = frozen ? 1.0f : 0.0f;
+  }
+  SECTION(kSecStore);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch on `stream`. Returns cudaGetLastError() (0 = launched), or -1 when
+// `smem_bytes` disagrees with the kernel's own carve.
+int ipm_struct_launch(
+    const float* gi, const float* gj, const float* gob, const float* gsl,
+    const float* pb, const float* q, const float* pdiag,
+    const float* x, const float* sg, const float* su, const float* sl,
+    const float* zg, const float* zu, const float* zl,
+    const float* rpg, const float* rpu, const float* rpl, const float* scal,
+    const int* pair_idx, const int* obst_veh,
+    float* xo, float* sgo, float* suo, float* slo,
+    float* zgo, float* zuo, float* zlo,
+    float* rpgo, float* rpuo, float* rplo, float* scalo,
+    int B, int P, int S, int hp, int hu, int V,
+    int n_iters, int n_cor, int lower_tri,
+    float tol, float tol_stall, float reg_rel,
+    long smem_bytes, void* stream) {
+  const Shape d = make_shape(P, S, hp, hu, V, lower_tri);
+  if (smem_bytes != 4L * smem_words(d)) return -1;
+  Args a;
+  a.gi = gi; a.gj = gj; a.gob = gob; a.gsl = gsl; a.pb = pb; a.q = q;
+  a.pdiag = pdiag; a.x = x; a.sg = sg; a.su = su; a.sl = sl;
+  a.zg = zg; a.zu = zu; a.zl = zl; a.rpg = rpg; a.rpu = rpu; a.rpl = rpl;
+  a.scal = scal; a.pair_idx = pair_idx; a.obst_veh = obst_veh;
+  a.xo = xo; a.sgo = sgo; a.suo = suo; a.slo = slo;
+  a.zgo = zgo; a.zuo = zuo; a.zlo = zlo;
+  a.rpgo = rpgo; a.rpuo = rpuo; a.rplo = rplo; a.scalo = scalo;
+  a.n_iters = n_iters; a.n_cor = n_cor;
+  a.tol = tol; a.tol_stall = tol_stall; a.reg_rel = reg_rel;
+  cudaError_t err = cudaFuncSetAttribute(
+      ipm_struct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  ipm_struct_kernel<<<B, kThreads, smem_bytes, (cudaStream_t)stream>>>(a, d);
+  return (int)cudaGetLastError();
+}
+
+#ifdef SCP_PROFILE_SECTIONS
+// Copy block 0's per-section cycle sums to `out` (kSecCount entries, in the
+// order of the enum above) and clear them. Synchronises the device.
+int ipm_struct_read_sections(unsigned long long* out) {
+  unsigned long long zero[16] = {0};
+  cudaError_t err = cudaMemcpyFromSymbol(
+      out, g_section_cycles, kSecCount * sizeof(unsigned long long));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyToSymbol(g_section_cycles, zero, sizeof(zero));
+}
+#endif
+
+}  // extern "C"

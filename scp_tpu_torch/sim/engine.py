@@ -1,0 +1,353 @@
+"""Batched closed-loop MPC step (counterpart of ``scp_tpu/sim/engine.py``).
+
+One :func:`mpc_step_batch` reproduces, for a batch of scenario instances:
+
+1. dynamic steering limit from lateral acceleration;
+2. delay compensation: forward-integrate the plant over
+   ``delay_x + dt + delay_u`` holding the last commanded steering;
+3. reference resampling + obstacle prediction;
+4. linearize / discretize / condense;
+5. SCP solve (straggler-repacked phases);
+6. steering magnitude / rate clamps, applied sequentially along the horizon;
+7. plant rollout at tick resolution with the actuator-delay control switch;
+8. metrics.
+
+Every tensor carries a leading batch axis B. Plant noise comes from the
+carry's ``torch.Generator``; with ``noise_std = 0`` (the default) no number
+is drawn.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from scp_tpu_torch import assert_full_f32, require_device
+from scp_tpu_torch.config import NY, SCPConfig, ScenarioData
+from scp_tpu_torch.models import bicycle
+from scp_tpu_torch.ops import (condensed, constraints as con, discretize,
+                               reference_path)
+from scp_tpu_torch.scenarios.builders import (OBST_HEADING, OBST_SPEED,
+                                              OBST_X, OBST_Y)
+from scp_tpu_torch.solvers import scp
+
+
+class SimCarry(NamedTuple):
+    state: torch.Tensor    # (B, V, NX) plant state at the current tick
+    u_prev2: torch.Tensor  # (B, V) command applied during the delay window
+    u_prev1: torch.Tensor  # (B, V) last command (active for the rest)
+    u_warm: torch.Tensor   # (B, V*HP) SCP warm start = previous solution
+    step: int              # MPC step index (host integer, same for the batch)
+    generator: torch.Generator | None  # plant-noise generator (on the device)
+    state_meas: torch.Tensor | None = None
+    # (B, V, NX) the MEASURED state: the plant state ticks_delay_x ticks in
+    # the past. Equals ``state`` when delay_x == 0; None defaults to it.
+    state_hist: torch.Tensor | None = None
+    # (B, ticks_delay_x, V, NX) ring buffer of the plant states at the
+    # ticks_delay_x ticks BEFORE the current step boundary; None when
+    # delay_x == 0.
+
+
+class StepOutput(NamedTuple):
+    states: torch.Tensor         # (B, ticks_per_sim, V, NX) plant path
+    u_applied: torch.Tensor      # (B, V) clamped first command
+    u_pred: torch.Tensor         # (B, HP, V) clamped control prediction
+    traj_pred: torch.Tensor      # (B, HP, NY, V) predicted trajectory
+    ref_points: torch.Tensor     # (B, V, HP, 2) sampled reference
+    x0_pred: torch.Tensor        # (B, V, NX) delay-compensated state
+    feasible: torch.Tensor
+    converged: torch.Tensor
+    obj: torch.Tensor            # SCP tracking objective
+    max_violation: torch.Tensor
+    scp_iters: torch.Tensor
+    qp_iters: torch.Tensor
+    pred_obj: torch.Tensor       # objective re-evaluated on the prediction
+    pred_feasible: torch.Tensor  # trajectory-distance feasibility
+    delay_traj: torch.Tensor     # (B, 10, NX, V) delay-compensation rollout
+    clamp_mag_events: torch.Tensor   # steering MAGNITUDE audit count
+    clamp_rate_events: torch.Tensor  # steering RATE audit count
+    # (|U| > uMax + 1e-3 / |dU| > duLim + 1e-3 on the RAW prediction)
+    feas_disagree: torch.Tensor      # 1 when the QCQP-based and the
+    # trajectory-distance feasibility criteria DISAGREE on this step
+    sides_stable: torch.Tensor       # True for the SCP controller
+
+
+def dynamic_steering_limit(cfg: SCPConfig, data: ScenarioData,
+                           state: torch.Tensor) -> torch.Tensor:
+    """min(mechanical, atan(a_lat_max * L / v^2)) per vehicle, (B, V)."""
+    speed = state[..., 3]
+    L = data.params.lf + data.params.lr
+    dyn = torch.atan(cfg.lateral_accel_limit * L
+                     / torch.clamp(speed ** 2, min=1e-9))
+    return torch.clamp(dyn, max=cfg.mechanical_steering_limit)
+
+
+def delay_compensate(cfg: SCPConfig, data: ScenarioData, state, u_last):
+    """Integrate the nominal plant over the delay horizon.
+
+    Returns (x0 (B, V, NX), trajectory (B, 10, NX, V)).
+    """
+    T = cfg.delay_comp_time
+    n_steps = 9
+    traj = bicycle.integrate(state, u_last, data.params.lf, data.params.lr,
+                             h=T / n_steps, n_steps=n_steps, substeps=4)
+    x0 = traj[:, :, -1, :]                       # traj: (B, V, 10, NX)
+    return x0, traj.permute(0, 2, 3, 1)
+
+
+def predict_obstacles(cfg: SCPConfig, data: ScenarioData,
+                      step: int) -> torch.Tensor:
+    """Constant-velocity obstacle forecast from the measured state at tick
+    ``step*tps - ticks_delay_x``. Returns (B, O, HP, 2); with no obstacles a
+    zero-size tensor."""
+    b = data.x0.shape[0]
+    dtype, device = data.x0.dtype, data.x0.device
+    if cfg.n_obst == 0:
+        return torch.zeros((b, 0, cfg.hp, 2), dtype=dtype, device=device)
+    obst = data.obstacles
+    t_meas = (step * cfg.ticks_per_sim - cfg.ticks_delay_x) * cfg.tick_length
+    t_meas = max(t_meas, 0.0)
+    speed = obst[..., OBST_SPEED]
+    heading = obst[..., OBST_HEADING]
+    vel = speed[..., None] * torch.stack(
+        [torch.cos(heading), torch.sin(heading)], -1)
+    base = obst[..., [OBST_X, OBST_Y]] + t_meas * vel
+    horizon = (torch.arange(1, cfg.hp + 1, dtype=dtype, device=device)
+               * cfg.dt + cfg.delay_comp_time)
+    return base[:, :, None, :] + horizon[None, None, :, None] \
+        * vel[:, :, None, :]
+
+
+def clamp_controls(cfg: SCPConfig, U, u0, u_max):
+    """Sequential magnitude/rate clamps.
+
+    U: (B, HP, V) raw prediction; u0: (B, V) previous command; u_max:
+    (B, V). The clamp order (min umax, max -umax, min prev+du, max prev-du)
+    is preserved exactly — it matters when the rate window falls outside the
+    magnitude box.
+    """
+    prev = u0
+    rows = []
+    for k in range(U.shape[1]):
+        u = torch.minimum(U[:, k], u_max)
+        u = torch.maximum(u, -u_max)
+        u = torch.minimum(u, prev + cfg.du_lim)
+        u = torch.maximum(u, prev - cfg.du_lim)
+        rows.append(u)
+        prev = u
+    return torch.stack(rows, dim=1)
+
+
+def rollout_plant(cfg: SCPConfig, data: ScenarioData, state, u_prev2,
+                  u_prev1, generator: torch.Generator | None = None):
+    """Integrate the true plant over one MPC step at tick resolution.
+
+    The control entering tick m (1-based) is ``u_prev2`` for
+    ``m <= ticks_delay_u`` and ``u_prev1`` after; under ``plant_compat_q10``
+    the carried state only ever sees ``u_prev1``. Returns
+    (B, ticks_per_sim, V, NX).
+    """
+    tps = cfg.ticks_per_sim
+    h = cfg.tick_length
+    x = state
+    states = []
+    for m_idx in range(1, tps + 1):
+        is_old = (not cfg.plant_compat_q10) and m_idx <= cfg.ticks_delay_u
+        u = u_prev2 if is_old else u_prev1
+        for _ in range(cfg.rk4_substeps):
+            x = bicycle.rk4_step(x, u, data.params.lf, data.params.lr,
+                                 h / cfg.rk4_substeps)
+        if cfg.noise_std > 0:
+            noise = cfg.noise_std * h * torch.randn(
+                x.shape[:-1] + (2,), generator=generator, dtype=x.dtype,
+                device=x.device)
+            x = torch.cat([x[..., :2] + noise, x[..., 2:]], dim=-1)
+        states.append(x)
+    return torch.stack(states, dim=1)
+
+
+def controller_pre(cfg: SCPConfig, data: ScenarioData, carry: SimCarry):
+    """Controller preprocessing (delay compensation, reference sampling,
+    obstacle forecast, discretize, condense).
+
+    Returns (problem, aux) where ``aux = (sys_, u_max, ref_pts, x0, obst_pos,
+    delay_traj)``.
+    """
+    # The steering limit uses the CURRENT state; delay compensation starts
+    # from the MEASURED state, ticks_delay_x in the past.
+    u_max = dynamic_steering_limit(cfg, data, carry.state)
+    x_meas = carry.state if carry.state_meas is None else carry.state_meas
+
+    x0, delay_traj = delay_compensate(cfg, data, x_meas, carry.u_prev1)
+    step_sizes = x0[..., 3] * cfg.dt
+    ref_pts = reference_path.sample_reference_batch(
+        data.ref_points, data.ref_valid, x0[..., :2], step_sizes, cfg.hp,
+        True)
+    obst_pos = predict_obstacles(cfg, data, carry.step)
+
+    A, B, E = discretize.linearize_and_discretize_batch(
+        x0, carry.u_prev1, data.params.lf, data.params.lr, cfg.dt)
+    b = x0.shape[0]
+    ref_stack = ref_pts.reshape(b, cfg.n_veh, cfg.hp * NY)
+    cm = condensed.build_condensed_batch(
+        A, B, E, x0, ref_stack, data.params.q, data.params.r,
+        data.params.q_final, cfg.hp, cfg.hu)
+
+    sys_ = con.make_system(cm.math_b, cm.const_term, obst_pos,
+                           data.dsafe_veh, data.dsafe_obst,
+                           cfg.dsafe_extra, cfg.hp, cfg.hu)
+    # The stage statement of the banded KKT path is not built: that path is
+    # not ported, and qp_kkt="auto" resolves to the fused dense kernel or
+    # raises at its shared-memory gate.
+    problem = scp.SCPProblem(sys=sys_, phi0=cm.phi0, psi0=cm.psi0,
+                             gamma0=cm.gamma0)
+    return problem, (sys_, u_max, ref_pts, x0, obst_pos, delay_traj)
+
+
+def _scp_kwargs(cfg: SCPConfig) -> dict:
+    return dict(
+        u_lim=cfg.u_lim,
+        delta_tol=cfg.delta_tol, delta_tol_rel=cfg.delta_tol_rel,
+        u_step_tol=cfg.u_step_tol,
+        merit_patience=cfg.merit_patience,
+        keep_best=cfg.scp_keep_best,
+        slack_weight=cfg.slack_weight,
+        slack_ub=cfg.slack_ub,
+        constraint_tolerance=cfg.constraint_tolerance,
+        qp_max_iter=cfg.qp_max_iter, qp_tol=cfg.qp_tol,
+        qp_fixed_iters=cfg.qp_fixed_iters or None,
+        qp_correctors=cfg.qp_correctors,
+        qp_warm_dual=cfg.qp_warm_dual,
+        qp_cheap_k=cfg.qp_cheap_k,
+        qp_kkt=cfg.qp_kkt,
+        compat_q5=cfg.compat_q5)
+
+
+def _max_or_neg_inf(x: torch.Tensor) -> torch.Tensor:
+    """max over all non-batch axes with initial value -inf (an empty
+    obstacle axis gives -inf instead of raising)."""
+    flat = x.reshape(x.shape[0], -1)
+    if flat.shape[1] == 0:
+        return torch.full((x.shape[0],), float("-inf"), dtype=x.dtype,
+                          device=x.device)
+    return flat.amax(dim=1)
+
+
+def step_post(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
+              res, aux, sides_stable=None) -> tuple[SimCarry, StepOutput]:
+    """Post-solve half of the MPC step: clamps, plant rollout, metrics."""
+    sys_, u_max, ref_pts, x0, obst_pos, delay_traj = aux
+    traj_pred, U_raw = scp.forward_u(sys_, res.u)        # (B,HP,NY,V),(B,HP,V)
+    U = clamp_controls(cfg, U_raw, carry.u_prev1, u_max)
+    u_cmd = U[:, 0]
+
+    # Steering-limit audit on the RAW prediction: counts of magnitude/rate
+    # excursions the clamps will remove.
+    audit_eps = 1e-3
+    mag_events = (U_raw.abs() > u_max[:, None, :] + audit_eps).sum(dim=(1, 2))
+    dU_raw = torch.diff(U_raw, dim=1, prepend=carry.u_prev1[:, None, :])
+    rate_events = (dU_raw.abs() > cfg.du_lim + audit_eps).sum(dim=(1, 2))
+
+    states = rollout_plant(cfg, data, carry.state, carry.u_prev2,
+                           carry.u_prev1, carry.generator)
+
+    # objective / feasibility re-evaluated on the predicted trajectory
+    sq_err = (ref_pts.permute(0, 2, 3, 1) - traj_pred) ** 2  # (B,HP,NY,V)
+    obj_x = torch.sum(data.params.q * sq_err[:, :-1].sum(dim=(1, 2)), 1) \
+        + torch.sum(data.params.q_final * sq_err[:, -1].sum(dim=1), 1)
+    obj_u = torch.sum(data.params.r * (U ** 2).sum(dim=1), 1)
+    pred_obj = obj_x + obj_u
+    pos_t = traj_pred.permute(0, 3, 1, 2)                # (B, V, HP, NY)
+    iu, ju = sys_.pair_i[0], sys_.pair_j[0]
+    d2 = torch.sum((pos_t[:, iu] - pos_t[:, ju]) ** 2, -1)   # (B, P, HP)
+    ci_v = data.dsafe_veh[:, iu, ju][:, :, None] ** 2 - d2
+    d2o = torch.sum((pos_t[:, :, None] - obst_pos[:, None]) ** 2, -1)
+    ci_o = data.dsafe_obst[:, :, :, None] ** 2 - d2o
+    pred_feasible = (_max_or_neg_inf(ci_v) <= cfg.constraint_tolerance) & \
+                    (_max_or_neg_inf(ci_o) <= cfg.constraint_tolerance)
+
+    d_ticks = cfg.ticks_delay_x
+    if carry.state_meas is None:
+        state_meas = state_hist = None
+    elif d_ticks == 0:
+        state_meas, state_hist = states[:, -1], None
+    else:
+        # Tick-resolution measurement history: ``full`` covers ticks
+        # T-D .. T+tps of the global tick grid (T = this step's start,
+        # D = ticks_delay_x); the measured state at the NEXT boundary is
+        # tick T+tps-D and the carried history the D ticks before it.
+        full = torch.cat(
+            [carry.state_hist, carry.state[:, None], states], dim=1)
+        state_meas = full[:, cfg.ticks_per_sim]
+        state_hist = full[:, cfg.ticks_per_sim:cfg.ticks_per_sim + d_ticks]
+    new_carry = SimCarry(
+        state=states[:, -1],
+        u_prev2=carry.u_prev1,
+        u_prev1=u_cmd,
+        u_warm=res.u,
+        step=carry.step + 1,
+        generator=carry.generator,
+        state_meas=state_meas,
+        state_hist=state_hist,
+    )
+    b = res.u.shape[0]
+    out = StepOutput(
+        states=states, u_applied=u_cmd, u_pred=U, traj_pred=traj_pred,
+        ref_points=ref_pts, x0_pred=x0,
+        feasible=res.feasible, converged=res.converged, obj=res.obj,
+        max_violation=res.max_violation, scp_iters=res.iters,
+        qp_iters=res.qp_iters, pred_obj=pred_obj,
+        pred_feasible=pred_feasible, delay_traj=delay_traj,
+        clamp_mag_events=mag_events, clamp_rate_events=rate_events,
+        feas_disagree=(res.feasible != pred_feasible).to(torch.int32),
+        sides_stable=(torch.ones((b,), dtype=torch.bool,
+                                 device=res.u.device)
+                      if sides_stable is None else sides_stable))
+    return new_carry, out
+
+
+def mpc_step_batch(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
+                   phase1_iters: int = 8, straggler_frac: int = 4,
+                   phases: tuple[tuple[int, int], ...] | None = None):
+    """Batched MPC step with straggler repacking (see
+    ``scp.solve_scp_batch``). ``data``/``carry`` carry a leading batch
+    axis. Runs on the device the tensors live on."""
+    if cfg.controller == "side_selection":
+        raise NotImplementedError(
+            "side_selection controller not ported yet (solvers/miqp.py)")
+    if cfg.controller != "scp":
+        raise ValueError(f"unknown controller {cfg.controller!r}")
+    assert_full_f32()
+    problem, aux = controller_pre(cfg, data, carry)
+    res = scp.solve_scp_batch(
+        problem, carry.u_warm,
+        max_scp_iter=cfg.max_scp_iter,
+        phase1_iters=phase1_iters, straggler_frac=straggler_frac,
+        phases=phases,
+        **_scp_kwargs(cfg))
+    return step_post(cfg, data, carry, res, aux)
+
+
+def init_carry(cfg: SCPConfig, data: ScenarioData,
+               generator: torch.Generator | None = None) -> SimCarry:
+    """Initial carry for a batch on the data's device. ``generator`` feeds
+    the plant noise (None seeds a fresh one with 0 on that device)."""
+    device = require_device(data.x0.device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    b = data.x0.shape[0]
+    return SimCarry(
+        state=data.x0,
+        u_prev2=data.u0,
+        u_prev1=data.u0,
+        u_warm=torch.zeros((b, cfg.n_veh * cfg.hp), dtype=data.x0.dtype,
+                           device=device),
+        step=0,
+        generator=generator,
+        # tick_of_measurement = max(0, 0 - ticks_delay_x) -> initial state
+        state_meas=data.x0,
+        # ticks before t=0 measure the initial state
+        state_hist=(data.x0[:, None].expand(
+            (b, cfg.ticks_delay_x) + tuple(data.x0.shape[1:])).clone()
+            if cfg.ticks_delay_x > 0 else None),
+    )

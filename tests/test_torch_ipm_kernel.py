@@ -1,0 +1,206 @@
+"""The fused structured IPM iterations of the port (ops/ipm_kernel.py).
+
+On the CPU the wrapper runs the kernel's plain PyTorch version; it is held
+here against the TPU kernel ``pallas_linalg.ipm_iterate_lane_struct`` run in
+Pallas interpret mode on the same numpy-seeded inputs (float32, shapes where
+the Pallas kernel engages: (n - 1) % 8 == 0, batch = one 128-lane tile).
+
+Tolerances. Both sides are float32 and sum in different orders (the Pallas
+kernel accumulates per 8-sublane block, the plain version through dense
+batched products, and they factor with different Cholesky algorithms). After
+one iteration that is round-off: 2e-5 absolute on variables of order one.
+After seven iterations the barrier weights z/s reach 1e6 and more and amplify
+the round-off, so single instances drift: 2e-3 absolute on the controls
+(box +-1), with the batch median held to 5e-5.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scp_tpu.ops import pallas_linalg as pll
+from scp_tpu_torch.ops import ipm_kernel as ik
+from scp_tpu_torch.testing import (KERNEL_ARG_ORDER, STATE_NAMES,
+                                   kernel_inputs, torch_kernel_args)
+
+B = pll.TB
+
+
+def _to_lane(arrs, pairs, obst_veh, hp, hu):
+    """Instance-major arrays -> the Pallas kernel's padded lane layout."""
+    V = arrs["pb"].shape[1]
+    n = V * hu + 1
+    mg = arrs["gsl"].shape[1]
+    n_pad, mg_pad = pll.pad_dim(n), pll._pad_to(mg, pll._MV_MB)
+    hu8 = pll._pad_to(hu, 8)
+
+    def slab(a):
+        a = np.transpose(a, (1, 2, 3, 0))
+        return jnp.asarray(np.pad(a, ((0, 0), (0, 0), (0, hu8 - hu), (0, 0))))
+
+    def vec(a, rows, fill):
+        out = np.full((rows, a.shape[0]), fill, np.float32)
+        out[:a.shape[1]] = a.T
+        return jnp.asarray(out)
+
+    pad_n = dict(q=0.0, pdiag=1.0, x=0.0, su=1.0, sl=1.0, zu=0.0, zl=0.0,
+                 rpu=0.0, rpl=0.0)
+    pad_m = dict(gsl=0.0, sg=1.0, zg=0.0, rpg=0.0)
+    lane = {}
+    for k in KERNEL_ARG_ORDER:
+        a = arrs[k]
+        if k in ("gi", "gj"):
+            lane[k] = slab(a)
+        elif k == "gob":
+            lane[k] = slab(a) if obst_veh else None
+        elif k == "pb":
+            lane[k] = jnp.asarray(np.transpose(a, (1, 2, 3, 0)))
+        elif k == "scal":
+            s = np.zeros((8, a.shape[0]), np.float32)
+            s[:2] = a.T
+            lane[k] = jnp.asarray(s)
+        elif k in pad_n:
+            lane[k] = vec(a, n_pad, pad_n[k])
+        else:
+            lane[k] = vec(a, mg_pad, pad_m[k])
+    return lane, n, mg
+
+
+def _pallas(arrs, pairs, obst_veh, hp, hu, *, n_iters, n_cor, lower_tri,
+            tol=1e-6):
+    lane, n, mg = _to_lane(arrs, pairs, obst_veh, hp, hu)
+    old = pll.INTERPRET
+    pll.INTERPRET = True
+    try:
+        out = pll.ipm_iterate_lane_struct(
+            *[lane[k] for k in KERNEL_ARG_ORDER],
+            g_struct=(tuple(pairs), tuple(obst_veh), hp, hu, lower_tri),
+            mg=mg, n=n, m_true=mg + 2 * n, tol=tol, reg_rel=3e-6,
+            n_cor=n_cor, n_iters=n_iters)
+    finally:
+        pll.INTERPRET = old
+    res = {}
+    for name, a in zip(STATE_NAMES, out):
+        a = np.asarray(a)
+        rows = 2 if name == "scal" else (
+            mg if name in ("sg", "zg", "rpg") else n)
+        res[name] = a[:rows].T
+    return res
+
+
+CASES = {
+    # name: (kernel_inputs kwargs, n_iters, n_cor, lower_tri)
+    "one_iteration": (dict(V=3, hp=5, hu=8, n_obst=0), 1, 0, True),
+    "seven_iterations": (dict(V=3, hp=5, hu=8, n_obst=0), 7, 0, True),
+    "dense_slabs_flag_off": (dict(V=2, hp=8, hu=8, n_obst=0), 7, 0, False),
+    "obstacle_slabs": (dict(V=3, hp=5, hu=8, n_obst=1), 7, 0, True),
+    "hard_rows": (dict(V=3, hp=5, hu=8, n_obst=1, hard_rows=True), 7, 0,
+                  True),
+    "one_corrector": (dict(V=3, hp=5, hu=8, n_obst=0), 7, 1, True),
+    "missing_pair": (dict(V=3, hp=5, hu=8, n_obst=0,
+                          pairs=((0, 1), (1, 2))), 7, 0, True),
+    "four_vehicles": (dict(V=4, hp=6, hu=8, n_obst=0), 7, 0, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_version_matches_pallas_kernel_interpret(name):
+    kw, n_iters, n_cor, lower_tri = CASES[name]
+    arrs, pairs, obst_veh = kernel_inputs(B=B, seed=11, **kw)
+    want = _pallas(arrs, pairs, obst_veh, kw["hp"], kw["hu"],
+                   n_iters=n_iters, n_cor=n_cor, lower_tri=lower_tri)
+    got = ik.ipm_iterate_struct(
+        *torch_kernel_args(arrs), pairs=pairs, obst_veh=obst_veh, tol=1e-6,
+        reg_rel=3e-6, n_cor=n_cor, n_iters=n_iters, lower_tri=lower_tri)
+    got = dict(zip(STATE_NAMES, (g.numpy() for g in got)))
+    nu = arrs["x"].shape[1] - 1
+    du = np.abs(got["x"][:, :nu] - want["x"][:, :nu]).max(axis=1)
+    if n_iters == 1:
+        assert du.max() < 2e-5
+        for k in ("zg", "zu", "zl", "rpg", "rpu", "rpl"):
+            np.testing.assert_allclose(got[k], want[k], atol=2e-5, rtol=1e-4,
+                                       err_msg=k)
+    else:
+        assert du.max() < 2e-3, du.max()
+        assert np.median(du) < 5e-5, np.median(du)
+    # the duality measure and the frozen flags are what the caller reads
+    np.testing.assert_allclose(got["scal"][:, 0], want["scal"][:, 0],
+                               rtol=5e-2, atol=1e-7)
+    assert np.mean(got["scal"][:, 1] == want["scal"][:, 1]) >= 0.97
+    assert ik.launch_count == 0          # no kernel launch on the CPU
+
+
+def test_plain_float64_is_the_oracle_of_float32():
+    """The plain version runs in float64 too; float32 stays near it."""
+    arrs, pairs, obst_veh = kernel_inputs(B=16, V=3, hp=5, hu=8, n_obst=1,
+                                          seed=3, hard_rows=True)
+    kw = dict(pairs=pairs, obst_veh=obst_veh, tol=1e-6, n_cor=1, n_iters=5)
+    a32 = torch_kernel_args(arrs)
+    a64 = [None if a is None else a.double() for a in a32]
+    o32 = ik.ipm_iterate_struct(*a32, reg_rel=3e-6, **kw)
+    o64 = ik.ipm_iterate_struct_plain(*a64, reg_rel=1e-12, **kw)
+    assert o64[0].dtype == torch.float64
+    assert float((o32[0][:, :-1].double() - o64[0][:, :-1]).abs().max()) < 5e-3
+
+
+def test_frozen_instances_keep_their_state():
+    arrs, pairs, obst_veh = kernel_inputs(B=8, V=2, hp=4, hu=4, n_obst=0,
+                                          seed=5)
+    arrs["scal"][::2, 1] = 1.0               # frozen on entry
+    args = torch_kernel_args(arrs)
+    out = ik.ipm_iterate_struct(*args, pairs=pairs, obst_veh=obst_veh,
+                                tol=1e-6, reg_rel=3e-6, n_iters=3)
+    for o, name in zip(out[:-1], STATE_NAMES):
+        assert torch.equal(o[::2], torch.as_tensor(arrs[name])[::2]), name
+    assert not torch.equal(out[0][1::2], torch.as_tensor(arrs["x"])[1::2])
+    assert bool((out[-1][::2, 1] == 1.0).all())
+
+
+def test_failed_factorization_freezes_instead_of_raising():
+    """A KKT matrix that is not positive definite must freeze the instance
+    (state kept, frozen flag set), not raise or spread NaN."""
+    arrs, pairs, obst_veh = kernel_inputs(B=4, V=2, hp=4, hu=4, n_obst=0,
+                                          seed=6)
+    # off-diagonals far above the (analytic, unit) diagonal: not SPD
+    arrs["pb"][0] = 50.0
+    arrs["pdiag"][0, :-1] = 1.0
+    out = ik.ipm_iterate_struct(*torch_kernel_args(arrs), pairs=pairs,
+                                obst_veh=obst_veh, tol=1e-6, reg_rel=3e-6,
+                                n_iters=2)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    assert float(out[-1][0, 1]) == 1.0
+    assert torch.equal(out[0][0], torch.as_tensor(arrs["x"])[0])
+
+
+def test_shared_memory_gate():
+    # bench shape fits three times into an SM's shared memory
+    assert ik.smem_bytes(6, 0, 20, 20, 4) < ik.SMEM_LIMIT_BYTES // 3
+    assert ik.check_smem_gate(6, 0, 20, 20, 4) == ik.smem_bytes(6, 0, 20, 20, 4)
+    with pytest.raises(NotImplementedError, match="banded KKT path"):
+        ik.check_smem_gate(6, 0, 64, 64, 4)
+
+
+@pytest.mark.parametrize("breakage", ["shape", "dtype", "pairs", "order"])
+def test_wrapper_checks_its_arguments(breakage):
+    arrs, pairs, obst_veh = kernel_inputs(B=2, V=2, hp=4, hu=4, n_obst=1,
+                                          seed=7)
+    args = torch_kernel_args(arrs)
+    state = tuple(args[7:])
+    if breakage == "shape":
+        args[5] = args[5][:, :-1]
+    elif breakage == "dtype":
+        args[5] = args[5].double()
+    elif breakage == "pairs":
+        pairs = pairs + ((0, 1),)
+    else:
+        pairs = ((1, 0),)
+    with pytest.raises(ValueError):
+        ik._check_shapes(*args[:7], state if breakage != "shape"
+                         else tuple(args[7:]), pairs, obst_veh)
+
+
+def test_library_is_keyed_by_a_hash_of_the_sources():
+    path = ik.library_path()
+    assert path.parent.name == "build" and path.suffix == ".so"
+    assert path == ik.library_path()
+    assert {p.name for p in ik._CSRC.iterdir()} >= set(ik._SOURCES)
