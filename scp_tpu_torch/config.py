@@ -49,6 +49,22 @@ def tuned_f32(cfg: "SCPConfig", **extra: Any) -> "SCPConfig":
     return cfg.replace(**{**TUNED_F32_OVERRIDES, **extra})
 
 
+# Carried-state position dispersion per MPC step of the original
+# controller's noise runs [m] (its integrator adds noise per right-hand-side
+# evaluation; what feeds back into the closed loop is this per-step std).
+REF_NOISE_STEP_STD = 2.8e-7
+
+
+def reference_noise_std(cfg: "SCPConfig") -> float:
+    """Per-tick ``noise_std`` whose carried-state dispersion matches the
+    original controller's noise runs: the engine adds
+    N(0, (noise_std * tick_length)^2) to the position at each of the
+    ``ticks_per_sim`` ticks (``sim/engine.rollout_plant``), so the per-step
+    carried std is ``noise_std * tick_length * sqrt(ticks_per_sim)``."""
+    return REF_NOISE_STEP_STD / (
+        cfg.tick_length * math.sqrt(cfg.ticks_per_sim))
+
+
 @dataclasses.dataclass(frozen=True)
 class SCPConfig:
     """Static solver/problem configuration (hashable Python scalars)."""

@@ -1,9 +1,11 @@
-"""State carried between the two packages: the scenario and the carry.
+"""State carried between the two packages: the scenario, the carry, QP
+operands and results.
 
 There are no weights. ``from_numpy`` functions turn numpy copies of
 ``scp_tpu``'s containers — given as dicts / tuples of numpy arrays, field by
 field — into this package's containers on a device and dtype; ``to_numpy``
-goes the other way for results. The module takes numpy arrays and dicts
+goes the other way for results (a ``QPSolution``, ``SCPResult``,
+``SCPTrace`` or ``StepOutput`` becomes a dict of arrays). The module takes numpy arrays and dicts
 only; callers do the ``np.asarray(jax_array)`` step themselves.
 
 Batch axis: this package's containers always carry a leading batch axis.
@@ -103,6 +105,15 @@ def problem_from_numpy(problem, dtype=torch.float64, device="cuda",
         phi0=_tensor("phi0", f["phi0"], dtype, device, batched),
         psi0=_tensor("psi0", f["psi0"], dtype, device, batched),
         gamma0=_tensor("gamma0", f["gamma0"], dtype, device, batched))
+
+
+def qp_from_numpy(operands: dict, dtype=torch.float64, device="cuda",
+                  batched: bool = True) -> dict:
+    """Dense QP operands (``P, q, G, h, lb, ub`` and optionally ``x0, z0``;
+    ``None`` entries stay ``None``) as tensors, ready for
+    ``solvers.qp.solve_qp(**...)``."""
+    return {k: None if v is None else _tensor(k, v, dtype, device, batched)
+            for k, v in operands.items()}
 
 
 def to_numpy(obj):

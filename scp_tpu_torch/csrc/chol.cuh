@@ -1,6 +1,6 @@
 // Block-cooperative dense Cholesky and triangular solves on a matrix held in
-// shared memory. Shared by the fused IPM kernel (ipm_struct.cu) and meant
-// for the stand-alone factor / solve kernels of later slices.
+// shared memory. Shared by the fused IPM kernel (ipm_struct.cu) and the
+// stand-alone factor / solve kernels (linalg.cu).
 //
 // Layout: row-major, leading dimension `ld` (callers pick an ODD ld so that
 // column walks hit 32 distinct banks). Only the lower triangle is read or

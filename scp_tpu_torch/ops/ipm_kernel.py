@@ -27,38 +27,22 @@ last variable), ``mg = (P + S) * hp``:
 
 :func:`ipm_iterate_struct` launches the CUDA kernel for CUDA tensors and
 raises if it cannot; for CPU tensors it takes :func:`ipm_iterate_struct_plain`.
-The library is built with ``nvcc`` from ``scp_tpu_torch/csrc`` at first use
-into ``build/`` at the repository root, keyed by a hash of the sources.
+The kernel library is built with ``nvcc`` from ``scp_tpu_torch/csrc`` at first
+use (``ops/_cuda_build.py``).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-# Dynamic shared memory a block may use on Hopper (227 KB).
-SMEM_LIMIT_BYTES = 232_448
-
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
-_SOURCES = ("ipm_struct.cu", "chol.cuh")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-# Preprocessor defines of the build; a diagnostic script may set this before
-# the first use (scripts/torch_k1_sections.py builds with
-# SCP_PROFILE_SECTIONS). It is part of the library's hash.
-BUILD_DEFINES: tuple = ()
+from scp_tpu_torch.ops import _cuda_build
+from scp_tpu_torch.ops._cuda_build import SMEM_LIMIT_BYTES
 
 # Launches of the CUDA kernel since the last reset (incremented where the
 # kernel is launched and nowhere else).
 launch_count = 0
 
-_lib = None
 _tables: dict = {}
 
 
@@ -93,49 +77,15 @@ def check_smem_gate(P: int, S: int, hp: int, hu: int, V: int) -> int:
     return need
 
 
-def library_path() -> Path:
-    h = hashlib.sha256()
-    for name in _SOURCES:
-        h.update((_CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS + BUILD_DEFINES).encode())
-    return _BUILD_DIR / f"libscp_ipm_{h.hexdigest()[:16]}.so"
-
-
-def build_library(verbose: bool = False) -> Path:
-    """Compile the kernel library if this source hash has not been built."""
-    out = library_path()
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in BUILD_DEFINES)]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(_CSRC / "ipm_struct.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr)
-    os.replace(tmp, out)
-    return out
-
-
-def load_library():
-    """Build (if needed) and load the kernel library; cached per process."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build_library()))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ipm_struct_launch.argtypes = (
-        [p] * 18 + [p, p] + [p] * 11 + [i] * 9 + [f] * 3
-        + [ctypes.c_long, p])
-    lib.ipm_struct_launch.restype = ctypes.c_int
-    _lib = lib
-    return lib
+def _launcher():
+    """The library's ``ipm_struct_launch`` with its argument types set."""
+    fn = _cuda_build.load_library().ipm_struct_launch
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = ([p] * 18 + [p, p] + [p] * 11 + [i] * 9 + [f] * 3
+                       + [ctypes.c_long, p])
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _index_tables(pairs, obst_veh, device):
@@ -211,13 +161,13 @@ def ipm_iterate_struct(gi, gj, gob, gsl, pb, q, pdiag,
         if t is not None and not t.is_contiguous():
             raise ValueError("the CUDA IPM kernel needs contiguous tensors")
     need = check_smem_gate(P, S, hp, hu, V)
-    lib = load_library()
+    launch = _launcher()
     pt, ot = _index_tables(pairs, obst_veh, gi.device)
     outs = [torch.empty_like(t) for t in state]
     ptr = [0 if t is None else t.data_ptr() for t in ins]
     with torch.cuda.device(gi.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ipm_struct_launch(
+        err = launch(
             *ptr, pt.data_ptr(), ot.data_ptr() if S else 0,
             *[t.data_ptr() for t in outs],
             B, P, S, hp, hu, V, int(n_iters), int(n_cor), int(lower_tri),

@@ -1,0 +1,155 @@
+"""Batched Cholesky, Cholesky solve and the two G matvecs: the Hopper kernels'
+wrappers (``csrc/linalg.cu``), counterparts of ``scp_tpu/ops/pallas_linalg.py``
+``cholesky_lane`` / ``cholesky`` (under ``vmap``), ``cho_solve_lane`` /
+``cho_solve``, ``gmv_lane`` and ``gtmv_lane``.
+
+Tensors are instance-major with a leading batch axis; there is no lane
+layout, so each TPU pair (lane API and ``vmap`` front) is ONE kernel here.
+
+* :func:`cholesky` ``K (B, n, n) -> L (B, n, n)``: lower factor. The kernel
+  writes zeros above the diagonal (the TPU kernel leaves garbage there;
+  consumers read the lower triangle only). An instance that is not positive
+  definite comes back all NaN; the others are untouched.
+* :func:`cho_solve` ``L (B, n, n), b (B, n) -> x (B, n)``: ``(L L^T) x = b``.
+* :func:`gmv` ``G (B, m, n), x (B, n) -> (B, m)``; :func:`gtmv`
+  ``G (B, m, n), v (B, m) -> (B, n)``.
+
+Type rule: float32 CUDA tensors (contiguous) always go to the hand-written
+kernel; a failing build, load or launch raises. float64 CUDA tensors are
+refused with ``TypeError`` (the kernels are float32 only) and never routed
+to the plain version quietly. CPU tensors, of either type, take the plain
+versions of ``ops/linalg.py``. Each wrapper counts its launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from scp_tpu_torch.ops import _cuda_build, linalg
+from scp_tpu_torch.ops._cuda_build import SMEM_LIMIT_BYTES
+
+# Launches of each CUDA kernel since the last reset (incremented where the
+# kernel is launched and nowhere else).
+launch_counts = {"cholesky": 0, "cho_solve": 0, "gmv": 0, "gtmv": 0}
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_ARGTYPES = {
+    "chol_batched_launch": [_P, _P, _I, _I, _L, _P],
+    "cho_solve_batched_launch": [_P, _P, _P, _I, _I, _L, _P],
+    "gmv_batched_launch": [_P, _P, _P, _I, _I, _I, _P],
+    "gtmv_batched_launch": [_P, _P, _P, _I, _I, _I, _P],
+}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def chol_smem_bytes(n: int) -> int:
+    """Dynamic shared memory of the factor kernel: the matrix with an odd
+    leading dimension, ``1 / diag`` and a flag."""
+    return 4 * (n * (n | 1) + n + 1)
+
+
+def solve_smem_bytes(n: int) -> int:
+    """Dynamic shared memory of the solve kernel: the factor, ``1 / diag``
+    and the right-hand side."""
+    return 4 * (n * (n | 1) + 2 * n)
+
+
+def check_chol_smem_gate(n: int) -> int:
+    """The dense factor / solve kernels hold one instance's matrix in a
+    block's shared memory; a matrix beyond it (n >= 240, e.g. hp = 64 with 4
+    vehicles, n = 257) is the banded KKT path's shape and is refused."""
+    need = max(chol_smem_bytes(n), solve_smem_bytes(n))
+    if need > SMEM_LIMIT_BYTES:
+        raise NotImplementedError(
+            f"banded KKT path not ported yet: the dense Cholesky kernels "
+            f"need {need} bytes of shared memory per instance at n={n} "
+            f"(limit {SMEM_LIMIT_BYTES})")
+    return need
+
+
+def _check(name, shapes):
+    """``shapes``: (tensor, wanted shape) pairs; the first sets dtype and
+    device. Returns True when the kernel takes the call (CUDA tensors)."""
+    first = shapes[0][0]
+    for t, shape in shapes:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{name}: shape {tuple(t.shape)}, want {tuple(shape)}")
+        if t.dtype != first.dtype or t.device != first.device:
+            raise ValueError(f"{name}: dtype/device differ between operands")
+    if min(first.shape) == 0:
+        raise ValueError(f"{name}: empty operand {tuple(first.shape)}")
+    if first.device.type != "cuda":
+        return False
+    if first.dtype != torch.float32:
+        raise TypeError(
+            f"the CUDA {name} kernel is float32 only, got {first.dtype}")
+    for t, _ in shapes:
+        if not t.is_contiguous():
+            raise ValueError(f"the CUDA {name} kernel needs contiguous "
+                             f"tensors")
+    return True
+
+
+def _launch(name, symbol, first, *args):
+    fn = getattr(_cuda_build.load_library(), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[symbol]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(first.device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{symbol} failed with CUDA error {err} (args {args[-4:]})")
+    launch_counts[name] += 1
+
+
+def cholesky(K: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factors of a batch of SPD matrices."""
+    B, n = K.shape[0], K.shape[-1]
+    if not _check("cholesky", [(K, (B, n, n))]):
+        return linalg.cholesky_plain(K)
+    check_chol_smem_gate(n)
+    L = torch.empty_like(K)
+    _launch("cholesky", "chol_batched_launch", K, K.data_ptr(), L.data_ptr(),
+            B, n, chol_smem_bytes(n))
+    return L
+
+
+def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``(L L^T) x = b`` against :func:`cholesky`'s factors."""
+    B, n = b.shape
+    if not _check("cho_solve", [(L, (B, n, n)), (b, (B, n))]):
+        return linalg.cho_solve_plain(L, b)
+    check_chol_smem_gate(n)
+    x = torch.empty_like(b)
+    _launch("cho_solve", "cho_solve_batched_launch", L, L.data_ptr(),
+            b.data_ptr(), x.data_ptr(), B, n, solve_smem_bytes(n))
+    return x
+
+
+def gmv(G: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``out[b] = G_b @ x_b``."""
+    B, m, n = G.shape
+    if not _check("gmv", [(G, (B, m, n)), (x, (B, n))]):
+        return linalg.gmv_plain(G, x)
+    out = torch.empty((B, m), dtype=G.dtype, device=G.device)
+    _launch("gmv", "gmv_batched_launch", G, G.data_ptr(), x.data_ptr(),
+            out.data_ptr(), B, m, n)
+    return out
+
+
+def gtmv(G: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``out[b] = G_b^T @ v_b``."""
+    B, m, n = G.shape
+    if not _check("gtmv", [(G, (B, m, n)), (v, (B, m))]):
+        return linalg.gtmv_plain(G, v)
+    out = torch.empty((B, n), dtype=G.dtype, device=G.device)
+    _launch("gtmv", "gtmv_batched_launch", G, G.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, m, n)
+    return out

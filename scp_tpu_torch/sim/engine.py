@@ -1,6 +1,10 @@
-"""Batched closed-loop MPC step (counterpart of ``scp_tpu/sim/engine.py``).
+"""Closed-loop MPC simulation engine on batched tensors (counterpart of
+``scp_tpu/sim/engine.py``).
 
-One :func:`mpc_step_batch` reproduces, for a batch of scenario instances:
+One MPC step — :func:`mpc_step` (per-instance SCP, ``vmap(mpc_step)`` of
+``scp_tpu`` written out; one scenario is the B = 1 view) or
+:func:`mpc_step_batch` (stacked SCP with straggler repacking) — reproduces,
+for a batch of scenario instances:
 
 1. dynamic steering limit from lateral acceleration;
 2. delay compensation: forward-integrate the plant over
@@ -14,10 +18,13 @@ One :func:`mpc_step_batch` reproduces, for a batch of scenario instances:
 
 Every tensor carries a leading batch axis B. Plant noise comes from the
 carry's ``torch.Generator``; with ``noise_std = 0`` (the default) no number
-is drawn.
+is drawn. The closed loops (:func:`simulate`, :func:`simulate_batch`,
+:func:`simulate_timed`) are Python loops over steps whose outputs are
+stacked on a new leading step axis.
 """
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
@@ -306,6 +313,33 @@ def step_post(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
     return new_carry, out
 
 
+def mpc_controller(cfg: SCPConfig, data: ScenarioData, carry: SimCarry):
+    """Controller half of one MPC step: preprocessing + the per-instance SCP
+    solve (:func:`scp.solve_scp` on the batch axis). Returns ``(res, aux,
+    sides_stable)``; :func:`step_post` completes the step. Split out so the
+    caller can time the controller separately
+    (:func:`simulate_timed`)."""
+    if cfg.controller == "side_selection":
+        raise NotImplementedError(
+            "side_selection controller not ported yet (solvers/miqp.py)")
+    if cfg.controller != "scp":
+        raise ValueError(f"unknown controller {cfg.controller!r}")
+    assert_full_f32()
+    problem, aux = controller_pre(cfg, data, carry)
+    res = scp.solve_scp(problem, carry.u_warm, max_scp_iter=cfg.max_scp_iter,
+                        **_scp_kwargs(cfg))
+    return res, aux, None
+
+
+def mpc_step(cfg: SCPConfig, data: ScenarioData,
+             carry: SimCarry) -> tuple[SimCarry, StepOutput]:
+    """One complete MPC step (controller + plant) through the per-instance
+    path; ``data`` / ``carry`` carry a leading batch axis (size 1 for one
+    scenario)."""
+    res, aux, sides_stable = mpc_controller(cfg, data, carry)
+    return step_post(cfg, data, carry, res, aux, sides_stable=sides_stable)
+
+
 def mpc_step_batch(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
                    phase1_iters: int = 8, straggler_frac: int = 4,
                    phases: tuple[tuple[int, int], ...] | None = None):
@@ -351,3 +385,85 @@ def init_carry(cfg: SCPConfig, data: ScenarioData,
             (b, cfg.ticks_delay_x) + tuple(data.x0.shape[1:])).clone()
             if cfg.ticks_delay_x > 0 else None),
     )
+
+
+def _stack_outputs(outs: list[StepOutput]) -> StepOutput:
+    return StepOutput(*[torch.stack(field) for field in zip(*outs)])
+
+
+def simulate(cfg: SCPConfig, data: ScenarioData,
+             generator: torch.Generator | None = None,
+             n_steps: int | None = None):
+    """Run the closed loop through :func:`mpc_step` for ``n_steps``
+    (default ``cfg.n_sim``). Returns ``(final_carry, StepOutput)`` with the
+    outputs stacked ``(n_steps, B, ...)``."""
+    carry = init_carry(cfg, data, generator)
+    outs = []
+    for _ in range(cfg.n_sim if n_steps is None else n_steps):
+        carry, out = mpc_step(cfg, data, carry)
+        outs.append(out)
+    return carry, _stack_outputs(outs)
+
+
+def simulate_batch(cfg: SCPConfig, data: ScenarioData,
+                   generator: torch.Generator | None = None,
+                   n_steps: int | None = None,
+                   phases: tuple | None = None):
+    """Batched closed loop through :func:`mpc_step_batch` (broadcast a
+    single scenario with ``scenarios.batch.tile_scenario`` for Monte-Carlo
+    over the generator's noise). With ``phases`` (e.g.
+    ``config.TUNED_F32_PHASES``) each step runs the straggler-repacked
+    batched SCP. Returns ``(final_carry, StepOutput)`` with the outputs
+    stacked ``(n_steps, B, ...)``."""
+    carry = init_carry(cfg, data, generator)
+    kw = {"phases": phases} if phases is not None else {}
+    outs = []
+    for _ in range(cfg.n_sim if n_steps is None else n_steps):
+        carry, out = mpc_step_batch(cfg, data, carry, **kw)
+        outs.append(out)
+    return carry, _stack_outputs(outs)
+
+
+def simulate_timed(cfg: SCPConfig, data: ScenarioData,
+                   generator: torch.Generator | None = None,
+                   n_steps: int | None = None, warmup: bool = True):
+    """Closed loop of :func:`simulate` with per-step wall-clock measurement:
+    the controller's run time (preprocessing + SCP solve) and the whole
+    step's. On a CUDA device each window is closed by
+    ``torch.cuda.synchronize()``, so the times are the device's, not the
+    enqueue's.
+
+    ``warmup``: run one throwaway step first so first-call costs (kernel
+    build and load, allocator growth) are not billed to step 0; the noise
+    generator's state is restored afterwards, so the run is the same with
+    and without it.
+
+    Returns ``(final_carry, StepOutput stacked (n_steps, B, ...),
+    step_times, controller_runtimes)`` — the time lists in seconds.
+    """
+    carry = init_carry(cfg, data, generator)
+    on_cuda = data.x0.device.type == "cuda"
+
+    def sync():
+        if on_cuda:
+            torch.cuda.synchronize(data.x0.device)
+
+    if warmup:
+        gen_state = carry.generator.get_state()
+        mpc_step(cfg, data, carry)
+        carry.generator.set_state(gen_state)
+    outs, step_times, ctrl_times = [], [], []
+    for _ in range(cfg.n_sim if n_steps is None else n_steps):
+        sync()
+        t0 = time.perf_counter()
+        res, aux, sides_stable = mpc_controller(cfg, data, carry)
+        sync()
+        t1 = time.perf_counter()
+        carry, out = step_post(cfg, data, carry, res, aux,
+                               sides_stable=sides_stable)
+        sync()
+        t2 = time.perf_counter()
+        outs.append(out)
+        ctrl_times.append(t1 - t0)
+        step_times.append(t2 - t0)
+    return carry, _stack_outputs(outs), step_times, ctrl_times

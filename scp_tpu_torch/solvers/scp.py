@@ -1,6 +1,6 @@
 """SCP outer loop on batched tensors (counterpart of
-``scp_tpu/solvers/scp.py``: ``solve_scp_stacked``, ``solve_scp_batch``,
-``forward_u``).
+``scp_tpu/solvers/scp.py``: ``solve_scp``, ``solve_scp_stacked``,
+``solve_scp_batch``, ``forward_u``).
 
 Each iteration linearizes the concave avoidance constraints at the current
 iterate, appends one slack variable ω (weight 1e5) shared by all avoidance
@@ -8,10 +8,17 @@ rows, solves the convex QP, and stops when the exact-penalty merit
 ``objective + w * max_violation`` decreases by less than ``delta_tol`` while
 the worst violation is inside tolerance.
 
+Every function takes a leading batch axis: :func:`solve_scp` is
+``vmap(solve_scp)`` of ``scp_tpu`` written out (dense constraint rows, dense
+P, the general :func:`qp.solve_qp`), :func:`solve_scp_stacked` states the
+same QPs pair-sparsely to :func:`qp.solve_qp_batched`. Both run ONE loop
+(:func:`_scp_loop`) and differ in the QP they hand it.
+
 Where ``scp_tpu`` runs a ``lax.while_loop`` with per-lane freezing, this is
 a Python loop whose condition is ONE host read of ``any(not done)`` per SCP
 iteration — a device synchronisation each time, counted in
-:data:`host_sync_count`.
+:data:`host_sync_count` (the adaptive IPM loops count theirs in
+``qp.host_sync_count``).
 """
 from __future__ import annotations
 
@@ -52,59 +59,37 @@ class SCPResult(NamedTuple):
     qp_fails: torch.Tensor       # (B,) inner QPs that did not reach tolerance
 
 
-def solve_scp_stacked(problem: SCPProblem, u_init: torch.Tensor, *,
-                      u_lim: float,
-                      max_scp_iter: int = 20,
-                      delta_tol: float = 1e-3,
-                      delta_tol_rel: float = 0.0,
-                      u_step_tol: float = 0.0,
-                      merit_patience: int = 0,
-                      keep_best: bool = False,
-                      slack_weight: float = 1e5,
-                      slack_ub: float = 1e8,
-                      constraint_tolerance: float = 2 * 2.1 * 1e-3,
-                      qp_max_iter: int = 30,
-                      qp_tol: float = 1e-8,
-                      qp_fixed_iters: int | None = None,
-                      qp_cheap_k: bool = False,
-                      qp_warm_dual: bool = False,
-                      qp_correctors: int = 0,
-                      qp_kkt: str = "dense",
-                      qp_certificate: bool = False,
-                      compat_q5: bool = True) -> SCPResult:
-    """Batched SCP solve (leading batch axis) through
-    :func:`qp.solve_qp_batched`'s structured fused branch.
+class SCPTrace(NamedTuple):
+    """Per-SCP-iteration record (``solve_scp(trace=True)``). Every field is
+    ``(B, max_scp_iter)``; entries of iterations an instance did not run are
+    zero / False and flagged inactive."""
+    active: torch.Tensor         # bool — the iteration actually ran
+    obj: torch.Tensor            # QCQP objective after the iteration
+    max_violation: torch.Tensor  # worst constraint violation
+    merit: torch.Tensor          # exact-penalty merit obj + w * viol
+    delta: torch.Tensor          # merit decrease vs the previous iterate
+    qp_converged: torch.Tensor   # bool — inner QP certificate
+
+
+def _scp_loop(problem: SCPProblem, u_init: torch.Tensor, qp_solve, *,
+              max_scp_iter, delta_tol, delta_tol_rel, u_step_tol,
+              merit_patience, keep_best, slack_weight, constraint_tolerance,
+              qp_warm_dual, compat_q5, trace=False):
+    """The SCP iteration shared by :func:`solve_scp` and
+    :func:`solve_scp_stacked`. ``qp_solve(u, x0, z0) -> QPSolution`` solves
+    the QP linearized at ``u`` (``x0 = [u, 0]``, ``z0`` the previous duals or
+    None).
 
     Converged instances freeze (they keep ``u, obj, viol, z``; counters add
     only where an instance is still active) while the batch continues.
     """
     global host_sync_count
-    if qp_cheap_k:
-        raise NotImplementedError(
-            "qp_cheap_k (reduced-precision KKT formation) is not supported "
-            "by the stacked/fused QP path")
     sys = problem.sys
     dtype, device = u_init.dtype, u_init.device
     b, v, hp, _, hu = sys.b3.shape
     n = v * hu
-    n_obst = sys.obst_pos.shape[1]
-    n_con = sys.dsafe2_pair.shape[1] * hp + v * n_obst * hp
+    n_con = sys.dsafe2_pair.shape[1] * hp + v * sys.obst_pos.shape[1] * hp
     single_veh = v == 1
-
-    # Numerical nudge of u[0]: exactly-zero first controls become eps.
-    eps = torch.finfo(dtype).eps
-    u_init = u_init.clone()
-    u_init[:, 0] = torch.where(u_init[:, 0].abs() < eps,
-                               torch.full_like(u_init[:, 0], eps),
-                               u_init[:, 0])
-
-    def full(cols, value):
-        return torch.full((b, cols), value, dtype=dtype, device=device)
-
-    p_blocks = 2.0 * problem.phi0
-    q_qp = torch.cat([problem.psi0.reshape(b, n), full(1, slack_weight)], 1)
-    lb = torch.cat([full(n, -u_lim), full(1, 0.0)], dim=1)
-    ub = torch.cat([full(n, u_lim), full(1, slack_ub)], dim=1)
 
     def ev_fn(u):
         return con.evaluate(sys, u, constraint_tolerance, compat_q5)
@@ -123,15 +108,7 @@ def solve_scp_stacked(problem: SCPProblem, u_init: torch.Tensor, *,
     best_merit = obj_init + slack_weight * ev0.max_violation
     z = torch.zeros((b, m_qp), dtype=dtype, device=device)
     best = (u, obj, viol, feasible) if keep_best else None
-
-    # Static pair structure of the constraint rows (pair-major then
-    # (vehicle, obstacle) blocks, hp rows each, hu-wide vehicle column
-    # blocks, slack column last). 5th element: the condensed prediction
-    # matrix is block-lower-triangular, so slab row k touches only controls
-    # u <= k and the kernel may skip the zero entries.
-    g_struct = (tuple(con._static_pairs(v)),
-                tuple(vv for vv in range(v) for _ in range(n_obst)),
-                hp, hu, True)
+    records = []
 
     # Every still-active instance has run the same number of iterations, so
     # the loop condition any((it < max) & ~done) is any(~done) for max_scp_iter
@@ -141,16 +118,10 @@ def solve_scp_stacked(problem: SCPProblem, u_init: torch.Tensor, *,
         if not bool((~done).any()):
             break
         sel = ~done
-        gi_b, gj_b, gob_b, rhs = con.linearize_slabs(sys, u)
-        x0 = torch.cat([u, full(1, 0.0)], dim=1)
-        sol = qp.solve_qp_batched(
-            None, q_qp, None, rhs, lb, ub,
-            max_iter=qp_max_iter, tol=qp_tol, x0=x0,
-            z0=z if qp_warm_dual else None,
-            fixed_iters=qp_fixed_iters, p_blocks=p_blocks,
-            correctors=qp_correctors, slack_schur=True,
-            certificate=qp_certificate, g_struct=g_struct,
-            g_slabs=(gi_b, gj_b, gob_b), kkt=qp_kkt)
+        x0 = torch.cat([u, torch.zeros((b, 1), dtype=dtype, device=device)],
+                       dim=1)
+        sol = qp_solve(u, x0, z if qp_warm_dual else None)
+        # NaN guard: a diverged inner solve must not poison the iterate
         ok = torch.isfinite(sol.x).all(dim=1)
         u_new = torch.where(ok[:, None], sol.x[:, :n], u)
         ev = ev_fn(u_new)
@@ -183,6 +154,11 @@ def solve_scp_stacked(problem: SCPProblem, u_init: torch.Tensor, *,
             stop = small_delta
         else:
             stop = small_delta & (ev.max_violation <= constraint_tolerance)
+        if trace:
+            records.append((sel,) + tuple(
+                torch.where(sel, e, torch.zeros_like(e))
+                for e in (obj_new, ev.max_violation, merit_new, delta,
+                          sol.converged)))
 
         # freeze inactive instances
         u = torch.where(selc, u_new, u)
@@ -199,9 +175,196 @@ def solve_scp_stacked(problem: SCPProblem, u_init: torch.Tensor, *,
 
     if keep_best:
         u, obj, viol, feasible = best
-    return SCPResult(u=u, feasible=feasible, converged=done, obj=obj,
-                     max_violation=viol, iters=it, qp_iters=qp_iters,
-                     qp_fails=qp_fails)
+    res = SCPResult(u=u, feasible=feasible, converged=done, obj=obj,
+                    max_violation=viol, iters=it, qp_iters=qp_iters,
+                    qp_fails=qp_fails)
+    if not trace:
+        return res
+    # iterations after the last instance stopped did not run: zero records
+    kinds = (torch.bool, dtype, dtype, dtype, dtype, torch.bool)
+    cols = []
+    for f, kind in enumerate(kinds):
+        col = torch.zeros((b, max_scp_iter), dtype=kind, device=device)
+        for i, rec in enumerate(records):
+            col[:, i] = rec[f]
+        cols.append(col)
+    return res, SCPTrace(*cols)
+
+
+def _nudged(u_init: torch.Tensor) -> torch.Tensor:
+    """Numerical nudge of u[0]: exactly-zero first controls become eps (on
+    a copy)."""
+    eps = torch.finfo(u_init.dtype).eps
+    u_init = u_init.clone()
+    u_init[:, 0] = torch.where(u_init[:, 0].abs() < eps,
+                               torch.full_like(u_init[:, 0], eps),
+                               u_init[:, 0])
+    return u_init
+
+
+def _qp_vectors(problem: SCPProblem, u_lim, slack_weight, slack_ub, dtype,
+                device):
+    """``(q, lb, ub)`` of the SCP's QP: tracking gradient + slack weight,
+    steering box + slack bounds."""
+    b, v, hu = problem.psi0.shape
+    n = v * hu
+
+    def full(cols, value):
+        return torch.full((b, cols), value, dtype=dtype, device=device)
+
+    q_qp = torch.cat([problem.psi0.reshape(b, n), full(1, slack_weight)], 1)
+    lb = torch.cat([full(n, -u_lim), full(1, 0.0)], dim=1)
+    ub = torch.cat([full(n, u_lim), full(1, slack_ub)], dim=1)
+    return q_qp, lb, ub
+
+
+def solve_scp(problem: SCPProblem, u_init: torch.Tensor, *,
+              u_lim: float,
+              max_scp_iter: int = 20,
+              delta_tol: float = 1e-3,
+              delta_tol_rel: float = 0.0,
+              u_step_tol: float = 0.0,
+              merit_patience: int = 0,
+              keep_best: bool = False,
+              slack_weight: float = 1e5,
+              slack_ub: float = 1e8,
+              constraint_tolerance: float = 2 * 2.1 * 1e-3,
+              qp_max_iter: int = 30,
+              qp_tol: float = 1e-8,
+              qp_fixed_iters: int | None = None,
+              qp_cheap_k: bool = False,
+              qp_warm_dual: bool = False,
+              qp_correctors: int = 0,
+              qp_kkt: str = "dense",
+              compat_q5: bool = True,
+              axis_name: str | None = None,
+              n_con_total: int | None = None,
+              trace: bool = False):
+    """Per-instance SCP on a leading batch axis (``vmap(solve_scp)`` of
+    ``scp_tpu``): dense linearized rows with their slack column, the dense
+    block-diagonal P, and the general :func:`qp.solve_qp` (adaptive loop or
+    ``qp_fixed_iters``, Gondzio correctors honoured, honest certificate).
+
+    ``qp_kkt``: ``"dense"`` and ``"auto"`` take the dense factorization;
+    ``"banded"`` is not ported. ``trace=True`` additionally returns an
+    :class:`SCPTrace`; the loop is the same Python loop, so the traced
+    result equals the untraced one. The horizon-sharded mode (``axis_name``
+    / ``n_con_total``) is not ported.
+    """
+    if axis_name is not None or n_con_total is not None:
+        raise NotImplementedError(
+            "horizon-sharded solve_scp (axis_name / n_con_total) not ported "
+            "yet: roadmap item 11 (scale-out)")
+    if qp_kkt == "banded":
+        raise NotImplementedError(
+            "banded KKT path not ported yet: roadmap item 8 (long horizons)")
+    if qp_kkt not in ("dense", "auto"):
+        raise ValueError(f"unknown qp_kkt {qp_kkt!r}")
+    sys = problem.sys
+    dtype, device = u_init.dtype, u_init.device
+    b, v, hp, _, hu = sys.b3.shape
+    n = v * hu
+    n_con = sys.dsafe2_pair.shape[1] * hp + v * sys.obst_pos.shape[1] * hp
+    u_init = _nudged(u_init)
+
+    # Fixed QP cost: blockdiag(2 * phi0) plus a zero slack row / column; the
+    # slack enters linearly with weight ``slack_weight``.
+    P_qp = torch.zeros((b, n + 1, n + 1), dtype=dtype, device=device)
+    for i in range(v):
+        P_qp[:, i * hu:(i + 1) * hu, i * hu:(i + 1) * hu] = \
+            2.0 * problem.phi0[:, i]
+    q_qp, lb, ub = _qp_vectors(problem, u_lim, slack_weight, slack_ub, dtype,
+                               device)
+    slack_col = torch.full((b, n_con, 1), -1.0, dtype=dtype, device=device)
+
+    def qp_solve(u, x0, z0):
+        G_c, rhs = con.linearize(sys, u)
+        G = torch.cat([G_c, slack_col], dim=2)
+        return qp.solve_qp(P_qp, q_qp, G, rhs, lb, ub, max_iter=qp_max_iter,
+                           tol=qp_tol, x0=x0, z0=z0,
+                           fixed_iters=qp_fixed_iters, cheap_k=qp_cheap_k,
+                           correctors=qp_correctors)
+
+    return _scp_loop(
+        problem, u_init, qp_solve, max_scp_iter=max_scp_iter,
+        delta_tol=delta_tol, delta_tol_rel=delta_tol_rel,
+        u_step_tol=u_step_tol, merit_patience=merit_patience,
+        keep_best=keep_best, slack_weight=slack_weight,
+        constraint_tolerance=constraint_tolerance, qp_warm_dual=qp_warm_dual,
+        compat_q5=compat_q5, trace=trace)
+
+
+def solve_scp_stacked(problem: SCPProblem, u_init: torch.Tensor, *,
+                      u_lim: float,
+                      max_scp_iter: int = 20,
+                      delta_tol: float = 1e-3,
+                      delta_tol_rel: float = 0.0,
+                      u_step_tol: float = 0.0,
+                      merit_patience: int = 0,
+                      keep_best: bool = False,
+                      slack_weight: float = 1e5,
+                      slack_ub: float = 1e8,
+                      constraint_tolerance: float = 2 * 2.1 * 1e-3,
+                      qp_max_iter: int = 30,
+                      qp_tol: float = 1e-8,
+                      qp_fixed_iters: int | None = None,
+                      qp_cheap_k: bool = False,
+                      qp_warm_dual: bool = False,
+                      qp_correctors: int = 0,
+                      qp_kkt: str = "dense",
+                      qp_certificate: bool = False,
+                      compat_q5: bool = True) -> SCPResult:
+    """Batched SCP solve (leading batch axis) through
+    :func:`qp.solve_qp_batched`: with ``qp_fixed_iters`` the structured
+    fused branch on the pair-sparse row slabs, with ``qp_fixed_iters=None``
+    the adaptive branch on the dense rows scattered from the same slabs.
+    """
+    if qp_cheap_k:
+        raise NotImplementedError(
+            "qp_cheap_k (reduced-precision KKT formation) is not supported "
+            "by the stacked/fused QP path")
+    sys = problem.sys
+    dtype, device = u_init.dtype, u_init.device
+    b, v, hp, _, hu = sys.b3.shape
+    n_obst = sys.obst_pos.shape[1]
+    n_con = sys.dsafe2_pair.shape[1] * hp + v * n_obst * hp
+    u_init = _nudged(u_init)
+
+    p_blocks = 2.0 * problem.phi0
+    q_qp, lb, ub = _qp_vectors(problem, u_lim, slack_weight, slack_ub, dtype,
+                               device)
+    slack_col = torch.full((b, n_con, 1), -1.0, dtype=dtype, device=device)
+
+    # Static pair structure of the constraint rows (pair-major then
+    # (vehicle, obstacle) blocks, hp rows each, hu-wide vehicle column
+    # blocks, slack column last). 5th element: the condensed prediction
+    # matrix is block-lower-triangular, so slab row k touches only controls
+    # u <= k and the kernel may skip the zero entries.
+    g_struct = (tuple(con._static_pairs(v)),
+                tuple(vv for vv in range(v) for _ in range(n_obst)),
+                hp, hu, True)
+
+    def qp_solve(u, x0, z0):
+        gi_b, gj_b, gob_b, rhs = con.linearize_slabs(sys, u)
+        # the adaptive branch reads the dense rows; the fused branch never
+        # does, and is not handed them
+        G = None if qp_fixed_iters is not None else torch.cat(
+            [con.scatter_slabs(v, gi_b, gj_b, gob_b, dtype), slack_col], 2)
+        return qp.solve_qp_batched(
+            None, q_qp, G, rhs, lb, ub,
+            max_iter=qp_max_iter, tol=qp_tol, x0=x0, z0=z0,
+            fixed_iters=qp_fixed_iters, p_blocks=p_blocks,
+            correctors=qp_correctors, slack_schur=True,
+            certificate=qp_certificate, g_struct=g_struct,
+            g_slabs=(gi_b, gj_b, gob_b), kkt=qp_kkt)
+
+    return _scp_loop(
+        problem, u_init, qp_solve, max_scp_iter=max_scp_iter,
+        delta_tol=delta_tol, delta_tol_rel=delta_tol_rel,
+        u_step_tol=u_step_tol, merit_patience=merit_patience,
+        keep_best=keep_best, slack_weight=slack_weight,
+        constraint_tolerance=constraint_tolerance, qp_warm_dual=qp_warm_dual,
+        compat_q5=compat_q5)
 
 
 def solve_scp_batch(problems: SCPProblem, u_init: torch.Tensor, *,
@@ -222,13 +385,10 @@ def solve_scp_batch(problems: SCPProblem, u_init: torch.Tensor, *,
     prior-stage result. A phase entry may carry an optional third element
     overriding ``qp_fixed_iters`` for that phase.
 
-    Only the stacked solver is ported: ``stacked=False`` (the per-instance
-    path) raises.
+    ``stacked``: ``None`` / ``True`` run :func:`solve_scp_stacked` (the
+    port's default on every device), ``False`` runs :func:`solve_scp` (the
+    per-instance path on the same batch).
     """
-    if stacked is False:
-        raise NotImplementedError(
-            "per-instance SCP (solve_scp) not ported yet; the batched step "
-            "runs solve_scp_stacked")
     b = u_init.shape[0]
     if phases is None:
         phases = ((phase1_iters, 1),
@@ -238,8 +398,8 @@ def solve_scp_batch(problems: SCPProblem, u_init: torch.Tensor, *,
 
     def run(p, u, iters, qp_it=None):
         kw2 = kw if qp_it is None else {**kw, "qp_fixed_iters": qp_it}
-        return solve_scp_stacked(p, u, u_lim=u_lim, max_scp_iter=iters,
-                                 **kw2)
+        solver = solve_scp if stacked is False else solve_scp_stacked
+        return solver(p, u, u_lim=u_lim, max_scp_iter=iters, **kw2)
 
     res = run(problems, u_init, phases[0][0], *phases[0][2:])
 

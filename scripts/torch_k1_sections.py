@@ -29,11 +29,11 @@ SECTIONS = ("load", "diag_border", "kkt_form", "cholesky", "rhs", "solves",
 def main():
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
-    from scp_tpu_torch.ops import ipm_kernel
+    from scp_tpu_torch.ops import _cuda_build, ipm_kernel
     from scp_tpu_torch.testing import kernel_inputs, torch_kernel_args
 
-    ipm_kernel.BUILD_DEFINES = ("SCP_PROFILE_SECTIONS",)
-    lib = ipm_kernel.load_library()
+    _cuda_build.BUILD_DEFINES = ("SCP_PROFILE_SECTIONS",)
+    lib = _cuda_build.load_library()
     lib.ipm_struct_read_sections.argtypes = [ctypes.c_void_p]
     lib.ipm_struct_read_sections.restype = ctypes.c_int
     card = subprocess.run(

@@ -1,17 +1,26 @@
-"""Where one batched MPC step of the PyTorch/CUDA port spends its time.
+"""Where one MPC step of the PyTorch/CUDA port spends its time.
 
 Run on a machine with an NVIDIA GPU, from the repository root::
 
-    python3 scripts/torch_step_profile.py [--batch 1024] [--steps 3]
+    python3 scripts/torch_step_profile.py [--path tuned|adaptive|instance]
+                                          [--batch 1024] [--steps 3]
 
-Drives ``scp_tpu_torch.sim.engine.mpc_step_batch`` on the randomized
-4-vehicle circle batch (hp = hu = 20, float32, tuned_f32, TUNED_F32_PHASES),
-warm, under ``torch.profiler``, and prints JSON lines: the wall time per step,
-the device-busy share (sum of kernel time over wall time), the number of
-kernel launches per step, the time in the hand-written IPM kernel, and the
-ten kernels with the most device time. A second pass times the step's three
-parts (controller_pre, solve_scp_batch, step_post) with a synchronise after
-each.
+Drives one path of ``scp_tpu_torch.sim.engine`` on the 4-vehicle circle
+(hp = hu = 20, float32), warm, under ``torch.profiler``:
+
+* ``tuned`` — ``mpc_step_batch`` on the randomized batch with ``tuned_f32``
+  and ``TUNED_F32_PHASES`` (the fused IPM kernel);
+* ``adaptive`` — ``mpc_step_batch`` on the same batch with the DEFAULT
+  configuration (adaptive IPM: Cholesky, solve and matvec kernels);
+* ``instance`` — ``mpc_step`` on ONE nominal scenario with ``tuned_f32``
+  (``--batch`` is ignored).
+
+It prints JSON lines: the wall time per step, the device-busy share (sum of
+kernel time over wall time), the number of kernel launches per step, the
+device time and launches of each hand-written kernel (with its device time
+per launch), and the ten kernels with the most device time. A second pass
+times the step's three parts (controller_pre, the SCP solve, step_post) with
+a synchronise after each.
 """
 import argparse
 import json
@@ -27,6 +36,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("tuned", "adaptive", "instance"),
+                    default="tuned")
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=3)
     opts = ap.parse_args()
@@ -35,7 +46,7 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     from scp_tpu_torch import config as config_lib
-    from scp_tpu_torch.scenarios import batch as batch_lib
+    from scp_tpu_torch.scenarios import batch as batch_lib, builders
     from scp_tpu_torch.sim import engine
     from scp_tpu_torch.solvers import scp
 
@@ -44,20 +55,41 @@ def main():
         capture_output=True, text=True).stdout.strip()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(42)
-    cfg, data = batch_lib.make_batch("circle", opts.batch, generator=gen,
-                                     dtype=torch.float32, device=dev, n_veh=4)
-    cfg = config_lib.tuned_f32(cfg.replace(hp=20, hu=20))
-    phases = config_lib.TUNED_F32_PHASES
+    if opts.path == "instance":
+        cfg, data = builders.circle(4, dtype=torch.float32, device=dev)
+    else:
+        cfg, data = batch_lib.make_batch("circle", opts.batch, generator=gen,
+                                         dtype=torch.float32, device=dev,
+                                         n_veh=4)
+    cfg = cfg.replace(hp=20, hu=20)
+    phases = None
+    if opts.path != "adaptive":
+        cfg = config_lib.tuned_f32(cfg)
+    if opts.path == "tuned":
+        phases = config_lib.TUNED_F32_PHASES
+    batch = data.x0.shape[0]
+    scp_kw = dict(max_scp_iter=cfg.max_scp_iter, **engine._scp_kwargs(cfg))
+
+    def step(c):
+        if opts.path == "instance":
+            return engine.mpc_step(cfg, data, c)
+        return engine.mpc_step_batch(cfg, data, c, phases=phases)
+
+    def solve(problem, c):
+        if opts.path == "instance":
+            return scp.solve_scp(problem, c.u_warm, **scp_kw)
+        return scp.solve_scp_batch(problem, c.u_warm, phases=phases, **scp_kw)
+
     carry = engine.init_carry(cfg, data)
     for _ in range(3):                                  # warm up
-        carry, _ = engine.mpc_step_batch(cfg, data, carry, phases=phases)
+        carry, _ = step(carry)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         t0 = time.time()
         for _ in range(opts.steps):
-            carry, _ = engine.mpc_step_batch(cfg, data, carry, phases=phases)
+            carry, _ = step(carry)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3 / opts.steps
     rows = [e for e in prof.key_averages()
@@ -65,22 +97,31 @@ def main():
             and e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.device_time_total for e in rows)
     launches = sum(e.count for e in rows)
-    k1_us = sum(e.device_time_total for e in rows if "ipm_struct" in e.key)
+    own = {}
+    for name in ("ipm_struct_kernel", "chol_batched_kernel",
+                 "cho_solve_batched_kernel", "gmv_batched_kernel",
+                 "gtmv_batched_kernel"):
+        hit = [e for e in rows if name in e.key]
+        n_launch = sum(e.count for e in hit)
+        us = sum(e.device_time_total for e in hit)
+        own[name] = {"ms_per_step": us / 1e3 / opts.steps,
+                     "launches_per_step": n_launch / opts.steps,
+                     "device_us_per_launch": us / n_launch if n_launch else None}
     top = sorted(rows, key=lambda e: -e.device_time_total)[:10]
     print(json.dumps({
-        "card": card, "B": opts.batch, "steps": opts.steps,
+        "card": card, "path": opts.path, "B": batch, "steps": opts.steps,
         "step_wall_ms_under_profiler": wall_ms,
         "device_busy_ms_per_step": dev_us / 1e3 / opts.steps,
         "device_busy_share": dev_us / 1e3 / opts.steps / wall_ms,
         "kernel_launches_per_step": launches / opts.steps,
-        "k1_ms_per_step": k1_us / 1e3 / opts.steps,
+        "hand_written_kernels": own,
         "top_kernels": [{"name": e.key[:80], "ms_per_step":
                          e.device_time_total / 1e3 / opts.steps,
                          "launches_per_step": e.count / opts.steps}
                         for e in top]}), flush=True)
 
     # the step's three parts, a synchronise after each (no profiler)
-    parts = {"controller_pre": 0.0, "solve_scp_batch": 0.0, "step_post": 0.0}
+    parts = {"controller_pre": 0.0, "scp_solve": 0.0, "step_post": 0.0}
     n = 5
     for _ in range(n):
         torch.cuda.synchronize()
@@ -88,18 +129,16 @@ def main():
         problem, aux = engine.controller_pre(cfg, data, carry)
         torch.cuda.synchronize()
         t1 = time.time()
-        res = scp.solve_scp_batch(problem, carry.u_warm,
-                                  max_scp_iter=cfg.max_scp_iter,
-                                  phases=phases, **engine._scp_kwargs(cfg))
+        res = solve(problem, carry)
         torch.cuda.synchronize()
         t2 = time.time()
         carry, _ = engine.step_post(cfg, data, carry, res, aux)
         torch.cuda.synchronize()
         t3 = time.time()
         parts["controller_pre"] += (t1 - t0) * 1e3 / n
-        parts["solve_scp_batch"] += (t2 - t1) * 1e3 / n
+        parts["scp_solve"] += (t2 - t1) * 1e3 / n
         parts["step_post"] += (t3 - t2) * 1e3 / n
-    print(json.dumps({"card": card, "B": opts.batch,
+    print(json.dumps({"card": card, "path": opts.path, "B": batch,
                       "part_ms_per_step": parts}), flush=True)
 
 

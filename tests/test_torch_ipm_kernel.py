@@ -200,7 +200,16 @@ def test_wrapper_checks_its_arguments(breakage):
 
 
 def test_library_is_keyed_by_a_hash_of_the_sources():
-    path = ik.library_path()
+    from scp_tpu_torch.ops import _cuda_build as cb
+    path = cb.library_path()
     assert path.parent.name == "build" and path.suffix == ".so"
-    assert path == ik.library_path()
-    assert {p.name for p in ik._CSRC.iterdir()} >= set(ik._SOURCES)
+    assert path == cb.library_path()
+    # every kernel source of csrc/ goes into the one library
+    assert {p.name for p in cb.sources()} == {"ipm_struct.cu", "linalg.cu"}
+    assert (cb.CSRC / "chol.cuh").exists()
+    old = cb.BUILD_DEFINES
+    cb.BUILD_DEFINES = ("SCP_PROFILE_SECTIONS",)
+    try:
+        assert cb.library_path() != path
+    finally:
+        cb.BUILD_DEFINES = old

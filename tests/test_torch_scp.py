@@ -124,8 +124,10 @@ def test_unported_options_raise():
     skw = dict(skw)
     u_lim = skw.pop("u_lim")
     u = torch.zeros((2, 12), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        tscp.solve_scp_batch(problem_t, u, u_lim=u_lim, stacked=False, **skw)
+    # the per-instance path is ported: stacked=False runs solve_scp
+    res = tscp.solve_scp_batch(problem_t, u, u_lim=u_lim, stacked=False,
+                               max_scp_iter=2, phase1_iters=1, **skw)
+    assert tuple(res.u.shape) == (2, 12) and int(res.iters.max()) >= 1
     with pytest.raises(NotImplementedError):
         tscp.solve_scp_stacked(problem_t, u, u_lim=u_lim,
                                **{**skw, "qp_cheap_k": True})
