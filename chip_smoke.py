@@ -5,11 +5,12 @@ Run from the repository root on a machine with one NVIDIA GPU::
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from ``scp_tpu_torch/csrc`` (the fused
-structured IPM iteration, the batched Cholesky, the Cholesky solve and the
-two G matvecs), holds each against its plain PyTorch version on the card,
-and drives three paths of the port at full width, every kernel's launch
-count set to 0 just before a path and read just after:
+It builds the eight hand-written CUDA kernels from ``scp_tpu_torch/csrc``
+(the fused structured IPM iteration K1, the dense-G IPM iteration K2, the
+batched Cholesky, the Cholesky solve, the two G matvecs, and the Riccati
+factor and solve sweeps K6 / K7), holds each against its plain PyTorch
+version on the card, and drives six paths of the port at full width, every
+kernel's launch count set to 0 just before a path and read just after:
 
 * the calibrated batched step — ``mpc_step_batch`` on the randomized
   4-vehicle circle batch, B = 1024, hp = hu = 20, float32, ``tuned_f32`` with
@@ -22,7 +23,17 @@ count set to 0 just before a path and read just after:
   50 steps through ``mpc_step`` (B = 1 through the Cholesky and solve
   kernels) with the latency of each step, its step 0 repeated through the
   plain versions and in float64, then ``simulate`` against
-  ``simulate_batch`` at B = 64.
+  ``simulate_batch`` at B = 64;
+* the long-horizon path — ``mpc_step_batch``, circle, 4 vehicles,
+  hp = hu = 64, B = 256, ``tuned_f32`` (``qp_kkt="auto"`` routes past K1's
+  shared-memory gate to the banded KKT: K6 / K7, and K1 must not launch),
+  4 chained steps, the first repeated through the plain sweeps;
+* the one-scenario banded step — ``mpc_step`` of one circle-4 scenario at
+  hp = 64 with ``qp_kkt="banded"`` (B = 1 through K6 / K7), 10 steps of
+  latency, step 0 repeated through the plain sweeps and in float64;
+* the dense-fused path — ``mpc_step_batch``, frog (one vehicle), hp = hu =
+  20, B = 1024, ``tuned_f32`` (K2), 4 chained steps, also through the plain
+  version, every K2 launch of the first step shadowed.
 
 It times every kernel beside its plain version, the PyTorch library call
 that computes the same function (where there is one) and the card's bound,
@@ -104,8 +115,8 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
-# device_ms: profiler sessions that came back empty and were repeated
-EMPTY_PROFILER_SESSIONS = 0
+# device_ms: profiler sessions that came back incomplete and were repeated
+INCOMPLETE_PROFILER_SESSIONS = 0
 
 
 def emit(obj: dict) -> None:
@@ -161,11 +172,16 @@ def k1_work(P, S, hp, hu, V, B, n_iters, n_cor, lower_tri):
     return 4 * (words_in + words_out) * B, flops * B
 
 
-def k1_bound_ms(shape, B, n_iters, n_cor, lower_tri):
-    nbytes, flops = k1_work(*shape, B, n_iters, n_cor, lower_tri)
+def bound_of(nbytes, flops):
+    """Least time the card could take: the bytes over the memory rate
+    against the operations over the float32 peak; and which of the two."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def k1_bound_ms(shape, B, n_iters, n_cor, lower_tri):
+    return bound_of(*k1_work(*shape, B, n_iters, n_cor, lower_tri))
 
 
 def time_cuda(fn, reps: int, warmup: int = 2) -> float:
@@ -183,15 +199,20 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, kernels_per_call: int | None = None) -> float:
     """Milliseconds of DEVICE time per call: the kernels' own durations as
     ``torch.profiler`` records them, summed over ``reps`` calls. A call of
     tens of microseconds is otherwise timed by the host that enqueues it
-    (``time_cuda`` measures that: what a caller pays per call). A profiler
-    session now and then comes back without device records; it is repeated
-    (``EMPTY_PROFILER_SESSIONS`` counts those), and five empty sessions in
-    a row fail the run: a host time never stands in for a device time."""
-    global EMPTY_PROFILER_SESSIONS
+    (``time_cuda`` measures that: what a caller pays per call).
+
+    Every call launches the same kernels, so a complete session records
+    each kernel a multiple of ``reps`` times, and exactly ``reps x
+    kernels_per_call`` kernel events where the caller knows that number (a
+    wrapper: one). A session that records no device time or a count that
+    breaks this is incomplete: it is repeated (``INCOMPLETE_PROFILER_
+    SESSIONS`` counts those), and five incomplete sessions in a row fail
+    the run — a host time never stands in for a device time."""
+    global INCOMPLETE_PROFILER_SESSIONS
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -201,13 +222,47 @@ def device_ms(fn, reps: int) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in prof.key_averages()
-                 if getattr(e, "device_time_total", 0) > 0
-                 and e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
+        kern = [e for e in prof.key_averages()
+                if getattr(e, "device_time_total", 0) > 0
+                and e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(e.device_time_total for e in kern)
+        counts = [e.count for e in kern]
+        complete = us > 0 and all(c % reps == 0 for c in counts) and (
+            kernels_per_call is None
+            or sum(counts) == reps * kernels_per_call)
+        if complete:
             return us / 1e3 / reps
-        EMPTY_PROFILER_SESSIONS += 1
-    fail("torch.profiler recorded no device time in five sessions")
+        INCOMPLETE_PROFILER_SESSIONS += 1
+        print(f"chip_smoke: incomplete profiler session ({reps} calls, "
+              f"kernel events {counts}), repeated", file=sys.stderr,
+              flush=True)
+    fail("torch.profiler recorded no complete session in five")
+
+
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Milliseconds of device time per call of a kernel wrapper: ``reps``
+    calls captured in a CUDA graph, and CUDA events around ``replays``
+    replays of it, so no host time lies between the launches. Late in this
+    script ``torch.profiler`` drops kernel records (sessions of 20 launches
+    recorded 3 to 15), which ``device_ms`` detects; graph replay and a
+    complete profiler session agree to 1% on these kernels
+    (``scripts/torch_kernel_check.py --times``)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * reps)
 
 
 def compare(args, kw, out_k, plain) -> dict:
@@ -282,9 +337,7 @@ def linalg_bound_ms(kind: str, B: int, n: int, m: int = 0):
         nbytes, flops = 4 * (tri + 2 * n), 2 * 2 * n * n
     else:                                   # gmv / gtmv
         nbytes, flops = 4 * (m * n + m + n), 2 * m * n
-    t_bytes = B * nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = B * flops / PEAK_F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+    return bound_of(B * nbytes, B * flops)
 
 
 def _scale(t):
@@ -796,7 +849,7 @@ def linalg_phases(dev, card, B, n_veh, hp, seed, widths=(1024, 256, 64),
             # ms / plain_ms / library_ms: device time per call (profiler);
             # *_call_ms: CUDA events around back-to-back calls, which for
             # kernels this short is the host's time to enqueue one
-            cell = {"ms": device_ms(lambda: real[k](*args), timing_reps),
+            cell = {"ms": device_ms(lambda: real[k](*args), timing_reps, 1),
                     "plain_ms": device_ms(lambda: plain[k](*args),
                                           timing_reps),
                     "library_ms": device_ms(lambda: library[k](*args),
@@ -811,10 +864,645 @@ def linalg_phases(dev, card, B, n_veh, hp, seed, widths=(1024, 256, 64),
             times["kernels"][k][str(w)] = cell
             if w == widths[0]:
                 reports[k].update(cell)
-    times["empty_profiler_sessions_repeated"] = EMPTY_PROFILER_SESSIONS
     emit(times)
     reset_counts()
     return [reports[k] for k in names]
+
+
+# ---- the banded (Riccati) sweeps and the dense-G iteration ----
+LONG_B, LONG_HP, LONG_STEPS = 256, 64, 4
+LATENCY64_STEPS = 10
+FROG_B, FROG_HP, FROG_STEPS = 1024, 20, 4
+RICCATI_WIDTHS = (256, 64, 16)
+DENSE_WIDTHS = (1024, 256, 64)
+# Riccati kernel vs plain (float32, identical inputs). The sweeps are K = 64
+# sequential stages, each consuming the cost-to-go the previous one rounded:
+# two float32 orders of summation drift apart stage by stage, more where the
+# dynamics grow the cost-to-go. So every case limits the kernel's distance
+# from a float64 oracle (the plain version in float64 on the same float32
+# inputs) to twice the plain float32 version's plus 1e-5 of the result's
+# scale, and the first IPM iteration's inputs (barrier weights ~1, well
+# conditioned) also limit the plain difference itself to 1e-3 of the
+# result's scale (max |f|, |lh|, |kg|, |du|).
+# K2 runs ONE iteration per launch, so a launch's inputs are a QP's cold
+# start (its first IPM iteration: mu = 1, well conditioned) or a late iterate
+# (barrier weights z/s up to 1e10, matrices conditioned up to ~1e6). On a
+# first iteration every state entry but the slack's is limited to
+# ONE_ITER_LIMIT of its array's scale (at least 1: the residuals and duals
+# run to ~10 there, where float32 keeps ~1e-6 absolute), and the controls to
+# twice the plain version's distance from float64 + 1e-4. On a late iterate
+# two float32 factorizations differ by (condition) x (round-off) on single
+# instances, so there the limits are what conditioning does not move: finite
+# outputs, the same freeze flags as the plain version, and the batch median
+# of the controls' difference (U_MEDIAN_LIMIT); the maximum and the float64
+# distance are reported.
+RICCATI_REL_LIMIT = 1e-3
+FROG_FEASIBLE_SLACK = 0.01   # floor: the plain versions' share minus this
+# The frog step's kernel-vs-plain 99th percentile is limited to the larger of
+# UPRED_ABS_LIMIT and the plain float32 step's own 99th-percentile distance
+# from the float64 step: one vehicle among 22 moving obstacles sits against
+# many near-active rows, and the non-convex SCP loop carries two float32
+# solvers' round-off further apart there than on the circle (both float32
+# steps are ~2e-2 from the float64 step at the 99th percentile, 6e-2 at
+# most). Two float32 steps closer together than either is to the exact
+# (float64) step differ by round-off, not by a fault. The distance from
+# float64 is held as a distribution: the kernel step's 99th percentile and
+# maximum may be no more than twice the plain step's plus UPRED_ABS_LIMIT.
+# Instance by instance (as on the circle) a single one of 1,024 can end on
+# another SCP path; those are reported with both distances, not limited.
+# Every K2 launch on identical inputs is limited above.
+
+
+def riccati_work(kind: str, B: int, V: int, K: int):
+    """Bytes the sweep must move (each input read once, each output written
+    once) and its float32 operations (two per multiply-add), for B
+    instances."""
+    W = 6 * V
+    dyn = V * 36 + V * 6
+    if kind == "riccati_factor":
+        words = dyn + K * (4 * V * V + V) + K * (2 * V * W + V * V)
+        macs = K * (2 * 6 * V * W + 6 * V * V + 2 * 6 * W * W + V * W * W
+                    + V * V * W + V ** 3 / 6)
+    else:
+        words = dyn + K * (2 * V * W + V * V) + 2 * K * V
+        macs = K * (6 * V + V * V + 6 * W + 2 * V * W + 6 * W + W)
+    return 4 * words * B, 2 * macs * B
+
+
+def dense_work(B, mg, n, nb, d, schur, n_cor):
+    """The same for one dense-G IPM iteration (K2): K's lower triangle, G,
+    the symmetric P blocks (or P x), q, the P diagonal and the state in; the
+    state out. Operations: the factor, the Jacobi scale, the substitutions,
+    every G / G^T pass, P x and the vector algebra."""
+    nk = n - 1 if schur else n
+    m = mg + 2 * n
+    state = 7 * n + 3 * mg + 2
+    words = (nk * (nk + 1) // 2 + mg * n
+             + (nb * d * (d + 1) // 2 if nb else n) + 2 * n + 2 * state)
+    macs = (nk ** 3 / 3 + 2 * nk * nk + (2 + n_cor) * 2 * nk * nk
+            + (2 * (2 + n_cor) + 2) * mg * n + nb * d * d
+            + (40 + 25 * n_cor) * m / 2)
+    return 4 * words * B, 2 * macs * B
+
+
+def check_outputs(kernel, case, outs_k, outs_p, outs_d, names,
+                  first_iter: bool) -> tuple:
+    """Each output of a kernel against its plain float32 version and the
+    float64 oracle on the same inputs; fails beyond the limits above.
+    Returns the largest kernel-vs-plain difference, absolute and relative to
+    its output's scale."""
+    rep = {"phase": "kernel_vs_plain", "kernel": kernel, "case": case,
+           "B": outs_k[0].shape[0], "first_ipm_iteration": first_iter,
+           "limits": {"vs_f64": "2 x plain float32's + 1e-5 x scale",
+                      "first_iter_rel": RICCATI_REL_LIMIT}}
+    worst, worst_abs, bad = 0.0, 0.0, []
+    for name, k, p_, d in zip(names, outs_k, outs_p, outs_d):
+        scale = max(_scale(d), 1e-30)
+        e_kp = _scale(k - p_)
+        e_kd, e_pd = _scale(k.double() - d), _scale(p_.double() - d)
+        rep[name] = {"kernel_vs_plain_max_abs": e_kp, "kernel_vs_f64": e_kd,
+                     "plain_vs_f64": e_pd, "scale": scale,
+                     "finite": bool(torch.isfinite(k).all())}
+        worst = max(worst, e_kp / scale)
+        worst_abs = max(worst_abs, e_kp)
+        if (not rep[name]["finite"] or e_kd > 2 * e_pd + 1e-5 * scale
+                or (first_iter and e_kp > RICCATI_REL_LIMIT * scale)):
+            bad.append(name)
+    emit(rep)
+    if bad:
+        fail(f"{case}: the {kernel} kernel disagrees on {bad}: {rep}")
+    return worst_abs, worst
+
+
+def check_riccati(case, f_args, s_args, first_iter=True) -> tuple:
+    """K6 on the factor's inputs and K7 on the solve's, each against its
+    plain version and the plain version in float64."""
+    from scp_tpu_torch.ops import riccati, riccati_kernel as rk
+    f_k = rk.riccati_factor(*f_args)
+    f_p = riccati.riccati_factor_plain(*f_args)
+    torch.cuda.synchronize()
+    f_d = riccati.riccati_factor_plain(*[a.double() for a in f_args])
+    e_f = check_outputs("riccati_factor", case, f_k, f_p, f_d,
+                        ("f", "lh", "kg"), first_iter)
+    du_k = rk.riccati_solve(*s_args)
+    du_p = riccati.riccati_solve_plain(*s_args)
+    torch.cuda.synchronize()
+    du_d = riccati.riccati_solve_plain(*[a.double() for a in s_args])
+    e_s = check_outputs("riccati_solve", case, (du_k,), (du_p,), (du_d,),
+                        ("du",), first_iter)
+    return e_f, e_s
+
+
+def dense_errors(args, kw, out_k) -> dict:
+    """One K2 launch's outputs against its plain version and the float64
+    oracle on the same inputs: every state entry but the slack's, relative
+    to its array's scale (``one_iter``), and the controls."""
+    from scp_tpu_torch.ops import ipm_kernel as ik
+    out_p = ik.ipm_iterate_dense_plain(*args, **kw)
+    out_d = ik.ipm_iterate_dense_plain(
+        *[None if a is None else a.double() for a in args],
+        **{**kw, "reg_rel": 1e-12})
+    nu = args[1].shape[2] - 1
+    # x, the duals, the residuals and mu (the slack's own entries, the last
+    # column, and the primal slacks are left out, as for K1)
+    pairs = list(zip(out_k[:1] + out_k[4:], out_p[:1] + out_p[4:]))
+    one_abs = [float((a - b)[:, :-1].abs().max()) for a, b in pairs]
+    one_rel = [e / max(1.0, _scale(b[:, :-1])) for e, (_, b) in
+               zip(one_abs, pairs)]
+    uk, up, ud = out_k[0][:, :nu], out_p[0][:, :nu], out_d[0][:, :nu]
+    e_kp = (uk - up).abs().amax(dim=1)
+    return {"B": args[1].shape[0],
+            "first_iteration": bool(
+                (args[16][:, 0] >= torch.finfo(args[16].dtype).max).all()),
+            "finite": all(bool(torch.isfinite(t).all()) for t in out_k),
+            "one_iter_max_abs_err": max(one_abs),
+            "one_iter_max_rel_err": max(one_rel),
+            "u_kernel_vs_plain_max": float(e_kp.max()),
+            "u_kernel_vs_plain_median": float(e_kp.median()),
+            "u_kernel_vs_f64_max": float((uk.double() - ud).abs().max()),
+            "u_plain_vs_f64_max": float((up.double() - ud).abs().max()),
+            "frozen_equal": bool(torch.equal(out_k[10][:, 1],
+                                             out_p[10][:, 1]))}
+
+
+DENSE_LIMITS = {"first_iteration": {"one_iter_rel": ONE_ITER_LIMIT,
+                                     "vs_f64": "2 x plain float32's + 1e-4"},
+                "every_launch": {"u_median": U_MEDIAN_LIMIT,
+                                 "freeze_flags": "equal", "finite": True}}
+
+
+def dense_off_limits(e) -> bool:
+    if (not e["finite"] or not e["frozen_equal"]
+            or e["u_kernel_vs_plain_median"] > U_MEDIAN_LIMIT):
+        return True
+    return e["first_iteration"] and (
+        e["one_iter_max_rel_err"] > ONE_ITER_LIMIT
+        or e["u_kernel_vs_f64_max"] > 2 * e["u_plain_vs_f64_max"] + 1e-4)
+
+
+def check_dense(case, args, kw) -> float:
+    """K2 against its plain version (one iteration, every state entry) and
+    its controls against the float64 oracle."""
+    from scp_tpu_torch.ops import ipm_kernel as ik
+    out_k = ik.ipm_iterate_dense(*args, **kw)
+    torch.cuda.synchronize()
+    rep = {"phase": "kernel_vs_plain", "kernel": "ipm_iterate_dense",
+           "case": case, "mg": args[1].shape[1], "n": args[1].shape[2],
+           "schur_slack": kw["schur_slack"], "p_blocks": args[3] is not None,
+           "n_cor": kw["n_cor"], **dense_errors(args, kw, out_k),
+           "limits": DENSE_LIMITS}
+    emit(rep)
+    if not rep["first_iteration"] or dense_off_limits(rep):
+        fail(f"{case}: the dense-G kernel disagrees: {rep}")
+    return rep["one_iter_max_abs_err"]
+
+
+def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
+    """Everything about the Riccati sweeps (K6, K7) and the dense-G iteration
+    (K2): the long-horizon path (circle-4, hp = 64, B = 256, K6 / K7 with no
+    K1 launch), the one-scenario banded step at hp = 64, the dense-fused
+    path (frog, B = 1024, K2), the kernels against their plain versions on
+    inputs captured there and on odd shapes, and their times. Returns their
+    entries of the ``kernels`` line."""
+    import numpy as np
+
+    from scp_tpu_torch import config as config_lib
+    from scp_tpu_torch.config import tree_map
+    from scp_tpu_torch.ops import ipm_kernel, linalg, riccati
+    from scp_tpu_torch.ops import linalg_kernel as lk, riccati_kernel as rk
+    from scp_tpu_torch.scenarios import batch as batch_lib, builders
+    from scp_tpu_torch.sim import engine
+    from scp_tpu_torch.solvers import qp, scp
+    from scp_tpu_torch.testing import (DENSE_ARG_ORDER, dense_kernel_inputs,
+                                       riccati_inputs)
+
+    phases = config_lib.TUNED_F32_PHASES
+    reports = {
+        "riccati_factor": {"name": "riccati_factor",
+                           "replaces": "scp_tpu/ops/pallas_riccati.py:247"},
+        "riccati_solve": {"name": "riccati_solve",
+                          "replaces": "scp_tpu/ops/pallas_riccati.py:307"},
+        "ipm_iterate_dense": {"name": "ipm_iterate_dense",
+                              "replaces": "scp_tpu/ops/pallas_linalg.py:1107",
+                              "source": "scp_tpu_torch/csrc/ipm_dense.cu"}}
+    for k in ("riccati_factor", "riccati_solve"):
+        reports[k]["source"] = "scp_tpu_torch/csrc/riccati.cu"
+    for r in reports.values():
+        # no single PyTorch call computes any of the three functions
+        r.update(route="cuda", library_ms=None)
+    real = {"riccati_factor": rk.riccati_factor,
+            "riccati_solve": rk.riccati_solve,
+            "ipm_iterate_dense": ipm_kernel.ipm_iterate_dense,
+            "gmv": lk.gmv, "gtmv": lk.gtmv}
+    plain = {"riccati_factor":
+             lambda *a: tuple(riccati.riccati_factor_plain(*a)),
+             "riccati_solve": riccati.riccati_solve_plain,
+             "ipm_iterate_dense": ipm_kernel.ipm_iterate_dense_plain,
+             "gmv": linalg.gmv_plain, "gtmv": linalg.gtmv_plain}
+    owner = {"riccati_factor": rk, "riccati_solve": rk,
+             "ipm_iterate_dense": ipm_kernel, "gmv": lk, "gtmv": lk}
+
+    def reset_counts():
+        ipm_kernel.reset_launch_count()
+        lk.reset_launch_counts()
+        rk.reset_launch_counts()
+        scp.reset_host_sync_count()
+        qp.reset_host_sync_count()
+
+    def routed(which, fns, fn, *args, **kw):
+        """Run ``fn`` with the wrappers in ``which`` pointed at ``fns``."""
+        for k in which:
+            setattr(owner[k], k, fns[k])
+        try:
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+        finally:
+            for k in which:
+                setattr(owner[k], k, real[k])
+        return out
+
+    captured: dict[str, tuple] = {}
+
+    def capture(name, width):
+        def call(*args, **kw):
+            if name not in captured and args[0].shape[0] == width:
+                captured[name] = (args, kw)
+            return real[name](*args, **kw)
+        return call
+
+    ric = ("riccati_factor", "riccati_solve")
+
+    # ---- the long-horizon path: circle-4, hp = hu = 64, B = 256 ----
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg, data = batch_lib.make_batch("circle", LONG_B, generator=gen,
+                                     dtype=torch.float32, device=dev,
+                                     n_veh=4)
+    cfg = config_lib.tuned_f32(cfg.replace(hp=LONG_HP, hu=LONG_HP))
+    carry0 = engine.init_carry(cfg, data)
+
+    def step(c):
+        return engine.mpc_step_batch(cfg, data, c, phases=phases)
+
+    # a first step with the first full-width factor / solve kept (the first
+    # IPM iteration of the first QP); it doubles as the warm-up
+    _, out_first = routed(ric, {k: capture(k, LONG_B) for k in ric}, step,
+                          carry0)
+    for k in ric:
+        if k not in captured:
+            fail(f"the long-horizon path made no full-width call of {k}")
+    f_args = captured["riccati_factor"][0]
+    s_args = captured["riccati_solve"][0]
+    V, K = f_args[0].shape[1], f_args[2].shape[1]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    carry, outs = carry0, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LONG_STEPS):
+        carry, out = step(carry)
+        outs.append(out)
+    torch.cuda.synchronize()
+    long_step_ms = (time.perf_counter() - t0) / LONG_STEPS * 1e3
+    counts = dict(rk.launch_counts)
+    k1_launches = ipm_kernel.launch_count
+    reads = scp.host_sync_count + qp.host_sync_count
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    for i, out in enumerate(outs):
+        finite_outputs(out, f"long-horizon step {i}")
+        if out.u_pred.shape != (LONG_B, LONG_HP, 4):
+            fail(f"long-horizon step {i}: unexpected output shapes")
+    feas = float(torch.stack([o.feasible.float().mean() for o in outs]).mean())
+    out_plain = routed(ric, plain, step, carry0)[1]
+    du = u_pred_diff(outs[0], out_plain)
+    du_med, du_p99 = float(du.median()), float(du.quantile(0.99))
+    for k in ric:
+        reports[k]["launches"] = counts[k]
+        reports[k]["launches_per_step"] = counts[k] / LONG_STEPS
+    emit({"phase": "long_horizon_path", "card": card, "B": LONG_B,
+          "n_veh": 4, "hp": LONG_HP, "n": 4 * LONG_HP + 1,
+          "mg": 6 * LONG_HP, "steps": LONG_STEPS,
+          "config": "tuned_f32 (qp_kkt=auto, 7 fixed IPM iterations), "
+                    "TUNED_F32_PHASES",
+          "feasible_share": feas, "feasible_floor": FEASIBLE_FLOOR,
+          "launches_per_step": {k: counts[k] / LONG_STEPS for k in ric},
+          "k1_launches": k1_launches,
+          "host_reads_per_step": reads / LONG_STEPS,
+          "step_ms": long_step_ms,
+          "solves_per_s": LONG_B / long_step_ms * 1e3,
+          "mean_scp_iters": float(torch.stack(
+              [o.scp_iters.float().mean() for o in outs]).mean()),
+          "peak_device_memory_mib": peak_mib,
+          "first_step_repeats": float(
+              (out_first.u_pred - outs[0].u_pred).abs().max()),
+          "step_vs_plain_u_pred_median": du_med,
+          "step_vs_plain_u_pred_p99": du_p99,
+          "step_vs_plain_u_pred_max_abs": float(du.max()),
+          "step_vs_plain_feasible_agree": float(
+              (outs[0].feasible == out_plain.feasible).float().mean()),
+          "u_pred_median_limit": UPRED_MEDIAN_LIMIT,
+          "u_pred_p99_limit": UPRED_ABS_LIMIT})
+    if k1_launches != 0:
+        fail(f"the long-horizon path launched K1 {k1_launches} times")
+    if min(counts.values()) == 0:
+        fail(f"the long-horizon path did not run the Riccati kernels: "
+             f"{counts}")
+    if feas < FEASIBLE_FLOOR:
+        fail(f"long-horizon path: feasible share {feas} below "
+             f"{FEASIBLE_FLOOR}")
+    if du_med > UPRED_MEDIAN_LIMIT or du_p99 > UPRED_ABS_LIMIT:
+        fail(f"long-horizon first step, kernels vs plain: u_pred median "
+             f"{du_med} (limit {UPRED_MEDIAN_LIMIT}), 99th percentile "
+             f"{du_p99} (limit {UPRED_ABS_LIMIT})")
+
+    # ---- the one-scenario banded step: circle-4, hp = 64, B = 1 ----
+    cfg1, data1 = builders.circle(4, dtype=torch.float32, device=dev)
+    cfg1 = config_lib.tuned_f32(cfg1.replace(hp=LONG_HP, hu=LONG_HP),
+                                qp_kkt="banded")
+    one_first: dict[str, tuple] = {}
+    captured.clear()
+    _, one_k = routed(ric, {k: capture(k, 1) for k in ric}, engine.mpc_step,
+                      cfg1, data1, engine.init_carry(cfg1, data1))
+    one_first.update(captured)
+    check_riccati("one_scenario_step_B1", one_first["riccati_factor"][0],
+                  one_first["riccati_solve"][0])
+    _, one_p = routed(ric, plain, engine.mpc_step, cfg1, data1,
+                      engine.init_carry(cfg1, data1))
+    cfg64, data64 = builders.circle(4, dtype=torch.float64, device=dev)
+    cfg64 = config_lib.tuned_f32(cfg64.replace(hp=LONG_HP, hu=LONG_HP),
+                                 qp_kkt="banded")
+    _, one_d = routed(ric, plain, engine.mpc_step, cfg64, data64,
+                      engine.init_carry(cfg64, data64))
+    one_kp = float(u_pred_diff(one_k, one_p).max())
+    one_kd = float(u_pred_diff(one_k, one_d).max())
+    one_pd = float(u_pred_diff(one_p, one_d).max())
+    reset_counts()
+    lats, feas1 = [], []
+    c_i = engine.init_carry(cfg1, data1)
+    for _ in range(LATENCY64_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LATENCY_REPS):
+            engine.mpc_step(cfg1, data1, c_i)
+        torch.cuda.synchronize()
+        lats.append((time.perf_counter() - t0) / LATENCY_REPS * 1e3)
+        c_i, out = engine.mpc_step(cfg1, data1, c_i)
+        finite_outputs(out, "one-scenario banded step")
+        feas1.append(float(out.feasible.float().mean()))
+    one_counts = dict(rk.launch_counts)
+    lats.sort()
+    one_rep = {"step0_vs_plain_u_pred_max_abs": one_kp,
+               "step0_vs_f64_u_pred_max_abs": one_kd,
+               "step0_plain_vs_f64_u_pred_max_abs": one_pd,
+               "step0_same_scp_iters": bool(
+                   (one_k.scp_iters == one_p.scp_iters).all()),
+               "step0_u_pred_limit": UPRED_ABS_LIMIT}
+    emit({"phase": "one_scenario_banded", "card": card, "n_veh": 4,
+          "hp": LONG_HP, "steps": LATENCY64_STEPS,
+          "config": "tuned_f32, qp_kkt=banded (solve_scp -> solve_qp banded)",
+          "feasible_share": sum(feas1) / len(feas1),
+          "launches_per_step": {
+              k: one_counts[k] / (LATENCY64_STEPS * (LATENCY_REPS + 1))
+              for k in ric},
+          "latency_reps": LATENCY_REPS,
+          "step_latency_ms_p50": lats[len(lats) // 2],
+          "step_latency_ms_p90": lats[min(len(lats) - 1,
+                                          int(0.90 * len(lats)))],
+          "step_latency_ms_max": lats[-1],
+          "step_latency_ms_min": lats[0], **one_rep})
+    if min(one_counts.values()) == 0:
+        fail(f"the one-scenario banded step did not run K6 / K7: "
+             f"{one_counts}")
+    if one_kp > UPRED_ABS_LIMIT or one_kd > 2 * one_pd + UPRED_ABS_LIMIT \
+            or bool((one_k.feasible != one_p.feasible).any()):
+        fail(f"one-scenario banded step 0, kernels vs plain: {one_rep}")
+
+    # ---- the Riccati kernels against their plain versions ----
+    ric_err = {}
+    for w in RICCATI_WIDTHS:
+        e_f, e_s = check_riccati(
+            f"long_horizon_first_ipm_iteration_B{w}",
+            tuple(a[:w].contiguous() for a in f_args),
+            tuple(a[:w].contiguous() for a in s_args))
+        if w == RICCATI_WIDTHS[0]:
+            ric_err = {"riccati_factor": e_f, "riccati_solve": e_s}
+    for case, (B_o, V_o, K_o) in (("odd_V3_B3", (3, 3, 16)),
+                                  ("single_vehicle_V1_B3", (3, 1, 20))):
+        r = riccati_inputs(B_o, V_o, K_o, seed=V_o)
+        t = {k: torch.as_tensor(v, device=dev) for k, v in r.items()}
+        t["a_blk"] = (0.9 * t["a_blk"]).contiguous()   # stable dynamics
+        fac = rk.riccati_factor(t["a_blk"], t["b_blk"], t["hy"], t["hu"])
+        check_riccati(case, (t["a_blk"], t["b_blk"], t["hy"], t["hu"]),
+                      (*fac, t["a_blk"], t["b_blk"], t["r"]))
+    for k, args in (("riccati_factor", f_args), ("riccati_solve", s_args)):
+        reports[k]["max_abs_err"], reports[k]["max_err_rel_to_scale"] = \
+            ric_err[k]
+        try:
+            real[k](*[a.double() for a in args])
+        except TypeError:
+            continue
+        fail(f"the {k} wrapper accepted float64 CUDA tensors")
+
+    # ---- the dense-fused path: frog (one vehicle), hp = 20, B = 1024 ----
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg_f, data_f = batch_lib.make_batch("frog", FROG_B, generator=gen,
+                                         dtype=torch.float32, device=dev)
+    cfg_f = config_lib.tuned_f32(cfg_f.replace(hp=FROG_HP, hu=FROG_HP))
+    carry_f = engine.init_carry(cfg_f, data_f)
+
+    def step_f(c):
+        return engine.mpc_step_batch(cfg_f, data_f, c, phases=phases)
+
+    # A first step with EVERY K2 launch held against the plain version and
+    # the float64 oracle on its own inputs; the first full-width launch is
+    # kept for the phases below. It doubles as the warm-up.
+    captured.clear()
+    shadowed: list[dict] = []
+
+    def shadow(*args, **kw):
+        captured.setdefault("ipm_iterate_dense", (args, kw))
+        out_k = real["ipm_iterate_dense"](*args, **kw)
+        shadowed.append(dense_errors(args, kw, out_k))
+        return out_k
+
+    _, out_first_f = routed(("ipm_iterate_dense",),
+                            {"ipm_iterate_dense": shadow}, step_f, carry_f)
+    if captured["ipm_iterate_dense"][0][1].shape[0] != FROG_B:
+        fail("the dense-fused path's first K2 call is not full-width")
+    d_args, d_kw = captured["ipm_iterate_dense"]
+    keys = ("B", "first_iteration", "one_iter_max_abs_err",
+            "one_iter_max_rel_err", "u_kernel_vs_plain_max",
+            "u_kernel_vs_plain_median", "u_kernel_vs_f64_max",
+            "u_plain_vs_f64_max")
+    firsts = [r for r in shadowed if r["first_iteration"]]
+    emit({"phase": "frog_first_step_every_launch_vs_plain",
+          "launches": len(shadowed), "first_iteration_launches": len(firsts),
+          "first_iteration_one_iter_max_rel_err": max(
+              r["one_iter_max_rel_err"] for r in firsts),
+          "u_kernel_vs_plain_median_max": max(
+              r["u_kernel_vs_plain_median"] for r in shadowed),
+          "frozen_flags_equal": all(r["frozen_equal"] for r in shadowed),
+          "limits": DENSE_LIMITS,
+          "per_launch": [[r[k] for k in keys] for r in shadowed],
+          "per_launch_keys": keys})
+    for i, r in enumerate(shadowed):
+        if dense_off_limits(r):
+            fail(f"frog first step, K2 launch {i}: the kernel disagrees with "
+                 f"its plain version on the same inputs: {r}")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    c, outs_f = carry_f, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FROG_STEPS):
+        c, out = step_f(c)
+        outs_f.append(out)
+    torch.cuda.synchronize()
+    frog_step_ms = (time.perf_counter() - t0) / FROG_STEPS * 1e3
+    k2 = ipm_kernel.dense_launch_count
+    k1_f = ipm_kernel.launch_count
+    reads_f = scp.host_sync_count + qp.host_sync_count
+    peak_f = torch.cuda.max_memory_allocated() / 2 ** 20
+    # the same chained steps through the plain version
+    c, outs_p = carry_f, []
+    for _ in range(FROG_STEPS):
+        c, out = routed(("ipm_iterate_dense",), plain, step_f, c)
+        outs_p.append(out)
+    for i, out in enumerate(outs_f):
+        finite_outputs(out, f"frog step {i}")
+        if out.u_pred.shape != (FROG_B, FROG_HP, 1):
+            fail(f"frog step {i}: unexpected output shapes")
+    feas_f = float(torch.stack([o.feasible.float().mean()
+                                for o in outs_f]).mean())
+    feas_p = float(torch.stack([o.feasible.float().mean()
+                                for o in outs_p]).mean())
+    data_f64 = tree_map(
+        lambda t: t.double() if t.is_floating_point() else t, data_f)
+    # (the dense-fused branch also multiplies by G through K5a / K5b,
+    # which are float32 only: the oracle routes them to their plain versions)
+    out_f64 = routed(("ipm_iterate_dense", "gmv", "gtmv"), plain,
+                     engine.mpc_step_batch, cfg_f, data_f64,
+                     engine.init_carry(cfg_f, data_f64), phases=phases)[1]
+    du = u_pred_diff(outs_f[0], outs_p[0])
+    du_k64, du_p64 = u_pred_diff(outs_f[0], out_f64), u_pred_diff(outs_p[0],
+                                                                  out_f64)
+    du_med, du_p99 = float(du.median()), float(du.quantile(0.99))
+    excess = du_k64 - (2 * du_p64 + UPRED_ABS_LIMIT)
+    n_beyond = int((excess > 0).sum())
+    p99_limit = max(UPRED_ABS_LIMIT, float(du_p64.quantile(0.99)))
+    k64_p99, p64_p99 = (float(d.quantile(0.99)) for d in (du_k64, du_p64))
+    k64_max, p64_max = float(du_k64.max()), float(du_p64.max())
+    f64_off = (k64_p99 > 2 * p64_p99 + UPRED_ABS_LIMIT
+               or k64_max > 2 * p64_max + UPRED_ABS_LIMIT)
+    worst = torch.argsort(excess, descending=True)[:8].tolist()
+    reports["ipm_iterate_dense"]["launches"] = k2
+    reports["ipm_iterate_dense"]["launches_per_step"] = k2 / FROG_STEPS
+    emit({"phase": "dense_fused_path", "card": card, "scenario": "frog",
+          "B": FROG_B, "n_veh": 1, "hp": FROG_HP,
+          "n": d_args[1].shape[2], "mg": d_args[1].shape[1],
+          "steps": FROG_STEPS,
+          "config": "tuned_f32 (qp_kkt=auto, 7 fixed IPM iterations), "
+                    "TUNED_F32_PHASES",
+          "k2_launches_per_step": k2 / FROG_STEPS, "k1_launches": k1_f,
+          "host_reads_per_step": reads_f / FROG_STEPS,
+          "step_ms": frog_step_ms,
+          "solves_per_s": FROG_B / frog_step_ms * 1e3,
+          "peak_device_memory_mib": peak_f,
+          "feasible_share": feas_f, "feasible_share_plain": feas_p,
+          "feasible_floor": feas_p - FROG_FEASIBLE_SLACK,
+          "mean_scp_iters": float(torch.stack(
+              [o.scp_iters.float().mean() for o in outs_f]).mean()),
+          "step_vs_plain_u_pred_median": du_med,
+          "step_vs_plain_u_pred_p99": du_p99,
+          "step_vs_plain_u_pred_max_abs": float(du.max()),
+          "step_vs_f64_u_pred_p99": k64_p99,
+          "step_vs_f64_u_pred_max_abs": k64_max,
+          "plain_step_vs_f64_u_pred_p99": p64_p99,
+          "plain_step_vs_f64_u_pred_max_abs": p64_max,
+          "instances_beyond_2x_plain_vs_f64_plus_limit": n_beyond,
+          # [kernel vs plain, kernel vs f64, plain vs f64, SCP iterations of
+          #  the kernel step, of the plain step, of the float64 step]
+          "step_vs_f64_worst": [
+              [float(du[i]), float(du_k64[i]), float(du_p64[i]),
+               int(outs_f[0].scp_iters[i]), int(outs_p[0].scp_iters[i]),
+               int(out_f64.scp_iters[i])] for i in worst],
+          "first_step_repeats": float(
+              (out_first_f.u_pred - outs_f[0].u_pred).abs().max()),
+          "u_pred_median_limit": UPRED_MEDIAN_LIMIT,
+          "u_pred_p99_limit": p99_limit})
+    if k2 == 0 or k2 % cfg_f.qp_fixed_iters or k1_f != 0:
+        fail(f"the dense-fused path launched K2 {k2} times and K1 {k1_f}")
+    if feas_f < feas_p - FROG_FEASIBLE_SLACK:
+        fail(f"dense-fused path: feasible share {feas_f}, the plain "
+             f"versions' {feas_p}")
+    if du_med > UPRED_MEDIAN_LIMIT or du_p99 > p99_limit or f64_off:
+        fail(f"dense-fused first step, kernel vs plain: u_pred median "
+             f"{du_med} (limit {UPRED_MEDIAN_LIMIT}), 99th percentile "
+             f"{du_p99} (limit {p99_limit}); distance from the float64 "
+             f"step p99 {k64_p99} / max {k64_max} against the plain "
+             f"step's {p64_p99} / {p64_max} (limit 2 x + "
+             f"{UPRED_ABS_LIMIT})")
+
+    # ---- K2 against its plain version ----
+    for w in DENSE_WIDTHS:
+        one = check_dense(f"frog_first_ipm_iteration_B{w}",
+                          [None if a is None else a[:w].contiguous()
+                           for a in d_args], d_kw)
+        if w == DENSE_WIDTHS[0]:
+            reports["ipm_iterate_dense"]["max_abs_err"] = one
+    for case, (B_o, mg_o, nb_o, d_o, schur, blocks, n_cor) in (
+            ("odd_n15_dense_P_B3", (3, 45, 2, 7, True, False, 1)),
+            ("odd_n15_no_schur_B3", (3, 45, 2, 7, False, True, 2)),
+            ("g_in_device_memory_n65_B8", (8, 900, 4, 16, True, True, 1))):
+        a = dense_kernel_inputs(B_o, mg_o, nb_o, d_o, seed=mg_o + n_cor,
+                                schur=schur, blocks=blocks)
+        check_dense(case, [None if a[k] is None
+                           else torch.as_tensor(a[k], device=dev)
+                           for k in DENSE_ARG_ORDER],
+                    dict(tol=1e-6, reg_rel=3e-6, n_cor=n_cor,
+                         schur_slack=schur))
+    try:
+        real["ipm_iterate_dense"](*[None if t is None else t.double()
+                                    for t in d_args], **d_kw)
+    except TypeError:
+        pass
+    else:
+        fail("the dense-G wrapper accepted float64 CUDA tensors")
+
+    # ---- times ----
+    times = {"phase": "riccati_dense_times", "card": card,
+             "long_horizon_step_ms": long_step_ms,
+             "frog_step_ms": frog_step_ms, "kernels": {}}
+    B_d, mg_d, n_d = d_args[1].shape
+    pb_d = d_args[3]
+    nb_d, dd = (0, 0) if pb_d is None else tuple(pb_d.shape[1:3])
+    for k, args_all, widths in (
+            ("riccati_factor", f_args, RICCATI_WIDTHS),
+            ("riccati_solve", s_args, RICCATI_WIDTHS),
+            ("ipm_iterate_dense", d_args, DENSE_WIDTHS)):
+        kw = d_kw if k == "ipm_iterate_dense" else {}
+        times["kernels"][k] = {}
+        for w in widths:
+            args = tuple(None if a is None else a[:w].contiguous()
+                         for a in args_all)
+            # device time by CUDA-graph replay (see graph_ms), the plain
+            # version by CUDA events around its calls (host-bound), as K1's
+            cell = {"ms": graph_ms(lambda: real[k](*args, **kw), 20),
+                    "plain_ms": time_cuda(lambda: plain[k](*args, **kw), 3,
+                                          warmup=1)}
+            if k == "ipm_iterate_dense":
+                work = dense_work(w, mg_d, n_d, nb_d, dd,
+                                  kw["schur_slack"], kw["n_cor"])
+            else:
+                work = riccati_work(k, w, V, K)
+            cell["bound_ms"], cell["bound_by"] = bound_of(*work)
+            cell["call_ms"] = time_cuda(lambda: real[k](*args, **kw), 20)
+            times["kernels"][k][str(w)] = cell
+            if w == widths[0]:
+                reports[k].update(cell)
+    emit(times)
+    reset_counts()
+    return [reports[k] for k in ("riccati_factor", "riccati_solve",
+                                 "ipm_iterate_dense")]
 
 
 def main() -> None:
@@ -1080,7 +1768,10 @@ def main() -> None:
     # ---- phases 6-10: the Cholesky, solve and matvec kernels ----
     linalg_reports = linalg_phases(dev, card, B, N_VEH, HP, SEED)
 
-    emit({"kernels": [kernel_report] + linalg_reports})
+    # ---- phases 11-15: the Riccati sweeps and the dense-G iteration ----
+    new_reports = long_horizon_and_dense_phases(dev, card, SEED)
+
+    emit({"kernels": [kernel_report] + linalg_reports + new_reports})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,9 @@ There are no weights. ``from_numpy`` functions turn numpy copies of
 ``scp_tpu``'s containers — given as dicts / tuples of numpy arrays, field by
 field — into this package's containers on a device and dtype; ``to_numpy``
 goes the other way for results (a ``QPSolution``, ``SCPResult``,
-``SCPTrace`` or ``StepOutput`` becomes a dict of arrays). The module takes numpy arrays and dicts
-only; callers do the ``np.asarray(jax_array)`` step themselves.
+``SCPTrace``, ``RiccatiFactor`` or ``StepOutput`` becomes a dict of arrays).
+The module takes numpy arrays and dicts only; callers do the
+``np.asarray(jax_array)`` step themselves.
 
 Batch axis: this package's containers always carry a leading batch axis.
 ``batched=False`` marks unbatched (single-instance) numpy input, which gets
@@ -22,6 +23,7 @@ import torch
 from scp_tpu_torch.config import SCPConfig, ScenarioData, VehicleParams
 from scp_tpu_torch.ops.constraints import ConstraintSystem
 from scp_tpu_torch.sim.engine import SimCarry
+from scp_tpu_torch.solvers.qp import BandedData
 from scp_tpu_torch.solvers.scp import SCPProblem
 
 _INT_FIELDS = {"pair_i", "pair_j"}
@@ -97,14 +99,27 @@ def system_from_numpy(sys_, dtype=torch.float64, device="cuda",
 
 def problem_from_numpy(problem, dtype=torch.float64, device="cuda",
                        batched: bool = True) -> SCPProblem:
-    """``SCPProblem`` from a numpy field dict / tuple (a ``banded_pre`` entry
-    is ignored: the banded path is not ported)."""
+    """``SCPProblem`` from a numpy field dict / tuple, with its
+    ``banded_pre`` stage statement (a 4-tuple of arrays) when it has one."""
     f = _fields(problem)
+    pre = f.get("banded_pre")
     return SCPProblem(
         sys=system_from_numpy(f["sys"], dtype, device, batched),
         phi0=_tensor("phi0", f["phi0"], dtype, device, batched),
         psi0=_tensor("psi0", f["psi0"], dtype, device, batched),
-        gamma0=_tensor("gamma0", f["gamma0"], dtype, device, batched))
+        gamma0=_tensor("gamma0", f["gamma0"], dtype, device, batched),
+        banded_pre=None if pre is None else tuple(
+            _tensor("banded_pre", a, dtype, device, batched) for a in pre))
+
+
+def banded_from_numpy(banded, dtype=torch.float64, device="cuda",
+                      batched: bool = True) -> BandedData:
+    """``solvers.qp.BandedData`` from a numpy field dict / tuple of
+    ``scp_tpu.solvers.qp.BandedData``'s fields."""
+    if not isinstance(banded, dict) and not hasattr(banded, "_fields"):
+        banded = dict(zip(BandedData._fields, banded))
+    return BandedData(**{k: _tensor(k, v, dtype, device, batched)
+                         for k, v in _fields(banded).items()})
 
 
 def qp_from_numpy(operands: dict, dtype=torch.float64, device="cuda",

@@ -11,6 +11,10 @@
 // sigma = (mu_aff / mu)^3, the exact (1 - alpha) primal-residual recurrence
 // and freeze-on-stall / converged / non-finite.
 //
+// The step algebra from the factorization on (predictor, corrector,
+// correctors, step lengths, freeze) is shared with the dense-G kernel
+// through ipm_common.cuh; this file forms the KKT matrix from the slabs.
+//
 // Design. ONE CTA PER QP INSTANCE. The whole per-instance working set —
 // the nu x nu factor, the slabs, the P blocks and ~20 vectors — lives in
 // dynamic shared memory for the whole solve (about 66 KB at P = 6,
@@ -41,6 +45,8 @@
 #include <math_constants.h>
 
 #include "chol.cuh"
+#include "ipm_common.cuh"
+#include "smem.cuh"
 
 namespace {
 
@@ -65,8 +71,13 @@ __device__ unsigned long long g_section_cycles[16];
 #define SECTION_INIT()
 #define SECTION(i)
 #endif
-enum { kSecLoad, kSecDiag, kSecForm, kSecChol, kSecRhs, kSecSolve,
-       kSecVector, kSecUpdate, kSecStore, kSecCount };
+using scpk::kSecLoad;
+using scpk::kSecDiag;
+using scpk::kSecForm;
+using scpk::kSecChol;
+using scpk::kSecUpdate;
+using scpk::kSecStore;
+using scpk::kSecCount;
 
 struct Shape {
   int P, S, hp, hu, V;      // pairs, single-block slabs, horizon, block, vehicles
@@ -102,54 +113,9 @@ __host__ __device__ inline long smem_words(const Shape& d) {
   return w;
 }
 
-__device__ inline float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ inline float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block-wide sum / min of one value per thread; every thread gets the result.
-__device__ inline float block_sum(float v, float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarp = blockDim.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = 0.0f;
-  for (int w = 0; w < nwarp; ++w) t += red[w];
-  return t;
-}
-
-__device__ inline float block_min(float v, float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarp = blockDim.x >> 5;
-  v = warp_min(v);
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = red[0];
-  for (int w = 1; w < nwarp; ++w) t = fminf(t, red[w]);
-  return t;
-}
-
-// -v / dv where the step shrinks the variable, +inf elsewhere. A NaN step is
-// not "< 0" and maps to +inf, as in the TPU kernel; the update then goes
-// non-finite and the finite check freezes the instance.
-__device__ inline float step_ratio(float v, float dv) {
-  return dv < 0.0f ? -v / dv : CUDART_INF_F;
-}
-
-struct Smem {
-  float *K, *gi, *gj, *gob, *pb, *gsl;
-  float *s, *z, *rp, *w, *a1, *a2, *a3, *dz, *ds;
-  float *q, *pdiag, *x, *px, *dsc, *kb, *rhs, *dx, *dinv;
-  float* red;
+// The shared vectors (scpk::IpmVecs) plus the slabs, P blocks and tables.
+struct Smem : scpk::IpmVecs {
+  float *gi, *gj, *gob, *pb, *gsl;
   int *pair_of, *pi, *pj, *ov;
 };
 
@@ -233,66 +199,21 @@ __device__ inline float row_dot(const Smem& sm, const Shape& d,
   return acc + sm.gsl[r] * xv[d.nu];
 }
 
-// rhs[c] = -(px + q + Ghat^T v) with Ghat = [G; I; -I]; `v` spans all m rows.
-__device__ inline void build_rhs(const Smem& sm, const Shape& d,
-                                 const float* v, bool with_cost) {
-  for (int c = threadIdx.x; c < d.n; c += blockDim.x) {
-    float gt;
-    if (c < d.nu) {
-      gt = col_accum<false>(sm, d, v, c);
-    } else {
-      gt = 0.0f;
-      for (int r = 0; r < d.mg; ++r) gt += sm.gsl[r] * v[r];
-    }
-    const float box = v[d.mg + c], boxl = v[d.mg + d.n + c];
-    const float head = with_cost ? (sm.px[c] + sm.q[c]) + gt : gt;
-    sm.rhs[c] = -((head + box) - boxl);
+// The slab product G x / G^T v of scpk::mehrotra_step (the slack column is
+// the equilibrated gsl).
+struct SlabRows {
+  const Smem& sm;
+  const Shape& d;
+  __device__ float col(const float* v, int c) const {
+    if (c < d.nu) return col_accum<false>(sm, d, v, c);
+    float gt = 0.0f;
+    for (int r = 0; r < d.mg; ++r) gt += sm.gsl[r] * v[r];
+    return gt;
   }
-}
-
-// dx = K^-1 rhs through the Jacobi scaling and the bordered back-
-// substitution for the slack; in place in sm.rhs. All threads call.
-__device__ inline void solve_kkt(const Smem& sm, const Shape& d,
-                                 float inv_kappa) {
-  __syncthreads();
-  const float rw = sm.dsc[d.nu] * sm.rhs[d.nu];
-  __syncthreads();
-  for (int c = threadIdx.x; c < d.nu; c += blockDim.x)
-    sm.rhs[c] = sm.dsc[c] * sm.rhs[c] - sm.kb[c] * (inv_kappa * rw);
-  scpk::chol_solve_inplace(sm.K, d.nu, d.ldk, sm.dinv, sm.rhs);
-  float part = 0.0f;
-  for (int c = threadIdx.x; c < d.nu; c += blockDim.x)
-    part += sm.kb[c] * sm.rhs[c];
-  const float dot = block_sum(part, sm.red);
-  const float xw = (rw - dot) * inv_kappa;
-  __syncthreads();
-  for (int c = threadIdx.x; c < d.n; c += blockDim.x)
-    sm.rhs[c] = sm.dsc[c] * (c < d.nu ? sm.rhs[c] : xw);
-  __syncthreads();
-}
-
-// out[r] = (Ghat x)[r] over all m rows.
-__device__ inline void ghat_mv(const Smem& sm, const Shape& d,
-                               const float* xv, float* out) {
-  for (int r = threadIdx.x; r < d.m; r += blockDim.x) {
-    float v;
-    if (r < d.mg) v = row_dot(sm, d, xv, r);
-    else if (r < d.mg + d.n) v = xv[r - d.mg];
-    else v = -xv[r - d.mg - d.n];
-    out[r] = v;
+  __device__ float row(const float* x, int r) const {
+    return row_dot(sm, d, x, r);
   }
-}
-
-// min(1, 0.99 * min ratio) over the s rows and the z rows.
-__device__ inline float step_length(const Smem& sm, const Shape& d,
-                                    const float* ds, const float* dz) {
-  float r = CUDART_INF_F;
-  for (int i = threadIdx.x; i < d.m; i += blockDim.x) {
-    r = fminf(r, step_ratio(sm.s[i], ds[i]));
-    r = fminf(r, step_ratio(sm.z[i], dz[i]));
-  }
-  return fminf(1.0f, 0.99f * block_min(r, sm.red));
-}
+};
 
 __device__ inline void copy_in(float* dst, const float* src, long count) {
   for (long i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
@@ -350,17 +271,15 @@ ipm_struct_kernel(Args a, Shape d) {
   const float inv_kappa = 1.0f / (1.0f + a.reg_rel);
   const float one_reg = 1.0f + a.reg_rel;
   float mu = mu_prev;
+  const scpk::IpmDims dims{mg, n, m, nu, d.ldk, true};
+  const SlabRows rows{sm, d};
+  auto mark = [&](int i) { SECTION(i); };
   __syncthreads();
   SECTION(kSecLoad);
 
   for (int it = 0; it < a.n_iters; ++it) {
     // ---- barrier weights and mu ----
-    float part = 0.0f;
-    for (int r = tid; r < m; r += nt) {
-      sm.w[r] = sm.z[r] / sm.s[r];
-      part += sm.s[r] * sm.z[r];
-    }
-    mu = block_sum(part, sm.red) / (float)m;
+    mu = scpk::weights_and_mu(sm, dims);
 
     // ---- P x, analytic KKT diagonal, Jacobi scale ----
     for (int c = tid; c < n; c += nt) {
@@ -438,129 +357,8 @@ ipm_struct_kernel(Args a, Shape d) {
     scpk::chol_lower_inplace(sm.K, nu, d.ldk, sm.dinv);
     SECTION(kSecChol);
 
-    // ---- predictor: rc = s z  =>  t = w rp - z ----
-    for (int r = tid; r < m; r += nt) {
-      const float t = sm.w[r] * sm.rp[r] - sm.z[r];
-      sm.a3[r] = sm.z[r] + t;
-    }
-    __syncthreads();
-    build_rhs(sm, d, sm.a3, true);
-    SECTION(kSecRhs);
-    solve_kkt(sm, d, inv_kappa);
-    SECTION(kSecSolve);
-    ghat_mv(sm, d, sm.rhs, sm.a3);
-    __syncthreads();
-    for (int r = tid; r < m; r += nt) {
-      const float dza = sm.w[r] * (sm.a3[r] + sm.rp[r]) - sm.z[r];
-      sm.a2[r] = dza;
-      sm.a1[r] = -sm.s[r] - sm.s[r] * dza / sm.z[r];
-    }
-    __syncthreads();
-    float a_p, a_d;
-    {
-      float rs = CUDART_INF_F, rz = CUDART_INF_F;
-      for (int r = tid; r < m; r += nt) {
-        rs = fminf(rs, step_ratio(sm.s[r], sm.a1[r]));
-        rz = fminf(rz, step_ratio(sm.z[r], sm.a2[r]));
-      }
-      a_p = fminf(1.0f, 0.99f * block_min(rs, sm.red));
-      a_d = fminf(1.0f, 0.99f * block_min(rz, sm.red));
-    }
-    part = 0.0f;
-    for (int r = tid; r < m; r += nt)
-      part += (sm.s[r] + a_p * sm.a1[r]) * (sm.z[r] + a_d * sm.a2[r]);
-    const float mu_aff = block_sum(part, sm.red) / (float)m;
-    float sigma = mu_aff / fmaxf(mu, 1e-30f);
-    sigma = sigma * sigma * sigma;
-    const float smu = sigma * mu;
-
-    // ---- corrector: rc = s z + ds_a dz_a - sigma mu ----
-    for (int r = tid; r < m; r += nt) {
-      const float rc = sm.s[r] * sm.z[r] + sm.a1[r] * sm.a2[r] - smu;
-      sm.a1[r] = rc;
-      const float t = sm.w[r] * sm.rp[r] - rc / sm.s[r];
-      sm.a3[r] = sm.z[r] + t;
-    }
-    __syncthreads();
-    SECTION(kSecVector);
-    build_rhs(sm, d, sm.a3, true);
-    SECTION(kSecRhs);
-    solve_kkt(sm, d, inv_kappa);
-    SECTION(kSecSolve);
-    ghat_mv(sm, d, sm.rhs, sm.a3);
-    for (int c = tid; c < n; c += nt) sm.dx[c] = sm.rhs[c];
-    __syncthreads();
-    for (int r = tid; r < m; r += nt) {
-      const float rc = sm.a1[r];
-      const float dz = sm.w[r] * (sm.a3[r] + sm.rp[r]) - rc / sm.s[r];
-      sm.dz[r] = dz;
-      sm.ds[r] = -(rc + sm.s[r] * dz) / sm.z[r];
-    }
-    __syncthreads();
-    float alpha = step_length(sm, d, sm.ds, sm.dz);
-
-    // ---- Gondzio centrality correctors on the same factor ----
-    for (int cor = 0; cor < a.n_cor; ++cor) {
-      const float at = fminf(alpha + 0.1f, 1.0f);
-      const float lo = 0.1f * smu, hi = 10.0f * smu;
-      __syncthreads();
-      for (int r = tid; r < m; r += nt) {
-        const float v = (sm.s[r] + at * sm.ds[r]) * (sm.z[r] + at * sm.dz[r]);
-        const float drc = v - fminf(fmaxf(v, lo), hi);
-        sm.a1[r] = drc;
-        sm.a2[r] = -drc / sm.s[r];
-      }
-      __syncthreads();
-      SECTION(kSecVector);
-      build_rhs(sm, d, sm.a2, false);
-      SECTION(kSecRhs);
-      solve_kkt(sm, d, inv_kappa);
-      SECTION(kSecSolve);
-      ghat_mv(sm, d, sm.rhs, sm.a3);
-      __syncthreads();
-      for (int r = tid; r < m; r += nt) {
-        const float dzc = sm.w[r] * sm.a3[r] + sm.a2[r];
-        const float dsc = -(sm.a1[r] + sm.s[r] * dzc) / sm.z[r];
-        sm.a2[r] = sm.dz[r] + dzc;
-        sm.a1[r] = sm.ds[r] + dsc;
-      }
-      __syncthreads();
-      const float alpha2 = step_length(sm, d, sm.a1, sm.a2);
-      if (alpha2 >= alpha + 0.01f) {  // uniform over the CTA
-        for (int r = tid; r < m; r += nt) {
-          sm.dz[r] = sm.a2[r];
-          sm.ds[r] = sm.a1[r];
-        }
-        for (int c = tid; c < n; c += nt) sm.dx[c] += sm.rhs[c];
-        alpha = alpha2;
-      }
-    }
-    __syncthreads();
-
-    SECTION(kSecVector);
-    // ---- step, finite check, freeze bookkeeping ----
-    float bad = 0.0f;
-    for (int c = tid; c < n; c += nt)
-      if (!isfinite(sm.x[c] + alpha * sm.dx[c])) bad = 1.0f;
-    for (int r = tid; r < m; r += nt) {
-      if (!isfinite(sm.s[r] + alpha * sm.ds[r])) bad = 1.0f;
-      if (!isfinite(sm.z[r] + alpha * sm.dz[r])) bad = 1.0f;
-    }
-    const bool ok = block_sum(bad, sm.red) == 0.0f;
-    const bool stalled = (mu > 0.7f * mu_prev) && (mu < a.tol_stall);
-    const bool converged = mu < a.tol;
-    frozen = frozen || stalled || converged || !ok;
-    if (!frozen) {
-      const float shrink = 1.0f - alpha;
-      for (int c = tid; c < n; c += nt) sm.x[c] += alpha * sm.dx[c];
-      for (int r = tid; r < m; r += nt) {
-        sm.s[r] += alpha * sm.ds[r];
-        sm.z[r] += alpha * sm.dz[r];
-        sm.rp[r] *= shrink;
-      }
-    }
-    mu_prev = mu;
-    __syncthreads();
+    scpk::mehrotra_step(rows, sm, dims, mu, mu_prev, frozen, a.n_cor, a.tol,
+                        a.tol_stall, inv_kappa, mark);
     SECTION(kSecUpdate);
   }
 
@@ -585,6 +383,8 @@ ipm_struct_kernel(Args a, Shape d) {
   }
   SECTION(kSecStore);
 }
+
+int ipm_struct_smem_granted[scpk::kMaxDevices];
 
 }  // namespace
 
@@ -618,9 +418,8 @@ int ipm_struct_launch(
   a.rpgo = rpgo; a.rpuo = rpuo; a.rplo = rplo; a.scalo = scalo;
   a.n_iters = n_iters; a.n_cor = n_cor;
   a.tol = tol; a.tol_stall = tol_stall; a.reg_rel = reg_rel;
-  cudaError_t err = cudaFuncSetAttribute(
-      ipm_struct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes);
+  cudaError_t err = scpk::ensure_dyn_smem(ipm_struct_kernel,
+                                          ipm_struct_smem_granted, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   ipm_struct_kernel<<<B, kThreads, smem_bytes, (cudaStream_t)stream>>>(a, d);
   return (int)cudaGetLastError();

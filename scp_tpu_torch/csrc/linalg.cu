@@ -27,6 +27,7 @@
 #include <math_constants.h>
 
 #include "chol.cuh"
+#include "smem.cuh"
 
 namespace {
 
@@ -140,29 +141,8 @@ gtmv_batched_kernel(const float* __restrict__ G, const float* __restrict__ v,
   }
 }
 
-// Raises a kernel's dynamic shared-memory limit only when a launch needs
-// more than the largest size already granted on the current device (48 KB
-// are granted without asking), so the usual launch makes no attribute call.
-constexpr int kMaxDevices = 64;
-constexpr int kDefaultDynSmem = 48 * 1024;
-
-template <typename Kernel>
-cudaError_t ensure_dyn_smem(Kernel kernel, int* granted, long smem_bytes) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  const int have = granted[dev] > kDefaultDynSmem ? granted[dev]
-                                                  : kDefaultDynSmem;
-  if (smem_bytes <= have) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
-  if (err == cudaSuccess) granted[dev] = (int)smem_bytes;
-  return err;
-}
-
-int chol_smem_granted[kMaxDevices];
-int solve_smem_granted[kMaxDevices];
+int chol_smem_granted[scpk::kMaxDevices];
+int solve_smem_granted[scpk::kMaxDevices];
 
 }  // namespace
 
@@ -176,7 +156,8 @@ int chol_batched_launch(const float* K, float* L, int B, int n,
   if (smem_bytes != (long)sizeof(float) * ((long)n * odd_ld(n) + n + 1))
     return -1;
   cudaError_t err =
-      ensure_dyn_smem(chol_batched_kernel, chol_smem_granted, smem_bytes);
+      scpk::ensure_dyn_smem(chol_batched_kernel, chol_smem_granted,
+                            smem_bytes);
   if (err != cudaSuccess) return (int)err;
   chol_batched_kernel<<<B, kCholThreads, smem_bytes, (cudaStream_t)stream>>>(
       K, L, n);
@@ -187,7 +168,7 @@ int cho_solve_batched_launch(const float* L, const float* b, float* x, int B,
                              int n, long smem_bytes, void* stream) {
   if (smem_bytes != (long)sizeof(float) * ((long)n * odd_ld(n) + 2 * n))
     return -1;
-  cudaError_t err = ensure_dyn_smem(cho_solve_batched_kernel,
+  cudaError_t err = scpk::ensure_dyn_smem(cho_solve_batched_kernel,
                                     solve_smem_granted, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cho_solve_batched_kernel<<<B, kSolveThreads, smem_bytes,

@@ -8,8 +8,10 @@ keyed by a hash of every source and header, the flags and the defines, so an
 edit rebuilds it and nothing else does. A failing build or load raises; no
 caller carries on without the library.
 
-The kernel wrappers (``ops/ipm_kernel.py``, ``ops/linalg_kernel.py``) call
-:func:`load_library` inside the call that launches, never at import.
+The kernel wrappers (``ops/ipm_kernel.py``, ``ops/linalg_kernel.py``,
+``ops/riccati_kernel.py``) call :func:`load_library` inside the call that
+launches, never at import; :func:`check_operands` and :func:`launch` are
+their shared operand check and launch.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 # Dynamic shared memory a block may use on Hopper (227 KB).
 SMEM_LIMIT_BYTES = 232_448
@@ -100,3 +104,43 @@ def load_library():
     if _lib is None:
         _lib = ctypes.CDLL(str(build_library()))
     return _lib
+
+
+def check_operands(name: str, shapes) -> bool:
+    """``shapes``: (tensor, wanted shape) pairs; the first sets dtype and
+    device. Returns True when the kernel takes the call (CUDA tensors):
+    float32 and contiguous, else ``TypeError`` / ``ValueError``. CPU tensors
+    return False (the caller runs the plain version)."""
+    first = shapes[0][0]
+    for t, shape in shapes:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{name}: shape {tuple(t.shape)}, want {tuple(shape)}")
+        if t.dtype != first.dtype or t.device != first.device:
+            raise ValueError(f"{name}: dtype/device differ between operands")
+    if min(first.shape) == 0:
+        raise ValueError(f"{name}: empty operand {tuple(first.shape)}")
+    if first.device.type != "cuda":
+        return False
+    if first.dtype != torch.float32:
+        raise TypeError(
+            f"the CUDA {name} kernel is float32 only, got {first.dtype}")
+    for t, _ in shapes:
+        if not t.is_contiguous():
+            raise ValueError(f"the CUDA {name} kernel needs contiguous "
+                             f"tensors")
+    return True
+
+
+def launch(symbol: str, argtypes: list, first: torch.Tensor, *args) -> None:
+    """Call the library's launcher ``symbol`` with ``args`` and the current
+    stream of ``first``'s device; a non-zero return raises."""
+    fn = getattr(load_library(), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(first.device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{symbol} failed with CUDA error {err} (args {args[-4:]})")

@@ -1,5 +1,5 @@
 """Structured QCQP collision constraints on batched tensors (counterpart of
-``scp_tpu/ops/constraints.py``).
+``scp_tpu/ops/constraints.py``, ``linearize_ycoefs`` included).
 
 Each pair constraint ``(i, j, k)`` is::
 
@@ -168,6 +168,22 @@ def linearize_slabs(sys: ConstraintSystem, u: torch.Tensor,
     if with_values:
         return gi, gj, gv, rhs, c_pair, c_obst
     return gi, gj, gv, rhs
+
+
+def linearize_ycoefs(sys: ConstraintSystem, u: torch.Tensor):
+    """POSITION-space coefficients of the linearized rows at ``u``: the input
+    of the banded (Riccati) KKT path (``ops/riccati.py``). Pair row (p, k)
+    acts on the stage positions as ``y_pair[p,k]·Δy_k^i - y_pair[p,k]·Δy_k^j``
+    and obstacle row (v, o, k) as ``y_obst[v,o,k]·Δy_k^v`` — the rows
+    :func:`linearize_slabs` returns already multiplied into the condensed
+    blocks. Coupling masks are applied (masked rows are zero rows). Returns
+    ``(y_pair (B, P, K, NY), y_obst (B, V, O, K, NY))``."""
+    pos = positions(sys, u)
+    d_pair = _pair_diff(pos, sys.b3.shape[1])
+    y_pair = -2.0 * d_pair * sys.pair_mask[:, :, None, None]
+    d_obst = pos[:, :, None] - sys.obst_pos[:, None]
+    y_obst = -2.0 * d_obst * sys.obst_mask[:, :, :, None, None]
+    return y_pair, y_obst
 
 
 def scatter_slabs(v: int, gi, gj, gob, dtype=None):

@@ -1,6 +1,12 @@
-"""Fused structured IPM iterations: the Hopper kernel's wrapper and its plain
-PyTorch version (counterpart of ``scp_tpu/ops/pallas_linalg.py::
-ipm_iterate_lane_struct``).
+"""Fused IPM iterations: the Hopper kernels' wrappers and their plain PyTorch
+versions (counterparts of ``scp_tpu/ops/pallas_linalg.py::
+ipm_iterate_lane_struct`` and ``ipm_iterate_lane``).
+
+:func:`ipm_iterate_struct` (K1, ``csrc/ipm_struct.cu``) is described first;
+:func:`ipm_iterate_dense` (K2, ``csrc/ipm_dense.cu``) runs ONE iteration per
+call on a pre-formed KKT product and a dense G (see its docstring). Both
+kernels share their step algebra (``csrc/ipm_common.cuh``), and so do the
+plain versions (:func:`_plain_step`).
 
 All ``n_iters`` Mehrotra predictor-corrector iterations of every QP of a
 batch run in one call: slab matvecs, the analytic KKT diagonal, the
@@ -39,16 +45,18 @@ import torch
 from scp_tpu_torch.ops import _cuda_build
 from scp_tpu_torch.ops._cuda_build import SMEM_LIMIT_BYTES
 
-# Launches of the CUDA kernel since the last reset (incremented where the
-# kernel is launched and nowhere else).
+# Launches of the structured kernel (K1) and of the dense-G kernel (K2) since
+# the last reset (incremented where each kernel is launched and nowhere else).
 launch_count = 0
+dense_launch_count = 0
 
 _tables: dict = {}
 
 
 def reset_launch_count() -> None:
-    global launch_count
+    global launch_count, dense_launch_count
     launch_count = 0
+    dense_launch_count = 0
 
 
 def smem_bytes(P: int, S: int, hp: int, hu: int, V: int) -> int:
@@ -64,16 +72,23 @@ def smem_bytes(P: int, S: int, hp: int, hu: int, V: int) -> int:
     return 4 * words
 
 
+def fits_smem(P: int, S: int, hp: int, hu: int, V: int) -> bool:
+    """Whether the structured kernel's per-instance working set fits a
+    block's shared memory (the ``kkt="auto"`` route takes the banded KKT
+    path where it does not)."""
+    return smem_bytes(P, S, hp, hu, V) <= SMEM_LIMIT_BYTES
+
+
 def check_smem_gate(P: int, S: int, hp: int, hu: int, V: int) -> int:
-    """The port's gate for the fused dense kernel: shapes whose per-instance
-    working set exceeds a block's shared memory are refused loudly (this is
-    where the banded KKT path will take over under ``qp_kkt="auto"``)."""
+    """The structured kernel's gate: shapes whose per-instance working set
+    exceeds a block's shared memory are refused loudly."""
     need = smem_bytes(P, S, hp, hu, V)
     if need > SMEM_LIMIT_BYTES:
         raise NotImplementedError(
-            f"banded KKT path not ported yet: the fused dense IPM kernel "
-            f"needs {need} bytes of shared memory per instance at P={P}, "
-            f"S={S}, hp={hp}, hu={hu}, V={V} (limit {SMEM_LIMIT_BYTES})")
+            f"the fused structured IPM kernel needs {need} bytes of shared "
+            f"memory per instance at P={P}, S={S}, hp={hp}, hu={hu}, V={V} "
+            f"(limit {SMEM_LIMIT_BYTES}); qp_kkt='auto' with a banded stage "
+            f"statement takes the banded KKT path there")
     return need
 
 
@@ -193,6 +208,157 @@ def _scatter_dense(gi, gj, gob, pairs, obst_veh, V):
     return G.reshape(B, (P + S) * hp, V * hu)
 
 
+def _steplen(v, dv):
+    neg = dv < 0
+    inf = torch.full((), float("inf"), dtype=v.dtype, device=v.device)
+    ratio = torch.where(neg, -v / torch.where(neg, dv, -torch.ones_like(dv)),
+                        inf)
+    return torch.clamp(0.99 * ratio.amin(dim=1), max=1.0)
+
+
+def _steplen3(vs, dvs):
+    out = _steplen(vs[0], dvs[0])
+    for v, dv in zip(vs[1:], dvs[1:]):
+        out = torch.minimum(out, _steplen(v, dv))
+    return out
+
+
+def _plain_factor(K):
+    """Cholesky of the scaled KKT matrices; a failed factorization poisons
+    the instance (NaN), which the step's finite check turns into a freeze —
+    as a NaN pivot does in a kernel."""
+    L, info = torch.linalg.cholesky_ex(K)
+    return torch.where((info != 0)[:, None, None],
+                       torch.full_like(L, float("nan")), L)
+
+
+def _plain_solver(L, dsc, kb, inv_kappa):
+    """``dx = K^-1 rhs`` through the Jacobi scaling and, with a border
+    ``kb`` (the eliminated slack, the last variable), the bordered
+    back-substitution; ``kb=None`` factors every variable."""
+    if kb is None:
+        def solve_kkt(rhs):
+            rt = (dsc * rhs)[:, :, None]
+            return dsc * torch.cholesky_solve(rt, L)[:, :, 0]
+        return solve_kkt
+    nu = kb.shape[1]
+
+    def solve_kkt(rhs):
+        rt = dsc * rhs
+        rw = rt[:, nu:]
+        ru = rt[:, :nu] - kb * (inv_kappa * rw)
+        y = torch.cholesky_solve(ru[:, :, None], L)[:, :, 0]
+        xw = (rw - torch.sum(kb * y, 1, keepdim=True)) * inv_kappa
+        return dsc * torch.cat([y, xw], dim=1)
+    return solve_kkt
+
+
+def _plain_step(state, frozen, mu_prev, *, px, q, mu, m, gmv, gtmv,
+                solve_kkt, tol, n_cor):
+    """One Mehrotra predictor-corrector step on a factored KKT matrix — the
+    step algebra both fused kernels share (``csrc/ipm_common.cuh``): predictor,
+    corrector, ``n_cor`` Gondzio correctors with per-instance acceptance,
+    step lengths, ``sigma = (mu_aff / mu)^3``, the ``(1 - alpha)`` residual
+    recurrence and freeze on stall / convergence / a non-finite step.
+    Returns the updated state and frozen flags."""
+    x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl = state
+    wg, wu, wl = zg / sg, zu / su, zl / sl
+
+    def newton(tg, tu, tl):
+        rhs = -(px + q + gtmv(zg + tg) + (zu + tu) - (zl + tl))
+        dx = solve_kkt(rhs)
+        return dx, gmv(dx)
+
+    # predictor
+    dx_a, gdx_a = newton(wg * rpg - zg, wu * rpu - zu, wl * rpl - zl)
+    dzg_a = wg * (gdx_a + rpg) - zg
+    dzu_a = wu * (dx_a + rpu) - zu
+    dzl_a = wl * (-dx_a + rpl) - zl
+    dsg_a = -sg - sg * dzg_a / zg
+    dsu_a = -su - su * dzu_a / zu
+    dsl_a = -sl - sl * dzl_a / zl
+    a_p = _steplen3((sg, su, sl), (dsg_a, dsu_a, dsl_a))[:, None]
+    a_d = _steplen3((zg, zu, zl), (dzg_a, dzu_a, dzl_a))[:, None]
+    mu_aff = (torch.sum((sg + a_p * dsg_a) * (zg + a_d * dzg_a), 1)
+              + torch.sum((su + a_p * dsu_a) * (zu + a_d * dzu_a)
+                          + (sl + a_p * dsl_a) * (zl + a_d * dzl_a), 1)
+              ) / m
+    sigma = (mu_aff / torch.clamp(mu, min=1e-30)) ** 3
+    smu = (sigma * mu)[:, None]
+
+    # corrector
+    rcg = sg * zg + dsg_a * dzg_a - smu
+    rcu = su * zu + dsu_a * dzu_a - smu
+    rcl = sl * zl + dsl_a * dzl_a - smu
+    dx, gdx = newton(wg * rpg - rcg / sg, wu * rpu - rcu / su,
+                     wl * rpl - rcl / sl)
+    dzg = wg * (gdx + rpg) - rcg / sg
+    dzu = wu * (dx + rpu) - rcu / su
+    dzl = wl * (-dx + rpl) - rcl / sl
+    dsg = -(rcg + sg * dzg) / zg
+    dsu = -(rcu + su * dzu) / zu
+    dsl = -(rcl + sl * dzl) / zl
+    alpha = torch.minimum(
+        _steplen3((sg, su, sl), (dsg, dsu, dsl)),
+        _steplen3((zg, zu, zl), (dzg, dzu, dzl)))[:, None]
+
+    # Gondzio centrality correctors with per-instance acceptance
+    for _ in range(n_cor):
+        at = torch.clamp(alpha + 0.1, max=1.0)
+        lo, hi = 0.1 * smu, 10.0 * smu
+
+        def drc(v):
+            return v - torch.minimum(torch.maximum(v, lo), hi)
+
+        drg_c = drc((sg + at * dsg) * (zg + at * dzg))
+        dru_c = drc((su + at * dsu) * (zu + at * dzu))
+        drl_c = drc((sl + at * dsl) * (zl + at * dzl))
+        tg, tu, tl = -drg_c / sg, -dru_c / su, -drl_c / sl
+        dxc = solve_kkt(-(gtmv(tg) + tu - tl))
+        gdxc = gmv(dxc)
+        dzg_c, dzu_c, dzl_c = wg * gdxc + tg, wu * dxc + tu, -wl * dxc + tl
+        dsg_c = -(drg_c + sg * dzg_c) / zg
+        dsu_c = -(dru_c + su * dzu_c) / zu
+        dsl_c = -(drl_c + sl * dzl_c) / zl
+        dx2 = dx + dxc
+        dzg2, dzu2, dzl2 = dzg + dzg_c, dzu + dzu_c, dzl + dzl_c
+        dsg2, dsu2, dsl2 = dsg + dsg_c, dsu + dsu_c, dsl + dsl_c
+        alpha2 = torch.minimum(
+            _steplen3((sg, su, sl), (dsg2, dsu2, dsl2)),
+            _steplen3((zg, zu, zl), (dzg2, dzu2, dzl2)))[:, None]
+        acc = alpha2 >= alpha + 0.01
+        dx = torch.where(acc, dx2, dx)
+        dzg, dzu, dzl = (torch.where(acc, a, b) for a, b in
+                         ((dzg2, dzg), (dzu2, dzu), (dzl2, dzl)))
+        dsg, dsu, dsl = (torch.where(acc, a, b) for a, b in
+                         ((dsg2, dsg), (dsu2, dsu), (dsl2, dsl)))
+        alpha = torch.where(acc, alpha2, alpha)
+
+    new = [x + alpha * dx, sg + alpha * dsg, su + alpha * dsu,
+           sl + alpha * dsl, zg + alpha * dzg, zu + alpha * dzu,
+           zl + alpha * dzl]
+    ok = torch.ones_like(frozen)
+    for t in new:
+        ok = ok & torch.isfinite(t).all(dim=1)
+
+    stalled = (mu > 0.7 * mu_prev) & (mu < tol * 1e3)
+    converged = mu < tol
+    frozen = frozen | stalled | converged | ~ok
+    keep = ~frozen[:, None]
+    x, sg, su, sl, zg, zu, zl = (
+        torch.where(keep, a, b)
+        for a, b in zip(new, (x, sg, su, sl, zg, zu, zl)))
+    shrink = 1.0 - alpha
+    rpg = torch.where(keep, shrink * rpg, rpg)
+    rpu = torch.where(keep, shrink * rpu, rpu)
+    rpl = torch.where(keep, shrink * rpl, rpl)
+    return (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl), frozen
+
+
+def _mu_of(sg, zg, su, zu, sl, zl, m):
+    return (torch.sum(sg * zg, 1) + torch.sum(su * zu + sl * zl, 1)) / m
+
+
 def ipm_iterate_struct_plain(gi, gj, gob, gsl, pb, q, pdiag,
                              x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal,
                              *, pairs, obst_veh, tol: float, reg_rel: float,
@@ -209,8 +375,6 @@ def ipm_iterate_struct_plain(gi, gj, gob, gsl, pb, q, pdiag,
     n = nu + 1
     mg = gsl.shape[1]
     m = mg + 2 * n
-    dtype = gi.dtype
-    inf = torch.full((), float("inf"), dtype=dtype, device=gi.device)
 
     Gu = _scatter_dense(gi, gj, gob, pairs, obst_veh, V)     # (B, mg, nu)
     Pd = torch.block_diag(*[torch.ones(hu, hu)] * V).to(gi.device) > 0
@@ -225,27 +389,17 @@ def ipm_iterate_struct_plain(gi, gj, gob, gsl, pb, q, pdiag,
         return torch.cat([torch.einsum("bmn,bm->bn", Gu, w),
                           torch.sum(gsl * w, dim=1, keepdim=True)], dim=1)
 
-    def steplen(v, dv):
-        neg = dv < 0
-        ratio = torch.where(neg, -v / torch.where(neg, dv, -torch.ones_like(dv)),
-                            inf)
-        return torch.clamp(0.99 * ratio.amin(dim=1), max=1.0)
-
-    def steplen3(vs, dvs):
-        out = steplen(vs[0], dvs[0])
-        for v, dv in zip(vs[1:], dvs[1:]):
-            out = torch.minimum(out, steplen(v, dv))
-        return out
-
     inv_kappa = 1.0 / (1.0 + reg_rel)
     mu_prev = scal[:, 0].clone()
     frozen = scal[:, 1] > 0.5
     mu = mu_prev
+    state = (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl)
     for _ in range(n_iters):
+        x, sg, su, sl, zg, zu, zl = state[:7]
         px = torch.cat([torch.einsum("bij,bj->bi", Pfull, x[:, :nu]),
                         pdiag[:, nu:] * x[:, nu:]], dim=1)
         wg, wu, wl = zg / sg, zu / su, zl / sl
-        mu = (torch.sum(sg * zg, 1) + torch.sum(su * zu + sl * zl, 1)) / m
+        mu = _mu_of(sg, zg, su, zu, sl, zl, m)
 
         # analytic diagonal, Jacobi scale
         gsq = torch.cat([torch.einsum("bm,bmn->bn", wg, Gu * Gu),
@@ -261,108 +415,195 @@ def ipm_iterate_struct_plain(gi, gj, gob, gsl, pb, q, pdiag,
             - inv_kappa * kb[:, :, None] * kb[:, None, :]
         dval = (1.0 + reg_rel) - inv_kappa * kb * kb
         K = torch.where(eye, torch.diag_embed(dval), K)
-        L, info = torch.linalg.cholesky_ex(K)
-        # a failed factorization poisons the step (NaN), which the finite
-        # check below turns into a freeze — as a NaN pivot does in a kernel
-        L = torch.where((info != 0)[:, None, None],
-                        torch.full_like(L, float("nan")), L)
-
-        def solve_kkt(rhs):
-            rt = dsc * rhs
-            rw = rt[:, nu:]
-            ru = rt[:, :nu] - kb * (inv_kappa * rw)
-            y = torch.cholesky_solve(ru[:, :, None], L)[:, :, 0]
-            xw = (rw - torch.sum(kb * y, 1, keepdim=True)) * inv_kappa
-            return dsc * torch.cat([y, xw], dim=1)
-
-        def newton(tg, tu, tl):
-            rhs = -(px + q + gtmv(zg + tg) + (zu + tu) - (zl + tl))
-            dx = solve_kkt(rhs)
-            return dx, gmv(dx)
-
-        # predictor
-        dx_a, gdx_a = newton(wg * rpg - zg, wu * rpu - zu, wl * rpl - zl)
-        dzg_a = wg * (gdx_a + rpg) - zg
-        dzu_a = wu * (dx_a + rpu) - zu
-        dzl_a = wl * (-dx_a + rpl) - zl
-        dsg_a = -sg - sg * dzg_a / zg
-        dsu_a = -su - su * dzu_a / zu
-        dsl_a = -sl - sl * dzl_a / zl
-        a_p = steplen3((sg, su, sl), (dsg_a, dsu_a, dsl_a))[:, None]
-        a_d = steplen3((zg, zu, zl), (dzg_a, dzu_a, dzl_a))[:, None]
-        mu_aff = (torch.sum((sg + a_p * dsg_a) * (zg + a_d * dzg_a), 1)
-                  + torch.sum((su + a_p * dsu_a) * (zu + a_d * dzu_a)
-                              + (sl + a_p * dsl_a) * (zl + a_d * dzl_a), 1)
-                  ) / m
-        sigma = (mu_aff / torch.clamp(mu, min=1e-30)) ** 3
-        smu = (sigma * mu)[:, None]
-
-        # corrector
-        rcg = sg * zg + dsg_a * dzg_a - smu
-        rcu = su * zu + dsu_a * dzu_a - smu
-        rcl = sl * zl + dsl_a * dzl_a - smu
-        dx, gdx = newton(wg * rpg - rcg / sg, wu * rpu - rcu / su,
-                         wl * rpl - rcl / sl)
-        dzg = wg * (gdx + rpg) - rcg / sg
-        dzu = wu * (dx + rpu) - rcu / su
-        dzl = wl * (-dx + rpl) - rcl / sl
-        dsg = -(rcg + sg * dzg) / zg
-        dsu = -(rcu + su * dzu) / zu
-        dsl = -(rcl + sl * dzl) / zl
-        alpha = torch.minimum(
-            steplen3((sg, su, sl), (dsg, dsu, dsl)),
-            steplen3((zg, zu, zl), (dzg, dzu, dzl)))[:, None]
-
-        # Gondzio centrality correctors with per-instance acceptance
-        for _ in range(n_cor):
-            at = torch.clamp(alpha + 0.1, max=1.0)
-            lo, hi = 0.1 * smu, 10.0 * smu
-
-            def drc(v):
-                return v - torch.minimum(torch.maximum(v, lo), hi)
-
-            drg_c = drc((sg + at * dsg) * (zg + at * dzg))
-            dru_c = drc((su + at * dsu) * (zu + at * dzu))
-            drl_c = drc((sl + at * dsl) * (zl + at * dzl))
-            tg, tu, tl = -drg_c / sg, -dru_c / su, -drl_c / sl
-            dxc = solve_kkt(-(gtmv(tg) + tu - tl))
-            gdxc = gmv(dxc)
-            dzg_c, dzu_c, dzl_c = wg * gdxc + tg, wu * dxc + tu, -wl * dxc + tl
-            dsg_c = -(drg_c + sg * dzg_c) / zg
-            dsu_c = -(dru_c + su * dzu_c) / zu
-            dsl_c = -(drl_c + sl * dzl_c) / zl
-            dx2 = dx + dxc
-            dzg2, dzu2, dzl2 = dzg + dzg_c, dzu + dzu_c, dzl + dzl_c
-            dsg2, dsu2, dsl2 = dsg + dsg_c, dsu + dsu_c, dsl + dsl_c
-            alpha2 = torch.minimum(
-                steplen3((sg, su, sl), (dsg2, dsu2, dsl2)),
-                steplen3((zg, zu, zl), (dzg2, dzu2, dzl2)))[:, None]
-            acc = alpha2 >= alpha + 0.01
-            dx = torch.where(acc, dx2, dx)
-            dzg, dzu, dzl = (torch.where(acc, a, b) for a, b in
-                             ((dzg2, dzg), (dzu2, dzu), (dzl2, dzl)))
-            dsg, dsu, dsl = (torch.where(acc, a, b) for a, b in
-                             ((dsg2, dsg), (dsu2, dsu), (dsl2, dsl)))
-            alpha = torch.where(acc, alpha2, alpha)
-
-        new = [x + alpha * dx, sg + alpha * dsg, su + alpha * dsu,
-               sl + alpha * dsl, zg + alpha * dzg, zu + alpha * dzu,
-               zl + alpha * dzl]
-        ok = torch.ones_like(frozen)
-        for t in new:
-            ok = ok & torch.isfinite(t).all(dim=1)
-
-        stalled = (mu > 0.7 * mu_prev) & (mu < tol * 1e3)
-        converged = mu < tol
-        frozen = frozen | stalled | converged | ~ok
-        keep = ~frozen[:, None]
-        x, sg, su, sl, zg, zu, zl = (
-            torch.where(keep, a, b)
-            for a, b in zip(new, (x, sg, su, sl, zg, zu, zl)))
-        shrink = 1.0 - alpha
-        rpg = torch.where(keep, shrink * rpg, rpg)
-        rpu = torch.where(keep, shrink * rpu, rpu)
-        rpl = torch.where(keep, shrink * rpl, rpl)
+        solve_kkt = _plain_solver(_plain_factor(K), dsc, kb, inv_kappa)
+        state, frozen = _plain_step(
+            state, frozen, mu_prev, px=px, q=q, mu=mu, m=m, gmv=gmv,
+            gtmv=gtmv, solve_kkt=solve_kkt, tol=tol, n_cor=n_cor)
         mu_prev = mu
-    scal_out = torch.stack([mu, frozen.to(dtype)], dim=1)
-    return (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal_out)
+    scal_out = torch.stack([mu, frozen.to(gi.dtype)], dim=1)
+    return state + (scal_out,)
+
+
+# ---------------------------------------------------------------------------
+# the dense-G fused iteration (K2)
+# ---------------------------------------------------------------------------
+
+def dense_smem_bytes(mg: int, n: int, nb: int, d: int, schur: bool,
+                     g_smem: bool) -> int:
+    """Dynamic shared memory of the dense-G kernel (mirrors the carve in
+    ``csrc/ipm_dense.cu::dense_smem_words``): the factor, the P blocks, the
+    step's vectors and, with ``g_smem``, G itself."""
+    nk = n - 1 if schur else n
+    words = nk * (nk | 1) + nb * d * d + 9 * (mg + 2 * n) + 9 * n + 64
+    if g_smem:
+        words += mg * (n | 1)
+    return 4 * words
+
+
+def fits_dense_smem(mg: int, n: int, nb: int, d: int, schur: bool) -> bool:
+    """Whether the dense-G kernel's working set (without G, which it then
+    reads from device memory) fits a block's shared memory."""
+    return dense_smem_bytes(mg, n, nb, d, schur, False) <= SMEM_LIMIT_BYTES
+
+
+def check_dense_smem_gate(mg: int, n: int, nb: int, d: int,
+                          schur: bool) -> int:
+    """The dense-G kernel's gate: a factor plus vectors beyond a block's
+    shared memory is refused; G goes into shared memory when it fits too.
+    Returns the bytes of the launch."""
+    if not fits_dense_smem(mg, n, nb, d, schur):
+        need = dense_smem_bytes(mg, n, nb, d, schur, False)
+        raise NotImplementedError(
+            f"the dense-G fused IPM kernel needs {need} bytes of shared "
+            f"memory per instance at mg={mg}, n={n} (limit "
+            f"{SMEM_LIMIT_BYTES}); qp_kkt='auto' with a banded stage "
+            f"statement takes the banded KKT path there")
+    with_g = dense_smem_bytes(mg, n, nb, d, schur, True)
+    if with_g <= SMEM_LIMIT_BYTES:
+        return with_g
+    return dense_smem_bytes(mg, n, nb, d, schur, False)
+
+
+def _dense_launcher():
+    """The library's ``ipm_dense_launch`` with its argument types set."""
+    fn = _cuda_build.load_library().ipm_dense_launch
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = ([p] * 17 + [p] * 11 + [i] * 8 + [f] * 3
+                       + [ctypes.c_long, p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ipm_iterate_dense(K, G, px, pb, q, pdiag,
+                      x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal,
+                      *, tol: float, reg_rel: float, n_cor: int = 0,
+                      schur_slack: bool = False):
+    """ONE fused Mehrotra iteration on a pre-formed KKT product; returns the
+    updated ``(x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)``.
+
+    ``K (B, nk, nk)``: ``G^T diag(zg / sg) G`` over the factored columns
+    (``nk = n - 1`` with ``schur_slack``, else ``n``), plus the dense P there
+    when ``pb`` is None; only its lower triangle is read and its diagonal is
+    replaced by the analytic one. ``G (B, mg, n)``: the equilibrated dense
+    rows, slack column included. ``pb (B, nb, d, d)``: P blocks (with a
+    diagonal tail in ``pdiag``), in which case ``px`` is None and the kernel
+    computes P x; else ``px (B, n)`` is P x. ``schur_slack``: the last
+    variable is a slack with a zero P row, eliminated by a rank-1 border.
+    State as :func:`ipm_iterate_struct`'s.
+
+    CUDA tensors (float32, contiguous) go to the hand-written kernel; there
+    is no fallback. CPU tensors go to :func:`ipm_iterate_dense_plain`.
+    """
+    state = (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)
+    if G.device.type != "cuda":
+        return ipm_iterate_dense_plain(
+            K, G, px, pb, q, pdiag, *state, tol=tol, reg_rel=reg_rel,
+            n_cor=n_cor, schur_slack=schur_slack)
+    global dense_launch_count
+    B, mg, n = G.shape
+    nk = n - 1 if schur_slack else n
+    nb, d = (0, 0) if pb is None else tuple(pb.shape[1:3])
+    want = {"K": (K, (B, nk, nk)), "q": (q, (B, n)), "pdiag": (pdiag, (B, n)),
+            "x": (x, (B, n)), "sg": (sg, (B, mg)), "su": (su, (B, n)),
+            "sl": (sl, (B, n)), "zg": (zg, (B, mg)), "zu": (zu, (B, n)),
+            "zl": (zl, (B, n)), "rpg": (rpg, (B, mg)), "rpu": (rpu, (B, n)),
+            "rpl": (rpl, (B, n)), "scal": (scal, (B, 2))}
+    if pb is None:
+        if px is None:
+            raise ValueError("px is required without P blocks")
+        want["px"] = (px, (B, n))
+    else:
+        if px is not None:
+            raise ValueError("pass px=None with P blocks: the kernel "
+                             "computes P x")
+        if nb * d > n:
+            raise ValueError(f"P blocks {tuple(pb.shape)} exceed n={n}")
+        want["pb"] = (pb, (B, nb, d, d))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
+        if t.dtype != G.dtype or t.device != G.device:
+            raise ValueError(f"{name}: dtype/device differ from G's")
+    if G.dtype != torch.float32:
+        raise TypeError(
+            f"the CUDA IPM kernel is float32 only, got {G.dtype}")
+    for t in (K, G, px, pb, q, pdiag, *state):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("the CUDA IPM kernel needs contiguous tensors")
+    need = check_dense_smem_gate(mg, n, nb, d, schur_slack)
+    g_smem = need == dense_smem_bytes(mg, n, nb, d, schur_slack, True)
+    launch = _dense_launcher()
+    outs = [torch.empty_like(t) for t in state]
+    ins = [K, G, px, pb, q, pdiag, *state]
+    ptr = [0 if t is None else t.data_ptr() for t in ins]
+    with torch.cuda.device(G.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            *ptr, *[t.data_ptr() for t in outs],
+            B, mg, n, nb, d, int(schur_slack), int(g_smem), int(n_cor),
+            float(tol), float(tol * 1e3), float(reg_rel), need, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"ipm_dense_launch failed with CUDA error {err} "
+            f"(B={B}, mg={mg}, n={n}, nb={nb}, d={d}, smem={need})")
+    dense_launch_count += 1
+    return tuple(outs)
+
+
+def ipm_iterate_dense_plain(K, G, px, pb, q, pdiag,
+                            x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal,
+                            *, tol: float, reg_rel: float, n_cor: int = 0,
+                            schur_slack: bool = False):
+    """Plain PyTorch version of :func:`ipm_iterate_dense` (float32 or
+    float64, any device): the same iteration through batched algebra and
+    ``torch.linalg``."""
+    B, mg, n = G.shape
+    m = mg + 2 * n
+    nk = n - 1 if schur_slack else n
+    inv_kappa = 1.0 / (1.0 + reg_rel)
+    mu_prev = scal[:, 0]
+    frozen = scal[:, 1] > 0.5
+    wg, wu, wl = zg / sg, zu / su, zl / sl
+    mu = _mu_of(sg, zg, su, zu, sl, zl, m)
+    if pb is not None:
+        nb, d = pb.shape[1], pb.shape[2]
+        nbd = nb * d
+        px = torch.cat([
+            torch.einsum("bvij,bvj->bvi", pb,
+                         x[:, :nbd].reshape(B, nb, d)).reshape(B, nbd),
+            pdiag[:, nbd:] * x[:, nbd:]], dim=1)
+
+    # analytic diagonal, Jacobi scale
+    gsq = torch.einsum("bm,bmn->bn", wg, G * G)
+    dk = pdiag + gsq + (wu + wl)
+    dsc = torch.rsqrt(torch.clamp(dk, min=1e-30))
+    Kt = K * (dsc[:, :nk, None] * dsc[:, None, :nk])
+    kb = None
+    dval = torch.full_like(dsc[:, :nk], 1.0 + reg_rel)
+    if schur_slack:
+        # scaled border of the eliminated slack (the last variable)
+        kuw = torch.einsum("bm,bmn->bn", wg * G[:, :, nk], G)
+        kb = (dsc * kuw * dsc[:, nk:])[:, :nk]
+        Kt = Kt - inv_kappa * kb[:, :, None] * kb[:, None, :]
+        dval = dval - inv_kappa * kb * kb
+    if pb is not None:
+        for v in range(nb):
+            sl_v = slice(v * d, (v + 1) * d)
+            Kt[:, sl_v, sl_v] += pb[:, v] * (dsc[:, sl_v, None]
+                                             * dsc[:, None, sl_v])
+    eye = torch.eye(nk, dtype=torch.bool, device=G.device)
+    Kt = torch.where(eye, torch.diag_embed(dval), Kt)
+    solve_kkt = _plain_solver(_plain_factor(Kt), dsc, kb, inv_kappa)
+
+    def gmv(v):
+        return torch.einsum("bmn,bn->bm", G, v)
+
+    def gtmv(w):
+        return torch.einsum("bmn,bm->bn", G, w)
+
+    state, frozen = _plain_step(
+        (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl), frozen, mu_prev,
+        px=px, q=q, mu=mu, m=m, gmv=gmv, gtmv=gtmv, solve_kkt=solve_kkt,
+        tol=tol, n_cor=n_cor)
+    return state + (torch.stack([mu, frozen.to(G.dtype)], dim=1),)

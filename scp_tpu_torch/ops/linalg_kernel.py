@@ -59,60 +59,37 @@ def solve_smem_bytes(n: int) -> int:
     return 4 * (n * (n | 1) + 2 * n)
 
 
+def fits_chol_smem(n: int) -> bool:
+    """Whether one instance's n x n matrix fits the factor and solve
+    kernels' shared memory (n < 240)."""
+    return max(chol_smem_bytes(n), solve_smem_bytes(n)) <= SMEM_LIMIT_BYTES
+
+
 def check_chol_smem_gate(n: int) -> int:
     """The dense factor / solve kernels hold one instance's matrix in a
     block's shared memory; a matrix beyond it (n >= 240, e.g. hp = 64 with 4
-    vehicles, n = 257) is the banded KKT path's shape and is refused."""
+    vehicles, n = 257) is refused: ``kkt="auto"`` with a banded stage
+    statement takes the banded KKT path there."""
     need = max(chol_smem_bytes(n), solve_smem_bytes(n))
     if need > SMEM_LIMIT_BYTES:
         raise NotImplementedError(
-            f"banded KKT path not ported yet: the dense Cholesky kernels "
-            f"need {need} bytes of shared memory per instance at n={n} "
-            f"(limit {SMEM_LIMIT_BYTES})")
+            f"the dense Cholesky kernels need {need} bytes of shared memory "
+            f"per instance at n={n} (limit {SMEM_LIMIT_BYTES}): a dense "
+            f"alternative to the banded KKT path not ported yet at this "
+            f"size (kkt='auto' with a stage statement takes the banded "
+            f"path)")
     return need
 
 
-def _check(name, shapes):
-    """``shapes``: (tensor, wanted shape) pairs; the first sets dtype and
-    device. Returns True when the kernel takes the call (CUDA tensors)."""
-    first = shapes[0][0]
-    for t, shape in shapes:
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(
-                f"{name}: shape {tuple(t.shape)}, want {tuple(shape)}")
-        if t.dtype != first.dtype or t.device != first.device:
-            raise ValueError(f"{name}: dtype/device differ between operands")
-    if min(first.shape) == 0:
-        raise ValueError(f"{name}: empty operand {tuple(first.shape)}")
-    if first.device.type != "cuda":
-        return False
-    if first.dtype != torch.float32:
-        raise TypeError(
-            f"the CUDA {name} kernel is float32 only, got {first.dtype}")
-    for t, _ in shapes:
-        if not t.is_contiguous():
-            raise ValueError(f"the CUDA {name} kernel needs contiguous "
-                             f"tensors")
-    return True
-
-
 def _launch(name, symbol, first, *args):
-    fn = getattr(_cuda_build.load_library(), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[symbol]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(first.device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"{symbol} failed with CUDA error {err} (args {args[-4:]})")
+    _cuda_build.launch(symbol, _ARGTYPES[symbol], first, *args)
     launch_counts[name] += 1
 
 
 def cholesky(K: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factors of a batch of SPD matrices."""
     B, n = K.shape[0], K.shape[-1]
-    if not _check("cholesky", [(K, (B, n, n))]):
+    if not _cuda_build.check_operands("cholesky", [(K, (B, n, n))]):
         return linalg.cholesky_plain(K)
     check_chol_smem_gate(n)
     L = torch.empty_like(K)
@@ -124,7 +101,8 @@ def cholesky(K: torch.Tensor) -> torch.Tensor:
 def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve ``(L L^T) x = b`` against :func:`cholesky`'s factors."""
     B, n = b.shape
-    if not _check("cho_solve", [(L, (B, n, n)), (b, (B, n))]):
+    if not _cuda_build.check_operands("cho_solve",
+                                      [(L, (B, n, n)), (b, (B, n))]):
         return linalg.cho_solve_plain(L, b)
     check_chol_smem_gate(n)
     x = torch.empty_like(b)
@@ -136,7 +114,8 @@ def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def gmv(G: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``out[b] = G_b @ x_b``."""
     B, m, n = G.shape
-    if not _check("gmv", [(G, (B, m, n)), (x, (B, n))]):
+    if not _cuda_build.check_operands("gmv",
+                                      [(G, (B, m, n)), (x, (B, n))]):
         return linalg.gmv_plain(G, x)
     out = torch.empty((B, m), dtype=G.dtype, device=G.device)
     _launch("gmv", "gmv_batched_launch", G, G.data_ptr(), x.data_ptr(),
@@ -147,7 +126,8 @@ def gmv(G: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def gtmv(G: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``out[b] = G_b^T @ v_b``."""
     B, m, n = G.shape
-    if not _check("gtmv", [(G, (B, m, n)), (v, (B, m))]):
+    if not _cuda_build.check_operands("gtmv",
+                                      [(G, (B, m, n)), (v, (B, m))]):
         return linalg.gtmv_plain(G, v)
     out = torch.empty((B, n), dtype=G.dtype, device=G.device)
     _launch("gtmv", "gtmv_batched_launch", G, G.data_ptr(), v.data_ptr(),

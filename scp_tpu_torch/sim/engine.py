@@ -203,11 +203,17 @@ def controller_pre(cfg: SCPConfig, data: ScenarioData, carry: SimCarry):
     sys_ = con.make_system(cm.math_b, cm.const_term, obst_pos,
                            data.dsafe_veh, data.dsafe_obst,
                            cfg.dsafe_extra, cfg.hp, cfg.hu)
-    # The stage statement of the banded KKT path is not built: that path is
-    # not ported, and qp_kkt="auto" resolves to the fused dense kernel or
-    # raises at its shared-memory gate.
+    banded_pre = None
+    if cfg.qp_kkt != "dense":
+        # stage statement of the SAME problem for the banded (Riccati) KKT
+        # path: dynamics + the cost's stage decomposition
+        # (P == 2 blockdiag(B^T Q B + r I))
+        qy = 2.0 * data.params.q[:, :, None].expand(b, cfg.n_veh, cfg.hp)
+        qy = torch.cat([qy[:, :, :-1], 2.0 * data.params.q_final[:, :, None]],
+                       dim=2)
+        banded_pre = (A, B[..., 0], qy.to(data.x0.dtype), 2.0 * data.params.r)
     problem = scp.SCPProblem(sys=sys_, phi0=cm.phi0, psi0=cm.psi0,
-                             gamma0=cm.gamma0)
+                             gamma0=cm.gamma0, banded_pre=banded_pre)
     return problem, (sys_, u_max, ref_pts, x0, obst_pos, delay_traj)
 
 

@@ -12,7 +12,10 @@ Every function takes a leading batch axis: :func:`solve_scp` is
 ``vmap(solve_scp)`` of ``scp_tpu`` written out (dense constraint rows, dense
 P, the general :func:`qp.solve_qp`), :func:`solve_scp_stacked` states the
 same QPs pair-sparsely to :func:`qp.solve_qp_batched`. Both run ONE loop
-(:func:`_scp_loop`) and differ in the QP they hand it.
+(:func:`_scp_loop`) and differ in the QP they hand it. With a stage
+statement (``SCPProblem.banded_pre``) either can hand the QP its banded
+(Riccati) form. :func:`solve_scp_multistart` runs three starts of each
+instance as one batch.
 
 Where ``scp_tpu`` runs a ``lax.while_loop`` with per-lane freezing, this is
 a Python loop whose condition is ONE host read of ``any(not done)`` per SCP
@@ -46,6 +49,10 @@ class SCPProblem(NamedTuple):
     phi0: torch.Tensor    # (B, V, hu, hu) per-vehicle cost blocks
     psi0: torch.Tensor    # (B, V, hu)
     gamma0: torch.Tensor  # (B, V)
+    # Optional stage data for the banded (Riccati) KKT path (qp.BandedData
+    # minus the per-iterate row coefficients): (a_blk (B, V, NX, NX),
+    # b_blk (B, V, NX), qy (B, V, hp) = 2q / 2q_final, ru (B, V) = 2r)
+    banded_pre: tuple | None = None
 
 
 class SCPResult(NamedTuple):
@@ -191,6 +198,22 @@ def _scp_loop(problem: SCPProblem, u_init: torch.Tensor, qp_solve, *,
     return res, SCPTrace(*cols)
 
 
+def _banded_data(problem: SCPProblem, u: torch.Tensor) -> qp.BandedData:
+    """The stage statement of the QP linearized at ``u``."""
+    a_blk, b_blk, qy, ru = problem.banded_pre
+    y_pair, y_obst = con.linearize_ycoefs(problem.sys, u)
+    return qp.BandedData(a_blk, b_blk, y_pair, y_obst, qy, ru)
+
+
+def _check_kkt(problem: SCPProblem, qp_kkt: str) -> None:
+    if qp_kkt not in ("dense", "banded", "auto"):
+        raise ValueError(f"unknown qp_kkt {qp_kkt!r}")
+    if qp_kkt == "banded" and problem.banded_pre is None:
+        raise ValueError(
+            "qp_kkt='banded' needs problem.banded_pre (engine.controller_pre "
+            "builds it when cfg.qp_kkt != 'dense')")
+
+
 def _nudged(u_init: torch.Tensor) -> torch.Tensor:
     """Numerical nudge of u[0]: exactly-zero first controls become eps (on
     a copy)."""
@@ -245,8 +268,10 @@ def solve_scp(problem: SCPProblem, u_init: torch.Tensor, *,
     block-diagonal P, and the general :func:`qp.solve_qp` (adaptive loop or
     ``qp_fixed_iters``, Gondzio correctors honoured, honest certificate).
 
-    ``qp_kkt``: ``"dense"`` and ``"auto"`` take the dense factorization;
-    ``"banded"`` is not ported. ``trace=True`` additionally returns an
+    ``qp_kkt``: ``"dense"`` and ``"auto"`` take the dense factorization (per
+    instance ``"auto"`` is dense, as in ``scp_tpu``); ``"banded"`` factors
+    the same KKT system by the Riccati sweeps and needs
+    ``problem.banded_pre``. ``trace=True`` additionally returns an
     :class:`SCPTrace`; the loop is the same Python loop, so the traced
     result equals the untraced one. The horizon-sharded mode (``axis_name``
     / ``n_con_total``) is not ported.
@@ -255,11 +280,7 @@ def solve_scp(problem: SCPProblem, u_init: torch.Tensor, *,
         raise NotImplementedError(
             "horizon-sharded solve_scp (axis_name / n_con_total) not ported "
             "yet: roadmap item 11 (scale-out)")
-    if qp_kkt == "banded":
-        raise NotImplementedError(
-            "banded KKT path not ported yet: roadmap item 8 (long horizons)")
-    if qp_kkt not in ("dense", "auto"):
-        raise ValueError(f"unknown qp_kkt {qp_kkt!r}")
+    _check_kkt(problem, qp_kkt)
     sys = problem.sys
     dtype, device = u_init.dtype, u_init.device
     b, v, hp, _, hu = sys.b3.shape
@@ -283,7 +304,9 @@ def solve_scp(problem: SCPProblem, u_init: torch.Tensor, *,
         return qp.solve_qp(P_qp, q_qp, G, rhs, lb, ub, max_iter=qp_max_iter,
                            tol=qp_tol, x0=x0, z0=z0,
                            fixed_iters=qp_fixed_iters, cheap_k=qp_cheap_k,
-                           correctors=qp_correctors)
+                           correctors=qp_correctors,
+                           banded=(_banded_data(problem, u)
+                                   if qp_kkt == "banded" else None))
 
     return _scp_loop(
         problem, u_init, qp_solve, max_scp_iter=max_scp_iter,
@@ -315,14 +338,19 @@ def solve_scp_stacked(problem: SCPProblem, u_init: torch.Tensor, *,
                       qp_certificate: bool = False,
                       compat_q5: bool = True) -> SCPResult:
     """Batched SCP solve (leading batch axis) through
-    :func:`qp.solve_qp_batched`: with ``qp_fixed_iters`` the structured
-    fused branch on the pair-sparse row slabs, with ``qp_fixed_iters=None``
-    the adaptive branch on the dense rows scattered from the same slabs.
+    :func:`qp.solve_qp_batched`, which picks its branch from ``qp_kkt`` and
+    the shape: with ``qp_fixed_iters`` the structured fused kernel on the
+    pair-sparse row slabs, or — with no vehicle pair (one vehicle) — the
+    dense-G fused kernel; with ``qp_fixed_iters=None`` the adaptive branch
+    on the dense rows scattered from the same slabs. ``qp_kkt="banded"``,
+    or ``"auto"`` past the kernels' shared-memory gates, factors by the
+    Riccati sweeps from ``problem.banded_pre``.
     """
     if qp_cheap_k:
         raise NotImplementedError(
             "qp_cheap_k (reduced-precision KKT formation) is not supported "
             "by the stacked/fused QP path")
+    _check_kkt(problem, qp_kkt)
     sys = problem.sys
     dtype, device = u_init.dtype, u_init.device
     b, v, hp, _, hu = sys.b3.shape
@@ -344,19 +372,27 @@ def solve_scp_stacked(problem: SCPProblem, u_init: torch.Tensor, *,
                 tuple(vv for vv in range(v) for _ in range(n_obst)),
                 hp, hu, True)
 
+    use_banded = (qp_kkt in ("banded", "auto")
+                  and problem.banded_pre is not None)
+    # the dense rows are read by the adaptive branch and wherever the
+    # pair-sparse statement cannot engage (no pair: one vehicle); the
+    # structured kernel and the banded branch work from the slabs alone
+    dense_rows = not g_struct[0] or (qp_fixed_iters is None
+                                     and qp_kkt != "banded")
+
     def qp_solve(u, x0, z0):
         gi_b, gj_b, gob_b, rhs = con.linearize_slabs(sys, u)
-        # the adaptive branch reads the dense rows; the fused branch never
-        # does, and is not handed them
-        G = None if qp_fixed_iters is not None else torch.cat(
-            [con.scatter_slabs(v, gi_b, gj_b, gob_b, dtype), slack_col], 2)
+        G = torch.cat([con.scatter_slabs(v, gi_b, gj_b, gob_b, dtype),
+                       slack_col], 2) if dense_rows else None
         return qp.solve_qp_batched(
             None, q_qp, G, rhs, lb, ub,
             max_iter=qp_max_iter, tol=qp_tol, x0=x0, z0=z0,
             fixed_iters=qp_fixed_iters, p_blocks=p_blocks,
             correctors=qp_correctors, slack_schur=True,
             certificate=qp_certificate, g_struct=g_struct,
-            g_slabs=(gi_b, gj_b, gob_b), kkt=qp_kkt)
+            g_slabs=(gi_b, gj_b, gob_b),
+            banded=_banded_data(problem, u) if use_banded else None,
+            kkt=qp_kkt)
 
     return _scp_loop(
         problem, u_init, qp_solve, max_scp_iter=max_scp_iter,
@@ -426,6 +462,32 @@ def solve_scp_batch(problems: SCPProblem, u_init: torch.Tensor, *,
 
         res = SCPResult(*[merge(a, b_k) for a, b_k in zip(res, res_k)])
     return res
+
+
+def solve_scp_multistart(problem: SCPProblem, u_init: torch.Tensor, *,
+                         u_lim: float, **kw) -> SCPResult:
+    """Multi-start SCP: the warm start plus saturated-left / right restarts,
+    solved together as one batch of 3B instances through :func:`solve_scp`
+    (start-major); per instance the feasible result with the lowest
+    objective wins, and the earlier start wins ties (a 1e-6 x start-index
+    tie-break, then the first minimum)."""
+    b, n = u_init.shape
+    starts = torch.cat([
+        u_init,
+        torch.full((b, n), u_lim, dtype=u_init.dtype, device=u_init.device),
+        torch.full((b, n), -u_lim, dtype=u_init.dtype,
+                   device=u_init.device)])
+    problems = tree_map(lambda x: torch.cat([x, x, x]), problem)
+    res = solve_scp(problems, starts, u_lim=u_lim, **kw)
+    big = torch.finfo(u_init.dtype).max
+    # candidates: feasible first, then objective; prefer earlier starts
+    score = torch.where(res.feasible, res.obj,
+                        torch.full_like(res.obj, big)).reshape(3, b) \
+        + torch.arange(3, dtype=u_init.dtype,
+                       device=u_init.device)[:, None] * 1e-6
+    best = torch.argmin(score, dim=0)                     # (B,)
+    pick = best * b + torch.arange(b, device=u_init.device)
+    return SCPResult(*[f[pick] for f in res])
 
 
 def forward_u(sys: con.ConstraintSystem, u: torch.Tensor):

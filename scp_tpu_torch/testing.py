@@ -75,3 +75,93 @@ def torch_kernel_args(arrs, device="cpu"):
     return [None if (k == "gob" and arrs[k].shape[1] == 0)
             else torch.as_tensor(arrs[k].copy(), device=device)
             for k in KERNEL_ARG_ORDER]
+
+
+DENSE_ARG_ORDER = ("K", "G", "px", "pb", "q", "pdiag") + STATE_NAMES
+
+
+def dense_kernel_inputs(B, mg, nb, d, seed, schur=True, blocks=True,
+                        dtype=np.float32):
+    """An SCP-shaped QP in the argument layout of
+    ``ops.ipm_kernel.ipm_iterate_dense`` at its first iteration: equilibrated
+    dense rows with a -1 slack column (``n = nb*d + 1``), unit-scaled
+    block-diagonal P (``blocks``: stated as blocks, else dense in ``K`` with
+    ``px``), a cold start at x = 0 with rows partly violated, and ``K`` the
+    product ``G^T diag(zg/sg) G`` (+ P) over the factored columns. Returns a
+    dict of numpy arrays keyed by DENSE_ARG_ORDER (``px`` / ``pb`` None where
+    the other is given)."""
+    rng = np.random.default_rng(seed)
+    nu = nb * d
+    n = nu + 1
+    G = np.concatenate([rng.normal(size=(B, mg, nu)) * 0.3,
+                        -np.ones((B, mg, 1))], axis=2)
+    d_row = 1.0 / np.linalg.norm(G, axis=2)
+    G *= d_row[:, :, None]
+    A = rng.normal(size=(B, nb, d, d))
+    pb = np.einsum("bvij,bvkj->bvik", A, A) / d + 3.0 * np.eye(d)
+    pb /= np.abs(pb).max(axis=(1, 2, 3), keepdims=True)
+    P = np.zeros((B, n, n))
+    for v in range(nb):
+        P[:, v * d:(v + 1) * d, v * d:(v + 1) * d] = pb[:, v]
+    q = rng.normal(size=(B, n))
+    q[:, -1] = 2.0
+    pdiag = np.diagonal(P, axis1=1, axis2=2).copy()
+    h = rng.uniform(-0.3, 0.5, size=(B, mg)) * d_row
+    ub = np.ones((B, n))
+    ub[:, -1] = 100.0
+    hl = np.ones((B, n))
+    hl[:, -1] = 0.0
+    x = np.zeros((B, n))
+    sg = np.maximum(h, 1.0)
+    su = np.maximum(ub - x, 1.0)
+    sl = np.maximum(hl + x, 1.0)
+    zg = 1.0 / sg
+    nk = n - 1 if schur else n
+    Gk = G[:, :, :nk]
+    K = np.einsum("bmi,bm,bmj->bij", Gk, zg / sg, Gk)
+    scal = np.zeros((B, 2))
+    scal[:, 0] = np.finfo(dtype).max
+    arrs = dict(K=K if blocks else K + P[:, :nk, :nk], G=G,
+                px=None if blocks else np.einsum("bij,bj->bi", P, x),
+                pb=pb if blocks else None, q=q, pdiag=pdiag,
+                x=x, sg=sg, su=su, sl=sl, zg=zg, zu=1.0 / su, zl=1.0 / sl,
+                rpg=sg - h, rpu=x + su - ub, rpl=-x + sl - hl, scal=scal)
+    return {k: None if v is None else np.ascontiguousarray(v, dtype)
+            for k, v in arrs.items()}
+
+
+def riccati_inputs(B, V, K, seed, n_obst=2, dtype=np.float32):
+    """A randomized banded system in the argument layout of
+    ``ops.riccati_kernel.riccati_factor`` / ``riccati_solve``: mildly
+    contractive per-vehicle dynamics, stage Hessians from random position
+    coefficients with positive barrier weights (assembled as
+    ``ops.riccati.build_hy`` does), a positive input diagonal and a
+    right-hand side. Returns a dict ``a_blk, b_blk, hy, hu, r`` of numpy
+    arrays."""
+    from scp_tpu_torch.config import NX, NY
+    rng = np.random.default_rng(seed)
+    a_blk = 0.95 * (np.eye(NX) + 0.1 * rng.normal(size=(B, V, NX, NX)))
+    b_blk = rng.normal(size=(B, V, NX))
+    pairs = [(i, j) for i in range(V) for j in range(i + 1, V)]
+    hy = np.zeros((B, K, V, NY, V, NY))
+    for i, j in pairs:
+        y = rng.normal(size=(B, K, NY))
+        wyy = rng.uniform(0.1, 100.0, size=(B, K, 1, 1)) \
+            * y[..., :, None] * y[..., None, :]
+        hy[:, :, i, :, i] += wyy
+        hy[:, :, j, :, j] += wyy
+        hy[:, :, i, :, j] -= wyy
+        hy[:, :, j, :, i] -= wyy
+    for v in range(V):
+        for _ in range(n_obst):
+            y = rng.normal(size=(B, K, NY))
+            hy[:, :, v, :, v] += rng.uniform(0.1, 100.0, size=(B, K, 1, 1)) \
+                * y[..., :, None] * y[..., None, :]
+        q = rng.uniform(0.5, 3.0, size=(B, K))
+        for a in range(NY):
+            hy[:, :, v, a, v, a] += q
+    arrs = dict(a_blk=a_blk, b_blk=b_blk,
+                hy=hy.reshape(B, K, V * NY, V * NY),
+                hu=rng.uniform(0.5, 50.0, size=(B, K, V)),
+                r=rng.normal(size=(B, K, V)))
+    return {k: np.ascontiguousarray(v, dtype) for k, v in arrs.items()}

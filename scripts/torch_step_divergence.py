@@ -2,12 +2,15 @@
 
 Run on a machine with an NVIDIA GPU, from the repository root::
 
-    python3 scripts/torch_step_divergence.py [--batch 1024] [--worst 8]
+    python3 scripts/torch_step_divergence.py [--path circle|frog]
+        [--batch 1024] [--worst 8]
 
-Drives the first ``mpc_step_batch`` step of the randomized 4-vehicle circle
-batch (hp = hu = 20, tuned_f32, TUNED_F32_PHASES) three ways: float32 through
-the CUDA kernel, float32 through the kernel's plain PyTorch version, and
-float64 through the plain version (the oracle). During the kernel run every
+Drives the first ``mpc_step_batch`` step of a randomized batch (hp = hu =
+20, tuned_f32, TUNED_F32_PHASES) three ways: float32 through the CUDA
+kernel, float32 through the kernel's plain PyTorch version, and float64
+through the plain version (the oracle). ``--path circle`` (the default): the
+4-vehicle circle through the structured kernel (K1); ``--path frog``: the
+single-vehicle frog through the dense-G kernel (K2). During the kernel run every
 launch is shadowed: the plain float32 version and the float64 oracle solve
 the SAME inputs, so a disagreement of the kernel on identical inputs (a
 kernel fault) can be told apart from two float32 solvers drifting apart over
@@ -29,6 +32,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("circle", "frog"), default="circle")
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--worst", type=int, default=8)
     opts = ap.parse_args()
@@ -42,12 +46,16 @@ def main():
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(42)
-    cfg, data = batch_lib.make_batch("circle", opts.batch, generator=gen,
-                                     dtype=torch.float32, device=dev, n_veh=4)
+    kw_b = dict(n_veh=4) if opts.path == "circle" else {}
+    cfg, data = batch_lib.make_batch(opts.path, opts.batch, generator=gen,
+                                     dtype=torch.float32, device=dev, **kw_b)
     cfg = config_lib.tuned_f32(cfg.replace(hp=20, hu=20))
     phases = config_lib.TUNED_F32_PHASES
-    real = ipm_kernel.ipm_iterate_struct
-    plain = ipm_kernel.ipm_iterate_struct_plain
+    name = ("ipm_iterate_struct" if opts.path == "circle"
+            else "ipm_iterate_dense")
+    real = getattr(ipm_kernel, name)
+    plain = getattr(ipm_kernel, name + "_plain")
+    g_arg = 7 if opts.path == "circle" else 1   # an argument of width n
 
     def err(a, b):
         return (a - b).abs().amax(dim=1).double()
@@ -59,7 +67,7 @@ def main():
         out_p = plain(*args, **kw)
         args64 = [None if a is None else a.double() for a in args]
         out_d = plain(*args64, **{**kw, "reg_rel": 1e-12})
-        nu = args[7].shape[1] - 1
+        nu = args[g_arg].shape[-1] - 1
         uk, up, ud = (o[0][:, :nu] for o in (out_k, out_p, out_d))
         e_kp, e_kd, e_pd = err(uk, up), err(uk, ud.float()), err(up, ud.float())
         print(json.dumps({
@@ -76,12 +84,12 @@ def main():
         return out_k
 
     def step(data_, wrapper):
-        ipm_kernel.ipm_iterate_struct = wrapper
+        setattr(ipm_kernel, name, wrapper)
         try:
             _, out = engine.mpc_step_batch(
                 cfg, data_, engine.init_carry(cfg, data_), phases=phases)
         finally:
-            ipm_kernel.ipm_iterate_struct = real
+            setattr(ipm_kernel, name, real)
         torch.cuda.synchronize()
         return out
 
@@ -102,7 +110,7 @@ def main():
 
     worst = torch.argsort(d_kp, descending=True)[:opts.worst].tolist()
     print(json.dumps({
-        "step": "first", "B": opts.batch,
+        "step": "first", "path": opts.path, "B": opts.batch,
         "u_pred_kernel_vs_plain32": stats(d_kp),
         "u_pred_kernel_vs_f64": stats(d_kd),
         "u_pred_plain32_vs_f64": stats(d_pd),

@@ -93,6 +93,8 @@ def test_port_imports_with_jax_and_scp_tpu_blocked():
     mods = [".".join(p.relative_to(REPO).with_suffix("").parts)
             for p in sorted((REPO / "scp_tpu_torch").rglob("*.py"))
             if p.name != "__init__.py"]
+    assert {"scp_tpu_torch.ops.riccati", "scp_tpu_torch.ops.riccati_kernel",
+            "scp_tpu_torch.utils.debug"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

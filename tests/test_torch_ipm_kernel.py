@@ -205,8 +205,10 @@ def test_library_is_keyed_by_a_hash_of_the_sources():
     assert path.parent.name == "build" and path.suffix == ".so"
     assert path == cb.library_path()
     # every kernel source of csrc/ goes into the one library
-    assert {p.name for p in cb.sources()} == {"ipm_struct.cu", "linalg.cu"}
-    assert (cb.CSRC / "chol.cuh").exists()
+    assert {p.name for p in cb.sources()} == {
+        "ipm_dense.cu", "ipm_struct.cu", "linalg.cu", "riccati.cu"}
+    for header in ("chol.cuh", "ipm_common.cuh", "smem.cuh"):
+        assert (cb.CSRC / header).exists()
     old = cb.BUILD_DEFINES
     cb.BUILD_DEFINES = ("SCP_PROFILE_SECTIONS",)
     try:

@@ -143,43 +143,81 @@ def test_hard_rows_keep_the_slack_out():
     "adaptive", "banded", "no_schur", "no_blocks", "no_slabs", "no_struct",
     "dense_P", "dense_G", "single_vehicle"])
 def test_unported_branches_raise(breakage):
-    _, ta = _qp_data("circle", 2, 6, np.float64, n_veh=2, radius=8.0)
-    kw = dict(fixed_iters=5, p_blocks=ta["p_blocks"], slack_schur=True,
-              g_struct=ta["g_struct"], g_slabs=ta["g_slabs"], kkt="auto")
+    """Every fixed-count argument combination now has a branch (roadmap
+    items 7b and 8 are ported): the structured kernel, the dense-G kernel
+    (no engaged structure, the dense G read) or the banded branch, and each
+    lands on the structured branch's solution (float64, 14 iterations: 1e-6
+    rad on the controls). Only the adaptive branch handed slabs alone still
+    raises: it reads the dense G. One vehicle (no pair) runs the dense-G
+    kernel and lands on the adaptive dense solve."""
+    single = breakage == "single_vehicle"
+    _, ta = (_qp_data("frog", 2, 6, np.float64) if single else
+             _qp_data("circle", 2, 6, np.float64, n_veh=2, radius=8.0,
+                      banded=breakage == "banded"))
+    kw = dict(fixed_iters=14, tol=1e-8, p_blocks=ta["p_blocks"],
+              slack_schur=True, g_struct=ta["g_struct"],
+              g_slabs=ta["g_slabs"], kkt="auto")
+    args = (ta["q"], ta["h"], ta["lb"], ta["ub"])
     P = G = None
     if breakage == "adaptive":
-        kw["fixed_iters"] = None
-    elif breakage == "banded":
-        kw["kkt"] = "banded"
+        with pytest.raises(ValueError, match="dense G"):
+            tqp.solve_qp_batched(None, ta["q"], None, *args[1:],
+                                 **{**kw, "fixed_iters": None})
+        return
+    if single:
+        ref = tqp.solve_qp_batched(ta["P"], ta["q"], ta["G"], *args[1:],
+                                   x0=ta["x0"], tol=1e-10, max_iter=40)
+    else:
+        ref = tqp.solve_qp_batched(None, ta["q"], None, *args[1:],
+                                   x0=ta["x0"], **kw)
+    if breakage == "banded":
+        kw.update(kkt="banded", banded=ta["banded"])
     elif breakage == "no_schur":
         kw["slack_schur"] = False
+        G = ta["G"]
     elif breakage == "no_blocks":
         kw["p_blocks"] = None
+        P, G = ta["P"], ta["G"]
     elif breakage == "no_slabs":
         kw["g_slabs"] = None
+        G = ta["G"]
     elif breakage == "no_struct":
         kw["g_struct"] = None
+        G = ta["G"]
     elif breakage == "dense_P":
-        P = torch.zeros((2, 13, 13), dtype=torch.float64)
-    elif breakage == "dense_G":
-        G = torch.zeros((2, 6, 13), dtype=torch.float64)
-    else:
-        kw["g_struct"] = ((), (0,), 6, 6, True)
-    # the adaptive loop is ported: it reads the dense G, and says so when
-    # it is handed slabs alone; the others wait for roadmap items 7b and 8
-    error = ValueError if breakage == "adaptive" else NotImplementedError
-    with pytest.raises(error):
-        tqp.solve_qp_batched(P, ta["q"], G, ta["h"], ta["lb"], ta["ub"], **kw)
+        P = ta["P"]
+    else:                                  # dense_G, single_vehicle
+        G = ta["G"]
+    sol = tqp.solve_qp_batched(P, ta["q"], G, *args[1:], x0=ta["x0"], **kw)
+    n = ta["q"].shape[1] - 1
+    assert_close(sol.x[:, :n], ref.x[:, :n].numpy(), 1e-6, name="x")
+    assert bool(torch.isfinite(sol.z).all())
 
 
 def test_auto_kkt_refuses_shapes_beyond_shared_memory():
-    """qp_kkt="auto" is where the banded path will take over; until it is
-    ported the wrapper's shared-memory gate must refuse the shape loudly.
-    (The gate sits in front of the CUDA launch, so it is exercised here
-    directly.)"""
+    """The structured kernel's gate refuses the hp = 64 circle-4 shape
+    (n = 257) loudly, and qp_kkt="auto" routes by it: the structured kernel
+    at the bench shape, the banded branch past the gate given a stage
+    statement, a refusal naming the stage statement without one."""
     from scp_tpu_torch.ops import ipm_kernel
-    with pytest.raises(NotImplementedError, match="banded KKT path not ported"):
+    with pytest.raises(NotImplementedError, match="banded KKT path"):
         ipm_kernel.check_smem_gate(P=6, S=0, hp=64, hu=64, V=4)
+    assert ipm_kernel.fits_smem(6, 0, 20, 20, 4)
+    assert not ipm_kernel.fits_smem(6, 0, 64, 64, 4)
+
+    def route(hp, banded):
+        pairs = tuple((i, j) for i in range(4) for j in range(i + 1, 4))
+        return tqp._route(torch.zeros((1, 4 * hp + 1)),
+                          torch.zeros((1, 6 * hp)), None, fixed_iters=7,
+                          p_blocks=torch.zeros((1, 4, hp, hp)),
+                          slack_schur=True,
+                          g_struct=(pairs, (), hp, hp, True),
+                          g_slabs=(), banded=banded, kkt="auto")
+
+    assert route(20, None) == "struct"
+    assert route(64, object()) == "banded"
+    with pytest.raises(NotImplementedError, match="banded stage statement"):
+        route(64, None)
     with pytest.raises(ValueError):
         _, ta = _qp_data("circle", 2, 6, np.float64, n_veh=2, radius=8.0)
         tqp.solve_qp_batched(None, ta["q"], None, ta["h"], ta["lb"], ta["ub"],

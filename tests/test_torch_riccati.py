@@ -1,0 +1,220 @@
+"""Banded (Riccati) KKT sweeps of the port (``ops/riccati.py``,
+``ops/riccati_kernel.py``) and ``constraints.linearize_ycoefs`` against
+``scp_tpu``'s on the same numpy-seeded inputs, on the CPU.
+
+Tolerances: float64 against ``scp_tpu``'s scans 1e-10 relative (the same
+algorithm; sums in another order); float32 against the Pallas sweeps in
+interpret mode 2e-5 on the factors and 5e-4 on the solve (the TPU kernel
+addresses the cost-to-go by symmetry and never symmetrises, the plain version
+symmetrises every stage — the same function in exact arithmetic, float32
+round-off apart; the same limits ``tests/test_riccati.py`` holds the Pallas
+kernels to).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scp_tpu.ops import constraints as jcon
+from scp_tpu.ops import pallas_riccati as jpr
+from scp_tpu.ops import riccati as jric
+from scp_tpu_torch.ops import constraints as tcon
+from scp_tpu_torch.ops import riccati as tric
+from scp_tpu_torch.ops import riccati_kernel as trk
+from scp_tpu_torch.testing import riccati_inputs
+
+from torch_parity import assert_close, jax_problem, scenario_pair, tonp
+
+
+def _system(B, V, K, seed, dtype=np.float64):
+    r = riccati_inputs(B, V, K, seed=seed, dtype=dtype)
+    # stable dynamics: the random ones grow over long horizons
+    r["a_blk"] = (0.9 * r["a_blk"]).astype(dtype)
+    return r
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def test_chol_small_and_solve_match_scp_tpu():
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=(5, 4, 4))
+    M = a @ a.transpose(0, 2, 1) + 0.5 * np.eye(4)
+    b = rng.normal(size=(5, 4))
+    b2 = rng.normal(size=(5, 4, 3))
+    L_j = np.asarray(jric.chol_small(jnp.asarray(M)))
+    L_t = tric.chol_small(_t(M))
+    assert_close(L_t, L_j, 1e-13, name="L")
+    assert_close(tric.chol_solve_small(L_t, _t(b)),
+                 jric.chol_solve_small(jnp.asarray(L_j), jnp.asarray(b)),
+                 1e-12, name="x")
+    assert_close(tric.chol_solve_small(L_t, _t(b2)),
+                 jric.chol_solve_small(jnp.asarray(L_j), jnp.asarray(b2)),
+                 1e-12, name="X")
+    np.testing.assert_allclose(
+        tric.chol_solve_small(L_t, _t(b)).numpy(),
+        np.linalg.solve(M, b[..., None])[..., 0], rtol=1e-10)
+
+
+def test_chol_small_clamps_and_never_poisons():
+    """A non-positive pivot becomes sqrt(1e-30), as in scp_tpu: the
+    instance stays finite (unlike the dense Cholesky kernel's NaN)."""
+    M = np.array([[[1.0, 2.0], [2.0, 1.0]], [[2.0, 0.0], [0.0, 3.0]]])
+    L_t = tric.chol_small(_t(M))
+    assert bool(torch.isfinite(L_t).all())
+    assert_close(L_t, jric.chol_small(jnp.asarray(M)), 1e-12)
+    assert float(L_t[0, 1, 1]) == pytest.approx(1e-15)
+
+
+@pytest.mark.parametrize("V,O", [(1, 3), (3, 2), (4, 0)])
+def test_build_hy_matches_scp_tpu(V, O):
+    rng = np.random.default_rng(V)
+    B, K = 3, 5
+    pairs = tuple((i, j) for i in range(V) for j in range(i + 1, V))
+    P = len(pairs)
+    yp = rng.normal(size=(B, P, K, 2))
+    yo = rng.normal(size=(B, V, O, K, 2))
+    wp = rng.uniform(0.1, 10, size=(B, P, K))
+    wo = rng.uniform(0.1, 10, size=(B, V, O, K))
+    qy = rng.uniform(0.5, 3, size=(B, V, K))
+    want = jax.vmap(lambda *a: jric.build_hy(pairs, *a))(
+        *map(jnp.asarray, (yp, yo, wp, wo, qy)))
+    got = tric.build_hy(pairs, *map(_t, (yp, yo, wp, wo, qy)))
+    assert_close(got, want, 1e-13, name="hy")
+
+
+@pytest.mark.parametrize("V,K", [(1, 7), (3, 5), (4, 6)])
+def test_plain_sweeps_match_scp_tpu_scans_float64(V, K):
+    r = _system(3, V, K, seed=10 + V)
+    fac_j = jax.vmap(jric._riccati_factor_scan)(
+        *map(jnp.asarray, (r["a_blk"], r["b_blk"], r["hy"], r["hu"])))
+    du_j = jax.vmap(jric._riccati_solve_scan)(
+        fac_j, jnp.asarray(r["a_blk"]), jnp.asarray(r["b_blk"]),
+        jnp.asarray(r["r"]))
+    t = {k: _t(v) for k, v in r.items()}
+    fac_t = tric.riccati_factor_plain(t["a_blk"], t["b_blk"], t["hy"],
+                                      t["hu"])
+    du_t = tric.riccati_solve_plain(*fac_t, t["a_blk"], t["b_blk"], t["r"])
+    for name in ("f", "lh", "kg"):
+        want = np.asarray(getattr(fac_j, name))
+        assert_close(getattr(fac_t, name), want,
+                     1e-10 * np.abs(want).max(), name=name)
+    assert_close(du_t, du_j, 1e-10 * np.abs(np.asarray(du_j)).max(),
+                 name="du")
+
+
+def test_entry_points_take_the_plain_versions_on_the_cpu():
+    r = _system(2, 2, 4, seed=3)
+    t = {k: _t(v) for k, v in r.items()}
+    trk.reset_launch_counts()
+    fac = tric.riccati_factor(t["a_blk"], t["b_blk"], t["hy"], t["hu"])
+    du = tric.riccati_solve(fac, t["a_blk"], t["b_blk"], t["r"])
+    ref = tric.riccati_factor_plain(t["a_blk"], t["b_blk"], t["hy"], t["hu"])
+    assert isinstance(fac, tric.RiccatiFactor)
+    for a, b in zip(fac, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(du, tric.riccati_solve_plain(*ref, t["a_blk"],
+                                                    t["b_blk"], t["r"]))
+    assert trk.launch_counts == {"riccati_factor": 0, "riccati_solve": 0}
+
+
+def test_banded_solve_is_the_dense_solve():
+    """The factored sweep solves exactly the condensed system K du = r of
+    the stage statement (the formulation's defining property)."""
+    from scp_tpu.ops import condensed as jcond
+    rng = np.random.default_rng(5)
+    V, K = 2, 6
+    r = _system(1, V, K, seed=5)
+    a, b = r["a_blk"][0], r["b_blk"][0]
+    # condensed position blocks b3[v, k, :, j] = C A^(k-j) B
+    b3 = np.zeros((V, K, 2, K))
+    for v in range(V):
+        _, mb, _ = jcond.prediction_matrices(
+            jnp.asarray(a[v]), jnp.asarray(b[v][:, None]), jnp.zeros((6,)),
+            K, K)
+        b3[v] = np.asarray(mb).reshape(K, 2, K)
+    hy = r["hy"][0].reshape(K, V, 2, V, 2)
+    Kd = np.zeros((V * K, V * K))
+    for k in range(K):
+        for i in range(V):
+            for j in range(V):
+                Kd[i * K:(i + 1) * K, j * K:(j + 1) * K] += \
+                    b3[i, k].T @ hy[k, i, :, j, :] @ b3[j, k]
+    Kd[np.arange(V * K), np.arange(V * K)] += r["hu"][0].T.reshape(-1)
+    t = {k: _t(v) for k, v in r.items()}
+    fac = tric.riccati_factor(t["a_blk"], t["b_blk"], t["hy"], t["hu"])
+    du = tric.riccati_solve(fac, t["a_blk"], t["b_blk"], t["r"])
+    want = np.linalg.solve(Kd, r["r"][0].T.reshape(-1))
+    np.testing.assert_allclose(du[0].numpy().T.reshape(-1), want,
+                               rtol=1e-9, atol=1e-12)
+    del rng
+
+
+@pytest.mark.parametrize("V,K", [(1, 6), (3, 5)])
+def test_plain_sweeps_match_pallas_kernels_interpret_float32(V, K):
+    r = _system(3, V, K, seed=20 + V, dtype=np.float32)
+    j = {k: jnp.asarray(v, jnp.float32) for k, v in r.items()}
+    old = jpr.INTERPRET
+    jpr.INTERPRET = True
+    try:
+        f_j, lh_j, kg_j = jpr.riccati_factor_lane(j["a_blk"], j["b_blk"],
+                                                  j["hy"], j["hu"])
+        du_j = jpr.riccati_solve_lane(f_j, lh_j, kg_j, j["a_blk"],
+                                      j["b_blk"], j["r"])
+    finally:
+        jpr.INTERPRET = old
+    t = {k: torch.as_tensor(v) for k, v in r.items()}
+    fac = tric.riccati_factor(t["a_blk"], t["b_blk"], t["hy"], t["hu"])
+    du = tric.riccati_solve(fac, t["a_blk"], t["b_blk"], t["r"])
+    for got, want, name in ((fac.f, f_j, "f"), (fac.lh, lh_j, "lh"),
+                            (fac.kg, kg_j, "kg")):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                                   atol=1e-5, err_msg=name)
+    np.testing.assert_allclose(du.numpy(), np.asarray(du_j), rtol=5e-4,
+                               atol=1e-5)
+
+
+def test_wrappers_check_shapes_and_gate_shared_memory():
+    r = _system(2, 3, 4, seed=1, dtype=np.float32)
+    t = {k: torch.as_tensor(v) for k, v in r.items()}
+    with pytest.raises(ValueError):
+        trk.riccati_factor(t["a_blk"], t["b_blk"], t["hy"][:, :, :4],
+                           t["hu"])
+    with pytest.raises(ValueError):
+        trk.riccati_solve(t["hy"], t["hu"], t["hy"], t["a_blk"], t["b_blk"],
+                          t["r"])
+    # V = 4 (the long-horizon path) fits; 9,152 bytes per instance
+    assert trk.check_factor_smem_gate(4) == trk.factor_smem_bytes(4) == 9152
+    assert trk.check_factor_smem_gate(16) < trk.SMEM_LIMIT_BYTES
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        trk.check_factor_smem_gate(24)
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("circle", dict(n_veh=3)),
+    ("frog", dict()),
+])
+def test_linearize_ycoefs_matches_scp_tpu(kind, kw):
+    cfg_j, data_j, _, _ = scenario_pair(kind, 2, 4, np.float64,
+                                        cfg_over=dict(hp=5, hu=5), **kw)
+    problem, _, _ = jax_problem(cfg_j, data_j)
+    rng = np.random.default_rng(4)
+    u = rng.uniform(-0.02, 0.02, size=(2, cfg_j.n_veh * 5))
+    yp_j, yo_j = jax.vmap(jcon.linearize_ycoefs)(problem.sys,
+                                                  jnp.asarray(u))
+    from scp_tpu_torch import convert
+    sys_t = convert.system_from_numpy(tonp(problem.sys), torch.float64,
+                                      "cpu")
+    yp_t, yo_t = tcon.linearize_ycoefs(sys_t, torch.as_tensor(u))
+    assert_close(yp_t, yp_j, 1e-12, name="y_pair")
+    assert_close(yo_t, yo_j, 1e-12, name="y_obst")
+    # the slabs are the same rows multiplied into the condensed blocks
+    gi, gj, gob, _ = tcon.linearize_slabs(sys_t, torch.as_tensor(u))
+    assert_close(gob, torch.einsum("bvoky,bvkyu->bvoku", yo_t, sys_t.b3)
+                 .numpy(), 1e-12, name="gob")
+    if cfg_j.n_veh > 1:
+        assert_close(gi, torch.einsum("bpky,bpkyu->bpku", yp_t, sys_t.b3i)
+                     .numpy(), 1e-12, name="gi")

@@ -131,7 +131,10 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         tscp.solve_scp_stacked(problem_t, u, u_lim=u_lim,
                                **{**skw, "qp_cheap_k": True})
-    with pytest.raises(NotImplementedError):
+    # the banded KKT is ported (roadmap item 8); it needs the stage
+    # statement, which this problem (built with qp_kkt="dense") lacks
+    assert problem_t.banded_pre is None
+    with pytest.raises(ValueError, match="banded_pre"):
         tscp.solve_scp_stacked(problem_t, u, u_lim=u_lim,
                                **{**skw, "qp_kkt": "banded"})
     with pytest.raises(ValueError):

@@ -154,6 +154,21 @@ def test_solve_scp_batch_per_instance_path(phases):
     (dict(qp_cheap_k=True), "cheap_k"),
 ])
 def test_solve_scp_unported_options_raise(kw, item):
+    if item == "item 8":
+        # roadmap item 8 is ported: with the stage statement that
+        # controller_pre builds, qp_kkt="banded" solves the same SCP as the
+        # dense factor (float64 round-off; tests/test_torch_banded_qp.py
+        # holds it against scp_tpu)
+        _, problem_t, _, u0_t, u_lim, skw = _setup(
+            "circle", 2, 6, dict(qp_kkt="banded"), n_veh=2, radius=6.0)
+        band = tscp.solve_scp(problem_t, u0_t, u_lim=u_lim, max_scp_iter=3,
+                              **skw)
+        dense = tscp.solve_scp(problem_t, u0_t, u_lim=u_lim, max_scp_iter=3,
+                               **{**skw, "qp_kkt": "dense"})
+        assert skw["qp_kkt"] == "banded"
+        assert torch.equal(band.iters, dense.iters)
+        assert_close(band.u, dense.u.numpy(), 1e-7, name="u")
+        return
     _, problem_t, _, u0_t, u_lim, skw = _setup("circle", 2, 6, dict(),
                                                n_veh=2, radius=6.0)
     with pytest.raises(NotImplementedError, match=item):

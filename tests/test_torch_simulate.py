@@ -171,8 +171,11 @@ def test_per_instance_entry_points_refuse_other_controllers():
                          carry)
     with pytest.raises(ValueError):
         tengine.mpc_controller(cfg.replace(controller="pid"), data, carry)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tengine.mpc_step(cfg.replace(qp_kkt="banded"), data, carry)
+    # the banded KKT is ported (roadmap item 8): the same step as the dense
+    # factor, to float64 round-off
+    _, out_b = tengine.mpc_step(cfg.replace(qp_kkt="banded"), data, carry)
+    _, out_d = tengine.mpc_step(cfg, data, carry)
+    assert torch.allclose(out_b.u_pred, out_d.u_pred, rtol=0, atol=1e-8)
     res, aux, sides = tengine.mpc_controller(cfg, data, carry)
     assert sides is None and len(aux) == 6
     assert tuple(res.u.shape) == (1, 12)

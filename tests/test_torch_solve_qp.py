@@ -187,9 +187,21 @@ def test_stopped_instances_keep_state_and_host_reads_are_counted():
 @pytest.mark.parametrize("kw,item", [
     (dict(cheap_k=True), "cheap_k"),
     (dict(axis_name="model", mg_total=8), "item 11"),
-    (dict(banded=object()), "item 8"),
+    (dict(banded=True), "item 8"),
 ])
 def test_solve_qp_unported_options_raise(kw, item):
+    if item == "item 8":
+        # roadmap item 8 is ported: with a stage statement the banded KKT
+        # solves the same QP as the dense factor (float64 round-off;
+        # tests/test_torch_banded_qp.py holds it against scp_tpu)
+        _, ta = scp_qp_data("circle", 2, 4, np.float64, n_veh=2,
+                            banded=True)
+        args = [ta[k] for k in ("P", "q", "G", "h", "lb", "ub")]
+        dense = tqp.solve_qp(*args, x0=ta["x0"], tol=1e-10)
+        band = tqp.solve_qp(*args, x0=ta["x0"], tol=1e-10,
+                            banded=ta["banded"])
+        assert_close(band.x, dense.x.numpy(), 1e-7, name="x")
+        return
     d = _random_qps(2, 4, 4, seed=0)
     with pytest.raises(NotImplementedError, match=item):
         _torch_solve_qp(d, **kw)

@@ -58,10 +58,13 @@ def jax_problem(cfg_j, data_j):
 U_LIM, SLACK_W, SLACK_UB = np.pi / 180 * 3, 1e5, 1e8
 
 
-def scp_qp_data(kind, b, hp, np_dtype, seed=2, **kw):
-    """One SCP iteration's QP in both packages' argument forms."""
+def scp_qp_data(kind, b, hp, np_dtype, seed=2, banded=False, **kw):
+    """One SCP iteration's QP in both packages' argument forms; with
+    ``banded`` also its stage statement (``BandedData``) under the key
+    ``banded``."""
+    over = dict(hp=hp, hu=hp, qp_kkt="auto" if banded else "dense")
     cfg_j, data_j, _, _ = scenario_pair(kind, b, seed, np_dtype,
-                                        cfg_over=dict(hp=hp, hu=hp), **kw)
+                                        cfg_over=over, **kw)
     problem, _, _ = jax_problem(cfg_j, data_j)
     v, n_obst = cfg_j.n_veh, cfg_j.n_obst
     n = v * hp
@@ -89,4 +92,12 @@ def scp_qp_data(kind, b, hp, np_dtype, seed=2, **kw):
     t_args = dict(P=tt(P), q=tt(q), G=tt(G), h=tt(rhs), lb=tt(lb), ub=tt(ub),
                   x0=tt(x0), p_blocks=tt(pb), g_struct=g_struct,
                   g_slabs=(tt(gi), tt(gj), tt(gob)))
+    if banded:
+        from scp_tpu.solvers import qp as jqp
+        from scp_tpu_torch.solvers import qp as tqp
+        yp, yo = jax.vmap(jcon.linearize_ycoefs)(problem.sys, u)
+        a_blk, b_blk, qy, ru = problem.banded_pre
+        jax_args["banded"] = jqp.BandedData(a_blk, b_blk, yp, yo, qy, ru)
+        t_args["banded"] = tqp.BandedData(
+            *[tt(a) for a in (a_blk, b_blk, yp, yo, qy, ru)])
     return jax_args, t_args
