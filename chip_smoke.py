@@ -35,9 +35,20 @@ kernel's launch count set to 0 just before a path and read just after:
   20, B = 1024, ``tuned_f32`` (K2), 4 chained steps, also through the plain
   version, every K2 launch of the first step shadowed.
 
+The Cholesky and G-product kernels are also held at their edges: the
+factor at n = 1, 15, 16, 17, 32, 33, 81, 239 and B = 1, 3, 1023 (across its
+16-column panels) with an indefinite instance among good ones; the product
+on the dense P shape (1024, 81, 81) with unaligned instance bases, views
+that start 4 bytes past a 16-byte boundary, a tile larger than one stage
+(900 x 65), B = 1 and rows wider than a stage (one column past it, and
+60,000 columns).
+
 It times every kernel beside its plain version, the PyTorch library call
-that computes the same function (where there is one) and the card's bound,
-and prints one JSON object per phase. The last line of standard output is
+that computes the same function (where there is one) and the card's bound
+(the factor also at B = 1, the G product also on the P shape; the factor
+and the G product at the widest B also with a cold L2), prints each
+kernel's time over the library call's, and prints one JSON object per
+phase. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failing phase ends the run with a non-zero exit code; without a GPU the
 script exits non-zero at once and prints no result.
@@ -239,6 +250,30 @@ def device_ms(fn, reps: int, kernels_per_call: int | None = None) -> float:
     fail("torch.profiler recorded no complete session in five")
 
 
+# Bytes of other inputs read between two reads of one input in a cold-L2
+# timing: five times an H100's 50 MB L2.
+L2_ROTATE_BYTES = 256 << 20
+
+
+def rotating_copies(args) -> list[tuple]:
+    """Copies of the tensors ``args`` such that, used in turn, at least
+    ``L2_ROTATE_BYTES`` of the others are read between two uses of one."""
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    count = 1 + -(-L2_ROTATE_BYTES // nbytes)
+    return [tuple(a.clone() for a in args) for _ in range(count)]
+
+
+def rotate(fn, copies):
+    """A call of ``fn`` on the next of ``copies`` (cyclically) per call."""
+    state = {"i": 0}
+
+    def call():
+        args = copies[state["i"] % len(copies)]
+        state["i"] += 1
+        return fn(*args)
+    return call
+
+
 def graph_ms(fn, reps: int, replays: int = 5) -> float:
     """Milliseconds of device time per call of a kernel wrapper: ``reps``
     calls captured in a CUDA graph, and CUDA events around ``replays``
@@ -416,6 +451,75 @@ def u_pred_diff(a, b):
     return (a.u_pred.double() - b.u_pred.double()).abs().amax(dim=(-2, -1))
 
 
+def linalg_boundary_cases(dev, real, plain) -> None:
+    """The redesigned factor (a CTA per instance, 16-column panels) and G
+    product (row tiles staged in shared memory by a bulk copy whose aligned
+    span is decided per launch; a row wider than a stage in runs of
+    columns) at their edges, against the plain versions and a
+    float64 oracle with ``check_factor`` / ``check_vector``'s limits."""
+    from scp_tpu_torch.ops import linalg_kernel as lk
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def spd(b, n):
+        a = torch.randn((b, n, n), generator=gen, device=dev,
+                        dtype=torch.float64)
+        return (a @ a.transpose(1, 2) / n
+                + torch.eye(n, device=dev, dtype=torch.float64)).float()
+
+    nb = lk.CHOL_PANEL
+    # n across the panel edges, one panel and several
+    for n in (1, nb - 1, nb, nb + 1, 32, 33, 81, 239):
+        for b in (1, 3, 1023):
+            check_factor(f"boundary_n{n}_B{b}", spd(b, n), real["cholesky"],
+                         plain["cholesky"], True)
+    # one indefinite instance among good ones: NaN there only
+    for n in (nb + 1, 33):
+        K = spd(6, n)
+        L_good = real["cholesky"](K)
+        K[2, n // 2, n // 2] = -1.0
+        L = real["cholesky"](K)
+        torch.cuda.synchronize()
+        others = [0, 1, 3, 4, 5]
+        nan_ok = (bool(torch.isnan(L[2]).all())
+                  and torch.equal(L[others], L_good[others]))
+        emit({"phase": "kernel_vs_plain", "kernel": "cholesky",
+              "case": f"boundary_one_indefinite_among_good_n{n}",
+              "nan_there_only": nan_ok})
+        if not nan_ok:
+            fail(f"n = {n}: an indefinite instance must be NaN and leave the "
+                 f"other instances alone")
+        check_factor(f"boundary_one_indefinite_among_good_n{n}_vs_plain", K,
+                     real["cholesky"], plain["cholesky"], True)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    # the dense P product's shape: 26,244-byte instances, so every base but
+    # one in four is not 16-byte aligned; P[1:] starts 4 bytes past 16
+    P = randn(1024, 81, 81)
+    x = randn(1024, 81)
+    flat = randn(64 * 120 * 81 + 1)
+    stage = lk.GMV_STAGE_BYTES // 4 - 3     # floats of one stage
+    cases = {
+        "boundary_P_shape_B1024": (P, x),
+        "boundary_P_view_from_1": (P[1:], x[1:]),
+        "boundary_view_base_4_bytes_past_16":
+            (flat[1:].view(64, 120, 81), randn(64, 81)),
+        "boundary_m900_n65_above_one_stage": (randn(3, 900, 65),
+                                              randn(3, 65)),
+        "boundary_B1": (randn(1, 120, 81), randn(1, 81)),
+        "boundary_row_one_column_past_a_stage": (randn(2, 3, stage + 1),
+                                                 randn(2, stage + 1)),
+        "boundary_row_of_60000": (randn(2, 3, 60000), randn(2, 60000))}
+    for case, args in cases.items():
+        B, m, n = args[0].shape
+        emit({"phase": "gmv_geometry", "case": case,
+              "base_mod_16": args[0].data_ptr() % 16,
+              "rows_cols_smem": list(lk.gmv_geometry(B, m, n))})
+        check_vector("gmv", case, real["gmv"], plain["gmv"], args,
+                     MATVEC_REL_LIMIT)
+
+
 def linalg_phases(dev, card, B, n_veh, hp, seed, widths=(1024, 256, 64),
                   pair_batch=PAIR_BATCH, pair_steps=PAIR_STEPS,
                   adaptive_steps=ADAPTIVE_STEPS, sim_steps=None,
@@ -578,6 +682,7 @@ def linalg_phases(dev, card, B, n_veh, hp, seed, widths=(1024, 256, 64),
         fail("an indefinite instance must be NaN and leave the others alone")
     check_factor("one_indefinite_instance_vs_plain", K_i, real["cholesky"],
                  plain["cholesky"], True)
+    linalg_boundary_cases(dev, real, plain)
     # float64 CUDA tensors must be refused, not routed to the plain versions
     for k, args in (("cholesky", (K_o,)), ("cho_solve", (L_o, x_o)),
                     ("gmv", (G_o, x_o)), ("gtmv", (G_o, v_o))):
@@ -841,30 +946,65 @@ def linalg_phases(dev, card, B, n_veh, hp, seed, widths=(1024, 256, 64),
              "adaptive_step_ms": adaptive_step_ms,
              "adaptive_solves_per_s": B / adaptive_step_ms * 1e3,
              "kernels": {k: {} for k in names}}
+    def time_cell(k, args, m_rows):
+        # ms / plain_ms / library_ms: device time per call (profiler);
+        # *_call_ms: CUDA events around back-to-back calls, which for
+        # kernels this short is the host's time to enqueue one;
+        # ms_over_library_ms: comparable across calls (cards differ)
+        w = args[0].shape[0]
+        cell = {"ms": device_ms(lambda: real[k](*args), timing_reps, 1),
+                "plain_ms": device_ms(lambda: plain[k](*args), timing_reps),
+                "library_ms": device_ms(lambda: library[k](*args),
+                                        timing_reps)}
+        cell["ms_over_library_ms"] = cell["ms"] / cell["library_ms"]
+        cell["bound_ms"], cell["bound_by"] = linalg_bound_ms(k, w, n, m_rows)
+        cell["call_ms"] = time_cuda(lambda: real[k](*args), reps=timing_reps)
+        cell["plain_call_ms"] = time_cuda(lambda: plain[k](*args),
+                                          reps=timing_reps)
+        cell["library_call_ms"] = time_cuda(lambda: library[k](*args),
+                                            reps=timing_reps)
+        return cell
+
+    def cold_cell(k, args):
+        # the same calls with a cold L2: each call takes the next of enough
+        # copies of its inputs that the others move L2_ROTATE_BYTES
+        # through L2 before a copy is read again
+        copies = rotating_copies(args)
+        cell = {"cold_ms": device_ms(rotate(real[k], copies), timing_reps, 1),
+                "library_cold_ms": device_ms(rotate(library[k], copies),
+                                             timing_reps),
+                "input_copies": len(copies)}
+        cell["cold_over_library_cold_ms"] = (cell["cold_ms"]
+                                             / cell["library_cold_ms"])
+        del copies
+        return cell
+
     for w in widths:
         if w > B:
             continue
         for k in names:
             args = tuple(a[:w].contiguous() for a in first[k])
-            # ms / plain_ms / library_ms: device time per call (profiler);
-            # *_call_ms: CUDA events around back-to-back calls, which for
-            # kernels this short is the host's time to enqueue one
-            cell = {"ms": device_ms(lambda: real[k](*args), timing_reps, 1),
-                    "plain_ms": device_ms(lambda: plain[k](*args),
-                                          timing_reps),
-                    "library_ms": device_ms(lambda: library[k](*args),
-                                            timing_reps)}
-            cell["bound_ms"], cell["bound_by"] = linalg_bound_ms(k, w, n, mg)
-            cell["call_ms"] = time_cuda(lambda: real[k](*args),
-                                        reps=timing_reps)
-            cell["plain_call_ms"] = time_cuda(lambda: plain[k](*args),
-                                              reps=timing_reps)
-            cell["library_call_ms"] = time_cuda(lambda: library[k](*args),
-                                                reps=timing_reps)
+            cell = time_cell(k, args, mg)
+            if w == widths[0] and k in ("cholesky", "gmv"):
+                cell.update(cold_cell(k, args))
             times["kernels"][k][str(w)] = cell
             if w == widths[0]:
                 reports[k].update(cell)
+    # the one-scenario path's factor (B = 1), and the dense P product's
+    # shape (B, n, n) for the G product (seeded data)
+    times["kernels"]["cholesky"]["1"] = time_cell(
+        "cholesky", (first["cholesky"][0][:1].contiguous(),), mg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p_args = (torch.randn((B, n, n), generator=gen, device=dev),
+              torch.randn((B, n), generator=gen, device=dev))
+    times["kernels"]["gmv"][f"P_shape_{B}"] = {
+        **time_cell("gmv", p_args, n), **cold_cell("gmv", p_args)}
+    times["ms_over_library_ms"] = {
+        k: {w: c["ms_over_library_ms"] for w, c in times["kernels"][k].items()}
+        for k in names}
     emit(times)
+    emit({"phase": "linalg_ms_over_library_ms", "card": card,
+          **times["ms_over_library_ms"]})
     reset_counts()
     return [reports[k] for k in names]
 

@@ -14,6 +14,12 @@ layout, so each TPU pair (lane API and ``vmap`` front) is ONE kernel here.
 * :func:`gmv` ``G (B, m, n), x (B, n) -> (B, m)``; :func:`gtmv`
   ``G (B, m, n), v (B, m) -> (B, n)``.
 
+Launch geometry is decided here and checked by the launchers
+(:func:`chol_geometry`, :func:`gmv_geometry`): the factor runs one CTA per
+instance with a panel of :data:`CHOL_PANEL` columns; the G product stages
+row tiles of at most :data:`GMV_STAGE_BYTES` in shared memory, one CTA
+each (a row wider than that in runs of columns).
+
 Type rule: float32 CUDA tensors (contiguous) always go to the hand-written
 kernel; a failing build, load or launch raises. float64 CUDA tensors are
 refused with ``TypeError`` (the kernels are float32 only) and never routed
@@ -29,15 +35,30 @@ import torch
 from scp_tpu_torch.ops import _cuda_build, linalg
 from scp_tpu_torch.ops._cuda_build import SMEM_LIMIT_BYTES
 
+# The factor (csrc/chol_blocked.cuh): one CTA per instance, CHOL_PANEL = 16
+# columns per panel (the kernel's kPanel), CHOL_FEW_THREADS threads for at
+# most CHOL_FEW_INSTANCES instances (two CTAs per SM of an H100: one
+# instance's latency), else 128 (eight CTAs of n = 81 share an SM).
+CHOL_PANEL = 16
+CHOL_FEW_INSTANCES = 264
+CHOL_FEW_THREADS = 256
+# The G product (gmv_staged_kernel): a row tile's stage holds at most
+# GMV_STAGE_BYTES (a row wider than that is staged in runs of columns that
+# fill it), and tiles are cut smaller until the grid has
+# GMV_MIN_CTAS CTAs (eight per SM of an H100; a tile keeps at least 4 rows,
+# one warp's share).
+GMV_STAGE_BYTES = 32 * 1024
+GMV_MIN_CTAS = 1056
+
 # Launches of each CUDA kernel since the last reset (incremented where the
 # kernel is launched and nowhere else).
 launch_counts = {"cholesky": 0, "cho_solve": 0, "gmv": 0, "gtmv": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _ARGTYPES = {
-    "chol_batched_launch": [_P, _P, _I, _I, _L, _P],
+    "chol_batched_launch": [_P, _P, _I, _I, _I, _L, _P],
     "cho_solve_batched_launch": [_P, _P, _P, _I, _I, _L, _P],
-    "gmv_batched_launch": [_P, _P, _P, _I, _I, _I, _P],
+    "gmv_batched_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
     "gtmv_batched_launch": [_P, _P, _P, _I, _I, _I, _P],
 }
 
@@ -57,6 +78,39 @@ def solve_smem_bytes(n: int) -> int:
     """Dynamic shared memory of the solve kernel: the factor, ``1 / diag``
     and the right-hand side."""
     return 4 * (n * (n | 1) + 2 * n)
+
+
+def chol_geometry(B: int, n: int) -> tuple[int, int]:
+    """``(threads, shared-memory bytes per CTA)`` of the factor kernel, which
+    runs one CTA per instance."""
+    threads = CHOL_FEW_THREADS if B <= CHOL_FEW_INSTANCES else 128
+    return threads, chol_smem_bytes(n)
+
+
+def _round4(v: int) -> int:
+    return (v + 3) // 4 * 4
+
+
+def gmv_smem_bytes(cols: int, rows_per_tile: int) -> int:
+    """Shared memory of the staged G product: the mbarrier, a stage of
+    ``rows_per_tile`` x ``cols`` with up to three floats of alignment, x's
+    ``cols`` and the tile's results."""
+    return 16 + 4 * (_round4(rows_per_tile * cols + 3) + cols
+                     + rows_per_tile)
+
+
+def gmv_geometry(B: int, m: int, n: int) -> tuple[int, int, int]:
+    """``(rows per tile, columns per stage, shared-memory bytes per CTA)``
+    of the G product: one CTA per tile, ``ceil(m / rows)`` tiles per
+    instance, each staged ``cols`` columns at a time (``cols = n`` unless a
+    row is wider than a stage, and then one row per tile)."""
+    stage = GMV_STAGE_BYTES // 4 - 3
+    cols = min(n, stage)
+    rows = max(1, stage // n)
+    tiles_wanted = -(-GMV_MIN_CTAS // B)
+    rows = min(m, rows, max(4, -(-m // tiles_wanted)))
+    rows = -(-m // -(-m // rows))            # tiles of (nearly) equal rows
+    return rows, cols, gmv_smem_bytes(cols, rows)
 
 
 def fits_chol_smem(n: int) -> bool:
@@ -94,7 +148,7 @@ def cholesky(K: torch.Tensor) -> torch.Tensor:
     check_chol_smem_gate(n)
     L = torch.empty_like(K)
     _launch("cholesky", "chol_batched_launch", K, K.data_ptr(), L.data_ptr(),
-            B, n, chol_smem_bytes(n))
+            B, n, *chol_geometry(B, n))
     return L
 
 
@@ -119,7 +173,7 @@ def gmv(G: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return linalg.gmv_plain(G, x)
     out = torch.empty((B, m), dtype=G.dtype, device=G.device)
     _launch("gmv", "gmv_batched_launch", G, G.data_ptr(), x.data_ptr(),
-            out.data_ptr(), B, m, n)
+            out.data_ptr(), B, m, n, *gmv_geometry(B, m, n))
     return out
 
 

@@ -183,3 +183,47 @@ def test_wrappers_refuse_inconsistent_operands(breakage):
             tk.gmv(G, torch.ones((2, 4), dtype=torch.float64))
         else:
             tk.cholesky(torch.ones((0, 4, 4)))
+
+
+def _gmv_covered(total, per_step):
+    """Indices the staged G product's steps cover (its tiles over an
+    instance's rows, or its stages over a row's columns), each step as the
+    kernel computes it (first index, count)."""
+    covered = []
+    for first in range(0, total, per_step):
+        covered += range(first, min(total, first + per_step))
+    return covered
+
+
+@pytest.mark.parametrize("kernel,B", [("cholesky", b) for b in
+                                      (1, 3, 64, 1023, 1024)]
+                         + [("gmv", b) for b in (1, 3, 64, 256, 1024)])
+def test_launch_geometry(kernel, B):
+    """The geometry the wrappers hand the launchers: within a block's shared
+    memory, every instance, row and column computed exactly once, and the
+    factor's shared-memory gate where it was (n = 239 in, n = 240 out)."""
+    limit = tk.SMEM_LIMIT_BYTES
+    if kernel == "cholesky":
+        for n in range(1, 240):             # one CTA per instance
+            threads, smem = tk.chol_geometry(B, n)
+            assert threads in (128, 256)
+            assert smem == tk.chol_smem_bytes(n) <= limit
+            # the need the gate checks covers the launch
+            assert smem <= max(tk.chol_smem_bytes(n), tk.solve_smem_bytes(n))
+            assert tk.fits_chol_smem(n)
+        assert not tk.fits_chol_smem(240) and not tk.fits_chol_smem(257)
+        return
+    stage = tk.GMV_STAGE_BYTES // 4 - 3
+    shapes = [(120, 81), (81, 81), (900, 65), (45, 31), (1, 1), (3, 20000),
+              (3, 60000), (2, stage), (3, stage + 1)] + [
+                  (120, n) for n in range(1, 240)]
+    for m, n in shapes:
+        rows, cols, smem = tk.gmv_geometry(B, m, n)
+        assert 1 <= rows <= m and 1 <= cols <= n
+        assert cols == n or rows == 1       # a stage is whole rows or one
+        assert smem == tk.gmv_smem_bytes(cols, rows) <= limit
+        # the stage holds the tile and up to three floats of alignment
+        assert (smem - 16) // 4 >= rows * cols + 3 + cols + rows
+        assert _gmv_covered(m, rows) == list(range(m))
+        assert _gmv_covered(n, cols) == list(range(n))
+        assert B * -(-m // rows) < 2 ** 31
