@@ -35,20 +35,24 @@ kernel's launch count set to 0 just before a path and read just after:
   20, B = 1024, ``tuned_f32`` (K2), 4 chained steps, also through the plain
   version, every K2 launch of the first step shadowed.
 
-The Cholesky and G-product kernels are also held at their edges: the
-factor at n = 1, 15, 16, 17, 32, 33, 81, 239 and B = 1, 3, 1023 (across its
-16-column panels) with an indefinite instance among good ones; the product
-on the dense P shape (1024, 81, 81) with unaligned instance bases, views
-that start 4 bytes past a 16-byte boundary, a tile larger than one stage
+The fused IPM kernel is also held against its plain version on an
+instance whose KKT matrix is not positive definite (it must freeze, its
+state kept, as there). The Cholesky, solve and G-product kernels are also
+held at their edges: the factor and the solve at n = 1, 15, 16, 17, 32, 33,
+81, 239 and B = 1, 3, 1023 (across their 16-column panels and blocks) with
+an indefinite instance (a NaN factor) among good ones; the product on the
+dense P shape (1024, 81, 81) with unaligned instance bases, views that
+start 4 bytes past a 16-byte boundary, a tile larger than one stage
 (900 x 65), B = 1 and rows wider than a stage (one column past it, and
 60,000 columns).
 
 It times every kernel beside its plain version, the PyTorch library call
 that computes the same function (where there is one) and the card's bound
-(the factor also at B = 1, the G product also on the P shape; the factor
-and the G product at the widest B also with a cold L2), prints each
-kernel's time over the library call's, and prints one JSON object per
-phase. The last line of standard output is
+(the fused IPM kernel by CUDA-graph replay at each width, with the CTAs an
+SM holds; the factor also at B = 1, the G product also on the P shape; the
+factor, the solve and the G product at the widest B also with a cold L2),
+prints each kernel's time over the library call's, and prints one JSON
+object per phase. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failing phase ends the run with a non-zero exit code; without a GPU the
 script exits non-zero at once and prints no result.
@@ -452,11 +456,12 @@ def u_pred_diff(a, b):
 
 
 def linalg_boundary_cases(dev, real, plain) -> None:
-    """The redesigned factor (a CTA per instance, 16-column panels) and G
-    product (row tiles staged in shared memory by a bulk copy whose aligned
-    span is decided per launch; a row wider than a stage in runs of
-    columns) at their edges, against the plain versions and a
-    float64 oracle with ``check_factor`` / ``check_vector``'s limits."""
+    """The redesigned factor (a CTA per instance, 16-column panels), solve
+    (16-entry blocks) and G product (row tiles staged in shared memory by a
+    bulk copy whose aligned span is decided per launch; a row wider than a
+    stage in runs of columns) at their edges, against the plain versions
+    and a float64 oracle with ``check_factor`` / ``check_vector``'s
+    limits."""
     from scp_tpu_torch.ops import linalg_kernel as lk
     gen = torch.Generator(device=dev).manual_seed(17)
 
@@ -490,6 +495,35 @@ def linalg_boundary_cases(dev, real, plain) -> None:
                  f"other instances alone")
         check_factor(f"boundary_one_indefinite_among_good_n{n}_vs_plain", K,
                      real["cholesky"], plain["cholesky"], True)
+
+    # the blocked solve at the same edges (16-entry blocks), on float32
+    # factors of SPD matrices, and a NaN factor (the factor's output for an
+    # indefinite instance) among good ones: NaN there only
+    for n in (1, nb - 1, nb, nb + 1, 32, 33, 81, 239):
+        for b in (1, 3, 1023):
+            L = plain["cholesky"](spd(b, n)).contiguous()
+            rhs = torch.randn((b, n), generator=gen, device=dev)
+            check_vector("cho_solve", f"boundary_n{n}_B{b}", real["cho_solve"],
+                         plain["cho_solve"], (L, rhs), FIRST_ITER_REL_LIMIT)
+    for n in (nb + 1, 81):
+        L = plain["cholesky"](spd(6, n)).contiguous()
+        rhs = torch.randn((6, n), generator=gen, device=dev)
+        x_good = real["cho_solve"](L, rhs)
+        L[2] = float("nan")
+        x = real["cho_solve"](L, rhs)
+        torch.cuda.synchronize()
+        others = [0, 1, 3, 4, 5]
+        nan_ok = (bool(torch.isnan(x[2]).all())
+                  and torch.equal(x[others], x_good[others]))
+        emit({"phase": "kernel_vs_plain", "kernel": "cho_solve",
+              "case": f"boundary_nan_factor_among_good_n{n}",
+              "nan_there_only": nan_ok})
+        if not nan_ok:
+            fail(f"n = {n}: a NaN factor must give a NaN solution and leave "
+                 f"the other instances alone")
+        check_vector("cho_solve", f"boundary_nan_factor_among_good_n{n}"
+                     "_vs_plain", real["cho_solve"], plain["cho_solve"],
+                     (L, rhs), FIRST_ITER_REL_LIMIT)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -985,7 +1019,7 @@ def linalg_phases(dev, card, B, n_veh, hp, seed, widths=(1024, 256, 64),
         for k in names:
             args = tuple(a[:w].contiguous() for a in first[k])
             cell = time_cell(k, args, mg)
-            if w == widths[0] and k in ("cholesky", "gmv"):
+            if w == widths[0] and k in ("cholesky", "cho_solve", "gmv"):
                 cell.update(cold_cell(k, args))
             times["kernels"][k][str(w)] = cell
             if w == widths[0]:
@@ -1771,6 +1805,38 @@ def main() -> None:
                  torch_kernel_args(arrs_o, device=dev), kw_o,
                  real_wrapper, plain, u_abs=20 * U_ABS_LIMIT,
                  u_median=20 * U_MEDIAN_LIMIT)
+    # (d) an instance whose KKT matrix is not positive definite freezes
+    # (state kept, frozen flag set) as in the plain version, and the others
+    # go on as there (tests/test_torch_ipm_kernel.py's CPU case, on the card)
+    arrs_n, pairs_n, ov_n = kernel_inputs(B=8, V=2, hp=4, hu=4, n_obst=0,
+                                          seed=6)
+    arrs_n["pb"][3] = 50.0          # off-diagonals far above the diagonal
+    arrs_n["pdiag"][3, :-1] = 1.0
+    args_n = torch_kernel_args(arrs_n, device=dev)
+    kw_n = dict(pairs=pairs_n, obst_veh=ov_n, tol=1e-6, reg_rel=3e-6,
+                n_iters=2)
+    out_n = real_wrapper(*args_n, **kw_n)
+    plain_n = plain(*args_n, **kw_n)
+    torch.cuda.synchronize()
+    others = [i for i in range(8) if i != 3]
+    rep_n = {"phase": "kernel_vs_plain", "case": "not_spd_instance_freezes",
+             "finite": all(bool(torch.isfinite(t).all()) for t in out_n),
+             "frozen_kernel": float(out_n[10][3, 1]),
+             "frozen_plain": float(plain_n[10][3, 1]),
+             "state_kept": all(torch.equal(o[3], a[3]) for o, a in
+                               zip(out_n[:10], args_n[7:17])),
+             "others_u_kernel_vs_plain_max": float(
+                 (out_n[0][others] - plain_n[0][others]).abs().max()),
+             "others_frozen_equal": torch.equal(out_n[10][others, 1],
+                                                plain_n[10][others, 1]),
+             "limits": {"others_u": ONE_ITER_LIMIT}}
+    emit(rep_n)
+    if not (rep_n["finite"] and rep_n["state_kept"]
+            and rep_n["frozen_kernel"] == 1.0 == rep_n["frozen_plain"]
+            and rep_n["others_frozen_equal"]
+            and rep_n["others_u_kernel_vs_plain_max"] <= ONE_ITER_LIMIT):
+        fail(f"a KKT matrix that is not positive definite must freeze its "
+             f"instance as the plain version does: {rep_n}")
     # a float64 CUDA tensor must be refused, not routed to the plain one
     try:
         real_wrapper(*[a.double() for a in args_s], **kw_s)
@@ -1891,17 +1957,25 @@ def main() -> None:
              "k1_launches_per_step": ipm_kernel.launch_count / n_timed,
              "host_syncs_per_step": scp.host_sync_count / n_timed,
              "k1": {}}
+    # ms: device time per call by CUDA-graph replay; call_ms: CUDA events
+    # around back-to-back wrapper calls (what a caller pays per call)
+    ctas = ipm_kernel.resident_ctas_per_sm(*shape_b, kw_b["lower_tri"])
+    times["k1_resident_ctas_per_sm"] = ctas
     for w in widths:
         args_w, kw_w = captured[w]
-        ms = time_cuda(lambda: real_wrapper(*args_w, **kw_w), reps=20)
+        ms = graph_ms(lambda: real_wrapper(*args_w, **kw_w), reps=10)
+        call_ms = time_cuda(lambda: real_wrapper(*args_w, **kw_w), reps=20)
         plain_ms = time_cuda(lambda: plain(*args_w, **kw_w), reps=3, warmup=1)
         bound, by = k1_bound_ms(shape_b, w, kw_w["n_iters"], kw_w["n_cor"],
                                 kw_w["lower_tri"])
-        times["k1"][str(w)] = {"ms": ms, "plain_ms": plain_ms,
-                               "bound_ms": bound, "bound_by": by}
+        times["k1"][str(w)] = {"ms": ms, "ms_per_iteration":
+                               ms / kw_w["n_iters"], "call_ms": call_ms,
+                               "plain_ms": plain_ms, "bound_ms": bound,
+                               "bound_by": by, "resident_ctas_per_sm": ctas}
         if w == B:
-            kernel_report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                 bound_by=by)
+            kernel_report.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                                 bound_ms=bound, bound_by=by,
+                                 resident_ctas_per_sm=ctas)
     ipm_kernel.reset_launch_count()
     emit(times)
 

@@ -10,8 +10,14 @@
 //
 //   float col(const float* v, int c) const   // (G^T v)[c], c < n
 //   float row(const float* x, int r) const   // (G x)[r],   r < mg
+//   int col_slots() const, col_at(int t) const
+//     // the order in which threads take the columns: slot t < col_slots()
+//     // is column col_at(t), or idle (-1), so that a warp's columns can
+//     // share their row walk
 //
-// What follows the factorization is common: predictor, corrector, n_cor
+// The factor and the two substitutions are the package's one blocked factor
+// and one blocked solve (chol_blocked.cuh); what follows the factorization
+// is common too: predictor, corrector, n_cor
 // Gondzio correctors with per-instance acceptance, step lengths,
 // sigma = (mu_aff / mu)^3, the exact (1 - alpha) primal-residual recurrence,
 // and freeze on stall / convergence / a non-finite step.
@@ -20,9 +26,14 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include "chol.cuh"
+#include "chol_blocked.cuh"
 
 namespace scpk {
+
+// Threads of a CTA of either fused IPM kernel (one QP instance per CTA).
+constexpr int kIpmThreads = 256;
+// Floats of the block reductions' scratch (one per warp).
+constexpr int kRedWords = 32;
 
 __device__ inline float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -68,11 +79,13 @@ __device__ inline float step_ratio(float v, float dv) {
 }
 
 // The per-instance vectors in shared memory (m entries for the first nine,
-// n for the next nine), the factored matrix and the reduction scratch.
+// n for the next nine), the factored matrix, the reduction scratch
+// (kRedWords) and the factor's failure flag.
 struct IpmVecs {
   float *s, *z, *rp, *w, *a1, *a2, *a3, *dz, *ds;
   float *q, *pdiag, *x, *px, *dsc, *kb, *rhs, *dx, *dinv;
   float *K, *red;
+  int* bad;
 };
 
 // mg G rows, n variables, m = mg + 2n rows in all; the factored system has
@@ -100,12 +113,40 @@ template <class Rows>
 __device__ inline void build_rhs(const Rows& g, const IpmVecs& v,
                                  const IpmDims& d, const float* vin,
                                  bool with_cost) {
-  for (int c = threadIdx.x; c < d.n; c += blockDim.x) {
+  for (int t = threadIdx.x; t < g.col_slots(); t += blockDim.x) {
+    const int c = g.col_at(t);
+    if (c < 0) continue;
     const float gt = g.col(vin, c);
     const float box = vin[d.mg + c], boxl = vin[d.mg + d.n + c];
     const float head = with_cost ? (v.px[c] + v.q[c]) + gt : gt;
     v.rhs[c] = -((head + box) - boxl);
   }
+}
+
+// Factor the formed nk x nk KKT matrix in place (lower triangle, L_jj on
+// the diagonal, dinv = 1 / L_jj). A failed factor (a pivot not > 0) writes
+// NaN into dinv[0], which makes every solve against it NaN throughout, so
+// that the step's finite check freezes the instance. All threads call; the
+// solve that follows starts with a block barrier.
+//
+// A kernel may call the factor out of line by defining SCP_IPM_FACTOR_CALL
+// as __noinline__ before including this header: the dense-G kernel does,
+// since inlined, the factor's register tiles spilled its step algebra under
+// its launch bounds (PERF.md); the structured kernel spilled more with it
+// out of line.
+#ifndef SCP_IPM_FACTOR_CALL
+#define SCP_IPM_FACTOR_CALL inline
+#endif
+
+static __device__ SCP_IPM_FACTOR_CALL void ipm_factor(float* K, int n, int ld,
+                                                      float* dinv, int* bad) {
+  chol_blocked_smem<kIpmThreads>(K, n, ld, dinv, bad);
+}
+
+__device__ inline void factor_kkt(const IpmVecs& v, const IpmDims& d) {
+  if (threadIdx.x == 0) *v.bad = 0;
+  ipm_factor(v.K, d.nk, d.ldk, v.dinv, v.bad);
+  if (threadIdx.x == 0 && *v.bad) v.dinv[0] = CUDART_NAN_F;
 }
 
 // dx = K^-1 rhs through the Jacobi scaling (and, with the Schur border, the
@@ -117,7 +158,7 @@ __device__ inline void solve_kkt(const IpmVecs& v, const IpmDims& d,
   if (!d.schur) {
     for (int c = threadIdx.x; c < d.n; c += blockDim.x)
       v.rhs[c] = v.dsc[c] * v.rhs[c];
-    chol_solve_inplace(v.K, d.n, d.ldk, v.dinv, v.rhs);
+    chol_blocked_solve_smem<kIpmThreads>(v.K, d.n, d.ldk, v.dinv, v.rhs);
     for (int c = threadIdx.x; c < d.n; c += blockDim.x)
       v.rhs[c] = v.dsc[c] * v.rhs[c];
     __syncthreads();
@@ -128,7 +169,7 @@ __device__ inline void solve_kkt(const IpmVecs& v, const IpmDims& d,
   __syncthreads();
   for (int c = threadIdx.x; c < nu; c += blockDim.x)
     v.rhs[c] = v.dsc[c] * v.rhs[c] - v.kb[c] * (inv_kappa * rw);
-  chol_solve_inplace(v.K, nu, d.ldk, v.dinv, v.rhs);
+  chol_blocked_solve_smem<kIpmThreads>(v.K, nu, d.ldk, v.dinv, v.rhs);
   float part = 0.0f;
   for (int c = threadIdx.x; c < nu; c += blockDim.x)
     part += v.kb[c] * v.rhs[c];

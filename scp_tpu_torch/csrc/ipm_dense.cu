@@ -27,21 +27,28 @@
 // What bounds it on this card: on paper the bytes (K, G and the state are
 // read once and the state written once: ~38 MB per iteration at frog,
 // B = 1024, ~11 us at the memory rate; the nk^3/3 factor and ~(8 + 2 n_cor)
-// passes over G are ~30 MFLOP), in practice the latency of the sequential
-// factor and substitutions of one instance, as in the structured kernel.
+// passes over G are ~30 MFLOP), in practice the latency of one instance's
+// dependent steps: the factor and the substitutions (the package's blocked
+// ones, chol_blocked.cuh, shared with the structured kernel through
+// ipm_common.cuh) and the thread-per-row / thread-per-column G products.
 //
 // No fast-math: the Jacobi scaling and barrier ratios z/s up to 1e10 are why
 // float32 works at all here.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include "chol.cuh"
+// the factor out of line (see ipm_common.cuh)
+#define SCP_IPM_FACTOR_CALL __noinline__
 #include "ipm_common.cuh"
 #include "smem.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = scpk::kIpmThreads;
+// CTAs that share an SM at single-vehicle frog (58 KB of shared memory):
+// caps the registers at 80 a thread (unbounded, the inlined blocked factor
+// and solve took 233 and one CTA an SM).
+constexpr int kMinCtasPerSm = 3;
 
 struct DenseShape {
   int B, mg, n, m;
@@ -71,7 +78,8 @@ __host__ __device__ inline long dense_smem_words(const DenseShape& s) {
   long w = (long)s.nk * s.ldk;             // K / factor
   w += (long)s.nb * s.d * s.d;             // P blocks
   w += 9L * s.m + 9L * s.n;                // the vectors of scpk::IpmVecs
-  w += 64;                                 // reduction scratch
+  w += scpk::kRedWords;                    // reduction scratch
+  w += 1;                                  // the factor's failure flag
   if (s.g_smem) w += (long)s.mg * s.ldg;   // G
   return w;
 }
@@ -92,7 +100,8 @@ __device__ inline DenseSmem carve_dense(float* base, const DenseShape& s) {
   sm.q = p; p += s.n;   sm.pdiag = p; p += s.n;  sm.x = p; p += s.n;
   sm.px = p; p += s.n;  sm.dsc = p; p += s.n;    sm.kb = p; p += s.n;
   sm.rhs = p; p += s.n; sm.dx = p; p += s.n;     sm.dinv = p; p += s.n;
-  sm.red = p; p += 64;
+  sm.red = p; p += scpk::kRedWords;
+  sm.bad = reinterpret_cast<int*>(p); p += 1;
   sm.g = s.g_smem ? p : nullptr;
   return sm;
 }
@@ -107,6 +116,8 @@ struct DenseRows {
     for (int r = 0; r < mg; ++r) acc += g[(long)r * ld + c] * v[r];
     return acc;
   }
+  __device__ int col_slots() const { return n; }
+  __device__ int col_at(int t) const { return t; }
   __device__ float row(const float* x, int r) const {
     const float* gr = g + (long)r * ld;
     float acc = 0.0f;
@@ -127,7 +138,7 @@ struct DenseArgs {
   float tol, tol_stall, reg_rel;
 };
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
 ipm_dense_kernel(DenseArgs a, DenseShape s) {
   extern __shared__ float smem_base[];
   const DenseSmem sm = carve_dense(smem_base, s);
@@ -230,7 +241,7 @@ ipm_dense_kernel(DenseArgs a, DenseShape s) {
       sm.K[r * s.ldk + c] = (r == c) ? one_reg - border : val;
     }
   }
-  scpk::chol_lower_inplace(sm.K, nk, s.ldk, sm.dinv);
+  scpk::factor_kkt(sm, dims);
 
   auto no_mark = [](int) {};
   scpk::mehrotra_step(rows, sm, dims, mu, mu_prev, frozen, a.n_cor, a.tol,

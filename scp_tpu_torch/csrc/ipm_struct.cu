@@ -17,10 +17,9 @@
 //
 // Design. ONE CTA PER QP INSTANCE. The whole per-instance working set —
 // the nu x nu factor, the slabs, the P blocks and ~20 vectors — lives in
-// dynamic shared memory for the whole solve (about 66 KB at P = 6,
-// hp = hu = 20, V = 4, so three CTAs share an SM); it is read from device
-// memory once and the state is written back once. The iteration loop is a
-// plain `for` inside the CTA. Tensors are instance-major, so a CTA reads
+// dynamic shared memory for the whole solve; it is read from device memory
+// once and the state is written back once. The iteration loop is a plain
+// `for` inside the CTA. Tensors are instance-major, so a CTA reads
 // contiguous stretches. Shapes and the pair / obstacle-vehicle tables are
 // runtime arguments: one compiled kernel serves every shape.
 //
@@ -31,26 +30,37 @@
 // ~0.01; chip_smoke.py::k1_work counts them) against ~35 KB of device-memory
 // traffic per SOLVE; at B = 1024 and 7 iterations that is ~2.3 GFLOP and
 // ~36 MB, i.e. ~35 us at the card's f32 rate (67 TFLOP/s) and ~10 us at its
-// memory rate. The kernel sits far
-// above that bound because the factorization and the substitutions are
-// sequential chains (one block barrier per Cholesky column, one warp barrier
-// pair per substitution column) and because B = 256 / 64 (the straggler
-// phases) launch fewer CTAs than the card has SM slots. Three CTAs per SM
-// overlap one instance's barrier stalls with another's arithmetic; a
-// blocked factorization and multi-instance CTAs are later work.
+// memory rate. The kernel sits far above that bound because one instance's
+// factor and substitutions are chains of dependent steps, so the design
+// shortens the chains and keeps more instances resident per SM:
+//   * the factor and the solves are the package's blocked ones
+//     (chol_blocked.cuh, through ipm_common.cuh): 2 ceil(nu / 16) block
+//     barriers per factor and ceil(nu / 16) per substitution, where a
+//     column-by-column factor took nu + 1 and a substitution nu dependent
+//     warp steps;
+//   * K is formed block by block: each hu x hu (vehicle-row, vehicle-
+//     column) block of its lower triangle is a sum over the slabs that
+//     touch both vehicles of (W g_row)^T g_col, an inner dimension of hp,
+//     computed as 4 x 4 register tiles (a thread per tile, the pair and
+//     obstacle lookups resolved once per tile; w folded into the row side
+//     as it is loaded, so no scaled copy of the slabs takes shared memory);
+//   * lower-triangular slabs are stored packed (row k holds its
+//     min(k + 1, hu) non-zero entries), which takes the carve to 56,192
+//     bytes at P = 6, hp = hu = 20, V = 4, so that four CTAs share an SM
+//     (__launch_bounds__(256, 4): 64 registers a thread).
 //
 // No fast-math: the Jacobi scaling (1/sqrt of the analytic diagonal) and
 // barrier ratios z/s up to 1e10 are why f32 works at all here.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include "chol.cuh"
 #include "ipm_common.cuh"
 #include "smem.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = scpk::kIpmThreads;
+constexpr int kMinCtasPerSm = 4;
 
 // Built with -DSCP_PROFILE_SECTIONS (scripts/torch_k1_sections.py) the
 // kernel adds up, for block 0, the clock cycles between section marks;
@@ -98,18 +108,36 @@ __host__ __device__ inline Shape make_shape(int P, int S, int hp, int hu,
   return d;
 }
 
+// A slab in shared memory: row k (k < hp) holds its entries u < len(k) at
+// off(k) + u. With lower_tri the slabs are zero for u > k and only the
+// min(k + 1, hu) leading entries of a row are stored (packed); else whole
+// rows of hu.
+__host__ __device__ inline int slab_row_len(const Shape& d, int k) {
+  return d.lower_tri ? min(k + 1, d.hu) : d.hu;
+}
+
+__host__ __device__ inline int slab_row_off(const Shape& d, int k) {
+  if (!d.lower_tri) return k * d.hu;
+  return k < d.hu ? k * (k + 1) / 2
+                  : d.hu * (d.hu + 1) / 2 + (k - d.hu) * d.hu;
+}
+
+__host__ __device__ inline int slab_words(const Shape& d) {
+  return slab_row_off(d, d.hp);
+}
+
 // Shared-memory carve (in 4-byte words); must match ipm_kernel.py::smem_bytes.
 __host__ __device__ inline long smem_words(const Shape& d) {
   long w = 0;
   w += (long)d.nu * d.ldk;                 // K / factor
-  w += 2L * d.P * d.hp * d.hu;             // gi, gj
-  w += (long)d.S * d.hp * d.hu;            // gob
+  w += (2L * d.P + d.S) * slab_words(d);   // gi, gj, gob
   w += (long)d.V * d.hu * d.hu;            // pb
   w += d.mg;                               // gsl
   w += 9L * d.m;                           // s z rp w a1 a2 a3 dz ds
   w += 9L * d.n;                           // q pdiag x px dsc kb rhs dx dinv
-  w += 64;                                 // reduction scratch
+  w += scpk::kRedWords;                    // reduction scratch
   w += (long)d.V * d.V + 2L * d.P + d.S;   // pair_of, pair i / j, obst veh
+  w += 1;                                  // the factor's failure flag
   return w;
 }
 
@@ -122,10 +150,11 @@ struct Smem : scpk::IpmVecs {
 __device__ inline Smem carve(float* base, const Shape& d) {
   Smem sm;
   float* p = base;
+  const int sw = slab_words(d);
   sm.K = p; p += (long)d.nu * d.ldk;
-  sm.gi = p; p += (long)d.P * d.hp * d.hu;
-  sm.gj = p; p += (long)d.P * d.hp * d.hu;
-  sm.gob = p; p += (long)d.S * d.hp * d.hu;
+  sm.gi = p; p += (long)d.P * sw;
+  sm.gj = p; p += (long)d.P * sw;
+  sm.gob = p; p += (long)d.S * sw;
   sm.pb = p; p += (long)d.V * d.hu * d.hu;
   sm.gsl = p; p += d.mg;
   sm.s = p; p += d.m;   sm.z = p; p += d.m;   sm.rp = p; p += d.m;
@@ -134,10 +163,11 @@ __device__ inline Smem carve(float* base, const Shape& d) {
   sm.q = p; p += d.n;   sm.pdiag = p; p += d.n;  sm.x = p; p += d.n;
   sm.px = p; p += d.n;  sm.dsc = p; p += d.n;    sm.kb = p; p += d.n;
   sm.rhs = p; p += d.n; sm.dx = p; p += d.n;     sm.dinv = p; p += d.n;
-  sm.red = p; p += 64;
+  sm.red = p; p += scpk::kRedWords;
   int* ip = reinterpret_cast<int*>(p);
   sm.pair_of = ip; ip += d.V * d.V;
-  sm.pi = ip; ip += d.P;  sm.pj = ip; ip += d.P;  sm.ov = ip;
+  sm.pi = ip; ip += d.P;  sm.pj = ip; ip += d.P;  sm.ov = ip; ip += d.S;
+  sm.bad = ip;
   return sm;
 }
 
@@ -148,28 +178,25 @@ __device__ inline float col_accum(const Smem& sm, const Shape& d,
                                   const float* vec, int c) {
   const int v = c / d.hu, u = c - v * d.hu;
   const int k0 = d.lower_tri ? u : 0;
-  const int slab = d.hp * d.hu;
+  const int slab = slab_words(d), off0 = slab_row_off(d, k0) + u;
   float acc = 0.0f;
-  for (int p = 0; p < d.P; ++p) {
-    const float* g = nullptr;
-    if (sm.pi[p] == v) g = sm.gi + p * slab;
-    else if (sm.pj[p] == v) g = sm.gj + p * slab;
-    if (!g) continue;
-    const float* vr = vec + p * d.hp;
-#pragma unroll 4
-    for (int k = k0; k < d.hp; ++k) {
-      const float gv = g[k * d.hu + u];
-      acc += vr[k] * (SQ ? gv * gv : gv);
+  for (int p = 0; p < d.P + d.S; ++p) {
+    const float* g;
+    if (p < d.P) {
+      if (sm.pi[p] == v) g = sm.gi + p * slab;
+      else if (sm.pj[p] == v) g = sm.gj + p * slab;
+      else continue;
+    } else {
+      if (sm.ov[p - d.P] != v) continue;
+      g = sm.gob + (p - d.P) * slab;
     }
-  }
-  for (int o = 0; o < d.S; ++o) {
-    if (sm.ov[o] != v) continue;
-    const float* g = sm.gob + o * slab;
-    const float* vr = vec + (d.P + o) * d.hp;
+    const float* vr = vec + p * d.hp;
+    int off = off0;
 #pragma unroll 4
     for (int k = k0; k < d.hp; ++k) {
-      const float gv = g[k * d.hu + u];
+      const float gv = g[off];
       acc += vr[k] * (SQ ? gv * gv : gv);
+      off += slab_row_len(d, k);
     }
   }
   return acc;
@@ -179,11 +206,12 @@ __device__ inline float col_accum(const Smem& sm, const Shape& d,
 __device__ inline float row_dot(const Smem& sm, const Shape& d,
                                 const float* xv, int r) {
   const int blk = r / d.hp, k = r - blk * d.hp;
-  const int umax = d.lower_tri ? min(k + 1, d.hu) : d.hu;
+  const int umax = slab_row_len(d, k);
+  const int at = slab_row_off(d, k), slab = slab_words(d);
   float acc = 0.0f;
   if (blk < d.P) {
-    const float* gi = sm.gi + (blk * d.hp + k) * d.hu;
-    const float* gj = sm.gj + (blk * d.hp + k) * d.hu;
+    const float* gi = sm.gi + blk * slab + at;
+    const float* gj = sm.gj + blk * slab + at;
     const float* xi = xv + sm.pi[blk] * d.hu;
     const float* xj = xv + sm.pj[blk] * d.hu;
     for (int u = 0; u < umax; ++u) acc += gi[u] * xi[u];
@@ -192,11 +220,22 @@ __device__ inline float row_dot(const Smem& sm, const Shape& d,
     acc += acc2;
   } else {
     const int o = blk - d.P;
-    const float* g = sm.gob + (o * d.hp + k) * d.hu;
+    const float* g = sm.gob + o * slab + at;
     const float* xo = xv + sm.ov[o] * d.hu;
     for (int u = 0; u < umax; ++u) acc += g[u] * xo[u];
   }
   return acc + sm.gsl[r] * xv[d.nu];
+}
+
+// sum_r a[r] * b[r] over r < len, four partial sums (a chain of len / 4).
+__device__ inline float slack_dot(const float* a, const float* b, int len) {
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int r = 0;
+  for (; r + 4 <= len; r += 4)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) s[q] += a[r + q] * b[r + q];
+  for (; r < len; ++r) s[0] += a[r] * b[r];
+  return (s[0] + s[1]) + (s[2] + s[3]);
 }
 
 // The slab product G x / G^T v of scpk::mehrotra_step (the slack column is
@@ -206,9 +245,17 @@ struct SlabRows {
   const Shape& d;
   __device__ float col(const float* v, int c) const {
     if (c < d.nu) return col_accum<false>(sm, d, v, c);
-    float gt = 0.0f;
-    for (int r = 0; r < d.mg; ++r) gt += sm.gsl[r] * v[r];
-    return gt;
+    return slack_dot(sm.gsl, v, d.mg);
+  }
+  // A vehicle's columns start a warp (lanes = hu rounded up to 32 slots
+  // each), so that a warp's columns walk the same slabs; the slack column
+  // takes the last slot.
+  __device__ int col_lanes() const { return (d.hu + 31) & ~31; }
+  __device__ int col_slots() const { return d.V * col_lanes() + 1; }
+  __device__ int col_at(int t) const {
+    const int lanes = col_lanes(), v = t / lanes, u = t - v * lanes;
+    if (v == d.V) return d.nu;
+    return u < d.hu ? v * d.hu + u : -1;
   }
   __device__ float row(const float* x, int r) const {
     return row_dot(sm, d, x, r);
@@ -217,6 +264,125 @@ struct SlabRows {
 
 __device__ inline void copy_in(float* dst, const float* src, long count) {
   for (long i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
+}
+
+// `count` slabs of hp x hu (device memory, whole rows) into their shared
+// layout (packed rows with lower_tri), eight loads in flight per thread.
+__device__ inline void load_slabs(float* dst, const float* src, int count,
+                                  const Shape& d) {
+  constexpr int kBatch = 8;
+  const int full = d.hp * d.hu, sw = slab_words(d), total = count * full;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kBatch * kThreads) {
+    float v[kBatch];
+    int at[kBatch];  // shared-memory index, -1: not stored
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = e0 + i * kThreads, p = e / full, r = e - p * full;
+      const int k = r / d.hu, u = r - k * d.hu;
+      at[i] = (e < total && u < slab_row_len(d, k))
+                  ? p * sw + slab_row_off(d, k) + u : -1;
+      v[i] = at[i] >= 0 ? src[e] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i)
+      if (at[i] >= 0) dst[at[i]] = v[i];
+  }
+}
+
+// One row k of tile_slab_product: acc[u][v] += w_k ga[k][r0 + u]
+// gb[k][c0 + v], the row's entries at off .. off + len; with kGuard the
+// entries past len count as zero.
+template <bool kGuard>
+__device__ __forceinline__ void tile_row(float (&acc)[4][4], const float* ga,
+                                         const float* gb, float wk, int off,
+                                         int len, int r0, int c0) {
+  float pa[4], pb[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    pa[u] = (!kGuard || r0 + u < len) ? wk * ga[off + r0 + u] : 0.0f;
+    pb[u] = (!kGuard || c0 + u < len) ? gb[off + c0 + u] : 0.0f;
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[u][v] += pa[u] * pb[v];
+}
+
+// acc[u][v] += sum_k w[k] ga[k][r0 + u] gb[k][c0 + v] over the rows of one
+// slab (ga, gb: the two vehicles' slabs of one pair, or one slab twice);
+// entries outside a packed row (u or v past len(k)) count as zero, and
+// with lower_tri the rows k < max(r0, c0) are zero throughout. Rows that
+// hold the whole tile (from max(r0, c0) + 3 on with lower_tri, every row
+// without, for a tile inside the hu columns) go without the guards, two at
+// a time, so that their loads are in flight together.
+__device__ inline void tile_slab_product(float (&acc)[4][4], const float* ga,
+                                         const float* gb, const float* w,
+                                         const Shape& d, int r0, int c0) {
+  const int k0 = d.lower_tri ? max(r0, c0) : 0;
+  const bool inside = r0 + 4 <= d.hu && c0 + 4 <= d.hu;
+  const int k1 = !inside ? d.hp
+                         : min(d.lower_tri ? k0 + 3 : k0, d.hp);
+  int off = slab_row_off(d, k0), k = k0;
+  for (; k < k1; ++k) {
+    const int len = slab_row_len(d, k);
+    tile_row<true>(acc, ga, gb, w[k], off, len, r0, c0);
+    off += len;
+  }
+#pragma unroll 2
+  for (; k < d.hp; ++k) {
+    const int len = slab_row_len(d, k);
+    tile_row<false>(acc, ga, gb, w[k], off, len, r0, c0);
+    off += len;
+  }
+}
+
+// One 4 x 4 tile (rows r0 .., columns c0 .. of the hu x hu block) of the
+// (vr, vc) block (vc <= vr) of the scaled, bordered KKT matrix, lower
+// triangle: sum over the slabs that touch both vehicles of (W g_r)^T g_c
+// (+ the P block on the diagonal), Jacobi-scaled, minus the rank-1 border
+// of the eliminated slack, the regularised unit diagonal.
+__device__ inline void form_tile(const Smem& sm, const Shape& d, int vr,
+                                 int vc, int r0, int c0, float inv_kappa,
+                                 float one_reg) {
+  const int slab = slab_words(d);
+  float acc[4][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[u][v] = 0.0f;
+  if (vr == vc) {
+    for (int p = 0; p < d.P; ++p) {
+      const float* g;
+      if (sm.pi[p] == vr) g = sm.gi + p * slab;
+      else if (sm.pj[p] == vr) g = sm.gj + p * slab;
+      else continue;
+      tile_slab_product(acc, g, g, sm.w + p * d.hp, d, r0, c0);
+    }
+    for (int o = 0; o < d.S; ++o)
+      if (sm.ov[o] == vr)
+        tile_slab_product(acc, sm.gob + o * slab, sm.gob + o * slab,
+                          sm.w + (d.P + o) * d.hp, d, r0, c0);
+  } else {
+    // pairs are (i, j) with i < j: the row vehicle vr is the pair's j
+    const int p = sm.pair_of[vc * d.V + vr];
+    if (p >= 0)
+      tile_slab_product(acc, sm.gj + p * slab, sm.gi + p * slab,
+                        sm.w + p * d.hp, d, r0, c0);
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int ar = r0 + u, ac = c0 + v;
+      if (ar >= d.hu || ac >= d.hu || (vr == vc && ac > ar)) continue;
+      const int r = vr * d.hu + ar, c = vc * d.hu + ac;
+      float val = acc[u][v];
+      if (vr == vc) val += sm.pb[(vr * d.hu + ar) * d.hu + ac];
+      const float border = (inv_kappa * sm.kb[r]) * sm.kb[c];
+      sm.K[r * d.ldk + c] =
+          (r == c) ? one_reg - border : val * (sm.dsc[r] * sm.dsc[c]) - border;
+    }
+  }
 }
 
 struct Args {
@@ -228,21 +394,24 @@ struct Args {
   float tol, tol_stall, reg_rel;
 };
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
 ipm_struct_kernel(Args a, Shape d) {
   extern __shared__ float smem_base[];
   const Smem sm = carve(smem_base, d);
   const long b = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, nwarp = nt >> 5;
-  const int slab = d.hp * d.hu;
+  const long slab = (long)d.hp * d.hu;   // in device memory
   const int mg = d.mg, n = d.n, nu = d.nu, m = d.m;
+  // the K tiles: tb x tb tiles of 4 x 4 per hu x hu block, the V (V + 1) / 2
+  // blocks of the lower triangle (the upper tiles of a diagonal block idle)
+  const int tb = (d.hu + 3) >> 2, tiles = tb * tb;
+  const int n_tiles = d.V * (d.V + 1) / 2 * tiles;
 
   SECTION_INIT();
   // ---- load the instance ----
-  copy_in(sm.gi, a.gi + b * d.P * slab, (long)d.P * slab);
-  copy_in(sm.gj, a.gj + b * d.P * slab, (long)d.P * slab);
-  if (d.S) copy_in(sm.gob, a.gob + b * d.S * slab, (long)d.S * slab);
+  load_slabs(sm.gi, a.gi + b * d.P * slab, d.P, d);
+  load_slabs(sm.gj, a.gj + b * d.P * slab, d.P, d);
+  if (d.S) load_slabs(sm.gob, a.gob + b * d.S * slab, d.S, d);
   copy_in(sm.pb, a.pb + b * d.V * d.hu * d.hu, (long)d.V * d.hu * d.hu);
   copy_in(sm.gsl, a.gsl + b * mg, mg);
   copy_in(sm.q, a.q + b * n, n);
@@ -281,20 +450,24 @@ ipm_struct_kernel(Args a, Shape d) {
     // ---- barrier weights and mu ----
     mu = scpk::weights_and_mu(sm, dims);
 
+    // ---- the border column of the eliminated slack, unscaled ----
+    for (int r = tid; r < mg; r += nt) sm.a1[r] = sm.w[r] * sm.gsl[r];
+    __syncthreads();
     // ---- P x, analytic KKT diagonal, Jacobi scale ----
-    for (int c = tid; c < n; c += nt) {
+    for (int t = tid; t < rows.col_slots(); t += nt) {
+      const int c = rows.col_at(t);
+      if (c < 0) continue;
       float px, gsq;
       if (c < nu) {
         const int v = c / d.hu, u = c - v * d.hu;
         const float* prow = sm.pb + (v * d.hu + u) * d.hu;
         const float* xb = sm.x + v * d.hu;
         px = 0.0f;
-        for (int t = 0; t < d.hu; ++t) px += prow[t] * xb[t];
+        for (int j = 0; j < d.hu; ++j) px += prow[j] * xb[j];
         gsq = col_accum<true>(sm, d, sm.w, c);
       } else {
         px = sm.pdiag[c] * sm.x[c];
-        gsq = 0.0f;
-        for (int r = 0; r < mg; ++r) gsq += sm.w[r] * sm.gsl[r] * sm.gsl[r];
+        gsq = slack_dot(sm.a1, sm.gsl, mg);
       }
       const float dbox = sm.w[mg + c] + sm.w[mg + n + c];
       const float dk = sm.pdiag[c] + gsq + dbox;
@@ -302,59 +475,26 @@ ipm_struct_kernel(Args a, Shape d) {
       sm.dsc[c] = 1.0f / sqrtf(fmaxf(dk, 1e-30f));
     }
     // ---- scaled border column of the eliminated slack ----
-    for (int r = tid; r < mg; r += nt) sm.a1[r] = sm.w[r] * sm.gsl[r];
     __syncthreads();
-    for (int c = tid; c < nu; c += nt)
-      sm.kb[c] = sm.dsc[c] * col_accum<false>(sm, d, sm.a1, c) * sm.dsc[nu];
+    for (int t = tid; t < rows.col_slots(); t += nt) {
+      const int c = rows.col_at(t);
+      if (c >= 0 && c < nu)
+        sm.kb[c] =
+            sm.dsc[c] * col_accum<false>(sm, d, sm.a1, c) * sm.dsc[nu];
+    }
     __syncthreads();
     SECTION(kSecDiag);
 
     // ---- form the scaled, bordered KKT matrix (lower triangle) ----
-    for (int r = warp; r < nu; r += nwarp) {
-      const int vr = r / d.hu, ar = r - vr * d.hu;
-      for (int c = lane; c <= r; c += 32) {
-        const int vc = c / d.hu, ac = c - vc * d.hu;
-        const int k0 = d.lower_tri ? max(ar, ac) : 0;
-        float acc = 0.0f;
-        if (vr == vc) {
-          for (int p = 0; p < d.P; ++p) {
-            const float* g = nullptr;
-            if (sm.pi[p] == vr) g = sm.gi + p * slab;
-            else if (sm.pj[p] == vr) g = sm.gj + p * slab;
-            if (!g) continue;
-            const float* wr = sm.w + p * d.hp;
-#pragma unroll 4
-            for (int k = k0; k < d.hp; ++k)
-              acc += wr[k] * g[k * d.hu + ar] * g[k * d.hu + ac];
-          }
-          for (int o = 0; o < d.S; ++o) {
-            if (sm.ov[o] != vr) continue;
-            const float* g = sm.gob + o * slab;
-            const float* wr = sm.w + (d.P + o) * d.hp;
-#pragma unroll 4
-            for (int k = k0; k < d.hp; ++k)
-              acc += wr[k] * g[k * d.hu + ar] * g[k * d.hu + ac];
-          }
-          acc += sm.pb[(vr * d.hu + ar) * d.hu + ac];
-        } else {
-          const int p = sm.pair_of[vc * d.V + vr];
-          if (p >= 0) {
-            const float* gr = sm.gj + p * slab;
-            const float* gc = sm.gi + p * slab;
-            const float* wr = sm.w + p * d.hp;
-#pragma unroll 4
-            for (int k = k0; k < d.hp; ++k)
-              acc += wr[k] * gr[k * d.hu + ar] * gc[k * d.hu + ac];
-          }
-        }
-        const float border = (inv_kappa * sm.kb[r]) * sm.kb[c];
-        sm.K[r * d.ldk + c] =
-            (r == c) ? one_reg - border
-                     : acc * (sm.dsc[r] * sm.dsc[c]) - border;
-      }
+    for (int t = tid; t < n_tiles; t += nt) {
+      int blk = t / tiles, vr = 0;
+      const int ti = (t - blk * tiles) / tb, tj = t - blk * tiles - ti * tb;
+      while (blk > vr) blk -= ++vr;   // blk = vr (vr + 1) / 2 + vc
+      if (blk == vr && tj > ti) continue;
+      form_tile(sm, d, vr, blk, 4 * ti, 4 * tj, inv_kappa, one_reg);
     }
     SECTION(kSecForm);
-    scpk::chol_lower_inplace(sm.K, nu, d.ldk, sm.dinv);
+    scpk::factor_kkt(sm, dims);
     SECTION(kSecChol);
 
     scpk::mehrotra_step(rows, sm, dims, mu, mu_prev, frozen, a.n_cor, a.tol,
@@ -385,6 +525,26 @@ ipm_struct_kernel(Args a, Shape d) {
 }
 
 int ipm_struct_smem_granted[scpk::kMaxDevices];
+int ipm_struct_carveout_set[scpk::kMaxDevices];
+
+// Raise the kernel's dynamic shared-memory limit to `smem_bytes` and, once
+// per device, prefer the largest shared-memory carve-out of the SM's
+// unified L1 / shared memory, so that four CTAs of the bench shape fit.
+cudaError_t prepare(long smem_bytes) {
+  cudaError_t err = scpk::ensure_dyn_smem(ipm_struct_kernel,
+                                          ipm_struct_smem_granted, smem_bytes);
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= scpk::kMaxDevices) return cudaErrorInvalidDevice;
+  if (ipm_struct_carveout_set[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(ipm_struct_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) ipm_struct_carveout_set[dev] = 1;
+  return err;
+}
 
 }  // namespace
 
@@ -418,11 +578,23 @@ int ipm_struct_launch(
   a.rpgo = rpgo; a.rpuo = rpuo; a.rplo = rplo; a.scalo = scalo;
   a.n_iters = n_iters; a.n_cor = n_cor;
   a.tol = tol; a.tol_stall = tol_stall; a.reg_rel = reg_rel;
-  cudaError_t err = scpk::ensure_dyn_smem(ipm_struct_kernel,
-                                          ipm_struct_smem_granted, smem_bytes);
+  cudaError_t err = prepare(smem_bytes);
   if (err != cudaSuccess) return (int)err;
   ipm_struct_kernel<<<B, kThreads, smem_bytes, (cudaStream_t)stream>>>(a, d);
   return (int)cudaGetLastError();
+}
+
+// CTAs of the kernel that can be resident on one SM at a shape
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the launch's own
+// shared memory and carve-out) into `ctas`. Returns a CUDA error code.
+int ipm_struct_occupancy(int P, int S, int hp, int hu, int V, int lower_tri,
+                         int* ctas) {
+  const long smem_bytes = 4L * smem_words(
+      make_shape(P, S, hp, hu, V, lower_tri));
+  cudaError_t err = prepare(smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, ipm_struct_kernel, kThreads, (size_t)smem_bytes);
 }
 
 #ifdef SCP_PROFILE_SECTIONS

@@ -18,16 +18,25 @@
 // multiply-adds, a matvec reads m*n floats for m*n multiply-adds), so on
 // paper device memory is the limit.
 //
-// K3, the factor: an unblocked factor in shared memory (chol.cuh) is a
-// chain of n block barriers with three shared-memory accesses per
-// multiply-add; at B = 1024 and n = 81 that instruction rate, not device
-// memory, bounded it, and at small B one instance's barrier chain did.
-// The blocked factor of chol_blocked.cuh takes two barriers per panel of
-// 16 columns and ~0.6 shared-memory accesses per multiply-add (register
-// tiles of the rank-16 trailing update), and factors each diagonal block
-// while the trailing update runs; what bounds it now is the chain of n
-// pivots (a shuffle, 1/sqrt, a shuffle each) on one warp. Only the lower
-// triangle of K is read.
+// K3, the factor: a column-by-column factor in shared memory is a chain of
+// n block barriers with three shared-memory accesses per multiply-add; at
+// B = 1024 and n = 81 that instruction rate, not device memory, bounded it,
+// and at small B one instance's barrier chain did. The blocked factor of
+// chol_blocked.cuh takes two barriers per panel of 16 columns and ~0.6
+// shared-memory accesses per multiply-add (register tiles of the rank-16
+// trailing update), and factors each diagonal block while the trailing
+// update runs; what bounds it now is the chain of n pivots (a shuffle, a
+// square root and its reciprocal, a shuffle each) on one warp. Only the
+// lower triangle of K is read.
+//
+// K4, the solve: a column-by-column substitution on one warp was a chain
+// of 2n dependent steps (~380 cycles each at n = 81 with its warp
+// barriers), whatever the batch. The blocked solve of chol_blocked.cuh
+// (16-entry blocks, each solved in registers with a shuffle per entry, one
+// block barrier per block) shortens the chain to 2 ceil(n / 16) blocks of
+// 16 steps of a multiply, a shuffle and an FMA. Only the lower triangle of
+// L is staged, with several loads in flight per thread, and 1 / L_jj is
+// taken from its diagonal.
 //
 // K5a, G x: the row-per-warp kernel it replaced read each unaligned
 // 324-byte row in three passes of scalar loads and re-read x for every
@@ -73,17 +82,41 @@ __device__ long long g_chol_t0;  // block 0, thread 0 only
   } while (0)
 #endif
 
-#include "chol.cuh"
 #include "chol_blocked.cuh"
 #include "smem.cuh"
 
 namespace {
 
-constexpr int kSolveThreads = 128;
 constexpr int kMvThreads = 256;
 constexpr int kGmvThreads = 128;
 
 __host__ __device__ inline int odd_ld(int n) { return n | 1; }
+
+// Stage the lower triangle of the n x n instance matrix M (row-major, in
+// device memory) into shared memory S (leading dimension ld), eight loads in
+// flight per thread before any store. With `dinv`, also 1 / M_jj.
+template <int NT>
+__device__ inline void stage_lower(const float* __restrict__ M, float* S,
+                                   int n, int ld, float* dinv) {
+  constexpr int kBatch = 8;
+  for (int e0 = threadIdx.x; e0 < n * n; e0 += kBatch * NT) {
+    float v[kBatch];
+    int at[kBatch];  // shared-memory index, -1: not loaded
+    int dg[kBatch];  // the diagonal's row, -1: off the diagonal
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * NT, r = e / n, c = e - r * n;
+      at[u] = (e < n * n && c <= r) ? r * ld + c : -1;
+      dg[u] = (e < n * n && c == r) ? r : -1;
+      v[u] = at[u] >= 0 ? M[e] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (at[u] >= 0) S[at[u]] = v[u];
+      if (dinv && dg[u] >= 0) dinv[dg[u]] = 1.0f / v[u];
+    }
+  }
+}
 
 // One CTA per instance. Shared memory: the matrix (n x ld), 1 / diag (n),
 // and a flag. The factor's upper triangle is written as zeros; an instance
@@ -101,21 +134,7 @@ chol_blocked_kernel(const float* __restrict__ K, float* __restrict__ L,
   const size_t base = (size_t)blockIdx.x * n * n;
   CHOL_SECTION_INIT();
   if (tid == 0) *bad = 0;
-  // the lower triangle, eight loads in flight per thread before any store
-  constexpr int kBatch = 8;
-  for (int e0 = tid; e0 < n * n; e0 += kBatch * NT) {
-    float v[kBatch];
-    int at[kBatch];  // shared-memory index, -1: not loaded
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int e = e0 + u * NT, r = e / n, c = e - r * n;
-      at[u] = (e < n * n && c <= r) ? r * ld + c : -1;
-      v[u] = at[u] >= 0 ? K[base + e] : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-      if (at[u] >= 0) A[at[u]] = v[u];
-  }
+  stage_lower<NT>(K + base, A, n, ld, nullptr);
   CHOL_SECTION(0);
   scpk::chol_blocked_smem<NT>(A, n, ld, dinv, bad);
   const bool poisoned = *bad != 0;
@@ -126,9 +145,11 @@ chol_blocked_kernel(const float* __restrict__ K, float* __restrict__ L,
   CHOL_SECTION(4);
 }
 
-// One CTA per instance: all threads stage the factor in shared memory,
-// warp 0 runs the two substitutions. Only the lower triangle is read.
-__global__ void __launch_bounds__(kSolveThreads)
+// One CTA per instance. Shared memory: the factor's lower triangle (n x ld),
+// 1 / diag (n) and the right-hand side (n). A NaN factor (K3's output for an
+// indefinite instance) gives a NaN solution for that instance only.
+template <int NT>
+__global__ void __launch_bounds__(NT, 2048 / NT / 2)
 cho_solve_batched_kernel(const float* __restrict__ L,
                          const float* __restrict__ b, float* __restrict__ x,
                          int n) {
@@ -137,17 +158,11 @@ cho_solve_batched_kernel(const float* __restrict__ L,
   float* Ls = smem;
   float* dinv = Ls + n * ld;
   float* y = dinv + n;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t base = (size_t)blockIdx.x * n * n;
-  for (int e = tid; e < n * n; e += nt) {
-    const int r = e / n, c = e - r * n;
-    const float v = L[base + e];
-    Ls[r * ld + c] = v;
-    if (r == c) dinv[r] = 1.0f / v;
-  }
-  for (int i = tid; i < n; i += nt) y[i] = b[(size_t)blockIdx.x * n + i];
-  scpk::chol_solve_inplace(Ls, n, ld, dinv, y);
-  for (int i = tid; i < n; i += nt) x[(size_t)blockIdx.x * n + i] = y[i];
+  const int tid = threadIdx.x;
+  stage_lower<NT>(L + (size_t)blockIdx.x * n * n, Ls, n, ld, dinv);
+  for (int i = tid; i < n; i += NT) y[i] = b[(size_t)blockIdx.x * n + i];
+  scpk::chol_blocked_solve_smem<NT>(Ls, n, ld, dinv, y);
+  for (int i = tid; i < n; i += NT) x[(size_t)blockIdx.x * n + i] = y[i];
 }
 
 // ---- K5a: bulk copies into shared memory on an mbarrier ----
@@ -309,7 +324,6 @@ gtmv_batched_kernel(const float* __restrict__ G, const float* __restrict__ v,
   }
 }
 
-int solve_smem_granted[scpk::kMaxDevices];
 int gmv_smem_granted[scpk::kMaxDevices];
 
 template <int NT>
@@ -320,6 +334,17 @@ cudaError_t launch_blocked(const float* K, float* L, int B, int n,
                                           smem_bytes);
   if (err != cudaSuccess) return err;
   chol_blocked_kernel<NT><<<B, NT, smem_bytes, stream>>>(K, L, n);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_solve(const float* L, const float* b, float* x, int B,
+                         int n, long smem_bytes, cudaStream_t stream) {
+  static int granted[scpk::kMaxDevices];
+  cudaError_t err = scpk::ensure_dyn_smem(cho_solve_batched_kernel<NT>,
+                                          granted, smem_bytes);
+  if (err != cudaSuccess) return err;
+  cho_solve_batched_kernel<NT><<<B, NT, smem_bytes, stream>>>(L, b, x, n);
   return cudaGetLastError();
 }
 
@@ -344,16 +369,18 @@ int chol_batched_launch(const float* K, float* L, int B, int n, int threads,
   return -1;
 }
 
+// K4: cho_solve_batched_kernel, one instance per CTA, threads 128 or 256.
 int cho_solve_batched_launch(const float* L, const float* b, float* x, int B,
-                             int n, long smem_bytes, void* stream) {
+                             int n, int threads, long smem_bytes,
+                             void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
   if (smem_bytes != (long)sizeof(float) * ((long)n * odd_ld(n) + 2 * n))
     return -1;
-  cudaError_t err = scpk::ensure_dyn_smem(cho_solve_batched_kernel,
-                                    solve_smem_granted, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  cho_solve_batched_kernel<<<B, kSolveThreads, smem_bytes,
-                             (cudaStream_t)stream>>>(L, b, x, n);
-  return (int)cudaGetLastError();
+  if (threads == 128)
+    return (int)launch_solve<128>(L, b, x, B, n, smem_bytes, st);
+  if (threads == 256)
+    return (int)launch_solve<256>(L, b, x, B, n, smem_bytes, st);
+  return -1;
 }
 
 // K5a: gmv_staged_kernel, tiles of `rows_per_tile` rows staged `cols`

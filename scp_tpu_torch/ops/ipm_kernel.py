@@ -59,30 +59,51 @@ def reset_launch_count() -> None:
     dense_launch_count = 0
 
 
-def smem_bytes(P: int, S: int, hp: int, hu: int, V: int) -> int:
+# Floats of the fused kernels' block-reduction scratch
+# (``csrc/ipm_common.cuh::kRedWords``).
+_RED_WORDS = 32
+
+
+def slab_words(hp: int, hu: int, lower_tri: bool) -> int:
+    """Floats of one slab in the structured kernel's shared memory: whole
+    rows of ``hu``, or with ``lower_tri`` row ``k`` packed to its
+    ``min(k + 1, hu)`` leading entries (``csrc/ipm_struct.cu::
+    slab_words``)."""
+    if not lower_tri:
+        return hp * hu
+    return sum(min(k + 1, hu) for k in range(hp))
+
+
+def smem_bytes(P: int, S: int, hp: int, hu: int, V: int,
+               lower_tri: bool = False) -> int:
     """Dynamic shared memory of the kernel for a shape (mirrors the carve in
-    ``csrc/ipm_struct.cu::smem_words``)."""
+    ``csrc/ipm_struct.cu::smem_words``). Lower-triangular slabs are stored
+    packed, so ``lower_tri`` only ever takes bytes off."""
     nu = V * hu
     n = nu + 1
     mg = (P + S) * hp
     m = mg + 2 * n
     ldk = nu | 1
-    words = (nu * ldk + 2 * P * hp * hu + S * hp * hu + V * hu * hu + mg
-             + 9 * m + 9 * n + 64 + V * V + 2 * P + S)
+    words = (nu * ldk + (2 * P + S) * slab_words(hp, hu, lower_tri)
+             + V * hu * hu + mg + 9 * m + 9 * n + _RED_WORDS
+             + V * V + 2 * P + S + 1)
     return 4 * words
 
 
 def fits_smem(P: int, S: int, hp: int, hu: int, V: int) -> bool:
     """Whether the structured kernel's per-instance working set fits a
     block's shared memory (the ``kkt="auto"`` route takes the banded KKT
-    path where it does not)."""
+    path where it does not). The route does not depend on ``lower_tri``:
+    the carve with whole slab rows bounds both."""
     return smem_bytes(P, S, hp, hu, V) <= SMEM_LIMIT_BYTES
 
 
-def check_smem_gate(P: int, S: int, hp: int, hu: int, V: int) -> int:
+def check_smem_gate(P: int, S: int, hp: int, hu: int, V: int,
+                    lower_tri: bool = False) -> int:
     """The structured kernel's gate: shapes whose per-instance working set
-    exceeds a block's shared memory are refused loudly."""
-    need = smem_bytes(P, S, hp, hu, V)
+    exceeds a block's shared memory are refused loudly. Returns the bytes
+    of the launch."""
+    need = smem_bytes(P, S, hp, hu, V, lower_tri)
     if need > SMEM_LIMIT_BYTES:
         raise NotImplementedError(
             f"the fused structured IPM kernel needs {need} bytes of shared "
@@ -90,6 +111,23 @@ def check_smem_gate(P: int, S: int, hp: int, hu: int, V: int) -> int:
             f"(limit {SMEM_LIMIT_BYTES}); qp_kkt='auto' with a banded stage "
             f"statement takes the banded KKT path there")
     return need
+
+
+def resident_ctas_per_sm(P: int, S: int, hp: int, hu: int, V: int,
+                         lower_tri: bool) -> int:
+    """CTAs of the structured kernel that one SM of the current CUDA device
+    holds at a shape (the CUDA occupancy calculator, with the launch's
+    shared memory). Needs the card: it builds and loads the library."""
+    fn = _cuda_build.load_library().ipm_struct_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    ctas = ctypes.c_int(0)
+    err = fn(P, S, hp, hu, V, int(lower_tri), ctypes.byref(ctas))
+    if err != 0:
+        raise RuntimeError(f"ipm_struct_occupancy failed with CUDA error "
+                           f"{err}")
+    return ctas.value
 
 
 def _launcher():
@@ -175,7 +213,7 @@ def ipm_iterate_struct(gi, gj, gob, gsl, pb, q, pdiag,
     for t in ins:
         if t is not None and not t.is_contiguous():
             raise ValueError("the CUDA IPM kernel needs contiguous tensors")
-    need = check_smem_gate(P, S, hp, hu, V)
+    need = check_smem_gate(P, S, hp, hu, V, lower_tri)
     launch = _launcher()
     pt, ot = _index_tables(pairs, obst_veh, gi.device)
     outs = [torch.empty_like(t) for t in state]
@@ -434,7 +472,8 @@ def dense_smem_bytes(mg: int, n: int, nb: int, d: int, schur: bool,
     ``csrc/ipm_dense.cu::dense_smem_words``): the factor, the P blocks, the
     step's vectors and, with ``g_smem``, G itself."""
     nk = n - 1 if schur else n
-    words = nk * (nk | 1) + nb * d * d + 9 * (mg + 2 * n) + 9 * n + 64
+    words = (nk * (nk | 1) + nb * d * d + 9 * (mg + 2 * n) + 9 * n
+             + _RED_WORDS + 1)
     if g_smem:
         words += mg * (n | 1)
     return 4 * words

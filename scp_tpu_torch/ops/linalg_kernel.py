@@ -15,10 +15,11 @@ layout, so each TPU pair (lane API and ``vmap`` front) is ONE kernel here.
   ``G (B, m, n), v (B, m) -> (B, n)``.
 
 Launch geometry is decided here and checked by the launchers
-(:func:`chol_geometry`, :func:`gmv_geometry`): the factor runs one CTA per
-instance with a panel of :data:`CHOL_PANEL` columns; the G product stages
-row tiles of at most :data:`GMV_STAGE_BYTES` in shared memory, one CTA
-each (a row wider than that in runs of columns).
+(:func:`chol_geometry`, :func:`solve_geometry`, :func:`gmv_geometry`): the
+factor and the solve run one CTA per instance on panels / blocks of
+:data:`CHOL_PANEL` columns (``csrc/chol_blocked.cuh``); the G product
+stages row tiles of at most :data:`GMV_STAGE_BYTES` in shared memory, one
+CTA each (a row wider than that in runs of columns).
 
 Type rule: float32 CUDA tensors (contiguous) always go to the hand-written
 kernel; a failing build, load or launch raises. float64 CUDA tensors are
@@ -42,6 +43,11 @@ from scp_tpu_torch.ops._cuda_build import SMEM_LIMIT_BYTES
 CHOL_PANEL = 16
 CHOL_FEW_INSTANCES = 264
 CHOL_FEW_THREADS = 256
+# The solve (the same header's blocked solve): one CTA per instance,
+# SOLVE_FEW_THREADS threads for at most SOLVE_FEW_INSTANCES instances, else
+# 128 (eight CTAs of n = 81 share an SM).
+SOLVE_FEW_INSTANCES = 264
+SOLVE_FEW_THREADS = 256
 # The G product (gmv_staged_kernel): a row tile's stage holds at most
 # GMV_STAGE_BYTES (a row wider than that is staged in runs of columns that
 # fill it), and tiles are cut smaller until the grid has
@@ -57,7 +63,7 @@ launch_counts = {"cholesky": 0, "cho_solve": 0, "gmv": 0, "gtmv": 0}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _ARGTYPES = {
     "chol_batched_launch": [_P, _P, _I, _I, _I, _L, _P],
-    "cho_solve_batched_launch": [_P, _P, _P, _I, _I, _L, _P],
+    "cho_solve_batched_launch": [_P, _P, _P, _I, _I, _I, _L, _P],
     "gmv_batched_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
     "gtmv_batched_launch": [_P, _P, _P, _I, _I, _I, _P],
 }
@@ -85,6 +91,13 @@ def chol_geometry(B: int, n: int) -> tuple[int, int]:
     runs one CTA per instance."""
     threads = CHOL_FEW_THREADS if B <= CHOL_FEW_INSTANCES else 128
     return threads, chol_smem_bytes(n)
+
+
+def solve_geometry(B: int, n: int) -> tuple[int, int]:
+    """``(threads, shared-memory bytes per CTA)`` of the solve kernel,
+    which runs one CTA per instance."""
+    threads = SOLVE_FEW_THREADS if B <= SOLVE_FEW_INSTANCES else 128
+    return threads, solve_smem_bytes(n)
 
 
 def _round4(v: int) -> int:
@@ -161,7 +174,7 @@ def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     check_chol_smem_gate(n)
     x = torch.empty_like(b)
     _launch("cho_solve", "cho_solve_batched_launch", L, L.data_ptr(),
-            b.data_ptr(), x.data_ptr(), B, n, solve_smem_bytes(n))
+            b.data_ptr(), x.data_ptr(), B, n, *solve_geometry(B, n))
     return x
 
 

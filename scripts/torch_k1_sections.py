@@ -9,8 +9,12 @@ clock cycles between section marks (load, diagonal + border, KKT formation,
 Cholesky, right-hand sides, triangular solves, vector algebra + slab
 matvecs, update, store). Runs it on numpy-seeded data at the bench shape
 (P = 6, hp = hu = 20, V = 4, 7 iterations) at B = 64 (one CTA per SM at
-most) and B = 1024 (three CTAs share an SM), and prints one JSON line per
-batch width with each section's share of block 0's cycles.
+most) and B = 1024 (several CTAs share an SM), and prints one JSON line per
+batch width with each section's share of block 0's cycles, its cycles per
+iteration, and the same grouped: formation (diagonal + border, KKT
+formation), factor, solves, step algebra (right-hand sides, vector algebra
++ matvecs, update). Each mark is a block barrier, so the counts are of an
+instrumented kernel (its time is printed beside them).
 """
 import ctypes
 import json
@@ -24,6 +28,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 SECTIONS = ("load", "diag_border", "kkt_form", "cholesky", "rhs", "solves",
             "vector_matvec", "update", "store")
+GROUPS = {"formation": ("diag_border", "kkt_form"), "factor": ("cholesky",),
+          "solves": ("solves",),
+          "step_algebra": ("rhs", "vector_matvec", "update")}
 
 
 def main():
@@ -60,15 +67,23 @@ def main():
         torch.cuda.synchronize()
         if lib.ipm_struct_read_sections(buf) != 0:
             sys.exit("reading the section counters failed")
-        cyc = [buf[i] / reps for i in range(len(SECTIONS))]
-        total = sum(cyc)
+        cyc = dict(zip(SECTIONS, (buf[i] / reps
+                                  for i in range(len(SECTIONS)))))
+        total = sum(cyc.values())
+        grouped = {g: sum(cyc[n] for n in names)
+                   for g, names in GROUPS.items()}
         print(json.dumps({
             "card": card, "B": B, "n_iters": 7,
             "ms_per_launch_instrumented": start.elapsed_time(end) / reps,
             "block0_cycles": total,
-            "share": {n: round(c / total, 4) for n, c in zip(SECTIONS, cyc)},
+            "share": {n: round(c / total, 4) for n, c in cyc.items()},
             "cycles_per_iteration": {n: round(c / 7) for n, c in
-                                     zip(SECTIONS, cyc)}}), flush=True)
+                                     cyc.items()},
+            "grouped_share": {g: round(c / total, 4)
+                              for g, c in grouped.items()},
+            "grouped_cycles_per_iteration": {g: round(c / 7)
+                                             for g, c in grouped.items()}}),
+            flush=True)
 
 
 if __name__ == "__main__":

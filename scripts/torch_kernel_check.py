@@ -1,37 +1,48 @@
 #!/usr/bin/env python3
-"""Quick GPU check of the fused IPM and Riccati kernels of ``scp_tpu_torch``.
+"""Quick GPU check of the fused IPM, linear-algebra and Riccati kernels of
+``scp_tpu_torch``.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU::
 
     python3 scripts/torch_kernel_check.py                 # build + compare
     python3 scripts/torch_kernel_check.py --dump out.npz  # K1 outputs
     python3 scripts/torch_kernel_check.py --compare a.npz b.npz
-    python3 scripts/torch_kernel_check.py --times         # K2/K3/K5a/K6/K7
+    python3 scripts/torch_kernel_check.py --times         # every kernel
+    python3 scripts/torch_kernel_check.py --times k1 k4   # some of them
     python3 scripts/torch_kernel_check.py --sections      # K3's cycles
 
 The default mode builds the kernel library (printing ``ptxas -v``), runs the
+structured IPM kernel (K1) on seeded inputs at the bench shape and two odd
+ones and on an instance whose KKT matrix is not positive definite, the
 dense-G IPM iteration (K2) and the Riccati factor / solve (K6 / K7) once on
-seeded inputs at a few shapes and prints, per case, the largest difference
-from the plain PyTorch version on the same inputs; then the batched
-Cholesky (K3) and the G product (K5a) at their boundary shapes (n across
-the factor's panel edges, one indefinite instance; unaligned instance
-bases, a tile larger than one stage, rows wider than a stage) against
-the plain version and a float64 oracle. ``--dump`` writes the
-structured kernel's (K1) outputs on fixed seeded inputs; ``--compare``
-reports whether two such dumps (e.g. from two checkouts, each run with its
-own copy of this script) are bit-identical. ``--times`` times K6 / K7 (B =
-256 / 64 / 16, V = 4, K = 64), K2 (frog's shape, B = 1024 / 256 / 64),
-K3 (n = 81, B = 1024 / 256 / 64 / 1, with its thread count varied) and
-K5a (m = 120, n = 81 at B = 1024 / 256 / 64 and the P shape m = n = 81 at
-B = 1024, with its stage and grid target varied), beside ``torch.linalg.
-cholesky_ex`` / ``torch.bmm``, on seeded inputs three ways, twice over: the
-profiler's device time summed per call, the mean duration of the kernel's
-recorded events with their count, and CUDA events around the replay of a
-CUDA graph of the calls (no host time between launches). ``--sections``
-builds the library with ``-DSCP_PROFILE_SECTIONS`` and prints where block
-0 of the blocked factor spends its clock cycles (load, diagonal blocks,
-panel rows, trailing updates with the next diagonal block, store) at
-n = 81, B = 1 and 1024, for each thread count.
+seeded inputs at a few shapes, and prints, per case, the difference from the
+plain PyTorch version on the same inputs; then the batched Cholesky (K3),
+the Cholesky solve (K4) and the G product (K5a) at their boundary shapes
+(n across the 16-column panels and blocks, an indefinite instance or a NaN
+factor among good ones; unaligned instance bases, a tile larger than one
+stage, rows wider than a stage) against the plain version and a float64
+oracle. ``--dump`` writes K1's outputs on fixed seeded inputs;
+``--compare`` reports whether two such dumps (e.g. from two checkouts,
+each run with its own copy of this script) are bit-identical and, where
+they are not, holds their controls to ``chip_smoke.py``'s kernel-vs-plain
+limits (``U_ABS_LIMIT`` / ``U_MEDIAN_LIMIT``, twenty times wider on the
+odd shapes, as there). ``--times`` times, on seeded inputs, K1 (the bench
+shape, 7 iterations, B = 1024 / 256 / 64, with the CTAs one SM holds), K4
+(n = 81 and K1's n = 80, B = 1024 / 256 / 64, with a warm and a cold L2,
+for each thread count, beside ``torch.cholesky_solve``), K6 / K7 (B = 256 / 64 / 16, V = 4, K = 64), K2
+(frog's shape, B = 1024 / 256 / 64), K3 (n = 81, B = 1024 / 256 / 64 / 1,
+with its thread count varied) and K5a (m = 120, n = 81 at B = 1024 / 256 /
+64 and the P shape m = n = 81 at B = 1024, with its stage and grid target
+varied), beside ``torch.linalg.cholesky_ex`` / ``torch.bmm``, three ways,
+twice over: the profiler's device time summed per call, the mean duration
+of the kernel's recorded events with their count, and CUDA events around
+the replay of a CUDA graph of the calls (no host time between launches).
+Run against an older checkout (a copy of this script in its ``scripts/``),
+the variants that checkout lacks are skipped. ``--sections`` builds the
+library with ``-DSCP_PROFILE_SECTIONS`` and prints where block 0 of the
+blocked factor spends its clock cycles (load, diagonal blocks, panel rows,
+trailing updates with the next diagonal block, store) at n = 81, B = 1 and
+1024, for each thread count.
 """
 from __future__ import annotations
 
@@ -70,15 +81,103 @@ def dump_k1(path: str) -> None:
     print(json.dumps({"dumped": path, "arrays": len(out)}))
 
 
+# chip_smoke.py's kernel-vs-plain limits on the controls (K1_CASES[0] is
+# the bench shape; the others have a box of +-1 and twenty times the limits)
+U_ABS_LIMIT = 5e-3
+U_MEDIAN_LIMIT = 5e-5
+
+
 def compare(a: str, b: str) -> None:
     da, db = np.load(a), np.load(b)
     same = sorted(da.files) == sorted(db.files) and all(
         np.array_equal(da[k], db[k], equal_nan=True) for k in da.files)
     worst = max(float(np.nanmax(np.abs(da[k] - db[k]))) for k in da.files)
-    print(json.dumps({"bit_identical": same, "max_abs_diff": worst,
-                      "arrays": len(da.files)}))
-    if not same:
+    rep = {"bit_identical": same, "max_abs_diff": worst,
+           "arrays": len(da.files), "controls": {}}
+    ok = True
+    for i, (B, V, hp, hu, *_rest) in enumerate(K1_CASES):
+        nu = V * hu
+        du = np.abs(da[f"case{i}_out0"][:, :nu]
+                    - db[f"case{i}_out0"][:, :nu]).max(axis=1)
+        scale = 1.0 if i == 0 else 20.0
+        lim = (U_ABS_LIMIT * scale, U_MEDIAN_LIMIT * scale)
+        fin = all(np.isfinite(d[k]).all() for d in (da, db)
+                  for k in d.files if k.startswith(f"case{i}_"))
+        flags = float(np.mean(da[f"case{i}_out10"][:, 1]
+                              == db[f"case{i}_out10"][:, 1]))
+        rep["controls"][f"case{i}"] = {
+            "u_max": float(du.max()), "u_median": float(np.median(du)),
+            "limits": lim, "finite": bool(fin), "frozen_flags_agree": flags}
+        ok = ok and fin and du.max() <= lim[0] and np.median(du) <= lim[1]
+    rep["within_limits"] = bool(ok)
+    print(json.dumps(rep))
+    if not ok:
         sys.exit(1)
+
+
+def check_k1() -> float:
+    """K1 against its plain version on the same seeded inputs: the controls
+    after 7 iterations (``chip_smoke.py``'s limits) and every variable after
+    one (1e-4, round-off); then an instance whose KKT matrix is not positive
+    definite must freeze (state kept, flag set) without touching the
+    others, as the plain version does."""
+    from scp_tpu_torch.ops import ipm_kernel
+    from scp_tpu_torch.testing import kernel_inputs, torch_kernel_args
+    worst, bad = 0.0, []
+    for i, (B, V, hp, hu, no, seed, hard, n_cor, tri) in enumerate(K1_CASES):
+        arrs, pairs, ov = kernel_inputs(B=B, V=V, hp=hp, hu=hu, n_obst=no,
+                                        seed=seed, hard_rows=hard)
+        args = torch_kernel_args(arrs, device="cuda")
+        kw = dict(pairs=pairs, obst_veh=ov, tol=1e-6, reg_rel=3e-6,
+                  n_cor=n_cor, n_iters=7, lower_tri=tri)
+        ok_, op = (f(*args, **kw) for f in (
+            ipm_kernel.ipm_iterate_struct, ipm_kernel.ipm_iterate_struct_plain))
+        one_k, one_p = (f(*args, **{**kw, "n_iters": 1}) for f in (
+            ipm_kernel.ipm_iterate_struct, ipm_kernel.ipm_iterate_struct_plain))
+        torch.cuda.synchronize()
+        nu = V * hu
+        du = (ok_[0][:, :nu] - op[0][:, :nu]).abs().amax(dim=1)
+        one = max(float((x - y)[:, :-1].abs().max()) for x, y in
+                  zip(one_k[:1] + one_k[4:], one_p[:1] + one_p[4:]))
+        scale = 1.0 if i == 0 else 20.0
+        rep = {"case": f"k1_B{B}_V{V}_hp{hp}_hu{hu}_obst{no}_cor{n_cor}_"
+                       f"tri{int(tri)}",
+               "u_max": float(du.max()), "u_median": float(du.median()),
+               "one_iter_max_abs_err": one,
+               "finite": all(bool(torch.isfinite(t).all()) for t in ok_),
+               "frozen_kernel": float(ok_[10][:, 1].mean()),
+               "frozen_plain": float(op[10][:, 1].mean())}
+        print(json.dumps(rep), flush=True)
+        worst = max(worst, rep["u_max"])
+        if (not rep["finite"] or rep["u_max"] > U_ABS_LIMIT * scale
+                or rep["u_median"] > U_MEDIAN_LIMIT * scale or one > 1e-4):
+            bad.append(rep["case"])
+    # not positive definite: off-diagonals far above the unit diagonal
+    arrs, pairs, ov = kernel_inputs(B=8, V=2, hp=4, hu=4, n_obst=0, seed=6)
+    arrs["pb"][3] = 50.0
+    arrs["pdiag"][3, :-1] = 1.0
+    args = torch_kernel_args(arrs, device="cuda")
+    kw = dict(pairs=pairs, obst_veh=ov, tol=1e-6, reg_rel=3e-6, n_iters=2)
+    out = ipm_kernel.ipm_iterate_struct(*args, **kw)
+    plain = ipm_kernel.ipm_iterate_struct_plain(*args, **kw)
+    torch.cuda.synchronize()
+    others = [i for i in range(8) if i != 3]
+    rep = {"case": "k1_not_spd_instance_freezes",
+           "finite": all(bool(torch.isfinite(t).all()) for t in out),
+           "frozen": float(out[10][3, 1]), "frozen_plain": float(plain[10][3, 1]),
+           "state_kept": all(torch.equal(o[3], a[3])
+                             for o, a in zip(out[:10], args[7:17])),
+           "others_u_max": float((out[0][others] - plain[0][others])
+                                 .abs().max())}
+    print(json.dumps(rep), flush=True)
+    if not (rep["finite"] and rep["frozen"] == 1.0 == rep["frozen_plain"]
+            and rep["state_kept"] and rep["others_u_max"] <= 1e-4):
+        bad.append(rep["case"])
+    print(json.dumps({"k1_worst_u_max": worst, "k1_cases_failed": bad}),
+          flush=True)
+    if bad:
+        sys.exit(1)
+    return worst
 
 
 def check_new_kernels() -> None:
@@ -87,6 +186,7 @@ def check_new_kernels() -> None:
     from scp_tpu_torch.testing import (DENSE_ARG_ORDER, dense_kernel_inputs,
                                        riccati_inputs)
     _cuda_build.build_library(verbose=True)
+    check_k1()
     dev = "cuda"
     worst = 0.0
     for B, V, K in ((256, 4, 64), (3, 3, 9), (16, 1, 20)):
@@ -137,10 +237,12 @@ def _spd(rng, B, n, dev):
 
 
 def check_linalg_kernels() -> None:
-    """K3 and K5a at their boundary shapes. Limits: the factor's residual
-    max|L L^T - K| within 2e-5 of max|K| and both kernels no further from
-    the float64 oracle than twice the plain float32 version plus 1e-5 of
-    the result's scale (``chip_smoke.py``'s limits)."""
+    """K3, K4 and K5a at their boundary shapes. Limits: the factor's
+    residual max|L L^T - K| within 2e-5 of max|K|, the solve within 1e-4 of
+    its scale from the plain version (well-conditioned inputs), and every
+    kernel no further from the float64 oracle than twice the plain float32
+    version plus 1e-5 of the result's scale (``chip_smoke.py``'s
+    limits)."""
     from scp_tpu_torch.ops import linalg, linalg_kernel as lk
     dev = "cuda"
     rng = np.random.default_rng(4)
@@ -175,6 +277,39 @@ def check_linalg_kernels() -> None:
             if (not nan_ok or upper != 0.0
                     or resid > 2e-5 * float(K[ok].abs().max())
                     or e_kd > 2 * e_pd + 1e-5 * float(Ld.abs().max())):
+                bad.append(rep["case"])
+    # K4 at the same edges, on float32 factors of SPD matrices (the upper
+    # triangle filled with garbage: only the lower one may be read), and a
+    # NaN factor (K3's output for an indefinite instance) among good ones
+    for n in (1, lk.CHOL_PANEL - 1, lk.CHOL_PANEL, lk.CHOL_PANEL + 1, 32,
+              33, 81, 239):
+        for B in (1, 3, 1023):
+            L = torch.linalg.cholesky(_spd(rng, B, n, dev)).contiguous()
+            L += torch.triu(torch.full_like(L, 7.0), 1)
+            if B == 3:
+                L[1] = float("nan")
+            b = torch.as_tensor(rng.normal(size=(B, n)), dtype=torch.float32,
+                                device=dev)
+            x_k = lk.cho_solve(L, b)
+            Lt = torch.tril(L)
+            x_p = linalg.cho_solve_plain(Lt, b)
+            x_d = linalg.cho_solve_plain(Lt.double(), b.double())
+            torch.cuda.synchronize()
+            ok = torch.isfinite(x_d).all(dim=1)
+            nan_ok = bool((torch.isfinite(x_k).all(dim=1) == ok).all()
+                          and torch.isnan(x_k[~ok]).all())
+            scale = float(x_d[ok].abs().max())
+            e_kd = float((x_k[ok].double() - x_d[ok]).abs().max())
+            e_pd = float((x_p[ok].double() - x_d[ok]).abs().max())
+            e_kp = float((x_k[ok] - x_p[ok]).abs().max())
+            rep = {"case": f"cho_solve_B{B}_n{n}",
+                   "geometry": list(lk.solve_geometry(B, n)),
+                   "kernel_vs_plain": e_kp, "kernel_vs_f64": e_kd,
+                   "plain_vs_f64": e_pd, "scale": scale,
+                   "nan_instances_ok": nan_ok}
+            print(json.dumps(rep), flush=True)
+            if (not nan_ok or e_kd > 2 * e_pd + 1e-5 * scale
+                    or e_kp > 1e-4 * scale):
                 bad.append(rep["case"])
     flat = torch.as_tensor(rng.normal(size=1024 * 120 * 81 + 1),
                            dtype=torch.float32, device=dev)
@@ -246,7 +381,126 @@ def _time_three_ways(fn, reps=20) -> dict:
     return out
 
 
-def kernel_times() -> None:
+TIMED = ("k1", "k4", "k6k7", "k2", "k3", "k5a")
+L2_ROTATE_BYTES = 256 << 20   # as chip_smoke.py: five times the 50 MB L2
+
+
+def _graph_ms(calls, replays=5):
+    """Milliseconds per call of the thunks ``calls`` captured in order in
+    one CUDA graph and replayed; None where the capture fails."""
+    for c in calls[:2]:
+        c()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g):
+            for c in calls:
+                c()
+    except RuntimeError as exc:
+        print(json.dumps({"graph_capture_failed": str(exc)[:200]}),
+              flush=True)
+        return None
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * len(calls))
+
+
+def k1_times(rnd, dev) -> None:
+    """K1 at the bench shape (P = 6, hp = hu = 20, V = 4, 7 iterations,
+    lower-triangular slabs) by graph replay, with the CTAs one SM holds."""
+    from scp_tpu_torch.ops import ipm_kernel
+    from scp_tpu_torch.testing import kernel_inputs, torch_kernel_args
+    arrs, pairs, ov = kernel_inputs(B=1024, V=4, hp=20, hu=20, n_obst=0,
+                                    seed=1)
+    args = torch_kernel_args(arrs, device=dev)
+    kw = dict(pairs=pairs, obst_veh=ov, tol=1e-6, reg_rel=3e-6, n_cor=0,
+              n_iters=7, lower_tri=True)
+    ctas = (ipm_kernel.resident_ctas_per_sm(6, 0, 20, 20, 4, True)
+            if hasattr(ipm_kernel, "resident_ctas_per_sm") else None)
+    for w in (1024, 256, 64):
+        aw = [None if a is None else a[:w].contiguous() for a in args]
+        ms = _graph_ms([lambda: ipm_kernel.ipm_iterate_struct(*aw, **kw)]
+                       * 10)
+        print(json.dumps({"round": rnd, "kernel": "ipm_iterate_struct",
+                          "B": w, "graph_ms_per_call": ms,
+                          "ms_per_iteration": ms / 7,
+                          "resident_ctas_per_sm": ctas}), flush=True)
+
+
+def _profiler_ms(calls, reps=20) -> float:
+    """Milliseconds of device time per call (torch.profiler) of ``reps``
+    calls of the thunks ``calls`` in turn: for library calls that a CUDA
+    graph cannot capture."""
+    from torch.profiler import ProfilerActivity, profile
+    calls[0]()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for k in range(reps):
+            calls[k % len(calls)]()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+
+
+def k4_times(rnd, dev) -> None:
+    """K4 at n = 81 (the adaptive path) and n = 80 (K1's factor), B = 1024 /
+    256 / 64, warm (the same inputs every call) and cold (each call on the
+    next of enough copies that 256 MiB pass through L2 between two reads of
+    one), with each thread count the wrapper offers, by graph replay;
+    torch.cholesky_solve (which a graph cannot capture) by the profiler."""
+    from scp_tpu_torch.ops import linalg_kernel as lk
+    rng = np.random.default_rng(8)
+    variants = [None]
+    if hasattr(lk, "SOLVE_FEW_THREADS"):
+        variants = [128, 256]
+        saved = (lk.SOLVE_FEW_INSTANCES, lk.SOLVE_FEW_THREADS)
+    for n in (81, 80):
+        K = torch.eye(n, device=dev).expand(1024, n, n).contiguous()
+        K += 0.01 * torch.ones_like(K)
+        L = torch.linalg.cholesky(K).contiguous()
+        b = torch.as_tensor(rng.normal(size=(1024, n)), dtype=torch.float32,
+                            device=dev)
+        for w in (1024, 256, 64):
+            Lw, bw = L[:w].contiguous(), b[:w].contiguous()
+            count = 1 + -(-L2_ROTATE_BYTES // (4 * (Lw.numel() + bw.numel())))
+            copies = [(Lw.clone(), bw.clone()) for _ in range(count)]
+            lib = {"warm": _profiler_ms(
+                [lambda: torch.cholesky_solve(bw[:, :, None], Lw)]),
+                "cold": _profiler_ms(
+                [lambda c=c: torch.cholesky_solve(c[1][:, :, None], c[0])
+                 for c in copies])}
+            print(json.dumps({"round": rnd, "kernel": "torch.cholesky_solve",
+                              "n": n, "B": w, "profiler_ms_per_call": lib}),
+                  flush=True)
+            for var in variants:
+                if var is not None:
+                    lk.SOLVE_FEW_INSTANCES, lk.SOLVE_FEW_THREADS = 1 << 30, var
+                geo = (list(lk.solve_geometry(w, n))
+                       if hasattr(lk, "solve_geometry") else None)
+                warm = _graph_ms([lambda: lk.cho_solve(Lw, bw)] * 20)
+                cold = _graph_ms([lambda c=c: lk.cho_solve(*c)
+                                  for c in copies])
+                print(json.dumps({
+                    "round": rnd, "kernel": "cho_solve", "n": n, "B": w,
+                    "geometry": geo, "graph_ms_per_call": {
+                        "warm": warm, "cold": cold},
+                    "input_copies": count,
+                    "warm_over_library": warm / lib["warm"],
+                    "cold_over_library": cold / lib["cold"]}), flush=True)
+            if variants[0] is not None:
+                lk.SOLVE_FEW_INSTANCES, lk.SOLVE_FEW_THREADS = saved
+            del copies
+
+
+def kernel_times(which) -> None:
     from scp_tpu_torch.ops import _cuda_build, ipm_kernel, riccati_kernel
     from scp_tpu_torch.testing import (DENSE_ARG_ORDER, dense_kernel_inputs,
                                        riccati_inputs)
@@ -255,6 +509,7 @@ def kernel_times() -> None:
     card = __import__("subprocess").run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(card.strip(), flush=True)
     t = {k: torch.as_tensor(v, device=dev)
          for k, v in riccati_inputs(256, 4, 64, seed=4).items()}
     a = dense_kernel_inputs(1024, 440, 1, 20, seed=440)
@@ -264,7 +519,11 @@ def kernel_times() -> None:
     K = torch.eye(81, device=dev).expand(1024, 81, 81).contiguous()
     K += 0.01 * torch.ones_like(K)
     for rnd in range(2):
-        for w in (256, 64, 16):
+        if "k1" in which:
+            k1_times(rnd, dev)
+        if "k4" in which:
+            k4_times(rnd, dev)
+        for w in (256, 64, 16) if "k6k7" in which else ():
             f_args = [t[k][:w].contiguous()
                       for k in ("a_blk", "b_blk", "hy", "hu")]
             fac = riccati_kernel.riccati_factor(*f_args)
@@ -276,7 +535,7 @@ def kernel_times() -> None:
                      lambda: riccati_kernel.riccati_solve(*s_args))):
                 print(json.dumps({"round": rnd, "kernel": name, "B": w,
                                   **_time_three_ways(fn)}), flush=True)
-        for w in (1024, 256, 64):
+        for w in (1024, 256, 64) if "k2" in which else ():
             args = [None if x is None else x[:w].contiguous()
                     for x in d_args]
             print(json.dumps({
@@ -284,11 +543,11 @@ def kernel_times() -> None:
                 **_time_three_ways(
                     lambda: ipm_kernel.ipm_iterate_dense(*args, **d_kw))}),
                 flush=True)
-        linalg_times(rnd, K, dev)
+        linalg_times(rnd, K, dev, which)
     print(card.strip())
 
 
-def linalg_times(rnd, K, dev) -> None:
+def linalg_times(rnd, K, dev, which) -> None:
     """K3 and K5a at their path shapes beside the library call, the first
     with each thread count and the second with each stage tried."""
     from scp_tpu_torch.ops import linalg_kernel as lk
@@ -302,7 +561,7 @@ def linalg_times(rnd, K, dev) -> None:
     saved = (lk.CHOL_FEW_INSTANCES, lk.CHOL_FEW_THREADS,
              lk.GMV_STAGE_BYTES, lk.GMV_MIN_CTAS)
     try:
-        for w in (1024, 256, 64, 1):
+        for w in (1024, 256, 64, 1) if "k3" in which else ():
             Kw = K[:w].contiguous()
             # (cholesky_ex: the same factor without the host check of its
             # info, which a CUDA graph cannot capture)
@@ -319,7 +578,9 @@ def linalg_times(rnd, K, dev) -> None:
                     **_time_three_ways(lambda: lk.cholesky(Kw))}),
                     flush=True)
             lk.CHOL_FEW_INSTANCES, lk.CHOL_FEW_THREADS = saved[:2]
-        for name, A, widths in (("G", G, (1024, 256, 64)), ("P", P, (1024,))):
+        for name, A, widths in ((("G", G, (1024, 256, 64)),
+                                 ("P", P, (1024,)))
+                                if "k5a" in which else ()):
             for w in widths:
                 Aw, xw = A[:w].contiguous(), x[:w].contiguous()
                 print(json.dumps({"round": rnd, "kernel": "torch.bmm",
@@ -383,17 +644,19 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dump", metavar="PATH")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
-    ap.add_argument("--times", action="store_true")
+    ap.add_argument("--times", nargs="*", choices=TIMED, metavar="KERNEL",
+                    help=f"time these kernels (default: all of {TIMED})")
     ap.add_argument("--sections", action="store_true")
     args = ap.parse_args()
+    if args.compare:            # two dumps: no device needed
+        compare(*args.compare)
+        return
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     if args.dump:
         dump_k1(args.dump)
-    elif args.compare:
-        compare(*args.compare)
-    elif args.times:
-        kernel_times()
+    elif args.times is not None:
+        kernel_times(args.times or TIMED)
     elif args.sections:
         k3_sections()
     else:

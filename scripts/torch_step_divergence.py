@@ -3,7 +3,7 @@
 Run on a machine with an NVIDIA GPU, from the repository root::
 
     python3 scripts/torch_step_divergence.py [--path circle|frog]
-        [--batch 1024] [--worst 8]
+        [--batch 1024] [--worst 8] [--seed 42]
 
 Drives the first ``mpc_step_batch`` step of a randomized batch (hp = hu =
 20, tuned_f32, TUNED_F32_PHASES) three ways: float32 through the CUDA
@@ -18,7 +18,11 @@ the SCP iterations (sensitivity of the non-convex outer loop to round-off).
 
 Prints one JSON line per launch (errors of the controls on identical inputs)
 and one for the step (per-instance difference of the clamped control
-prediction between the three runs, with the worst instances listed).
+prediction between the three runs, with the worst instances listed, and
+``chip_smoke.py``'s step limit: how many instances of the kernel's step lie
+further from the float64 step than twice the plain float32 step plus 5e-3,
+and the largest excess). ``--seed`` draws another batch (``chip_smoke.py``
+uses 42).
 """
 import argparse
 import json
@@ -35,6 +39,7 @@ def main():
     ap.add_argument("--path", choices=("circle", "frog"), default="circle")
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--worst", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=42)
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
@@ -45,7 +50,7 @@ def main():
     from scp_tpu_torch.sim import engine
 
     dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(42)
+    gen = torch.Generator(device=dev).manual_seed(opts.seed)
     kw_b = dict(n_veh=4) if opts.path == "circle" else {}
     cfg, data = batch_lib.make_batch(opts.path, opts.batch, generator=gen,
                                      dtype=torch.float32, device=dev, **kw_b)
@@ -109,8 +114,13 @@ def main():
                 "median": float(d.median())}
 
     worst = torch.argsort(d_kp, descending=True)[:opts.worst].tolist()
+    excess = d_kd - (2 * d_pd + 5e-3)
     print(json.dumps({
         "step": "first", "path": opts.path, "B": opts.batch,
+        "seed": opts.seed,
+        "instances_beyond_2x_plain32_of_f64_plus_5e-3": int(
+            (excess > 0).sum()),
+        "largest_excess": float(excess.max()),
         "u_pred_kernel_vs_plain32": stats(d_kp),
         "u_pred_kernel_vs_f64": stats(d_kd),
         "u_pred_plain32_vs_f64": stats(d_pd),

@@ -180,6 +180,57 @@ def test_shared_memory_gate():
         ik.check_smem_gate(6, 0, 64, 64, 4)
 
 
+# Shared memory an H100 SM offers CTAs (228 KB), and what it reserves for
+# each resident CTA (1 KB).
+SM_SHARED_BYTES = 228 * 1024
+CTA_RESERVED_BYTES = 1024
+
+
+@pytest.mark.parametrize("case", ["four_ctas_at_bench_shape",
+                                  "gate_admits_bench_refuses_hp64",
+                                  "grows_with_hp", "grows_with_P",
+                                  "packed_never_larger"])
+def test_carve_and_gate(case):
+    """The structured kernel's shared-memory carve (``smem_bytes``, which
+    the launcher checks against the kernel's own): at the bench shape
+    (P = 6, hp = hu = 20, V = 4, lower-triangular slabs, stored packed) four
+    CTAs share an SM; the gate admits that shape and refuses hp = 64
+    (the banded path's); the carve grows with hp and with P, and packing
+    never takes more than whole rows."""
+    bench = (6, 0, 20, 20, 4)
+    if case == "four_ctas_at_bench_shape":
+        need = ik.smem_bytes(*bench, lower_tri=True)
+        assert 4 * (need + CTA_RESERVED_BYTES) <= SM_SHARED_BYTES
+        # whole slab rows would not: the packing is what buys the 4th CTA
+        assert 4 * (ik.smem_bytes(*bench) + CTA_RESERVED_BYTES) \
+            > SM_SHARED_BYTES
+    elif case == "gate_admits_bench_refuses_hp64":
+        assert ik.check_smem_gate(*bench, lower_tri=True) \
+            == ik.smem_bytes(*bench, lower_tri=True)
+        assert ik.fits_smem(*bench)
+        for tri in (False, True):
+            with pytest.raises(NotImplementedError, match="banded KKT path"):
+                ik.check_smem_gate(6, 0, 64, 64, 4, lower_tri=tri)
+        assert not ik.fits_smem(6, 0, 64, 64, 4)
+    elif case in ("grows_with_hp", "grows_with_P"):
+        for tri in (False, True):
+            if case == "grows_with_hp":
+                sizes = [ik.smem_bytes(6, 1, hp, 20, 4, lower_tri=tri)
+                         for hp in range(1, 70)]
+            else:
+                sizes = [ik.smem_bytes(P, 0, 20, 20, 4, lower_tri=tri)
+                         for P in range(1, 12)]
+            assert all(a < b for a, b in zip(sizes, sizes[1:]))
+    else:
+        for hp in range(1, 40):
+            for hu in range(1, 30):
+                assert ik.slab_words(hp, hu, True) \
+                    == sum(min(k + 1, hu) for k in range(hp)) \
+                    <= ik.slab_words(hp, hu, False) == hp * hu
+                assert ik.smem_bytes(3, 2, hp, hu, 3, lower_tri=True) \
+                    <= ik.smem_bytes(3, 2, hp, hu, 3)
+
+
 @pytest.mark.parametrize("breakage", ["shape", "dtype", "pairs", "order"])
 def test_wrapper_checks_its_arguments(breakage):
     arrs, pairs, obst_veh = kernel_inputs(B=2, V=2, hp=4, hu=4, n_obst=1,
@@ -207,7 +258,7 @@ def test_library_is_keyed_by_a_hash_of_the_sources():
     # every kernel source of csrc/ goes into the one library
     assert {p.name for p in cb.sources()} == {
         "ipm_dense.cu", "ipm_struct.cu", "linalg.cu", "riccati.cu"}
-    for header in ("chol.cuh", "ipm_common.cuh", "smem.cuh"):
+    for header in ("chol_blocked.cuh", "ipm_common.cuh", "smem.cuh"):
         assert (cb.CSRC / header).exists()
     old = cb.BUILD_DEFINES
     cb.BUILD_DEFINES = ("SCP_PROFILE_SECTIONS",)

@@ -197,6 +197,8 @@ def _gmv_covered(total, per_step):
 
 @pytest.mark.parametrize("kernel,B", [("cholesky", b) for b in
                                       (1, 3, 64, 1023, 1024)]
+                         + [("cho_solve", b) for b in
+                            (1, 3, 64, 1023, 1024)]
                          + [("gmv", b) for b in (1, 3, 64, 256, 1024)])
 def test_launch_geometry(kernel, B):
     """The geometry the wrappers hand the launchers: within a block's shared
@@ -212,6 +214,15 @@ def test_launch_geometry(kernel, B):
             assert smem <= max(tk.chol_smem_bytes(n), tk.solve_smem_bytes(n))
             assert tk.fits_chol_smem(n)
         assert not tk.fits_chol_smem(240) and not tk.fits_chol_smem(257)
+        return
+    if kernel == "cho_solve":
+        for n in range(1, 240):             # one CTA per instance
+            threads, smem = tk.solve_geometry(B, n)
+            assert threads in (128, 256)
+            assert smem == tk.solve_smem_bytes(n) <= limit
+            assert smem <= max(tk.chol_smem_bytes(n), tk.solve_smem_bytes(n))
+            assert tk.fits_chol_smem(n)
+        assert tk.solve_smem_bytes(240) > limit   # the gate unmoved
         return
     stage = tk.GMV_STAGE_BYTES // 4 - 3
     shapes = [(120, 81), (81, 81), (900, 65), (45, 31), (1, 1), (3, 20000),
