@@ -26,11 +26,14 @@ kernel's launch count set to 0 just before a path and read just after:
   ``simulate_batch`` at B = 64;
 * the long-horizon path — ``mpc_step_batch``, circle, 4 vehicles,
   hp = hu = 64, B = 256, ``tuned_f32`` (``qp_kkt="auto"`` routes past K1's
-  shared-memory gate to the banded KKT: K6 / K7, and K1 must not launch),
-  4 chained steps, the first repeated through the plain sweeps;
+  shared-memory gate to the banded KKT: K6 / K7, and K1 must not launch;
+  exactly two K7 launches per K6 launch, the first of them with two
+  right-hand sides), 4 chained steps, the first repeated through the plain
+  sweeps;
 * the one-scenario banded step — ``mpc_step`` of one circle-4 scenario at
-  hp = 64 with ``qp_kkt="banded"`` (B = 1 through K6 / K7), 10 steps of
-  latency, step 0 repeated through the plain sweeps and in float64;
+  hp = 64 with ``qp_kkt="banded"`` (B = 1 through K6 / K7, two K7 launches
+  per K6 launch), 10 steps of latency, step 0 repeated through the plain
+  sweeps and in float64;
 * the dense-fused path — ``mpc_step_batch``, frog (one vehicle), hp = hu =
   20, B = 1024, ``tuned_f32`` (K2), 4 chained steps, also through the plain
   version, every K2 launch of the first step shadowed.
@@ -44,12 +47,18 @@ an indefinite instance (a NaN factor) among good ones; the product on the
 dense P shape (1024, 81, 81) with unaligned instance bases, views that
 start 4 bytes past a 16-byte boundary, a tile larger than one stage
 (900 x 65), B = 1 and rows wider than a stage (one column past it, and
-60,000 columns).
+60,000 columns). The Riccati factor and solve are held against their
+plain versions and a float64 oracle on the long-horizon path's inputs at
+B = 256 / 64 / 16 with one and two right-hand sides (a two-right-hand-side
+launch against two launches of one), and at V = 1, 3, 6 (more rows than a
+warp has lanes) and 16.
 
 It times every kernel beside its plain version, the PyTorch library call
 that computes the same function (where there is one) and the card's bound
 (the fused IPM kernel by CUDA-graph replay at each width, with the CTAs an
 SM holds; the factor also at B = 1, the G product also on the P shape; the
+Riccati sweeps by graph replay also at B = 1 and the solve also with two
+right-hand sides; the
 factor, the solve and the G product at the widest B also with a cold L2),
 prints each kernel's time over the library call's, and prints one JSON
 object per phase. The last line of standard output is
@@ -1048,6 +1057,7 @@ LONG_B, LONG_HP, LONG_STEPS = 256, 64, 4
 LATENCY64_STEPS = 10
 FROG_B, FROG_HP, FROG_STEPS = 1024, 20, 4
 RICCATI_WIDTHS = (256, 64, 16)
+RICCATI_TIME_WIDTHS = RICCATI_WIDTHS + (1,)   # and the one-scenario width
 DENSE_WIDTHS = (1024, 256, 64)
 # Riccati kernel vs plain (float32, identical inputs). The sweeps are K = 64
 # sequential stages, each consuming the cost-to-go the previous one rounded:
@@ -1087,10 +1097,11 @@ FROG_FEASIBLE_SLACK = 0.01   # floor: the plain versions' share minus this
 # Every K2 launch on identical inputs is limited above.
 
 
-def riccati_work(kind: str, B: int, V: int, K: int):
+def riccati_work(kind: str, B: int, V: int, K: int, n_rhs: int = 1):
     """Bytes the sweep must move (each input read once, each output written
-    once) and its float32 operations (two per multiply-add), for B
-    instances."""
+    once: a solve reads the factor once and r / writes du once per
+    right-hand side) and its float32 operations (two per multiply-add), for
+    B instances."""
     W = 6 * V
     dyn = V * 36 + V * 6
     if kind == "riccati_factor":
@@ -1098,9 +1109,19 @@ def riccati_work(kind: str, B: int, V: int, K: int):
         macs = K * (2 * 6 * V * W + 6 * V * V + 2 * 6 * W * W + V * W * W
                     + V * V * W + V ** 3 / 6)
     else:
-        words = dyn + K * (2 * V * W + V * V) + 2 * K * V
-        macs = K * (6 * V + V * V + 6 * W + 2 * V * W + 6 * W + W)
+        words = dyn + K * (2 * V * W + V * V) + 2 * n_rhs * K * V
+        macs = n_rhs * K * (6 * V + V * V + 6 * W + 2 * V * W + 6 * W + W)
     return 4 * words * B, 2 * macs * B
+
+
+def solve_args_at(s_args, w, rhs=None):
+    """The solve's arguments cut to the first ``w`` instances; ``rhs``
+    keeps that right-hand side of a two-right-hand-side ``r`` only."""
+    *fac, r = s_args
+    r = r[:, :w] if r.ndim == 4 else r[:w]
+    if rhs is not None:
+        r = r[rhs]
+    return tuple(a[:w].contiguous() for a in fac) + (r.contiguous(),)
 
 
 def dense_work(B, mg, n, nb, d, schur, n_cor):
@@ -1126,7 +1147,8 @@ def check_outputs(kernel, case, outs_k, outs_p, outs_d, names,
     Returns the largest kernel-vs-plain difference, absolute and relative to
     its output's scale."""
     rep = {"phase": "kernel_vs_plain", "kernel": kernel, "case": case,
-           "B": outs_k[0].shape[0], "first_ipm_iteration": first_iter,
+           "B": outs_k[0].shape[-3 if kernel == "riccati_solve" else 0],
+           "first_ipm_iteration": first_iter,
            "limits": {"vs_f64": "2 x plain float32's + 1e-5 x scale",
                       "first_iter_rel": RICCATI_REL_LIMIT}}
     worst, worst_abs, bad = 0.0, 0.0, []
@@ -1150,7 +1172,11 @@ def check_outputs(kernel, case, outs_k, outs_p, outs_d, names,
 
 def check_riccati(case, f_args, s_args, first_iter=True) -> tuple:
     """K6 on the factor's inputs and K7 on the solve's, each against its
-    plain version and the plain version in float64."""
+    plain version and the plain version in float64. A two-right-hand-side
+    ``r`` is also solved one right-hand side per launch, and each of those
+    is checked too; the largest difference between the two ways is
+    reported. Returns the factor's and the solve's (absolute, relative)
+    errors, the solve's with one right-hand side."""
     from scp_tpu_torch.ops import riccati, riccati_kernel as rk
     f_k = rk.riccati_factor(*f_args)
     f_p = riccati.riccati_factor_plain(*f_args)
@@ -1158,12 +1184,30 @@ def check_riccati(case, f_args, s_args, first_iter=True) -> tuple:
     f_d = riccati.riccati_factor_plain(*[a.double() for a in f_args])
     e_f = check_outputs("riccati_factor", case, f_k, f_p, f_d,
                         ("f", "lh", "kg"), first_iter)
-    du_k = rk.riccati_solve(*s_args)
-    du_p = riccati.riccati_solve_plain(*s_args)
-    torch.cuda.synchronize()
-    du_d = riccati.riccati_solve_plain(*[a.double() for a in s_args])
-    e_s = check_outputs("riccati_solve", case, (du_k,), (du_p,), (du_d,),
-                        ("du",), first_iter)
+    *fac, r = s_args
+    rhs_list = [r] if r.ndim == 3 else [r[i].contiguous()
+                                         for i in range(r.shape[0])]
+    outs = []
+    for i, ri in enumerate(rhs_list):
+        args = (*fac, ri)
+        du_k = rk.riccati_solve(*args)
+        du_p = riccati.riccati_solve_plain(*args)
+        torch.cuda.synchronize()
+        du_d = riccati.riccati_solve_plain(*[a.double() for a in args])
+        e = check_outputs("riccati_solve", f"{case}_rhs{i}", (du_k,),
+                          (du_p,), (du_d,), ("du",), first_iter)
+        outs.append(du_k)
+        e_s = e if i == 0 else e_s
+    if r.ndim == 4:
+        du_k = rk.riccati_solve(*s_args)
+        du_p = riccati.riccati_solve_plain(*s_args)
+        torch.cuda.synchronize()
+        du_d = riccati.riccati_solve_plain(*[a.double() for a in s_args])
+        check_outputs("riccati_solve", f"{case}_two_rhs", (du_k,), (du_p,),
+                      (du_d,), ("du",), first_iter)
+        emit({"phase": "riccati_two_rhs_vs_two_launches", "case": case,
+              "B": r.shape[1], "max_abs_diff": float(
+                  (du_k - torch.stack(outs)).abs().max())})
     return e_f, e_s
 
 
@@ -1380,6 +1424,13 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
     if min(counts.values()) == 0:
         fail(f"the long-horizon path did not run the Riccati kernels: "
              f"{counts}")
+    if counts["riccati_solve"] != 2 * counts["riccati_factor"]:
+        fail(f"the long-horizon path made {counts['riccati_solve']} K7 "
+             f"launches for {counts['riccati_factor']} K6 launches (two per "
+             f"factor wanted)")
+    if s_args[-1].ndim != 4:
+        fail("the long-horizon path's first solve after a factor had one "
+             "right-hand side (two wanted)")
     if feas < FEASIBLE_FLOOR:
         fail(f"long-horizon path: feasible share {feas} below "
              f"{FEASIBLE_FLOOR}")
@@ -1446,6 +1497,11 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
     if min(one_counts.values()) == 0:
         fail(f"the one-scenario banded step did not run K6 / K7: "
              f"{one_counts}")
+    if one_counts["riccati_solve"] != 2 * one_counts["riccati_factor"]:
+        fail(f"the one-scenario banded step made "
+             f"{one_counts['riccati_solve']} K7 launches for "
+             f"{one_counts['riccati_factor']} K6 launches (two per factor "
+             f"wanted)")
     if one_kp > UPRED_ABS_LIMIT or one_kd > 2 * one_pd + UPRED_ABS_LIMIT \
             or bool((one_k.feasible != one_p.feasible).any()):
         fail(f"one-scenario banded step 0, kernels vs plain: {one_rep}")
@@ -1456,17 +1512,24 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
         e_f, e_s = check_riccati(
             f"long_horizon_first_ipm_iteration_B{w}",
             tuple(a[:w].contiguous() for a in f_args),
-            tuple(a[:w].contiguous() for a in s_args))
+            solve_args_at(s_args, w))
         if w == RICCATI_WIDTHS[0]:
             ric_err = {"riccati_factor": e_f, "riccati_solve": e_s}
+    # odd widths: V = 6 is the first with more rows than a warp has lanes
+    # (W = 36), V = 16 the generic kernels at a calibrated fleet's width
     for case, (B_o, V_o, K_o) in (("odd_V3_B3", (3, 3, 16)),
-                                  ("single_vehicle_V1_B3", (3, 1, 20))):
+                                  ("single_vehicle_V1_B3", (3, 1, 20)),
+                                  ("rows_past_a_warp_V6_B9", (9, 6, 12)),
+                                  ("wide_V16_B4", (4, 16, 8))):
         r = riccati_inputs(B_o, V_o, K_o, seed=V_o)
         t = {k: torch.as_tensor(v, device=dev) for k, v in r.items()}
         t["a_blk"] = (0.9 * t["a_blk"]).contiguous()   # stable dynamics
         fac = rk.riccati_factor(t["a_blk"], t["b_blk"], t["hy"], t["hu"])
+        r2 = torch.stack([t["r"], t["r"].flip(1)])
         check_riccati(case, (t["a_blk"], t["b_blk"], t["hy"], t["hu"]),
-                      (*fac, t["a_blk"], t["b_blk"], t["r"]))
+                      (*fac, t["a_blk"], t["b_blk"], r2))
+    s_args2 = s_args                                  # two right-hand sides
+    s_args = solve_args_at(s_args, LONG_B, rhs=0)   # one right-hand side
     for k, args in (("riccati_factor", f_args), ("riccati_solve", s_args)):
         reports[k]["max_abs_err"], reports[k]["max_err_rel_to_scale"] = \
             ric_err[k]
@@ -1650,8 +1713,8 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
     pb_d = d_args[3]
     nb_d, dd = (0, 0) if pb_d is None else tuple(pb_d.shape[1:3])
     for k, args_all, widths in (
-            ("riccati_factor", f_args, RICCATI_WIDTHS),
-            ("riccati_solve", s_args, RICCATI_WIDTHS),
+            ("riccati_factor", f_args, RICCATI_TIME_WIDTHS),
+            ("riccati_solve", s_args, RICCATI_TIME_WIDTHS),
             ("ipm_iterate_dense", d_args, DENSE_WIDTHS)):
         kw = d_kw if k == "ipm_iterate_dense" else {}
         times["kernels"][k] = {}
@@ -1670,6 +1733,18 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
                 work = riccati_work(k, w, V, K)
             cell["bound_ms"], cell["bound_by"] = bound_of(*work)
             cell["call_ms"] = time_cuda(lambda: real[k](*args, **kw), 20)
+            if k == "riccati_solve":
+                # two right-hand sides in one launch: the factor's bytes
+                # once, r and du twice
+                a2 = solve_args_at(s_args2, w)
+                two = {"ms": graph_ms(lambda: real[k](*a2), 20)}
+                two["bound_ms"], two["bound_by"] = bound_of(
+                    *riccati_work(k, w, V, K, n_rhs=2))
+                two["bound_per_rhs_ms"] = two["bound_ms"] / 2
+                two["ms_per_rhs"] = two["ms"] / 2
+                two["over_two_one_rhs_launches"] = two["ms"] / (
+                    2 * cell["ms"])
+                cell["two_rhs"] = two
             times["kernels"][k][str(w)] = cell
             if w == widths[0]:
                 reports[k].update(cell)

@@ -155,7 +155,12 @@ def riccati_solve_plain(f: torch.Tensor, lh: torch.Tensor, kg: torch.Tensor,
     V)`` (the u-space right-hand side, stage-major). Returns ``du (B, K,
     V)``: a backward sweep of the value function's linear term
     ``p_k = A^T p_{k+1} + F_k^T kff_k`` with ``kff_k = -Hm^-1 (B^T p_{k+1}
-    - r_k)``, then the forward rollout ``du_k = kff_k - Kg_k x_k``."""
+    - r_k)``, then the forward rollout ``du_k = kff_k - Kg_k x_k``.
+    ``r (n_rhs, B, K, V)`` solves each right-hand side against the same
+    factor and returns ``du`` of that shape."""
+    if r.ndim == 4:
+        return torch.stack([riccati_solve_plain(f, lh, kg, a_blk, b_blk, ri)
+                            for ri in r])
     bsz, k, v = r.shape
     p = r.new_zeros((bsz, v, NX))
     kff = [None] * k
@@ -187,7 +192,9 @@ def riccati_factor(a_blk: torch.Tensor, b_blk: torch.Tensor, hy: torch.Tensor,
 def riccati_solve(fac: RiccatiFactor, a_blk: torch.Tensor,
                   b_blk: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """The banded solve of :func:`riccati_solve_plain` against
-    :func:`riccati_factor`'s factors (kernel or plain version, as there)."""
+    :func:`riccati_factor`'s factors (kernel or plain version, as there);
+    ``r (B, K, V)`` or two right-hand sides ``r (2, B, K, V)`` in one
+    launch."""
     from scp_tpu_torch.ops import riccati_kernel  # it imports this module
     return riccati_kernel.riccati_solve(fac.f, fac.lh, fac.kg, a_blk, b_blk,
                                         r)

@@ -189,8 +189,10 @@ def _banded_kkt(banded: "BandedData", *, mg: int, n: int, d_row, cost_scale,
     ``(K + reg * diag(K)) dx = rhs``, through its multiple-shooting form
     (``ops/riccati.py``): the u-space block is factored by the backward
     Riccati sweep, and the slack column (the last variable, a dense border)
-    is eliminated by a 1x1 Schur complement — two stage solves per
-    factorization, one per solve.
+    is eliminated by a 1x1 Schur complement: the first solve after a
+    factorization solves the border column and its own right-hand side in
+    ONE two-right-hand-side launch and keeps the border's solution for the
+    later solves of that factorization, which take one each.
 
     ``d_row`` / ``cost_scale``: the equilibration; ``p_diag_s (B, n)``: the
     scaled P diagonal; ``diag_gu(w_g) -> (B, nu)``: ``diag(G^T W_g G)`` over
@@ -244,13 +246,19 @@ def _banded_kkt(banded: "BandedData", *, mg: int, n: int, d_row, cost_scale,
             c_uw = c_uw + p_border
         k_ww = (torch.sum(w_g * gsl * gsl, 1) + dbox[:, n - 1]
                 + p_diag_s[:, n - 1]) * (1.0 + reg_rel)
-        y2 = unstage(riccati.riccati_solve(fac, a_blk, b_blk, stagef(c_uw)))
-        return fac, c_uw, k_ww, y2
+        # the border's solution y2 = K_uu^-1 c_uw comes with the first solve
+        return [fac, c_uw, k_ww, None]
 
     def solve(fac_b, rhs):
         fac, c_uw, k_ww, y2 = fac_b
-        y1 = unstage(riccati.riccati_solve(fac, a_blk, b_blk,
-                                           stagef(rhs[:, :nu])))
+        if y2 is None:
+            both = riccati.riccati_solve(fac, a_blk, b_blk, torch.stack(
+                [stagef(c_uw), stagef(rhs[:, :nu])]))
+            y2, y1 = unstage(both[0]), unstage(both[1])
+            fac_b[3] = y2
+        else:
+            y1 = unstage(riccati.riccati_solve(fac, a_blk, b_blk,
+                                               stagef(rhs[:, :nu])))
         dw = (rhs[:, nu] - torch.sum(c_uw * y1, 1)) \
             / (k_ww - torch.sum(c_uw * y2, 1))
         return torch.cat([y1 - dw[:, None] * y2, dw[:, None]], dim=1)

@@ -10,13 +10,17 @@ Run from the root of a checkout on a machine with an NVIDIA GPU::
     python3 scripts/torch_kernel_check.py --times         # every kernel
     python3 scripts/torch_kernel_check.py --times k1 k4   # some of them
     python3 scripts/torch_kernel_check.py --sections      # K3's cycles
+    python3 scripts/torch_kernel_check.py --sections k6k7 # K6 / K7's
+    python3 scripts/torch_kernel_check.py --pivots        # K6 / K7's pivots
 
 The default mode builds the kernel library (printing ``ptxas -v``), runs the
 structured IPM kernel (K1) on seeded inputs at the bench shape and two odd
 ones and on an instance whose KKT matrix is not positive definite, the
-dense-G IPM iteration (K2) and the Riccati factor / solve (K6 / K7) once on
-seeded inputs at a few shapes, and prints, per case, the difference from the
-plain PyTorch version on the same inputs; then the batched Cholesky (K3),
+dense-G IPM iteration (K2) and the Riccati factor / solve (K6 / K7; V = 1
+to 21 across the register kernels' last width V = 5 and the generic ones,
+one and two right-hand sides) once on seeded inputs at a few shapes, and
+prints, per case, the difference from the plain PyTorch version on the same
+inputs; then the batched Cholesky (K3),
 the Cholesky solve (K4) and the G product (K5a) at their boundary shapes
 (n across the 16-column panels and blocks, an indefinite instance or a NaN
 factor among good ones; unaligned instance bases, a tile larger than one
@@ -29,7 +33,9 @@ limits (``U_ABS_LIMIT`` / ``U_MEDIAN_LIMIT``, twenty times wider on the
 odd shapes, as there). ``--times`` times, on seeded inputs, K1 (the bench
 shape, 7 iterations, B = 1024 / 256 / 64, with the CTAs one SM holds), K4
 (n = 81 and K1's n = 80, B = 1024 / 256 / 64, with a warm and a cold L2,
-for each thread count, beside ``torch.cholesky_solve``), K6 / K7 (B = 256 / 64 / 16, V = 4, K = 64), K2
+for each thread count, beside ``torch.cholesky_solve``), K6 / K7 (V = 4,
+K = 64, B = 256 / 64 / 16 / 1 and V = 16, B = 256; warm and cold L2; K7
+with one and two right-hand sides, by graph replay), K2
 (frog's shape, B = 1024 / 256 / 64), K3 (n = 81, B = 1024 / 256 / 64 / 1,
 with its thread count varied) and K5a (m = 120, n = 81 at B = 1024 / 256 /
 64 and the P shape m = n = 81 at B = 1024, with its stage and grid target
@@ -42,7 +48,12 @@ the variants that checkout lacks are skipped. ``--sections`` builds the
 library with ``-DSCP_PROFILE_SECTIONS`` and prints where block 0 of the
 blocked factor spends its clock cycles (load, diagonal blocks, panel rows,
 trailing updates with the next diagonal block, store) at n = 81, B = 1 and
-1024, for each thread count.
+1024, for each thread count; ``--sections k6k7`` the cycles of K6's and K7's
+stage by section (thread 0 of block 0, per stage) at V = 4, B = 1 and 256,
+and of the generic kernels at V = 16. ``--pivots`` compiles a test that
+includes ``csrc/riccati.cu`` and holds its branch-free pivot square root and
+reciprocal to ``__fsqrt_rn`` / ``__frcp_rn`` bit for bit on every float in
+[1e-30, FLT_MAX] (the square root's domain; the reciprocal on its results).
 """
 from __future__ import annotations
 
@@ -55,6 +66,11 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+# (B, V, K): the long-horizon shape, odd and wide vehicle counts (V = 5 the
+# widest register kernel, V = 6 the first generic one, W = 36 > 32)
+RICCATI_CASES = ((256, 4, 64), (3, 3, 9), (16, 1, 20), (5, 2, 7),
+                 (7, 5, 12), (9, 6, 10), (4, 16, 8), (2, 21, 5))
 
 K1_CASES = (  # (B, V, hp, hu, n_obst, seed, hard_rows, n_cor, lower_tri)
     (256, 4, 20, 20, 0, 1, False, 0, True),
@@ -189,9 +205,11 @@ def check_new_kernels() -> None:
     check_k1()
     dev = "cuda"
     worst = 0.0
-    for B, V, K in ((256, 4, 64), (3, 3, 9), (16, 1, 20)):
+    two_rhs = hasattr(riccati_kernel, "solve_geometry")
+    for B, V, K in RICCATI_CASES:
         t = {k: torch.as_tensor(v, device=dev)
              for k, v in riccati_inputs(B, V, K, seed=V).items()}
+        t["a_blk"] = (0.9 * t["a_blk"]).contiguous()   # stable dynamics
         fk = riccati_kernel.riccati_factor(t["a_blk"], t["b_blk"], t["hy"],
                                            t["hu"])
         fp = riccati.riccati_factor_plain(t["a_blk"], t["b_blk"], t["hy"],
@@ -200,12 +218,28 @@ def check_new_kernels() -> None:
                                            t["r"])
         dup = riccati.riccati_solve_plain(*fp, t["a_blk"], t["b_blk"],
                                           t["r"])
+        pairs = [("f", fk[0], fp.f), ("lh", fk[1], fp.lh),
+                 ("kg", fk[2], fp.kg), ("du", duk, dup)]
+        if two_rhs:
+            r2 = torch.stack([t["r"], t["r"].flip(1)])
+            du2 = riccati_kernel.riccati_solve(*fk, t["a_blk"], t["b_blk"],
+                                               r2)
+            du2p = riccati.riccati_solve_plain(*fp, t["a_blk"], t["b_blk"],
+                                               r2)
+            pairs.append(("du_two_rhs", du2, du2p))
+            # the first right-hand side of a pair is the single launch's
+            pairs.append(("du_two_rhs_vs_one", du2[0], duk))
         torch.cuda.synchronize()
         rep = {"case": f"riccati_B{B}_V{V}_K{K}"}
-        for name, a, b in (("f", fk[0], fp.f), ("lh", fk[1], fp.lh),
-                           ("kg", fk[2], fp.kg), ("du", duk, dup)):
+        if two_rhs:
+            rep["geometry"] = {
+                "factor": list(riccati_kernel.factor_geometry(B, V)),
+                "solve_one": list(riccati_kernel.solve_geometry(B, V, K, 1)),
+                "solve_two": list(riccati_kernel.solve_geometry(B, V, K, 2))}
+        for name, a, b in pairs:
             e = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
             rep[f"{name}_rel_err"] = e
+            rep[f"{name}_finite"] = bool(torch.isfinite(a).all())
             worst = max(worst, e)
         print(json.dumps(rep), flush=True)
     for B, mg, nb, d, schur, blocks in ((1024, 440, 1, 20, True, True),
@@ -500,18 +534,72 @@ def k4_times(rnd, dev) -> None:
             del copies
 
 
+COLD_MAX_COPIES = 200          # graph size cap: small widths stay warmer
+
+
+def k6k7_times(rnd, dev) -> None:
+    """K6 and K7 (one and, where the checkout has it, two right-hand sides)
+    at V = 4, K = 64, B = 256 / 64 / 16 / 1 and at V = 16, B = 256, by graph
+    replay: warm (the same inputs every call) and cold (each call on the
+    next of up to COLD_MAX_COPIES input copies, 256 MiB between two reads of
+    one where that cap allows)."""
+    from scp_tpu_torch.ops import riccati_kernel as rk
+    from scp_tpu_torch.testing import riccati_inputs
+    two = hasattr(rk, "solve_geometry")
+    for V, widths in ((4, (256, 64, 16, 1)), (16, (256,))):
+        t = {k: torch.as_tensor(v, device=dev)
+             for k, v in riccati_inputs(256, V, 64, seed=4).items()}
+        t["a_blk"] = (0.9 * t["a_blk"]).contiguous()
+        for w in widths:
+            f_args = tuple(t[k][:w].contiguous()
+                           for k in ("a_blk", "b_blk", "hy", "hu"))
+            fac = rk.riccati_factor(*f_args)
+            r1 = t["r"][:w].contiguous()
+            cases = [("riccati_factor", rk.riccati_factor, f_args),
+                     ("riccati_solve", rk.riccati_solve,
+                      (*fac, f_args[0], f_args[1], r1))]
+            if two:
+                cases.append(("riccati_solve_two_rhs", rk.riccati_solve,
+                              (*fac, f_args[0], f_args[1],
+                               torch.stack([r1, r1.flip(1)]))))
+            ms = {}
+            for name, fn, args in cases:
+                nbytes = sum(a.numel() * 4 for a in args)
+                count = min(COLD_MAX_COPIES, 1 + -(-L2_ROTATE_BYTES // nbytes))
+                copies = [tuple(a.clone() for a in args) for _ in range(count)]
+                warm = _graph_ms([lambda: fn(*args)] * 20)
+                cold = _graph_ms([lambda c=c: fn(*c) for c in copies])
+                ms[name] = warm
+                geo = None
+                if two:
+                    geo = (list(rk.factor_geometry(w, V))
+                           if name == "riccati_factor" else
+                           list(rk.solve_geometry(w, V, 64,
+                                                  args[-1].ndim - 2)))
+                print(json.dumps({
+                    "round": rnd, "kernel": name, "V": V, "K": 64, "B": w,
+                    "geometry": geo,
+                    "graph_ms_per_call": {"warm": warm, "cold": cold},
+                    "input_copies": count,
+                    "mib_between_reads": (count - 1) * nbytes / 2 ** 20}),
+                    flush=True)
+                del copies
+            if two:
+                print(json.dumps({
+                    "round": rnd, "V": V, "B": w,
+                    "two_rhs_over_two_one_rhs": ms["riccati_solve_two_rhs"]
+                    / (2 * ms["riccati_solve"])}), flush=True)
+
+
 def kernel_times(which) -> None:
-    from scp_tpu_torch.ops import _cuda_build, ipm_kernel, riccati_kernel
-    from scp_tpu_torch.testing import (DENSE_ARG_ORDER, dense_kernel_inputs,
-                                       riccati_inputs)
+    from scp_tpu_torch.ops import _cuda_build, ipm_kernel
+    from scp_tpu_torch.testing import DENSE_ARG_ORDER, dense_kernel_inputs
     _cuda_build.build_library()
     dev = "cuda"
     card = __import__("subprocess").run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip(), flush=True)
-    t = {k: torch.as_tensor(v, device=dev)
-         for k, v in riccati_inputs(256, 4, 64, seed=4).items()}
     a = dense_kernel_inputs(1024, 440, 1, 20, seed=440)
     d_args = [None if a[k] is None else torch.as_tensor(a[k], device=dev)
               for k in DENSE_ARG_ORDER]
@@ -523,18 +611,8 @@ def kernel_times(which) -> None:
             k1_times(rnd, dev)
         if "k4" in which:
             k4_times(rnd, dev)
-        for w in (256, 64, 16) if "k6k7" in which else ():
-            f_args = [t[k][:w].contiguous()
-                      for k in ("a_blk", "b_blk", "hy", "hu")]
-            fac = riccati_kernel.riccati_factor(*f_args)
-            s_args = (*fac, f_args[0], f_args[1], t["r"][:w].contiguous())
-            for name, fn in (
-                    ("riccati_factor",
-                     lambda: riccati_kernel.riccati_factor(*f_args)),
-                    ("riccati_solve",
-                     lambda: riccati_kernel.riccati_solve(*s_args))):
-                print(json.dumps({"round": rnd, "kernel": name, "B": w,
-                                  **_time_three_ways(fn)}), flush=True)
+        if "k6k7" in which:
+            k6k7_times(rnd, dev)
         for w in (1024, 256, 64) if "k2" in which else ():
             args = [None if x is None else x[:w].contiguous()
                     for x in d_args]
@@ -606,7 +684,8 @@ def k3_sections() -> None:
     import ctypes
     import subprocess
     from scp_tpu_torch.ops import _cuda_build, linalg_kernel as lk
-    _cuda_build.BUILD_DEFINES = ("SCP_PROFILE_SECTIONS",)
+    if "SCP_PROFILE_SECTIONS" not in _cuda_build.BUILD_DEFINES:
+        _cuda_build.BUILD_DEFINES += ("SCP_PROFILE_SECTIONS",)
     lib = _cuda_build.load_library()
     lib.chol_read_sections.argtypes = [ctypes.c_void_p]
     lib.chol_read_sections.restype = ctypes.c_int
@@ -640,13 +719,122 @@ def k3_sections() -> None:
                          text=True).stdout.strip())
 
 
+PIVOT_TEST = r"""
+#include <cstdio>
+#include "riccati.cu"
+__global__ void pivot_test(unsigned long long* bad, unsigned base) {
+  const unsigned bits = base + blockIdx.x * blockDim.x + threadIdx.x;
+  const float x = __uint_as_float(bits);
+  if (!(x >= 1e-30f) || !(x <= 3.4028235e38f)) return;
+  const float d = __fsqrt_rn(x);
+  if (__float_as_uint(sqrt_rn_pivot(x)) != __float_as_uint(d))
+    atomicAdd(&bad[0], 1ULL);
+  if (__float_as_uint(rcp_rn_pivot(d)) != __float_as_uint(__frcp_rn(d)))
+    atomicAdd(&bad[1], 1ULL);
+  atomicAdd(&bad[2], 1ULL);
+}
+int main() {
+  unsigned long long* bad;
+  cudaMallocManaged(&bad, 3 * sizeof(unsigned long long));
+  bad[0] = bad[1] = bad[2] = 0;
+  for (unsigned long long base = 0; base < 0x80000000ULL; base += 1ULL << 30)
+    pivot_test<<<(1u << 30) / 256, 256>>>(bad, (unsigned)base);
+  const cudaError_t err = cudaDeviceSynchronize();
+  printf("{\"pivots_checked\": %llu, \"sqrt_mismatches\": %llu, "
+         "\"rcp_mismatches\": %llu, \"cuda\": \"%s\"}\n", bad[2], bad[0],
+         bad[1], cudaGetErrorString(err));
+  return err != cudaSuccess || bad[0] || bad[1];
+}
+"""
+
+
+def pivot_check() -> None:
+    """The branch-free pivots of csrc/riccati.cu against the intrinsics,
+    every positive float bit pattern in the square root's domain."""
+    import shutil
+    import subprocess
+    from scp_tpu_torch.ops import _cuda_build
+    _cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _cuda_build.BUILD_DIR / "pivot_test.cu"
+    exe = _cuda_build.BUILD_DIR / "pivot_test"
+    src.write_text(PIVOT_TEST)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    subprocess.run([nvcc, *_cuda_build.NVCC_FLAGS[:2], "-std=c++17", "-O3",
+                    "-I", str(_cuda_build.CSRC), "-o", str(exe), str(src)],
+                   check=True)
+    out = subprocess.run([str(exe)], capture_output=True, text=True)
+    print(out.stdout.strip(), flush=True)
+    if out.returncode != 0:
+        sys.exit(f"the pivots disagree with the intrinsics: {out.stderr}")
+
+
+K6K7_SECTIONS = ("k6_pt_and_t", "k6_f_hm_and_z", "k6_chol_kg_and_y",
+                 "k6_ftkg", "k6_sym", "k7_bwd_wait_exchange",
+                 "k7_bwd_chain", "k7_fwd_wait_exchange", "k7_fwd_chain",
+                 "k6gen_hy", "k6gen_t_and_x", "k6gen_f_hm_and_y",
+                 "k6gen_chol", "k6gen_kg_and_store", "k6gen_ftkg",
+                 "k6gen_sym")
+
+
+def k6k7_sections() -> None:
+    """Clock cycles of thread 0 of block 0 per stage of K6 and K7 (V = 4, K
+    = 64) by section, at B = 1 and 256, one and two right-hand sides; and of
+    the generic K6 and K7 at V = 16, B = 1."""
+    import ctypes
+    import subprocess
+    from scp_tpu_torch.ops import _cuda_build, riccati_kernel as rk
+    from scp_tpu_torch.testing import riccati_inputs
+    if "SCP_PROFILE_SECTIONS" not in _cuda_build.BUILD_DEFINES:
+        _cuda_build.BUILD_DEFINES += ("SCP_PROFILE_SECTIONS",)
+    lib = _cuda_build.load_library()
+    lib.riccati_read_sections.argtypes = [ctypes.c_void_p]
+    lib.riccati_read_sections.restype = ctypes.c_int
+    buf = (ctypes.c_ulonglong * 16)()
+    for V, B in ((4, 1), (4, 256), (16, 1)):
+        t = {k: torch.as_tensor(v, device="cuda")
+             for k, v in riccati_inputs(B, V, 64, seed=4).items()}
+        t["a_blk"] = (0.9 * t["a_blk"]).contiguous()
+        f_args = tuple(t[k][:B].contiguous()
+                       for k in ("a_blk", "b_blk", "hy", "hu"))
+        fac = rk.riccati_factor(*f_args)
+        r1 = t["r"][:B].contiguous()
+        for what, fn in (
+                ("factor", lambda: rk.riccati_factor(*f_args)),
+                ("solve_one", lambda: rk.riccati_solve(
+                    *fac, f_args[0], f_args[1], r1)),
+                ("solve_two", lambda: rk.riccati_solve(
+                    *fac, f_args[0], f_args[1],
+                    torch.stack([r1, r1.flip(1)])))):
+            fn()
+            torch.cuda.synchronize()
+            lib.riccati_read_sections(buf)
+            reps = 10
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            if lib.riccati_read_sections(buf) != 0:
+                sys.exit("reading the section counters failed")
+            cyc = {k: buf[i] / reps / 64 for i, k in enumerate(K6K7_SECTIONS)
+                   if buf[i]}
+            print(json.dumps({"B": B, "V": V, "K": 64, "call": what,
+                              "defines": list(_cuda_build.BUILD_DEFINES),
+                              "cycles_per_stage": sum(cyc.values()),
+                              "cycles": cyc}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dump", metavar="PATH")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
     ap.add_argument("--times", nargs="*", choices=TIMED, metavar="KERNEL",
                     help=f"time these kernels (default: all of {TIMED})")
-    ap.add_argument("--sections", action="store_true")
+    ap.add_argument("--sections", nargs="*", choices=("k3", "k6k7"),
+                    metavar="KERNEL",
+                    help="cycles by section (default: k3)")
+    ap.add_argument("--pivots", action="store_true")
     args = ap.parse_args()
     if args.compare:            # two dumps: no device needed
         compare(*args.compare)
@@ -657,8 +845,13 @@ def main() -> None:
         dump_k1(args.dump)
     elif args.times is not None:
         kernel_times(args.times or TIMED)
-    elif args.sections:
-        k3_sections()
+    elif args.pivots:
+        pivot_check()
+    elif args.sections is not None:
+        if "k6k7" in args.sections:
+            k6k7_sections()
+        if not args.sections or "k3" in args.sections:
+            k3_sections()
     else:
         check_new_kernels()
 

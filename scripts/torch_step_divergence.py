@@ -2,19 +2,24 @@
 
 Run on a machine with an NVIDIA GPU, from the repository root::
 
-    python3 scripts/torch_step_divergence.py [--path circle|frog]
-        [--batch 1024] [--worst 8] [--seed 42]
+    python3 scripts/torch_step_divergence.py [--path circle|frog|long_horizon]
+        [--batch B] [--worst 8] [--seed 42] [--shadow N]
 
-Drives the first ``mpc_step_batch`` step of a randomized batch (hp = hu =
-20, tuned_f32, TUNED_F32_PHASES) three ways: float32 through the CUDA
-kernel, float32 through the kernel's plain PyTorch version, and float64
-through the plain version (the oracle). ``--path circle`` (the default): the
-4-vehicle circle through the structured kernel (K1); ``--path frog``: the
-single-vehicle frog through the dense-G kernel (K2). During the kernel run every
-launch is shadowed: the plain float32 version and the float64 oracle solve
-the SAME inputs, so a disagreement of the kernel on identical inputs (a
-kernel fault) can be told apart from two float32 solvers drifting apart over
-the SCP iterations (sensitivity of the non-convex outer loop to round-off).
+Drives the first ``mpc_step_batch`` step of a randomized batch (tuned_f32,
+TUNED_F32_PHASES) three ways: float32 through the CUDA kernels, float32
+through their plain PyTorch versions, and float64 through the plain versions
+(the oracle). ``--path circle`` (the default): the 4-vehicle circle, hp = hu
+= 20, B = 1024, through the structured kernel (K1); ``--path frog``: the
+single-vehicle frog through the dense-G kernel (K2); ``--path
+long_horizon``: the 4-vehicle circle at hp = hu = 64, B = 256, through the
+Riccati factor and solve (K6 / K7), whose step also reports the feasible
+share of the three runs. During the kernel run the first ``--shadow``
+launches of each kernel (all of them by default on circle and frog, 24 on
+long_horizon) are shadowed: the plain float32 version and the float64
+oracle solve the SAME inputs, so a disagreement of the kernel on identical
+inputs (a kernel fault) can be told apart from two float32 solvers drifting
+apart over the SCP iterations (sensitivity of the non-convex outer loop to
+round-off).
 
 Prints one JSON line per launch (errors of the controls on identical inputs)
 and one for the step (per-instance difference of the clamped control
@@ -36,11 +41,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("circle", "frog"), default="circle")
-    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--path", choices=("circle", "frog", "long_horizon"),
+                    default="circle")
+    ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--worst", type=int, default=8)
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--shadow", type=int, default=None)
     opts = ap.parse_args()
+    long = opts.path == "long_horizon"
+    opts.batch = opts.batch or (256 if long else 1024)
+    if opts.shadow is None:
+        opts.shadow = 24 if long else 1 << 30
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     from scp_tpu_torch import config as config_lib
@@ -51,11 +62,15 @@ def main():
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(opts.seed)
-    kw_b = dict(n_veh=4) if opts.path == "circle" else {}
-    cfg, data = batch_lib.make_batch(opts.path, opts.batch, generator=gen,
+    kind = "frog" if opts.path == "frog" else "circle"
+    kw_b = dict(n_veh=4) if kind == "circle" else {}
+    hp = 64 if long else 20
+    cfg, data = batch_lib.make_batch(kind, opts.batch, generator=gen,
                                      dtype=torch.float32, device=dev, **kw_b)
-    cfg = config_lib.tuned_f32(cfg.replace(hp=20, hu=20))
+    cfg = config_lib.tuned_f32(cfg.replace(hp=hp, hu=hp))
     phases = config_lib.TUNED_F32_PHASES
+    if long:
+        return long_horizon(opts, cfg, data, phases, tree_map)
     name = ("ipm_iterate_struct" if opts.path == "circle"
             else "ipm_iterate_dense")
     real = getattr(ipm_kernel, name)
@@ -138,6 +153,97 @@ def main():
             "feasible": [bool(o.feasible[i]) for o in (out_k, out_p, out_d)],
         } for i in worst],
     }), flush=True)
+
+
+def long_horizon(opts, cfg, data, phases, tree_map):
+    """The long-horizon step three ways, with K6 / K7 launches shadowed."""
+    from scp_tpu_torch.ops import linalg, linalg_kernel as lk, riccati
+    from scp_tpu_torch.ops import riccati_kernel as rk
+    from scp_tpu_torch.sim import engine
+
+    owner = {"riccati_factor": rk, "riccati_solve": rk, "gmv": lk,
+             "gtmv": lk}
+    real = {k: getattr(owner[k], k) for k in owner}
+    plain = {"riccati_factor":
+             lambda *a: tuple(riccati.riccati_factor_plain(*a)),
+             "riccati_solve": riccati.riccati_solve_plain,
+             "gmv": linalg.gmv_plain, "gtmv": linalg.gtmv_plain}
+    seen = {"riccati_factor": 0, "riccati_solve": 0}
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+
+    def shadow(name):
+        def call(*args):
+            out = real[name](*args)
+            if seen[name] < opts.shadow:
+                outs = out if isinstance(out, tuple) else (out,)
+                p32 = plain[name](*args)
+                p32 = p32 if isinstance(p32, tuple) else (p32,)
+                p64 = plain[name](*[a.double() for a in args])
+                p64 = p64 if isinstance(p64, tuple) else (p64,)
+                print(json.dumps({
+                    "kernel": name, "launch": seen[name],
+                    "B": args[0].shape[0],
+                    "n_rhs": (args[-1].shape[0] if name == "riccati_solve"
+                              and args[-1].ndim == 4 else 1),
+                    "kernel_vs_plain32_rel": max(
+                        rel(k, p) for k, p in zip(outs, p32)),
+                    "kernel_vs_f64_rel": max(
+                        rel(k, d) for k, d in zip(outs, p64)),
+                    "plain32_vs_f64_rel": max(
+                        rel(p, d) for p, d in zip(p32, p64)),
+                    "finite": all(bool(torch.isfinite(k).all())
+                                  for k in outs)}), flush=True)
+            seen[name] += 1
+            return out
+        return call
+
+    def step(data_, fns):
+        for k, fn in fns.items():
+            setattr(owner[k], k, fn)
+        try:
+            _, out = engine.mpc_step_batch(
+                cfg, data_, engine.init_carry(cfg, data_), phases=phases)
+        finally:
+            for k in fns:
+                setattr(owner[k], k, real[k])
+        torch.cuda.synchronize()
+        return out
+
+    data64 = tree_map(
+        lambda t: t.double() if t.is_floating_point() else t, data)
+    out_k = step(data, {k: shadow(k) for k in seen})
+    out_p = step(data, {k: plain[k] for k in seen})
+    out_d = step(data64, plain)        # the float32-only kernels routed too
+
+    def du(a, b):
+        return (a.u_pred.double() - b.u_pred.double()).abs().amax(dim=(1, 2))
+
+    d_kp, d_kd, d_pd = du(out_k, out_p), du(out_k, out_d), du(out_p, out_d)
+    excess = d_kd - (2 * d_pd + 5e-3)
+    # the feasible share over chained steps, as chip_smoke.py reads it
+    carry, feas = engine.init_carry(cfg, data), []
+    for _ in range(4):
+        carry, out = engine.mpc_step_batch(cfg, data, carry, phases=phases)
+        feas.append(float(out.feasible.float().mean()))
+    print(json.dumps({
+        "step": "first", "path": "long_horizon", "B": opts.batch,
+        "hp": cfg.hp, "seed": opts.seed, "launches_first_step": seen,
+        "feasible_share_first_step": {
+            "kernel": float(out_k.feasible.float().mean()),
+            "plain32": float(out_p.feasible.float().mean()),
+            "f64": float(out_d.feasible.float().mean())},
+        "feasible_share_4_chained_steps_kernel": sum(feas) / len(feas),
+        "instances_beyond_2x_plain32_of_f64_plus_5e-3": int(
+            (excess > 0).sum()),
+        "largest_excess": float(excess.max()),
+        "u_pred_kernel_vs_plain32_max": float(d_kp.max()),
+        "u_pred_kernel_vs_plain32_p99": float(d_kp.quantile(0.99)),
+        "u_pred_kernel_vs_plain32_median": float(d_kp.median()),
+        "u_pred_kernel_vs_f64_max": float(d_kd.max()),
+        "u_pred_plain32_vs_f64_max": float(d_pd.max())}), flush=True)
 
 
 if __name__ == "__main__":

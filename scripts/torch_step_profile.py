@@ -2,25 +2,32 @@
 
 Run on a machine with an NVIDIA GPU, from the repository root::
 
-    python3 scripts/torch_step_profile.py [--path tuned|adaptive|instance]
-                                          [--batch 1024] [--steps 3]
+    python3 scripts/torch_step_profile.py [--path tuned|adaptive|instance|
+                                                  long_horizon|instance64]
+                                          [--batch B] [--steps 3]
 
 Drives one path of ``scp_tpu_torch.sim.engine`` on the 4-vehicle circle
-(hp = hu = 20, float32), warm, under ``torch.profiler``:
+(float32), warm, under ``torch.profiler``:
 
-* ``tuned`` — ``mpc_step_batch`` on the randomized batch with ``tuned_f32``
-  and ``TUNED_F32_PHASES`` (the fused IPM kernel);
+* ``tuned`` — ``mpc_step_batch`` on the randomized batch (hp = hu = 20,
+  B = 1024 unless ``--batch``) with ``tuned_f32`` and ``TUNED_F32_PHASES``
+  (the fused IPM kernel);
 * ``adaptive`` — ``mpc_step_batch`` on the same batch with the DEFAULT
   configuration (adaptive IPM: Cholesky, solve and matvec kernels);
 * ``instance`` — ``mpc_step`` on ONE nominal scenario with ``tuned_f32``
-  (``--batch`` is ignored).
+  (``--batch`` is ignored);
+* ``long_horizon`` — ``mpc_step_batch`` at hp = hu = 64, B = 256 unless
+  ``--batch``, ``tuned_f32`` and ``TUNED_F32_PHASES`` (``qp_kkt="auto"``
+  routes to the banded KKT: the Riccati factor and solve kernels);
+* ``instance64`` — ``mpc_step`` on ONE nominal scenario at hp = hu = 64
+  with ``tuned_f32`` and ``qp_kkt="banded"`` (the Riccati kernels at B = 1).
 
 It prints JSON lines: the wall time per step, the device-busy share (sum of
 kernel time over wall time), the number of kernel launches per step, the
 device time and launches of each hand-written kernel (with its device time
-per launch), and the ten kernels with the most device time. A second pass
-times the step's three parts (controller_pre, the SCP solve, step_post) with
-a synchronise after each.
+per launch and its share of the step's device time), and the ten kernels
+with the most device time. A second pass times the step's three parts
+(controller_pre, the SCP solve, step_post) with a synchronise after each.
 """
 import argparse
 import json
@@ -36,9 +43,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("tuned", "adaptive", "instance"),
+    ap.add_argument("--path", choices=("tuned", "adaptive", "instance",
+                                       "long_horizon", "instance64"),
                     default="tuned")
-    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--steps", type=int, default=3)
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -55,28 +63,33 @@ def main():
         capture_output=True, text=True).stdout.strip()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(42)
-    if opts.path == "instance":
+    one = opts.path in ("instance", "instance64")
+    hp = 64 if opts.path in ("long_horizon", "instance64") else 20
+    if one:
         cfg, data = builders.circle(4, dtype=torch.float32, device=dev)
     else:
-        cfg, data = batch_lib.make_batch("circle", opts.batch, generator=gen,
+        width = opts.batch or (256 if opts.path == "long_horizon" else 1024)
+        cfg, data = batch_lib.make_batch("circle", width, generator=gen,
                                          dtype=torch.float32, device=dev,
                                          n_veh=4)
-    cfg = cfg.replace(hp=20, hu=20)
+    cfg = cfg.replace(hp=hp, hu=hp)
     phases = None
-    if opts.path != "adaptive":
+    if opts.path == "instance64":
+        cfg = config_lib.tuned_f32(cfg, qp_kkt="banded")
+    elif opts.path != "adaptive":
         cfg = config_lib.tuned_f32(cfg)
-    if opts.path == "tuned":
+    if opts.path in ("tuned", "long_horizon"):
         phases = config_lib.TUNED_F32_PHASES
     batch = data.x0.shape[0]
     scp_kw = dict(max_scp_iter=cfg.max_scp_iter, **engine._scp_kwargs(cfg))
 
     def step(c):
-        if opts.path == "instance":
+        if one:
             return engine.mpc_step(cfg, data, c)
         return engine.mpc_step_batch(cfg, data, c, phases=phases)
 
     def solve(problem, c):
-        if opts.path == "instance":
+        if one:
             return scp.solve_scp(problem, c.u_warm, **scp_kw)
         return scp.solve_scp_batch(problem, c.u_warm, phases=phases, **scp_kw)
 
@@ -98,15 +111,18 @@ def main():
     dev_us = sum(e.device_time_total for e in rows)
     launches = sum(e.count for e in rows)
     own = {}
-    for name in ("ipm_struct_kernel", "chol_batched_kernel",
-                 "cho_solve_batched_kernel", "gmv_batched_kernel",
-                 "gtmv_batched_kernel"):
+    # (substrings of the kernels' names: riccati_factor matches the factor
+    # kernels of every design)
+    for name in ("ipm_struct_kernel", "ipm_dense_kernel", "chol_blocked_kernel",
+                 "cho_solve_batched_kernel", "gmv_staged_kernel",
+                 "gtmv_batched_kernel", "riccati_factor", "riccati_solve"):
         hit = [e for e in rows if name in e.key]
         n_launch = sum(e.count for e in hit)
         us = sum(e.device_time_total for e in hit)
         own[name] = {"ms_per_step": us / 1e3 / opts.steps,
                      "launches_per_step": n_launch / opts.steps,
-                     "device_us_per_launch": us / n_launch if n_launch else None}
+                     "device_us_per_launch": us / n_launch if n_launch else None,
+                     "share_of_device_time": us / dev_us if dev_us else None}
     top = sorted(rows, key=lambda e: -e.device_time_total)[:10]
     print(json.dumps({
         "card": card, "path": opts.path, "B": batch, "steps": opts.steps,

@@ -167,6 +167,37 @@ def test_auto_routes_by_shape(monkeypatch, past_gate):
     assert bool(torch.isfinite(sol.x).all())
 
 
+@pytest.mark.parametrize("correctors,refine_steps,solves", [
+    (0, 0, 2), (1, 0, 3), (0, 1, 4)])
+def test_banded_kkt_two_solves_per_factor(monkeypatch, correctors,
+                                          refine_steps, solves):
+    """One Mehrotra iteration of the banded KKT: one Riccati factor, and
+    the border column solved with the predictor's right-hand side in ONE
+    two-right-hand-side solve; the corrector, each Gondzio corrector and
+    each refinement step take one more solve of one right-hand side."""
+    ja, ta = scp_qp_data("circle", 2, 4, np.float64, n_veh=2, banded=True)
+    calls = []
+    real_f, real_s = (riccati_kernel.riccati_factor,
+                      riccati_kernel.riccati_solve)
+
+    def factor(*a):
+        calls.append("factor")
+        return real_f(*a)
+
+    def solve(*a):
+        calls.append(f"solve{a[-1].shape[0] if a[-1].ndim == 4 else 1}")
+        return real_s(*a)
+    monkeypatch.setattr(riccati_kernel, "riccati_factor", factor)
+    monkeypatch.setattr(riccati_kernel, "riccati_solve", solve)
+    kw = dict(fixed_iters=1, tol=1e-8, correctors=correctors,
+              refine_steps=refine_steps)
+    got = tqp.solve_qp(*[ta[k] for k in DENSE_KEYS[:6]], x0=ta["x0"],
+                       banded=ta["banded"], **kw)
+    assert calls == ["factor", "solve2"] + ["solve1"] * (solves - 1)
+    want = _jax_solve_qp(ja, **kw)
+    assert_close(got.x, want.x, 1e-8, name="x")
+
+
 def _problems(kind, b, hp, seed, **kw):
     cfg_j, data_j, cfg_t, data_t = scenario_pair(
         kind, b, seed, np.float64, cfg_over=dict(hp=hp, hu=hp,

@@ -177,6 +177,105 @@ def test_plain_sweeps_match_pallas_kernels_interpret_float32(V, K):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("V,K", [(1, 6), (3, 5)])
+def test_plain_two_rhs_match_pallas_solve_interpret_float32(V, K):
+    """Two right-hand sides against one factor (the kernel's n_rhs = 2) are
+    two solves of ``riccati_solve_lane`` in interpret mode."""
+    r = _system(3, V, K, seed=30 + V, dtype=np.float32)
+    r2 = np.stack([r["r"], np.random.default_rng(V).normal(
+        size=r["r"].shape).astype(np.float32)])
+    j = {k: jnp.asarray(v, jnp.float32) for k, v in r.items()}
+    old = jpr.INTERPRET
+    jpr.INTERPRET = True
+    try:
+        f_j, lh_j, kg_j = jpr.riccati_factor_lane(j["a_blk"], j["b_blk"],
+                                                  j["hy"], j["hu"])
+        want = [np.asarray(jpr.riccati_solve_lane(
+            f_j, lh_j, kg_j, j["a_blk"], j["b_blk"], jnp.asarray(ri)))
+            for ri in r2]
+    finally:
+        jpr.INTERPRET = old
+    t = {k: torch.as_tensor(v) for k, v in r.items()}
+    fac = tric.riccati_factor(t["a_blk"], t["b_blk"], t["hy"], t["hu"])
+    du = tric.riccati_solve(fac, t["a_blk"], t["b_blk"], torch.as_tensor(r2))
+    assert du.shape == r2.shape and du.dtype == torch.float32
+    for i in range(2):
+        np.testing.assert_allclose(du[i].numpy(), want[i], rtol=5e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("V,K", [(1, 7), (4, 6)])
+def test_plain_two_rhs_match_scp_tpu_scan_float64(V, K):
+    r = _system(3, V, K, seed=40 + V)
+    r2 = np.stack([r["r"], np.random.default_rng(V).normal(
+        size=r["r"].shape)])
+    fac_j = jax.vmap(jric._riccati_factor_scan)(
+        *map(jnp.asarray, (r["a_blk"], r["b_blk"], r["hy"], r["hu"])))
+    want = [np.asarray(jax.vmap(jric._riccati_solve_scan)(
+        fac_j, jnp.asarray(r["a_blk"]), jnp.asarray(r["b_blk"]),
+        jnp.asarray(ri))) for ri in r2]
+    t = {k: _t(v) for k, v in r.items()}
+    fac = tric.riccati_factor_plain(t["a_blk"], t["b_blk"], t["hy"], t["hu"])
+    du = tric.riccati_solve_plain(*fac, t["a_blk"], t["b_blk"], _t(r2))
+    for i in range(2):
+        np.testing.assert_allclose(du[i].numpy(), want[i], rtol=1e-9,
+                                   atol=1e-12)
+
+
+def test_solve_takes_one_or_two_right_hand_sides():
+    """``r (2, B, K, V)`` is two solves against one factor, exactly, on the
+    CPU (the plain version); any other leading axis is refused."""
+    r = _system(2, 3, 4, seed=2, dtype=np.float32)
+    t = {k: torch.as_tensor(v) for k, v in r.items()}
+    fac = trk.riccati_factor(t["a_blk"], t["b_blk"], t["hy"], t["hu"])
+    r2 = torch.stack([t["r"], 2.0 * t["r"].flip(1)])
+    du2 = trk.riccati_solve(*fac, t["a_blk"], t["b_blk"], r2)
+    for i in range(2):
+        assert torch.equal(du2[i], trk.riccati_solve(
+            *fac, t["a_blk"], t["b_blk"], r2[i]))
+    with pytest.raises(ValueError):
+        trk.riccati_solve(*fac, t["a_blk"], t["b_blk"],
+                          torch.stack([t["r"]] * 3))
+
+
+@pytest.mark.parametrize("B", [1, 3, 16, 256, 1023])
+@pytest.mark.parametrize("V", [1, 4, 6, 16, 21])
+def test_launch_geometry(B, V):
+    """The geometry the wrappers hand the launchers (csrc/riccati.cu checks
+    the same): one warp per instance, every instance covered exactly once,
+    a CTA within a block's shared memory, and both gates admit V."""
+    limit = trk.SMEM_LIMIT_BYTES
+    geos = [("factor", trk.factor_geometry(B, V), trk.factor_smem_bytes(V),
+             trk.check_factor_smem_gate(V))]
+    for K in (5, 64):
+        for n_rhs in (1, 2):
+            per = trk.solve_smem_bytes(V, K, n_rhs)
+            geos.append((f"solve K={K} n_rhs={n_rhs}",
+                         trk.solve_geometry(B, V, K, n_rhs), per,
+                         trk.check_solve_smem_gate(V, K, n_rhs)))
+    for name, (ipc, threads, smem), per, gate in geos:
+        assert 1 <= ipc <= trk.MAX_WARPS, name
+        assert threads == 32 * ipc, name
+        assert smem == ipc * per <= limit and gate == per, name
+        blocks = -(-B // ipc)
+        covered = [blk * ipc + w for blk in range(blocks)
+                   for w in range(ipc) if blk * ipc + w < B]
+        assert covered == list(range(B)), name
+        assert blocks * ipc - B < ipc, name      # no CTA without an instance
+
+
+def test_gates_admit_every_vehicle_count_the_parent_admitted():
+    """Every V <= 21 launches (the first design's gate); the register
+    kernels end at V = 5 and the generic ones take the rest."""
+    for V in range(1, 22):
+        assert trk.check_factor_smem_gate(V) == trk.factor_smem_bytes(V)
+        for n_rhs in (1, 2):
+            assert trk.check_solve_smem_gate(V, 64, n_rhs) \
+                == trk.solve_smem_bytes(V, 64, n_rhs)
+    with pytest.raises(NotImplementedError, match="V <= 24"):
+        trk.check_solve_smem_gate(25, 64)
+
+
 def test_wrappers_check_shapes_and_gate_shared_memory():
     r = _system(2, 3, 4, seed=1, dtype=np.float32)
     t = {k: torch.as_tensor(v) for k, v in r.items()}
@@ -186,11 +285,11 @@ def test_wrappers_check_shapes_and_gate_shared_memory():
     with pytest.raises(ValueError):
         trk.riccati_solve(t["hy"], t["hu"], t["hy"], t["a_blk"], t["b_blk"],
                           t["r"])
-    # V = 4 (the long-horizon path) fits; 9,152 bytes per instance
-    assert trk.check_factor_smem_gate(4) == trk.factor_smem_bytes(4) == 9152
+    # V = 4 (the long-horizon path) fits; 6,880 bytes per instance
+    assert trk.check_factor_smem_gate(4) == trk.factor_smem_bytes(4) == 6880
     assert trk.check_factor_smem_gate(16) < trk.SMEM_LIMIT_BYTES
     with pytest.raises(NotImplementedError, match="shared memory"):
-        trk.check_factor_smem_gate(24)
+        trk.check_factor_smem_gate(25)
 
 
 @pytest.mark.parametrize("kind,kw", [
