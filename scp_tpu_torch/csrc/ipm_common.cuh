@@ -1,19 +1,18 @@
 // The Mehrotra step algebra shared by the two fused IPM kernels: the
-// structured kernel (ipm_struct.cu, KKT formed from pair slabs, all
-// iterations in one launch) and the dense-G kernel (ipm_dense.cu, one
-// iteration per launch on a pre-formed KKT product). Both hold one QP
+// structured kernel (ipm_struct.cu, KKT formed from pair slabs) and the
+// dense-G kernel (ipm_dense.cu, KKT formed from a dense G), each running all
+// fixed iterations in one launch. Both hold one QP
 // instance per CTA with the inequality system stacked as [G rows | ub rows |
 // lb rows] (m = mg + 2n entries) and the factored KKT matrix in shared
 // memory; they differ only in how they form that matrix and in how they
 // multiply by G. The second difference is a template parameter here: a
 // `Rows` type with
 //
-//   float col(const float* v, int c) const   // (G^T v)[c], c < n
 //   float row(const float* x, int r) const   // (G x)[r],   r < mg
-//   int col_slots() const, col_at(int t) const
-//     // the order in which threads take the columns: slot t < col_slots()
-//     // is column col_at(t), or idle (-1), so that a warp's columns can
-//     // share their row walk
+//   template <class Epi> void cols(const float* v, Epi epi) const
+//     // all threads call; (G^T v)[c] for every c < n, split across the
+//     // block's threads however the type likes, and epi(c, (G^T v)[c]) run
+//     // once per column by the thread that holds the sum; no barrier
 //
 // The factor and the two substitutions are the package's one blocked factor
 // and one blocked solve (chol_blocked.cuh); what follows the factorization
@@ -113,14 +112,11 @@ template <class Rows>
 __device__ inline void build_rhs(const Rows& g, const IpmVecs& v,
                                  const IpmDims& d, const float* vin,
                                  bool with_cost) {
-  for (int t = threadIdx.x; t < g.col_slots(); t += blockDim.x) {
-    const int c = g.col_at(t);
-    if (c < 0) continue;
-    const float gt = g.col(vin, c);
+  g.cols(vin, [&](int c, float gt) {
     const float box = vin[d.mg + c], boxl = vin[d.mg + d.n + c];
     const float head = with_cost ? (v.px[c] + v.q[c]) + gt : gt;
     v.rhs[c] = -((head + box) - boxl);
-  }
+  });
 }
 
 // Factor the formed nk x nk KKT matrix in place (lower triangle, L_jj on

@@ -257,6 +257,15 @@ struct SlabRows {
     if (v == d.V) return d.nu;
     return u < d.hu ? v * d.hu + u : -1;
   }
+  // a thread per column, in the slot order above
+  template <class Epi>
+  __device__ void cols(const float* v, Epi epi) const {
+    for (int t = threadIdx.x; t < col_slots(); t += blockDim.x) {
+      const int c = col_at(t);
+      if (c < 0) continue;
+      epi(c, col(v, c));
+    }
+  }
   __device__ float row(const float* x, int r) const {
     return row_dot(sm, d, x, r);
   }

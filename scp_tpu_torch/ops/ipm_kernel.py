@@ -3,10 +3,10 @@ versions (counterparts of ``scp_tpu/ops/pallas_linalg.py::
 ipm_iterate_lane_struct`` and ``ipm_iterate_lane``).
 
 :func:`ipm_iterate_struct` (K1, ``csrc/ipm_struct.cu``) is described first;
-:func:`ipm_iterate_dense` (K2, ``csrc/ipm_dense.cu``) runs ONE iteration per
-call on a pre-formed KKT product and a dense G (see its docstring). Both
-kernels share their step algebra (``csrc/ipm_common.cuh``), and so do the
-plain versions (:func:`_plain_step`).
+:func:`ipm_iterate_dense` (K2, ``csrc/ipm_dense.cu``) runs the same
+iterations on a dense G, forming ``G^T W G`` itself (see its docstring).
+Both kernels share their step algebra (``csrc/ipm_common.cuh``), and so do
+the plain versions (:func:`_plain_step`).
 
 All ``n_iters`` Mehrotra predictor-corrector iterations of every QP of a
 batch run in one call: slab matvecs, the analytic KKT diagonal, the
@@ -463,33 +463,38 @@ def ipm_iterate_struct_plain(gi, gj, gob, gsl, pb, q, pdiag,
 
 
 # ---------------------------------------------------------------------------
-# the dense-G fused iteration (K2)
+# the dense-G fused iterations (K2)
 # ---------------------------------------------------------------------------
 
 def dense_smem_bytes(mg: int, n: int, nb: int, d: int, schur: bool,
-                     g_smem: bool) -> int:
+                     g_smem: bool, n_cor: int = 1) -> int:
     """Dynamic shared memory of the dense-G kernel (mirrors the carve in
-    ``csrc/ipm_dense.cu::dense_smem_words``): the factor, the P blocks, the
-    step's vectors and, with ``g_smem``, G itself."""
+    ``csrc/ipm_dense.cu::dense_smem_words``): the factor, the P blocks
+    (``nb = 0``: a dense P, which stays in device memory and takes none),
+    the step's vectors (one m-vector fewer without Gondzio correctors:
+    ``n_cor = 0``) and, with ``g_smem``, G itself (with an odd leading
+    dimension and four padding words)."""
     nk = n - 1 if schur else n
-    words = (nk * (nk | 1) + nb * d * d + 9 * (mg + 2 * n) + 9 * n
+    m = mg + 2 * n
+    words = (nk * (nk | 1) + nb * d * d + (8 + (n_cor > 0)) * m + 9 * n
              + _RED_WORDS + 1)
     if g_smem:
-        words += mg * (n | 1)
+        words += mg * (n | 1) + 4      # G and four zeroed words past it
     return 4 * words
 
 
 def fits_dense_smem(mg: int, n: int, nb: int, d: int, schur: bool) -> bool:
     """Whether the dense-G kernel's working set (without G, which it then
-    reads from device memory) fits a block's shared memory."""
+    reads from device memory; with correctors, the larger carve) fits a
+    block's shared memory."""
     return dense_smem_bytes(mg, n, nb, d, schur, False) <= SMEM_LIMIT_BYTES
 
 
-def check_dense_smem_gate(mg: int, n: int, nb: int, d: int,
-                          schur: bool) -> int:
+def check_dense_smem_gate(mg: int, n: int, nb: int, d: int, schur: bool,
+                          n_cor: int = 1) -> tuple[int, bool]:
     """The dense-G kernel's gate: a factor plus vectors beyond a block's
     shared memory is refused; G goes into shared memory when it fits too.
-    Returns the bytes of the launch."""
+    Returns the bytes of the launch and whether G is in shared memory."""
     if not fits_dense_smem(mg, n, nb, d, schur):
         need = dense_smem_bytes(mg, n, nb, d, schur, False)
         raise NotImplementedError(
@@ -497,10 +502,44 @@ def check_dense_smem_gate(mg: int, n: int, nb: int, d: int,
             f"memory per instance at mg={mg}, n={n} (limit "
             f"{SMEM_LIMIT_BYTES}); qp_kkt='auto' with a banded stage "
             f"statement takes the banded KKT path there")
-    with_g = dense_smem_bytes(mg, n, nb, d, schur, True)
+    with_g = dense_smem_bytes(mg, n, nb, d, schur, True, n_cor)
     if with_g <= SMEM_LIMIT_BYTES:
-        return with_g
-    return dense_smem_bytes(mg, n, nb, d, schur, False)
+        return with_g, True
+    return dense_smem_bytes(mg, n, nb, d, schur, False, n_cor), False
+
+
+def dense_min_ctas(B: int, sm_count: int) -> int:
+    """The launch bound the dense-G kernel is run at for ``B`` instances on
+    a card of ``sm_count`` SMs: 2 CTAs an SM (128 registers a thread) while
+    the batch is one wave at two, else 4 (64 registers). Two ran a frog QP
+    ~8% faster at B = 256 and 64 on an H100 (132 SMs), four ~35% faster at
+    B = 512 and 1024, where two take two and four waves (``PERF.md`` §6)."""
+    return 2 if B <= 2 * sm_count else 4
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def dense_resident_ctas_per_sm(mg: int, n: int, nb: int, d: int,
+                               schur: bool, n_cor: int,
+                               min_ctas: int = 4) -> int:
+    """CTAs of the dense-G kernel built for ``min_ctas`` CTAs an SM that
+    one SM of the current CUDA device holds at a shape (the CUDA occupancy
+    calculator, with the launch's shared memory). Needs the card: it builds
+    and loads the library."""
+    fn = _cuda_build.load_library().ipm_dense_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    _, g_smem = check_dense_smem_gate(mg, n, nb, d, schur, n_cor)
+    ctas = ctypes.c_int(0)
+    err = fn(mg, n, nb, d, int(schur), int(g_smem), n_cor, min_ctas,
+             ctypes.byref(ctas))
+    if err != 0:
+        raise RuntimeError(f"ipm_dense_occupancy failed with CUDA error "
+                           f"{err}")
+    return ctas.value
 
 
 def _dense_launcher():
@@ -508,132 +547,126 @@ def _dense_launcher():
     fn = _cuda_build.load_library().ipm_dense_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([p] * 17 + [p] * 11 + [i] * 8 + [f] * 3
+        fn.argtypes = ([p] * 16 + [p] * 11 + [i] * 10 + [f] * 3
                        + [ctypes.c_long, p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def ipm_iterate_dense(K, G, px, pb, q, pdiag,
-                      x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal,
-                      *, tol: float, reg_rel: float, n_cor: int = 0,
-                      schur_slack: bool = False):
-    """ONE fused Mehrotra iteration on a pre-formed KKT product; returns the
-    updated ``(x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)``.
-
-    ``K (B, nk, nk)``: ``G^T diag(zg / sg) G`` over the factored columns
-    (``nk = n - 1`` with ``schur_slack``, else ``n``), plus the dense P there
-    when ``pb`` is None; only its lower triangle is read and its diagonal is
-    replaced by the analytic one. ``G (B, mg, n)``: the equilibrated dense
-    rows, slack column included. ``pb (B, nb, d, d)``: P blocks (with a
-    diagonal tail in ``pdiag``), in which case ``px`` is None and the kernel
-    computes P x; else ``px (B, n)`` is P x. ``schur_slack``: the last
-    variable is a slack with a zero P row, eliminated by a rank-1 border.
-    State as :func:`ipm_iterate_struct`'s.
-
-    CUDA tensors (float32, contiguous) go to the hand-written kernel; there
-    is no fallback. CPU tensors go to :func:`ipm_iterate_dense_plain`.
-    """
-    state = (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)
-    if G.device.type != "cuda":
-        return ipm_iterate_dense_plain(
-            K, G, px, pb, q, pdiag, *state, tol=tol, reg_rel=reg_rel,
-            n_cor=n_cor, schur_slack=schur_slack)
-    global dense_launch_count
+def _check_dense(G, P, pb, q, pdiag, state):
+    """Shapes, dtypes and devices of the dense-G operands; returns
+    ``(B, mg, n, nb, d)`` (``nb = d = 0`` with a dense P)."""
     B, mg, n = G.shape
-    nk = n - 1 if schur_slack else n
-    nb, d = (0, 0) if pb is None else tuple(pb.shape[1:3])
-    want = {"K": (K, (B, nk, nk)), "q": (q, (B, n)), "pdiag": (pdiag, (B, n)),
+    if (P is None) == (pb is None):
+        raise ValueError("pass exactly one of P (dense) and pb (blocks)")
+    x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal = state
+    want = {"q": (q, (B, n)), "pdiag": (pdiag, (B, n)),
             "x": (x, (B, n)), "sg": (sg, (B, mg)), "su": (su, (B, n)),
             "sl": (sl, (B, n)), "zg": (zg, (B, mg)), "zu": (zu, (B, n)),
             "zl": (zl, (B, n)), "rpg": (rpg, (B, mg)), "rpu": (rpu, (B, n)),
             "rpl": (rpl, (B, n)), "scal": (scal, (B, 2))}
     if pb is None:
-        if px is None:
-            raise ValueError("px is required without P blocks")
-        want["px"] = (px, (B, n))
+        nb, d = 0, 0
+        want["P"] = (P, (B, n, n))
     else:
-        if px is not None:
-            raise ValueError("pass px=None with P blocks: the kernel "
-                             "computes P x")
-        if nb * d > n:
-            raise ValueError(f"P blocks {tuple(pb.shape)} exceed n={n}")
+        if pb.ndim != 4:
+            raise ValueError(f"pb: shape {tuple(pb.shape)}, want "
+                             f"(B, nb, d, d)")
+        nb, d = pb.shape[1], pb.shape[2]
+        if nb == 0 or nb * d > n:
+            raise ValueError(f"P blocks {tuple(pb.shape)} do not fit n={n}")
         want["pb"] = (pb, (B, nb, d, d))
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
         if t.dtype != G.dtype or t.device != G.device:
             raise ValueError(f"{name}: dtype/device differ from G's")
-    if G.dtype != torch.float32:
+    return B, mg, n, nb, d
+
+
+def _check_launchable(ins):
+    """What the dense-G kernel takes beyond the operands' shapes: float32,
+    contiguous (``None`` entries are absent operands)."""
+    if ins[0].dtype != torch.float32:
         raise TypeError(
-            f"the CUDA IPM kernel is float32 only, got {G.dtype}")
-    for t in (K, G, px, pb, q, pdiag, *state):
+            f"the CUDA IPM kernel is float32 only, got {ins[0].dtype}")
+    for t in ins:
         if t is not None and not t.is_contiguous():
             raise ValueError("the CUDA IPM kernel needs contiguous tensors")
-    need = check_dense_smem_gate(mg, n, nb, d, schur_slack)
-    g_smem = need == dense_smem_bytes(mg, n, nb, d, schur_slack, True)
+
+
+def ipm_iterate_dense(G, P, pb, q, pdiag,
+                      x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal,
+                      *, n_iters: int = 1, tol: float, reg_rel: float,
+                      n_cor: int = 0, schur_slack: bool = False):
+    """Run ``n_iters`` fused Mehrotra iterations of the dense-G QP; returns
+    the updated ``(x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)``.
+
+    ``G (B, mg, n)``: the equilibrated dense rows, slack column included;
+    each iteration forms ``G_k^T diag(zg / sg) G_k`` over the factored
+    columns (``nk = n - 1`` with ``schur_slack``, else ``n``) from it.
+    Exactly one of ``P (B, n, n)`` (dense; its lower triangle enters the
+    KKT matrix and the kernel computes ``P x``) and ``pb (B, nb, d, d)``
+    (P blocks, with a diagonal tail in ``pdiag``) is given. ``pdiag (B, n)``:
+    P's diagonal. ``schur_slack``: the last variable is a slack with a zero
+    P row, eliminated by a rank-1 border. State as
+    :func:`ipm_iterate_struct`'s; ``scal``'s mu / frozen carry the freeze
+    from one call to the next.
+
+    CUDA tensors (float32, contiguous) go to the hand-written kernel, at
+    the launch bound :func:`dense_min_ctas` picks for ``B``; there is no
+    fallback. CPU tensors go to :func:`ipm_iterate_dense_plain`.
+    """
+    state = (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)
+    B, mg, n, nb, d = _check_dense(G, P, pb, q, pdiag, state)
+    if G.device.type != "cuda":
+        return ipm_iterate_dense_plain(
+            G, P, pb, q, pdiag, *state, n_iters=n_iters, tol=tol,
+            reg_rel=reg_rel, n_cor=n_cor, schur_slack=schur_slack)
+    global dense_launch_count
+    ins = [G, P, pb, q, pdiag, *state]
+    _check_launchable(ins)
+    need, g_smem = check_dense_smem_gate(mg, n, nb, d, schur_slack, n_cor)
+    min_ctas = dense_min_ctas(B, _sm_count(G.device))
     launch = _dense_launcher()
     outs = [torch.empty_like(t) for t in state]
-    ins = [K, G, px, pb, q, pdiag, *state]
     ptr = [0 if t is None else t.data_ptr() for t in ins]
     with torch.cuda.device(G.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
             *ptr, *[t.data_ptr() for t in outs],
-            B, mg, n, nb, d, int(schur_slack), int(g_smem), int(n_cor),
-            float(tol), float(tol * 1e3), float(reg_rel), need, stream)
+            B, mg, n, nb, d, int(schur_slack), int(g_smem), int(n_iters),
+            int(n_cor), min_ctas, float(tol), float(tol * 1e3),
+            float(reg_rel), need, stream)
     if err != 0:
         raise RuntimeError(
             f"ipm_dense_launch failed with CUDA error {err} "
-            f"(B={B}, mg={mg}, n={n}, nb={nb}, d={d}, smem={need})")
+            f"(B={B}, mg={mg}, n={n}, nb={nb}, d={d}, smem={need}, "
+            f"min_ctas={min_ctas})")
     dense_launch_count += 1
     return tuple(outs)
 
 
-def ipm_iterate_dense_plain(K, G, px, pb, q, pdiag,
+def ipm_iterate_dense_plain(G, P, pb, q, pdiag,
                             x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal,
-                            *, tol: float, reg_rel: float, n_cor: int = 0,
-                            schur_slack: bool = False):
+                            *, n_iters: int = 1, tol: float, reg_rel: float,
+                            n_cor: int = 0, schur_slack: bool = False):
     """Plain PyTorch version of :func:`ipm_iterate_dense` (float32 or
-    float64, any device): the same iteration through batched algebra and
+    float64, any device): per iteration the product ``G^T diag(zg / sg) G``
+    and ``P x`` in batched algebra, then the same step through
     ``torch.linalg``."""
     B, mg, n = G.shape
     m = mg + 2 * n
     nk = n - 1 if schur_slack else n
     inv_kappa = 1.0 / (1.0 + reg_rel)
-    mu_prev = scal[:, 0]
-    frozen = scal[:, 1] > 0.5
-    wg, wu, wl = zg / sg, zu / su, zl / sl
-    mu = _mu_of(sg, zg, su, zu, sl, zl, m)
     if pb is not None:
         nb, d = pb.shape[1], pb.shape[2]
         nbd = nb * d
-        px = torch.cat([
-            torch.einsum("bvij,bvj->bvi", pb,
-                         x[:, :nbd].reshape(B, nb, d)).reshape(B, nbd),
-            pdiag[:, nbd:] * x[:, nbd:]], dim=1)
-
-    # analytic diagonal, Jacobi scale
-    gsq = torch.einsum("bm,bmn->bn", wg, G * G)
-    dk = pdiag + gsq + (wu + wl)
-    dsc = torch.rsqrt(torch.clamp(dk, min=1e-30))
-    Kt = K * (dsc[:, :nk, None] * dsc[:, None, :nk])
-    kb = None
-    dval = torch.full_like(dsc[:, :nk], 1.0 + reg_rel)
-    if schur_slack:
-        # scaled border of the eliminated slack (the last variable)
-        kuw = torch.einsum("bm,bmn->bn", wg * G[:, :, nk], G)
-        kb = (dsc * kuw * dsc[:, nk:])[:, :nk]
-        Kt = Kt - inv_kappa * kb[:, :, None] * kb[:, None, :]
-        dval = dval - inv_kappa * kb * kb
-    if pb is not None:
+        P = G.new_zeros((B, n, n))
         for v in range(nb):
-            sl_v = slice(v * d, (v + 1) * d)
-            Kt[:, sl_v, sl_v] += pb[:, v] * (dsc[:, sl_v, None]
-                                             * dsc[:, None, sl_v])
+            P[:, v * d:(v + 1) * d, v * d:(v + 1) * d] = pb[:, v]
+        P[:, range(nbd, n), range(nbd, n)] = pdiag[:, nbd:]
     eye = torch.eye(nk, dtype=torch.bool, device=G.device)
-    Kt = torch.where(eye, torch.diag_embed(dval), Kt)
-    solve_kkt = _plain_solver(_plain_factor(Kt), dsc, kb, inv_kappa)
 
     def gmv(v):
         return torch.einsum("bmn,bn->bm", G, v)
@@ -641,8 +674,34 @@ def ipm_iterate_dense_plain(K, G, px, pb, q, pdiag,
     def gtmv(w):
         return torch.einsum("bmn,bm->bn", G, w)
 
-    state, frozen = _plain_step(
-        (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl), frozen, mu_prev,
-        px=px, q=q, mu=mu, m=m, gmv=gmv, gtmv=gtmv, solve_kkt=solve_kkt,
-        tol=tol, n_cor=n_cor)
+    mu_prev = scal[:, 0].clone()
+    frozen = scal[:, 1] > 0.5
+    mu = mu_prev
+    state = (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl)
+    for _ in range(n_iters):
+        x, sg, su, sl, zg, zu, zl = state[:7]
+        wg, wu, wl = zg / sg, zu / su, zl / sl
+        mu = _mu_of(sg, zg, su, zu, sl, zl, m)
+        px = torch.einsum("bij,bj->bi", P, x)
+        # the product over every column: its diagonal is the analytic
+        # diagonal's G^T W G, its last column the slack border
+        prod = torch.einsum("bmi,bm,bmj->bij", G, wg, G)
+        gsq = torch.diagonal(prod, dim1=1, dim2=2)
+        dk = pdiag + gsq + (wu + wl)
+        dsc = torch.rsqrt(torch.clamp(dk, min=1e-30))
+        Kt = (prod[:, :nk, :nk] + P[:, :nk, :nk]) \
+            * (dsc[:, :nk, None] * dsc[:, None, :nk])
+        kb = None
+        dval = torch.full_like(dsc[:, :nk], 1.0 + reg_rel)
+        if schur_slack:
+            # scaled border of the eliminated slack (the last variable)
+            kb = dsc[:, :nk] * prod[:, :nk, nk] * dsc[:, nk:]
+            Kt = Kt - inv_kappa * kb[:, :, None] * kb[:, None, :]
+            dval = dval - inv_kappa * kb * kb
+        Kt = torch.where(eye, torch.diag_embed(dval), Kt)
+        solve_kkt = _plain_solver(_plain_factor(Kt), dsc, kb, inv_kappa)
+        state, frozen = _plain_step(
+            state, frozen, mu_prev, px=px, q=q, mu=mu, m=m, gmv=gmv,
+            gtmv=gtmv, solve_kkt=solve_kkt, tol=tol, n_cor=n_cor)
+        mu_prev = mu
     return state + (torch.stack([mu, frozen.to(G.dtype)], dim=1),)

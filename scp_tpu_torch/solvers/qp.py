@@ -27,8 +27,8 @@ routes by shape past the kernels' shared-memory gates):
 
 * fixed count, pair-sparse statement: all iterations in ONE call of the
   structured kernel ``ops.ipm_kernel.ipm_iterate_struct`` (K1);
-* fixed count otherwise (e.g. one vehicle): one call per iteration of the
-  dense-G kernel ``ops.ipm_kernel.ipm_iterate_dense`` (K2);
+* fixed count otherwise (e.g. one vehicle): all iterations in ONE call of
+  the dense-G kernel ``ops.ipm_kernel.ipm_iterate_dense`` (K2);
 * ``fixed_iters=None``: the adaptive loop on a dense G through
   ``ops.linalg_kernel``;
 * banded: the adaptive or fixed loop with the Riccati sweeps (K6, K7).
@@ -758,10 +758,10 @@ def solve_qp_batched(P, q, G, h, lb, ub, *, max_iter: int = 30,
       iterations in ONE call of ``ops.ipm_kernel.ipm_iterate_struct`` (K1);
       ``G`` is not read.
     * **fixed count, dense G** (any other fixed-count call; ``G``
-      required): one call of ``ops.ipm_kernel.ipm_iterate_dense`` (K2) per
-      iteration on ``Kprod = G^T diag(w_g) G`` formed between calls, with
-      ``p_blocks`` or the dense P, and the slack eliminated when
-      ``slack_schur``.
+      required): all iterations in ONE call of
+      ``ops.ipm_kernel.ipm_iterate_dense`` (K2), which forms
+      ``G^T diag(w_g) G`` itself, with ``p_blocks`` or the dense P, and the
+      slack eliminated when ``slack_schur``.
     * **adaptive** (``fixed_iters=None``; ``G`` required): the adaptive loop
       with the factor, the solves and the G products through
       ``ops.linalg_kernel``; ``correctors`` is IGNORED on this branch, as in
@@ -920,37 +920,22 @@ def _solve_qp_batched_struct(P, q, h, lb, ub, *, tol, x0, z0, fixed_iters,
 def _solve_qp_batched_dense(P, q, G, h, lb, ub, *, tol, x0, z0, fixed_iters,
                             p_blocks, correctors, slack_schur,
                             certificate) -> QPSolution:
-    """The fixed-count dense-G branch of :func:`solve_qp_batched`: per
-    iteration, ``Kprod = G_k^T diag(zg / sg) G_k`` (+ the dense P without
-    blocks) as a plain float32 product, then ONE call of the dense-G kernel
-    (K2), which adds the P blocks, the box diagonal and the regularisation,
+    """The fixed-count dense-G branch of :func:`solve_qp_batched`: all
+    iterations in ONE call of the dense-G kernel (K2) on the equilibrated
+    dense G, which forms ``G_k^T diag(zg / sg) G_k`` each iteration, adds
+    the P blocks or the dense P, the box diagonal and the regularisation,
     eliminates the slack border (``slack_schur``: the last variable is a
-    slack with a zero P row) and runs the step. ``scal``'s mu / frozen carry
-    the freeze across the calls."""
+    slack with a zero P row) and runs the step."""
     rows = _dense_rows(G)
-    B, mg, n = G.shape
     d_row, G_c, gmv, gtmv = rows
     pst = _p_statement(P, q, p_blocks, dense_pmv=linalg_kernel.gmv)
     q_s = (q * pst.cost_scale[:, None]).contiguous()
-    nk = n - 1 if slack_schur else n
-    G_k = G_c[:, :, :nk]
-    G_kT = G_k.transpose(1, 2)
-    P_k = None if pst.P_s is None else pst.P_s[:, :nk, :nk]
     state = _fused_start(q, h, lb, ub, d_row, pst.cost_scale, gmv, x0, z0)
-    p_diag_s = pst.p_diag_s.contiguous()
-    for _ in range(fixed_iters):
-        x, sg, zg = state[0], state[1], state[4]
-        # G^T W_g G over the factored columns (TF32 stays off)
-        Kprod = torch.bmm(G_kT * (zg / sg)[:, None, :], G_k)
-        if P_k is None:
-            K, px = Kprod, None
-        else:
-            K, px = (P_k + Kprod).contiguous(), pst.pmv(x)
-        state = ipm_kernel.ipm_iterate_dense(
-            K, G_c, px, pst.pb_s, q_s, p_diag_s, *state, tol=tol,
-            reg_rel=_reg_rel(q.dtype), n_cor=correctors,
-            schur_slack=slack_schur)
-    return _fused_finish(state, q, h, lb, ub, d_row, pst, gmv, gtmv,
+    out = ipm_kernel.ipm_iterate_dense(
+        G_c, pst.P_s, pst.pb_s, q_s, pst.p_diag_s.contiguous(), *state,
+        n_iters=fixed_iters, tol=tol, reg_rel=_reg_rel(q.dtype),
+        n_cor=correctors, schur_slack=slack_schur)
+    return _fused_finish(out, q, h, lb, ub, d_row, pst, gmv, gtmv,
                          tol=tol, fixed_iters=fixed_iters,
                          certificate=certificate)
 

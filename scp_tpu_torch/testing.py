@@ -77,19 +77,18 @@ def torch_kernel_args(arrs, device="cpu"):
             for k in KERNEL_ARG_ORDER]
 
 
-DENSE_ARG_ORDER = ("K", "G", "px", "pb", "q", "pdiag") + STATE_NAMES
+DENSE_ARG_ORDER = ("G", "P", "pb", "q", "pdiag") + STATE_NAMES
 
 
-def dense_kernel_inputs(B, mg, nb, d, seed, schur=True, blocks=True,
-                        dtype=np.float32):
+def dense_kernel_inputs(B, mg, nb, d, seed, blocks=True, dtype=np.float32):
     """An SCP-shaped QP in the argument layout of
     ``ops.ipm_kernel.ipm_iterate_dense`` at its first iteration: equilibrated
     dense rows with a -1 slack column (``n = nb*d + 1``), unit-scaled
-    block-diagonal P (``blocks``: stated as blocks, else dense in ``K`` with
-    ``px``), a cold start at x = 0 with rows partly violated, and ``K`` the
-    product ``G^T diag(zg/sg) G`` (+ P) over the factored columns. Returns a
-    dict of numpy arrays keyed by DENSE_ARG_ORDER (``px`` / ``pb`` None where
-    the other is given)."""
+    block-diagonal P (``blocks``: stated as blocks ``pb``, else as the dense
+    ``P``; the slack's P row is zero, so that it may be eliminated) and a
+    cold start at x = 0 with rows partly violated. Returns a dict of numpy
+    arrays keyed by DENSE_ARG_ORDER (``P`` / ``pb`` None where the other is
+    given)."""
     rng = np.random.default_rng(seed)
     nu = nb * d
     n = nu + 1
@@ -115,17 +114,12 @@ def dense_kernel_inputs(B, mg, nb, d, seed, schur=True, blocks=True,
     sg = np.maximum(h, 1.0)
     su = np.maximum(ub - x, 1.0)
     sl = np.maximum(hl + x, 1.0)
-    zg = 1.0 / sg
-    nk = n - 1 if schur else n
-    Gk = G[:, :, :nk]
-    K = np.einsum("bmi,bm,bmj->bij", Gk, zg / sg, Gk)
     scal = np.zeros((B, 2))
     scal[:, 0] = np.finfo(dtype).max
-    arrs = dict(K=K if blocks else K + P[:, :nk, :nk], G=G,
-                px=None if blocks else np.einsum("bij,bj->bi", P, x),
-                pb=pb if blocks else None, q=q, pdiag=pdiag,
-                x=x, sg=sg, su=su, sl=sl, zg=zg, zu=1.0 / su, zl=1.0 / sl,
-                rpg=sg - h, rpu=x + su - ub, rpl=-x + sl - hl, scal=scal)
+    arrs = dict(G=G, P=None if blocks else P, pb=pb if blocks else None,
+                q=q, pdiag=pdiag, x=x, sg=sg, su=su, sl=sl, zg=1.0 / sg,
+                zu=1.0 / su, zl=1.0 / sl, rpg=sg - h, rpu=x + su - ub,
+                rpl=-x + sl - hl, scal=scal)
     return {k: None if v is None else np.ascontiguousarray(v, dtype)
             for k, v in arrs.items()}
 

@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with an NVIDIA GPU::
 
     python3 scripts/torch_kernel_check.py                 # build + compare
     python3 scripts/torch_kernel_check.py --dump out.npz  # K1 outputs
+    python3 scripts/torch_kernel_check.py --dump b.npz --inputs a.npz
     python3 scripts/torch_kernel_check.py --compare a.npz b.npz
     python3 scripts/torch_kernel_check.py --times         # every kernel
     python3 scripts/torch_kernel_check.py --times k1 k4   # some of them
@@ -35,8 +36,9 @@ shape, 7 iterations, B = 1024 / 256 / 64, with the CTAs one SM holds), K4
 (n = 81 and K1's n = 80, B = 1024 / 256 / 64, with a warm and a cold L2,
 for each thread count, beside ``torch.cholesky_solve``), K6 / K7 (V = 4,
 K = 64, B = 256 / 64 / 16 / 1 and V = 16, B = 256; warm and cold L2; K7
-with one and two right-hand sides, by graph replay), K2
-(frog's shape, B = 1024 / 256 / 64), K3 (n = 81, B = 1024 / 256 / 64 / 1,
+with one and two right-hand sides, by graph replay), K2 (one QP of
+frog's shape, 7 iterations, B = 1024 / 512 / 256 / 64, warm and cold L2,
+at each of its two launch bounds), K5b (beside ``torch.bmm``), K3 (n = 81, B = 1024 / 256 / 64 / 1,
 with its thread count varied) and K5a (m = 120, n = 81 at B = 1024 / 256 /
 64 and the P shape m = n = 81 at B = 1024, with its stage and grid target
 varied), beside ``torch.linalg.cholesky_ex`` / ``torch.bmm``, three ways,
@@ -44,13 +46,18 @@ twice over: the profiler's device time summed per call, the mean duration
 of the kernel's recorded events with their count, and CUDA events around
 the replay of a CUDA graph of the calls (no host time between launches).
 Run against an older checkout (a copy of this script in its ``scripts/``),
-the variants that checkout lacks are skipped. ``--sections`` builds the
+the variants that checkout lacks are skipped; :func:`dense_qp` and
+:func:`one_launch_k2` also drive the per-iteration K2 interface (a KKT
+product formed by ``torch.bmm`` outside the kernel) of the checkouts
+before K2 ran a whole QP in one launch, only to time those against it. ``--sections`` builds the
 library with ``-DSCP_PROFILE_SECTIONS`` and prints where block 0 of the
 blocked factor spends its clock cycles (load, diagonal blocks, panel rows,
 trailing updates with the next diagonal block, store) at n = 81, B = 1 and
 1024, for each thread count; ``--sections k6k7`` the cycles of K6's and K7's
 stage by section (thread 0 of block 0, per stage) at V = 4, B = 1 and 256,
-and of the generic kernels at V = 16. ``--pivots`` compiles a test that
+and of the generic kernels at V = 16; ``--sections k2`` K2's cycles per
+IPM iteration by section (block 0, one frog QP, B = 64 and 1024).
+``--pivots`` compiles a test that
 includes ``csrc/riccati.cu`` and holds its branch-free pivot square root and
 reciprocal to ``__fsqrt_rn`` / ``__frcp_rn`` bit for bit on every float in
 [1e-30, FLT_MAX] (the square root's domain; the reciprocal on its results).
@@ -79,7 +86,44 @@ K1_CASES = (  # (B, V, hp, hu, n_obst, seed, hard_rows, n_cor, lower_tri)
 )
 
 
-def dump_k1(path: str) -> None:
+def capture_calibrated_k1(B: int = 1024) -> tuple:
+    """K1's first full-width call of one calibrated step (``chip_smoke.py``'s
+    main path: circle-4, hp = hu = 20, ``tuned_f32``, ``TUNED_F32_PHASES``,
+    seed 42): its arguments (copies) and keywords."""
+    from scp_tpu_torch import config as config_lib
+    from scp_tpu_torch.ops import ipm_kernel
+    from scp_tpu_torch.scenarios import batch as batch_lib
+    from scp_tpu_torch.sim import engine
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    cfg, data = batch_lib.make_batch("circle", B, generator=gen,
+                                     dtype=torch.float32, device=dev,
+                                     n_veh=4)
+    cfg = config_lib.tuned_f32(cfg.replace(hp=20, hu=20))
+    real = ipm_kernel.ipm_iterate_struct
+    captured = []
+
+    def spy(*args, **kw):
+        if not captured and args[0].shape[0] == B:
+            captured.append(([None if a is None else a.clone()
+                              for a in args], kw))
+        return real(*args, **kw)
+
+    ipm_kernel.ipm_iterate_struct = spy
+    try:
+        engine.mpc_step_batch(cfg, data, engine.init_carry(cfg, data),
+                              phases=config_lib.TUNED_F32_PHASES)
+        torch.cuda.synchronize()
+    finally:
+        ipm_kernel.ipm_iterate_struct = real
+    return captured[0]
+
+
+def dump_k1(path: str, inputs: str | None = None) -> None:
+    """K1's outputs on fixed seeded inputs (``K1_CASES``) and on the inputs
+    of its first full-width call of a calibrated step, captured here or,
+    with ``inputs``, read from another dump (so that two checkouts run K1
+    on identical calibrated inputs)."""
     from scp_tpu_torch.ops import ipm_kernel
     from scp_tpu_torch.testing import kernel_inputs, torch_kernel_args
     out = {}
@@ -93,8 +137,28 @@ def dump_k1(path: str) -> None:
         torch.cuda.synchronize()
         for j, t in enumerate(res):
             out[f"case{i}_out{j}"] = t.cpu().numpy()
+    if inputs is None:
+        args, kw = capture_calibrated_k1()
+    else:
+        d = np.load(inputs)
+        kw = json.loads(str(d["cal_kw"]))
+        kw["pairs"] = tuple(tuple(p) for p in kw["pairs"])
+        kw["obst_veh"] = tuple(kw["obst_veh"])
+        args = [None if f"cal_in{i}" not in d.files
+                else torch.as_tensor(d[f"cal_in{i}"], device="cuda")
+                for i in range(int(d["cal_n_in"]))]
+    res = ipm_kernel.ipm_iterate_struct(*args, **kw)
+    torch.cuda.synchronize()
+    for i, a in enumerate(args):
+        if a is not None:
+            out[f"cal_in{i}"] = a.cpu().numpy()
+    out["cal_n_in"] = np.array(len(args))
+    out["cal_kw"] = np.array(json.dumps(kw))
+    for j, t in enumerate(res):
+        out[f"cal_out{j}"] = t.cpu().numpy()
     np.savez(path, **out)
-    print(json.dumps({"dumped": path, "arrays": len(out)}))
+    print(json.dumps({"dumped": path, "arrays": len(out),
+                      "calibrated_inputs_from": inputs or "this run"}))
 
 
 # chip_smoke.py's kernel-vs-plain limits on the controls (K1_CASES[0] is
@@ -106,8 +170,10 @@ U_MEDIAN_LIMIT = 5e-5
 def compare(a: str, b: str) -> None:
     da, db = np.load(a), np.load(b)
     same = sorted(da.files) == sorted(db.files) and all(
-        np.array_equal(da[k], db[k], equal_nan=True) for k in da.files)
-    worst = max(float(np.nanmax(np.abs(da[k] - db[k]))) for k in da.files)
+        np.array_equal(da[k], db[k], equal_nan=da[k].dtype.kind == "f")
+        for k in da.files)
+    worst = max(float(np.nanmax(np.abs(da[k] - db[k]))) for k in da.files
+                if da[k].dtype.kind == "f")
     rep = {"bit_identical": same, "max_abs_diff": worst,
            "arrays": len(da.files), "controls": {}}
     ok = True
@@ -125,6 +191,24 @@ def compare(a: str, b: str) -> None:
             "u_max": float(du.max()), "u_median": float(np.median(du)),
             "limits": lim, "finite": bool(fin), "frozen_flags_agree": flags}
         ok = ok and fin and du.max() <= lim[0] and np.median(du) <= lim[1]
+    # the calibrated step's inputs (the bench shape, 7 iterations)
+    if all(k in d.files for d in (da, db) for k in ("cal_out0", "cal_kw")):
+        nu = da["cal_out0"].shape[1] - 1
+        du = np.abs(da["cal_out0"][:, :nu] - db["cal_out0"][:, :nu]).max(1)
+        outs = [k for k in da.files if k.startswith("cal_out")]
+        ins = [k for k in da.files if k.startswith("cal_in")]
+        fin = all(np.isfinite(d[k]).all() for d in (da, db) for k in outs)
+        rep["controls"]["calibrated"] = {
+            "inputs_identical": all(np.array_equal(da[k], db[k])
+                                    for k in ins),
+            "outputs_bit_identical": all(
+                np.array_equal(da[k], db[k], equal_nan=True) for k in outs),
+            "u_max": float(du.max()), "u_median": float(np.median(du)),
+            "limits": (U_ABS_LIMIT, U_MEDIAN_LIMIT), "finite": bool(fin),
+            "frozen_flags_agree": float(np.mean(
+                da["cal_out10"][:, 1] == db["cal_out10"][:, 1]))}
+        ok = (ok and fin and du.max() <= U_ABS_LIMIT
+              and np.median(du) <= U_MEDIAN_LIMIT)
     rep["within_limits"] = bool(ok)
     print(json.dumps(rep))
     if not ok:
@@ -199,8 +283,7 @@ def check_k1() -> float:
 def check_new_kernels() -> None:
     from scp_tpu_torch.ops import (_cuda_build, ipm_kernel, riccati,
                                    riccati_kernel)
-    from scp_tpu_torch.testing import (DENSE_ARG_ORDER, dense_kernel_inputs,
-                                       riccati_inputs)
+    from scp_tpu_torch.testing import DENSE_ARG_ORDER, riccati_inputs
     _cuda_build.build_library(verbose=True)
     check_k1()
     dev = "cuda"
@@ -242,24 +325,34 @@ def check_new_kernels() -> None:
             rep[f"{name}_finite"] = bool(torch.isfinite(a).all())
             worst = max(worst, e)
         print(json.dumps(rep), flush=True)
-    for B, mg, nb, d, schur, blocks in ((1024, 440, 1, 20, True, True),
-                                        (64, 440, 1, 20, False, True),
-                                        (3, 45, 2, 7, True, False),
-                                        (8, 900, 4, 16, True, True)):
-        a = dense_kernel_inputs(B, mg, nb, d, seed=mg, schur=schur,
-                                blocks=blocks)
-        args = [None if a[k] is None else torch.as_tensor(a[k], device=dev)
-                for k in DENSE_ARG_ORDER]
-        kw = dict(tol=1e-6, reg_rel=3e-6, n_cor=1, schur_slack=schur)
-        ok = ipm_kernel.ipm_iterate_dense(*args, **kw)
-        op = ipm_kernel.ipm_iterate_dense_plain(*args, **kw)
-        torch.cuda.synchronize()
-        e = max(float((x - y)[:, :-1].abs().max()) for x, y in
-                zip(ok[:1] + ok[4:], op[:1] + op[4:]))
-        worst = max(worst, e)
-        print(json.dumps({"case": f"dense_B{B}_mg{mg}_n{nb * d + 1}_"
-                          f"schur{int(schur)}_blocks{int(blocks)}",
-                          "max_abs_err": e}), flush=True)
+    for B, mg, nb, d, schur, blocks, n_cor in (
+            (1024, 440, 1, 20, True, True, 0), (64, 440, 1, 20, False, True, 1),
+            (3, 45, 2, 7, True, False, 1), (8, 900, 4, 16, True, True, 1)):
+        t = dense_inputs(dev, (B, mg, nb, d), seed=mg, blocks=blocks)
+        args = [t[k] for k in DENSE_ARG_ORDER]
+        kw = dict(tol=1e-6, reg_rel=3e-6, n_cor=n_cor, schur_slack=schur)
+        rep = {"case": f"dense_B{B}_mg{mg}_n{nb * d + 1}_schur{int(schur)}_"
+                       f"blocks{int(blocks)}_ncor{n_cor}"}
+        for n_iters in (1, DENSE_ITERS):
+            ok = ipm_kernel.ipm_iterate_dense(*args, n_iters=n_iters, **kw)
+            op = ipm_kernel.ipm_iterate_dense_plain(*args, n_iters=n_iters,
+                                                    **kw)
+            torch.cuda.synchronize()
+            e = max(float((x - y)[:, :-1].abs().max()) for x, y in
+                    zip(ok[:1] + ok[4:], op[:1] + op[4:]))
+            rep[f"iters{n_iters}"] = {
+                "max_abs_err": e, "u_median": float(
+                    (ok[0] - op[0])[:, :-1].abs().amax(1).median()),
+                "frozen_equal": bool(torch.equal(ok[10][:, 1], op[10][:, 1])),
+                "finite": all(bool(torch.isfinite(x).all()) for x in ok)}
+            if n_iters == 1:
+                worst = max(worst, e)
+        rep["min_ctas"] = ipm_kernel.dense_min_ctas(B, _sm_count())
+        rep["resident_ctas_per_sm"] = {
+            str(b): ipm_kernel.dense_resident_ctas_per_sm(
+                mg, nb * d + 1, nb if blocks else 0, d if blocks else 0,
+                schur, n_cor, b) for b in (2, 4)}
+        print(json.dumps(rep), flush=True)
     print(json.dumps({"worst": worst}))
     check_linalg_kernels()
 
@@ -415,7 +508,7 @@ def _time_three_ways(fn, reps=20) -> dict:
     return out
 
 
-TIMED = ("k1", "k4", "k6k7", "k2", "k3", "k5a")
+TIMED = ("k1", "k4", "k6k7", "k2", "k3", "k5a", "k5b")
 L2_ROTATE_BYTES = 256 << 20   # as chip_smoke.py: five times the 50 MB L2
 
 
@@ -591,19 +684,201 @@ def k6k7_times(rnd, dev) -> None:
                     / (2 * ms["riccati_solve"])}), flush=True)
 
 
-def kernel_times(which) -> None:
+# One QP of the dense-G branch at frog's shape (mg = 440 rows, one 20 x 20
+# P block, n = 21 with the slack eliminated), 7 fixed iterations, no
+# Gondzio corrector: the tuned_f32 frog path's QP.
+DENSE_SHAPE = (1024, 440, 1, 20)
+DENSE_KW = dict(tol=1e-6, reg_rel=3e-6, n_cor=0, schur_slack=True)
+DENSE_ITERS = 7
+STATE = ("x", "sg", "su", "sl", "zg", "zu", "zl", "rpg", "rpu", "rpl",
+         "scal")
+# K2's sections, as the kernel marks them, and grouped as the sections of
+# the per-iteration K2 it replaced
+K2_FINE_SECTIONS = ("load", "weights_mu", "product", "border", "px_diag",
+                    "scale", "factor", "pred_rhs", "pred_solve",
+                    "pred_vector", "corr_rhs", "corr_solve", "corr_vector",
+                    "step", "store")
+K2_GROUPS = {"load": ("load",),
+             "weights_mu_product": ("weights_mu", "product", "border",
+                                    "px_diag"),
+             "scale_border": ("scale",), "factor": ("factor",),
+             "predictor": ("pred_rhs", "pred_solve", "pred_vector"),
+             "corrector": ("corr_rhs", "corr_solve", "corr_vector"),
+             "step": ("step",), "store": ("store",)}
+
+
+def dense_inputs(dev, shape=DENSE_SHAPE, seed=440, blocks=True):
+    """``testing.dense_kernel_inputs`` of the checkout as tensors."""
+    from scp_tpu_torch.testing import dense_kernel_inputs
+    a = dense_kernel_inputs(*shape, seed=seed, blocks=blocks)
+    return {k: None if v is None else torch.as_tensor(v, device=dev)
+            for k, v in a.items()}
+
+
+def one_launch_k2() -> bool:
+    """Whether the checkout's K2 runs every iteration in one launch (it
+    takes G and P; before, a pre-formed product K per iteration)."""
+    import inspect
+    from scp_tpu_torch.ops import ipm_kernel
+    return "K" not in inspect.signature(
+        ipm_kernel.ipm_iterate_dense).parameters
+
+
+def dense_qp(t, kw=DENSE_KW, n_iters=DENSE_ITERS):
+    """A thunk that runs one QP of the dense-G branch (``n_iters`` fixed
+    iterations) on the inputs ``t``, through the checkout's interface: one
+    K2 launch, or (before the redesign) per iteration the product
+    ``G_k^T diag(zg / sg) G_k`` by ``torch.bmm`` and one K2 launch on it, as
+    ``solvers/qp.py::_solve_qp_batched_dense`` did (P blocks only)."""
+    from scp_tpu_torch.ops import ipm_kernel as ik
+    state = [t[k] for k in STATE]
+    if one_launch_k2():
+        return lambda: ik.ipm_iterate_dense(
+            t["G"], t.get("P"), t["pb"], t["q"], t["pdiag"], *state,
+            n_iters=n_iters, **kw)
+    if t["pb"] is None:
+        raise ValueError("the per-iteration loop is timed with P blocks")
+    G = t["G"]
+    nk = G.shape[2] - 1 if kw["schur_slack"] else G.shape[2]
+    G_k = G[:, :, :nk]
+    G_kT = G_k.transpose(1, 2)
+
+    def run():
+        st = state
+        for _ in range(n_iters):
+            K = torch.bmm(G_kT * (st[4] / st[1])[:, None, :], G_k)
+            st = ik.ipm_iterate_dense(K, G, None, t["pb"], t["q"],
+                                      t["pdiag"], *st, **kw)
+        return st
+    return run
+
+
+def _cut(t, w):
+    return {k: None if v is None else v[:w].contiguous() for k, v in t.items()}
+
+
+def _sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def k2_times(rnd, dev) -> None:
+    """One QP of the dense-G branch (7 iterations, frog's shape) at B =
+    1024 / 512 / 256 / 64 by graph replay: warm (the same inputs every call)
+    and cold (each call on the next of enough input copies that 256 MiB
+    pass through L2 between two reads of one). Where the checkout picks
+    K2's launch bound by the batch (``ipm_kernel.dense_min_ctas``), each
+    width is timed at both bounds, the one picked marked."""
+    from scp_tpu_torch.ops import ipm_kernel
+    t_all = dense_inputs(dev)
+    pick = getattr(ipm_kernel, "dense_min_ctas", None)
+    for w in (1024, 512, 256, 64):
+        t = _cut(t_all, w)
+        nbytes = sum(v.numel() * 4 for v in t.values() if v is not None)
+        count = 1 + -(-L2_ROTATE_BYTES // nbytes)
+        copies = [{k: None if v is None else v.clone()
+                   for k, v in t.items()} for _ in range(count)]
+        for bound in (None,) if pick is None else (2, 4):
+            if bound is not None:
+                ipm_kernel.dense_min_ctas = lambda B, sms, b=bound: b
+            try:
+                warm = _graph_ms([dense_qp(t)] * 10)
+                cold = _graph_ms([dense_qp(c) for c in copies])
+            finally:
+                if pick is not None:
+                    ipm_kernel.dense_min_ctas = pick
+            print(json.dumps({
+                "round": rnd, "kernel": "dense_qp", "B": w,
+                "min_ctas": bound, "picked": bound is None
+                or bound == pick(w, _sm_count()),
+                "n_iters": DENSE_ITERS, "launches_per_qp":
+                    1 if one_launch_k2() else DENSE_ITERS,
+                "graph_ms_per_qp": {"warm": warm, "cold": cold},
+                "input_copies": count}), flush=True)
+        del copies
+
+
+def k5b_times(rnd, dev) -> None:
+    """K5b (G^T v) at the adaptive path's shape (m = 120, n = 81) at B =
+    1024 / 256 / 64 / 1 beside ``torch.bmm`` on the same inputs, by graph
+    replay, warm and cold (as :func:`k2_times`)."""
+    from scp_tpu_torch.ops import linalg_kernel as lk
+    rng = np.random.default_rng(11)
+    G = torch.as_tensor(rng.normal(size=(1024, 120, 81)), dtype=torch.float32,
+                        device=dev)
+    v = torch.as_tensor(rng.normal(size=(1024, 120)), dtype=torch.float32,
+                        device=dev)
+    for w in (1024, 256, 64, 1):
+        Gw, vw = G[:w].contiguous(), v[:w].contiguous()
+        count = 1 + -(-L2_ROTATE_BYTES // (4 * (Gw.numel() + vw.numel())))
+        copies = [(Gw.clone(), vw.clone()) for _ in range(count)]
+        rep = {"round": rnd, "kernel": "gtmv", "B": w, "m": 120, "n": 81,
+               "input_copies": count}
+        for name, fn in (("gtmv", lk.gtmv),
+                         ("torch.bmm",
+                          lambda a, b: torch.bmm(b[:, None, :], a))):
+            rep[name] = {
+                "warm": _graph_ms([lambda fn=fn: fn(Gw, vw)] * 20),
+                "cold": _graph_ms([lambda c=c, fn=fn: fn(*c)
+                                   for c in copies])}
+        rep["warm_over_bmm"] = rep["gtmv"]["warm"] / rep["torch.bmm"]["warm"]
+        rep["cold_over_bmm"] = rep["gtmv"]["cold"] / rep["torch.bmm"]["cold"]
+        print(json.dumps(rep), flush=True)
+        del copies
+
+
+def k2_sections() -> None:
+    """Clock cycles of block 0 of K2 by section, per IPM iteration, over
+    one QP of the dense-G branch (frog's shape, 7 iterations) at B = 64 and
+    1024."""
+    import ctypes
+    import subprocess
     from scp_tpu_torch.ops import _cuda_build, ipm_kernel
-    from scp_tpu_torch.testing import DENSE_ARG_ORDER, dense_kernel_inputs
+    if "SCP_PROFILE_SECTIONS" not in _cuda_build.BUILD_DEFINES:
+        _cuda_build.BUILD_DEFINES += ("SCP_PROFILE_SECTIONS",)
+    lib = _cuda_build.load_library()
+    lib.ipm_dense_read_sections.argtypes = [ctypes.c_void_p]
+    lib.ipm_dense_read_sections.restype = ctypes.c_int
+    buf = (ctypes.c_ulonglong * 16)()
+    t_all = dense_inputs("cuda")
+    for B in (64, 1024):
+        qp = dense_qp(_cut(t_all, B))
+        qp()
+        torch.cuda.synchronize()
+        lib.ipm_dense_read_sections(buf)
+        reps = 5
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            qp()
+        end.record()
+        torch.cuda.synchronize()
+        if lib.ipm_dense_read_sections(buf) != 0:
+            sys.exit("reading the section counters failed")
+        fine = {k: buf[i] / reps / DENSE_ITERS
+                for i, k in enumerate(K2_FINE_SECTIONS)}
+        cyc = {g: sum(fine[k] for k in ks) for g, ks in K2_GROUPS.items()}
+        print(json.dumps({
+            "B": B, "n_iters": DENSE_ITERS,
+            "min_ctas": ipm_kernel.dense_min_ctas(B, _sm_count()),
+            "ms_per_qp_instrumented": start.elapsed_time(end) / reps,
+            "cycles_per_iteration": sum(cyc.values()),
+            "cycles": {k: round(c) for k, c in cyc.items()},
+            "fine_cycles": {k: round(c) for k, c in fine.items()}}),
+            flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+
+
+def kernel_times(which) -> None:
+    from scp_tpu_torch.ops import _cuda_build
     _cuda_build.build_library()
     dev = "cuda"
     card = __import__("subprocess").run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip(), flush=True)
-    a = dense_kernel_inputs(1024, 440, 1, 20, seed=440)
-    d_args = [None if a[k] is None else torch.as_tensor(a[k], device=dev)
-              for k in DENSE_ARG_ORDER]
-    d_kw = dict(tol=1e-6, reg_rel=3e-6, n_cor=0, schur_slack=True)
     K = torch.eye(81, device=dev).expand(1024, 81, 81).contiguous()
     K += 0.01 * torch.ones_like(K)
     for rnd in range(2):
@@ -613,14 +888,10 @@ def kernel_times(which) -> None:
             k4_times(rnd, dev)
         if "k6k7" in which:
             k6k7_times(rnd, dev)
-        for w in (1024, 256, 64) if "k2" in which else ():
-            args = [None if x is None else x[:w].contiguous()
-                    for x in d_args]
-            print(json.dumps({
-                "round": rnd, "kernel": "ipm_iterate_dense", "B": w,
-                **_time_three_ways(
-                    lambda: ipm_kernel.ipm_iterate_dense(*args, **d_kw))}),
-                flush=True)
+        if "k2" in which:
+            k2_times(rnd, dev)
+        if "k5b" in which:
+            k5b_times(rnd, dev)
         linalg_times(rnd, K, dev, which)
     print(card.strip())
 
@@ -828,10 +1099,13 @@ def k6k7_sections() -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dump", metavar="PATH")
+    ap.add_argument("--inputs", metavar="PATH",
+                    help="with --dump: K1's calibrated inputs from this "
+                         "dump instead of a captured step")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
     ap.add_argument("--times", nargs="*", choices=TIMED, metavar="KERNEL",
                     help=f"time these kernels (default: all of {TIMED})")
-    ap.add_argument("--sections", nargs="*", choices=("k3", "k6k7"),
+    ap.add_argument("--sections", nargs="*", choices=("k3", "k6k7", "k2"),
                     metavar="KERNEL",
                     help="cycles by section (default: k3)")
     ap.add_argument("--pivots", action="store_true")
@@ -842,7 +1116,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     if args.dump:
-        dump_k1(args.dump)
+        dump_k1(args.dump, args.inputs)
     elif args.times is not None:
         kernel_times(args.times or TIMED)
     elif args.pivots:
@@ -850,6 +1124,8 @@ def main() -> None:
     elif args.sections is not None:
         if "k6k7" in args.sections:
             k6k7_sections()
+        if "k2" in args.sections:
+            k2_sections()
         if not args.sections or "k3" in args.sections:
             k3_sections()
     else:

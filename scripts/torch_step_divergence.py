@@ -19,7 +19,10 @@ long_horizon) are shadowed: the plain float32 version and the float64
 oracle solve the SAME inputs, so a disagreement of the kernel on identical
 inputs (a kernel fault) can be told apart from two float32 solvers drifting
 apart over the SCP iterations (sensitivity of the non-convex outer loop to
-round-off).
+round-off). On circle and frog the plain float32 version also solves the
+same inputs perturbed by one part in 2^23 (a fixed random sign per entry):
+how far a launch's fixed IPM iterations carry a float32 round-off, the
+yardstick of the kernel's difference from the plain version.
 
 Prints one JSON line per launch (errors of the controls on identical inputs)
 and one for the step (per-instance difference of the clamped control
@@ -75,41 +78,67 @@ def main():
             else "ipm_iterate_dense")
     real = getattr(ipm_kernel, name)
     plain = getattr(ipm_kernel, name + "_plain")
-    g_arg = 7 if opts.path == "circle" else 1   # an argument of width n
+    g_arg = 7 if opts.path == "circle" else 0   # an argument of width n
 
     def err(a, b):
         return (a - b).abs().amax(dim=1).double()
 
     launch = [0]
+    gen_p = torch.Generator(device=dev).manual_seed(1)
+
+    def perturbed(a):
+        if a is None or not a.is_floating_point():
+            return a
+        sign = torch.randint(0, 2, a.shape, generator=gen_p, device=dev)
+        return a * (1.0 + (2.0 * sign - 1.0) * 2.0 ** -23)
 
     def shadow(*args, **kw):
         out_k = real(*args, **kw)
         out_p = plain(*args, **kw)
+        # (every operand but scal, the last: mu_prev and the freeze flags)
+        out_q = plain(*[perturbed(a) for a in args[:-1]], args[-1], **kw)
         args64 = [None if a is None else a.double() for a in args]
         out_d = plain(*args64, **{**kw, "reg_rel": 1e-12})
         nu = args[g_arg].shape[-1] - 1
-        uk, up, ud = (o[0][:, :nu] for o in (out_k, out_p, out_d))
+        uk, up, uq, ud = (o[0][:, :nu] for o in (out_k, out_p, out_q, out_d))
         e_kp, e_kd, e_pd = err(uk, up), err(uk, ud.float()), err(up, ud.float())
+        e_pq = err(up, uq)
         print(json.dumps({
             "launch": launch[0], "B": args[0].shape[0],
+            "n_iters": kw.get("n_iters", 1),
             "u_kernel_vs_plain32_max": float(e_kp.max()),
             "u_kernel_vs_plain32_p99": float(e_kp.quantile(0.99)),
             "u_kernel_vs_plain32_median": float(e_kp.median()),
+            "u_plain32_vs_perturbed_max": float(e_pq.max()),
+            "u_plain32_vs_perturbed_p99": float(e_pq.quantile(0.99)),
+            "u_plain32_vs_perturbed_median": float(e_pq.median()),
             "u_kernel_vs_f64_max": float(e_kd.max()),
             "u_plain32_vs_f64_max": float(e_pd.max()),
             "frozen_kernel": float(out_k[10][:, 1].mean()),
             "frozen_plain32": float(out_p[10][:, 1].mean()),
+            "frozen_differ_kernel_vs_plain32": int(
+                (out_k[10][:, 1] != out_p[10][:, 1]).sum()),
+            "frozen_differ_plain32_vs_perturbed": int(
+                (out_p[10][:, 1] != out_q[10][:, 1]).sum()),
         }), flush=True)
         launch[0] += 1
         return out_k
 
+    from scp_tpu_torch.ops import linalg, linalg_kernel as lk
+    real_mv = (lk.gmv, lk.gtmv)
+
     def step(data_, wrapper):
         setattr(ipm_kernel, name, wrapper)
+        if data_.x0.dtype == torch.float64:
+            # the dense-G branch also multiplies by G through the float32
+            # matvec kernels: the float64 oracle takes their plain versions
+            lk.gmv, lk.gtmv = linalg.gmv_plain, linalg.gtmv_plain
         try:
             _, out = engine.mpc_step_batch(
                 cfg, data_, engine.init_carry(cfg, data_), phases=phases)
         finally:
             setattr(ipm_kernel, name, real)
+            lk.gmv, lk.gtmv = real_mv
         torch.cuda.synchronize()
         return out
 

@@ -3,7 +3,8 @@
 Run on a machine with an NVIDIA GPU, from the repository root::
 
     python3 scripts/torch_step_profile.py [--path tuned|adaptive|instance|
-                                                  long_horizon|instance64]
+                                                  long_horizon|instance64|
+                                                  frog]
                                           [--batch B] [--steps 3]
 
 Drives one path of ``scp_tpu_torch.sim.engine`` on the 4-vehicle circle
@@ -20,7 +21,11 @@ Drives one path of ``scp_tpu_torch.sim.engine`` on the 4-vehicle circle
   ``--batch``, ``tuned_f32`` and ``TUNED_F32_PHASES`` (``qp_kkt="auto"``
   routes to the banded KKT: the Riccati factor and solve kernels);
 * ``instance64`` — ``mpc_step`` on ONE nominal scenario at hp = hu = 64
-  with ``tuned_f32`` and ``qp_kkt="banded"`` (the Riccati kernels at B = 1).
+  with ``tuned_f32`` and ``qp_kkt="banded"`` (the Riccati kernels at B = 1);
+* ``frog`` — ``mpc_step_batch`` on the randomized single-vehicle frog batch
+  (22 moving obstacles, hp = hu = 20, B = 1024 unless ``--batch``) with
+  ``tuned_f32`` and ``TUNED_F32_PHASES`` (no vehicle pair: the dense-G
+  IPM kernel).
 
 It prints JSON lines: the wall time per step, the device-busy share (sum of
 kernel time over wall time), the number of kernel launches per step, the
@@ -44,7 +49,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=("tuned", "adaptive", "instance",
-                                       "long_horizon", "instance64"),
+                                       "long_horizon", "instance64", "frog"),
                     default="tuned")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--steps", type=int, default=3)
@@ -67,6 +72,10 @@ def main():
     hp = 64 if opts.path in ("long_horizon", "instance64") else 20
     if one:
         cfg, data = builders.circle(4, dtype=torch.float32, device=dev)
+    elif opts.path == "frog":
+        cfg, data = batch_lib.make_batch("frog", opts.batch or 1024,
+                                         generator=gen, dtype=torch.float32,
+                                         device=dev)
     else:
         width = opts.batch or (256 if opts.path == "long_horizon" else 1024)
         cfg, data = batch_lib.make_batch("circle", width, generator=gen,
@@ -78,7 +87,7 @@ def main():
         cfg = config_lib.tuned_f32(cfg, qp_kkt="banded")
     elif opts.path != "adaptive":
         cfg = config_lib.tuned_f32(cfg)
-    if opts.path in ("tuned", "long_horizon"):
+    if opts.path in ("tuned", "long_horizon", "frog"):
         phases = config_lib.TUNED_F32_PHASES
     batch = data.x0.shape[0]
     scp_kw = dict(max_scp_iter=cfg.max_scp_iter, **engine._scp_kwargs(cfg))

@@ -8,8 +8,9 @@ kernel in interpret mode 5e-5 on the controls (radians, box +-0.052; the
 limit ``tests/test_qp_batched.py`` holds that branch to against its own
 vmap) — both sides sum in other orders, and the port eliminates the slack
 border whenever asked where ``scp_tpu`` does so only when (n-1) % 8 == 0;
-one iteration against ``pallas_linalg.ipm_iterate_lane`` itself 1e-5 on
-every state entry; float64 steps and SCP results 5e-6 rad (the limit of the
+one iteration against ``pallas_linalg.ipm_iterate_lane`` itself (on the
+product ``scp_tpu``'s loop forms) 1e-5 on every state entry, three chained
+iterations 2e-5; float64 steps and SCP results 5e-6 rad (the limit of the
 port's other chained-step tests) with every integer and flag equal.
 """
 import functools
@@ -92,56 +93,236 @@ def _lane(a, rows):
     return jnp.asarray(out)
 
 
-@pytest.mark.parametrize("schur,blocks", [(True, True), (False, False)])
-def test_plain_iteration_matches_ipm_iterate_lane(schur, blocks):
-    """One iteration of the plain dense-G version against the Pallas kernel
-    itself (interpret mode) on the same inputs, laid out as the TPU kernel
-    takes them (lanes of 128 instances, padded rows)."""
-    B, mg, nb, d = 128, 12, 1, 8
-    n = nb * d + 1
-    a = dense_kernel_inputs(B, mg, nb, d, seed=3, schur=schur, blocks=blocks)
+def _jax_dense_iterations(a, schur, blocks, n_cor, n_iters):
+    """``n_iters`` chained iterations of ``scp_tpu``'s dense-G fixed loop on
+    the inputs ``a`` (``dense_kernel_inputs``), laid out as the TPU kernel
+    takes them (lanes of 128 instances, padded rows): per iteration the
+    product ``G_k^T diag(zg / sg) G_k`` (+ the dense P) formed as
+    ``scp_tpu/solvers/qp.py``'s ``fori_body`` forms it, then
+    ``pallas_linalg.ipm_iterate_lane`` in interpret mode. Returns the final
+    state in the port's (B, rows) layout."""
+    B, mg, n = a["G"].shape
     n_pad, mg_pad = jpll.pad_dim(n), jpll._pad_to(mg, jpll._MV_MB)
-    K = a["K"]
-    if not schur:
-        Kp = np.zeros((B, n_pad, n_pad), np.float32)
-        Kp[:, :n, :n] = K
-        Kp[:, np.arange(n, n_pad), np.arange(n, n_pad)] = 1.0
-        K = Kp
     G_lane = np.zeros((mg_pad, n_pad, B), np.float32)
     G_lane[:mg, :n] = a["G"].transpose(1, 2, 0)
+    if schur:
+        G_k = jnp.asarray(a["G"][:, :, :n - 1])
+        P_pad = None if blocks else jnp.asarray(a["P"][:, :n - 1, :n - 1])
+    else:
+        G_k = jnp.asarray(np.pad(a["G"], ((0, 0), (0, 0), (0, n_pad - n))))
+        if not blocks:
+            Pp = np.zeros((B, n_pad, n_pad), np.float32)
+            Pp[:, :n, :n] = a["P"]
+            Pp[:, np.arange(n, n_pad), np.arange(n, n_pad)] = 1.0
+            P_pad = jnp.asarray(Pp)
 
     def vec(name, rows, fill):
         out = np.full((rows, B), fill, np.float32)
         out[:a[name].shape[1]] = a[name].T
         return jnp.asarray(out)
 
-    ones_n, ones_m = (n_pad, 1.0), (mg_pad, 1.0)
-    args = [jnp.asarray(K.transpose(1, 2, 0)), jnp.asarray(G_lane),
-            None if blocks else _lane(a["px"], n_pad), _lane(a["q"], n_pad),
-            vec("pdiag", *ones_n), _lane(a["x"], n_pad), vec("sg", *ones_m),
-            vec("su", *ones_n), vec("sl", *ones_n), _lane(a["zg"], mg_pad),
-            _lane(a["zu"], n_pad), _lane(a["zl"], n_pad),
-            _lane(a["rpg"], mg_pad), _lane(a["rpu"], n_pad),
-            _lane(a["rpl"], n_pad), _lane(a["scal"], 8)]
-    kw = dict(tol=1e-6, reg_rel=3e-6, n_cor=1)
-    want = _interpret(lambda: jpll.ipm_iterate_lane(
-        *args, mg=mg, n=n, m_true=mg + 2 * n, schur_slack=schur,
-        pb=None if not blocks else jnp.asarray(
-            a["pb"].transpose(1, 2, 3, 0)), **kw))
-    t = [None if a[k] is None else torch.as_tensor(a[k])
-         for k in DENSE_ARG_ORDER]
-    got = ipm_kernel.ipm_iterate_dense_plain(*t, schur_slack=schur, **kw)
+    state = [_lane(a["x"], n_pad), vec("sg", mg_pad, 1.0),
+             vec("su", n_pad, 1.0), vec("sl", n_pad, 1.0),
+             _lane(a["zg"], mg_pad), _lane(a["zu"], n_pad),
+             _lane(a["zl"], n_pad), _lane(a["rpg"], mg_pad),
+             _lane(a["rpu"], n_pad), _lane(a["rpl"], n_pad),
+             _lane(a["scal"], 8)]
+    for _ in range(n_iters):
+        wg = jnp.transpose(state[4][:mg] / state[1][:mg], (1, 0))
+        Kprod = jax.lax.dot_general(
+            G_k, G_k * wg[:, :, None], (((1,), (1,)), ((0,), (0,))),
+            precision=jax.lax.Precision.HIGHEST)
+        if blocks:
+            K_lane, px = jnp.transpose(Kprod, (2, 1, 0)), None
+        else:
+            K_lane = jnp.transpose(P_pad + Kprod, (2, 1, 0))
+            x = np.asarray(state[0])[:n].T
+            px = _lane(np.einsum("bij,bj->bi", a["P"], x), n_pad)
+        state = list(_interpret(lambda: jpll.ipm_iterate_lane(
+            K_lane, jnp.asarray(G_lane), px, _lane(a["q"], n_pad),
+            vec("pdiag", n_pad, 1.0), *state, mg=mg, n=n, m_true=mg + 2 * n,
+            tol=1e-6, reg_rel=3e-6, n_cor=n_cor, schur_slack=schur,
+            pb=jnp.asarray(a["pb"].transpose(1, 2, 3, 0)) if blocks
+            else None)))
     rows = (n, mg, n, n, mg, n, n, mg, n, n, 2)
-    for i, (g, w, r) in enumerate(zip(got, want, rows)):
-        w = np.asarray(w)[:r].T
+    return [np.asarray(w)[:r].T for w, r in zip(state, rows)]
+
+
+def _check_state(got, want, atol, rtol, slack_atol=0.0):
+    for i, (g, w) in enumerate(zip(got, want)):
         if i == 0:   # x: the slack entry lives on a scale of its own
             np.testing.assert_allclose(g[:, :-1].numpy(), w[:, :-1],
-                                       atol=1e-5)
+                                       atol=atol)
             np.testing.assert_allclose(g[:, -1].numpy(), w[:, -1],
-                                       rtol=1e-4)
+                                       rtol=rtol, atol=slack_atol)
         else:
-            np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-5,
+            np.testing.assert_allclose(g.numpy(), w, rtol=rtol, atol=atol,
                                        err_msg=str(i))
+
+
+@pytest.mark.parametrize("schur,blocks", [(True, True), (False, False)])
+def test_plain_iteration_matches_ipm_iterate_lane(schur, blocks):
+    """One iteration of the plain dense-G version (``n_iters=1``, the
+    product formed inside) against the Pallas kernel itself (interpret
+    mode) on the product ``scp_tpu``'s loop forms, on the same inputs:
+    1e-5 absolute / 1e-4 relative on every state entry."""
+    B, mg, nb, d = 128, 12, 1, 8
+    a = dense_kernel_inputs(B, mg, nb, d, seed=3, blocks=blocks)
+    want = _jax_dense_iterations(a, schur, blocks, n_cor=1, n_iters=1)
+    t = [None if a[k] is None else torch.as_tensor(a[k])
+         for k in DENSE_ARG_ORDER]
+    got = ipm_kernel.ipm_iterate_dense_plain(
+        *t, n_iters=1, tol=1e-6, reg_rel=3e-6, n_cor=1, schur_slack=schur)
+    _check_state(got, want, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("schur,blocks,n_cor", [
+    (True, True, 0), (False, False, 1), (True, False, 1), (False, True, 0)])
+def test_plain_iterations_match_chained_ipm_iterate_lane(schur, blocks,
+                                                        n_cor):
+    """``n_iters=3`` of the plain dense-G version against three chained
+    iterations of ``scp_tpu``'s loop (product + Pallas kernel, interpret
+    mode), with every fifth instance entering frozen (its state must come
+    back unchanged). Limits 2e-5 absolute / 2e-4 relative on every state
+    entry, the slack's included: twice the one iteration's, since each
+    iteration starts from the other side's float32 iterate, whose round-off
+    the next factor carries forward (after three iterations a slack of
+    ~1e-4 differs by ~2e-7, beyond a relative limit alone)."""
+    B, mg, nb, d = 128, 12, 1, 8
+    a = dense_kernel_inputs(B, mg, nb, d, seed=5 + n_cor, blocks=blocks)
+    a["scal"][::5, 1] = 1.0
+    want = _jax_dense_iterations(a, schur, blocks, n_cor=n_cor, n_iters=3)
+    t = [None if a[k] is None else torch.as_tensor(a[k])
+         for k in DENSE_ARG_ORDER]
+    got = ipm_kernel.ipm_iterate_dense_plain(
+        *t, n_iters=3, tol=1e-6, reg_rel=3e-6, n_cor=n_cor,
+        schur_slack=schur)
+    _check_state(got, want, atol=2e-5, rtol=2e-4, slack_atol=2e-5)
+    frozen = a["scal"][:, 1] > 0.5
+    assert bool(got[10][frozen, 1].eq(1.0).all())
+    np.testing.assert_array_equal(got[0][frozen].numpy(), a["x"][frozen])
+    np.testing.assert_array_equal(got[10][:, 1].numpy(), want[10][:, 1])
+
+
+def test_dense_branch_makes_one_kernel_call_per_qp(monkeypatch):
+    """The fixed-count dense-G branch hands all its iterations to ONE call
+    of ``ipm_iterate_dense`` (``n_iters=fixed_iters``): no product, no
+    per-iteration algebra around it."""
+    _, ta = scp_qp_data("frog", 2, 5, np.float32)
+    calls = []
+    real = ipm_kernel.ipm_iterate_dense
+
+    def spy(*args, **kw):
+        calls.append(kw["n_iters"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(ipm_kernel, "ipm_iterate_dense", spy)
+    for blocks in (True, False):
+        calls.clear()
+        got = tqp.solve_qp_batched(
+            None if blocks else ta["P"], ta["q"], ta["G"], ta["h"], ta["lb"],
+            ta["ub"], x0=ta["x0"], fixed_iters=6, tol=1e-6,
+            slack_schur=True, p_blocks=ta["p_blocks"] if blocks else None,
+            kkt="dense")
+        assert calls == [6]
+        assert bool(torch.isfinite(got.x).all())
+
+
+def _old_dense_smem_bytes(mg, n, nb, d, schur, g_smem):
+    """The carve of the kernel that ran one iteration per launch on a
+    pre-formed product (every vector, G when it fit)."""
+    nk = n - 1 if schur else n
+    words = nk * (nk | 1) + nb * d * d + 9 * (mg + 2 * n) + 9 * n + 33
+    return 4 * (words + (mg * (n | 1) if g_smem else 0))
+
+
+def test_dense_carve_at_frog_fits_four_ctas():
+    """At single-vehicle frog (mg = 440, n = 21, one 20 x 20 block, the slack
+    eliminated, no corrector) G sits in shared memory and four CTAs share
+    an SM (228 KB, 1 KB reserved per CTA); a corrector takes an m-vector
+    more (three CTAs), a dense P none (it stays in device memory)."""
+    ik = ipm_kernel
+    frog = ik.dense_smem_bytes(440, 21, 1, 20, True, True, n_cor=0)
+    assert frog == 56_568
+    assert 4 * (frog + 1024) <= 228 * 1024
+    assert ik.check_dense_smem_gate(440, 21, 1, 20, True, 0) == (frog, True)
+    with_cor = ik.dense_smem_bytes(440, 21, 1, 20, True, True, n_cor=1)
+    assert with_cor == frog + 4 * (440 + 42)
+    assert with_cor == _old_dense_smem_bytes(440, 21, 1, 20, True, True) + 16
+    dense_p = ik.dense_smem_bytes(440, 21, 0, 0, True, True, n_cor=0)
+    assert dense_p == frog - 4 * 400
+
+
+@pytest.mark.parametrize("schur", [True, False])
+def test_dense_gate_admits_no_fewer_shapes(schur):
+    """The route and the gate follow the new carve and admit every shape
+    (and every G in shared memory) the one-iteration kernel admitted; past
+    the limit the gate raises."""
+    ik = ipm_kernel
+    limit = ik.SMEM_LIMIT_BYTES
+    for mg in (12, 120, 440, 900, 2000, 6000, 20000):
+        for nb, d in ((1, 20), (4, 16), (0, 0), (2, 7), (8, 20)):
+            n = max(nb * d, 20) + 1
+            old_fits = _old_dense_smem_bytes(mg, n, nb, d, schur,
+                                             False) <= limit
+            assert ik.fits_dense_smem(mg, n, nb, d, schur) == old_fits
+            for n_cor in (0, 1, 2):
+                if not old_fits:
+                    with pytest.raises(NotImplementedError):
+                        ik.check_dense_smem_gate(mg, n, nb, d, schur, n_cor)
+                    continue
+                need, g_smem = ik.check_dense_smem_gate(mg, n, nb, d, schur,
+                                                         n_cor)
+                assert need == ik.dense_smem_bytes(mg, n, nb, d, schur,
+                                                   g_smem, n_cor) <= limit
+                old_g = _old_dense_smem_bytes(mg, n, nb, d, schur,
+                                              True) <= limit
+                assert g_smem or not old_g
+
+
+@pytest.mark.parametrize("B,sms,want", [
+    (1, 132, 2), (64, 132, 2), (256, 132, 2), (264, 132, 2), (265, 132, 4),
+    (528, 132, 4), (1024, 132, 4), (100, 50, 2), (101, 50, 4)])
+def test_dense_launch_bound_by_batch(B, sms, want):
+    """K2 runs at two CTAs an SM while the batch is one wave at two (B <=
+    2 x SMs), and at four beyond."""
+    assert ipm_kernel.dense_min_ctas(B, sms) == want
+
+
+@pytest.mark.parametrize("breakage", ["shape", "dtype", "both_p", "no_p",
+                                      "pb_shape", "p_shape"])
+def test_dense_wrapper_checks_its_arguments(breakage):
+    a = dense_kernel_inputs(2, 12, 1, 8, seed=3)
+    t = {k: None if v is None else torch.as_tensor(v) for k, v in a.items()}
+    if breakage == "shape":
+        t["q"] = t["q"][:, :-1]
+    elif breakage == "dtype":
+        t["zg"] = t["zg"].double()
+    elif breakage == "both_p":
+        t["P"] = torch.zeros((2, 9, 9))
+    elif breakage == "no_p":
+        t["pb"] = None
+    elif breakage == "pb_shape":
+        t["pb"] = t["pb"][:, :, :-1]
+    else:
+        t["pb"], t["P"] = None, torch.zeros((2, 9, 8))
+    with pytest.raises(ValueError):
+        ipm_kernel.ipm_iterate_dense(*[t[k] for k in DENSE_ARG_ORDER],
+                                     tol=1e-6, reg_rel=3e-6)
+
+
+def test_dense_kernel_operand_limits():
+    """What only the kernel refuses: float64 (TypeError) and non-contiguous
+    operands (ValueError)."""
+    a = dense_kernel_inputs(2, 12, 1, 8, seed=3)
+    ins = [None if a[k] is None else torch.as_tensor(a[k])
+           for k in DENSE_ARG_ORDER]
+    ipm_kernel._check_launchable(ins)
+    with pytest.raises(TypeError):
+        ipm_kernel._check_launchable([ins[0].double()] + ins[1:])
+    strided = ins[:3] + [ins[3].t().contiguous().t()] + ins[4:]
+    with pytest.raises(ValueError):
+        ipm_kernel._check_launchable(strided)
 
 
 def test_frog_mpc_step_batch_tuned_f32_float64():
