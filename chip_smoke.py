@@ -5,12 +5,14 @@ Run from the repository root on a machine with one NVIDIA GPU::
 
     python3 chip_smoke.py
 
-It builds the eight hand-written CUDA kernels from ``scp_tpu_torch/csrc``
-(the fused structured IPM iteration K1, the dense-G IPM iteration K2, the
-batched Cholesky, the Cholesky solve, the two G matvecs, and the Riccati
-factor and solve sweeps K6 / K7), holds each against its plain PyTorch
-version on the card, and drives six paths of the port at full width, every
-kernel's launch count set to 0 just before a path and read just after:
+It builds the hand-written CUDA kernels from ``scp_tpu_torch/csrc`` (the
+fused structured IPM iteration K1, the dense-G IPM iteration K2, the
+batched Cholesky and the Cholesky solve — in shared memory below n = 240,
+with the matrix in device memory from there — the two G matvecs, and the
+Riccati factor and solve sweeps K6 / K7), holds each against its plain
+PyTorch version on the card, and drives eight paths of the port at full
+width, every kernel's launch count set to 0 just before a path and read
+just after:
 
 * the calibrated batched step — ``mpc_step_batch`` on the randomized
   4-vehicle circle batch, B = 1024, hp = hu = 20, float32, ``tuned_f32`` with
@@ -41,19 +43,36 @@ kernel's launch count set to 0 just before a path and read just after:
   its plain version on the first QP's inputs for one iteration and for all
   of them at widths on both sides of its launch-bound switch, each launch
   of all iterations also against as many chained launches of one, and on
-  odd shapes (a dense P, no slack elimination, G past shared memory).
+  odd shapes (a dense P, no slack elimination, G past shared memory);
+* (g) the calibrated one-scenario controller at the long horizon —
+  ``mpc_step`` of one circle-4 scenario at hp = 64 under ``tuned_f32`` as
+  it stands (``qp_kkt="auto"``: per instance the dense KKT, so the factor
+  and the solve at n = 257, B = 1, past the shared-memory kernels; no
+  Riccati sweep, no K1), 10 steps of latency, step 0 through the plain
+  versions and in float64, and against the banded one-scenario step's
+  step 0 (the same QPs through the banded KKT);
+* (h) one QP of the adaptive dense branch at hp = 64, B = 256 — the
+  long-horizon path's first QP through ``solve_qp_batched(fixed_iters=None,
+  kkt="dense")`` with the DEFAULT adaptive settings (the factor, the solve
+  and both G products at n = 257, mg = 384), against the plain versions
+  and float64.
 
 The fused IPM kernel is also held against its plain version on an
 instance whose KKT matrix is not positive definite (it must freeze, its
 state kept, as there). The Cholesky, solve and G-product kernels are also
 held at their edges: the factor and the solve at n = 1, 15, 16, 17, 32, 33,
 81, 239 and B = 1, 3, 1023 (across their 16-column panels and blocks) with
-an indefinite instance (a NaN factor) among good ones; the product on the
-dense P shape (1024, 81, 81) with unaligned instance bases, views that
-start 4 bytes past a 16-byte boundary, a tile larger than one stage
-(900 x 65), B = 1 and rows wider than a stage (one column past it, and
-60,000 columns). The Riccati factor and solve are held against their
-plain versions and a float64 oracle on the long-horizon path's inputs at
+an indefinite instance (a NaN factor) among good ones, and past the
+shared-memory kernels at n = 240, 257, 330, 400 and B = 1, 256, 1024 (1024
+up to n = 257) with an indefinite instance among good ones at n = 257; both
+G products on the dense P shape (1024, 81, 81) with unaligned instance
+bases, views that start 4 bytes past a 16-byte boundary, a tile larger than
+one stage (900 x 65), B = 1, the hp = 64 shape (256, 384, 257) and rows
+wider than a stage (one column past it, and 60,000 columns); G^T v also
+twice on the same inputs, bit for bit (its cluster's partial sums are added
+in a fixed order), and with one instance's v NaN among good ones. The
+Riccati factor and solve are held against their plain versions and a
+float64 oracle on the long-horizon path's inputs at
 B = 256 / 64 / 16 with one and two right-hand sides (a two-right-hand-side
 launch against two launches of one), and at V = 1, 3, 6 (more rows than a
 warp has lanes) and 16.
@@ -64,7 +83,8 @@ that computes the same function (where there is one) and the card's bound
 SM holds; the factor also at B = 1, the G product also on the P shape; the
 Riccati sweeps by graph replay also at B = 1 and the solve also with two
 right-hand sides; the
-factor, the solve and the G product at the widest B also with a cold L2),
+factor, the solve and the G products at the widest B also with a cold L2;
+the factor and the solve at n = 257, B = 256 and 1, warm and cold),
 prints each kernel's time over the library call's, and prints one JSON
 object per phase. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -138,6 +158,9 @@ LATER_ITER_SLACK = 4.0      # the float64 limit is this much wider there
 FIRST_ITER_REL_LIMIT = 1e-4
 MATVEC_REL_LIMIT = 2e-5
 FLAGS_AGREE_FLOOR = 0.99
+# n past the shared-memory factor and solve (from 240 the matrix stays in
+# device memory): the hp = 64 shape's 257, and two more above it
+LARGE_NS = (240, 257, 330, 400)
 
 # Published peaks of one H100 SXM (dense, no sparsity).
 PEAK_F32_FLOPS = 67e12
@@ -381,13 +404,14 @@ def linalg_bound_ms(kind: str, B: int, n: int, m: int = 0):
     needs (each input read once, each output written once) over the memory
     rate against operations (two per multiply-add) over the float32 peak.
     K is symmetric and only the lower triangle of L is a result or read by
-    the solve, so a factor needs n(n+1)/2 floats in and as many out, and a
-    solve n(n+1)/2 floats of L, b and x."""
+    the solve, so a factor needs n(n+1)/2 floats in and as many out and
+    n^3/6 multiply-adds, and a solve n(n+1)/2 floats of L, b and x and n^2
+    multiply-adds (two triangular solves of n^2/2 each)."""
     tri = n * (n + 1) // 2
     if kind == "cholesky":
-        nbytes, flops = 4 * 2 * tri, 2 * n ** 3 / 3
+        nbytes, flops = 4 * 2 * tri, n ** 3 / 3
     elif kind == "cho_solve":
-        nbytes, flops = 4 * (tri + 2 * n), 2 * 2 * n * n
+        nbytes, flops = 4 * (tri + 2 * n), 2 * n * n
     else:                                   # gmv / gtmv
         nbytes, flops = 4 * (m * n + m + n), 2 * m * n
     return bound_of(B * nbytes, B * flops)
@@ -457,6 +481,19 @@ def check_vector(name, case, kernel, plain, args, rel_limit, first_iter=True):
             or (first_iter and e_kp > rel_limit * scale)):
         fail(f"{case}: the {name} kernel disagrees: {rep}")
     return rep
+
+
+def check_repeatable(name, case, kernel, args) -> None:
+    """Two launches on the same inputs must agree bit for bit: the kernel
+    sums in a fixed order (G^T v: the cluster's partials in rank order)."""
+    a, b = kernel(*args), kernel(*args)
+    torch.cuda.synchronize()
+    same = torch.equal(a, b)
+    emit({"phase": "kernel_repeatable", "kernel": name, "case": case,
+          "B": args[0].shape[0], "shape": list(args[0].shape[1:]),
+          "bit_identical": same})
+    if not same:
+        fail(f"{case}: two {name} launches on the same inputs differ")
 
 
 def finite_outputs(outs, what: str) -> None:
@@ -539,6 +576,42 @@ def linalg_boundary_cases(dev, real, plain) -> None:
                      "_vs_plain", real["cho_solve"], plain["cho_solve"],
                      (L, rhs), FIRST_ITER_REL_LIMIT)
 
+    # past the shared-memory kernels (n >= 240: the matrix in device
+    # memory), B = 1 / 256 / 1024 (1024 up to the hp = 64 shape's n = 257)
+    for n in LARGE_NS:
+        for b in (1, 256, 1024):
+            if b == 1024 and n > 257:
+                continue
+            check_factor(f"large_n{n}_B{b}", spd(b, n), real["cholesky"],
+                         plain["cholesky"], True)
+            L = plain["cholesky"](spd(b, n)).contiguous()
+            rhs = torch.randn((b, n), generator=gen, device=dev)
+            check_vector("cho_solve", f"large_n{n}_B{b}", real["cho_solve"],
+                         plain["cho_solve"], (L, rhs), FIRST_ITER_REL_LIMIT)
+    n = 257
+    K = spd(6, n)
+    L_good = real["cholesky"](K)
+    K[2, n // 2, n // 2] = -1.0
+    L = real["cholesky"](K)
+    rhs = torch.randn((6, n), generator=gen, device=dev)
+    x_good = real["cho_solve"](L_good, rhs)
+    L_nan = L_good.clone()
+    L_nan[2] = float("nan")
+    x = real["cho_solve"](L_nan, rhs)
+    torch.cuda.synchronize()
+    others = [0, 1, 3, 4, 5]
+    nan_ok = (bool(torch.isnan(L[2]).all()) and bool(torch.isnan(x[2]).all())
+              and torch.equal(L[others], L_good[others])
+              and torch.equal(x[others], x_good[others]))
+    emit({"phase": "kernel_vs_plain", "kernel": "cholesky / cho_solve",
+          "case": f"large_n{n}_one_indefinite_among_good",
+          "nan_there_only": nan_ok})
+    if not nan_ok:
+        fail(f"n = {n}: an indefinite instance (a NaN factor) must be NaN "
+             f"and leave the other instances alone")
+    check_factor(f"large_n{n}_one_indefinite_among_good_vs_plain", K,
+                 real["cholesky"], plain["cholesky"], True)
+
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
@@ -558,14 +631,23 @@ def linalg_boundary_cases(dev, real, plain) -> None:
         "boundary_B1": (randn(1, 120, 81), randn(1, 81)),
         "boundary_row_one_column_past_a_stage": (randn(2, 3, stage + 1),
                                                  randn(2, stage + 1)),
-        "boundary_row_of_60000": (randn(2, 3, 60000), randn(2, 60000))}
+        "boundary_row_of_60000": (randn(2, 3, 60000), randn(2, 60000)),
+        "boundary_hp64_B256_m384_n257": (randn(256, 384, 257),
+                                         randn(256, 257))}
     for case, args in cases.items():
         B, m, n = args[0].shape
         emit({"phase": "gmv_geometry", "case": case,
               "base_mod_16": args[0].data_ptr() % 16,
-              "rows_cols_smem": list(lk.gmv_geometry(B, m, n))})
+              "rows_cols_smem": list(lk.gmv_geometry(B, m, n)),
+              "gtmv_threads_tiles_rows_chunk_cols_smem":
+                  list(lk.gtmv_geometry(B, m, n, *lk.sm_resources(dev)))})
         check_vector("gmv", case, real["gmv"], plain["gmv"], args,
                      MATVEC_REL_LIMIT)
+        # G^T v on the same G, twice: bit for bit
+        t_args = (args[0], randn(B, m))
+        check_vector("gtmv", case, real["gtmv"], plain["gtmv"], t_args,
+                     MATVEC_REL_LIMIT)
+        check_repeatable("gtmv", case, real["gtmv"], t_args)
 
 
 def linalg_phases(dev, card, B, n_veh, hp, seed, widths=(1024, 256, 64),
@@ -625,7 +707,10 @@ def linalg_phases(dev, card, B, n_veh, hp, seed, widths=(1024, 256, 64),
     # (the G product's first two calls are initial residuals at x = u_warm = 0:
     # its third, the predictor's G dx, is kept instead)
     FIRST = {"gmv": 2}
-    LATER = {"cholesky": 9, "cho_solve": 19}
+    # (the tenth IPM iteration: one factor, two solves and three G^T v per
+    # iteration — its residual, then the predictor's and the corrector's
+    # right-hand sides)
+    LATER = {"cholesky": 9, "cho_solve": 19, "gtmv": 27}
     n_calls = {k: 0 for k in names}
     captured: dict[str, dict] = {k: {} for k in names}
 
@@ -672,6 +757,8 @@ def linalg_phases(dev, card, B, n_veh, hp, seed, widths=(1024, 256, 64),
                                plain[k], cut[k], lim)
             if w == widths[0]:
                 reports[k]["max_abs_err"] = rep["kernel_vs_plain_max_abs"]
+        check_repeatable("gtmv", f"first_ipm_iteration_B{w}", real["gtmv"],
+                         cut["gtmv"])
     for k, idx in LATER.items():
         if idx not in captured[k]:
             fail(f"the first step made fewer than {idx + 1} calls of {k}")
@@ -680,6 +767,25 @@ def linalg_phases(dev, card, B, n_veh, hp, seed, widths=(1024, 256, 64),
     check_vector("cho_solve", "tenth_ipm_iteration", real["cho_solve"],
                  plain["cho_solve"], captured["cho_solve"][19],
                  FIRST_ITER_REL_LIMIT, first_iter=False)
+    check_vector("gtmv", "tenth_ipm_iteration", real["gtmv"], plain["gtmv"],
+                 captured["gtmv"][27], MATVEC_REL_LIMIT)
+    check_repeatable("gtmv", "tenth_ipm_iteration", real["gtmv"],
+                     captured["gtmv"][27])
+    # G^T v with one instance's v NaN (an instance whose factor failed):
+    # NaN there only, the cluster's other instances bit-identical
+    G8, v8 = (a[:8].contiguous() for a in first["gtmv"])
+    good = real["gtmv"](G8, v8)
+    v8 = v8.clone()
+    v8[5, 7] = float("nan")
+    out8 = real["gtmv"](G8, v8)
+    torch.cuda.synchronize()
+    others8 = [i for i in range(8) if i != 5]
+    nan_ok = (bool(torch.isnan(out8[5]).all())
+              and torch.equal(out8[others8], good[others8]))
+    emit({"phase": "kernel_vs_plain", "kernel": "gtmv",
+          "case": "one_nan_instance_among_good", "nan_there_only": nan_ok})
+    if not nan_ok:
+        fail("G^T v: a NaN in one instance's v must give NaN there only")
     # odd sizes (n = 31, m = 45: no multiple of 8, 16 or 32), B = 3
     rng = np.random.default_rng(11)
     a = rng.normal(size=(3, 31, 31))
@@ -1033,7 +1139,7 @@ def linalg_phases(dev, card, B, n_veh, hp, seed, widths=(1024, 256, 64),
         for k in names:
             args = tuple(a[:w].contiguous() for a in first[k])
             cell = time_cell(k, args, mg)
-            if w == widths[0] and k in ("cholesky", "cho_solve", "gmv"):
+            if w == widths[0]:
                 cell.update(cold_cell(k, args))
             times["kernels"][k][str(w)] = cell
             if w == widths[0]:
@@ -1168,7 +1274,7 @@ def dense_work(B, mg, n, nb, d, schur, n_cor, n_iters):
     words = mg * n + p_words + 2 * n + 2 * state
     solves = 2 + n_cor
     macs = (nk * (nk + 1) // 2 * mg + (mg * n if schur else 0)
-            + nk ** 3 / 6 + solves * 2 * nk * nk + solves * 2 * mg * n
+            + nk ** 3 / 6 + solves * nk * nk + solves * 2 * mg * n
             + (nb * d * d if nb else n * n) + (40 + 25 * n_cor) * m / 2)
     return 4 * words * B, 2 * macs * n_iters * B
 
@@ -1249,26 +1355,71 @@ def check_riccati(case, f_args, s_args, first_iter=True) -> tuple:
 DENSE_G, DENSE_PB, DENSE_STATE, DENSE_SCAL = 0, 2, 5, 15
 
 
-def _perturbed(args, gen):
-    """Every float operand but scal (the last) times 1 +- 2^-23, the sign
-    drawn per entry from ``gen``."""
-    out = []
-    for a in args[:-1]:
-        if a is None:
-            out.append(a)
-            continue
-        sign = torch.randint(0, 2, a.shape, generator=gen, device=a.device)
-        out.append(a * (1.0 + (2.0 * sign - 1.0) * 2.0 ** -23))
-    return out + [args[-1]]
+def _perturb(a, gen):
+    """``a`` times 1 +- 2^-23, the sign drawn per entry from ``gen``; what
+    is not a float tensor (None, a tuple, integers) comes back as it is."""
+    if not (torch.is_tensor(a) and a.is_floating_point()):
+        return a
+    sign = torch.randint(0, 2, a.shape, generator=gen, device=a.device)
+    return a * (1.0 + (2.0 * sign - 1.0) * 2.0 ** -23)
+
+
+def _q99(t) -> float:
+    return float(t.quantile(0.99))
+
+
+def run_yardstick(run_perturbed, controls, flags, out_p, out_d,
+                  flag: str) -> dict:
+    """The yardstick of a float32 run of many iterations (K2's whole
+    launch, path (h)'s QP), measured in this run: the plain version on the
+    same inputs perturbed by one part in 2^23 (``run_perturbed(gen)``,
+    PERTURB_DRAWS draws, the signs of :func:`_perturb` from ``gen``)
+    against the plain version's outputs ``out_p`` and float64's ``out_d``;
+    ``controls`` and ``flags`` pick a run's controls and its flags (named
+    ``flag`` in the keys). The largest reading over the draws, and the
+    allowances :func:`run_off_limits` holds the kernel's run to."""
+    up, ud, fp = controls(out_p), controls(out_d), flags(out_p)
+    e_pd = (up.double() - ud).abs().amax(dim=1)
+    y = {"u_perturbed_vs_plain_median": 0.0, "u_perturbed_vs_plain_p99": 0.0,
+         "u_perturbed_vs_plain_max": 0.0, f"{flag}_differ_perturbed": 0,
+         "u_f32_vs_f64_p99": _q99(e_pd), "u_f32_vs_f64_max": float(e_pd.max())}
+    gen = torch.Generator(device=up.device).manual_seed(23)
+    for _ in range(PERTURB_DRAWS):
+        out_q = run_perturbed(gen)
+        uq = controls(out_q)
+        e_qp = (uq - up).abs().amax(dim=1)
+        e_qd = (uq.double() - ud).abs().amax(dim=1)
+        for k, v in (("u_perturbed_vs_plain_median", float(e_qp.median())),
+                     ("u_perturbed_vs_plain_p99", _q99(e_qp)),
+                     ("u_perturbed_vs_plain_max", float(e_qp.max())),
+                     ("u_f32_vs_f64_p99", _q99(e_qd)),
+                     ("u_f32_vs_f64_max", float(e_qd.max())),
+                     (f"{flag}_differ_perturbed",
+                      int((flags(out_q) != fp).sum()))):
+            y[k] = max(y[k], v)
+    y[f"{flag}_differ_allowed"] = max(y[f"{flag}_differ_perturbed"],
+                                      -(-up.shape[0] // FLAG_SHARE_DENOM))
+    y["u_median_allowed"] = (WHOLE_MEDIAN_FACTOR
+                             * y["u_perturbed_vs_plain_median"] + 1e-6)
+    return y
+
+
+def run_off_limits(e, flag: str) -> bool:
+    """A whole run against its plain version and float64 under
+    :func:`run_yardstick`'s allowances (RUN_LIMITS)."""
+    return (not e["finite"]
+            or e[f"{flag}_differ"] > e[f"{flag}_differ_allowed"]
+            or e["u_kernel_vs_plain_median"] > e["u_median_allowed"]
+            or e["u_kernel_vs_f64_p99"] > 2 * e["u_f32_vs_f64_p99"] + 1e-4
+            or e["u_kernel_vs_f64_max"] > 2 * e["u_f32_vs_f64_max"] + 1e-4)
 
 
 def dense_errors(args, kw, out_k, yardstick: bool = False) -> dict:
     """One K2 launch's outputs against its plain version and the float64
     oracle on the same inputs: every state entry but the slack's, relative
     to its array's scale (``one_iter``), and the controls. With
-    ``yardstick``, also the plain version on perturbed inputs
-    (:func:`_perturbed`, PERTURB_DRAWS draws) against the plain version and
-    float64: the largest reading over the draws."""
+    ``yardstick``, also :func:`run_yardstick` (every float operand but
+    scal perturbed)."""
     from scp_tpu_torch.ops import ipm_kernel as ik
     out_p = ik.ipm_iterate_dense_plain(*args, **kw)
     out_d = ik.ipm_iterate_dense_plain(
@@ -1295,40 +1446,21 @@ def dense_errors(args, kw, out_k, yardstick: bool = False) -> dict:
            "one_iter_max_rel_err": max(one_rel),
            "u_kernel_vs_plain_max": float(e_kp.max()),
            "u_kernel_vs_plain_median": float(e_kp.median()),
-           "u_kernel_vs_plain_p99": float(e_kp.quantile(0.99)),
+           "u_kernel_vs_plain_p99": _q99(e_kp),
            "u_kernel_vs_f64_max": float(e_kd.max()),
            "u_plain_vs_f64_max": float(e_pd.max()),
-           "u_kernel_vs_f64_p99": float(e_kd.quantile(0.99)),
-           "u_plain_vs_f64_p99": float(e_pd.quantile(0.99)),
+           "u_kernel_vs_f64_p99": _q99(e_kd),
+           "u_plain_vs_f64_p99": _q99(e_pd),
            "frozen_differ": int((out_k[10][:, 1] != out_p[10][:, 1]).sum()),
            "frozen_equal": bool(torch.equal(out_k[10][:, 1],
                                             out_p[10][:, 1]))}
     if not yardstick:
         return rep
-    gen = torch.Generator(device=args[DENSE_G].device).manual_seed(23)
-    y = {"u_perturbed_vs_plain_median": 0.0, "u_perturbed_vs_plain_p99": 0.0,
-         "u_perturbed_vs_plain_max": 0.0, "frozen_differ_perturbed": 0,
-         "u_f32_vs_f64_p99": rep["u_plain_vs_f64_p99"],
-         "u_f32_vs_f64_max": rep["u_plain_vs_f64_max"]}
-    for _ in range(PERTURB_DRAWS):
-        out_q = ik.ipm_iterate_dense_plain(*_perturbed(args, gen), **kw)
-        uq = out_q[0][:, :nu]
-        e_qp = (uq - up).abs().amax(dim=1)
-        e_qd = (uq.double() - ud).abs().amax(dim=1)
-        for k, v in (("u_perturbed_vs_plain_median", e_qp.median()),
-                     ("u_perturbed_vs_plain_p99", e_qp.quantile(0.99)),
-                     ("u_perturbed_vs_plain_max", e_qp.max()),
-                     ("u_f32_vs_f64_p99", e_qd.quantile(0.99)),
-                     ("u_f32_vs_f64_max", e_qd.max())):
-            y[k] = max(y[k], float(v))
-        y["frozen_differ_perturbed"] = max(
-            y["frozen_differ_perturbed"],
-            int((out_q[10][:, 1] != out_p[10][:, 1]).sum()))
-    y["frozen_differ_allowed"] = max(y["frozen_differ_perturbed"],
-                                     -(-B // FLAG_SHARE_DENOM))
-    y["u_median_allowed"] = (WHOLE_MEDIAN_FACTOR
-                             * y["u_perturbed_vs_plain_median"] + 1e-6)
-    return {**rep, **y}
+    return {**rep, **run_yardstick(
+        lambda gen: ik.ipm_iterate_dense_plain(
+            *[_perturb(a, gen) for a in args[:-1]], args[-1], **kw),
+        lambda out: out[0][:, :nu], lambda out: out[10][:, 1], out_p, out_d,
+        "frozen")}
 
 
 def dense_launch_errors(kernel, args, kw, out_k) -> list[dict]:
@@ -1358,20 +1490,22 @@ def dense_launch_errors(kernel, args, kw, out_k) -> list[dict]:
     return [whole] + reps
 
 
+# run_off_limits: a whole run (K2's launch, path (h)'s QP) against its
+# plain version, with run_yardstick's allowances
+RUN_LIMITS = {
+    "flags_differ": f"<= max(perturbed draws', B / {FLAG_SHARE_DENOM} "
+                    f"rounded up)",
+    "u_median": f"{WHOLE_MEDIAN_FACTOR} x perturbed draws' + 1e-6",
+    "vs_f64_p99_and_max": "2 x max(plain float32's, perturbed draws') + 1e-4",
+    "finite": True}
 DENSE_LIMITS = {
     "one_iteration": {
         "cold_start": {"one_iter_rel": ONE_ITER_LIMIT,
                        "vs_f64": "2 x plain float32's + 1e-4"},
         "every_iterate": {"u_median": U_MEDIAN_LIMIT,
                           "freeze_flags": "equal", "finite": True}},
-    "whole_launch": {
-        "vs_chained_launches_of_one": "bit-identical",
-        "freeze_flags_differ": f"<= max(perturbed draws', B / "
-                               f"{FLAG_SHARE_DENOM} rounded up)",
-        "u_median": f"{WHOLE_MEDIAN_FACTOR} x perturbed draws' + 1e-6",
-        "vs_f64_p99_and_max": "2 x max(plain float32's, perturbed "
-                              "draws') + 1e-4",
-        "finite": True}}
+    "whole_launch": {"vs_chained_launches_of_one": "bit-identical",
+                     **RUN_LIMITS}}
 
 
 def dense_off_limits(e) -> bool:
@@ -1379,12 +1513,7 @@ def dense_off_limits(e) -> bool:
         return True
     if e["n_iters"] > 1:
         return (not e["chain_bit_identical"]
-                or e["frozen_differ"] > e["frozen_differ_allowed"]
-                or e["u_kernel_vs_plain_median"] > e["u_median_allowed"]
-                or e["u_kernel_vs_f64_p99"]
-                > 2 * e["u_f32_vs_f64_p99"] + 1e-4
-                or e["u_kernel_vs_f64_max"]
-                > 2 * e["u_f32_vs_f64_max"] + 1e-4)
+                or run_off_limits(e, "frozen"))
     if (not e["frozen_equal"]
             or e["u_kernel_vs_plain_median"] > U_MEDIAN_LIMIT):
         return True
@@ -1416,6 +1545,336 @@ def check_dense(case, args, kw) -> float:
     if not rep["first_iteration"] or any(map(dense_off_limits, reps)):
         fail(f"{case}: the dense-G kernel disagrees: {rep}")
     return reps[0]["one_iter_max_abs_err"]
+
+
+def large_n_times(k, args, kernel, plain, library, n, reps=10) -> dict:
+    """Device times of the factor or the solve past the shared-memory
+    kernels on ``args``, by CUDA-graph replay: the kernel warm and cold
+    (each call on the next of rotating input copies), the plain version,
+    and the library call — but ``torch.cholesky_solve``, which a graph
+    cannot capture, by CUDA events around back-to-back calls (device-bound
+    at B = 256: ~0.5 ms a call against ~0.03 ms of host time); the bound of
+    ``linalg_bound_ms``."""
+    w = args[0].shape[0]
+    cell = {"B": w, "n": n,
+            "ms": graph_ms(lambda: kernel(*args), reps=reps),
+            "plain_ms": graph_ms(lambda: plain(*args), reps=reps)}
+    if k == "cholesky":
+        cell["library_ms"] = graph_ms(lambda: library(*args), reps=reps)
+    else:
+        cell["library_ms"] = time_cuda(lambda: library(*args), reps=reps)
+        cell["library_timed_by"] = "cuda events, back-to-back calls"
+    # a cold L2 where each call's inputs outgrow it (B = 256: 67 MB)
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    if nbytes * 2 > L2_ROTATE_BYTES // 5:
+        copies = rotating_copies(args)
+        cell["cold_ms"] = graph_ms(rotate(kernel, copies), reps=reps)
+        cell["library_cold_ms"] = (
+            graph_ms if k == "cholesky" else time_cuda)(
+                rotate(library, copies), reps=reps)
+        cell["input_copies"] = len(copies)
+        del copies
+    cell["bound_ms"], cell["bound_by"] = linalg_bound_ms(k, w, n)
+    cell["ms_over_library_ms"] = cell["ms"] / cell["library_ms"]
+    return cell
+
+
+def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
+                      ) -> list[dict]:
+    """The dense KKT at the long horizon (circle-4, hp = hu = 64, n = 257),
+    past the shared-memory factor and solve:
+
+    (g) ONE scenario under ``tuned_f32`` as it stands (``qp_kkt="auto"``,
+        7 fixed IPM iterations) through ``mpc_step``: per instance "auto"
+        is the dense factorization, so the factor and the solve run at
+        n = 257, B = 1. Step 0 against the plain versions and float64 under
+        the one-scenario banded phase's limits, and against that phase's
+        step 0 (path (e): the same QPs through the banded KKT); latency;
+        feasible share.
+    (h) ONE QP of the adaptive dense branch at B = 256: the long-horizon
+        path's first full-width QP (``qp_call``) through
+        ``solve_qp_batched(fixed_iters=None, kkt="dense")`` with the
+        DEFAULT adaptive settings (``adaptive_qp``): the factor, the solve
+        and both G products at the long-horizon shape, against the plain
+        versions and float64.
+
+    Returns the ``kernels`` line's entries of the large-n factor and
+    solve."""
+    from scp_tpu_torch import config as config_lib
+    from scp_tpu_torch.ops import constraints as con, ipm_kernel, linalg
+    from scp_tpu_torch.ops import linalg_kernel as lk, riccati_kernel as rk
+    from scp_tpu_torch.scenarios import builders
+    from scp_tpu_torch.sim import engine
+    from scp_tpu_torch.solvers import qp
+
+    names = ("cholesky", "cho_solve", "gmv", "gtmv")
+    real = {k: getattr(lk, k) for k in names}
+    plain = {"cholesky": linalg.cholesky_plain,
+             "cho_solve": linalg.cho_solve_plain,
+             "gmv": linalg.gmv_plain, "gtmv": linalg.gtmv_plain}
+    library = {
+        "cholesky": lambda K: torch.linalg.cholesky_ex(K)[0],
+        "cho_solve": lambda L, b: torch.cholesky_solve(b[:, :, None], L)}
+
+    def routed(fns, fn, *args, **kw):
+        """Run ``fn`` with the four wrappers pointed at ``fns``."""
+        for k in names:
+            setattr(lk, k, fns.get(k, real[k]))
+        try:
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+        finally:
+            for k in names:
+                setattr(lk, k, real[k])
+        return out
+
+    def reset_counts():
+        lk.reset_launch_counts()
+        rk.reset_launch_counts()
+        ipm_kernel.reset_launch_count()
+
+    first: dict[str, tuple] = {}
+    n_calls: dict[str, int] = {}
+    # (the G product's first two calls are the initial residuals, at the
+    # warm start: its third, the predictor's G dx, is kept instead)
+    keep_call = {"gmv": 2}
+
+    def keep(name, width):
+        def call(*args):
+            if args[0].shape[0] == width:
+                if n_calls.get(name, 0) == keep_call.get(name, 0):
+                    first[name] = args
+                n_calls[name] = n_calls.get(name, 0) + 1
+            return real[name](*args)
+        return call
+
+    reports = {
+        "cholesky": {"name": "cholesky_large_n", "replaces":
+                     "scp_tpu/ops/pallas_linalg.py:220",
+                     "also_replaces": "scp_tpu/ops/pallas_linalg.py:305"},
+        "cho_solve": {"name": "cho_solve_large_n", "replaces":
+                      "scp_tpu/ops/pallas_linalg.py:241",
+                      "also_replaces": "scp_tpu/ops/pallas_linalg.py:340"}}
+    for r in reports.values():
+        r.update(route="cuda", source="scp_tpu_torch/csrc/linalg.cu")
+
+    # ---- (g) the calibrated one-scenario controller at hp = 64 ----
+    cfg1, data1 = builders.circle(4, dtype=torch.float32, device=dev)
+    cfg1 = config_lib.tuned_f32(cfg1.replace(hp=LONG_HP, hu=LONG_HP))
+    n = 4 * LONG_HP + 1
+    if cfg1.qp_kkt != "auto" or lk.fits_chol_smem(n):
+        fail("path (g) must be tuned_f32 as it stands, past the "
+             "shared-memory factor")
+    reset_counts()
+    _, g_k = routed({k: keep(k, 1) for k in ("cholesky", "cho_solve")},
+                    engine.mpc_step, cfg1, data1,
+                    engine.init_carry(cfg1, data1))
+    step0_counts = dict(lk.launch_counts)
+    others0 = (sum(rk.launch_counts.values()), ipm_kernel.launch_count)
+    for k in ("cholesky", "cho_solve"):
+        if k not in first or first[k][0].shape[-1] != n:
+            fail(f"path (g) made no n = {n} call of {k}")
+    rep_f = check_factor("one_scenario_dense_hp64_step0_B1",
+                         first["cholesky"][0], real["cholesky"],
+                         plain["cholesky"], True)
+    rep_s = check_vector("cho_solve", "one_scenario_dense_hp64_step0_B1",
+                         real["cho_solve"], plain["cho_solve"],
+                         first["cho_solve"], FIRST_ITER_REL_LIMIT)
+    g_args = {k: first[k] for k in ("cholesky", "cho_solve")}
+    _, g_p = routed(plain, engine.mpc_step, cfg1, data1,
+                    engine.init_carry(cfg1, data1))
+    cfg64, data64 = builders.circle(4, dtype=torch.float64, device=dev)
+    cfg64 = config_lib.tuned_f32(cfg64.replace(hp=LONG_HP, hu=LONG_HP))
+    _, g_d = routed(plain, engine.mpc_step, cfg64, data64,
+                    engine.init_carry(cfg64, data64))
+    kp = float(u_pred_diff(g_k, g_p).max())
+    kd = float(u_pred_diff(g_k, g_d).max())
+    pd = float(u_pred_diff(g_p, g_d).max())
+    # path (e) solved the same step's QPs through the banded KKT
+    e_k, e_p, e_d = banded_one
+    ge = float(u_pred_diff(g_k, e_k).max())
+    ge_d = float(u_pred_diff(g_d, e_d).max())
+    e_pd = float(u_pred_diff(e_p, e_d).max())
+    # latency: step i repeated LATENCY_REPS times from the same carry
+    reset_counts()
+    lats, feas = [], []
+    c_i = engine.init_carry(cfg1, data1)
+    for _ in range(LATENCY64_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LATENCY_REPS):
+            engine.mpc_step(cfg1, data1, c_i)
+        torch.cuda.synchronize()
+        lats.append((time.perf_counter() - t0) / LATENCY_REPS * 1e3)
+        c_i, out = engine.mpc_step(cfg1, data1, c_i)
+        finite_outputs(out, "one-scenario dense step at hp = 64")
+        feas.append(float(out.feasible.float().mean()))
+    counts = dict(lk.launch_counts)
+    calls = LATENCY64_STEPS * (LATENCY_REPS + 1)
+    others = (sum(rk.launch_counts.values()), ipm_kernel.launch_count)
+    lats.sort()
+    g_feas = sum(feas) / len(feas)
+    g_rep = {"phase": "one_scenario_dense_hp64", "card": card, "n_veh": 4,
+             "hp": LONG_HP, "n": n, "steps": LATENCY64_STEPS,
+             "config": "tuned_f32 as it stands (qp_kkt=auto: solve_scp -> "
+                       "solve_qp with the dense KKT), 7 fixed IPM iterations",
+             "feasible_share": g_feas, "feasible_floor": SIM_FEASIBLE_FLOOR,
+             "launches_per_step": {k: counts[k] / calls for k in names},
+             "step0_launches": step0_counts,
+             "riccati_and_k1_launches": [others0, others],
+             "latency_reps": LATENCY_REPS,
+             "step_latency_ms_p50": lats[len(lats) // 2],
+             "step_latency_ms_p90": lats[min(len(lats) - 1,
+                                             int(0.90 * len(lats)))],
+             "step_latency_ms_max": lats[-1],
+             "step_latency_ms_min": lats[0],
+             "step0_vs_plain_u_pred_max_abs": kp,
+             "step0_vs_f64_u_pred_max_abs": kd,
+             "step0_plain_vs_f64_u_pred_max_abs": pd,
+             "step0_same_scp_iters": bool((g_k.scp_iters
+                                           == g_p.scp_iters).all()),
+             "step0_u_pred_limit": UPRED_ABS_LIMIT,
+             "step0_vs_banded_path_e_u_pred_max_abs": ge,
+             "step0_f64_vs_banded_f64_u_pred_max_abs": ge_d,
+             "step0_banded_plain_vs_f64_u_pred_max_abs": e_pd,
+             "vs_banded_limit": "2 x (dense + banded plain float32 "
+                                "distances from float64) + u_pred limit"}
+    emit(g_rep)
+    if min(step0_counts["cholesky"], step0_counts["cho_solve"],
+           counts["cholesky"], counts["cho_solve"]) == 0:
+        fail(f"path (g) did not launch the factor and the solve: "
+             f"{step0_counts}, {counts}")
+    if max(others0 + others) != 0:
+        fail(f"path (g) launched the Riccati sweeps or K1: {others0}, "
+             f"{others}")
+    if g_feas < SIM_FEASIBLE_FLOOR:
+        fail(f"path (g): feasible share {g_feas} below {SIM_FEASIBLE_FLOOR}")
+    if kp > UPRED_ABS_LIMIT or kd > 2 * pd + UPRED_ABS_LIMIT \
+            or bool((g_k.feasible != g_p.feasible).any()):
+        fail(f"path (g) step 0, kernels vs plain: {g_rep}")
+    if ge > 2 * (pd + e_pd) + UPRED_ABS_LIMIT:
+        fail(f"path (g) step 0 against the banded path (e): {ge}, limit "
+             f"{2 * (pd + e_pd) + UPRED_ABS_LIMIT}")
+    for k in ("cholesky", "cho_solve"):
+        reports[k]["launches"] = counts[k]
+        reports[k]["launches_per_step_path_g"] = counts[k] / calls
+    reports["cholesky"]["max_abs_err"] = rep_f["kernel_vs_plain_max_abs"]
+    reports["cho_solve"]["max_abs_err"] = rep_s["kernel_vs_plain_max_abs"]
+
+    # ---- (h) one QP of the adaptive dense branch, hp = 64, B = 256 ----
+    args, kw = qp_call
+    gi, gj, gob = kw["g_slabs"]
+    pb = kw["p_blocks"]
+    V, B, dtype = pb.shape[1], pb.shape[0], pb.dtype
+    rows = con.scatter_slabs(V, gi, gj, gob, dtype)
+    G = torch.cat([rows, torch.full((B, rows.shape[1], 1), -1.0,
+                                    dtype=dtype, device=dev)], 2)
+    h_kw = {**kw, "fixed_iters": None, "kkt": "dense", "banded": None,
+            **adaptive_qp}
+    h_args = (args[0], args[1], G.contiguous(), *args[3:])
+
+    def one_qp(*a, **k):
+        return qp.solve_qp_batched(*a, **k)
+
+    first.clear()
+    n_calls.clear()
+    reset_counts()
+    sol_k = routed({k: keep(k, B) for k in names}, one_qp, *h_args, **h_kw)
+    h_counts = dict(lk.launch_counts)
+    for k in names:
+        if k not in first:
+            fail(f"path (h) made no full-width call of {k}")
+    if first["cholesky"][0].shape[-1] != n or G.shape[1:] != (
+            first["gtmv"][0].shape[1], n):
+        fail("path (h) is not at the long-horizon shape")
+    sol_p = routed(plain, one_qp, *h_args, **h_kw)
+
+    def f64(t):
+        return t.double() if torch.is_tensor(t) and t.is_floating_point() \
+            else t
+    sol_d = routed(plain, one_qp, *[f64(a) for a in h_args],
+                   **{k: (tuple(f64(t) for t in v) if k == "g_slabs"
+                          else f64(v)) for k, v in h_kw.items()})
+    nu = n - 1
+
+    def du(a, b):
+        return (a.x[:, :nu].double() - b.x[:, :nu].double()).abs().amax(1)
+
+    h_kp, h_kd, h_pd = du(sol_k, sol_p), du(sol_k, sol_d), du(sol_p, sol_d)
+    # At n = 257 float32 does not solve these QPs to within UPRED_ABS_LIMIT
+    # of float64, and a perturbation of the inputs in their last bit moves
+    # the plain solution by as much as the kernel does, so the QP is held as
+    # K2's whole launches are (run_yardstick, RUN_LIMITS):
+    # converged flags, the controls' median against the draws', and the
+    # float64 distance at the 99th percentile and at most.
+    y = run_yardstick(
+        lambda gen: routed(plain, one_qp, *[_perturb(a, gen) for a in h_args],
+                           **{k: _perturb(v, gen) for k, v in h_kw.items()}),
+        lambda sol: sol.x[:, :nu], lambda sol: sol.converged, sol_p, sol_d,
+        "converged")
+    h_rep = {"phase": "adaptive_dense_qp_hp64", "card": card, "B": B,
+             "n": n, "mg": G.shape[1],
+             "config": "the long-horizon path's first QP, solve_qp_batched("
+                       "fixed_iters=None, kkt='dense'), qp_max_iter %d, "
+                       "qp_tol %g" % (adaptive_qp["max_iter"],
+                                      adaptive_qp["tol"]),
+             "launches_per_qp": h_counts,
+             "ipm_iterations_max": int(sol_k.iters.max()),
+             "ipm_iterations_mean": float(sol_k.iters.float().mean()),
+             "converged_share": float(sol_k.converged.float().mean()),
+             "converged_share_plain": float(sol_p.converged.float().mean()),
+             "converged_share_f64": float(sol_d.converged.float().mean()),
+             "converged_differ": int(
+                 (sol_k.converged != sol_p.converged).sum()),
+             "finite": all(bool(torch.isfinite(t).all())
+                           for t in (sol_k.x, sol_k.z)),
+             "u_kernel_vs_plain_median": float(h_kp.median()),
+             "u_kernel_vs_plain_p99": _q99(h_kp),
+             "u_kernel_vs_plain_max": float(h_kp.max()),
+             "u_kernel_vs_f64_p99": _q99(h_kd),
+             "u_kernel_vs_f64_max": float(h_kd.max()),
+             "u_plain_vs_f64_p99": _q99(h_pd),
+             "u_plain_vs_f64_max": float(h_pd.max()), **y,
+             "limits": RUN_LIMITS}
+    emit(h_rep)
+    if min(h_counts.values()) == 0:
+        fail(f"path (h) did not launch every kernel: {h_counts}")
+    if run_off_limits(h_rep, "converged"):
+        fail(f"path (h), kernels vs plain: {h_rep}")
+    # the kernels on the path's own first-iteration inputs at B = 256
+    check_factor("adaptive_dense_hp64_first_iteration_B256",
+                 first["cholesky"][0], real["cholesky"], plain["cholesky"],
+                 True)
+    check_vector("cho_solve", "adaptive_dense_hp64_first_iteration_B256",
+                 real["cho_solve"], plain["cho_solve"], first["cho_solve"],
+                 FIRST_ITER_REL_LIMIT)
+    for k in ("gmv", "gtmv"):
+        check_vector(k, "adaptive_dense_hp64_first_iteration_B256", real[k],
+                     plain[k], first[k], MATVEC_REL_LIMIT)
+    check_repeatable("gtmv", "adaptive_dense_hp64_first_iteration_B256",
+                     real["gtmv"], first["gtmv"])
+
+    # ---- times (n = 257: path (h)'s B = 256, path (g)'s B = 1) ----
+    times = {"phase": "large_n_times", "card": card, "cells": {}}
+    for k in ("cholesky", "cho_solve"):
+        cells = {w: large_n_times(k, a, real[k], plain[k], library[k], n)
+                 for w, a in (("256", first[k]), ("1", g_args[k]))}
+        times["cells"][k] = cells
+        reports[k].update({key: cells["256"].get(key) for key in (
+            "ms", "cold_ms", "plain_ms", "library_ms", "library_cold_ms",
+            "bound_ms", "bound_by")})
+        reports[k]["B"], reports[k]["n"] = B, n
+        reports[k]["ms_B1"] = cells["1"]["ms"]
+    # the bounds of every large-n case timed by scripts/torch_kernel_check.py
+    # --times k3k4large (n = 240 / 257 / 400 at B = 1024 / 256 / 1)
+    times["bounds_ms"] = {f"{k}_n{nn}_B{w}": linalg_bound_ms(k, w, nn)
+                          for k in ("cholesky", "cho_solve")
+                          for nn in (240, 257, 400) for w in (1024, 256, 1)}
+    times["bounds_ms"]["gtmv_m384_n257_B256"] = linalg_bound_ms(
+        "gtmv", B, n, G.shape[1])
+    emit(times)
+    reset_counts()
+    return [reports["cholesky"], reports["cho_solve"]]
 
 
 def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
@@ -1498,6 +1957,8 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
     cfg, data = batch_lib.make_batch("circle", LONG_B, generator=gen,
                                      dtype=torch.float32, device=dev,
                                      n_veh=4)
+    # (the DEFAULT adaptive IPM's settings, for path (h) below)
+    adaptive_qp = dict(max_iter=cfg.qp_max_iter, tol=cfg.qp_tol)
     cfg = config_lib.tuned_f32(cfg.replace(hp=LONG_HP, hu=LONG_HP))
     carry0 = engine.init_carry(cfg, data)
 
@@ -1505,9 +1966,24 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
         return engine.mpc_step_batch(cfg, data, c, phases=phases)
 
     # a first step with the first full-width factor / solve kept (the first
-    # IPM iteration of the first QP); it doubles as the warm-up
-    _, out_first = routed(ric, {k: capture(k, LONG_B) for k in ric}, step,
-                          carry0)
+    # IPM iteration of the first QP) and the first full-width QP's operands
+    # (path (h) below); it doubles as the warm-up
+    qp_first: list = []
+    real_qp = qp.solve_qp_batched
+
+    def qp_spy(*args, **kw):
+        if not qp_first and args[1].shape[0] == LONG_B:
+            qp_first.append((args, kw))
+        return real_qp(*args, **kw)
+
+    qp.solve_qp_batched = qp_spy
+    try:
+        _, out_first = routed(ric, {k: capture(k, LONG_B) for k in ric},
+                              step, carry0)
+    finally:
+        qp.solve_qp_batched = real_qp
+    if not qp_first:
+        fail("the long-horizon path made no full-width QP call")
     for k in ric:
         if k not in captured:
             fail(f"the long-horizon path made no full-width call of {k}")
@@ -1648,6 +2124,10 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
     if one_kp > UPRED_ABS_LIMIT or one_kd > 2 * one_pd + UPRED_ABS_LIMIT \
             or bool((one_k.feasible != one_p.feasible).any()):
         fail(f"one-scenario banded step 0, kernels vs plain: {one_rep}")
+
+    # ---- paths (g) and (h): the dense KKT at hp = 64 (n = 257) ----
+    dense64_reports = dense_hp64_phases(dev, card, qp_first[0], adaptive_qp,
+                                        (one_k, one_p, one_d))
 
     # ---- the Riccati kernels against their plain versions ----
     ric_err = {}
@@ -1949,7 +2429,7 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
     emit(times)
     reset_counts()
     return [reports[k] for k in ("riccati_factor", "riccati_solve",
-                                 "ipm_iterate_dense")]
+                                 "ipm_iterate_dense")] + dense64_reports
 
 
 def main() -> None:

@@ -4,7 +4,10 @@
 //   chol_blocked_kernel       K (B,n,n) -> L (B,n,n), lower Cholesky factor
 //   cho_solve_batched_kernel  L (B,n,n), b (B,n) -> x (B,n), (L L^T) x = b
 //   gmv_staged_kernel         G (B,m,n), x (B,n) -> out (B,m), out_b = G_b x_b
-//   gtmv_batched_kernel       G (B,m,n), v (B,m) -> out (B,n), out_b = G_b^T v_b
+//   gtmv_cluster_kernel       G (B,m,n), v (B,m) -> out (B,n),
+//                             out_b = G_b^T v_b
+//   chol_large_kernel, cho_solve_large_kernel: the factor and the solve for
+//                             n >= 240, the matrix in device memory
 //
 // They replace, in scp_tpu/ops/pallas_linalg.py: cholesky_lane and
 // _batched_cholesky_impl (_cholesky_panel_kernel), cho_solve_lane and
@@ -54,6 +57,41 @@
 // several tiles measured slower than a CTA per tile. The device-memory
 // traffic is G, x and out once each (x once per tile, from L2): the
 // bound's count.
+//
+// K5b, G^T v: the CTA-per-instance kernel it replaced (a thread per column,
+// 32-wide column strips, an 8-way shared-memory reduction per strip) kept
+// one 4-byte load in flight per thread, idled 15 of 32 lanes in the last
+// strip at n = 81 and ran 1.16x slower than torch.bmm with a cold L2 at
+// B = 1024. Here it is K5a's transpose: an instance's rows are cut into
+// `tiles` row ranges (at most 8), one CTA each, and each CTA stages its
+// rows a chunk at a time with ONE bulk copy per chunk (whole rows: the
+// chunk is one contiguous span of G; a row wider than a stage in runs of
+// columns, as K5a) through a ring of two stages, the next chunk's copy in
+// flight while this one is summed. The CTA's threads form `groups` =
+// 256 / cols row groups, so that no lane idles at n = 81 (three groups of
+// 81 columns); thread (g, c) sums rows g, g + groups, ... of column c from
+// shared memory (row-major, conflict-free) into its own partial. An instance's
+// CTAs are one thread block cluster: after a cluster barrier each column
+// is summed over the CTAs' partials in rank order through distributed
+// shared memory (a column per thread, the columns dealt over the
+// cluster's CTAs), so the sum's order is fixed and the result is
+// bit-identical run to run (no atomics, no second launch). The kernel is
+// bound by latency, not by bytes: each chunk a CTA waits on, and a second
+// wave of CTAs, costs about a copy's latency, so the geometry
+// (ops/linalg_kernel.py::gtmv_geometry) keeps the grid to one wave and a
+// CTA's rows in as few chunks as that allows.
+//
+// K3 / K4 for n >= 240 (chol_large_kernel, cho_solve_large_kernel): one
+// instance's n x n matrix no longer fits a block's shared memory, so the
+// factor works in place in its output L in device memory (the lower
+// triangle of K copied in first, zeros above), through the same blocked
+// factor of chol_blocked.cuh at leading dimension n: the panel rows, the
+// diagonal blocks and the trailing tiles are read and written through the
+// L1 / L2 caches, and only 1 / diag and the flag stay in shared memory.
+// The solve reads L from device memory the same way, with 1 / diag and
+// the right-hand side in shared memory. Neither changes the shared-memory
+// kernels above, which every n < 240 still takes.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -87,8 +125,12 @@ __device__ long long g_chol_t0;  // block 0, thread 0 only
 
 namespace {
 
-constexpr int kMvThreads = 256;
+namespace cg = cooperative_groups;
+
 constexpr int kGmvThreads = 128;
+constexpr int kGtmvThreads = 256;
+constexpr int kGtmvMaxCluster = 8;  // the portable cluster size
+constexpr int kLargeThreads = 256;
 
 __host__ __device__ inline int odd_ld(int n) { return n | 1; }
 
@@ -296,32 +338,138 @@ gmv_staged_kernel(const float* __restrict__ G, const float* __restrict__ x,
     out[(size_t)inst * m + r_first + r] = ys[r];
 }
 
-// One CTA per instance: thread (ty, tx) walks rows ty, ty+8, ... of column
-// c0 + tx (a warp reads 32 neighbouring floats of one row), the eight row
-// groups are summed through shared memory.
-__global__ void __launch_bounds__(kMvThreads)
-gtmv_batched_kernel(const float* __restrict__ G, const float* __restrict__ v,
-                    float* __restrict__ out, int m, int n) {
-  __shared__ float red[kMvThreads / 32][33];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  constexpr int groups = kMvThreads / 32;
-  const float* g = G + (size_t)blockIdx.x * m * n;
-  const float* vv = v + (size_t)blockIdx.x * m;
-  for (int c0 = 0; c0 < n; c0 += 32) {
-    const int c = c0 + tx;
-    float acc = 0.0f;
-    if (c < n)
-      for (int i = ty; i < m; i += groups) acc += g[(size_t)i * n + c] * vv[i];
-    red[ty][tx] = acc;
-    __syncthreads();
-    if (ty == 0 && c < n) {
-      float s = red[0][tx];
-#pragma unroll
-      for (int k = 1; k < groups; ++k) s += red[k][tx];
-      out[(size_t)blockIdx.x * n + c] = s;
-    }
-    __syncthreads();
+// One CTA per row range (`rows` rows) of one instance; the `tiles` CTAs of
+// an instance are one cluster (grid = B * tiles, cluster = tiles along x,
+// so a CTA's rank is blockIdx.x % tiles). The range is staged `chunk` rows
+// at a time (whole rows: cols = n), or, for a row wider than a stage, a
+// row at a time in runs of `cols` columns, through a ring of two stages:
+// the next chunk's copy is in flight while this one is summed. Shared
+// memory: two mbarriers (16 bytes), two stages (`buf_floats` each, at
+// least chunk * cols + 3), two chunks of v entries and the partial sums
+// (groups * cols, groups = 256 / cols or 1). Thread 0 starts each copy
+// first, so that v's loads and the edges overlap it.
+__global__ void __launch_bounds__(kGtmvThreads)
+gtmv_cluster_kernel(const float* __restrict__ G, const float* __restrict__ v,
+                    float* __restrict__ out, int m, int n, int rows,
+                    int chunk, int cols, int tiles, int buf_floats) {
+  extern __shared__ __align__(16) unsigned char gtmv_smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(gtmv_smem);
+  float* buf = reinterpret_cast<float*>(gtmv_smem + 16);
+  float* vs = buf + 2 * buf_floats;
+  float* part = vs + 2 * chunk;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const long long inst = blockIdx.x / tiles;
+  const int rank = (int)(blockIdx.x - inst * tiles);
+  const int r_first = rank * rows;
+  const int my_rows = min(m, r_first + rows) - r_first;
+  const int n_chunks = (my_rows + chunk - 1) / chunk;
+  const float* g0 = G + ((size_t)inst * m + r_first) * n;
+  const float* v0 = v + (size_t)inst * m + r_first;
+  if (tid == 0) {
+    mbar_init(bar);
+    mbar_init(bar + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  unsigned q = 0;  // stages issued before this run of columns
+  for (int c0 = 0; c0 < n; c0 += cols) {
+    const int w = min(cols, n - c0);
+    const int groups = max(1, kGtmvThreads / w);
+    const int gw = kGtmvThreads / groups;   // threads of a row group
+    const int g = tid / gw, j = tid - g * gw;
+    for (int e = tid; e < groups * w; e += kGtmvThreads) part[e] = 0.0f;
+    // chunk k of this run goes to stage (q + k) & 1, that stage's
+    // ((q + k) >> 1)-th use
+    auto issue = [&](int k) {
+      const int s = (q + k) & 1, r0 = k * chunk;
+      const int nr = min(chunk, my_rows - r0);
+      const float* src = g0 + (size_t)r0 * n + c0;
+      float* dst = buf + s * buf_floats;
+      if (tid == 0) stage_copy(src, nr * w, dst, bar + s);  // nr = 1 if
+      for (int r = tid; r < nr; r += kGtmvThreads)                    // w < n
+        vs[s * chunk + r] = v0[r0 + r];
+      stage_edges(src, nr * w, dst);
+    };
+    issue(0);
+    for (int k = 0; k < n_chunks; ++k) {
+      if (k + 1 < n_chunks) issue(k + 1);  // its stage was freed below
+      __syncthreads();
+      const int s = (q + k) & 1, nr = min(chunk, my_rows - k * chunk);
+      mbar_wait(bar + s, ((q + k) >> 1) & 1);
+      const float* src = g0 + (size_t)k * chunk * n + c0;
+      const float* tb = buf + s * buf_floats + ((uintptr_t)src >> 2 & 3);
+      const float* vk = vs + s * chunk;
+      if (g < groups)
+        for (int c = j; c < w; c += gw) {
+          float acc = 0.0f;
+          for (int r = g; r < nr; r += groups) acc += tb[r * w + c] * vk[r];
+          part[g * w + c] += acc;
+        }
+      // the stage's next copy (async proxy) follows this one's generic
+      // reads and edge stores
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
+    q += n_chunks;
+    // the row groups' partials, in group order
+    for (int c = tid; c < w; c += kGtmvThreads) {
+      float s = part[c];
+      for (int k = 1; k < groups; ++k) s += part[k * w + c];
+      part[c] = s;
+    }
+    cluster.sync();
+    // each column over the cluster's CTAs, in rank order
+    for (int c = rank * kGtmvThreads + tid; c < w; c += tiles * kGtmvThreads) {
+      float s = 0.0f;
+      for (int k = 0; k < tiles; ++k)
+        s += cluster.map_shared_rank(part, k)[c];
+      out[(size_t)inst * n + c0 + c] = s;
+    }
+    cluster.sync();  // no CTA reuses or leaves its partials before they
+  }                  // are read
+}
+
+// K3 for n >= 240: one CTA per instance, the factor in place in L (device
+// memory, leading dimension n). Shared memory: 1 / diag (n) and the flag.
+template <int NT>
+__global__ void __launch_bounds__(NT, 2048 / NT / 2)
+chol_large_kernel(const float* __restrict__ K, float* __restrict__ L,
+                  int n) {
+  extern __shared__ float smem[];
+  float* dinv = smem;
+  int* bad = reinterpret_cast<int*>(dinv + n);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t base = (size_t)blockIdx.x * n * n;
+  float* A = L + base;
+  const float* Kb = K + base;
+  if (tid == 0) *bad = 0;
+  for (int r = warp; r < n; r += NT / 32)   // a row per warp
+    for (int c = lane; c < n; c += 32)
+      A[r * n + c] = c <= r ? Kb[r * n + c] : 0.0f;
+  scpk::chol_blocked_smem<NT>(A, n, n, dinv, bad);
+  if (*bad != 0)
+    for (int r = warp; r < n; r += NT / 32)
+      for (int c = lane; c < n; c += 32) A[r * n + c] = CUDART_NAN_F;
+}
+
+// K4 for n >= 240: one CTA per instance, L read from device memory.
+// Shared memory: 1 / diag (n) and the right-hand side (n).
+template <int NT>
+__global__ void __launch_bounds__(NT, 2048 / NT / 2)
+cho_solve_large_kernel(const float* __restrict__ L,
+                       const float* __restrict__ b, float* __restrict__ x,
+                       int n) {
+  extern __shared__ float smem[];
+  float* dinv = smem;
+  float* y = dinv + n;
+  const int tid = threadIdx.x;
+  const float* A = L + (size_t)blockIdx.x * n * n;
+  for (int i = tid; i < n; i += NT) {
+    dinv[i] = 1.0f / A[(size_t)i * n + i];
+    y[i] = b[(size_t)blockIdx.x * n + i];
+  }
+  scpk::chol_blocked_solve_smem<NT>(A, n, n, dinv, y);
+  for (int i = tid; i < n; i += NT) x[(size_t)blockIdx.x * n + i] = y[i];
 }
 
 int gmv_smem_granted[scpk::kMaxDevices];
@@ -407,10 +555,77 @@ int gmv_batched_launch(const float* G, const float* x, float* out, int B,
   return (int)cudaGetLastError();
 }
 
+// K5b: gtmv_cluster_kernel, `tiles` CTAs (one cluster) per instance, each
+// `rows` rows staged `chunk` rows (cols = n) or one row of `cols` columns
+// (cols < n) at a time.
 int gtmv_batched_launch(const float* G, const float* v, float* out, int B,
-                        int m, int n, void* stream) {
-  gtmv_batched_kernel<<<B, kMvThreads, 0, (cudaStream_t)stream>>>(G, v, out,
-                                                                   m, n);
+                        int m, int n, int tiles, int rows, int chunk,
+                        int cols, long smem_bytes, void* stream) {
+  if (tiles < 1 || tiles > kGtmvMaxCluster || rows < 1
+      || (long)tiles * rows < m || (long)(tiles - 1) * rows >= m
+      || chunk < 1 || chunk > rows || cols < 1 || cols > n
+      || (cols < n && chunk != 1))
+    return -1;
+  const long buf_floats = ((long)chunk * cols + 3 + 3) / 4 * 4;
+  const long groups = cols < kGtmvThreads ? kGtmvThreads / cols : 1;
+  if (smem_bytes != 16 + (long)sizeof(float) * (2 * buf_floats + 2 * chunk
+                                                 + groups * cols))
+    return -1;
+  const long long grid = (long long)B * tiles;
+  if (grid > 0x7fffffffLL) return -1;
+  static int granted[scpk::kMaxDevices];
+  cudaError_t err = scpk::ensure_dyn_smem(gtmv_cluster_kernel, granted,
+                                          smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(kGtmvThreads);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)tiles;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, gtmv_cluster_kernel, G, v, out, m, n, rows,
+                           chunk, cols, tiles, (int)buf_floats);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// K3 for n >= 240: chol_large_kernel, one instance per CTA.
+int chol_large_launch(const float* K, float* L, int B, int n, int threads,
+                      long smem_bytes, void* stream) {
+  if (threads != kLargeThreads
+      || smem_bytes != (long)sizeof(float) * (n + 1)
+      || (long long)n * n > 0x7fffffffLL)
+    return -1;
+  static int granted[scpk::kMaxDevices];
+  cudaError_t err = scpk::ensure_dyn_smem(chol_large_kernel<kLargeThreads>,
+                                          granted, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  chol_large_kernel<kLargeThreads><<<B, kLargeThreads, smem_bytes,
+                                     (cudaStream_t)stream>>>(K, L, n);
+  return (int)cudaGetLastError();
+}
+
+// K4 for n >= 240: cho_solve_large_kernel, one instance per CTA.
+int cho_solve_large_launch(const float* L, const float* b, float* x, int B,
+                           int n, int threads, long smem_bytes,
+                           void* stream) {
+  if (threads != kLargeThreads
+      || smem_bytes != (long)sizeof(float) * 2 * n
+      || (long long)n * n > 0x7fffffffLL)
+    return -1;
+  static int granted[scpk::kMaxDevices];
+  cudaError_t err = scpk::ensure_dyn_smem(
+      cho_solve_large_kernel<kLargeThreads>, granted, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cho_solve_large_kernel<kLargeThreads>
+      <<<B, kLargeThreads, smem_bytes, (cudaStream_t)stream>>>(L, b, x,
+                                                                    n);
   return (int)cudaGetLastError();
 }
 

@@ -15,11 +15,20 @@ layout, so each TPU pair (lane API and ``vmap`` front) is ONE kernel here.
   ``G (B, m, n), v (B, m) -> (B, n)``.
 
 Launch geometry is decided here and checked by the launchers
-(:func:`chol_geometry`, :func:`solve_geometry`, :func:`gmv_geometry`): the
-factor and the solve run one CTA per instance on panels / blocks of
-:data:`CHOL_PANEL` columns (``csrc/chol_blocked.cuh``); the G product
-stages row tiles of at most :data:`GMV_STAGE_BYTES` in shared memory, one
-CTA each (a row wider than that in runs of columns).
+(:func:`chol_geometry`, :func:`solve_geometry`, :func:`gmv_geometry`,
+:func:`gtmv_geometry`). The factor and the solve run one CTA per instance
+on panels / blocks of :data:`CHOL_PANEL` columns (``csrc/chol_blocked.cuh``):
+while one instance's matrix fits a block's shared memory
+(:func:`fits_chol_smem`, n < 240) it is held there; from n = 240 (hp = 64
+with 4 vehicles is n = 257) the factor works in place in its output in
+device memory and the solve reads the factor from there, with only the
+vectors in shared memory, so every n a 32-bit index reaches within one
+instance is taken (n <= 46,340 for the factor; n <= 29,056 for the solve,
+whose two vectors must fit shared memory). The G product stages row tiles
+of at most :data:`GMV_STAGE_BYTES` in shared memory, one CTA each (a row
+wider than that in runs of columns); G^T v stages an instance's rows the
+same way over a thread block cluster of at most :data:`GTMV_MAX_CLUSTER`
+CTAs, whose partial column sums are added in a fixed order.
 
 Type rule: float32 CUDA tensors (contiguous) always go to the hand-written
 kernel; a failing build, load or launch raises. float64 CUDA tensors are
@@ -55,6 +64,26 @@ SOLVE_FEW_THREADS = 256
 # one warp's share).
 GMV_STAGE_BYTES = 32 * 1024
 GMV_MIN_CTAS = 1056
+# G^T v (gtmv_cluster_kernel, GTMV_THREADS threads a CTA): an instance's
+# rows are cut into at most GTMV_MAX_CLUSTER row ranges (the portable
+# cluster size), one CTA each, until the grid has GTMV_CTAS_PER_SM CTAs for
+# each SM of the card; a CTA stages its rows through a ring of two stages
+# of at most GTMV_STAGE_BYTES each (a row wider than that in runs of
+# columns), in as few chunks as keep the whole grid resident at once on
+# the card's SMs (their count, threads and shared memory read from the
+# device, 1 KB of the latter reserved per CTA). Measured (PERF.md): a
+# second wave of CTAs, or more chunks than that, each cost about a copy's
+# latency.
+GTMV_STAGE_BYTES = 32 * 1024
+GTMV_CTAS_PER_SM = 2
+GTMV_MAX_CLUSTER = 8
+GTMV_THREADS = 256
+CTA_RESERVED_SMEM = 1024
+# The factor and the solve from n = 240 (chol_large_kernel,
+# cho_solve_large_kernel): one CTA of LARGE_THREADS threads per instance.
+LARGE_THREADS = 256
+# Within one instance the kernels index with 32-bit integers.
+MAX_INDEX = 2 ** 31 - 1
 
 # Launches of each CUDA kernel since the last reset (incremented where the
 # kernel is launched and nowhere else).
@@ -65,7 +94,10 @@ _ARGTYPES = {
     "chol_batched_launch": [_P, _P, _I, _I, _I, _L, _P],
     "cho_solve_batched_launch": [_P, _P, _P, _I, _I, _I, _L, _P],
     "gmv_batched_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
-    "gtmv_batched_launch": [_P, _P, _P, _I, _I, _I, _P],
+    "gtmv_batched_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L,
+                            _P],
+    "chol_large_launch": [_P, _P, _I, _I, _I, _L, _P],
+    "cho_solve_large_launch": [_P, _P, _P, _I, _I, _I, _L, _P],
 }
 
 
@@ -86,16 +118,47 @@ def solve_smem_bytes(n: int) -> int:
     return 4 * (n * (n | 1) + 2 * n)
 
 
+def chol_large_smem_bytes(n: int) -> int:
+    """Dynamic shared memory of the factor from n = 240: ``1 / diag`` and a
+    flag (the matrix stays in device memory)."""
+    return 4 * (n + 1)
+
+
+def solve_large_smem_bytes(n: int) -> int:
+    """Dynamic shared memory of the solve from n = 240: ``1 / diag`` and
+    the right-hand side (the factor is read from device memory)."""
+    return 4 * 2 * n
+
+
+def _check_large(n: int, smem: int) -> None:
+    if n * n > MAX_INDEX:
+        raise ValueError(f"n={n}: one instance's {n * n} entries need "
+                         f"64-bit indices")
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"n={n}: the vectors need {smem} bytes of shared "
+                         f"memory (limit {SMEM_LIMIT_BYTES})")
+
+
 def chol_geometry(B: int, n: int) -> tuple[int, int]:
-    """``(threads, shared-memory bytes per CTA)`` of the factor kernel, which
-    runs one CTA per instance."""
+    """``(threads, shared-memory bytes per CTA)`` of the factor, which runs
+    one CTA per instance: the matrix in shared memory while
+    :func:`fits_chol_smem`, else in device memory."""
+    if not fits_chol_smem(n):
+        smem = chol_large_smem_bytes(n)
+        _check_large(n, smem)
+        return LARGE_THREADS, smem
     threads = CHOL_FEW_THREADS if B <= CHOL_FEW_INSTANCES else 128
     return threads, chol_smem_bytes(n)
 
 
 def solve_geometry(B: int, n: int) -> tuple[int, int]:
-    """``(threads, shared-memory bytes per CTA)`` of the solve kernel,
-    which runs one CTA per instance."""
+    """``(threads, shared-memory bytes per CTA)`` of the solve, which runs
+    one CTA per instance: the factor in shared memory while
+    :func:`fits_chol_smem`, else read from device memory."""
+    if not fits_chol_smem(n):
+        smem = solve_large_smem_bytes(n)
+        _check_large(n, smem)
+        return LARGE_THREADS, smem
     threads = SOLVE_FEW_THREADS if B <= SOLVE_FEW_INSTANCES else 128
     return threads, solve_smem_bytes(n)
 
@@ -126,26 +189,58 @@ def gmv_geometry(B: int, m: int, n: int) -> tuple[int, int, int]:
     return rows, cols, gmv_smem_bytes(cols, rows)
 
 
+def gtmv_smem_bytes(chunk: int, cols: int) -> int:
+    """Shared memory of G^T v: two mbarriers, two stages of ``chunk`` x
+    ``cols`` with up to three floats of alignment, two chunks of v entries
+    and the row groups' partial sums (``GTMV_THREADS // cols`` groups, or
+    one)."""
+    groups = max(1, GTMV_THREADS // cols)
+    return 16 + 4 * (2 * _round4(chunk * cols + 3) + 2 * chunk
+                     + groups * cols)
+
+
+def sm_resources(device) -> tuple[int, int, int]:
+    """``(SMs, threads per SM, shared-memory bytes per SM)`` of a CUDA
+    device, as :func:`gtmv_geometry` takes them."""
+    p = torch.cuda.get_device_properties(device)
+    return (p.multi_processor_count, p.max_threads_per_multi_processor,
+            p.shared_memory_per_multiprocessor)
+
+
+def gtmv_geometry(B: int, m: int, n: int, sms: int, sm_threads: int,
+                  sm_smem: int) -> tuple[int, int, int, int, int]:
+    """``(tiles, rows, chunk, cols, shared-memory bytes per CTA)`` of G^T v
+    on a card of ``sms`` SMs of ``sm_threads`` threads and ``sm_smem``
+    bytes of shared memory each (:func:`sm_resources`): ``tiles`` CTAs per
+    instance (one cluster), each taking ``rows`` consecutive rows (the last
+    fewer), staged ``chunk`` whole rows at a time (``cols = n``), or, for a
+    row wider than a stage, one row at a time in runs of ``cols``
+    columns."""
+    stage = GTMV_STAGE_BYTES // 4 - 3
+    cols = min(n, stage)
+    tiles = max(1, min(GTMV_MAX_CLUSTER, -(-GTMV_CTAS_PER_SM * sms // B), m))
+    rows = -(-m // tiles)
+    tiles = -(-m // rows)                    # no CTA without rows
+    if cols < n:
+        return tiles, rows, 1, cols, gtmv_smem_bytes(1, cols)
+    # CTAs each SM must hold for one wave (at most what its threads allow)
+    per_sm = min(sm_threads // GTMV_THREADS, -(-B * tiles // sms))
+    k = -(-rows // min(rows, max(1, stage // n)))
+    while True:                              # chunks of (nearly) equal rows
+        chunk = -(-rows // k)
+        smem = gtmv_smem_bytes(chunk, cols)
+        if chunk == 1 or sm_smem // (smem + CTA_RESERVED_SMEM) >= per_sm:
+            return tiles, rows, chunk, cols, smem
+        k += 1
+
+
 def fits_chol_smem(n: int) -> bool:
-    """Whether one instance's n x n matrix fits the factor and solve
-    kernels' shared memory (n < 240)."""
+    """Whether one instance's n x n matrix fits the shared-memory factor
+    and solve kernels (n < 240). Past it the factor and the solve keep the
+    matrix in device memory; ``solve_qp_batched(kkt="auto")`` routes on
+    this predicate (to the banded KKT past it, where a stage statement is
+    given)."""
     return max(chol_smem_bytes(n), solve_smem_bytes(n)) <= SMEM_LIMIT_BYTES
-
-
-def check_chol_smem_gate(n: int) -> int:
-    """The dense factor / solve kernels hold one instance's matrix in a
-    block's shared memory; a matrix beyond it (n >= 240, e.g. hp = 64 with 4
-    vehicles, n = 257) is refused: ``kkt="auto"`` with a banded stage
-    statement takes the banded KKT path there."""
-    need = max(chol_smem_bytes(n), solve_smem_bytes(n))
-    if need > SMEM_LIMIT_BYTES:
-        raise NotImplementedError(
-            f"the dense Cholesky kernels need {need} bytes of shared memory "
-            f"per instance at n={n} (limit {SMEM_LIMIT_BYTES}): a dense "
-            f"alternative to the banded KKT path not ported yet at this "
-            f"size (kkt='auto' with a stage statement takes the banded "
-            f"path)")
-    return need
 
 
 def _launch(name, symbol, first, *args):
@@ -158,10 +253,12 @@ def cholesky(K: torch.Tensor) -> torch.Tensor:
     B, n = K.shape[0], K.shape[-1]
     if not _cuda_build.check_operands("cholesky", [(K, (B, n, n))]):
         return linalg.cholesky_plain(K)
-    check_chol_smem_gate(n)
+    symbol = ("chol_batched_launch" if fits_chol_smem(n)
+              else "chol_large_launch")
+    geometry = chol_geometry(B, n)
     L = torch.empty_like(K)
-    _launch("cholesky", "chol_batched_launch", K, K.data_ptr(), L.data_ptr(),
-            B, n, *chol_geometry(B, n))
+    _launch("cholesky", symbol, K, K.data_ptr(), L.data_ptr(), B, n,
+            *geometry)
     return L
 
 
@@ -171,10 +268,12 @@ def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not _cuda_build.check_operands("cho_solve",
                                       [(L, (B, n, n)), (b, (B, n))]):
         return linalg.cho_solve_plain(L, b)
-    check_chol_smem_gate(n)
+    symbol = ("cho_solve_batched_launch" if fits_chol_smem(n)
+              else "cho_solve_large_launch")
+    geometry = solve_geometry(B, n)
     x = torch.empty_like(b)
-    _launch("cho_solve", "cho_solve_batched_launch", L, L.data_ptr(),
-            b.data_ptr(), x.data_ptr(), B, n, *solve_geometry(B, n))
+    _launch("cho_solve", symbol, L, L.data_ptr(), b.data_ptr(), x.data_ptr(),
+            B, n, *geometry)
     return x
 
 
@@ -198,5 +297,6 @@ def gtmv(G: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         return linalg.gtmv_plain(G, v)
     out = torch.empty((B, n), dtype=G.dtype, device=G.device)
     _launch("gtmv", "gtmv_batched_launch", G, G.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, m, n)
+            out.data_ptr(), B, m, n,
+            *gtmv_geometry(B, m, n, *sm_resources(G.device)))
     return out

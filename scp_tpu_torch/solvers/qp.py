@@ -695,8 +695,11 @@ def _route(q, h, G, *, fixed_iters, p_blocks, slack_schur, g_struct,
     """The branch of :func:`solve_qp_batched` for these operands: "banded",
     "adaptive", "struct" (K1) or "dense" (K2). ``kkt="auto"`` takes the
     kernels where their shared-memory gates admit the shape and the banded
-    KKT past them; the route depends on the shape only, never on the
-    device."""
+    KKT past them: for the adaptive branch the gate is
+    ``linalg_kernel.fits_chol_smem`` (n < 240), although the dense factor
+    and solve take any n (from n = 240 with the matrix in device memory),
+    so ``kkt="dense"`` runs the adaptive branch at every n. The route
+    depends on the shape only, never on the device."""
     if kkt == "banded":
         return "banded"
     n, mg = q.shape[1], h.shape[1]
@@ -772,10 +775,13 @@ def solve_qp_batched(P, q, G, h, lb, ub, *, max_iter: int = 30,
       with ``g_slabs``, every G product on the slabs; ``correctors`` is
       ignored here too.
 
-    ``kkt="dense"`` takes the first three; ``"banded"`` the last;
-    ``"auto"`` takes the fused kernels where their shared-memory gates
-    admit the shape (the adaptive branch where the dense factor's does) and
-    the banded branch past them — past a gate without ``banded`` it raises.
+    ``kkt="dense"`` takes the first three (the adaptive branch at any n:
+    from n = 240 its factor and solve keep the matrix in device memory);
+    ``"banded"`` the last; ``"auto"`` takes the fused kernels where their
+    shared-memory gates admit the shape (the adaptive branch where the
+    shared-memory factor's does, n < 240, or wherever no ``banded`` is
+    given) and the banded branch past them — past a fused kernel's gate
+    without ``banded`` it raises.
     ``certificate=False`` takes the cheap convergence certificate of the
     fused branches (primal residual from the kernel's recurrence).
     """

@@ -22,11 +22,14 @@ to 21 across the register kernels' last width V = 5 and the generic ones,
 one and two right-hand sides) once on seeded inputs at a few shapes, and
 prints, per case, the difference from the plain PyTorch version on the same
 inputs; then the batched Cholesky (K3),
-the Cholesky solve (K4) and the G product (K5a) at their boundary shapes
-(n across the 16-column panels and blocks, an indefinite instance or a NaN
-factor among good ones; unaligned instance bases, a tile larger than one
-stage, rows wider than a stage) against the plain version and a float64
-oracle. ``--dump`` writes K1's outputs on fixed seeded inputs;
+the Cholesky solve (K4) and the G products (K5a, K5b) at their boundary
+shapes (n across the 16-column panels and blocks and past the shared-memory
+kernels: 239, 240, 257, 400; an indefinite instance or a NaN factor among
+good ones; unaligned instance bases, a tile larger than one stage, the
+hp = 64 shape, rows wider than a stage; K5b twice on the same inputs, bit
+for bit) against the plain version and a float64 oracle. ``--dump`` writes
+K1's outputs on fixed seeded inputs (and K2's, K3's and K4's, the kernels
+on the same blocked factor and solve);
 ``--compare`` reports whether two such dumps (e.g. from two checkouts,
 each run with its own copy of this script) are bit-identical and, where
 they are not, holds their controls to ``chip_smoke.py``'s kernel-vs-plain
@@ -38,7 +41,11 @@ for each thread count, beside ``torch.cholesky_solve``), K6 / K7 (V = 4,
 K = 64, B = 256 / 64 / 16 / 1 and V = 16, B = 256; warm and cold L2; K7
 with one and two right-hand sides, by graph replay), K2 (one QP of
 frog's shape, 7 iterations, B = 1024 / 512 / 256 / 64, warm and cold L2,
-at each of its two launch bounds), K5b (beside ``torch.bmm``), K3 (n = 81, B = 1024 / 256 / 64 / 1,
+at each of its two launch bounds), K5b (m = 120, n = 81 at B = 1024 / 256
+/ 64 / 1 and the hp = 64 shape m = 384, n = 257 at B = 256, warm and cold,
+beside ``torch.bmm``), ``k3k4large``: K3 and K4 at n = 240, 257 and 400
+(warm and cold, beside ``torch.linalg.cholesky_ex`` /
+``torch.cholesky_solve``), K3 (n = 81, B = 1024 / 256 / 64 / 1,
 with its thread count varied) and K5a (m = 120, n = 81 at B = 1024 / 256 /
 64 and the P shape m = n = 81 at B = 1024, with its stage and grid target
 varied), beside ``torch.linalg.cholesky_ex`` / ``torch.bmm``, three ways,
@@ -46,10 +53,7 @@ twice over: the profiler's device time summed per call, the mean duration
 of the kernel's recorded events with their count, and CUDA events around
 the replay of a CUDA graph of the calls (no host time between launches).
 Run against an older checkout (a copy of this script in its ``scripts/``),
-the variants that checkout lacks are skipped; :func:`dense_qp` and
-:func:`one_launch_k2` also drive the per-iteration K2 interface (a KKT
-product formed by ``torch.bmm`` outside the kernel) of the checkouts
-before K2 ran a whole QP in one launch, only to time those against it. ``--sections`` builds the
+the variants that checkout lacks are skipped. ``--sections`` builds the
 library with ``-DSCP_PROFILE_SECTIONS`` and prints where block 0 of the
 blocked factor spends its clock cycles (load, diagonal blocks, panel rows,
 trailing updates with the next diagonal block, store) at n = 81, B = 1 and
@@ -156,9 +160,33 @@ def dump_k1(path: str, inputs: str | None = None) -> None:
     out["cal_kw"] = np.array(json.dumps(kw))
     for j, t in enumerate(res):
         out[f"cal_out{j}"] = t.cpu().numpy()
+    dump_shared_factor_kernels(out)
     np.savez(path, **out)
     print(json.dumps({"dumped": path, "arrays": len(out),
                       "calibrated_inputs_from": inputs or "this run"}))
+
+
+def dump_shared_factor_kernels(out: dict) -> None:
+    """The other kernels on the shared blocked factor and solve
+    (``csrc/chol_blocked.cuh``), on seeded inputs: K3 and K4 at n = 33, 81
+    and 239 (the shared-memory kernels), B = 1 and 1024, under the keys
+    ``k3k4_*``, and K2 over one frog QP at B = 256 under ``k2_*``."""
+    from scp_tpu_torch.ops import linalg_kernel as lk
+    rng = np.random.default_rng(21)
+    for n in (33, 81, 239):
+        for B in (1, 1024):
+            K = _spd(rng, B, n, "cuda")
+            b = torch.as_tensor(rng.normal(size=(B, n)), dtype=torch.float32,
+                                device="cuda")
+            L = lk.cholesky(K)
+            x = lk.cho_solve(L, b)
+            torch.cuda.synchronize()
+            out[f"k3k4_L_n{n}_B{B}"] = L.cpu().numpy()
+            out[f"k3k4_x_n{n}_B{B}"] = x.cpu().numpy()
+    res = dense_qp(_cut(dense_inputs("cuda"), 256))()
+    torch.cuda.synchronize()
+    for j, t in enumerate(res):
+        out[f"k2_out{j}"] = t.cpu().numpy()
 
 
 # chip_smoke.py's kernel-vs-plain limits on the controls (K1_CASES[0] is
@@ -174,8 +202,16 @@ def compare(a: str, b: str) -> None:
         for k in da.files)
     worst = max(float(np.nanmax(np.abs(da[k] - db[k]))) for k in da.files
                 if da[k].dtype.kind == "f")
+    groups = {g: [k for k in da.files if k.startswith(g)]
+              for g in ("case", "cal_out", "k3k4_", "k2_")}
     rep = {"bit_identical": same, "max_abs_diff": worst,
-           "arrays": len(da.files), "controls": {}}
+           "arrays": len(da.files),
+           "bit_identical_by_kernel": {
+               {"case": "k1_seeded", "cal_out": "k1_calibrated"}.get(g, g):
+               bool(ks) and all(k in db.files and np.array_equal(
+                   da[k], db[k], equal_nan=True) for k in ks)
+               for g, ks in groups.items()},
+           "controls": {}}
     ok = True
     for i, (B, V, hp, hu, *_rest) in enumerate(K1_CASES):
         nu = V * hu
@@ -363,6 +399,12 @@ def _spd(rng, B, n, dev):
                            dtype=torch.float32, device=dev)
 
 
+# n across the factor's 16-column panels and blocks, the last n of the
+# shared-memory kernels (239) and the large-n kernels past it (240, 257 =
+# hp 64 with 4 vehicles, 400)
+LINALG_NS = (1, 15, 16, 17, 32, 33, 81, 239, 240, 257, 400)
+
+
 def check_linalg_kernels() -> None:
     """K3, K4 and K5a at their boundary shapes. Limits: the factor's
     residual max|L L^T - K| within 2e-5 of max|K|, the solve within 1e-4 of
@@ -374,10 +416,9 @@ def check_linalg_kernels() -> None:
     dev = "cuda"
     rng = np.random.default_rng(4)
     bad = []
-    for n in (1, lk.CHOL_PANEL - 1, lk.CHOL_PANEL, lk.CHOL_PANEL + 1, 32,
-              33, 81, 239):
+    for n in LINALG_NS:
         for B in (1, 3, 1023):
-            if n == 239 and B == 1023:
+            if n >= 239 and B == 1023:
                 B = 257
             K = _spd(rng, B, n, dev)
             if B == 3:
@@ -408,9 +449,10 @@ def check_linalg_kernels() -> None:
     # K4 at the same edges, on float32 factors of SPD matrices (the upper
     # triangle filled with garbage: only the lower one may be read), and a
     # NaN factor (K3's output for an indefinite instance) among good ones
-    for n in (1, lk.CHOL_PANEL - 1, lk.CHOL_PANEL, lk.CHOL_PANEL + 1, 32,
-              33, 81, 239):
+    for n in LINALG_NS:
         for B in (1, 3, 1023):
+            if n >= 239 and B == 1023:
+                B = 257
             L = torch.linalg.cholesky(_spd(rng, B, n, dev)).contiguous()
             L += torch.triu(torch.full_like(L, 7.0), 1)
             if B == 3:
@@ -440,36 +482,48 @@ def check_linalg_kernels() -> None:
                 bad.append(rep["case"])
     flat = torch.as_tensor(rng.normal(size=1024 * 120 * 81 + 1),
                            dtype=torch.float32, device=dev)
-    cases = {"gmv_path_B1024_m120_n81": (1024, 120, 81, None),
-             "gmv_P_shape_B1024_m81_n81": (1024, 81, 81, None),
-             "gmv_view_base_4_bytes_past_16": (64, 81, 81, flat),
-             "gmv_above_one_stage_B3_m900_n65": (3, 900, 65, None),
-             "gmv_B1_m120_n81": (1, 120, 81, None),
-             "gmv_odd_B3_m45_n31": (3, 45, 31, None),
-             "gmv_row_one_column_past_a_stage_B2_m3":
+    cases = {"path_B1024_m120_n81": (1024, 120, 81, None),
+             "path_B256_m120_n81": (256, 120, 81, None),
+             "P_shape_B1024_m81_n81": (1024, 81, 81, None),
+             "view_base_4_bytes_past_16": (64, 81, 81, flat),
+             "above_one_stage_B3_m900_n65": (3, 900, 65, None),
+             "B1_m120_n81": (1, 120, 81, None),
+             "odd_B3_m45_n31": (3, 45, 31, None),
+             "hp64_B256_m384_n257": (256, 384, 257, None),
+             "row_one_column_past_a_stage_B2_m3":
                  (2, 3, lk.GMV_STAGE_BYTES // 4 - 2, None),
-             "gmv_row_of_60000_B2_m3": (2, 3, 60000, None)}
+             "row_of_60000_B2_m3": (2, 3, 60000, None)}
     for case, (B, m, n, base) in cases.items():
         if base is None:
             G = torch.as_tensor(rng.normal(size=(B, m, n)),
                                 dtype=torch.float32, device=dev)
         else:
             G = base[1:1 + B * m * n].view(B, m, n)
-        x = torch.as_tensor(rng.normal(size=(B, n)), dtype=torch.float32,
-                            device=dev)
-        o_k, o_p = lk.gmv(G, x), linalg.gmv_plain(G, x)
-        o_d = linalg.gmv_plain(G.double(), x.double())
-        torch.cuda.synchronize()
-        scale = float(o_d.abs().max())
-        e_kd = float((o_k.double() - o_d).abs().max())
-        e_pd = float((o_p.double() - o_d).abs().max())
-        e_kp = float((o_k - o_p).abs().max())
-        rep = {"case": case, "geometry": list(lk.gmv_geometry(B, m, n)),
-               "base_mod_16": G.data_ptr() % 16, "kernel_vs_plain": e_kp,
-               "kernel_vs_f64": e_kd, "plain_vs_f64": e_pd, "scale": scale}
-        print(json.dumps(rep), flush=True)
-        if e_kd > 2 * e_pd + 1e-5 * scale or e_kp > 2e-5 * scale:
-            bad.append(case)
+        for name, geometry, vec in (("gmv", "gmv_geometry", n),
+                                    ("gtmv", "gtmv_geometry", m)):
+            if not hasattr(lk, geometry):   # an older checkout
+                continue
+            x = torch.as_tensor(rng.normal(size=(B, vec)),
+                                dtype=torch.float32, device=dev)
+            kern, plain = getattr(lk, name), getattr(linalg, name + "_plain")
+            o_k, o_p = kern(G, x), plain(G, x)
+            o_d = plain(G.double(), x.double())
+            again = kern(G, x)
+            torch.cuda.synchronize()
+            scale = float(o_d.abs().max())
+            e_kd = float((o_k.double() - o_d).abs().max())
+            e_pd = float((o_p.double() - o_d).abs().max())
+            e_kp = float((o_k - o_p).abs().max())
+            rep = {"case": f"{name}_{case}",
+                   "geometry": list(getattr(lk, geometry)(B, m, n)),
+                   "base_mod_16": G.data_ptr() % 16, "kernel_vs_plain": e_kp,
+                   "kernel_vs_f64": e_kd, "plain_vs_f64": e_pd,
+                   "scale": scale,
+                   "repeat_bit_identical": torch.equal(o_k, again)}
+            print(json.dumps(rep), flush=True)
+            if (e_kd > 2 * e_pd + 1e-5 * scale or e_kp > 2e-5 * scale
+                    or not rep["repeat_bit_identical"]):
+                bad.append(rep["case"])
     print(json.dumps({"linalg_cases_failed": bad}), flush=True)
     if bad:
         sys.exit(1)
@@ -508,7 +562,8 @@ def _time_three_ways(fn, reps=20) -> dict:
     return out
 
 
-TIMED = ("k1", "k4", "k6k7", "k2", "k3", "k5a", "k5b")
+TIMED = ("k1", "k4", "k6k7", "k2", "k3", "k5a", "k5b", "k3k4large",
+         "k5bvar")
 L2_ROTATE_BYTES = 256 << 20   # as chip_smoke.py: five times the 50 MB L2
 
 
@@ -715,42 +770,14 @@ def dense_inputs(dev, shape=DENSE_SHAPE, seed=440, blocks=True):
             for k, v in a.items()}
 
 
-def one_launch_k2() -> bool:
-    """Whether the checkout's K2 runs every iteration in one launch (it
-    takes G and P; before, a pre-formed product K per iteration)."""
-    import inspect
-    from scp_tpu_torch.ops import ipm_kernel
-    return "K" not in inspect.signature(
-        ipm_kernel.ipm_iterate_dense).parameters
-
-
 def dense_qp(t, kw=DENSE_KW, n_iters=DENSE_ITERS):
     """A thunk that runs one QP of the dense-G branch (``n_iters`` fixed
-    iterations) on the inputs ``t``, through the checkout's interface: one
-    K2 launch, or (before the redesign) per iteration the product
-    ``G_k^T diag(zg / sg) G_k`` by ``torch.bmm`` and one K2 launch on it, as
-    ``solvers/qp.py::_solve_qp_batched_dense`` did (P blocks only)."""
+    iterations, one K2 launch) on the inputs ``t``."""
     from scp_tpu_torch.ops import ipm_kernel as ik
     state = [t[k] for k in STATE]
-    if one_launch_k2():
-        return lambda: ik.ipm_iterate_dense(
-            t["G"], t.get("P"), t["pb"], t["q"], t["pdiag"], *state,
-            n_iters=n_iters, **kw)
-    if t["pb"] is None:
-        raise ValueError("the per-iteration loop is timed with P blocks")
-    G = t["G"]
-    nk = G.shape[2] - 1 if kw["schur_slack"] else G.shape[2]
-    G_k = G[:, :, :nk]
-    G_kT = G_k.transpose(1, 2)
-
-    def run():
-        st = state
-        for _ in range(n_iters):
-            K = torch.bmm(G_kT * (st[4] / st[1])[:, None, :], G_k)
-            st = ik.ipm_iterate_dense(K, G, None, t["pb"], t["q"],
-                                      t["pdiag"], *st, **kw)
-        return st
-    return run
+    return lambda: ik.ipm_iterate_dense(
+        t["G"], t.get("P"), t["pb"], t["q"], t["pdiag"], *state,
+        n_iters=n_iters, **kw)
 
 
 def _cut(t, w):
@@ -790,29 +817,35 @@ def k2_times(rnd, dev) -> None:
                 "round": rnd, "kernel": "dense_qp", "B": w,
                 "min_ctas": bound, "picked": bound is None
                 or bound == pick(w, _sm_count()),
-                "n_iters": DENSE_ITERS, "launches_per_qp":
-                    1 if one_launch_k2() else DENSE_ITERS,
+                "n_iters": DENSE_ITERS, "launches_per_qp": 1,
                 "graph_ms_per_qp": {"warm": warm, "cold": cold},
                 "input_copies": count}), flush=True)
         del copies
 
 
+# K5b's shapes: the adaptive path's (m = 120, n = 81) at its widths, and
+# the long-horizon one's (hp = 64: m = 384, n = 257) at B = 256
+K5B_CASES = ((1024, 120, 81), (256, 120, 81), (64, 120, 81), (1, 120, 81),
+             (256, 384, 257))
+
+
 def k5b_times(rnd, dev) -> None:
-    """K5b (G^T v) at the adaptive path's shape (m = 120, n = 81) at B =
-    1024 / 256 / 64 / 1 beside ``torch.bmm`` on the same inputs, by graph
-    replay, warm and cold (as :func:`k2_times`)."""
+    """K5b (G^T v) at ``K5B_CASES`` beside ``torch.bmm`` on the same inputs,
+    by graph replay, warm and cold (as :func:`k2_times`), with the geometry
+    where the checkout has one."""
     from scp_tpu_torch.ops import linalg_kernel as lk
     rng = np.random.default_rng(11)
-    G = torch.as_tensor(rng.normal(size=(1024, 120, 81)), dtype=torch.float32,
-                        device=dev)
-    v = torch.as_tensor(rng.normal(size=(1024, 120)), dtype=torch.float32,
-                        device=dev)
-    for w in (1024, 256, 64, 1):
-        Gw, vw = G[:w].contiguous(), v[:w].contiguous()
+    for w, m, n in K5B_CASES:
+        Gw = torch.as_tensor(rng.normal(size=(w, m, n)), dtype=torch.float32,
+                             device=dev)
+        vw = torch.as_tensor(rng.normal(size=(w, m)), dtype=torch.float32,
+                             device=dev)
         count = 1 + -(-L2_ROTATE_BYTES // (4 * (Gw.numel() + vw.numel())))
         copies = [(Gw.clone(), vw.clone()) for _ in range(count)]
-        rep = {"round": rnd, "kernel": "gtmv", "B": w, "m": 120, "n": 81,
-               "input_copies": count}
+        rep = {"round": rnd, "kernel": "gtmv", "B": w, "m": m, "n": n,
+               "input_copies": count, "geometry": (
+                   list(lk.gtmv_geometry(w, m, n, *lk.sm_resources(dev)))
+                   if hasattr(lk, "gtmv_geometry") else None)}
         for name, fn in (("gtmv", lk.gtmv),
                          ("torch.bmm",
                           lambda a, b: torch.bmm(b[:, None, :], a))):
@@ -824,6 +857,104 @@ def k5b_times(rnd, dev) -> None:
         rep["cold_over_bmm"] = rep["gtmv"]["cold"] / rep["torch.bmm"]["cold"]
         print(json.dumps(rep), flush=True)
         del copies
+
+
+def k5b_variants(rnd, dev) -> None:
+    """K5b's geometry varied through ``linalg_kernel``'s module constants
+    (grid target, stage size, cluster cap) at ``K5B_CASES``,
+    by graph replay, warm and cold; ``torch.bmm`` beside each case."""
+    from scp_tpu_torch.ops import linalg_kernel as lk
+    if not hasattr(lk, "gtmv_geometry"):    # an older checkout
+        return
+    rng = np.random.default_rng(12)
+    names = ("GTMV_CTAS_PER_SM", "GTMV_STAGE_BYTES", "GTMV_MAX_CLUSTER")
+    saved = tuple(getattr(lk, k) for k in names)
+    variants = [(c, kb << 10, mc) for c in (1, 2, 4)
+                for kb in (16, 32) for mc in (8,)] + [(2, 32 << 10, 1)]
+    try:
+        for w, m, n in K5B_CASES:
+            G = torch.as_tensor(rng.normal(size=(w, m, n)),
+                                dtype=torch.float32, device=dev)
+            v = torch.as_tensor(rng.normal(size=(w, m)), dtype=torch.float32,
+                                device=dev)
+            count = 1 + -(-L2_ROTATE_BYTES // (4 * (G.numel() + v.numel())))
+            copies = [(G.clone(), v.clone()) for _ in range(count)]
+            bmm = {"warm": _graph_ms([lambda: torch.bmm(v[:, None, :], G)]
+                                     * 20),
+                   "cold": _graph_ms([lambda c=c: torch.bmm(c[1][:, None, :],
+                                                            c[0])
+                                      for c in copies])}
+            for var in variants:
+                for k, val in zip(names, var):
+                    setattr(lk, k, val)
+                rep = {"round": rnd, "kernel": "gtmv_variant", "B": w,
+                       "m": m, "n": n, "variant": dict(zip(names, var)),
+                       "geometry": list(lk.gtmv_geometry(
+                           w, m, n, *lk.sm_resources(dev))),
+                       "gtmv": {"warm": _graph_ms([lambda: lk.gtmv(G, v)]
+                                                  * 20),
+                                "cold": _graph_ms([lambda c=c: lk.gtmv(*c)
+                                                   for c in copies])},
+                       "torch.bmm": bmm}
+                rep["cold_over_bmm"] = rep["gtmv"]["cold"] / bmm["cold"]
+                print(json.dumps(rep), flush=True)
+            del copies
+    finally:
+        for k, val in zip(names, saved):
+            setattr(lk, k, val)
+
+
+# The factor and the solve past the shared-memory kernels: n = 240, 257
+# (hp = 64 with 4 vehicles) and 400, at the widths of the hp = 64 paths
+K3K4_LARGE_CASES = ((240, (1024, 256, 1)), (257, (1024, 256, 1)),
+                    (400, (256, 1)))
+
+
+def k3k4large_times(rnd, dev) -> None:
+    """K3 and K4 for n >= 240 at ``K3K4_LARGE_CASES`` by graph replay, warm
+    and cold (each call on the next of up to COLD_MAX_COPIES input copies),
+    beside ``torch.linalg.cholesky_ex`` and ``torch.cholesky_solve`` (by
+    the profiler: a graph cannot capture the solve). A checkout without
+    the large-n kernels refuses the call: that is reported and skipped."""
+    from scp_tpu_torch.ops import linalg_kernel as lk
+    rng = np.random.default_rng(9)
+    for n, widths in K3K4_LARGE_CASES:
+        K_all = _spd(rng, max(widths), n, dev)
+        b_all = torch.as_tensor(rng.normal(size=(max(widths), n)),
+                                dtype=torch.float32, device=dev)
+        for w in widths:
+            K, b = K_all[:w].contiguous(), b_all[:w].contiguous()
+            L = torch.linalg.cholesky(K).contiguous()
+            for name, fn, lib, args in (
+                    ("cholesky", lk.cholesky,
+                     lambda K: torch.linalg.cholesky_ex(K), (K,)),
+                    ("cho_solve", lk.cho_solve,
+                     lambda L, b: torch.cholesky_solve(b[:, :, None], L),
+                     (L, b))):
+                nbytes = sum(a.numel() * 4 for a in args)
+                count = min(COLD_MAX_COPIES,
+                            1 + -(-L2_ROTATE_BYTES // nbytes))
+                copies = [tuple(a.clone() for a in args)
+                          for _ in range(count)]
+                rep = {"round": rnd, "kernel": name, "n": n, "B": w,
+                       "input_copies": count}
+                try:
+                    fn(*args)
+                    rep["geometry"] = list(
+                        (lk.chol_geometry if name == "cholesky"
+                         else lk.solve_geometry)(w, n))
+                    rep["graph_ms_per_call"] = {
+                        "warm": _graph_ms([lambda: fn(*args)] * 10),
+                        "cold": _graph_ms([lambda c=c: fn(*c)
+                                           for c in copies])}
+                except NotImplementedError as exc:
+                    rep["refused"] = str(exc)[:80]
+                rep["library_profiler_ms_per_call"] = {
+                    "warm": _profiler_ms([lambda: lib(*args)], reps=10),
+                    "cold": _profiler_ms([lambda c=c: lib(*c)
+                                          for c in copies], reps=10)}
+                print(json.dumps(rep), flush=True)
+                del copies
 
 
 def k2_sections() -> None:
@@ -892,6 +1023,10 @@ def kernel_times(which) -> None:
             k2_times(rnd, dev)
         if "k5b" in which:
             k5b_times(rnd, dev)
+        if "k3k4large" in which:
+            k3k4large_times(rnd, dev)
+        if "k5bvar" in which:
+            k5b_variants(rnd, dev)
         linalg_times(rnd, K, dev, which)
     print(card.strip())
 

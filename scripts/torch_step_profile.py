@@ -4,7 +4,7 @@ Run on a machine with an NVIDIA GPU, from the repository root::
 
     python3 scripts/torch_step_profile.py [--path tuned|adaptive|instance|
                                                   long_horizon|instance64|
-                                                  frog]
+                                                  instance64_dense|frog]
                                           [--batch B] [--steps 3]
 
 Drives one path of ``scp_tpu_torch.sim.engine`` on the 4-vehicle circle
@@ -22,6 +22,9 @@ Drives one path of ``scp_tpu_torch.sim.engine`` on the 4-vehicle circle
   routes to the banded KKT: the Riccati factor and solve kernels);
 * ``instance64`` — ``mpc_step`` on ONE nominal scenario at hp = hu = 64
   with ``tuned_f32`` and ``qp_kkt="banded"`` (the Riccati kernels at B = 1);
+* ``instance64_dense`` — the same scenario with ``tuned_f32`` as it stands
+  (``qp_kkt="auto"``: per instance the dense KKT, so the factor and the
+  solve at n = 257, B = 1, with the matrix in device memory);
 * ``frog`` — ``mpc_step_batch`` on the randomized single-vehicle frog batch
   (22 moving obstacles, hp = hu = 20, B = 1024 unless ``--batch``) with
   ``tuned_f32`` and ``TUNED_F32_PHASES`` (no vehicle pair: the dense-G
@@ -49,7 +52,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=("tuned", "adaptive", "instance",
-                                       "long_horizon", "instance64", "frog"),
+                                       "long_horizon", "instance64",
+                                       "instance64_dense", "frog"),
                     default="tuned")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--steps", type=int, default=3)
@@ -68,8 +72,9 @@ def main():
         capture_output=True, text=True).stdout.strip()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(42)
-    one = opts.path in ("instance", "instance64")
-    hp = 64 if opts.path in ("long_horizon", "instance64") else 20
+    one = opts.path in ("instance", "instance64", "instance64_dense")
+    hp = 64 if opts.path in ("long_horizon", "instance64",
+                             "instance64_dense") else 20
     if one:
         cfg, data = builders.circle(4, dtype=torch.float32, device=dev)
     elif opts.path == "frog":
@@ -121,10 +126,11 @@ def main():
     launches = sum(e.count for e in rows)
     own = {}
     # (substrings of the kernels' names: riccati_factor matches the factor
-    # kernels of every design)
+    # kernels of every design, gtmv_ the G^T v kernel of every design)
     for name in ("ipm_struct_kernel", "ipm_dense_kernel", "chol_blocked_kernel",
-                 "cho_solve_batched_kernel", "gmv_staged_kernel",
-                 "gtmv_batched_kernel", "riccati_factor", "riccati_solve"):
+                 "chol_large_kernel", "cho_solve_batched_kernel",
+                 "cho_solve_large_kernel", "gmv_staged_kernel", "gtmv_",
+                 "riccati_factor", "riccati_solve"):
         hit = [e for e in rows if name in e.key]
         n_launch = sum(e.count for e in hit)
         us = sum(e.device_time_total for e in hit)

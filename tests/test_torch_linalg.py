@@ -16,11 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+from scp_tpu.ops import linalg as jl
 from scp_tpu.ops import pallas_linalg as pll
 from scp_tpu_torch.ops import linalg as tl
 from scp_tpu_torch.ops import linalg_kernel as tk
 
 F32_REL = 2e-5
+TDT_OF = {np.float32: torch.float32, np.float64: torch.float64}
 
 
 def _spd(rng, b, n, dtype):
@@ -62,6 +64,30 @@ def test_plain_versions_match_numpy_f64(b, n, m):
                 np.einsum("bmn,bn->bm", G, rhs)) < 1e-12
     assert _rel(tl.gtmv_plain(torch.as_tensor(G), torch.as_tensor(v)),
                 np.einsum("bmn,bm->bn", G, v)) < 1e-12
+
+
+@pytest.mark.parametrize("n,np_dtype", [(240, np.float64), (257, np.float64),
+                                        (240, np.float32), (257, np.float32)])
+def test_plain_versions_match_blocked_at_large_n(n, np_dtype):
+    """Past the shared-memory kernels (n = 240; hp = 64 with 4 vehicles is
+    n = 257): the plain versions, which the wrappers run on the CPU, against
+    scp_tpu's ``blocked_cholesky`` / ``blocked_cho_solve`` (its factor and
+    solve off the TPU) under vmap: 1e-12 of the result's scale in float64,
+    F32_REL in float32 (two orders of n-term float32 sums). (The Pallas
+    kernels in interpret mode take 45-52 s at these sizes on the CPU; they
+    are held at the smaller sizes above.)"""
+    rng = np.random.default_rng(n)
+    K = _spd(rng, 2, n, np_dtype)
+    rhs = rng.normal(size=(2, n)).astype(np_dtype)
+    L_j = jax.vmap(jl.blocked_cholesky)(jnp.asarray(K))
+    x_j = jax.vmap(jl.blocked_cho_solve)(L_j, jnp.asarray(rhs))
+    L_t = tk.cholesky(torch.as_tensor(K))
+    x_t = tk.cho_solve(L_t, torch.as_tensor(rhs))
+    tol = 1e-12 if np_dtype == np.float64 else F32_REL
+    assert L_t.dtype == TDT_OF[np_dtype] and x_t.shape == (2, n)
+    assert _rel(torch.tril(L_t), np.tril(np.asarray(L_j))) < tol
+    assert _rel(x_t, x_j) < tol
+    assert float(torch.triu(L_t, diagonal=1).abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -157,16 +183,33 @@ def test_indefinite_instance_is_nan_and_the_others_untouched(dtype):
 
 
 def test_shared_memory_gate_threshold():
-    """One instance's matrix must fit a block's 232,448 bytes of shared
-    memory: n = 239 does, n = 240 does not (hp = 64 with 4 vehicles is
-    n = 257: the banded path's shape)."""
+    """One instance's matrix fits a block's 232,448 bytes of shared memory up
+    to n = 239: ``fits_chol_smem`` still sets the routing boundary there
+    (``kkt="auto"`` sends n >= 240 to the banded KKT when a stage statement
+    is given). Past it the factor and the solve keep the matrix in device
+    memory: n = 240 and n = 257 (hp = 64 with 4 vehicles) get the large-n
+    geometry, with only the vectors in shared memory."""
     assert tk.chol_smem_bytes(81) == 4 * (81 * 81 + 81 + 1)
     assert tk.solve_smem_bytes(80) == 4 * (80 * 81 + 160)
-    assert tk.check_chol_smem_gate(239) <= tk.SMEM_LIMIT_BYTES == 232_448
+    assert tk.fits_chol_smem(239) and tk.SMEM_LIMIT_BYTES == 232_448
+    assert max(tk.chol_smem_bytes(239), tk.solve_smem_bytes(239)) \
+        <= tk.SMEM_LIMIT_BYTES
     for n in (240, 257):
-        with pytest.raises(NotImplementedError,
-                           match="banded KKT path not ported"):
-            tk.check_chol_smem_gate(n)
+        assert not tk.fits_chol_smem(n)
+        assert tk.solve_smem_bytes(n) > tk.SMEM_LIMIT_BYTES
+        for B in (1, 256, 1024):
+            assert tk.chol_geometry(B, n) == (tk.LARGE_THREADS,
+                                              tk.chol_large_smem_bytes(n))
+            assert tk.solve_geometry(B, n) == (tk.LARGE_THREADS,
+                                               tk.solve_large_smem_bytes(n))
+    # the limits left: 32-bit indices within an instance, the solve's two
+    # vectors in shared memory
+    assert tk.solve_geometry(1, 29_056)[1] <= tk.SMEM_LIMIT_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.solve_geometry(1, 29_057)
+    assert tk.chol_geometry(1, 46_340)[1] <= tk.SMEM_LIMIT_BYTES
+    with pytest.raises(ValueError, match="64-bit indices"):
+        tk.chol_geometry(1, 46_341)
 
 
 @pytest.mark.parametrize("breakage", ["solve_shape", "mv_shape", "dtype",
@@ -195,22 +238,32 @@ def _gmv_covered(total, per_step):
     return covered
 
 
+# (SMs, threads per SM, shared-memory bytes per SM) as
+# linalg_kernel.sm_resources reads them: an H100 SXM, an H100 PCIe, an A100
+GTMV_CARDS = ((132, 2048, 233_472), (114, 2048, 233_472),
+              (108, 2048, 167_936))
+
+
 @pytest.mark.parametrize("kernel,B", [("cholesky", b) for b in
                                       (1, 3, 64, 1023, 1024)]
                          + [("cho_solve", b) for b in
                             (1, 3, 64, 1023, 1024)]
-                         + [("gmv", b) for b in (1, 3, 64, 256, 1024)])
+                         + [("gmv", b) for b in (1, 3, 64, 256, 1024)]
+                         + [("gtmv", b) for b in (1, 3, 64, 256, 1024)]
+                         + [("large_n", b) for b in (1, 3, 256, 1024)])
 def test_launch_geometry(kernel, B):
     """The geometry the wrappers hand the launchers: within a block's shared
-    memory, every instance, row and column computed exactly once, and the
-    factor's shared-memory gate where it was (n = 239 in, n = 240 out)."""
+    memory, every instance, row and column computed exactly once, the
+    factor's shared-memory kernels where they were (n = 239 in, n = 240
+    out), the large-n kernels past them, and G^T v's CTAs of an instance
+    one cluster of at most 8."""
     limit = tk.SMEM_LIMIT_BYTES
     if kernel == "cholesky":
         for n in range(1, 240):             # one CTA per instance
             threads, smem = tk.chol_geometry(B, n)
             assert threads in (128, 256)
             assert smem == tk.chol_smem_bytes(n) <= limit
-            # the need the gate checks covers the launch
+            # the need the routing predicate checks covers the launch
             assert smem <= max(tk.chol_smem_bytes(n), tk.solve_smem_bytes(n))
             assert tk.fits_chol_smem(n)
         assert not tk.fits_chol_smem(240) and not tk.fits_chol_smem(257)
@@ -224,17 +277,77 @@ def test_launch_geometry(kernel, B):
             assert tk.fits_chol_smem(n)
         assert tk.solve_smem_bytes(240) > limit   # the gate unmoved
         return
-    stage = tk.GMV_STAGE_BYTES // 4 - 3
+    if kernel == "large_n":
+        for n in range(240, 601):           # one CTA per instance
+            for geo, smem_of in ((tk.chol_geometry, tk.chol_large_smem_bytes),
+                                 (tk.solve_geometry,
+                                  tk.solve_large_smem_bytes)):
+                threads, smem = geo(B, n)
+                assert threads == tk.LARGE_THREADS
+                assert smem == smem_of(n) <= limit
+                assert n * n <= tk.MAX_INDEX
+        return
+    stage = (tk.GMV_STAGE_BYTES if kernel == "gmv"
+             else tk.GTMV_STAGE_BYTES) // 4 - 3
     shapes = [(120, 81), (81, 81), (900, 65), (45, 31), (1, 1), (3, 20000),
-              (3, 60000), (2, stage), (3, stage + 1)] + [
-                  (120, n) for n in range(1, 240)]
+              (3, 60000), (2, stage), (3, stage + 1), (384, 257),
+              (9, 8192)] + [(120, n) for n in range(1, 240)] + [
+                  (m, 81) for m in range(1, 130)]
     for m, n in shapes:
-        rows, cols, smem = tk.gmv_geometry(B, m, n)
-        assert 1 <= rows <= m and 1 <= cols <= n
-        assert cols == n or rows == 1       # a stage is whole rows or one
-        assert smem == tk.gmv_smem_bytes(cols, rows) <= limit
-        # the stage holds the tile and up to three floats of alignment
-        assert (smem - 16) // 4 >= rows * cols + 3 + cols + rows
-        assert _gmv_covered(m, rows) == list(range(m))
-        assert _gmv_covered(n, cols) == list(range(n))
-        assert B * -(-m // rows) < 2 ** 31
+        if kernel == "gmv":
+            rows, cols, smem = tk.gmv_geometry(B, m, n)
+            assert 1 <= rows <= m and 1 <= cols <= n
+            assert cols == n or rows == 1   # a stage is whole rows or one
+            assert smem == tk.gmv_smem_bytes(cols, rows) <= limit
+            # the stage holds the tile and up to three floats of alignment
+            assert (smem - 16) // 4 >= rows * cols + 3 + cols + rows
+            assert _gmv_covered(m, rows) == list(range(m))
+            assert _gmv_covered(n, cols) == list(range(n))
+            assert B * -(-m // rows) < 2 ** 31
+            continue
+        for card in GTMV_CARDS:
+            sms, sm_threads, sm_smem = card
+            tiles, rows, chunk, cols, smem = tk.gtmv_geometry(B, m, n,
+                                                              *card)
+            threads = tk.GTMV_THREADS
+            # a cluster of at most 8 CTAs, none without rows, covering m
+            assert 1 <= tiles <= tk.GTMV_MAX_CLUSTER
+            assert (tiles - 1) * rows < m <= tiles * rows
+            assert 1 <= chunk <= rows and 1 <= cols <= n
+            assert cols == n or chunk == 1  # a chunk is whole rows or one
+            assert smem == tk.gtmv_smem_bytes(chunk, cols) <= limit
+            groups = max(1, threads // cols)
+            assert groups * min(cols, threads) <= threads
+            # two stages, each the chunk and up to three floats of alignment
+            assert (smem - 16) // 4 >= 2 * (chunk * cols + 3 + chunk) \
+                + groups * cols
+            # every row once: CTAs over the instance, chunks over its rows
+            covered = []
+            for t in range(tiles):
+                first, last = t * rows, min(m, (t + 1) * rows)
+                covered += [first + r for r in
+                            _gmv_covered(last - first, chunk)]
+            assert covered == list(range(m))
+            assert _gmv_covered(n, cols) == list(range(n))
+            # every column once: a row group's threads over a run's columns,
+            # the columns of a run dealt over the cluster's CTAs
+            for w in {cols, n - (n - 1) // cols * cols}:
+                g_w = max(1, threads // w)
+                gw = threads // g_w
+                assert sorted(c for j in range(gw) for c in range(j, w, gw)) \
+                    == list(range(w))
+                assert g_w * w <= groups * cols
+                assert sorted(c for rk in range(tiles)
+                              for t in range(threads)
+                              for c in range(rk * threads + t, w,
+                                             tiles * threads)) \
+                    == list(range(w))
+            assert B * tiles < 2 ** 31
+            # enough CTAs where the instance has the rows for them
+            if m >= tk.GTMV_MAX_CLUSTER:
+                assert B * tiles >= min(tk.GTMV_CTAS_PER_SM * sms,
+                                        B * tk.GTMV_MAX_CLUSTER) // 2
+            # the whole grid resident at once, unless a chunk is one row
+            per_sm = min(sm_threads // threads, -(-B * tiles // sms))
+            assert chunk == 1 or \
+                sm_smem // (smem + tk.CTA_RESERVED_SMEM) >= per_sm

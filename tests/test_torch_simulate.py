@@ -18,7 +18,7 @@ import torch
 from scp_tpu import config as jcfg
 from scp_tpu.sim import engine as jengine
 from scp_tpu_torch import config as tcfg
-from scp_tpu_torch.ops import ipm_kernel, linalg_kernel
+from scp_tpu_torch.ops import ipm_kernel, linalg_kernel, riccati_kernel
 from scp_tpu_torch.scenarios import batch as tbatch
 from scp_tpu_torch.scenarios import builders as tbuilders
 from scp_tpu_torch.sim import engine as tengine
@@ -75,6 +75,42 @@ def test_mpc_step_matches_vmapped_scp_tpu(kind, b, kw, over):
     assert_close(carry_t.state, carry_j.state, TOL["pos"], name="state")
     assert ipm_kernel.launch_count == 0
     assert sum(linalg_kernel.launch_counts.values()) == 0
+
+
+def test_tuned_mpc_step_at_hp64_takes_the_dense_kkt(monkeypatch):
+    """The calibrated one-scenario controller at the long horizon: circle,
+    4 vehicles, hp = hu = 64 (n = 257), ``TUNED_F32_OVERRIDES``
+    (``qp_kkt="auto"``, 7 fixed IPM iterations), two chained steps of
+    ``mpc_step`` against vmap(scp_tpu's), float64. Per instance "auto" is
+    the dense factorization in both packages: every factor is one n = 257
+    matrix (on the card, the large-n factor and solve) and the Riccati
+    sweeps never run."""
+    over = dict(hp=64, hu=64, **jcfg.TUNED_F32_OVERRIDES)
+    cfg_j, data_j, cfg_t, data_t = scenario_pair("circle", 1, seed=5,
+                                                 cfg_over=over, n_veh=4)
+    assert cfg_t == tcfg.tuned_f32(cfg_t) and cfg_t.qp_kkt == "auto"
+    sizes = []
+    real = linalg_kernel.cholesky
+
+    def spy(K):
+        sizes.append(tuple(K.shape))
+        return real(K)
+
+    def no_riccati(*a, **k):
+        raise AssertionError("the dense KKT was wanted")
+
+    monkeypatch.setattr(linalg_kernel, "cholesky", spy)
+    monkeypatch.setattr(riccati_kernel, "riccati_factor", no_riccati)
+    carry_j = jax.vmap(lambda d: jengine.init_carry(cfg_j, d))(data_j)
+    carry_t = tengine.init_carry(cfg_t, data_t)
+    step_j = jax.jit(jax.vmap(lambda d, c: jengine.mpc_step(cfg_j, d, c)))
+    for _ in range(2):
+        carry_j, out_j = step_j(data_j, carry_j)
+        carry_t, out_t = tengine.mpc_step(cfg_t, data_t, carry_t)
+        _compare_outputs(out_t, out_j)
+    assert sizes and set(sizes) == {(1, 257, 257)}
+    assert not linalg_kernel.fits_chol_smem(257)
+    assert bool(out_t.feasible.all())
 
 
 def test_simulate_matches_scp_tpu_closed_loop():

@@ -133,6 +133,36 @@ def test_solve_qp_f64_scp_subproblem(kind, kw):
         assert_close(got.z, want.z, 1e-3, rtol=1e-3, name="z")
 
 
+@pytest.mark.parametrize("solver", ["solve_qp", "solve_qp_fixed14",
+                                    "solve_qp_batched_dense"])
+def test_f64_at_hp64_past_the_shared_memory_kernels(solver):
+    """n = 257 (circle, 4 vehicles, hp = hu = 64: the long-horizon shape),
+    one SCP iteration's QP, B = 2, float64: ``solve_qp`` (adaptive, and 14
+    fixed iterations) and ``solve_qp_batched(fixed_iters=None,
+    kkt="dense")`` against scp_tpu's, whose CPU route factors with
+    ``linalg.blocked_cholesky``. On the card this size takes the large-n
+    factor and solve; here the wrappers' plain versions."""
+    ja, ta = scp_qp_data("circle", 2, 64, np.float64, n_veh=4)
+    n = ja["q"].shape[1] - 1
+    assert n + 1 == 257 and not linalg_kernel.fits_chol_smem(n + 1)
+    if solver == "solve_qp_batched_dense":
+        want = _batched_j(ja, False, tol=1e-8)
+        got = _batched_t(ta, tol=1e-8, kkt="dense")
+    else:
+        d = {k: np.asarray(ja[k]) for k in KEYS}
+        opts = dict(tol=1e-8)
+        if solver == "solve_qp_fixed14":
+            opts["fixed_iters"] = 14
+        want = _jax_solve_qp(d, x0=np.asarray(ja["x0"]), **opts)
+        got = _torch_solve_qp(d, x0=np.asarray(ja["x0"]), **opts)
+    assert_close(got.iters, want.iters, 0, name="iters")
+    assert_close(got.converged, want.converged, 0, name="converged")
+    assert_close(got.x[:, :n], want.x[:, :n], 1e-8, name="u")
+    assert_close(got.x[:, n], want.x[:, n], 1e-6, rtol=1e-6, name="slack")
+    assert_close(got.obj, want.obj, 1e-6, rtol=1e-6, name="obj")
+    assert_close(got.z, want.z, 1e-3, rtol=1e-3, name="z")
+
+
 def test_solve_qp_f32_random_qps():
     """float32, adaptive, tol = 1e-6: most instances leave by the stall
     exit at the float32 floor, at an iteration that depends on round-off, so
