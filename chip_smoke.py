@@ -10,7 +10,7 @@ fused structured IPM iteration K1, the dense-G IPM iteration K2, the
 batched Cholesky and the Cholesky solve — in shared memory below n = 240,
 with the matrix in device memory from there — the two G matvecs, and the
 Riccati factor and solve sweeps K6 / K7), holds each against its plain
-PyTorch version on the card, and drives eight paths of the port at full
+PyTorch version on the card, and drives eleven paths of the port at full
 width, every kernel's launch count set to 0 just before a path and read
 just after:
 
@@ -55,7 +55,25 @@ just after:
   long-horizon path's first QP through ``solve_qp_batched(fixed_iters=None,
   kkt="dense")`` with the DEFAULT adaptive settings (the factor, the solve
   and both G products at n = 257, mg = 384), against the plain versions
-  and float64.
+  and float64;
+* (i) the side-selection controller (``controller="side_selection"``,
+  ``tuned_f32`` updated by ``TUNED_F32_SIDE_SELECTION``) through
+  ``mpc_step_batch`` on the randomized frog batch, B = 1024, hp = hu = 10:
+  exactly two K2 launches a step (the 5,120-wide first-round candidates at
+  8 iterations, the 1,024-wide reselection round at 12), 4 chained steps
+  and 3 timed ones, also through the plain version, then 2 steps in
+  rotated-rectangle mode;
+* (ii) the same on the randomized 11-vehicle parallel batch, B = 256: two
+  K1 launches a step (1,280 and 256 wide, lower-triangular slabs with the
+  hard steering-rate rows), the dense rows never scattered;
+* (iii) ONE nominal frog scenario under the same controller through
+  ``mpc_step`` for the full closed loop: step latency, two K2 launches a
+  step (5 and 1 wide).
+
+On (i) to (iii) every launch of the first step is held against its plain
+version, and step 0 is repeated through the plain versions, in float64 and
+on inputs perturbed by 2^-23 (the yardstick of the controller's discrete
+flags).
 
 The fused IPM kernel is also held against its plain version on an
 instance whose KKT matrix is not positive definite (it must freeze, its
@@ -1526,10 +1544,11 @@ def _sm_count() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def check_dense(case, args, kw) -> float:
+def check_dense(case, args, kw) -> dict:
     """K2 against its plain version from a QP's cold start: the launch and
     each of its iterations (:func:`dense_launch_errors`). Returns the
-    launch's largest difference on a state entry."""
+    whole launch's entry (``one_iter_max_abs_err``: its largest difference
+    on a state entry; ``u_kernel_vs_plain_max``: on the controls)."""
     from scp_tpu_torch.ops import ipm_kernel as ik
     out_k = ik.ipm_iterate_dense(*args, **kw)
     torch.cuda.synchronize()
@@ -1544,7 +1563,7 @@ def check_dense(case, args, kw) -> float:
     emit(rep)
     if not rep["first_iteration"] or any(map(dense_off_limits, reps)):
         fail(f"{case}: the dense-G kernel disagrees: {rep}")
-    return reps[0]["one_iter_max_abs_err"]
+    return reps[0]
 
 
 def large_n_times(k, args, kernel, plain, library, n, reps=10) -> dict:
@@ -2352,7 +2371,7 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
     for w in DENSE_WIDTHS:
         args_w = [None if a is None else a[:w].contiguous() for a in d_args]
         one = check_dense(f"frog_first_ipm_iteration_B{w}", args_w,
-                          {**d_kw, "n_iters": 1})
+                          {**d_kw, "n_iters": 1})["one_iter_max_abs_err"]
         check_dense(f"frog_first_qp_B{w}", args_w, d_kw)
         if w == DENSE_WIDTHS[0]:
             reports["ipm_iterate_dense"]["max_abs_err"] = one
@@ -2430,6 +2449,473 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
     reset_counts()
     return [reports[k] for k in ("riccati_factor", "riccati_solve",
                                  "ipm_iterate_dense")] + dense64_reports
+
+
+# ---- the side-selection controller: paths (i), (ii), (iii) ----
+SS_HP = 10
+SS_FROG_B, SS_PAR_B, SS_PAR_VEH = 1024, 256, 11
+SS_STEPS, SS_TIMED_STEPS, SS_RECT_STEPS = 4, 3, 2
+SS_CANDIDATES = 5          # first-round side assignments per instance
+# Step 0 of each side-selection path is held to the limits the SCP paths
+# already use: the batch paths to the dense-fused path's (the median and
+# the 99th percentile of the controls' difference from the plain versions'
+# step, the distance from the float64 step as a distribution), the
+# one-scenario path to the one-scenario paths' (the maximum itself). The
+# controller's discrete outputs (the candidate it keeps, the reselected
+# sides: seen as the feasible and sides_stable flags) can flip on an
+# instance where the two float32 solvers round differently, so the flags
+# that differ are held to the yardstick of run_yardstick, measured in the
+# same run (the plain versions' step on inputs perturbed by 2^-23).
+
+
+def ss_config(cfg):
+    """The calibrated float32 side-selection controller, composed as the
+    reference CLI composes it (``TUNED_F32_OVERRIDES`` updated by
+    ``TUNED_F32_SIDE_SELECTION``), at hp = hu = SS_HP."""
+    from scp_tpu_torch import config as config_lib
+    return config_lib.tuned_f32(
+        cfg.replace(controller="side_selection", hp=SS_HP, hu=SS_HP),
+        **config_lib.TUNED_F32_SIDE_SELECTION)
+
+
+def ss_flags(out):
+    """The controller's discrete outputs of a step, (B, 2)."""
+    return torch.stack([out.feasible, out.sides_stable], dim=1)
+
+
+def ss_step0_errors(out_k, out_p, out_d, run_perturbed, one_scenario):
+    """Step 0 through the kernels (``out_k``), the plain versions
+    (``out_p``) and in float64 (``out_d``): the controls under the SCP
+    paths' limits (see SS_* above), the flags under run_yardstick's
+    allowance. Returns the report and whether it is within its limits."""
+    du = u_pred_diff(out_k, out_p)
+    du_k64, du_p64 = u_pred_diff(out_k, out_d), u_pred_diff(out_p, out_d)
+    y = run_yardstick(run_perturbed, lambda o: o.u_pred.flatten(1),
+                      ss_flags, out_p, out_d, "flags")
+    rep = {"flags_differ": int((ss_flags(out_k) != ss_flags(out_p)).sum()),
+           "finite": all(bool(torch.isfinite(t).all()) for t in out_k
+                         if t.is_floating_point()),
+           "u_pred_vs_plain_max": float(du.max()),
+           "u_pred_vs_plain_median": float(du.median()),
+           "u_pred_vs_plain_p99": _q99(du),
+           "u_pred_vs_f64_max": float(du_k64.max()),
+           "u_pred_vs_f64_p99": _q99(du_k64),
+           "plain_u_pred_vs_f64_max": float(du_p64.max()),
+           "plain_u_pred_vs_f64_p99": _q99(du_p64),
+           "same_qp_iters": bool((out_k.qp_iters == out_p.qp_iters).all()),
+           **{f"yardstick_{k}": v for k, v in y.items()}}
+    if one_scenario:
+        rep["limits"] = {"u_pred_vs_plain_max": UPRED_ABS_LIMIT,
+                         "u_pred_vs_f64_max": "2 x plain's + "
+                                              f"{UPRED_ABS_LIMIT}",
+                         "flags_differ": "yardstick"}
+        u_ok = (rep["u_pred_vs_plain_max"] <= UPRED_ABS_LIMIT
+                and rep["u_pred_vs_f64_max"]
+                <= 2 * rep["plain_u_pred_vs_f64_max"] + UPRED_ABS_LIMIT)
+    else:
+        p99_limit = max(UPRED_ABS_LIMIT, rep["plain_u_pred_vs_f64_p99"])
+        rep["limits"] = {"u_pred_vs_plain_median": UPRED_MEDIAN_LIMIT,
+                         "u_pred_vs_plain_p99": p99_limit,
+                         "u_pred_vs_f64_p99_and_max":
+                             f"2 x plain's + {UPRED_ABS_LIMIT}",
+                         "flags_differ": "yardstick"}
+        u_ok = (rep["u_pred_vs_plain_median"] <= UPRED_MEDIAN_LIMIT
+                and rep["u_pred_vs_plain_p99"] <= p99_limit
+                and rep["u_pred_vs_f64_p99"]
+                <= 2 * rep["plain_u_pred_vs_f64_p99"] + UPRED_ABS_LIMIT
+                and rep["u_pred_vs_f64_max"]
+                <= 2 * rep["plain_u_pred_vs_f64_max"] + UPRED_ABS_LIMIT)
+    ok = (u_ok and rep["finite"]
+          and rep["flags_differ"] <= rep["yardstick_flags_differ_allowed"])
+    return rep, ok
+
+
+def side_selection_phases(dev, card, seed) -> dict:
+    """The side-selection controller on the card (``controller=
+    "side_selection"``, ``ss_config``), float32, each path's launch counts
+    set to 0 just before it and read just after:
+
+    (i)   frog, B = SS_FROG_B, through ``mpc_step_batch``: exactly two K2
+          launches a step (the 5B-wide first-round candidates at 8
+          iterations, then the B-wide reselection round at 12), no K1,
+          K3, K4, K5b, K6, K7; K5a once per K2 launch (the cold start's
+          G x0 of the dense-G branch); then SS_RECT_STEPS steps in
+          rotated-rectangle mode (obstAsQCQP=0), the same launches;
+    (ii)  parallel-11, B = SS_PAR_B: exactly two K1 launches a step (the
+          same widths and counts, lower-triangular slabs with the hard
+          rate rows), nothing else; the dense rows are never scattered
+          (their size, had they been built, is reported beside the peak
+          device memory);
+    (iii) ONE nominal frog scenario through ``mpc_step`` for the full
+          closed loop, each step repeated LATENCY_REPS times: two K2
+          launches a step, 5 and 1 wide.
+
+    Every launch of each path's first step is held against its plain
+    version (K2 through ``check_dense``, K1 through ``check_kernel``); step
+    0 is repeated through the plain versions, in float64 and on perturbed
+    inputs (``ss_step0_errors``); the feasible share of (i) / (ii) is held
+    to the plain versions' on the same chained inputs less
+    FROG_FEASIBLE_SLACK, (iii)'s to SIM_FEASIBLE_FLOOR. Returns, per kernel
+    of these paths, the entries added to the ``kernels`` line."""
+    from scp_tpu_torch.config import tree_map
+    from scp_tpu_torch.ops import constraints as con, ipm_kernel, linalg
+    from scp_tpu_torch.ops import linalg_kernel as lk, riccati_kernel as rk
+    from scp_tpu_torch.scenarios import batch as batch_lib, builders
+    from scp_tpu_torch.sim import engine
+    from scp_tpu_torch.solvers import qp, scp
+
+    real = {"ipm_iterate_struct": ipm_kernel.ipm_iterate_struct,
+            "ipm_iterate_dense": ipm_kernel.ipm_iterate_dense,
+            "gmv": lk.gmv, "gtmv": lk.gtmv}
+    plain = {"ipm_iterate_struct": ipm_kernel.ipm_iterate_struct_plain,
+             "ipm_iterate_dense": ipm_kernel.ipm_iterate_dense_plain,
+             "gmv": linalg.gmv_plain, "gtmv": linalg.gtmv_plain}
+    owner = {"ipm_iterate_struct": ipm_kernel, "ipm_iterate_dense": ipm_kernel,
+             "gmv": lk, "gtmv": lk}
+    float32_only = tuple(real)
+
+    def reset_counts():
+        ipm_kernel.reset_launch_count()
+        lk.reset_launch_counts()
+        rk.reset_launch_counts()
+        scp.reset_host_sync_count()
+        qp.reset_host_sync_count()
+
+    def counts():
+        return {"ipm_iterate_struct": ipm_kernel.launch_count,
+                "ipm_iterate_dense": ipm_kernel.dense_launch_count,
+                **lk.launch_counts, **rk.launch_counts}
+
+    def routed(fns, fn, *args, **kw):
+        """Run ``fn`` with the wrappers named in ``fns`` replaced."""
+        for k, f in fns.items():
+            setattr(owner[k], k, f)
+        try:
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+        finally:
+            for k in fns:
+                setattr(owner[k], k, real[k])
+        return out
+
+    def first_step_launches(name, step, carry):
+        """The step with every launch of ``name`` kept (it doubles as the
+        warm-up): ``(output, [(args, kw), ...])``."""
+        kept = []
+
+        def keep(*a, **k):
+            kept.append((a, k))
+            return real[name](*a, **k)
+        return routed({name: keep}, step, carry), kept
+
+    def as_f64(data):
+        return tree_map(
+            lambda t: t.double() if t.is_floating_point() else t, data)
+
+    def step0(cfg, data, entry, one_scenario):
+        """Step 0 through the kernels, the plain versions, float64 and the
+        perturbed draws, under ss_step0_errors."""
+        plain_all = {k: plain[k] for k in float32_only}
+
+        def run(d):
+            return entry(cfg, d, engine.init_carry(cfg, d))[1]
+        out_k = run(data)
+        torch.cuda.synchronize()
+        out_p = routed(plain_all, run, data)
+        out_d = routed(plain_all, run, as_f64(data))
+        return ss_step0_errors(
+            out_k, out_p, out_d,
+            lambda gen: routed(plain_all, run,
+                               tree_map(lambda t: _perturb(t, gen), data)),
+            one_scenario)
+
+    def expect_launches(path, got, n_steps, kernel):
+        """Exactly two launches of ``kernel`` a step and no other kernel
+        but K5a, which the dense-G branch launches once per QP (its cold
+        start's G x0)."""
+        want = {k: 0 for k in got}
+        want[kernel] = 2 * n_steps
+        if kernel == "ipm_iterate_dense":
+            want["gmv"] = 2 * n_steps
+        if got != want:
+            fail(f"side-selection path {path}: launches {got}, wanted "
+                 f"{want} ({n_steps} steps)")
+
+    def kernel_checks(path, kernel, kept):
+        """Each launch of the first step against its plain version on its
+        own inputs; returns the largest difference on the controls."""
+        errs = []
+        for i, (a, k) in enumerate(kept):
+            case = f"side_selection_{path}_launch{i}_B{a[0].shape[0]}"
+            if kernel == "ipm_iterate_dense":
+                errs.append(check_dense(case, a, k)["u_kernel_vs_plain_max"])
+            else:
+                nu = a[4].shape[1] * a[4].shape[2]
+                gsl = a[3]
+                if not (k["lower_tri"] and bool((gsl[:, -2 * nu:] == 0).all())
+                        and bool((gsl[:, :-2 * nu] < 0).all())):
+                    fail(f"{case}: not the lower-triangular slabs with the "
+                         f"hard rate rows last")
+                rep = check_kernel(case, a, k, real[kernel], plain[kernel])
+                errs.append(rep["u_kernel_vs_plain_max"])
+        return max(errs)
+
+    def times(path, kernel, kept):
+        """Device time of each first-step launch by CUDA-graph replay, the
+        plain version by CUDA events, the bound."""
+        cells = {}
+        for a, k in kept:
+            w = a[0].shape[0]
+            cell = {"n_iters": k["n_iters"],
+                    "ms": graph_ms(lambda: real[kernel](*a, **k), 10),
+                    "plain_ms": time_cuda(lambda: plain[kernel](*a, **k), 3,
+                                          warmup=1)}
+            if kernel == "ipm_iterate_dense":
+                B_, mg, n = a[0].shape
+                nb, d = a[2].shape[1:3]
+                work = dense_work(B_, mg, n, nb, d, k["schur_slack"],
+                                  k["n_cor"], k["n_iters"])
+                cell["mg"], cell["n"] = mg, n
+            else:
+                P, S = a[0].shape[1], a[2].shape[1]
+                hp, hu = a[0].shape[2:]
+                V = a[4].shape[1]
+                work = k1_work(P, S, hp, hu, V, w, k["n_iters"], k["n_cor"],
+                               k["lower_tri"])
+                cell["shape"] = {"P": P, "S": S, "hp": hp, "hu": hu, "V": V}
+            cell["bound_ms"], cell["bound_by"] = bound_of(*work)
+            cells[f"{path}_B{w}"] = cell
+        return cells
+
+    def batch_path(path, kind, B, kernel, **kw):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        cfg, data = batch_lib.make_batch(kind, B, generator=gen,
+                                         dtype=torch.float32, device=dev,
+                                         **kw)
+        cfg = ss_config(cfg)
+        carry0 = engine.init_carry(cfg, data)
+
+        def step(c, cf=cfg):
+            return engine.mpc_step_batch(cf, data, c)
+
+        (_, out_first), kept = first_step_launches(kernel, step, carry0)
+        widths = [a[0].shape[0] for a, _ in kept]
+        iters = [k["n_iters"] for _, k in kept]
+        if widths != [SS_CANDIDATES * B, B] or iters != [
+                cfg.side_selection_cand_iters, cfg.qp_fixed_iters]:
+            fail(f"side-selection path {path}: first-step launches "
+                 f"{list(zip(widths, iters))}")
+        max_err = kernel_checks(path, kernel, kept)
+        # the chained steps, counted (with the scatters of dense rows) and
+        # timed
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        scatters = 0
+        scatter = con.scatter_slabs
+
+        def counted_scatter(*a, **k):
+            nonlocal scatters
+            scatters += 1
+            return scatter(*a, **k)
+
+        c, outs = carry0, []
+        con.scatter_slabs = counted_scatter
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SS_STEPS):
+                c, out = step(c)
+                outs.append(out)
+            torch.cuda.synchronize()
+            chained_ms = (time.perf_counter() - t0) / SS_STEPS * 1e3
+        finally:
+            con.scatter_slabs = scatter
+        got = counts()
+        reads = scp.host_sync_count + qp.host_sync_count
+        peak = torch.cuda.max_memory_allocated()
+        expect_launches(path, got, SS_STEPS, kernel)
+        t0 = time.perf_counter()
+        for _ in range(SS_TIMED_STEPS):
+            c, _ = step(c)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / SS_TIMED_STEPS * 1e3
+        for i, out in enumerate(outs):
+            finite_outputs(out, f"side-selection path {path} step {i}")
+            if out.u_pred.shape != (B, SS_HP, cfg.n_veh):
+                fail(f"side-selection path {path} step {i}: unexpected "
+                     f"output shapes")
+        # the same chained steps through the plain version
+        c, outs_p = carry0, []
+        for _ in range(SS_STEPS):
+            c, out = routed({kernel: plain[kernel]}, step, c)
+            outs_p.append(out)
+        feas = float(torch.stack([o.feasible.float().mean()
+                                  for o in outs]).mean())
+        feas_p = float(torch.stack([o.feasible.float().mean()
+                                    for o in outs_p]).mean())
+        stable = float(torch.stack([o.sides_stable.float().mean()
+                                    for o in outs]).mean())
+        err0, ok0 = step0(cfg, data, engine.mpc_step_batch, False)
+        rep = {"phase": f"side_selection_path_{path}", "card": card,
+               "scenario": kind, "B": B, "n_veh": cfg.n_veh, "hp": SS_HP,
+               "n": cfg.n_veh * SS_HP + 1,
+               "config": "tuned_f32 + TUNED_F32_SIDE_SELECTION "
+                         "(8 IPM iterations per candidate, 12 per round)",
+               "steps": SS_STEPS, "timed_steps": SS_TIMED_STEPS,
+               "launches_per_step": {k: v / SS_STEPS for k, v in got.items()},
+               "dense_row_scatters_per_step": scatters / SS_STEPS,
+               "first_step_launch_widths": widths,
+               "host_reads_per_step": reads / SS_STEPS,
+               "step_ms": step_ms, "chained_step_ms": chained_ms,
+               "solves_per_s": B / step_ms * 1e3,
+               "peak_device_memory_mib": peak / 2 ** 20,
+               # (the part a step adds to what was allocated before it:
+               # the data, the carry and this script's kept launches)
+               "step_peak_above_resident_mib": (peak - resident) / 2 ** 20,
+               "feasible_share": feas, "feasible_share_plain": feas_p,
+               "feasible_floor": feas_p - FROG_FEASIBLE_SLACK,
+               "sides_stable_share": stable,
+               "mean_qp_iters": float(torch.stack(
+                   [o.qp_iters.float().mean() for o in outs]).mean()),
+               "first_step_repeats": float(
+                   (out_first.u_pred - outs[0].u_pred).abs().max()),
+               "kernel_vs_plain_max_abs_err": max_err,
+               "step0": err0}
+        return cfg, data, carry0, step, kept, rep, ok0
+
+    entries = {}
+    # ---- (i) frog, B = 1024, K2 ----
+    cfg_f, data_f, carry_f, step_f, kept_f, rep_f, ok_f = batch_path(
+        "i", "frog", SS_FROG_B, "ipm_iterate_dense")
+    # two steps in rotated-rectangle mode: the same launches
+    cfg_r = cfg_f.replace(obst_as_qcqp=False)
+    step_f(carry_f, cfg_r)                                   # warm
+    reset_counts()
+    c = carry_f
+    for i in range(SS_RECT_STEPS):
+        c, out = step_f(c, cfg_r)
+        finite_outputs(out, f"side-selection path i, rectangle step {i}")
+    torch.cuda.synchronize()
+    rect_counts = counts()
+    rep_f["rectangle_mode"] = {
+        "steps": SS_RECT_STEPS,
+        "launches_per_step": {k: v / SS_RECT_STEPS
+                              for k, v in rect_counts.items()},
+        "feasible_share_last": float(out.feasible.float().mean())}
+    expect_launches("i (rectangle mode)", rect_counts, SS_RECT_STEPS,
+                    "ipm_iterate_dense")
+    rep_f["times"] = times("i", "ipm_iterate_dense", kept_f)
+    emit(rep_f)
+    if not ok_f:
+        fail(f"side-selection path i, step 0 off its limits: "
+             f"{rep_f['step0']}")
+    if rep_f["feasible_share"] < rep_f["feasible_floor"]:
+        fail(f"side-selection path i: feasible share "
+             f"{rep_f['feasible_share']}, floor {rep_f['feasible_floor']}")
+
+    # ---- (ii) parallel-11, B = 256, K1 with the hard rate rows ----
+    cfg_p, data_p, _, _, kept_p, rep_p, ok_p = batch_path(
+        "ii", "parallel", SS_PAR_B, "ipm_iterate_struct", n_veh=SS_PAR_VEH)
+    a0 = kept_p[0][0]
+    P_s, S_s = a0[0].shape[1], a0[2].shape[1]
+    ctas = ipm_kernel.resident_ctas_per_sm(P_s, S_s, SS_HP, SS_HP,
+                                           SS_PAR_VEH, True)
+    # the dense rows [G | slack column] the struct route never builds
+    mg = (P_s + S_s) * SS_HP
+    dense_bytes = SS_CANDIDATES * SS_PAR_B * mg * (SS_PAR_VEH * SS_HP + 1) * 4
+    rep_p.update(k1_resident_ctas_per_sm=ctas,
+                 k1_smem_bytes=ipm_kernel.smem_bytes(
+                     P_s, S_s, SS_HP, SS_HP, SS_PAR_VEH, True),
+                 dense_rows_mib_if_built=dense_bytes / 2 ** 20,
+                 times=times("ii", "ipm_iterate_struct", kept_p))
+    emit(rep_p)
+    if ctas < 1:
+        fail(f"side-selection path ii: K1 holds {ctas} CTAs an SM")
+    if rep_p["dense_row_scatters_per_step"] != 0 \
+            or rep_f["dense_row_scatters_per_step"] != 2:
+        fail(f"side-selection paths: dense rows scattered "
+             f"{rep_p['dense_row_scatters_per_step']} times a step on the "
+             f"structured route (none wanted), "
+             f"{rep_f['dense_row_scatters_per_step']} on the dense-G route "
+             f"(one per QP wanted)")
+    if not ok_p:
+        fail(f"side-selection path ii, step 0 off its limits: "
+             f"{rep_p['step0']}")
+    if rep_p["feasible_share"] < rep_p["feasible_floor"]:
+        fail(f"side-selection path ii: feasible share "
+             f"{rep_p['feasible_share']}, floor {rep_p['feasible_floor']}")
+
+    # ---- (iii) one frog scenario, the full closed loop ----
+    cfg1, data1 = builders.frog(dtype=torch.float32, device=dev)
+    cfg1 = ss_config(cfg1)
+    n_sim = cfg1.n_sim
+
+    def step1(c):
+        return engine.mpc_step(cfg1, data1, c)
+
+    carry1 = engine.init_carry(cfg1, data1)
+    _, kept1 = first_step_launches("ipm_iterate_dense", step1, carry1)
+    widths1 = [a[0].shape[0] for a, _ in kept1]
+    if widths1 != [SS_CANDIDATES, 1]:
+        fail(f"side-selection path iii: first-step launch widths {widths1}")
+    max_err1 = kernel_checks("iii", "ipm_iterate_dense", kept1)
+    err1, ok1 = step0(cfg1, data1, engine.mpc_step, True)
+    reset_counts()
+    lats, feas1, stable1 = [], [], []
+    c_i = carry1
+    for _ in range(n_sim):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LATENCY_REPS):
+            step1(c_i)
+        torch.cuda.synchronize()
+        lats.append((time.perf_counter() - t0) / LATENCY_REPS * 1e3)
+        c_i, out = step1(c_i)
+        finite_outputs(out, "side-selection path iii")
+        feas1.append(float(out.feasible.float().mean()))
+        stable1.append(float(out.sides_stable.float().mean()))
+    got1 = counts()
+    n_calls = n_sim * (LATENCY_REPS + 1)
+    lats.sort()
+    rep1 = {"phase": "side_selection_path_iii", "card": card,
+            "scenario": "frog (nominal)", "n_veh": 1, "hp": SS_HP,
+            "steps": n_sim,
+            "config": "tuned_f32 + TUNED_F32_SIDE_SELECTION",
+            "launches_per_step": {k: v / n_calls for k, v in got1.items()},
+            "feasible_share": sum(feas1) / n_sim,
+            "feasible_floor": SIM_FEASIBLE_FLOOR,
+            "sides_stable_share": sum(stable1) / n_sim,
+            "latency_reps": LATENCY_REPS,
+            "step_latency_ms_p50": lats[len(lats) // 2],
+            "step_latency_ms_p90": lats[min(len(lats) - 1,
+                                            int(0.90 * len(lats)))],
+            "step_latency_ms_max": lats[-1],
+            "step_latency_ms_min": lats[0],
+            "kernel_vs_plain_max_abs_err": max_err1, "step0": err1,
+            "times": times("iii", "ipm_iterate_dense", kept1)}
+    emit(rep1)
+    expect_launches("iii", got1, n_calls, "ipm_iterate_dense")
+    if not ok1:
+        fail(f"side-selection path iii, step 0 off its limits: {err1}")
+    if rep1["feasible_share"] < SIM_FEASIBLE_FLOOR:
+        fail(f"side-selection path iii: feasible share "
+             f"{rep1['feasible_share']} below {SIM_FEASIBLE_FLOOR}")
+    reset_counts()
+
+    for k in ("ipm_iterate_struct", "ipm_iterate_dense", "gmv"):
+        entries[k] = {"side_selection_launches_per_step": {
+            p: r["launches_per_step"][k]
+            for p, r in (("i", rep_f), ("ii", rep_p), ("iii", rep1))}}
+    entries["ipm_iterate_dense"].update({
+        "side_selection_times": {**rep_f["times"], **rep1["times"]},
+        "side_selection_max_abs_err": max(rep_f["kernel_vs_plain_max_abs_err"],
+                                          max_err1)})
+    entries["ipm_iterate_struct"].update({
+        "side_selection_times": rep_p["times"],
+        "side_selection_max_abs_err": rep_p["kernel_vs_plain_max_abs_err"],
+        "side_selection_resident_ctas_per_sm": ctas})
+    return entries
 
 
 def main() -> None:
@@ -2738,7 +3224,13 @@ def main() -> None:
     # ---- phases 11-15: the Riccati sweeps and the dense-G iteration ----
     new_reports = long_horizon_and_dense_phases(dev, card, SEED)
 
-    emit({"kernels": [kernel_report] + linalg_reports + new_reports})
+    # ---- paths (i)-(iii): the side-selection controller ----
+    ss_entries = side_selection_phases(dev, card, SEED)
+
+    reports = [kernel_report] + linalg_reports + new_reports
+    for r in reports:
+        r.update(ss_entries.get(r["name"], {}))
+    emit({"kernels": reports})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

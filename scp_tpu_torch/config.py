@@ -26,15 +26,17 @@ NY = 2  # output:  [x, y] position
 
 # ---- calibrated float32 solver configuration ----
 # 7 fixed IPM iterations, scale-free SCP stops, merit patience 2, and
-# qp_kkt="auto": the fused dense kernel where its shared-memory gate admits
-# the shape, the banded formulation elsewhere (not ported yet: the gate
-# raises there).
+# qp_kkt="auto": the fused kernels where their shared-memory gates admit
+# the shape, the banded formulation elsewhere.
 TUNED_F32_OVERRIDES: dict[str, Any] = dict(
     delta_tol_rel=1e-4, u_step_tol=1e-5, merit_patience=2,
     qp_tol=1e-6, qp_fixed_iters=7, qp_kkt="auto")
 
-# V=16 regime override and side-selection calibration: carried as data,
-# nothing in the port reads them yet.
+# V=16 regime override (carried as data: nothing in the port reads it yet)
+# and the side-selection controller's deeper QP calibration, composed over
+# TUNED_F32_OVERRIDES for controller="side_selection" (``tuned_f32(cfg,
+# **TUNED_F32_SIDE_SELECTION)``, as the reference CLI composes it): 8 IPM
+# iterations per first-round candidate, 12 per reselection round.
 TUNED_F32_V16: dict[str, Any] = dict(qp_fixed_iters=9)
 TUNED_F32_SIDE_SELECTION: dict[str, Any] = dict(
     qp_fixed_iters=12, side_selection_cand_iters=8, qp_tol=1e-6)
@@ -132,7 +134,7 @@ class SCPConfig:
     # Noise: std of the white noise on dx, dy.
     noise_std: float = 0.0
 
-    # Controller: "scp" or "side_selection" (the latter not ported yet).
+    # Controller: "scp" or "side_selection" (solvers/miqp.py).
     controller: str = "scp"
 
     def __post_init__(self):

@@ -232,6 +232,16 @@ def _max_initial0(x: torch.Tensor) -> torch.Tensor:
     return flat.amax(dim=1).clamp(min=0.0)
 
 
+def _max_or_neg_inf(x: torch.Tensor) -> torch.Tensor:
+    """max over all non-batch axes with initial value -inf (an empty set —
+    no obstacle, no pair — gives -inf instead of raising)."""
+    flat = x.reshape(x.shape[0], -1)
+    if flat.shape[1] == 0:
+        return torch.full((x.shape[0],), float("-inf"), dtype=x.dtype,
+                          device=x.device)
+    return flat.amax(dim=1)
+
+
 def evaluate(sys: ConstraintSystem, u: torch.Tensor, tol: float,
              compat_q5: bool = True) -> Violations:
     """Violation bookkeeping of the exact constraints at ``u``.

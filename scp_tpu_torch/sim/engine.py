@@ -11,7 +11,10 @@ for a batch of scenario instances:
    ``delay_x + dt + delay_u`` holding the last commanded steering;
 3. reference resampling + obstacle prediction;
 4. linearize / discretize / condense;
-5. SCP solve (straggler-repacked phases);
+5. SCP solve (straggler-repacked phases), or under
+   ``controller="side_selection"`` the side-selection controller
+   (``solvers/miqp.py``: its QPs batched over the instances in both step
+   functions);
 6. steering magnitude / rate clamps, applied sequentially along the horizon;
 7. plant rollout at tick resolution with the actuator-delay control switch;
 8. metrics.
@@ -36,7 +39,7 @@ from scp_tpu_torch.ops import (condensed, constraints as con, discretize,
                                reference_path)
 from scp_tpu_torch.scenarios.builders import (OBST_HEADING, OBST_SPEED,
                                               OBST_X, OBST_Y)
-from scp_tpu_torch.solvers import scp
+from scp_tpu_torch.solvers import miqp, scp
 
 
 class SimCarry(NamedTuple):
@@ -236,16 +239,6 @@ def _scp_kwargs(cfg: SCPConfig) -> dict:
         compat_q5=cfg.compat_q5)
 
 
-def _max_or_neg_inf(x: torch.Tensor) -> torch.Tensor:
-    """max over all non-batch axes with initial value -inf (an empty
-    obstacle axis gives -inf instead of raising)."""
-    flat = x.reshape(x.shape[0], -1)
-    if flat.shape[1] == 0:
-        return torch.full((x.shape[0],), float("-inf"), dtype=x.dtype,
-                          device=x.device)
-    return flat.amax(dim=1)
-
-
 def step_post(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
               res, aux, sides_stable=None) -> tuple[SimCarry, StepOutput]:
     """Post-solve half of the MPC step: clamps, plant rollout, metrics."""
@@ -276,8 +269,9 @@ def step_post(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
     ci_v = data.dsafe_veh[:, iu, ju][:, :, None] ** 2 - d2
     d2o = torch.sum((pos_t[:, :, None] - obst_pos[:, None]) ** 2, -1)
     ci_o = data.dsafe_obst[:, :, :, None] ** 2 - d2o
-    pred_feasible = (_max_or_neg_inf(ci_v) <= cfg.constraint_tolerance) & \
-                    (_max_or_neg_inf(ci_o) <= cfg.constraint_tolerance)
+    pred_feasible = \
+        (con._max_or_neg_inf(ci_v) <= cfg.constraint_tolerance) \
+        & (con._max_or_neg_inf(ci_o) <= cfg.constraint_tolerance)
 
     d_ticks = cfg.ticks_delay_x
     if carry.state_meas is None:
@@ -319,19 +313,58 @@ def step_post(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
     return new_carry, out
 
 
+def _side_selection_solve(cfg: SCPConfig, data: ScenarioData,
+                          carry: SimCarry, aux):
+    """The side-selection controller on the batch
+    (:func:`miqp.solve_side_selection_stacked`), its result stated as an
+    ``SCPResult`` (``iters`` = reselection rounds, ``max_violation`` = the
+    slack, no QP failures counted) and its ``sides_stable`` flags."""
+    sys_, u_max, ref_pts, x0, obst_pos, delay_traj = aux
+    rect = {}
+    if not (cfg.obst_as_qcqp or cfg.n_obst == 0):
+        # obstAsQCQP=0: rotated-rectangle obstacle faces with chord-augmented
+        # dimensions, built from the delay-compensated speeds
+        normals, dists = miqp.rectangle_obstacle_geometry(
+            data.obstacles, x0[..., 3], data.params.length,
+            data.params.width, cfg.dt)
+        rect = {"obst_normals": normals, "obst_dists": dists}
+    iu, ju = sys_.pair_i[0], sys_.pair_j[0]
+    ss = miqp.solve_side_selection_stacked(
+        sys_, ref_pts, data.params.q, data.params.q_final, data.params.r,
+        carry.u_prev1, u_max, carry.u_warm,
+        du_lim=cfg.u_lim,
+        slack_weight=cfg.slack_weight, slack_ub=cfg.slack_ub,
+        constraint_tolerance=cfg.constraint_tolerance,
+        n_rounds=cfg.side_selection_rounds,
+        # the MIQP's rows use the RAW safety distances: dsafe_extra never
+        # enters them
+        dsafe_pair=data.dsafe_veh[:, iu, ju], dsafe_obst=data.dsafe_obst,
+        qp_max_iter=cfg.qp_max_iter, qp_tol=cfg.qp_tol,
+        qp_fixed_iters=cfg.qp_fixed_iters or None,
+        qp_candidate_iters=cfg.side_selection_cand_iters or None,
+        qp_correctors=cfg.qp_correctors, **rect)
+    res = scp.SCPResult(
+        u=ss.u, feasible=ss.feasible, converged=ss.converged, obj=ss.obj,
+        max_violation=torch.clamp(ss.slack, min=0.0), iters=ss.rounds,
+        qp_iters=ss.qp_iters,
+        qp_fails=torch.zeros_like(ss.rounds))
+    return res, ss.sides_stable
+
+
 def mpc_controller(cfg: SCPConfig, data: ScenarioData, carry: SimCarry):
     """Controller half of one MPC step: preprocessing + the per-instance SCP
-    solve (:func:`scp.solve_scp` on the batch axis). Returns ``(res, aux,
-    sides_stable)``; :func:`step_post` completes the step. Split out so the
-    caller can time the controller separately
+    solve (:func:`scp.solve_scp` on the batch axis) or the side-selection
+    controller. Returns ``(res, aux, sides_stable)`` (``sides_stable`` None
+    for the SCP controller); :func:`step_post` completes the step. Split
+    out so the caller can time the controller separately
     (:func:`simulate_timed`)."""
-    if cfg.controller == "side_selection":
-        raise NotImplementedError(
-            "side_selection controller not ported yet (solvers/miqp.py)")
-    if cfg.controller != "scp":
+    if cfg.controller not in ("scp", "side_selection"):
         raise ValueError(f"unknown controller {cfg.controller!r}")
     assert_full_f32()
     problem, aux = controller_pre(cfg, data, carry)
+    if cfg.controller == "side_selection":
+        res, sides_stable = _side_selection_solve(cfg, data, carry, aux)
+        return res, aux, sides_stable
     res = scp.solve_scp(problem, carry.u_warm, max_scp_iter=cfg.max_scp_iter,
                         **_scp_kwargs(cfg))
     return res, aux, None
@@ -350,11 +383,18 @@ def mpc_step_batch(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
                    phase1_iters: int = 8, straggler_frac: int = 4,
                    phases: tuple[tuple[int, int], ...] | None = None):
     """Batched MPC step with straggler repacking (see
-    ``scp.solve_scp_batch``). ``data``/``carry`` carry a leading batch
-    axis. Runs on the device the tensors live on."""
+    ``scp.solve_scp_batch``), or the side-selection step
+    (:func:`_side_selection_step_batch`). ``data``/``carry`` carry a
+    leading batch axis. Runs on the device the tensors live on."""
     if cfg.controller == "side_selection":
-        raise NotImplementedError(
-            "side_selection controller not ported yet (solvers/miqp.py)")
+        if phases is not None:
+            # the side-selection controller runs a FIXED round count: a
+            # straggler phase schedule has no meaning for it and must not
+            # be dropped silently
+            raise ValueError(
+                "phases (SCP straggler schedule) is not applicable to the "
+                "side_selection controller; pass phases=None")
+        return _side_selection_step_batch(cfg, data, carry)
     if cfg.controller != "scp":
         raise ValueError(f"unknown controller {cfg.controller!r}")
     assert_full_f32()
@@ -366,6 +406,15 @@ def mpc_step_batch(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
         phases=phases,
         **_scp_kwargs(cfg))
     return step_post(cfg, data, carry, res, aux)
+
+
+def _side_selection_step_batch(cfg: SCPConfig, data: ScenarioData,
+                               carry: SimCarry):
+    """Batched side-selection MPC step: every QP of the controller (all
+    first-round candidates, then each reselection round) is one
+    ``solve_qp_batched`` call over the batch. That is already what
+    :func:`mpc_step` does on a batch, so the two steps are one."""
+    return mpc_step(cfg, data, carry)
 
 
 def init_carry(cfg: SCPConfig, data: ScenarioData,

@@ -4,11 +4,12 @@ Run on a machine with an NVIDIA GPU, from the repository root::
 
     python3 scripts/torch_step_profile.py [--path tuned|adaptive|instance|
                                                   long_horizon|instance64|
-                                                  instance64_dense|frog]
+                                                  instance64_dense|frog|
+                                                  ss_frog|ss_parallel]
                                           [--batch B] [--steps 3]
 
-Drives one path of ``scp_tpu_torch.sim.engine`` on the 4-vehicle circle
-(float32), warm, under ``torch.profiler``:
+Drives one path of ``scp_tpu_torch.sim.engine`` (float32, warm) under
+``torch.profiler``; the first six on the 4-vehicle circle:
 
 * ``tuned`` — ``mpc_step_batch`` on the randomized batch (hp = hu = 20,
   B = 1024 unless ``--batch``) with ``tuned_f32`` and ``TUNED_F32_PHASES``
@@ -28,14 +29,22 @@ Drives one path of ``scp_tpu_torch.sim.engine`` on the 4-vehicle circle
 * ``frog`` — ``mpc_step_batch`` on the randomized single-vehicle frog batch
   (22 moving obstacles, hp = hu = 20, B = 1024 unless ``--batch``) with
   ``tuned_f32`` and ``TUNED_F32_PHASES`` (no vehicle pair: the dense-G
-  IPM kernel).
+  IPM kernel);
+* ``ss_frog`` — ``mpc_step_batch`` under ``controller="side_selection"``
+  on the randomized frog batch (hp = hu = 10, B = 1024 unless ``--batch``)
+  with ``tuned_f32`` updated by ``TUNED_F32_SIDE_SELECTION`` (the dense-G
+  IPM kernel: the 5B-wide candidates, then the reselection round);
+* ``ss_parallel`` — the same on the randomized 11-vehicle parallel batch
+  (B = 256 unless ``--batch``): the structured IPM kernel with the hard
+  rate rows.
 
 It prints JSON lines: the wall time per step, the device-busy share (sum of
 kernel time over wall time), the number of kernel launches per step, the
 device time and launches of each hand-written kernel (with its device time
 per launch and its share of the step's device time), and the ten kernels
 with the most device time. A second pass times the step's three parts
-(controller_pre, the SCP solve, step_post) with a synchronise after each.
+(controller_pre, the SCP or side-selection solve, step_post) with a
+synchronise after each.
 """
 import argparse
 import json
@@ -53,7 +62,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=("tuned", "adaptive", "instance",
                                        "long_horizon", "instance64",
-                                       "instance64_dense", "frog"),
+                                       "instance64_dense", "frog",
+                                       "ss_frog", "ss_parallel"),
                     default="tuned")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--steps", type=int, default=3)
@@ -73,14 +83,19 @@ def main():
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(42)
     one = opts.path in ("instance", "instance64", "instance64_dense")
+    side = opts.path.startswith("ss_")
     hp = 64 if opts.path in ("long_horizon", "instance64",
-                             "instance64_dense") else 20
+                             "instance64_dense") else 10 if side else 20
     if one:
         cfg, data = builders.circle(4, dtype=torch.float32, device=dev)
-    elif opts.path == "frog":
+    elif opts.path in ("frog", "ss_frog"):
         cfg, data = batch_lib.make_batch("frog", opts.batch or 1024,
                                          generator=gen, dtype=torch.float32,
                                          device=dev)
+    elif opts.path == "ss_parallel":
+        cfg, data = batch_lib.make_batch("parallel", opts.batch or 256,
+                                         generator=gen, dtype=torch.float32,
+                                         device=dev, n_veh=11)
     else:
         width = opts.batch or (256 if opts.path == "long_horizon" else 1024)
         cfg, data = batch_lib.make_batch("circle", width, generator=gen,
@@ -90,6 +105,9 @@ def main():
     phases = None
     if opts.path == "instance64":
         cfg = config_lib.tuned_f32(cfg, qp_kkt="banded")
+    elif side:
+        cfg = config_lib.tuned_f32(cfg.replace(controller="side_selection"),
+                                   **config_lib.TUNED_F32_SIDE_SELECTION)
     elif opts.path != "adaptive":
         cfg = config_lib.tuned_f32(cfg)
     if opts.path in ("tuned", "long_horizon", "frog"):
@@ -102,10 +120,13 @@ def main():
             return engine.mpc_step(cfg, data, c)
         return engine.mpc_step_batch(cfg, data, c, phases=phases)
 
-    def solve(problem, c):
+    def solve(problem, aux, c):
+        if side:
+            return engine._side_selection_solve(cfg, data, c, aux)
         if one:
-            return scp.solve_scp(problem, c.u_warm, **scp_kw)
-        return scp.solve_scp_batch(problem, c.u_warm, phases=phases, **scp_kw)
+            return scp.solve_scp(problem, c.u_warm, **scp_kw), None
+        return scp.solve_scp_batch(problem, c.u_warm, phases=phases,
+                                   **scp_kw), None
 
     carry = engine.init_carry(cfg, data)
     for _ in range(3):                                  # warm up
@@ -152,7 +173,7 @@ def main():
                         for e in top]}), flush=True)
 
     # the step's three parts, a synchronise after each (no profiler)
-    parts = {"controller_pre": 0.0, "scp_solve": 0.0, "step_post": 0.0}
+    parts = {"controller_pre": 0.0, "solve": 0.0, "step_post": 0.0}
     n = 5
     for _ in range(n):
         torch.cuda.synchronize()
@@ -160,14 +181,15 @@ def main():
         problem, aux = engine.controller_pre(cfg, data, carry)
         torch.cuda.synchronize()
         t1 = time.time()
-        res = solve(problem, carry)
+        res, sides_stable = solve(problem, aux, carry)
         torch.cuda.synchronize()
         t2 = time.time()
-        carry, _ = engine.step_post(cfg, data, carry, res, aux)
+        carry, _ = engine.step_post(cfg, data, carry, res, aux,
+                                    sides_stable=sides_stable)
         torch.cuda.synchronize()
         t3 = time.time()
         parts["controller_pre"] += (t1 - t0) * 1e3 / n
-        parts["scp_solve"] += (t2 - t1) * 1e3 / n
+        parts["solve"] += (t2 - t1) * 1e3 / n
         parts["step_post"] += (t3 - t2) * 1e3 / n
     print(json.dumps({"card": card, "path": opts.path, "B": batch,
                       "part_ms_per_step": parts}), flush=True)

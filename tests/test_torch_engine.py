@@ -221,9 +221,14 @@ def test_side_selection_and_unknown_controller_raise():
     cfg, data = tbuilders.circle(2, dtype=torch.float64, device="cpu",
                                  hp=6, hu=6)
     carry = tengine.init_carry(cfg, data)
-    with pytest.raises(NotImplementedError, match="side_selection"):
-        tengine.mpc_step_batch(cfg.replace(controller="side_selection"),
-                               data, carry)
+    # the side-selection controller runs (solvers/miqp.py); it refuses
+    # only an SCP straggler schedule
+    ss = cfg.replace(controller="side_selection")
+    with pytest.raises(ValueError, match="side_selection"):
+        tengine.mpc_step_batch(ss, data, carry, phases=((2, 1),))
+    _, out = tengine.mpc_step_batch(ss, data, carry)
+    assert out.sides_stable.dtype == torch.bool
+    assert out.scp_iters.tolist() == [ss.side_selection_rounds]
     with pytest.raises(ValueError):
         tengine.mpc_step_batch(cfg.replace(controller="pid"), data, carry)
     assert carry.state_hist is None and carry.step == 0

@@ -202,9 +202,10 @@ def test_per_instance_entry_points_refuse_other_controllers():
     cfg, data = tbuilders.circle(2, dtype=torch.float64, device="cpu",
                                  hp=6, hu=6)
     carry = tengine.init_carry(cfg, data)
-    with pytest.raises(NotImplementedError, match="side_selection"):
-        tengine.mpc_step(cfg.replace(controller="side_selection"), data,
-                         carry)
+    # the side-selection controller runs (solvers/miqp.py)
+    res, _, sides = tengine.mpc_controller(
+        cfg.replace(controller="side_selection"), data, carry)
+    assert sides.dtype == torch.bool and tuple(res.u.shape) == (1, 12)
     with pytest.raises(ValueError):
         tengine.mpc_controller(cfg.replace(controller="pid"), data, carry)
     # the banded KKT is ported (roadmap item 8): the same step as the dense
