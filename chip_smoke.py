@@ -34,7 +34,7 @@ just after:
   sweeps;
 * the one-scenario banded step — ``mpc_step`` of one circle-4 scenario at
   hp = 64 with ``qp_kkt="banded"`` (B = 1 through K6 / K7, two K7 launches
-  per K6 launch), 10 steps of latency, step 0 repeated through the plain
+  per K6 launch), 6 steps of latency, step 0 repeated through the plain
   sweeps and in float64;
 * the dense-fused path — ``mpc_step_batch``, frog (one vehicle), hp = hu =
   20, B = 1024, ``tuned_f32`` (K2: one launch per QP, every fixed iteration
@@ -48,7 +48,7 @@ just after:
   ``mpc_step`` of one circle-4 scenario at hp = 64 under ``tuned_f32`` as
   it stands (``qp_kkt="auto"``: per instance the dense KKT, so the factor
   and the solve at n = 257, B = 1, past the shared-memory kernels; no
-  Riccati sweep, no K1), 10 steps of latency, step 0 through the plain
+  Riccati sweep, no K1), 6 steps of latency, step 0 through the plain
   versions and in float64, and against the banded one-scenario step's
   step 0 (the same QPs through the banded KKT);
 * (h) one QP of the adaptive dense branch at hp = 64, B = 256 — the
@@ -60,20 +60,22 @@ just after:
   ``tuned_f32`` updated by ``TUNED_F32_SIDE_SELECTION``) through
   ``mpc_step_batch`` on the randomized frog batch, B = 1024, hp = hu = 10:
   exactly two K2 launches a step (the 5,120-wide first-round candidates at
-  8 iterations, the 1,024-wide reselection round at 12), 4 chained steps
+  8 iterations, the 1,024-wide reselection round at 12) and two of the G
+  product (each QP's cold-start G x0), 4 chained steps
   and 3 timed ones, also through the plain version, then 2 steps in
   rotated-rectangle mode;
 * (ii) the same on the randomized 11-vehicle parallel batch, B = 256: two
   K1 launches a step (1,280 and 256 wide, lower-triangular slabs with the
   hard steering-rate rows), the dense rows never scattered;
 * (iii) ONE nominal frog scenario under the same controller through
-  ``mpc_step`` for the full closed loop: step latency, two K2 launches a
-  step (5 and 1 wide).
+  ``mpc_step`` for the full closed loop: step latency, two K2 and two
+  G-product launches a step (5 and 1 wide).
 
 On (i) to (iii) every launch of the first step is held against its plain
-version, and step 0 is repeated through the plain versions, in float64 and
-on inputs perturbed by 2^-23 (the yardstick of the controller's discrete
-flags).
+version (the G product also on the same G with a random x), and step 0 is
+repeated through the plain versions, in float64 and on inputs perturbed by
+2^-23 (the yardstick of the controller's discrete flags); on (iii), whose
+step 0 drives straight, so is the first step that steers.
 
 The fused IPM kernel is also held against its plain version on an
 instance whose KKT matrix is not positive definite (it must freeze, its
@@ -111,6 +113,7 @@ script exits non-zero at once and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -702,12 +705,6 @@ def linalg_phases(dev, card, B, n_veh, hp, seed, widths=(1024, 256, 64),
     for r in reports.values():
         r.update(route="cuda", source="scp_tpu_torch/csrc/linalg.cu")
 
-    def reset_counts():
-        ipm_kernel.reset_launch_count()
-        lk.reset_launch_counts()
-        scp.reset_host_sync_count()
-        qp.reset_host_sync_count()
-
     # ---- the adaptive path's configuration: the DEFAULT solver settings ----
     gen = torch.Generator(device=dev).manual_seed(seed)
     cfg, data = batch_lib.make_batch("circle", B, generator=gen,
@@ -1183,7 +1180,9 @@ def linalg_phases(dev, card, B, n_veh, hp, seed, widths=(1024, 256, 64),
 
 # ---- the banded (Riccati) sweeps and the dense-G iteration ----
 LONG_B, LONG_HP, LONG_STEPS = 256, 64, 4
-LATENCY64_STEPS = 10
+# (10 before the side-selection paths joined the script: cut to keep the
+# whole run near 5.5 min; every check is unchanged, p90 is the largest of 6)
+LATENCY64_STEPS = 6
 FROG_B, FROG_HP, FROG_STEPS = 1024, 20, 4
 RICCATI_WIDTHS = (256, 64, 16)
 RICCATI_TIME_WIDTHS = RICCATI_WIDTHS + (1,)   # and the one-scenario width
@@ -1474,11 +1473,20 @@ def dense_errors(args, kw, out_k, yardstick: bool = False) -> dict:
                                             out_p[10][:, 1]))}
     if not yardstick:
         return rep
-    return {**rep, **run_yardstick(
-        lambda gen: ik.ipm_iterate_dense_plain(
-            *[_perturb(a, gen) for a in args[:-1]], args[-1], **kw),
-        lambda out: out[0][:, :nu], lambda out: out[10][:, 1], out_p, out_d,
-        "frozen")}
+    # (and how far the draws move the state entries of one_iter_max_abs_err)
+    state_moved = []
+
+    def perturbed(gen):
+        out_q = ik.ipm_iterate_dense_plain(
+            *[_perturb(a, gen) for a in args[:-1]], args[-1], **kw)
+        state_moved.append(max(
+            float((a - b)[:, :-1].abs().max())
+            for a, b in zip(out_q[:1] + out_q[4:], out_p[:1] + out_p[4:])))
+        return out_q
+    y = run_yardstick(perturbed, lambda out: out[0][:, :nu],
+                      lambda out: out[10][:, 1], out_p, out_d, "frozen")
+    return {**rep, **y,
+            "state_perturbed_vs_plain_max_abs": max(state_moved)}
 
 
 def dense_launch_errors(kernel, args, kw, out_k) -> list[dict]:
@@ -1598,6 +1606,148 @@ def large_n_times(k, args, kernel, plain, library, n, reps=10) -> dict:
     return cell
 
 
+# ---- the kernel wrappers, routed and counted (shared by the paths below) ----
+_WRAPPERS: dict = {}
+
+
+def wrappers() -> dict:
+    """``name -> (module, wrapper, plain version)`` for every kernel wrapper
+    the paths route, read on the first call (main() makes it before any
+    wrapper is replaced)."""
+    if not _WRAPPERS:
+        from scp_tpu_torch.ops import ipm_kernel, linalg, riccati
+        from scp_tpu_torch.ops import linalg_kernel as lk
+        from scp_tpu_torch.ops import riccati_kernel as rk
+        plain = {"ipm_iterate_struct": ipm_kernel.ipm_iterate_struct_plain,
+                 "ipm_iterate_dense": ipm_kernel.ipm_iterate_dense_plain,
+                 "cholesky": linalg.cholesky_plain,
+                 "cho_solve": linalg.cho_solve_plain,
+                 "gmv": linalg.gmv_plain, "gtmv": linalg.gtmv_plain,
+                 "riccati_factor":
+                     lambda *a: tuple(riccati.riccati_factor_plain(*a)),
+                 "riccati_solve": riccati.riccati_solve_plain}
+        owner = {"ipm_iterate_struct": ipm_kernel,
+                 "ipm_iterate_dense": ipm_kernel, "riccati_factor": rk,
+                 "riccati_solve": rk}
+        for k, f in plain.items():
+            mod = owner.get(k, lk)
+            _WRAPPERS[k] = (mod, getattr(mod, k), f)
+    return _WRAPPERS
+
+
+def real_of(*names) -> dict:
+    return {k: wrappers()[k][1] for k in names}
+
+
+def plain_of(*names) -> dict:
+    return {k: wrappers()[k][2] for k in names}
+
+
+def routed(fns: dict, fn, *args, **kw):
+    """Run ``fn`` (and synchronize) with the wrappers named in ``fns``
+    replaced by them; every one is put back after."""
+    table = wrappers()
+    for k, f in fns.items():
+        setattr(table[k][0], k, f)
+    try:
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+    finally:
+        for k in fns:
+            setattr(table[k][0], k, table[k][1])
+    return out
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count and the host-read counts set to 0."""
+    from scp_tpu_torch.ops import ipm_kernel, linalg_kernel as lk
+    from scp_tpu_torch.ops import riccati_kernel as rk
+    from scp_tpu_torch.solvers import qp, scp
+    ipm_kernel.reset_launch_count()
+    lk.reset_launch_counts()
+    rk.reset_launch_counts()
+    scp.reset_host_sync_count()
+    qp.reset_host_sync_count()
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since :func:`reset_counts`."""
+    from scp_tpu_torch.ops import ipm_kernel, linalg_kernel as lk
+    from scp_tpu_torch.ops import riccati_kernel as rk
+    return {"ipm_iterate_struct": ipm_kernel.launch_count,
+            "ipm_iterate_dense": ipm_kernel.dense_launch_count,
+            **lk.launch_counts, **rk.launch_counts}
+
+
+def host_reads() -> int:
+    """The solvers' reads of device values since :func:`reset_counts`."""
+    from scp_tpu_torch.solvers import qp, scp
+    return scp.host_sync_count + qp.host_sync_count
+
+
+def as_f64(tree):
+    """The float tensors of a tuple tree (data, carry) in float64."""
+    from scp_tpu_torch.config import tree_map
+    return tree_map(
+        lambda t: t.double() if t.is_floating_point() else t, tree)
+
+
+@contextlib.contextmanager
+def counted_calls(module, name):
+    """Count the calls of ``module.name`` while the block runs; yields a
+    list whose one entry is the count."""
+    fn, n = getattr(module, name), [0]
+
+    def counted(*a, **k):
+        n[0] += 1
+        return fn(*a, **k)
+    setattr(module, name, counted)
+    try:
+        yield n
+    finally:
+        setattr(module, name, fn)
+
+
+def feasible_share(outs) -> float:
+    return float(torch.stack([o.feasible.float().mean()
+                              for o in outs]).mean())
+
+
+def chain_vs_plain(step, carry0, n_steps, kernels, spy=None) -> dict:
+    """``n_steps`` chained steps from ``carry0`` through the kernels, timed,
+    every count set to 0 just before and read just after (with the calls
+    of ``spy = (module, name)``, if given); then the same chain with the
+    wrappers named in ``kernels`` routed to their plain versions, whose
+    feasible share floors the kernels' (less FROG_FEASIBLE_SLACK)."""
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    c, outs = carry0, []
+    with (counted_calls(*spy) if spy else contextlib.nullcontext([0])) \
+            as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            c, out = step(c)
+            outs.append(out)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n_steps * 1e3
+    counts, reads = launch_counts(), host_reads()
+    peak = torch.cuda.max_memory_allocated()
+    c_p, outs_p = carry0, []
+    for _ in range(n_steps):
+        c_p, out = routed(plain_of(*kernels), step, c_p)
+        outs_p.append(out)
+    feas, feas_p = feasible_share(outs), feasible_share(outs_p)
+    return {"outs": outs, "outs_plain": outs_p, "carry": c,
+            "chained_step_ms": ms, "counts": counts, "host_reads": reads,
+            "spy_calls": calls[0], "peak_mib": peak / 2 ** 20,
+            # (what a step adds to what was allocated before the chain)
+            "step_peak_above_resident_mib": (peak - resident) / 2 ** 20,
+            "feasible_share": feas, "feasible_share_plain": feas_p,
+            "feasible_floor": feas_p - FROG_FEASIBLE_SLACK}
+
+
 def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
                       ) -> list[dict]:
     """The dense KKT at the long horizon (circle-4, hp = hu = 64, n = 257),
@@ -1620,37 +1770,17 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
     Returns the ``kernels`` line's entries of the large-n factor and
     solve."""
     from scp_tpu_torch import config as config_lib
-    from scp_tpu_torch.ops import constraints as con, ipm_kernel, linalg
+    from scp_tpu_torch.ops import constraints as con, ipm_kernel
     from scp_tpu_torch.ops import linalg_kernel as lk, riccati_kernel as rk
     from scp_tpu_torch.scenarios import builders
     from scp_tpu_torch.sim import engine
     from scp_tpu_torch.solvers import qp
 
     names = ("cholesky", "cho_solve", "gmv", "gtmv")
-    real = {k: getattr(lk, k) for k in names}
-    plain = {"cholesky": linalg.cholesky_plain,
-             "cho_solve": linalg.cho_solve_plain,
-             "gmv": linalg.gmv_plain, "gtmv": linalg.gtmv_plain}
+    real, plain = real_of(*names), plain_of(*names)
     library = {
         "cholesky": lambda K: torch.linalg.cholesky_ex(K)[0],
         "cho_solve": lambda L, b: torch.cholesky_solve(b[:, :, None], L)}
-
-    def routed(fns, fn, *args, **kw):
-        """Run ``fn`` with the four wrappers pointed at ``fns``."""
-        for k in names:
-            setattr(lk, k, fns.get(k, real[k]))
-        try:
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-        finally:
-            for k in names:
-                setattr(lk, k, real[k])
-        return out
-
-    def reset_counts():
-        lk.reset_launch_counts()
-        rk.reset_launch_counts()
-        ipm_kernel.reset_launch_count()
 
     first: dict[str, tuple] = {}
     n_calls: dict[str, int] = {}
@@ -1903,12 +2033,8 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
     path (frog, B = 1024, K2), the kernels against their plain versions on
     inputs captured there and on odd shapes, and their times. Returns their
     entries of the ``kernels`` line."""
-    import numpy as np
-
     from scp_tpu_torch import config as config_lib
-    from scp_tpu_torch.config import tree_map
-    from scp_tpu_torch.ops import ipm_kernel, linalg, riccati
-    from scp_tpu_torch.ops import linalg_kernel as lk, riccati_kernel as rk
+    from scp_tpu_torch.ops import ipm_kernel, riccati_kernel as rk
     from scp_tpu_torch.scenarios import batch as batch_lib, builders
     from scp_tpu_torch.sim import engine
     from scp_tpu_torch.solvers import qp, scp
@@ -1929,37 +2055,9 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
     for r in reports.values():
         # no single PyTorch call computes any of the three functions
         r.update(route="cuda", library_ms=None)
-    real = {"riccati_factor": rk.riccati_factor,
-            "riccati_solve": rk.riccati_solve,
-            "ipm_iterate_dense": ipm_kernel.ipm_iterate_dense,
-            "gmv": lk.gmv, "gtmv": lk.gtmv}
-    plain = {"riccati_factor":
-             lambda *a: tuple(riccati.riccati_factor_plain(*a)),
-             "riccati_solve": riccati.riccati_solve_plain,
-             "ipm_iterate_dense": ipm_kernel.ipm_iterate_dense_plain,
-             "gmv": linalg.gmv_plain, "gtmv": linalg.gtmv_plain}
-    owner = {"riccati_factor": rk, "riccati_solve": rk,
-             "ipm_iterate_dense": ipm_kernel, "gmv": lk, "gtmv": lk}
-
-    def reset_counts():
-        ipm_kernel.reset_launch_count()
-        lk.reset_launch_counts()
-        rk.reset_launch_counts()
-        scp.reset_host_sync_count()
-        qp.reset_host_sync_count()
-
-    def routed(which, fns, fn, *args, **kw):
-        """Run ``fn`` with the wrappers in ``which`` pointed at ``fns``."""
-        for k in which:
-            setattr(owner[k], k, fns[k])
-        try:
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-        finally:
-            for k in which:
-                setattr(owner[k], k, real[k])
-        return out
-
+    names = ("riccati_factor", "riccati_solve", "ipm_iterate_dense", "gmv",
+             "gtmv")
+    real, plain = real_of(*names), plain_of(*names)
     captured: dict[str, tuple] = {}
 
     def capture(name, width):
@@ -1997,7 +2095,7 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
 
     qp.solve_qp_batched = qp_spy
     try:
-        _, out_first = routed(ric, {k: capture(k, LONG_B) for k in ric},
+        _, out_first = routed({k: capture(k, LONG_B) for k in ric},
                               step, carry0)
     finally:
         qp.solve_qp_batched = real_qp
@@ -2028,7 +2126,7 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
         if out.u_pred.shape != (LONG_B, LONG_HP, 4):
             fail(f"long-horizon step {i}: unexpected output shapes")
     feas = float(torch.stack([o.feasible.float().mean() for o in outs]).mean())
-    out_plain = routed(ric, plain, step, carry0)[1]
+    out_plain = routed(plain_of(*ric), step, carry0)[1]
     du = u_pred_diff(outs[0], out_plain)
     du_med, du_p99 = float(du.median()), float(du.quantile(0.99))
     for k in ric:
@@ -2083,17 +2181,17 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
                                 qp_kkt="banded")
     one_first: dict[str, tuple] = {}
     captured.clear()
-    _, one_k = routed(ric, {k: capture(k, 1) for k in ric}, engine.mpc_step,
+    _, one_k = routed({k: capture(k, 1) for k in ric}, engine.mpc_step,
                       cfg1, data1, engine.init_carry(cfg1, data1))
     one_first.update(captured)
     check_riccati("one_scenario_step_B1", one_first["riccati_factor"][0],
                   one_first["riccati_solve"][0])
-    _, one_p = routed(ric, plain, engine.mpc_step, cfg1, data1,
+    _, one_p = routed(plain_of(*ric), engine.mpc_step, cfg1, data1,
                       engine.init_carry(cfg1, data1))
     cfg64, data64 = builders.circle(4, dtype=torch.float64, device=dev)
     cfg64 = config_lib.tuned_f32(cfg64.replace(hp=LONG_HP, hu=LONG_HP),
                                  qp_kkt="banded")
-    _, one_d = routed(ric, plain, engine.mpc_step, cfg64, data64,
+    _, one_d = routed(plain_of(*ric), engine.mpc_step, cfg64, data64,
                       engine.init_carry(cfg64, data64))
     one_kp = float(u_pred_diff(one_k, one_p).max())
     one_kd = float(u_pred_diff(one_k, one_d).max())
@@ -2208,8 +2306,7 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
         captured_launches.append(args[DENSE_G].shape[0])
         return out_k
 
-    _, out_first_f = routed(("ipm_iterate_dense",),
-                            {"ipm_iterate_dense": shadow}, step_f, carry_f)
+    _, out_first_f = routed({"ipm_iterate_dense": shadow}, step_f, carry_f)
     if captured["ipm_iterate_dense"][0][DENSE_G].shape[0] != FROG_B:
         fail("the dense-fused path's first K2 call is not full-width")
     d_args, d_kw = captured["ipm_iterate_dense"]
@@ -2252,51 +2349,23 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
             fail(f"frog first step, K2 launch {r['launch']} (iteration "
                  f"{r.get('iteration', 'all')}): the kernel disagrees with "
                  f"its plain version on the same inputs: {r}")
-    # the QPs of the dense-G branch, counted beside K2's launches
-    n_qp = 0
-    dense_branch = qp._solve_qp_batched_dense
-
-    def counted(*args, **kw):
-        nonlocal n_qp
-        n_qp += 1
-        return dense_branch(*args, **kw)
-
-    reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    c, outs_f = carry_f, []
-    qp._solve_qp_batched_dense = counted
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(FROG_STEPS):
-            c, out = step_f(c)
-            outs_f.append(out)
-        torch.cuda.synchronize()
-        frog_step_ms = (time.perf_counter() - t0) / FROG_STEPS * 1e3
-    finally:
-        qp._solve_qp_batched_dense = dense_branch
-    k2 = ipm_kernel.dense_launch_count
-    k1_f = ipm_kernel.launch_count
-    reads_f = scp.host_sync_count + qp.host_sync_count
-    peak_f = torch.cuda.max_memory_allocated() / 2 ** 20
-    # the same chained steps through the plain version
-    c, outs_p = carry_f, []
-    for _ in range(FROG_STEPS):
-        c, out = routed(("ipm_iterate_dense",), plain, step_f, c)
-        outs_p.append(out)
+    # the chained steps, with the QPs of the dense-G branch counted beside
+    # K2's launches, and again through the plain version
+    ch = chain_vs_plain(step_f, carry_f, FROG_STEPS, ("ipm_iterate_dense",),
+                        spy=(qp, "_solve_qp_batched_dense"))
+    outs_f, outs_p = ch["outs"], ch["outs_plain"]
+    k2 = ch["counts"]["ipm_iterate_dense"]
+    k1_f = ch["counts"]["ipm_iterate_struct"]
+    n_qp, frog_step_ms = ch["spy_calls"], ch["chained_step_ms"]
+    feas_f, feas_p = ch["feasible_share"], ch["feasible_share_plain"]
     for i, out in enumerate(outs_f):
         finite_outputs(out, f"frog step {i}")
         if out.u_pred.shape != (FROG_B, FROG_HP, 1):
             fail(f"frog step {i}: unexpected output shapes")
-    feas_f = float(torch.stack([o.feasible.float().mean()
-                                for o in outs_f]).mean())
-    feas_p = float(torch.stack([o.feasible.float().mean()
-                                for o in outs_p]).mean())
-    data_f64 = tree_map(
-        lambda t: t.double() if t.is_floating_point() else t, data_f)
+    data_f64 = as_f64(data_f)
     # (the dense-fused branch also multiplies by G through K5a / K5b,
     # which are float32 only: the oracle routes them to their plain versions)
-    out_f64 = routed(("ipm_iterate_dense", "gmv", "gtmv"), plain,
+    out_f64 = routed(plain_of("ipm_iterate_dense", "gmv", "gtmv"),
                      engine.mpc_step_batch, cfg_f, data_f64,
                      engine.init_carry(cfg_f, data_f64), phases=phases)[1]
     du = u_pred_diff(outs_f[0], outs_p[0])
@@ -2321,12 +2390,12 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
                     "TUNED_F32_PHASES",
           "k2_launches_per_step": k2 / FROG_STEPS,
           "dense_qps_per_step": n_qp / FROG_STEPS, "k1_launches": k1_f,
-          "host_reads_per_step": reads_f / FROG_STEPS,
+          "host_reads_per_step": ch["host_reads"] / FROG_STEPS,
           "step_ms": frog_step_ms,
           "solves_per_s": FROG_B / frog_step_ms * 1e3,
-          "peak_device_memory_mib": peak_f,
+          "peak_device_memory_mib": ch["peak_mib"],
           "feasible_share": feas_f, "feasible_share_plain": feas_p,
-          "feasible_floor": feas_p - FROG_FEASIBLE_SLACK,
+          "feasible_floor": ch["feasible_floor"],
           "mean_scp_iters": float(torch.stack(
               [o.scp_iters.float().mean() for o in outs_f]).mean()),
           "step_vs_plain_u_pred_median": du_med,
@@ -2350,7 +2419,7 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
     if k2 == 0 or k2 != n_qp or k1_f != 0:
         fail(f"the dense-fused path launched K2 {k2} times for {n_qp} QPs "
              f"and K1 {k1_f} times")
-    if feas_f < feas_p - FROG_FEASIBLE_SLACK:
+    if feas_f < ch["feasible_floor"]:
         fail(f"dense-fused path: feasible share {feas_f}, the plain "
              f"versions' {feas_p}")
     if du_med > UPRED_MEDIAN_LIMIT or du_p99 > p99_limit or f64_off:
@@ -2456,6 +2525,12 @@ SS_HP = 10
 SS_FROG_B, SS_PAR_B, SS_PAR_VEH = 1024, 256, 11
 SS_STEPS, SS_TIMED_STEPS, SS_RECT_STEPS = 4, 3, 2
 SS_CANDIDATES = 5          # first-round side assignments per instance
+# (iii)'s step 0 drives straight (every control within 1e-7 rad of 0, where
+# the kernels, the plain versions and float64 agree whatever K2 does), so
+# its first step with at least SS_STEER_SHARE of its controls steering (at
+# least SS_STEER_MIN rad) and further than SS_BOUND_TOL rad from their
+# bounds is held as step 0 is
+SS_STEER_SHARE, SS_STEER_MIN, SS_BOUND_TOL = 0.5, 1e-3, 1e-4
 # Step 0 of each side-selection path is held to the limits the SCP paths
 # already use: the batch paths to the dense-fused path's (the median and
 # the 99th percentile of the controls' difference from the plain versions'
@@ -2476,6 +2551,20 @@ def ss_config(cfg):
     return config_lib.tuned_f32(
         cfg.replace(controller="side_selection", hp=SS_HP, hu=SS_HP),
         **config_lib.TUNED_F32_SIDE_SELECTION)
+
+
+def steering_share(cfg, data, carry, out) -> float:
+    """Share of a step's controls that steer (at least SS_STEER_MIN rad)
+    off their bounds: further than SS_BOUND_TOL from the magnitude bound
+    (the steering limit at the carry's state) and from the QP's rate bound
+    (``u_lim`` from the control before)."""
+    from scp_tpu_torch.sim import engine
+    u_max = engine.dynamic_steering_limit(cfg, data, carry.state)
+    U = out.u_pred
+    dU = torch.diff(U, dim=1, prepend=carry.u_prev1[:, None, :])
+    at = ((U.abs() >= u_max[:, None, :] - SS_BOUND_TOL)
+          | (dU.abs() >= cfg.u_lim - SS_BOUND_TOL))
+    return float(((U.abs() >= SS_STEER_MIN) & ~at).float().mean())
 
 
 def ss_flags(out):
@@ -2547,86 +2636,56 @@ def side_selection_phases(dev, card, seed) -> dict:
           (their size, had they been built, is reported beside the peak
           device memory);
     (iii) ONE nominal frog scenario through ``mpc_step`` for the full
-          closed loop, each step repeated LATENCY_REPS times: two K2
-          launches a step, 5 and 1 wide.
+          closed loop, each step repeated LATENCY_REPS times: two K2 and
+          two K5a launches a step, 5 and 1 wide.
 
-    Every launch of each path's first step is held against its plain
-    version (K2 through ``check_dense``, K1 through ``check_kernel``); step
-    0 is repeated through the plain versions, in float64 and on perturbed
-    inputs (``ss_step0_errors``); the feasible share of (i) / (ii) is held
-    to the plain versions' on the same chained inputs less
-    FROG_FEASIBLE_SLACK, (iii)'s to SIM_FEASIBLE_FLOOR. Returns, per kernel
-    of these paths, the entries added to the ``kernels`` line."""
+    Every K1, K2 and K5a launch of each path's first step is held against
+    its plain version on its own inputs (``check_kernel``, ``check_dense``,
+    ``check_vector``) and timed; step 0 is repeated through the plain
+    versions, in float64 and on perturbed inputs (``ss_step0_errors``), and
+    so is (iii)'s first step with at least SS_STEER_SHARE of its controls
+    off their bounds (step 0 is saturated there); the feasible share of
+    (i) / (ii) is held to the plain versions' on the same chained inputs
+    less FROG_FEASIBLE_SLACK, (iii)'s to SIM_FEASIBLE_FLOOR. Returns, per
+    kernel of these paths, the entries added to the ``kernels`` line."""
     from scp_tpu_torch.config import tree_map
-    from scp_tpu_torch.ops import constraints as con, ipm_kernel, linalg
-    from scp_tpu_torch.ops import linalg_kernel as lk, riccati_kernel as rk
+    from scp_tpu_torch.ops import constraints as con, ipm_kernel
     from scp_tpu_torch.scenarios import batch as batch_lib, builders
     from scp_tpu_torch.sim import engine
-    from scp_tpu_torch.solvers import qp, scp
 
-    real = {"ipm_iterate_struct": ipm_kernel.ipm_iterate_struct,
-            "ipm_iterate_dense": ipm_kernel.ipm_iterate_dense,
-            "gmv": lk.gmv, "gtmv": lk.gtmv}
-    plain = {"ipm_iterate_struct": ipm_kernel.ipm_iterate_struct_plain,
-             "ipm_iterate_dense": ipm_kernel.ipm_iterate_dense_plain,
-             "gmv": linalg.gmv_plain, "gtmv": linalg.gtmv_plain}
-    owner = {"ipm_iterate_struct": ipm_kernel, "ipm_iterate_dense": ipm_kernel,
-             "gmv": lk, "gtmv": lk}
-    float32_only = tuple(real)
+    names = ("ipm_iterate_struct", "ipm_iterate_dense", "gmv", "gtmv")
+    real, plain = real_of(*names), plain_of(*names)
+    launch_rows = []          # every first-step launch's agreement
 
-    def reset_counts():
-        ipm_kernel.reset_launch_count()
-        lk.reset_launch_counts()
-        rk.reset_launch_counts()
-        scp.reset_host_sync_count()
-        qp.reset_host_sync_count()
+    def first_step_launches(kept_names, step, carry):
+        """The step with every launch of ``kept_names`` kept (it doubles
+        as the warm-up): ``(output, {name: [(args, kw), ...]})``."""
+        kept = {k: [] for k in kept_names}
 
-    def counts():
-        return {"ipm_iterate_struct": ipm_kernel.launch_count,
-                "ipm_iterate_dense": ipm_kernel.dense_launch_count,
-                **lk.launch_counts, **rk.launch_counts}
+        def keeper(name):
+            def keep(*a, **k):
+                kept[name].append((a, k))
+                return real[name](*a, **k)
+            return keep
+        return routed({k: keeper(k) for k in kept_names}, step, carry), kept
 
-    def routed(fns, fn, *args, **kw):
-        """Run ``fn`` with the wrappers named in ``fns`` replaced."""
-        for k, f in fns.items():
-            setattr(owner[k], k, f)
-        try:
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-        finally:
-            for k in fns:
-                setattr(owner[k], k, real[k])
-        return out
+    def step_three_ways(cfg, data, carry, entry, one_scenario):
+        """One step from ``(data, carry)`` through the kernels, the plain
+        versions, float64 and the perturbed draws, under
+        ss_step0_errors."""
+        plain_all = plain_of(*names)
 
-    def first_step_launches(name, step, carry):
-        """The step with every launch of ``name`` kept (it doubles as the
-        warm-up): ``(output, [(args, kw), ...])``."""
-        kept = []
-
-        def keep(*a, **k):
-            kept.append((a, k))
-            return real[name](*a, **k)
-        return routed({name: keep}, step, carry), kept
-
-    def as_f64(data):
-        return tree_map(
-            lambda t: t.double() if t.is_floating_point() else t, data)
-
-    def step0(cfg, data, entry, one_scenario):
-        """Step 0 through the kernels, the plain versions, float64 and the
-        perturbed draws, under ss_step0_errors."""
-        plain_all = {k: plain[k] for k in float32_only}
-
-        def run(d):
-            return entry(cfg, d, engine.init_carry(cfg, d))[1]
-        out_k = run(data)
+        def run(d, c):
+            return entry(cfg, d, c)[1]
+        out_k = run(data, carry)
         torch.cuda.synchronize()
-        out_p = routed(plain_all, run, data)
-        out_d = routed(plain_all, run, as_f64(data))
+        out_p = routed(plain_all, run, data, carry)
+        out_d = routed(plain_all, run, as_f64(data), as_f64(carry))
         return ss_step0_errors(
             out_k, out_p, out_d,
             lambda gen: routed(plain_all, run,
-                               tree_map(lambda t: _perturb(t, gen), data)),
+                               *(tree_map(lambda t: _perturb(t, gen), x)
+                                 for x in (data, carry))),
             one_scenario)
 
     def expect_launches(path, got, n_steps, kernel):
@@ -2645,10 +2704,19 @@ def side_selection_phases(dev, card, seed) -> dict:
         """Each launch of the first step against its plain version on its
         own inputs; returns the largest difference on the controls."""
         errs = []
-        for i, (a, k) in enumerate(kept):
+        for i, (a, k) in enumerate(kept[kernel]):
             case = f"side_selection_{path}_launch{i}_B{a[0].shape[0]}"
+            row = {"path": path, "kernel": kernel, "B": a[0].shape[0],
+                   "n_iters": k["n_iters"]}
             if kernel == "ipm_iterate_dense":
-                errs.append(check_dense(case, a, k)["u_kernel_vs_plain_max"])
+                e = check_dense(case, a, k)
+                row.update({key: e[key] for key in (
+                    "u_kernel_vs_plain_max", "u_kernel_vs_plain_median",
+                    "u_kernel_vs_f64_max", "u_plain_vs_f64_max",
+                    "u_perturbed_vs_plain_max", "u_median_allowed",
+                    "frozen_differ", "frozen_differ_allowed",
+                    "one_iter_max_abs_err", "one_iter_max_rel_err",
+                    "state_perturbed_vs_plain_max_abs")})
             else:
                 nu = a[4].shape[1] * a[4].shape[2]
                 gsl = a[3]
@@ -2656,15 +2724,41 @@ def side_selection_phases(dev, card, seed) -> dict:
                         and bool((gsl[:, :-2 * nu] < 0).all())):
                     fail(f"{case}: not the lower-triangular slabs with the "
                          f"hard rate rows last")
-                rep = check_kernel(case, a, k, real[kernel], plain[kernel])
-                errs.append(rep["u_kernel_vs_plain_max"])
+                e = check_kernel(case, a, k, real[kernel], plain[kernel])
+                row.update({key: e[key] for key in (
+                    "u_kernel_vs_plain_max", "u_kernel_vs_plain_median",
+                    "u_kernel_vs_f64_max", "u_plain_vs_f64_max",
+                    "one_iter_max_abs_err", "limits")})
+            launch_rows.append(row)
+            errs.append(e["u_kernel_vs_plain_max"])
+        # K5a's G x0 on its own inputs, and on the same G with a random x
+        # (x0 is the warm start, zero at a closed loop's first step)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for i, (a, k) in enumerate(kept.get("gmv", ())):
+            if k:
+                fail(f"side-selection path {path}: K5a called with {k}")
+            G, x = a
+            xr = torch.randn(x.shape, generator=gen, device=dev,
+                             dtype=x.dtype)
+            for tag, args in (("", a), ("_random_x", (G, xr))):
+                e = check_vector("gmv", f"side_selection_{path}_gmv{i}_"
+                                 f"B{G.shape[0]}{tag}", real["gmv"],
+                                 plain["gmv"], args, MATVEC_REL_LIMIT)
+                launch_rows.append({"path": path, "kernel": "gmv" + tag,
+                                    "B": G.shape[0],
+                                    "shape": list(G.shape[1:]),
+                                    **{key: e[key] for key in (
+                                        "kernel_vs_plain_max_abs",
+                                        "kernel_vs_f64_max_abs",
+                                        "plain_vs_f64_max_abs", "scale")}})
         return max(errs)
 
     def times(path, kernel, kept):
         """Device time of each first-step launch by CUDA-graph replay, the
-        plain version by CUDA events, the bound."""
+        plain version by CUDA events, the bound; K5a's cold-start G x0
+        by graph replay, with ``torch.bmm`` on the same inputs."""
         cells = {}
-        for a, k in kept:
+        for a, k in kept[kernel]:
             w = a[0].shape[0]
             cell = {"n_iters": k["n_iters"],
                     "ms": graph_ms(lambda: real[kernel](*a, **k), 10),
@@ -2685,7 +2779,18 @@ def side_selection_phases(dev, card, seed) -> dict:
                 cell["shape"] = {"P": P, "S": S, "hp": hp, "hu": hu, "V": V}
             cell["bound_ms"], cell["bound_by"] = bound_of(*work)
             cells[f"{path}_B{w}"] = cell
-        return cells
+        gmv_cells = {}
+        for a, _ in kept.get("gmv", ()):
+            (w, m, n), (G, x) = a[0].shape, a
+            cell = {"m": m, "n": n,
+                    "ms": graph_ms(lambda: real["gmv"](G, x), 10),
+                    "plain_ms": graph_ms(lambda: plain["gmv"](G, x), 10),
+                    "library_ms": graph_ms(
+                        lambda: torch.bmm(G, x[:, :, None]), 10)}
+            cell["bound_ms"], cell["bound_by"] = linalg_bound_ms(
+                "gmv", w, n, m)
+            gmv_cells[f"{path}_B{w}"] = cell
+        return cells, gmv_cells
 
     def batch_path(path, kind, B, kernel, **kw):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -2698,43 +2803,23 @@ def side_selection_phases(dev, card, seed) -> dict:
         def step(c, cf=cfg):
             return engine.mpc_step_batch(cf, data, c)
 
-        (_, out_first), kept = first_step_launches(kernel, step, carry0)
-        widths = [a[0].shape[0] for a, _ in kept]
-        iters = [k["n_iters"] for _, k in kept]
+        kept_names = (kernel, "gmv") if kernel == "ipm_iterate_dense" \
+            else (kernel,)
+        (_, out_first), kept = first_step_launches(kept_names, step, carry0)
+        widths = [a[0].shape[0] for a, _ in kept[kernel]]
+        iters = [k["n_iters"] for _, k in kept[kernel]]
         if widths != [SS_CANDIDATES * B, B] or iters != [
                 cfg.side_selection_cand_iters, cfg.qp_fixed_iters]:
             fail(f"side-selection path {path}: first-step launches "
                  f"{list(zip(widths, iters))}")
         max_err = kernel_checks(path, kernel, kept)
         # the chained steps, counted (with the scatters of dense rows) and
-        # timed
-        reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        resident = torch.cuda.memory_allocated()
-        scatters = 0
-        scatter = con.scatter_slabs
-
-        def counted_scatter(*a, **k):
-            nonlocal scatters
-            scatters += 1
-            return scatter(*a, **k)
-
-        c, outs = carry0, []
-        con.scatter_slabs = counted_scatter
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(SS_STEPS):
-                c, out = step(c)
-                outs.append(out)
-            torch.cuda.synchronize()
-            chained_ms = (time.perf_counter() - t0) / SS_STEPS * 1e3
-        finally:
-            con.scatter_slabs = scatter
-        got = counts()
-        reads = scp.host_sync_count + qp.host_sync_count
-        peak = torch.cuda.max_memory_allocated()
+        # timed, then through the plain version
+        ch = chain_vs_plain(step, carry0, SS_STEPS, (kernel,),
+                            spy=(con, "scatter_slabs"))
+        outs, got = ch["outs"], ch["counts"]
         expect_launches(path, got, SS_STEPS, kernel)
+        c = ch["carry"]
         t0 = time.perf_counter()
         for _ in range(SS_TIMED_STEPS):
             c, _ = step(c)
@@ -2745,18 +2830,8 @@ def side_selection_phases(dev, card, seed) -> dict:
             if out.u_pred.shape != (B, SS_HP, cfg.n_veh):
                 fail(f"side-selection path {path} step {i}: unexpected "
                      f"output shapes")
-        # the same chained steps through the plain version
-        c, outs_p = carry0, []
-        for _ in range(SS_STEPS):
-            c, out = routed({kernel: plain[kernel]}, step, c)
-            outs_p.append(out)
-        feas = float(torch.stack([o.feasible.float().mean()
-                                  for o in outs]).mean())
-        feas_p = float(torch.stack([o.feasible.float().mean()
-                                    for o in outs_p]).mean())
-        stable = float(torch.stack([o.sides_stable.float().mean()
-                                    for o in outs]).mean())
-        err0, ok0 = step0(cfg, data, engine.mpc_step_batch, False)
+        err0, ok0 = step_three_ways(cfg, data, carry0, engine.mpc_step_batch,
+                                    False)
         rep = {"phase": f"side_selection_path_{path}", "card": card,
                "scenario": kind, "B": B, "n_veh": cfg.n_veh, "hp": SS_HP,
                "n": cfg.n_veh * SS_HP + 1,
@@ -2764,29 +2839,38 @@ def side_selection_phases(dev, card, seed) -> dict:
                          "(8 IPM iterations per candidate, 12 per round)",
                "steps": SS_STEPS, "timed_steps": SS_TIMED_STEPS,
                "launches_per_step": {k: v / SS_STEPS for k, v in got.items()},
-               "dense_row_scatters_per_step": scatters / SS_STEPS,
+               "dense_row_scatters_per_step": ch["spy_calls"] / SS_STEPS,
                "first_step_launch_widths": widths,
-               "host_reads_per_step": reads / SS_STEPS,
-               "step_ms": step_ms, "chained_step_ms": chained_ms,
+               "host_reads_per_step": ch["host_reads"] / SS_STEPS,
+               "step_ms": step_ms, "chained_step_ms": ch["chained_step_ms"],
                "solves_per_s": B / step_ms * 1e3,
-               "peak_device_memory_mib": peak / 2 ** 20,
-               # (the part a step adds to what was allocated before it:
-               # the data, the carry and this script's kept launches)
-               "step_peak_above_resident_mib": (peak - resident) / 2 ** 20,
-               "feasible_share": feas, "feasible_share_plain": feas_p,
-               "feasible_floor": feas_p - FROG_FEASIBLE_SLACK,
-               "sides_stable_share": stable,
+               "peak_device_memory_mib": ch["peak_mib"],
+               "step_peak_above_resident_mib":
+                   ch["step_peak_above_resident_mib"],
+               **{k: ch[k] for k in ("feasible_share", "feasible_share_plain",
+                                     "feasible_floor")},
+               "sides_stable_share": float(torch.stack(
+                   [o.sides_stable.float().mean() for o in outs]).mean()),
                "mean_qp_iters": float(torch.stack(
                    [o.qp_iters.float().mean() for o in outs]).mean()),
                "first_step_repeats": float(
                    (out_first.u_pred - outs[0].u_pred).abs().max()),
                "kernel_vs_plain_max_abs_err": max_err,
                "step0": err0}
-        return cfg, data, carry0, step, kept, rep, ok0
+        return cfg, carry0, step, kept, rep, ok0
+
+    def path_failures(path, rep, ok0):
+        if not ok0:
+            fail(f"side-selection path {path}, step 0 off its limits: "
+                 f"{rep['step0']}")
+        if rep["feasible_share"] < rep["feasible_floor"]:
+            fail(f"side-selection path {path}: feasible share "
+                 f"{rep['feasible_share']}, floor {rep['feasible_floor']}")
 
     entries = {}
     # ---- (i) frog, B = 1024, K2 ----
-    cfg_f, data_f, carry_f, step_f, kept_f, rep_f, ok_f = batch_path(
+    t_path = time.perf_counter()
+    cfg_f, carry_f, step_f, kept_f, rep_f, ok_f = batch_path(
         "i", "frog", SS_FROG_B, "ipm_iterate_dense")
     # two steps in rotated-rectangle mode: the same launches
     cfg_r = cfg_f.replace(obst_as_qcqp=False)
@@ -2797,7 +2881,7 @@ def side_selection_phases(dev, card, seed) -> dict:
         c, out = step_f(c, cfg_r)
         finite_outputs(out, f"side-selection path i, rectangle step {i}")
     torch.cuda.synchronize()
-    rect_counts = counts()
+    rect_counts = launch_counts()
     rep_f["rectangle_mode"] = {
         "steps": SS_RECT_STEPS,
         "launches_per_step": {k: v / SS_RECT_STEPS
@@ -2805,19 +2889,17 @@ def side_selection_phases(dev, card, seed) -> dict:
         "feasible_share_last": float(out.feasible.float().mean())}
     expect_launches("i (rectangle mode)", rect_counts, SS_RECT_STEPS,
                     "ipm_iterate_dense")
-    rep_f["times"] = times("i", "ipm_iterate_dense", kept_f)
+    rep_f["times"], rep_f["gmv_times"] = times("i", "ipm_iterate_dense",
+                                               kept_f)
+    rep_f["wall_s"] = time.perf_counter() - t_path
     emit(rep_f)
-    if not ok_f:
-        fail(f"side-selection path i, step 0 off its limits: "
-             f"{rep_f['step0']}")
-    if rep_f["feasible_share"] < rep_f["feasible_floor"]:
-        fail(f"side-selection path i: feasible share "
-             f"{rep_f['feasible_share']}, floor {rep_f['feasible_floor']}")
+    path_failures("i", rep_f, ok_f)
 
     # ---- (ii) parallel-11, B = 256, K1 with the hard rate rows ----
-    cfg_p, data_p, _, _, kept_p, rep_p, ok_p = batch_path(
+    t_path = time.perf_counter()
+    _, _, _, kept_p, rep_p, ok_p = batch_path(
         "ii", "parallel", SS_PAR_B, "ipm_iterate_struct", n_veh=SS_PAR_VEH)
-    a0 = kept_p[0][0]
+    a0 = kept_p["ipm_iterate_struct"][0][0]
     P_s, S_s = a0[0].shape[1], a0[2].shape[1]
     ctas = ipm_kernel.resident_ctas_per_sm(P_s, S_s, SS_HP, SS_HP,
                                            SS_PAR_VEH, True)
@@ -2828,7 +2910,8 @@ def side_selection_phases(dev, card, seed) -> dict:
                  k1_smem_bytes=ipm_kernel.smem_bytes(
                      P_s, S_s, SS_HP, SS_HP, SS_PAR_VEH, True),
                  dense_rows_mib_if_built=dense_bytes / 2 ** 20,
-                 times=times("ii", "ipm_iterate_struct", kept_p))
+                 times=times("ii", "ipm_iterate_struct", kept_p)[0],
+                 wall_s=time.perf_counter() - t_path)
     emit(rep_p)
     if ctas < 1:
         fail(f"side-selection path ii: K1 holds {ctas} CTAs an SM")
@@ -2839,14 +2922,10 @@ def side_selection_phases(dev, card, seed) -> dict:
              f"structured route (none wanted), "
              f"{rep_f['dense_row_scatters_per_step']} on the dense-G route "
              f"(one per QP wanted)")
-    if not ok_p:
-        fail(f"side-selection path ii, step 0 off its limits: "
-             f"{rep_p['step0']}")
-    if rep_p["feasible_share"] < rep_p["feasible_floor"]:
-        fail(f"side-selection path ii: feasible share "
-             f"{rep_p['feasible_share']}, floor {rep_p['feasible_floor']}")
+    path_failures("ii", rep_p, ok_p)
 
     # ---- (iii) one frog scenario, the full closed loop ----
+    t_path = time.perf_counter()
     cfg1, data1 = builders.frog(dtype=torch.float32, device=dev)
     cfg1 = ss_config(cfg1)
     n_sim = cfg1.n_sim
@@ -2855,28 +2934,38 @@ def side_selection_phases(dev, card, seed) -> dict:
         return engine.mpc_step(cfg1, data1, c)
 
     carry1 = engine.init_carry(cfg1, data1)
-    _, kept1 = first_step_launches("ipm_iterate_dense", step1, carry1)
-    widths1 = [a[0].shape[0] for a, _ in kept1]
+    _, kept1 = first_step_launches(("ipm_iterate_dense", "gmv"), step1,
+                                   carry1)
+    widths1 = [a[0].shape[0] for a, _ in kept1["ipm_iterate_dense"]]
     if widths1 != [SS_CANDIDATES, 1]:
         fail(f"side-selection path iii: first-step launch widths {widths1}")
     max_err1 = kernel_checks("iii", "ipm_iterate_dense", kept1)
-    err1, ok1 = step0(cfg1, data1, engine.mpc_step, True)
+    err1, ok1 = step_three_ways(cfg1, data1, carry1, engine.mpc_step, True)
     reset_counts()
-    lats, feas1, stable1 = [], [], []
-    c_i = carry1
-    for _ in range(n_sim):
+    lats, feas1, stable1, steer1 = [], [], [], []
+    c_i, steer_step = carry1, None
+    for i in range(n_sim):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(LATENCY_REPS):
             step1(c_i)
         torch.cuda.synchronize()
         lats.append((time.perf_counter() - t0) / LATENCY_REPS * 1e3)
-        c_i, out = step1(c_i)
+        c_next, out = step1(c_i)
         finite_outputs(out, "side-selection path iii")
         feas1.append(float(out.feasible.float().mean()))
         stable1.append(float(out.sides_stable.float().mean()))
-    got1 = counts()
+        steer1.append(steering_share(cfg1, data1, c_i, out))
+        if steer_step is None and steer1[-1] >= SS_STEER_SHARE:
+            steer_step = (i, c_i)
+        c_i = c_next
+    got1 = launch_counts()
     n_calls = n_sim * (LATENCY_REPS + 1)
+    if steer_step is None:
+        fail(f"side-selection path iii: no step has {SS_STEER_SHARE} of its "
+             f"controls steering off their bounds")
+    err_steer, ok_steer = step_three_ways(cfg1, data1, steer_step[1],
+                                        engine.mpc_step, True)
     lats.sort()
     rep1 = {"phase": "side_selection_path_iii", "card": card,
             "scenario": "frog (nominal)", "n_veh": 1, "hp": SS_HP,
@@ -2893,14 +2982,30 @@ def side_selection_phases(dev, card, seed) -> dict:
             "step_latency_ms_max": lats[-1],
             "step_latency_ms_min": lats[0],
             "kernel_vs_plain_max_abs_err": max_err1, "step0": err1,
-            "times": times("iii", "ipm_iterate_dense", kept1)}
+            "steering_share_step0": steer1[0],
+            "steering_share_mean": sum(steer1) / n_sim,
+            "steer_step": steer_step[0],
+            "steer_step_steering_share": steer1[steer_step[0]],
+            "steer_step_errors": err_steer}
+    rep1["times"], rep1["gmv_times"] = times("iii", "ipm_iterate_dense",
+                                             kept1)
+    rep1["wall_s"] = time.perf_counter() - t_path
     emit(rep1)
     expect_launches("iii", got1, n_calls, "ipm_iterate_dense")
     if not ok1:
         fail(f"side-selection path iii, step 0 off its limits: {err1}")
+    if not ok_steer:
+        fail(f"side-selection path iii, step {steer_step[0]} (steering, off "
+             f"its bounds) off its limits: {err_steer}")
     if rep1["feasible_share"] < SIM_FEASIBLE_FLOOR:
         fail(f"side-selection path iii: feasible share "
              f"{rep1['feasible_share']} below {SIM_FEASIBLE_FLOOR}")
+    emit({"phase": "side_selection_first_step_launches", "card": card,
+          "launches": launch_rows,
+          "limits": {"ipm_iterate_dense": DENSE_LIMITS,
+                     "ipm_iterate_struct": "the row's own",
+                     "gmv": {"vs_f64": "2 x plain float32's + 1e-5 x scale",
+                             "first_iter_rel": MATVEC_REL_LIMIT}}})
     reset_counts()
 
     for k in ("ipm_iterate_struct", "ipm_iterate_dense", "gmv"):
@@ -2915,6 +3020,11 @@ def side_selection_phases(dev, card, seed) -> dict:
         "side_selection_times": rep_p["times"],
         "side_selection_max_abs_err": rep_p["kernel_vs_plain_max_abs_err"],
         "side_selection_resident_ctas_per_sm": ctas})
+    entries["gmv"].update({
+        "side_selection_times": {**rep_f["gmv_times"], **rep1["gmv_times"]},
+        "side_selection_max_abs_err": max(
+            r["kernel_vs_plain_max_abs"] for r in launch_rows
+            if r["kernel"].startswith("gmv"))})
     return entries
 
 
@@ -2922,6 +3032,7 @@ def main() -> None:
     B = BATCH
 
     # ---- phase 1: device ----
+    phase_end = {"start": time.perf_counter()}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
@@ -2949,6 +3060,8 @@ def main() -> None:
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
           "library": lib_path.name,
           "sources": [p.name for p in _cuda_build.sources()]})
+    wrappers()                  # read before any wrapper is replaced
+    phase_end["device_and_build"] = time.perf_counter()
 
     # ---- the main path's configuration ----
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3218,14 +3331,23 @@ def main() -> None:
     ipm_kernel.reset_launch_count()
     emit(times)
 
+    phase_end["main_path"] = time.perf_counter()
+
     # ---- phases 6-10: the Cholesky, solve and matvec kernels ----
     linalg_reports = linalg_phases(dev, card, B, N_VEH, HP, SEED)
+    phase_end["linalg_adaptive_per_instance"] = time.perf_counter()
 
     # ---- phases 11-15: the Riccati sweeps and the dense-G iteration ----
     new_reports = long_horizon_and_dense_phases(dev, card, SEED)
+    phase_end["riccati_dense_fused_hp64"] = time.perf_counter()
 
     # ---- paths (i)-(iii): the side-selection controller ----
     ss_entries = side_selection_phases(dev, card, SEED)
+    phase_end["side_selection"] = time.perf_counter()
+    marks = list(phase_end.items())
+    emit({"phase": "wall_seconds", **{
+        k: round(t - marks[i][1], 2) for i, (k, t) in enumerate(marks[1:])},
+        "total": round(marks[-1][1] - marks[0][1], 2)})
 
     reports = [kernel_report] + linalg_reports + new_reports
     for r in reports:

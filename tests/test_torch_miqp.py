@@ -25,7 +25,7 @@ from scp_tpu_torch.scenarios import batch as tbatch
 from scp_tpu_torch.sim import engine as tengine
 from scp_tpu_torch.solvers import miqp as tmiqp
 
-from torch_parity import assert_close, scenario_pair
+from torch_parity import assert_close, jit_fast
 
 SMALL = dict(hp=5, hu=5, qp_max_iter=25, controller="side_selection")
 CASES = {"frog": {}, "circle": {"n_veh": 3}, "parallel": {"n_veh": 4}}
@@ -67,12 +67,15 @@ def _port_case(cfg_t, data_t, seed):
                 rect_t=rect_t)
 
 
-def _build(kind, np_dtype=np.float64, seed=11, b=4, over=None, **kw):
-    """One batch built by scp_tpu (``scenario_pair``), :func:`_port_case`
-    on it, and the same arguments as scp_tpu's arrays."""
-    _, _, cfg_t, data_t = scenario_pair(
-        kind, b, seed, np_dtype, cfg_over={**SMALL, **(over or {})}, **kw)
-    c = _port_case(cfg_t, data_t, seed)
+def _build(kind, dtype=torch.float64, seed=11, b=4, over=None, **kw):
+    """One randomized batch built by the port, :func:`_port_case` on it, and
+    the same arguments as scp_tpu's arrays. (Every scp_tpu function below
+    starts from the preprocessed arguments, so scp_tpu's own batch builder,
+    which compiles for 1.5-2 s a family, is not needed.)"""
+    cfg_t, data_t = tbatch.make_batch(
+        kind, b, generator=torch.Generator().manual_seed(seed), dtype=dtype,
+        device="cpu", **kw)
+    c = _port_case(cfg_t.replace(**{**SMALL, **(over or {})}), data_t, seed)
     c["j_args"] = (_jsys(c["t_args"][0]),) + tuple(
         jnp.asarray(a.numpy()) for a in c["t_args"][1:])
     c["j_kw"] = {k: jnp.asarray(v.numpy()) for k, v in c["t_kw"].items()}
@@ -103,12 +106,15 @@ def stacked_ref(case):
         if kind not in cache:
             c = case(kind)
             du = c["cfg"].u_lim
-            fn = jax.jit(lambda *a, dsafe_pair, dsafe_obst:
-                         jmiqp.solve_side_selection_stacked(
-                             *a, du_lim=du, qp_max_iter=25,
-                             dsafe_pair=dsafe_pair, dsafe_obst=dsafe_obst))
+            args = c["j_args"] + (c["j_kw"]["dsafe_pair"],
+                                  c["j_kw"]["dsafe_obst"])
+
+            def fn(*a):
+                return jmiqp.solve_side_selection_stacked(
+                    *a[:-2], du_lim=du, qp_max_iter=25, dsafe_pair=a[-2],
+                    dsafe_obst=a[-1])
             cache[kind] = jax.tree_util.tree_map(
-                np.asarray, fn(*c["j_args"], **c["j_kw"]))
+                np.asarray, jit_fast(fn, *args)(*args))
         return cache[kind]
     return get
 
@@ -226,9 +232,9 @@ def select_ref(case):
             def all_modes(s, uu, um, nn, dd):
                 return {m: jmiqp._select_from_trajectory(
                     s, uu, **_mode_kw(m, nn, dd, um)) for m in SELECT_MODES}
-            want = jax.jit(jax.vmap(all_modes))(
-                _jsys(sys_t), *[jnp.asarray(t.numpy()) for t in
-                                (u, u_max, normals, dists)])
+            j_args = (_jsys(sys_t),) + tuple(
+                jnp.asarray(t.numpy()) for t in (u, u_max, normals, dists))
+            want = jit_fast(jax.vmap(all_modes), *j_args)(*j_args)
             cache[name] = (args, jax.tree_util.tree_map(np.asarray, want))
         return cache[name]
     return get
@@ -311,10 +317,11 @@ def pieces_ref(case):
                 jax.vmap(jmiqp._slabs_from_selection, in_axes=ax)(*a)
                 + jax.vmap(jmiqp._rows_from_selection, in_axes=ax)(*a))
         return out
-    want = jax.jit(ref)(c["j_args"], (c["j_kw"]["dsafe_pair"],
-                                      c["j_kw"]["dsafe_obst"]),
-                        c["rect_j"], tuple(map(jnp.asarray, sel)),
-                        tuple(map(jnp.asarray, tables)))
+    r_args = (c["j_args"], (c["j_kw"]["dsafe_pair"],
+                            c["j_kw"]["dsafe_obst"]),
+              c["rect_j"], tuple(map(jnp.asarray, sel)),
+              tuple(map(jnp.asarray, tables)))
+    want = jit_fast(ref, *r_args)(*r_args)
     return c, sel, tables, jax.tree_util.tree_map(np.asarray, want)
 
 
@@ -377,11 +384,11 @@ def test_solve_fixed_sides_matches_scp_tpu(case):
     sp, so = tmiqp._select_from_trajectory(sys_t, u_init, u_max=u_max,
                                            lat_commit=True)
     kw = dict(du_lim=c["cfg"].u_lim, qp_max_iter=25)
-    want = jax.jit(jax.vmap(lambda *a: jmiqp.solve_fixed_sides(
-        *a[:9], dsafe_pair=a[9], dsafe_obst=a[10], **kw)))(
-            *c["j_args"][:7], jnp.asarray(sp.numpy()),
-            jnp.asarray(so.numpy()), c["j_kw"]["dsafe_pair"],
-            c["j_kw"]["dsafe_obst"])
+    f_args = (*c["j_args"][:7], jnp.asarray(sp.numpy()),
+              jnp.asarray(so.numpy()), c["j_kw"]["dsafe_pair"],
+              c["j_kw"]["dsafe_obst"])
+    want = jit_fast(jax.vmap(lambda *a: jmiqp.solve_fixed_sides(
+        *a[:9], dsafe_pair=a[9], dsafe_obst=a[10], **kw)), *f_args)(*f_args)
     got = tmiqp.solve_fixed_sides(*c["t_args"][:7], sp, so, **c["t_kw"],
                                   **kw)
     assert_close(got[0], np.asarray(want[0]), 1e-8, name="u")
@@ -431,18 +438,18 @@ def test_structured_route_float32_matches_pallas_interpret():
     2V single-block slabs with slack coefficient 0. The port's structured
     route (K1's plain version here) against scp_tpu's Pallas struct kernel
     in interpret mode."""
-    c = _build("parallel", np.float32, seed=2, over=dict(hp=8, hu=8),
+    c = _build("parallel", torch.float32, seed=2, over=dict(hp=8, hu=8),
                n_veh=3)
     kw = dict(du_lim=c["cfg"].u_lim, qp_fixed_iters=12, qp_tol=1e-6,
               n_rounds=1)
     old = pll.INTERPRET
     pll.INTERPRET = True
     try:
-        want = jax.jit(lambda *a, dsafe_pair, dsafe_obst:
-                       jmiqp.solve_side_selection_stacked(
-                           *a, qp_use_pallas=True, dsafe_pair=dsafe_pair,
-                           dsafe_obst=dsafe_obst, **kw))(
-                               *c["j_args"], **c["j_kw"])
+        args = c["j_args"] + (c["j_kw"]["dsafe_pair"],
+                              c["j_kw"]["dsafe_obst"])
+        want = jit_fast(lambda *a: jmiqp.solve_side_selection_stacked(
+            *a[:-2], qp_use_pallas=True, dsafe_pair=a[-2],
+            dsafe_obst=a[-1], **kw), *args)(*args)
     finally:
         pll.INTERPRET = old
     got = tmiqp.solve_side_selection_stacked(*c["t_args"], **c["t_kw"],

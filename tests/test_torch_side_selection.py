@@ -20,7 +20,7 @@ from scp_tpu_torch.ops import ipm_kernel
 from scp_tpu_torch.scenarios import batch as tbatch, builders as tbuilders
 from scp_tpu_torch.sim import engine as tengine
 
-from torch_parity import assert_close, scenario_pair
+from torch_parity import assert_close, jit_fast, scenario_pair
 
 SMALL = dict(hp=5, hu=5, qp_max_iter=25, controller="side_selection")
 STEP_CASES = {"parallel_rect": ("parallel", dict(obst_as_qcqp=False),
@@ -42,7 +42,8 @@ def step_ref():
             cfg_j, data_j, cfg_t, data_t = scenario_pair(
                 kind, 4, seed=11, cfg_over={**SMALL, **over}, **kw)
             carry = jax.vmap(lambda d: jengine.init_carry(cfg_j, d))(data_j)
-            step = jax.jit(lambda d, c: jengine.mpc_step_batch(cfg_j, d, c))
+            step = jit_fast(lambda d, c: jengine.mpc_step_batch(cfg_j, d, c),
+                            data_j, carry)
             outs = []
             for _ in range(N_STEPS):
                 carry, out = step(data_j, carry)

@@ -17,6 +17,20 @@ TDT = {np.float64: torch.float64, np.float32: torch.float32}
 JDT = {np.float64: jnp.float64, np.float32: jnp.float32}
 
 
+# XLA's cheapest compile, for a reference that runs once or twice on small
+# shapes: there the compile, not the run, is what a test pays for
+# (float64 outputs of the side-selection controller agree with the
+# optimised build's to 1e-16, and every integer is the same)
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def jit_fast(fn, *args):
+    """``jax.jit(fn)`` lowered for ``args`` and compiled with FAST_COMPILE;
+    the compiled function takes the same positional arguments."""
+    return jax.jit(fn).lower(*args).compile(FAST_COMPILE)
+
+
 def tonp(tree):
     """numpy copy of every leaf of a JAX pytree."""
     return jax.tree_util.tree_map(np.asarray, tree)
