@@ -10,7 +10,7 @@ fused structured IPM iteration K1, the dense-G IPM iteration K2, the
 batched Cholesky and the Cholesky solve — in shared memory below n = 240,
 with the matrix in device memory from there — the two G matvecs, and the
 Riccati factor and solve sweeps K6 / K7), holds each against its plain
-PyTorch version on the card, and drives eleven paths of the port at full
+PyTorch version on the card, and drives twelve paths of the port at full
 width, every kernel's launch count set to 0 just before a path and read
 just after:
 
@@ -69,7 +69,18 @@ just after:
   hard steering-rate rows), the dense rows never scattered;
 * (iii) ONE nominal frog scenario under the same controller through
   ``mpc_step`` for the full closed loop: step latency, two K2 and two
-  G-product launches a step (5 and 1 wide).
+  G-product launches a step (5 and 1 wide);
+* (j) the entry points a user calls: ``scp_tpu_torch.bench.worker()`` at
+  its own settings (K1 on its throughput steps, K3 / K4 on its latency
+  steps; its solves/s and latency printed beside paths (a) and (c)), and
+  ``scp_tpu_torch.cli.main`` — ``run`` with its defaults (circle-8,
+  hp = 10, 50 steps; ``--out`` and ``--export-json`` read back: K3 / K4),
+  ``run --mc 64 --noise`` (K1), frog under ``--controller side_selection``
+  (K2, K5a) and circle-4 at ``--hp 64 --kkt banded`` (K6, K7) — each
+  call's launches counted; ``--kkt`` with side selection and ``--f64``
+  on the card refused before any launch; a checkpoint saved and resumed
+  mid-run at B = 64 with plant noise, bit for bit the straight run; and
+  ``utils.debug.determinism_check`` of one calibrated step.
 
 On (i) to (iii) every launch of the first step is held against its plain
 version (the G product also on the same G with a random x), and step 0 is
@@ -115,6 +126,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1031,6 +1043,9 @@ def linalg_phases(dev, card, B, n_veh, hp, seed, widths=(1024, 256, 64),
         lats.append((time.perf_counter() - t0) / LATENCY_REPS * 1e3)
         c_i, _ = engine.mpc_step(cfg1, data1, c_i)
     lats.sort()
+    PATH_NUMBERS["c_latency"] = [
+        lats[len(lats) // 2], lats[min(len(lats) - 1, int(0.90 * len(lats)))],
+        lats[-1]]
     emit({"phase": "per_instance_path", "card": card, "scenario": "circle",
           "n_veh": n_veh, "hp": hp, "steps": n_sim, "config": "tuned_f32",
           "feasible_share": sim_feas, "feasible_floor": SIM_FEASIBLE_FLOOR,
@@ -3028,6 +3043,313 @@ def side_selection_phases(dev, card, seed) -> dict:
     return entries
 
 
+# ---- path (j): the entry points (cli / bench) ----
+# Numbers other paths measured in this run, for path (j) to print beside
+# its own: path (a)'s solves/s, path (c)'s step latency.
+PATH_NUMBERS: dict = {}
+
+J_MC = 64                  # --mc of the Monte-Carlo run (K1)
+J_MC_STEPS = 5
+J_SS_STEPS = 5             # frog side selection (K2, K5a)
+J_BANDED_STEPS = 3         # circle-4, hp = 64, --kkt banded (K6, K7)
+J_RUN_STEPS = 0            # the default run: 0 = cfg.n_sim (50)
+J_CKPT_B = 64              # checkpoint resume: circle-4, plant noise
+J_CKPT_STEPS = (2, 2)      # steps before and after the checkpoint
+J_EXPORT_INSTANCE = 3
+
+
+def run_cli(argv: list[str]) -> dict:
+    """``scp_tpu_torch.cli.main(argv)`` with its output captured, every
+    count set to 0 just before and read just after; a ``SystemExit`` (the
+    parser's refusals) is caught and its code kept."""
+    import io
+
+    from scp_tpu_torch import cli
+    out, err = io.StringIO(), io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    code, summary = 0, None
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            summary = cli.main(argv)
+        except SystemExit as e:
+            code = e.code
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {"argv": argv, "exit_code": code, "summary": summary,
+            "launches": launch_counts(),
+            "seconds": round(time.perf_counter() - t0, 3),
+            "stderr": err.getvalue()[-400:]}
+
+
+def require_launches(what: str, counts: dict, kernels) -> None:
+    zero = [k for k in kernels if not counts.get(k)]
+    if zero:
+        fail(f"{what}: no launch of {zero} (counts {counts})")
+
+
+REFERENCE_JSON_KEYS = (
+    "vehiclePathFullRes", "obstaclePathFullRes", "controlPathFullRes",
+    "controlPredictions", "trajectoryPredictions", "initial_pos",
+    "ReferenceTrajectory", "MPC_delay_compensation_trajectory",
+    "evaluations_obj_value", "stepTime", "controllerRuntime")
+
+
+def check_reference_json(path: str, cfg, n_steps: int, arrays=None) -> dict:
+    """The 11 keys of the reference-format export, each of the shape
+    ``utils/results.py`` gives it (the transposes of
+    ``scp_tpu/utils/results.py:119-135``); with ``arrays`` (the run's
+    npz), the predictions equal to them."""
+    import numpy as np
+
+    with open(path) as f:
+        payload = json.load(f)
+    if tuple(sorted(payload)) != tuple(sorted(REFERENCE_JSON_KEYS)):
+        fail(f"{path}: keys {sorted(payload)}")
+    v, hp, tps = cfg.n_veh, cfg.hp, cfg.ticks_per_sim
+    ticks = n_steps * tps
+    want = {"vehiclePathFullRes": (6, v, ticks + 1),
+            "controlPathFullRes": (v, ticks + 1),
+            "controlPredictions": (hp, v, n_steps),
+            "trajectoryPredictions": (hp, 2, v, n_steps),
+            "initial_pos": (2, v, n_steps),
+            "ReferenceTrajectory": (hp, 2, v, n_steps),
+            "MPC_delay_compensation_trajectory": (10, 6, v, n_steps),
+            "evaluations_obj_value": (n_steps,),
+            "stepTime": (n_steps,), "controllerRuntime": (n_steps,)}
+    shapes = {k: np.asarray(payload[k]).shape for k in want}
+    bad = {k: (shapes[k], w) for k, w in want.items() if shapes[k] != w}
+    obst = np.asarray(payload["obstaclePathFullRes"])
+    if cfg.n_obst and obst.shape != (cfg.n_obst, 6, cfg.ticks_total + 1):
+        bad["obstaclePathFullRes"] = obst.shape
+    if not cfg.n_obst and obst.size:
+        bad["obstaclePathFullRes"] = obst.shape
+    if bad:
+        fail(f"{path}: shapes (got, expected) {bad}")
+    for k in want:
+        if not np.all(np.isfinite(np.asarray(payload[k]))):
+            fail(f"{path}: {k} is not finite")
+    if arrays is not None and not np.array_equal(
+            np.asarray(payload["controlPredictions"]),
+            arrays["u_pred"].transpose(1, 2, 0)):
+        fail(f"{path}: controlPredictions differ from the npz's u_pred")
+    return {"step_time_s_sum": float(np.sum(payload["stepTime"])),
+            "step_time_min_s": float(np.min(payload["stepTime"])),
+            "controller_runtime_s_sum":
+                float(np.sum(payload["controllerRuntime"]))}
+
+
+def entry_point_phases(dev, card, seed, calibrated) -> dict:
+    """Path (j): every kernel reached through the entry points a user
+    calls — ``scp_tpu_torch.bench.worker()`` at its own settings and
+    ``scp_tpu_torch.cli.main([...])`` — each call's launches counted; the
+    CLI's refusals; a checkpoint resume, bit for bit; the determinism of
+    one calibrated step. ``calibrated = (cfg, data, carry, phases)`` of
+    path (a). Returns ``{kernel name: launches through the entry points}``
+    for the ``kernels`` line."""
+    import io
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from scp_tpu_torch import bench
+    from scp_tpu_torch import config as config_lib
+    from scp_tpu_torch.scenarios import batch as batch_lib, builders
+    from scp_tpu_torch.sim import engine
+    from scp_tpu_torch.utils import checkpoint, debug, results
+
+    on_cpu = ["--cpu"] if dev.type == "cpu" else []   # CPU rehearsal only
+    totals: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_j_")
+    try:
+        # ---- bench.worker() at its own settings ----
+        split: dict = {}
+        latency_fn = bench.latency
+
+        def latency_counted(device):
+            split["throughput"] = launch_counts()
+            reset_counts()
+            lats = latency_fn(device)
+            split["latency"] = launch_counts()
+            return lats
+
+        out, err = io.StringIO(), io.StringIO()
+        bench.latency = latency_counted
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                res = bench.worker(device=dev)
+        finally:
+            bench.latency = latency_fn
+        bench_s = time.perf_counter() - t0
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith("{")]
+        if len(lines) != 1:
+            fail(f"bench.worker printed {len(lines)} JSON lines: "
+                 f"{out.getvalue()!r}")
+        line = json.loads(lines[0])
+        lat_line = [ln for ln in err.getvalue().splitlines()
+                    if ln.startswith("# step_latency_ms")]
+        add(split["throughput"])
+        add(split["latency"])
+        emit({"phase": "entry_bench", "card": card,
+              "json_line": line, "stderr": err.getvalue().splitlines(),
+              "settings": {"BATCH": bench.BATCH, "HP": bench.HP,
+                           "ITERS": bench.ITERS, "LSTEPS": bench.LSTEPS,
+                           "REPS": bench.REPS},
+              "build_s": res["build_s"], "step_ms": res["step_s"] * 1e3,
+              "feasible_frac": res["feasible_frac"],
+              "latency_ms_p50_p90_max": [res["latency_p50_ms"],
+                                         res["latency_p90_ms"],
+                                         res["latency_max_ms"]],
+              "path_a_solves_per_s": PATH_NUMBERS.get("a_solves_per_s"),
+              "path_c_latency_ms_p50_p90_max": PATH_NUMBERS.get("c_latency"),
+              "throughput_launches": split["throughput"],
+              "latency_launches": split["latency"],
+              "seconds": round(bench_s, 2)})
+        if line.get("metric") != "scp_solves_per_sec_chip" \
+                or line.get("unit") != "solves/s" \
+                or not math.isfinite(line.get("value", float("nan"))) \
+                or not line["value"] > 0:
+            fail(f"bench: bad JSON line {line}")
+        if not lat_line:
+            fail("bench: no latency line on stderr")
+        require_launches("bench throughput", split["throughput"],
+                         ["ipm_iterate_struct"])
+        require_launches("bench latency", split["latency"],
+                         ["cholesky", "cho_solve"])
+
+        # ---- cli run, defaults (circle-8, hp = 10), --out, --export-json
+        npz, js = f"{tmp}/run.npz", f"{tmp}/run.json"
+        argv = ["run", "--out", npz, "--export-json", js]
+        if J_RUN_STEPS:
+            argv += ["--steps", str(J_RUN_STEPS)]
+        r = run_cli(argv + on_cpu)
+        add(r["launches"])
+        require_launches("cli run", r["launches"], ["cholesky", "cho_solve"])
+        cfg8, _ = builders.circle(8, device="cpu")
+        cfg8 = config_lib.tuned_f32(cfg8)
+        n8 = J_RUN_STEPS or cfg8.n_sim
+        arrays = results.load_npz(npz)
+        if arrays["states"].shape != (n8, cfg8.ticks_per_sim, 8, 6) \
+                or arrays["u_pred"].shape != (n8, cfg8.hp, 8):
+            fail(f"cli run --out: shapes {arrays['states'].shape}, "
+                 f"{arrays['u_pred'].shape}")
+        j_run = check_reference_json(js, cfg8, n8, arrays)
+        if not j_run["step_time_min_s"] > 0:
+            fail(f"cli run --export-json: a stepTime is not positive {j_run}")
+        feas = r["summary"]["feasible_frac"]
+        emit({"phase": "entry_cli_run", **r, "export": j_run,
+              "feasible_floor": SIM_FEASIBLE_FLOOR})
+        if feas < SIM_FEASIBLE_FLOOR:
+            fail(f"cli run: feasible share {feas} below {SIM_FEASIBLE_FLOOR}")
+
+        # ---- --mc 64 --noise, export of one instance (K1) ----
+        js_mc = f"{tmp}/mc.json"
+        r = run_cli(["run", "--mc", str(J_MC), "--steps", str(J_MC_STEPS),
+                     "--noise", "--export-json", js_mc, "--export-instance",
+                     str(J_EXPORT_INSTANCE)] + on_cpu)
+        add(r["launches"])
+        check_reference_json(js_mc, cfg8, J_MC_STEPS)
+        emit({"phase": "entry_cli_mc", **r})
+        require_launches("cli run --mc", r["launches"], ["ipm_iterate_struct"])
+
+        # ---- frog side selection (K2, K5a) ----
+        r = run_cli(["run", "--scenario", "frog", "--controller",
+                     "side_selection", "--steps", str(J_SS_STEPS)] + on_cpu)
+        add(r["launches"])
+        emit({"phase": "entry_cli_side_selection", **r})
+        require_launches("cli run --controller side_selection",
+                         r["launches"], ["ipm_iterate_dense", "gmv"])
+
+        # ---- circle-4, hp = 64, banded (K6, K7) ----
+        r = run_cli(["run", "--n-veh", "4", "--hp", "64", "--kkt", "banded",
+                     "--steps", str(J_BANDED_STEPS)] + on_cpu)
+        add(r["launches"])
+        emit({"phase": "entry_cli_banded", **r})
+        require_launches("cli run --hp 64 --kkt banded", r["launches"],
+                         ["riccati_factor", "riccati_solve"])
+
+        # ---- the refusals: before any work, no launch ----
+        refusals = []
+        for argv in (["run", "--controller", "side_selection", "--kkt",
+                      "dense"], ["run", "--f64"]):
+            r = run_cli(argv)
+            refusals.append(r)
+            if r["exit_code"] != 2 or any(r["launches"].values()) \
+                    or r["summary"] is not None:
+                fail(f"cli {argv} must be refused before any launch: {r}")
+        emit({"phase": "entry_cli_refusals", "refusals": refusals})
+
+        # ---- checkpoint resume, bit for bit (plant noise on) ----
+        gen = torch.Generator(device=dev).manual_seed(seed + 7)
+        cfg_c, data_c = batch_lib.make_batch(
+            "circle", J_CKPT_B, generator=gen, dtype=torch.float32,
+            device=dev, n_veh=4)
+        cfg_c = config_lib.tuned_f32(cfg_c).replace(
+            noise_std=config_lib.reference_noise_std(cfg_c))
+        phases = config_lib.TUNED_F32_PHASES
+
+        def steps(carry, n):
+            for _ in range(n):
+                carry, _ = engine.mpc_step_batch(cfg_c, data_c, carry,
+                                                 phases=phases)
+            return carry
+
+        def fresh(s):
+            return engine.init_carry(
+                cfg_c, data_c, torch.Generator(device=dev).manual_seed(s))
+
+        n0, n1 = J_CKPT_STEPS
+        straight = steps(fresh(seed), n0 + n1)
+        first = steps(fresh(seed), n0)
+        ck = f"{tmp}/carry.npz"
+        checkpoint.save(ck, first, first.step)
+        resumed, at = checkpoint.load(ck, fresh(seed + 1000))
+        resumed = steps(resumed, n1)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        same = {f: (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                    else a == b if not isinstance(a, torch.Generator)
+                    else torch.equal(a.get_state(), b.get_state()))
+                for f, a, b in zip(straight._fields, straight, resumed)}
+        ck_rep = {"phase": "entry_checkpoint_resume", "B": J_CKPT_B,
+                  "steps": [n0, n1], "saved_at_step": at,
+                  "noise_std": cfg_c.noise_std, "bitwise_equal": same,
+                  "state_max_abs_diff": float(
+                      (straight.state - resumed.state).abs().max()),
+                  "tmp_files_left": sorted(
+                      p for p in os.listdir(tmp) if ".tmp" in p)}
+        emit(ck_rep)
+        if not all(same.values()) or ck_rep["tmp_files_left"]:
+            fail(f"checkpoint resume is not bitwise the straight run: "
+                 f"{ck_rep}")
+
+        # ---- determinism of one calibrated step (B = 1024) ----
+        cfg_a, data_a, carry_a, phases_a = calibrated
+        dev_j = debug.determinism_check(
+            lambda: engine.mpc_step_batch(cfg_a, data_a, carry_a,
+                                          phases=phases_a))
+        emit({"phase": "entry_determinism", "B": data_a.x0.shape[0],
+              "max_abs_deviation": dev_j})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    need = ("ipm_iterate_struct", "ipm_iterate_dense", "cholesky",
+            "cho_solve", "gmv", "riccati_factor", "riccati_solve")
+    require_launches("path (j)", totals, need)
+    emit({"phase": "entry_points", "launches": totals})
+    return totals
+
+
 def main() -> None:
     B = BATCH
 
@@ -3329,6 +3651,7 @@ def main() -> None:
                                  bound_ms=bound, bound_by=by,
                                  resident_ctas_per_sm=ctas)
     ipm_kernel.reset_launch_count()
+    PATH_NUMBERS["a_solves_per_s"] = times["solves_per_s"]
     emit(times)
 
     phase_end["main_path"] = time.perf_counter()
@@ -3344,6 +3667,11 @@ def main() -> None:
     # ---- paths (i)-(iii): the side-selection controller ----
     ss_entries = side_selection_phases(dev, card, SEED)
     phase_end["side_selection"] = time.perf_counter()
+
+    # ---- path (j): the entry points, cli and bench ----
+    entry_counts = entry_point_phases(dev, card, SEED,
+                                      (cfg, data, carry0, PHASES))
+    phase_end["entry_points"] = time.perf_counter()
     marks = list(phase_end.items())
     emit({"phase": "wall_seconds", **{
         k: round(t - marks[i][1], 2) for i, (k, t) in enumerate(marks[1:])},
@@ -3352,6 +3680,8 @@ def main() -> None:
     reports = [kernel_report] + linalg_reports + new_reports
     for r in reports:
         r.update(ss_entries.get(r["name"], {}))
+        if r["name"] in entry_counts:
+            r["entry_points_launches"] = entry_counts[r["name"]]
     emit({"kernels": reports})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

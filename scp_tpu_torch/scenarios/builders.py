@@ -4,8 +4,8 @@
 Each builder returns a ``(SCPConfig, ScenarioData)`` pair; the data carries
 a leading batch axis of size 1 (every function of the port is written for
 batched tensors). Randomized batches live in
-``scp_tpu_torch.scenarios.batch``. The host-side plot helpers are not
-ported yet.
+``scp_tpu_torch.scenarios.batch``. The host-side plot geometry
+(:func:`plot_limits`, :func:`label_offsets`) is numpy only.
 """
 from __future__ import annotations
 
@@ -154,3 +154,46 @@ def parallel(n_veh: int = 11, dtype=torch.float64, device="cuda",
 
 
 BUILDERS = {"circle": circle, "frog": frog, "parallel": parallel}
+
+
+# ---- host-side plot geometry (numpy; not part of the tensor containers) ----
+
+def plot_limits(scenario: str, n_veh: int = 0,
+                radius: float = 30.0) -> np.ndarray:
+    """The original controller's ``scenario.plotLimits`` (the axis limits of
+    its live plot): ((xmin, xmax), (ymin, ymax)). The circle of two
+    near-horizontal vehicles gets a narrow y range."""
+    if scenario == "circle":
+        lim = 1.1 * radius * np.array([[-1.0, 1.0], [-1.0, 1.0]])
+        angles = [2 * math.pi / n_veh * (i + 1) for i in range(n_veh)]
+        if n_veh == 2 and max(abs(math.sin(a)) for a in angles) < 0.1:
+            lim[1] = [-6.0, 6.0]
+        return lim
+    if scenario == "frog":
+        return 35.0 * np.array([[-1.0, 1.0], [-1.0, 1.0]])
+    if scenario == "parallel":
+        return np.array([[-50.0, 50.0], [-20.0, 20.0]])
+    return 5.0 * np.array([[-10.0, 10.0], [-10.0, 10.0]])
+
+
+def label_offsets(scenario: str, n_veh: int) -> np.ndarray:
+    """Per-vehicle offsets (n_veh, 2) of the vehicle-number labels from the
+    vehicle centers (the original controller's ``labelOffset``)."""
+    out = np.zeros((n_veh, 2))
+    if scenario == "circle":
+        angles = [2 * math.pi / n_veh * (i + 1) for i in range(n_veh)]
+        for i, a in enumerate(angles):
+            c, s = math.cos(a), math.sin(a)
+            out[i] = (np.array([[3.0, -3.0]])
+                      @ np.array([[c, s], [-s, c]])
+                      + np.array([[-2.0, 0.0]]))[0]
+    elif scenario == "parallel":
+        _positions = np.arange(n_veh) - math.floor(n_veh / 2)
+        order = list(range(n_veh))
+        evens = order[0:n_veh:2]
+        evens.reverse()
+        order = evens + order[1:n_veh:2]
+        positions = np.zeros(n_veh)
+        positions[order] = _positions
+        out[:, 0] = -6.1 - 4.5 * np.mod(positions - 1, 2)
+    return out

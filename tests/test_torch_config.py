@@ -89,12 +89,17 @@ def test_port_sources_never_import_jax_or_scp_tpu():
 
 def test_port_imports_with_jax_and_scp_tpu_blocked():
     """Every module of the port imports in a process where ``jax`` and
-    ``scp_tpu`` cannot be imported."""
+    ``scp_tpu`` cannot be imported, and none imports matplotlib (the
+    plotting functions import it where they draw)."""
     mods = [".".join(p.relative_to(REPO).with_suffix("").parts)
             for p in sorted((REPO / "scp_tpu_torch").rglob("*.py"))
             if p.name != "__init__.py"]
     assert {"scp_tpu_torch.ops.riccati", "scp_tpu_torch.ops.riccati_kernel",
-            "scp_tpu_torch.utils.debug"} <= set(mods)
+            "scp_tpu_torch.utils.debug", "scp_tpu_torch.cli",
+            "scp_tpu_torch.bench", "scp_tpu_torch.utils.results",
+            "scp_tpu_torch.utils.timing", "scp_tpu_torch.utils.checkpoint",
+            "scp_tpu_torch.runtime.native", "scp_tpu_torch.viz.plot"
+            } <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -103,6 +108,7 @@ def test_port_imports_with_jax_and_scp_tpu_blocked():
         "    importlib.import_module(m)\n"
         "assert not any(k == 'jax' or k.startswith('jax.') "
         "for k, v in sys.modules.items() if v is not None)\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "print('ok', len(sys.modules))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -123,21 +129,41 @@ def test_tf32_stays_off():
 
 
 @pytest.mark.parametrize("entry", ["make_batch", "circle", "frog",
-                                   "parallel"])
-def test_entry_points_default_to_cuda_and_raise_without_gpu(entry):
-    """Builders run on the card unless told otherwise: without a GPU the
-    default raises instead of falling back to the CPU."""
+                                   "parallel", "cli_run", "bench_worker"])
+def test_entry_points_default_to_cuda_and_raise_without_gpu(entry,
+                                                            monkeypatch):
+    """Builders, ``cli run`` and ``bench.worker`` run on the card unless
+    told otherwise (``device="cpu"``, ``--cpu``): without a GPU the default
+    raises instead of falling back to the CPU."""
+    from scp_tpu_torch import bench, cli
     from scp_tpu_torch.scenarios import batch, builders
+    for name, val in dict(BATCH=2, ITERS=1, LSTEPS=1, REPS=2, HP=3).items():
+        monkeypatch.setattr(bench, name, val)
+
+    def cli_run(device="cuda"):
+        summary = cli.main(["run", "--n-veh", "2", "--hp", "3", "--steps",
+                            "1"] + (["--cpu"] if device == "cpu" else []))
+        return device, summary
+
     fn = {"make_batch": lambda **kw: batch.make_batch("circle", 2, **kw),
           "circle": lambda **kw: builders.circle(2, **kw),
           "frog": lambda **kw: builders.frog(**kw),
-          "parallel": lambda **kw: builders.parallel(3, **kw)}[entry]
+          "parallel": lambda **kw: builders.parallel(3, **kw),
+          "cli_run": cli_run,
+          "bench_worker": lambda **kw: (kw, bench.worker(**kw))}[entry]
     if torch.cuda.is_available():
+        if entry in ("cli_run", "bench_worker"):
+            return                  # the card's runs are chip_smoke.py's
         assert fn()[1].x0.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn()
-    assert fn(device="cpu")[1].x0.device.type == "cpu"
+    if entry == "cli_run":
+        assert cli_run(device="cpu")[1]["steps"] == 1
+    elif entry == "bench_worker":
+        assert fn(device="cpu")[1]["value"] > 0
+    else:
+        assert fn(device="cpu")[1].x0.device.type == "cpu"
 
 
 def test_convert_round_trip():
