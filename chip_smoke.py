@@ -10,7 +10,7 @@ fused structured IPM iteration K1, the dense-G IPM iteration K2, the
 batched Cholesky and the Cholesky solve — in shared memory below n = 240,
 with the matrix in device memory from there — the two G matvecs, and the
 Riccati factor and solve sweeps K6 / K7), holds each against its plain
-PyTorch version on the card, and drives twelve paths of the port at full
+PyTorch version on the card, and drives thirteen paths of the port at full
 width, every kernel's launch count set to 0 just before a path and read
 just after:
 
@@ -80,7 +80,19 @@ just after:
   call's launches counted; ``--kkt`` with side selection and ``--f64``
   on the card refused before any launch; a checkpoint saved and resumed
   mid-run at B = 64 with plant noise, bit for bit the straight run; and
-  ``utils.debug.determinism_check`` of one calibrated step.
+  ``utils.debug.determinism_check`` of one calibrated step;
+* (k) scale-out (``scp_tpu_torch.parallel``), last: (k1) the data-parallel
+  ``sweep`` under a one-rank NCCL process group at the bench shape
+  (``--batched``, B = 1024, K1), checkpointed every 3 of 6 steps, a run
+  killed after 3 and resumed bit for bit the uninterrupted one, its
+  solves/s beside path (a)'s, and ``python -m scp_tpu_torch.cli sweep`` of
+  the same flags in its own process with the same summary; (k2) two ranks
+  on this one card under gloo with CUDA tensors (this script re-run with
+  ``--scale-out-worker``): the batched sweep, each rank's 512-instance
+  block bit for bit a one-rank sweep of that block, and three chained
+  horizon-sharded steps at hp = 64, B = 16 (32 horizon steps a rank: the
+  factor and the solve at n = 257 on both ranks) against the unsharded
+  steps under the yardstick of 2^-23-perturbed inputs.
 
 On (i) to (iii) every launch of the first step is held against its plain
 version (the G product also on the same G with a random x), and step 0 is
@@ -3350,6 +3362,386 @@ def entry_point_phases(dev, card, seed, calibrated) -> dict:
     return totals
 
 
+# ---- path (k): scale-out (the data-parallel sweep, horizon sharding) ----
+K_B = 1024                 # (k1), (k2 alpha): the bench shape's batch
+K_STEPS = 6                # (k1) sweep steps, checkpoint every K_EVERY
+K_EVERY = 3
+K_ALPHA_STEPS = 3          # (k2 alpha): 2 ranks, K_B / 2 instances each
+K_H_B = 16                 # (k2 beta): circle-4 at hp = hu = K_H_HP
+K_H_HP = 64
+K_H_STEPS = 3
+K_RANKS = 2
+K_TIMEOUT_S = 900          # the 2-rank job, killed past this
+K_GROUP_TIMEOUT_S = 300.0  # a collective's wait for the other rank
+# the shapes the parent hands its (k2) ranks (``<dir>/shapes.json``)
+K_SHAPES = ("K_B", "K_ALPHA_STEPS", "K_H_B", "K_H_HP", "K_H_STEPS",
+            "K_RANKS", "N_VEH", "HP", "SEED")
+
+
+def k_sweep_args(dev, steps: int, checkpoint: str = "", every: int = 0):
+    """``cli sweep``'s arguments at the bench shape: circle-4, hp = hu = 20,
+    ``--batched`` (float32: ``TUNED_F32_PHASES``), the script's seed; and
+    the same as an argv."""
+    import argparse
+    args = argparse.Namespace(
+        scenario="circle", batch=K_B, n_veh=N_VEH, steps=steps, hp=HP,
+        controller="scp", rect_obstacles=False, n_model=1, batched=True,
+        kkt="", checkpoint=checkpoint, checkpoint_every=every, seed=SEED,
+        f64=False, cpu=dev.type == "cpu")
+    argv = ["sweep", "--batched", "--batch", str(K_B), "--n-veh",
+            str(N_VEH), "--hp", str(HP), "--seed", str(SEED), "--steps",
+            str(steps)]
+    if checkpoint:
+        argv += ["--checkpoint", checkpoint, "--checkpoint-every",
+                 str(every)]
+    return args, argv + (["--cpu"] if dev.type == "cpu" else [])
+
+
+def k_horizon_inputs(dev):
+    """(k2 beta)'s batch: circle-4, hp = hu = K_H_HP, B = K_H_B, float32,
+    ``tuned_f32`` (per instance the dense KKT at n = 257)."""
+    from scp_tpu_torch import config as config_lib
+    from scp_tpu_torch.scenarios import batch as batch_lib
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    cfg, data = batch_lib.make_batch("circle", K_H_B, generator=gen,
+                                     dtype=torch.float32, device=dev,
+                                     n_veh=N_VEH)
+    return config_lib.tuned_f32(cfg.replace(hp=K_H_HP, hu=K_H_HP)), data
+
+
+def k_chain(step, cfg, data, n_steps):
+    """``n_steps`` chained steps from a fresh carry: the controls
+    (B, steps * hp * V) and the SCP iterations (B, steps)."""
+    from scp_tpu_torch.sim import engine
+    c, us, its = engine.init_carry(cfg, data), [], []
+    for _ in range(n_steps):
+        c, out = step(cfg, data, c)
+        us.append(out.u_pred.flatten(1))
+        its.append(out.scp_iters)
+    return torch.cat(us, 1), torch.stack(its, 1)
+
+
+def carry_fields_equal(a, b) -> dict:
+    """Field by field, bit for bit: tensors, generator states, ints."""
+    return {f: (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                else torch.equal(x.get_state(), y.get_state())
+                if isinstance(x, torch.Generator) else x == y)
+            for f, x, y in zip(a._fields, a, b)}
+
+
+def scale_out_worker(out_dir: str, device: str) -> None:
+    """One rank of (k2): both ranks on the one card under gloo with CUDA
+    tensors (an explicit ``backend="gloo"``: NCCL refuses two ranks on one
+    device). (alpha) the ``--batched`` sweep of K_B instances, K_B / 2 a
+    rank; (beta) K_H_STEPS chained ``mpc_step_horizon`` steps at hp =
+    K_H_HP over a (1, 2) mesh, 32 horizon steps a rank, at the shapes the
+    parent wrote to ``<out_dir>/shapes.json``. Writes its blocks,
+    summaries and launch counts to ``<out_dir>/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from scp_tpu_torch import cli
+    from scp_tpu_torch.ops import _cuda_build
+    from scp_tpu_torch.parallel import distributed, mesh as mesh_lib
+    from scp_tpu_torch.sim import engine
+
+    with open(os.path.join(out_dir, "shapes.json")) as f:
+        globals().update(json.load(f))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        _cuda_build.load_library()
+    else:
+        torch.set_num_threads(1)
+    distributed.initialize(backend="gloo", timeout=K_GROUP_TIMEOUT_S)
+    try:
+        rank = dist.get_rank()
+        res = {}
+        args, _ = k_sweep_args(dev, K_ALPHA_STEPS)
+        cfg, data, phases = cli.sweep_inputs(args, dev)
+        mesh = mesh_lib.make_mesh()
+        reset_counts()
+        t0 = time.perf_counter()
+        carry, summ = distributed.sweep(cfg, data, mesh,
+                                        n_steps=K_ALPHA_STEPS, phases=phases)
+        sync(dev)
+        res["alpha"] = {
+            "carry": {k: v.cpu() for k, v in carry._asdict().items()
+                      if isinstance(v, torch.Tensor)},
+            "offset": carry.noise_offset, "summary": [s.cpu() for s in summ],
+            "launches": launch_counts(),
+            "seconds": time.perf_counter() - t0}
+
+        mesh_m = mesh_lib.make_mesh(1, K_RANKS)
+        cfg_h, data_h = k_horizon_inputs(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        u, iters = k_chain(
+            lambda c, d, k: engine.mpc_step_horizon(
+                c, d, k, axis_name=mesh_m.groups["model"], n_shards=K_RANKS),
+            cfg_h, data_h, K_H_STEPS)
+        sync(dev)
+        res["beta"] = {"u": u.cpu(), "scp_iters": iters.cpu(),
+                       "launches": launch_counts(),
+                       "seconds": time.perf_counter() - t0}
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def scale_out_phases(dev, card, backend: str = "nccl") -> dict:
+    """Path (k), scale-out, last in the script:
+
+    (k1) the data-parallel sweep under a one-rank process group of
+    ``backend`` (NCCL on the card, so the sweep's collectives go through
+    it) at the bench shape, ``--batched``: K_STEPS steps checkpointed every
+    K_EVERY; a run killed after K_EVERY steps and resumed to K_STEPS, bit
+    for bit the uninterrupted one; K1's launches and solves/s beside path
+    (a)'s; ``python -m scp_tpu_torch.cli sweep`` of the same flags as a
+    subprocess, whose summary must equal the in-process sweep's.
+
+    (k2) K_RANKS ranks on this card under gloo (``scale_out_worker``):
+    (alpha) each rank's block bit for bit a one-rank sweep of that block
+    (straggler capacity is sized by the block), the reduced summary the
+    sum of the blocks'; (beta) the horizon-sharded steps at hp = 64 (the
+    large-n factor and solve on both ranks) against the unsharded steps,
+    held to the yardstick of 2^-23-perturbed inputs.
+
+    Returns ``{kernel: launches}`` over (k). The process group is
+    destroyed before it returns."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from scp_tpu_torch import cli
+    from scp_tpu_torch import config as config_lib
+    from scp_tpu_torch.config import tree_map
+    from scp_tpu_torch.parallel import distributed, mesh as mesh_lib
+    from scp_tpu_torch.sim import engine
+
+    totals: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_k_")
+    t_start = time.perf_counter()
+    try:
+        # ---- (k1): one rank under `backend`, the bench shape ----
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            backend, init_method=f"tcp://localhost:{distributed._free_port()}",
+            world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=K_GROUP_TIMEOUT_S))
+        try:
+            mesh = mesh_lib.make_mesh()
+            args, _ = k_sweep_args(dev, K_STEPS)
+            cfg, data, phases = cli.sweep_inputs(args, dev)
+            if phases != config_lib.TUNED_F32_PHASES:
+                fail(f"(k1): --batched gave phases {phases}")
+            straight_ck = f"{tmp}/straight.npz"
+            reset_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            straight, summ = distributed.sweep(
+                cfg, data, mesh, n_steps=K_STEPS, phases=phases,
+                checkpoint_path=straight_ck, checkpoint_every=K_EVERY)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            k1_counts = launch_counts()
+            add(k1_counts)
+            killed_ck = f"{tmp}/killed.npz"
+            distributed.sweep(cfg, data, mesh, n_steps=K_EVERY,
+                              phases=phases, checkpoint_path=killed_ck,
+                              checkpoint_every=K_EVERY)
+            with np.load(killed_ck) as f:
+                killed_at = int(f["step"])
+            resumed, summ_r = distributed.sweep(
+                cfg, data, mesh, n_steps=K_STEPS, phases=phases,
+                checkpoint_path=killed_ck, checkpoint_every=K_EVERY)
+            sync(dev)
+            same = carry_fields_equal(straight, resumed)
+            same_summary = all(torch.equal(a[K_EVERY:], b[K_EVERY:])
+                               for a, b in zip(summ, summ_r))
+            backend_used = dist.get_backend()
+            # the same steps again: the sweep without checkpoints (the
+            # group's communicators made by now), and the engine's loop
+            # alone, so the sweep's own cost is read in this process
+            again = {}
+            for name, run in (
+                    ("sweep_no_checkpoint", lambda: distributed.sweep(
+                        cfg, data, mesh, n_steps=K_STEPS, phases=phases)),
+                    ("engine_loop", lambda: k_chain(
+                        lambda c, d, k: engine.mpc_step_batch(
+                            c, d, k, phases=phases), cfg, data, K_STEPS))):
+                sync(dev)
+                t0 = time.perf_counter()
+                run()
+                sync(dev)
+                again[name] = K_B * K_STEPS / (time.perf_counter() - t0)
+        finally:
+            dist.destroy_process_group()
+        total = K_B * K_STEPS
+        in_proc = {"feasible_frac": float(summ[1].double().sum()) / total,
+                   "mean_obj": float(summ[0].double().sum()) / total,
+                   "mean_scp_iters": float(summ[2].double().sum()) / total}
+        # the same sweep through the command line, in its own process
+        _, argv = k_sweep_args(dev, K_STEPS, f"{tmp}/cli.npz", K_EVERY)
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "scp_tpu_torch.cli"]
+                           + argv, capture_output=True, text=True,
+                           timeout=K_TIMEOUT_S,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli_s = time.perf_counter() - t0
+        if p.returncode != 0:
+            fail(f"(k1) cli sweep exited {p.returncode}: {p.stderr[-2000:]}")
+        cli_summary = json.loads(p.stdout)
+        k1 = {"phase": "scale_out_k1", "card": card, "backend": backend_used,
+              "B": K_B, "n_veh": N_VEH, "hp": HP, "steps": K_STEPS,
+              "checkpoint_every": K_EVERY, "killed_at_step": killed_at,
+              "resume_bitwise": same, "resume_summary_bitwise": same_summary,
+              "launches": k1_counts,
+              "k1_launches_per_step": k1_counts["ipm_iterate_struct"]
+              / K_STEPS,
+              "sweep_wall_s": wall, "solves_per_s": total / wall,
+              "solves_per_s_again": again,
+              "path_a_solves_per_s": PATH_NUMBERS.get("a_solves_per_s"),
+              "summary": in_proc, "cli_argv": argv,
+              "cli_summary": cli_summary, "cli_seconds": round(cli_s, 2)}
+        emit(k1)
+        if killed_at != K_EVERY or not all(same.values()) \
+                or not same_summary:
+            fail(f"(k1) the resumed sweep is not bitwise the uninterrupted "
+                 f"one: {k1}")
+        require_launches("(k1) sweep", k1_counts, ["ipm_iterate_struct"])
+        off = {k: (cli_summary.get(k), v) for k, v in in_proc.items()
+               if cli_summary.get(k) != v}
+        if off or cli_summary["mesh"] != {"data": 1, "model": 1}:
+            fail(f"(k1) cli sweep's summary differs from the in-process "
+                 f"sweep's (cli, in-process): {off}, mesh "
+                 f"{cli_summary['mesh']}")
+
+        # ---- (k2): K_RANKS ranks on this card under gloo ----
+        with open(f"{tmp}/shapes.json", "w") as f:
+            json.dump({k: globals()[k] for k in K_SHAPES}, f)
+        t0 = time.perf_counter()
+        ranks = distributed.launch_local(
+            [os.path.abspath(__file__), "--scale-out-worker", tmp,
+             str(dev)], K_RANKS, timeout=K_TIMEOUT_S)
+        job_s = time.perf_counter() - t0
+        for r in ranks:
+            if r["returncode"] != 0:
+                fail(f"(k2) rank {r['rank']} exited {r['returncode']}: "
+                     f"{r['stderr'][-3000:]}")
+        res = [torch.load(f"{tmp}/rank{r}.pt") for r in range(K_RANKS)]
+
+        # (alpha) each block against a one-rank sweep of that block
+        args, _ = k_sweep_args(dev, K_ALPHA_STEPS)
+        cfg, data, phases = cli.sweep_inputs(args, dev)
+        alpha_same, block_sums = [], None
+        for r, rr in enumerate(res):
+            blk = mesh_lib.shard_batch(data, mesh_lib.Mesh(
+                {"data": K_RANKS, "model": 1}, data_index=r))
+            c, s = distributed.sweep(cfg, blk, mesh_lib.make_mesh(),
+                                     n_steps=K_ALPHA_STEPS, phases=phases)
+            alpha_same.append({k: torch.equal(v, getattr(c, k).cpu())
+                               for k, v in rr["alpha"]["carry"].items()})
+            # each field in its own dtype, as the all_reduce adds them
+            s = [x.cpu() for x in s]
+            block_sums = s if block_sums is None else [
+                a + b for a, b in zip(block_sums, s)]
+            add(rr["alpha"]["launches"])
+        k2a = {"phase": "scale_out_k2_alpha", "card": card,
+               "backend": "gloo (CUDA tensors)", "ranks": K_RANKS,
+               "B": K_B, "B_per_rank": K_B // K_RANKS,
+               "steps": K_ALPHA_STEPS,
+               "blocks_bitwise_one_rank_runs": alpha_same,
+               "summary_equals_sum_of_blocks": all(
+                   torch.equal(x, y) for rr in res
+                   for x, y in zip(rr["alpha"]["summary"], block_sums)),
+               "launches_per_rank": [rr["alpha"]["launches"] for rr in res],
+               "seconds_per_rank": [round(rr["alpha"]["seconds"], 2)
+                                    for rr in res]}
+        emit(k2a)
+        if not all(all(d.values()) for d in alpha_same) \
+                or not k2a["summary_equals_sum_of_blocks"]:
+            fail(f"(k2 alpha) a rank's block differs from its one-rank run, "
+                 f"or the summary from the blocks' sum: {k2a}")
+        for r, rr in enumerate(res):
+            require_launches(f"(k2 alpha) rank {r}", rr["alpha"]["launches"],
+                             ["ipm_iterate_struct"])
+
+        # (beta) horizon-sharded against unsharded, in this run
+        cfg_h, data_h = k_horizon_inputs(dev)
+        plain = plain_of("cholesky", "cho_solve", "gmv", "gtmv")
+        u_s, it_s = res[0]["beta"]["u"].to(dev), res[0]["beta"]["scp_iters"]
+        t0 = time.perf_counter()
+        u_1, it_1 = k_chain(engine.mpc_step, cfg_h, data_h, K_H_STEPS)
+        sync(dev)
+        unsharded_s = time.perf_counter() - t0
+        u_d, _ = routed(plain, k_chain, engine.mpc_step, cfg_h,
+                        as_f64(data_h), K_H_STEPS)
+        y = run_yardstick(
+            lambda gen: k_chain(engine.mpc_step, cfg_h, tree_map(
+                lambda t: _perturb(t, gen), data_h), K_H_STEPS),
+            lambda o: o[0], lambda o: o[1].to(dev), (u_1, it_1), (u_d, None),
+            "scp_iters")
+        e_s1 = (u_s - u_1).abs().amax(dim=1)
+        e_sd = (u_s.double() - u_d).abs().amax(dim=1)
+        k2b = {"phase": "scale_out_k2_beta", "card": card,
+               "backend": "gloo (CUDA tensors)", "mesh": {"data": 1,
+                                                          "model": K_RANKS},
+               "B": K_H_B, "hp": K_H_HP, "n": N_VEH * K_H_HP + 1,
+               "horizon_steps_per_rank": K_H_HP // K_RANKS,
+               "steps": K_H_STEPS,
+               "ranks_bitwise_equal": all(
+                   torch.equal(res[0]["beta"][k], rr["beta"][k])
+                   for rr in res[1:] for k in ("u", "scp_iters")),
+               "finite": bool(torch.isfinite(u_s).all()),
+               "scp_iters_differ": int((it_s.to(dev) != it_1).sum()),
+               "u_kernel_vs_plain_median": float(e_s1.median()),
+               "u_kernel_vs_plain_p99": _q99(e_s1),
+               "u_kernel_vs_plain_max": float(e_s1.max()),
+               "u_kernel_vs_f64_p99": _q99(e_sd),
+               "u_kernel_vs_f64_max": float(e_sd.max()), **y,
+               "note": "kernel = the 2-rank horizon-sharded steps, plain = "
+                       "the unsharded steps through the same kernels, f64 "
+                       "= the unsharded steps in float64 through the plain "
+                       "versions",
+               "launches_per_rank": [rr["beta"]["launches"] for rr in res],
+               "seconds_per_rank": [round(rr["beta"]["seconds"], 2)
+                                    for rr in res],
+               "unsharded_seconds": round(unsharded_s, 2),
+               "limits": RUN_LIMITS}
+        emit(k2b)
+        for r, rr in enumerate(res):
+            require_launches(f"(k2 beta) rank {r}", rr["beta"]["launches"],
+                             ["cholesky", "cho_solve"])
+            # at n = 257 every factor and solve is the large-n kernels'
+            add({f"{k}_large_n" if k in ("cholesky", "cho_solve") else k: v
+                 for k, v in rr["beta"]["launches"].items()})
+        if not k2b["ranks_bitwise_equal"] \
+                or run_off_limits(k2b, "scp_iters"):
+            fail(f"(k2 beta) the sharded steps against the unsharded: {k2b}")
+        emit({"phase": "scale_out", "launches": totals,
+              "job_seconds": round(job_s, 2),
+              "wall_seconds": round(time.perf_counter() - t_start, 2)})
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return totals
+
+
 def main() -> None:
     B = BATCH
 
@@ -3672,6 +4064,10 @@ def main() -> None:
     entry_counts = entry_point_phases(dev, card, SEED,
                                       (cfg, data, carry0, PHASES))
     phase_end["entry_points"] = time.perf_counter()
+
+    # ---- path (k): scale-out, the sweep under NCCL and 2 ranks on gloo ----
+    scale_counts = scale_out_phases(dev, card)
+    phase_end["scale_out"] = time.perf_counter()
     marks = list(phase_end.items())
     emit({"phase": "wall_seconds", **{
         k: round(t - marks[i][1], 2) for i, (k, t) in enumerate(marks[1:])},
@@ -3682,6 +4078,8 @@ def main() -> None:
         r.update(ss_entries.get(r["name"], {}))
         if r["name"] in entry_counts:
             r["entry_points_launches"] = entry_counts[r["name"]]
+        if r["name"] in scale_counts:
+            r["scale_out_launches"] = scale_counts[r["name"]]
     emit({"kernels": reports})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -3690,4 +4088,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--scale-out-worker"]:
+        scale_out_worker(*sys.argv[2:4])
+    else:
+        main()

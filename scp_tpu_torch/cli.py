@@ -3,13 +3,17 @@
 
     python -m scp_tpu_torch.cli run --scenario circle --n-veh 8 --steps 50
     python -m scp_tpu_torch.cli run --scenario frog --noise --mc 256
+    python -m scp_tpu_torch.cli sweep --batch 1024 --n-veh 4 --hp 20 --batched
+    torchrun --nproc-per-node 4 -m scp_tpu_torch.cli sweep --cpu --batch 64
     python -m scp_tpu_torch.cli bench --batch 512 --hp 20
 
 Runs go on ``cuda`` unless ``--cpu`` is given; without a GPU they raise.
 ``--f64`` is the float64 parity dtype of the CPU: the hand-written kernels
 are float32 only, so ``--f64`` without ``--cpu`` is refused before any
 work. ``--seed`` seeds a ``torch.Generator`` on the run's device (its
-numbers are not ``jax.random``'s).
+numbers are not ``jax.random``'s). ``sweep`` joins the job ``torchrun``
+describes in the environment (one rank per process: NCCL on the card that
+``LOCAL_RANK`` names, gloo with ``--cpu``), or runs alone without one.
 """
 from __future__ import annotations
 
@@ -23,7 +27,6 @@ import torch
 
 
 def _build(args, dtype, device="cuda"):
-    from scp_tpu_torch import config as config_lib
     from scp_tpu_torch.scenarios import builders
 
     kw = {}
@@ -31,6 +34,15 @@ def _build(args, dtype, device="cuda"):
         kw["n_veh"] = args.n_veh
     cfg, data = builders.BUILDERS[args.scenario](dtype=dtype, device=device,
                                                  **kw)
+    return _configure(args, cfg, dtype), data
+
+
+def _configure(args, cfg, dtype):
+    """``cfg`` with the flags' overrides: controller, rectangle obstacles,
+    ``--kkt``, ``--hp``, ``--noise`` where the command has it, and in
+    float32 the calibrated settings (``config.TUNED_F32_*``) under them."""
+    from scp_tpu_torch import config as config_lib
+
     overrides = {}
     if getattr(args, "controller", "scp") != "scp":
         overrides["controller"] = args.controller
@@ -40,7 +52,7 @@ def _build(args, dtype, device="cuda"):
         overrides["qp_kkt"] = args.kkt
     if args.hp:
         overrides.update(hp=args.hp, hu=args.hp)
-    if args.noise:
+    if getattr(args, "noise", False):
         # per-tick std matching the original controller's measured
         # carried-state dispersion (config.reference_noise_std)
         overrides["noise_std"] = config_lib.reference_noise_std(cfg)
@@ -55,7 +67,7 @@ def _build(args, dtype, device="cuda"):
             overrides.setdefault(k, v)
     if overrides:
         cfg = cfg.replace(**overrides)
-    return cfg, data
+    return cfg
 
 
 def _summary(args, cfg, out, n_steps: int, wall: float) -> dict:
@@ -164,12 +176,63 @@ def cmd_run(args) -> dict:
     return summary
 
 
-def cmd_sweep(args):
-    """The sharded scenario-batch sweep with periodic checkpoints needs the
-    distributed sweep and the per-process checkpoint files."""
-    raise NotImplementedError(
-        "sweep is not ported yet: it needs parallel/distributed.sweep and "
-        "the sharded checkpoints (ROADMAP item 11, scale-out)")
+def sweep_inputs(args, device):
+    """``(cfg, data, phases)`` of a ``sweep``: the randomized batch of
+    ``--batch`` instances from a generator seeded with ``--seed`` on
+    ``device`` (every rank builds the same one), the flags' config, and
+    with ``--batched`` the straggler phases (``TUNED_F32_PHASES`` in
+    float32, one full-width phase in float64; none for side selection,
+    which runs fixed rounds)."""
+    from scp_tpu_torch import config as config_lib
+    from scp_tpu_torch.scenarios import batch as batch_lib
+
+    dtype = torch.float64 if args.f64 else torch.float32
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    cfg, data = batch_lib.make_batch(
+        args.scenario, args.batch, generator=gen, dtype=dtype,
+        device=device, **({"n_veh": args.n_veh} if args.n_veh
+                          and args.scenario != "frog" else {}))
+    cfg = _configure(args, cfg, dtype)
+    phases = None
+    if args.batched and cfg.controller == "scp":
+        phases = (config_lib.TUNED_F32_PHASES if dtype == torch.float32
+                  else ((cfg.max_scp_iter, 1),))
+    return cfg, data, phases
+
+
+def cmd_sweep(args) -> dict:
+    """The sharded scenario-batch sweep with periodic checkpoints
+    (``parallel.distributed.sweep``). Every rank prints the same summary,
+    the sums of ``scp_tpu.cli``'s keys over the whole batch."""
+    from scp_tpu_torch import require_device
+    from scp_tpu_torch.parallel import distributed
+
+    started = not torch.distributed.is_initialized()
+    distributed.initialize(backend="gloo" if args.cpu else "nccl")
+    try:
+        device = require_device(distributed.local_device(args.cpu))
+        cfg, data, phases = sweep_inputs(args, device)
+        n_steps = args.steps or cfg.n_sim
+        mesh = distributed.global_mesh(n_model=args.n_model)
+        t0 = time.time()
+        _, (objs, feas, iters) = distributed.sweep(
+            cfg, data, mesh, n_steps=n_steps, phases=phases,
+            checkpoint_path=args.checkpoint or None,
+            checkpoint_every=args.checkpoint_every)
+        total = args.batch * n_steps
+        summary = {
+            "scenario": args.scenario, "batch": args.batch,
+            "steps": n_steps, "mesh": dict(mesh.shape),
+            "wall_s": round(time.time() - t0, 3),
+            "feasible_frac": float(feas.double().sum()) / total,
+            "mean_obj": float(objs.double().sum()) / total,
+            "mean_scp_iters": float(iters.double().sum()) / total,
+        }
+    finally:
+        if started and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    print(json.dumps(summary, indent=2))
+    return summary
 
 
 def cmd_bench(args):
@@ -224,8 +287,7 @@ def main(argv=None):
                          "--frames to also save per-step PNGs")
     pr.set_defaults(fn=cmd_run)
 
-    ps = sub.add_parser("sweep", help="sharded batch sweep w/ checkpoints "
-                                      "(not ported yet)")
+    ps = sub.add_parser("sweep", help="sharded batch sweep w/ checkpoints")
     ps.add_argument("--scenario", choices=["circle", "frog", "parallel"],
                     default="circle")
     ps.add_argument("--batch", type=int, default=256)
@@ -240,14 +302,20 @@ def main(argv=None):
     ps.add_argument("--n-model", type=int, default=1,
                     help="mesh model-axis size (1 = pure data parallel)")
     ps.add_argument("--batched", action="store_true",
-                    help="straggler-repacked batched stepping per shard")
+                    help="straggler-repacked batched stepping per shard "
+                         "(the bench's path; incompatible with "
+                         "--n-model > 1)")
     ps.add_argument("--kkt", choices=["dense", "banded", "auto"],
                     default="")
     ps.add_argument("--checkpoint", default="")
     ps.add_argument("--checkpoint-every", type=int, default=0)
     ps.add_argument("--seed", type=int, default=0)
-    ps.add_argument("--f64", action="store_true")
-    ps.add_argument("--cpu", action="store_true")
+    ps.add_argument("--f64", action="store_true",
+                    help="float64 (with --cpu only: the kernels are "
+                         "float32)")
+    ps.add_argument("--cpu", action="store_true",
+                    help="run on the CPU under gloo (default: the CUDA "
+                         "device under NCCL)")
     ps.set_defaults(fn=cmd_sweep)
 
     pb = sub.add_parser("bench", help="throughput benchmark (one GPU)")
@@ -260,10 +328,11 @@ def main(argv=None):
         if args.kkt and args.controller == "side_selection":
             pr.error("--kkt has no effect with --controller side_selection "
                      "(its QPs always take the dense KKT); drop --kkt")
-        if args.f64 and not args.cpu:
-            pr.error("--f64 runs on the CPU only: the CUDA kernels are "
-                     "float32, so a float64 run on the card would fail at "
-                     "its first launch; add --cpu")
+    if args.cmd in ("run", "sweep") and args.f64 and not args.cpu:
+        (pr if args.cmd == "run" else ps).error(
+            "--f64 runs on the CPU only: the CUDA kernels are float32, so "
+            "a float64 run on the card would fail at its first launch; add "
+            "--cpu")
     return args.fn(args)
 
 

@@ -21,9 +21,15 @@ for a batch of scenario instances:
 
 Every tensor carries a leading batch axis B. Plant noise comes from the
 carry's ``torch.Generator``; with ``noise_std = 0`` (the default) no number
-is drawn. The closed loops (:func:`simulate`, :func:`simulate_batch`,
-:func:`simulate_timed`) are Python loops over steps whose outputs are
-stacked on a new leading step axis.
+is drawn. A rank of a distributed sweep holds a block of a larger batch:
+its carry's ``noise_offset`` / ``noise_total`` make every tick draw the
+noise of the whole batch and keep the block's rows, so an instance's noise
+does not depend on how many ranks share the batch (``scp_tpu`` gets the
+same by a PRNG key per instance). :func:`mpc_step_horizon` is the step
+with its SCP solve horizon-sharded over a model process group. The closed
+loops (:func:`simulate`, :func:`simulate_batch`, :func:`simulate_timed`)
+are Python loops over steps whose outputs are stacked on a new leading
+step axis.
 """
 from __future__ import annotations
 
@@ -56,6 +62,11 @@ class SimCarry(NamedTuple):
     # (B, ticks_delay_x, V, NX) ring buffer of the plant states at the
     # ticks_delay_x ticks BEFORE the current step boundary; None when
     # delay_x == 0.
+    noise_offset: int = 0
+    noise_total: int | None = None
+    # the plant noise of a block of a larger batch: each tick draws the
+    # noise of ``noise_total`` instances and keeps rows noise_offset ..
+    # noise_offset + B; None draws for this batch alone.
 
 
 class StepOutput(NamedTuple):
@@ -149,12 +160,16 @@ def clamp_controls(cfg: SCPConfig, U, u0, u_max):
 
 
 def rollout_plant(cfg: SCPConfig, data: ScenarioData, state, u_prev2,
-                  u_prev1, generator: torch.Generator | None = None):
+                  u_prev1, generator: torch.Generator | None = None,
+                  noise_rows: tuple[int, int] | None = None):
     """Integrate the true plant over one MPC step at tick resolution.
 
     The control entering tick m (1-based) is ``u_prev2`` for
     ``m <= ticks_delay_u`` and ``u_prev1`` after; under ``plant_compat_q10``
-    the carried state only ever sees ``u_prev1``. Returns
+    the carried state only ever sees ``u_prev1``. ``noise_rows = (offset,
+    total)``: the batch is rows ``offset .. offset + B`` of a batch of
+    ``total``, whose noise each tick draws (None: this batch's alone; the
+    two agree when offset = 0 and total = B). Returns
     (B, ticks_per_sim, V, NX).
     """
     tps = cfg.ticks_per_sim
@@ -168,9 +183,11 @@ def rollout_plant(cfg: SCPConfig, data: ScenarioData, state, u_prev2,
             x = bicycle.rk4_step(x, u, data.params.lf, data.params.lr,
                                  h / cfg.rk4_substeps)
         if cfg.noise_std > 0:
+            b = x.shape[0]
+            lo, total = (0, b) if noise_rows is None else noise_rows
             noise = cfg.noise_std * h * torch.randn(
-                x.shape[:-1] + (2,), generator=generator, dtype=x.dtype,
-                device=x.device)
+                (total,) + x.shape[1:-1] + (2,), generator=generator,
+                dtype=x.dtype, device=x.device)[lo:lo + b]
             x = torch.cat([x[..., :2] + noise, x[..., 2:]], dim=-1)
         states.append(x)
     return torch.stack(states, dim=1)
@@ -254,8 +271,10 @@ def step_post(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
     dU_raw = torch.diff(U_raw, dim=1, prepend=carry.u_prev1[:, None, :])
     rate_events = (dU_raw.abs() > cfg.du_lim + audit_eps).sum(dim=(1, 2))
 
-    states = rollout_plant(cfg, data, carry.state, carry.u_prev2,
-                           carry.u_prev1, carry.generator)
+    states = rollout_plant(
+        cfg, data, carry.state, carry.u_prev2, carry.u_prev1,
+        carry.generator, None if carry.noise_total is None
+        else (carry.noise_offset, carry.noise_total))
 
     # objective / feasibility re-evaluated on the predicted trajectory
     sq_err = (ref_pts.permute(0, 2, 3, 1) - traj_pred) ** 2  # (B,HP,NY,V)
@@ -296,6 +315,8 @@ def step_post(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
         generator=carry.generator,
         state_meas=state_meas,
         state_hist=state_hist,
+        noise_offset=carry.noise_offset,
+        noise_total=carry.noise_total,
     )
     b = res.u.shape[0]
     out = StepOutput(
@@ -377,6 +398,33 @@ def mpc_step(cfg: SCPConfig, data: ScenarioData,
     scenario)."""
     res, aux, sides_stable = mpc_controller(cfg, data, carry)
     return step_post(cfg, data, carry, res, aux, sides_stable=sides_stable)
+
+
+def mpc_step_horizon(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
+                     *, axis_name, n_shards: int
+                     ) -> tuple[SimCarry, StepOutput]:
+    """One MPC step with the SCP solve horizon-sharded over the ranks of
+    ``axis_name``, the model ProcessGroup (``parallel.mesh.Mesh.groups
+    ["model"]``, ``n_shards`` ranks; the name is ``scp_tpu``'s).
+
+    Pre- and post-processing run whole on every rank (per-vehicle work);
+    the SCP solve sees this rank's horizon block of the constraint system
+    (``parallel.horizon.shard_system``), its QP rows row-sharded, so every
+    rank comes out with the same result."""
+    from scp_tpu_torch.parallel import horizon, mesh as mesh_lib
+
+    if cfg.controller != "scp":
+        raise ValueError("horizon sharding runs the SCP controller; got "
+                         f"controller={cfg.controller!r}")
+    assert_full_f32()
+    problem, aux = controller_pre(cfg, data, carry)
+    local_sys = horizon.shard_system(
+        problem.sys, mesh_lib.axis_index(axis_name), n_shards)
+    res = scp.solve_scp(problem._replace(sys=local_sys), carry.u_warm,
+                        max_scp_iter=cfg.max_scp_iter, axis_name=axis_name,
+                        n_con_total=horizon.padded_n_con(cfg, n_shards),
+                        **_scp_kwargs(cfg))
+    return step_post(cfg, data, carry, res, aux)
 
 
 def mpc_step_batch(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,

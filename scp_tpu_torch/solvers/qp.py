@@ -33,12 +33,17 @@ routes by shape past the kernels' shared-memory gates):
   ``ops.linalg_kernel``;
 * banded: the adaptive or fixed loop with the Riccati sweeps (K6, K7).
 
-Not ported (``NotImplementedError``): ``cheap_k`` and the row-sharded mode
-of ``solve_qp``. Two TPU devices are deliberately absent: ghost alignment
-vehicles (the Hopper kernels take any size) and every padding (``n_pad`` /
-``mg_pad`` / lane tiles / benign pad instances); the VMEM gate is replaced
-by the wrappers' shared-memory gates, and the slack is eliminated whenever
-``slack_schur`` asks, with no ``(n-1) % 8 == 0`` condition.
+:func:`solve_qp` also runs row-sharded (``axis_name`` / ``mg_total``): each
+rank of a model process group holds its block of the G rows and every
+reduction over the rows is an ``all_reduce`` over that group
+(:class:`_RowAxis`), so every rank takes the same Newton steps.
+
+Not ported (``NotImplementedError``): ``cheap_k``. Two TPU devices are
+deliberately absent: ghost alignment vehicles (the Hopper kernels take any
+size) and every padding (``n_pad`` / ``mg_pad`` / lane tiles / benign pad
+instances); the VMEM gate is replaced by the wrappers' shared-memory gates,
+and the slack is eliminated whenever ``slack_schur`` asks, with no
+``(n-1) % 8 == 0`` condition.
 
 The adaptive loops read ``any(active)`` on the host once per IPM iteration
 — a device synchronisation each time, counted in :data:`host_sync_count`.
@@ -51,6 +56,7 @@ import torch
 
 from scp_tpu_torch.ops import (constraints as con, ipm_kernel,
                                linalg_kernel, riccati)
+from scp_tpu_torch.parallel import mesh as mesh_lib
 
 # Host reads of a device value (device synchronisations) made by the adaptive
 # IPM loops since the last reset.
@@ -96,13 +102,49 @@ def _reg_rel(dtype) -> float:
     return 1e-12 if dtype == torch.float64 else 3e-6
 
 
-def _max_step(v, dv):
+class _RowAxis:
+    """Reductions over the row axis of ``[G rows; box rows]`` vectors
+    ``(B, mg + 2n)``. Unsharded (``group=None``) they are plain sums. Row-
+    sharded, each rank of ``group`` holds its ``mg`` G rows and the box
+    rows whole: a G-row contribution is ``all_reduce``d over the group and
+    the replicated box rows' is added once, after (``scp_tpu``'s
+    ``psum_rows`` / ``row_dot`` / ``pmin``)."""
+
+    def __init__(self, group=None, mg: int = 0):
+        self.group, self.mg = group, mg
+
+    def dot(self, a, b):
+        if self.group is None:
+            return torch.sum(a * b, dim=1)
+        mg = self.mg
+        return self.sum(torch.sum(a[:, :mg] * b[:, :mg], dim=1)) \
+            + torch.sum(a[:, mg:] * b[:, mg:], dim=1)
+
+    def norm(self, v):
+        if self.group is None:
+            return _norm(v)
+        return torch.sqrt(self.dot(v, v))
+
+    def sum(self, t):
+        return mesh_lib.all_reduce(t, self.group)
+
+    def min(self, t):
+        return mesh_lib.all_reduce(t, self.group, "min")
+
+    def all(self, flag):
+        return mesh_lib.all_true(flag, self.group)
+
+
+_UNSHARDED = _RowAxis()
+
+
+def _max_step(v, dv, ax: _RowAxis = _UNSHARDED):
     """Largest alpha in (0, 1] keeping v + alpha * dv >= 0.01 v, per
-    instance (B,)."""
+    instance (B,); row-sharded, the minimum over every rank's rows."""
     neg = dv < 0
     ratio = torch.where(neg, -v / torch.where(neg, dv, -torch.ones_like(dv)),
                         torch.full_like(v, float("inf")))
-    return torch.clamp(0.99 * ratio.amin(dim=1), max=1.0)
+    return torch.clamp(0.99 * ax.min(ratio.amin(dim=1)), max=1.0)
 
 
 def _all_finite(*ts):
@@ -117,13 +159,15 @@ def _norm(v):
 
 
 def _adaptive_loop(iterate, state, max_iter: int, tol: float, m: int,
-                   hnorm, qnorm):
+                   hnorm, qnorm, ax: _RowAxis = _UNSHARDED):
     """The adaptive while-loop shared by :func:`solve_qp` and the adaptive
     branch of :func:`solve_qp_batched`: every instance iterates until it
     converges, stalls, goes non-finite or reaches ``max_iter``; a stopped
     instance keeps its state and its iteration count while the others go
     on. ``iterate(x, s, z, rp) -> (x, s, z, rp, mu, rd, ok)``. One host read
-    of ``any(active)`` per iteration."""
+    of ``any(active)`` per iteration; row-sharded, the stop flags are
+    AND-reduced over the ranks before it, so every rank runs the same
+    iterations (a rank that ran one more would hang the next collective)."""
     global host_sync_count
     x, s, z, rp = state
     B = x.shape[0]
@@ -142,33 +186,37 @@ def _adaptive_loop(iterate, state, max_iter: int, tol: float, m: int,
         rp = torch.where(keep, rp2, rp)
         # mu_new is the POST-step complementarity, compared with the
         # pre-step mu
-        mu_new = torch.sum(s * z, dim=1) / m
+        mu_new = ax.dot(s, z) / m
         converged_now = ((mu_new < tol)
-                         & (_norm(rp) / hnorm < tol * 10)
+                         & (ax.norm(rp) / hnorm < tol * 10)
                          & (_norm(rd) / qnorm < tol * 10))
         # Stall exit: in float32 the complementarity floor can sit above
         # ``tol``; once mu stops improving meaningfully below a loose
         # ceiling, further iterations only burn time for the whole batch.
         stalled = (mu_new > 0.7 * mu) & (mu_new < tol * 1e3)
-        stop = stop | (active & (converged_now | stalled | ~ok))
+        stop = stop | (active & ax.all(converged_now | stalled | ~ok))
         it = it + active.to(torch.int32)
     return x, s, z, it
 
 
-def _dense_kkt(P_s, G_s, mg: int, n: int, reg_rel: float):
+def _dense_kkt(P_s, G_s, mg: int, n: int, reg_rel: float,
+               ax: _RowAxis = _UNSHARDED):
     """``(factor, solve)`` of the dense condensed KKT system: ``factor(s, z)``
     is the Cholesky of the Jacobi-scaled ``P_s + Ghat^T diag(z/s) Ghat`` —
     ONE factorization per IPM iteration, shared by every solve of it — and
     ``solve(fac, rhs)`` solves with it. The raw K mixes O(1) rows with O(1/mu)
     rows; scaling to unit diagonal removes the disparity that destroys a
     float32 factor, and the regularisation becomes relative per row. The
-    factor and the solve go through ``ops.linalg_kernel``."""
+    factor and the solve go through ``ops.linalg_kernel``. Row-sharded
+    (``ax``), each rank's block of ``G^T W G`` is summed over the ranks —
+    one ``all_reduce`` a factorization — before the box diagonal is
+    added."""
     G_sT = G_s.transpose(1, 2)
     diag_idx = torch.arange(n, device=G_s.device)
 
     def factor(s, z):
         w = z / s
-        K = P_s + torch.bmm(G_sT * w[:, None, :mg], G_s)
+        K = P_s + ax.sum(torch.bmm(G_sT * w[:, None, :mg], G_s))
         K[:, diag_idx, diag_idx] += w[:, mg:mg + n] + w[:, mg + n:]
         dsc = torch.rsqrt(torch.clamp(
             torch.diagonal(K, dim1=1, dim2=2), min=1e-30))
@@ -267,19 +315,21 @@ def _banded_kkt(banded: "BandedData", *, mg: int, n: int, d_row, cost_scale,
 
 
 def _ipm(q, h, lb, ub, d_row, cost_scale, *, pmv, gmv, gtmv, kkt, obj_fn,
-         max_iter, tol, x0, z0, fixed_iters, correctors, refine_steps):
+         max_iter, tol, x0, z0, fixed_iters, correctors, refine_steps,
+         ax: _RowAxis = _UNSHARDED, mg_total: int | None = None):
     """The Mehrotra iteration behind :func:`solve_qp`, the adaptive branch
     of :func:`solve_qp_batched` and its banded branch, on equilibrated
     operands: ``pmv / gmv / gtmv`` compute ``P_s x``, ``G_s x`` and
     ``G_s^T v`` (``G_s = d_row * G`` by rows, ``P_s = cost_scale * P``);
     ``kkt = (factor, solve)`` factors the condensed KKT system of an iterate
     and solves with it (:func:`_dense_kkt`, :func:`_banded_kkt`);
-    ``obj_fn(x)`` is the unscaled objective."""
+    ``obj_fn(x)`` is the unscaled objective. Row-sharded, ``ax`` reduces
+    over the ranks' G rows and ``mg_total`` is their global count."""
     factor, tri_solve = kkt
     dtype, device = q.dtype, q.device
     B, n = q.shape
     mg = h.shape[1]
-    m = mg + 2 * n
+    m = (mg if mg_total is None else mg_total) + 2 * n
     hhat_s = torch.cat([h * d_row, ub, -lb], dim=1)
     q_s = q * cost_scale[:, None]
 
@@ -289,7 +339,7 @@ def _ipm(q, h, lb, ub, d_row, cost_scale, *, pmv, gmv, gtmv, kkt, obj_fn,
 
     def ghat_tmv(v):
         """[G_s; I; -I]^T @ v."""
-        return gtmv(v[:, :mg].contiguous()) + v[:, mg:mg + n] \
+        return ax.sum(gtmv(v[:, :mg].contiguous())) + v[:, mg:mg + n] \
             - v[:, mg + n:]
 
     # --- initial point ---
@@ -332,23 +382,23 @@ def _ipm(q, h, lb, ub, d_row, cost_scale, *, pmv, gmv, gtmv, kkt, obj_fn,
         rd = pmv(x) + q_s + ghat_tmv(z)
         if dtype == torch.float64:
             rp = ghat_mv(x) + s - hhat_s
-        mu = torch.sum(s * z, dim=1) / m
+        mu = ax.dot(s, z) / m
 
         L = factor(s, z)
 
         # predictor (affine)
         dx_a, ds_a, dz_a = kkt_solve(L, s, z, rd, rp, s * z)
-        alpha_p = _max_step(s, ds_a)[:, None]
-        alpha_d = _max_step(z, dz_a)[:, None]
-        mu_aff = torch.sum((s + alpha_p * ds_a) * (z + alpha_d * dz_a),
-                           dim=1) / m
+        alpha_p = _max_step(s, ds_a, ax)[:, None]
+        alpha_d = _max_step(z, dz_a, ax)[:, None]
+        mu_aff = ax.dot(s + alpha_p * ds_a, z + alpha_d * dz_a) / m
         sigma = (mu_aff / torch.clamp(mu, min=1e-30)) ** 3
 
         # corrector
         smu = (sigma * mu)[:, None]
         rc = s * z + ds_a * dz_a - smu
         dx, ds, dz = kkt_solve(L, s, z, rd, rp, rc)
-        alpha = torch.minimum(_max_step(s, ds), _max_step(z, dz))[:, None]
+        alpha = torch.minimum(_max_step(s, ds, ax),
+                              _max_step(z, dz, ax))[:, None]
 
         # Gondzio multiple centrality correctors: extra backsolves on the
         # SAME factor that push the complementarity products of an enlarged
@@ -362,8 +412,8 @@ def _ipm(q, h, lb, ub, d_row, cost_scale, *, pmv, gmv, gtmv, kkt, obj_fn,
                                       10.0 * smu)
             dx_c, ds_c, dz_c = kkt_solve(L, s, z, zero_n, zero_m, drc)
             dx2, ds2, dz2 = dx + dx_c, ds + ds_c, dz + dz_c
-            alpha2 = torch.minimum(_max_step(s, ds2),
-                                   _max_step(z, dz2))[:, None]
+            alpha2 = torch.minimum(_max_step(s, ds2, ax),
+                                   _max_step(z, dz2, ax))[:, None]
             acc = alpha2 >= alpha + 0.01
             dx = torch.where(acc, dx2, dx)
             ds = torch.where(acc, ds2, ds)
@@ -376,14 +426,14 @@ def _ipm(q, h, lb, ub, d_row, cost_scale, *, pmv, gmv, gtmv, kkt, obj_fn,
         rp_new = (1.0 - alpha) * rp
         # NaN guard: a failed Cholesky poisons the step — keep the previous
         # iterate and flag it instead of propagating NaNs
-        ok = _all_finite(x_new, s_new, z_new)
+        ok = ax.all(_all_finite(x_new, s_new, z_new))
         okb = ok[:, None]
         return (torch.where(okb, x_new, x), torch.where(okb, s_new, s),
                 torch.where(okb, z_new, z), torch.where(okb, rp_new, rp),
                 mu, rd, ok)
 
     rp0 = ghat_mv(x) + s - hhat_s
-    hnorm = 1.0 + _norm(hhat_s)
+    hnorm = 1.0 + ax.norm(hhat_s)
     qnorm = 1.0 + _norm(q_s)
 
     if fixed_iters is not None:
@@ -397,7 +447,7 @@ def _ipm(q, h, lb, ub, d_row, cost_scale, *, pmv, gmv, gtmv, kkt, obj_fn,
         for _ in range(fixed_iters):
             x2, s2, z2, rp2, mu, _, ok = iterate(x, s, z, rp)
             stalled = (mu > 0.7 * mu_prev) & (mu < tol * 1e3)
-            frozen = frozen | stalled | (mu < tol) | ~ok
+            frozen = frozen | ax.all(stalled | (mu < tol) | ~ok)
             keep = ~frozen[:, None]
             x = torch.where(keep, x2, x)
             s = torch.where(keep, s2, s)
@@ -408,11 +458,11 @@ def _ipm(q, h, lb, ub, d_row, cost_scale, *, pmv, gmv, gtmv, kkt, obj_fn,
                            device=device)
     else:
         x, s, z, iters = _adaptive_loop(iterate, (x, s, z, rp0), max_iter,
-                                        tol, m, hnorm, qnorm)
+                                        tol, m, hnorm, qnorm, ax)
 
     # Honest post-hoc convergence certificate (stalls don't count).
-    mu_f = torch.sum(s * z, dim=1) / m
-    rp_f = _norm(ghat_mv(x) + s - hhat_s)
+    mu_f = ax.dot(s, z) / m
+    rp_f = ax.norm(ghat_mv(x) + s - hhat_s)
     rd_f = _norm(pmv(x) + q_s + ghat_tmv(z))
     conv = (mu_f < tol * 10) & (rp_f / hnorm < tol * 100) \
         & (rd_f / qnorm < tol * 100)
@@ -427,7 +477,7 @@ def _ipm(q, h, lb, ub, d_row, cost_scale, *, pmv, gmv, gtmv, kkt, obj_fn,
 def solve_qp(P, q, G, h, lb, ub, *, max_iter: int = 30, tol: float = 1e-8,
              x0=None, z0=None, fixed_iters: int | None = None,
              cheap_k: bool = False, refine_steps: int = 0,
-             correctors: int = 0, axis_name: str | None = None,
+             correctors: int = 0, axis_name=None,
              mg_total: int | None = None, banded=None) -> QPSolution:
     """Solve a batch of dense QPs (``vmap(solve_qp)`` of ``scp_tpu``).
 
@@ -449,24 +499,39 @@ def solve_qp(P, q, G, h, lb, ub, *, max_iter: int = 30, tol: float = 1e-8,
     (Riccati) sweeps instead of the dense Cholesky — the same linear system,
     O(hp) instead of O(n^3).
 
-    Not ported: ``cheap_k`` and the row-sharded mode (``axis_name`` /
-    ``mg_total``).
+    ``axis_name``: the row-sharded mode. It holds the model-axis
+    ``torch.distributed`` ProcessGroup (``parallel.mesh.Mesh.groups
+    ["model"]``; the name is ``scp_tpu``'s, where it names a mesh axis).
+    Each rank passes its own block of the G rows (its horizon block of the
+    avoidance rows) and ``mg_total``, the global row count; the box rows
+    are on every rank and counted once. ``G^T W G`` is then formed from
+    each rank's rows and ``all_reduce``d once a factorization; row sums,
+    norms and step-length minima are ``all_reduce``d too, and every flag
+    that decides the loops is AND-reduced before the host reads it, so
+    every rank takes the same steps and ``x`` is the same on all of them.
+    ``z`` comes back in the local layout ``[local G rows; box rows]``. The
+    banded KKT is not row-sharded (``ValueError``).
+
+    Not ported: ``cheap_k``.
     """
     if cheap_k:
         raise NotImplementedError(
             "cheap_k (reduced-precision KKT formation) has no counterpart "
             "in the port: products stay full float32")
-    if axis_name is not None or mg_total is not None:
-        raise NotImplementedError(
-            "row-sharded solve_qp (axis_name / mg_total) not ported yet: "
-            "roadmap item 11 (scale-out)")
+    if axis_name is not None:
+        if mg_total is None:
+            raise ValueError("axis_name requires mg_total")
+        if banded is not None:
+            raise ValueError("the banded KKT is not row-sharded: pass "
+                             "banded=None with axis_name")
     if q.ndim == 1:
         def up(t):
             return None if t is None else t[None]
         sol = solve_qp(up(P), up(q), up(G), up(h), up(lb), up(ub),
                        max_iter=max_iter, tol=tol, x0=up(x0), z0=up(z0),
                        fixed_iters=fixed_iters, refine_steps=refine_steps,
-                       correctors=correctors,
+                       correctors=correctors, axis_name=axis_name,
+                       mg_total=mg_total,
                        banded=None if banded is None
                        else BandedData(*[t[None] for t in banded]))
         return QPSolution(*[t[0] for t in sol])
@@ -486,8 +551,9 @@ def solve_qp(P, q, G, h, lb, ub, *, max_iter: int = 30, tol: float = 1e-8,
     def gtmv(v):
         return torch.bmm(v[:, None, :], G_s)[:, 0]
 
+    ax = _UNSHARDED if axis_name is None else _RowAxis(axis_name, mg)
     if banded is None:
-        kkt = _dense_kkt(P_s, G_s, mg, n, reg_rel)
+        kkt = _dense_kkt(P_s, G_s, mg, n, reg_rel, ax)
     else:
         nu = n - 1
         Gu2 = G_s[:, :, :nu] ** 2                    # loop-invariant
@@ -502,7 +568,8 @@ def solve_qp(P, q, G, h, lb, ub, *, max_iter: int = 30, tol: float = 1e-8,
                 gtmv=gtmv, kkt=kkt, obj_fn=_dense_obj(P, q),
                 max_iter=max_iter, tol=tol, x0=x0, z0=z0,
                 fixed_iters=fixed_iters, correctors=correctors,
-                refine_steps=refine_steps)
+                refine_steps=refine_steps, ax=ax,
+                mg_total=None if axis_name is None else mg_total)
 
 
 def _dense_obj(P, q):

@@ -31,6 +31,7 @@ import torch
 
 from scp_tpu_torch.config import tree_map
 from scp_tpu_torch.ops import constraints as con
+from scp_tpu_torch.parallel import mesh as mesh_lib
 from scp_tpu_torch.solvers import qp
 
 # Host reads of a device value (device synchronisations) made by the SCP
@@ -81,7 +82,7 @@ class SCPTrace(NamedTuple):
 def _scp_loop(problem: SCPProblem, u_init: torch.Tensor, qp_solve, *,
               max_scp_iter, delta_tol, delta_tol_rel, u_step_tol,
               merit_patience, keep_best, slack_weight, constraint_tolerance,
-              qp_warm_dual, compat_q5, trace=False):
+              qp_warm_dual, compat_q5, trace=False, group=None):
     """The SCP iteration shared by :func:`solve_scp` and
     :func:`solve_scp_stacked`. ``qp_solve(u, x0, z0) -> QPSolution`` solves
     the QP linearized at ``u`` (``x0 = [u, 0]``, ``z0`` the previous duals or
@@ -89,6 +90,13 @@ def _scp_loop(problem: SCPProblem, u_init: torch.Tensor, qp_solve, *,
 
     Converged instances freeze (they keep ``u, obj, viol, z``; counters add
     only where an instance is still active) while the batch continues.
+
+    ``group``: the model process group of the horizon-sharded mode, where
+    ``problem.sys`` is this rank's horizon block: the violation is
+    MAX-reduced and the feasibility AND-reduced over it after every
+    evaluation (``scp_tpu``'s ``reduce_ev``), so the merit / stop logic sees
+    the same values on every rank, and the stop flags are AND-reduced before
+    the host read of ``any(not done)``.
     """
     global host_sync_count
     sys = problem.sys
@@ -99,7 +107,13 @@ def _scp_loop(problem: SCPProblem, u_init: torch.Tensor, qp_solve, *,
     single_veh = v == 1
 
     def ev_fn(u):
-        return con.evaluate(sys, u, constraint_tolerance, compat_q5)
+        ev = con.evaluate(sys, u, constraint_tolerance, compat_q5)
+        if group is None:
+            return ev
+        return ev._replace(
+            feasible=mesh_lib.all_true(ev.feasible, group),
+            max_violation=mesh_lib.all_reduce(ev.max_violation, group,
+                                              "max"))
 
     def obj_fn(u):
         return con.objective(problem.phi0, problem.psi0, problem.gamma0, u)
@@ -161,6 +175,7 @@ def _scp_loop(problem: SCPProblem, u_init: torch.Tensor, qp_solve, *,
             stop = small_delta
         else:
             stop = small_delta & (ev.max_violation <= constraint_tolerance)
+        stop = mesh_lib.all_true(stop, group)
         if trace:
             records.append((sel,) + tuple(
                 torch.where(sel, e, torch.zeros_like(e))
@@ -260,7 +275,7 @@ def solve_scp(problem: SCPProblem, u_init: torch.Tensor, *,
               qp_correctors: int = 0,
               qp_kkt: str = "dense",
               compat_q5: bool = True,
-              axis_name: str | None = None,
+              axis_name=None,
               n_con_total: int | None = None,
               trace: bool = False):
     """Per-instance SCP on a leading batch axis (``vmap(solve_scp)`` of
@@ -273,13 +288,27 @@ def solve_scp(problem: SCPProblem, u_init: torch.Tensor, *,
     the same KKT system by the Riccati sweeps and needs
     ``problem.banded_pre``. ``trace=True`` additionally returns an
     :class:`SCPTrace`; the loop is the same Python loop, so the traced
-    result equals the untraced one. The horizon-sharded mode (``axis_name``
-    / ``n_con_total``) is not ported.
+    result equals the untraced one.
+
+    ``axis_name``: the horizon-sharded mode. It holds the model-axis
+    ProcessGroup (the name is ``scp_tpu``'s); ``problem.sys`` is this
+    rank's horizon block (``parallel.horizon.shard_system``) and
+    ``n_con_total`` the global avoidance-row count. Linearization,
+    evaluation and the QP's rows run on the block; the QP is row-sharded
+    (:func:`qp.solve_qp`'s ``axis_name``), and the violation / feasibility
+    are reduced at the start and after every QP, so the loop runs in
+    lockstep on every rank. ``qp_kkt="banded"`` is refused there
+    (``ValueError``), where ``scp_tpu`` solves dense without a word;
+    ``"auto"`` is dense per instance anyway.
     """
-    if axis_name is not None or n_con_total is not None:
-        raise NotImplementedError(
-            "horizon-sharded solve_scp (axis_name / n_con_total) not ported "
-            "yet: roadmap item 11 (scale-out)")
+    if axis_name is not None:
+        if n_con_total is None:
+            raise ValueError("axis_name requires n_con_total")
+        if qp_kkt == "banded":
+            raise ValueError(
+                "qp_kkt='banded' is not horizon-sharded: the row-sharded QP "
+                "forms the dense KKT; use qp_kkt='dense' or 'auto' with "
+                "axis_name")
     _check_kkt(problem, qp_kkt)
     sys = problem.sys
     dtype, device = u_init.dtype, u_init.device
@@ -304,7 +333,9 @@ def solve_scp(problem: SCPProblem, u_init: torch.Tensor, *,
         return qp.solve_qp(P_qp, q_qp, G, rhs, lb, ub, max_iter=qp_max_iter,
                            tol=qp_tol, x0=x0, z0=z0,
                            fixed_iters=qp_fixed_iters, cheap_k=qp_cheap_k,
-                           correctors=qp_correctors,
+                           correctors=qp_correctors, axis_name=axis_name,
+                           mg_total=n_con_total if axis_name is not None
+                           else None,
                            banded=(_banded_data(problem, u)
                                    if qp_kkt == "banded" else None))
 
@@ -314,7 +345,7 @@ def solve_scp(problem: SCPProblem, u_init: torch.Tensor, *,
         u_step_tol=u_step_tol, merit_patience=merit_patience,
         keep_best=keep_best, slack_weight=slack_weight,
         constraint_tolerance=constraint_tolerance, qp_warm_dual=qp_warm_dual,
-        compat_q5=compat_q5, trace=trace)
+        compat_q5=compat_q5, trace=trace, group=axis_name)
 
 
 def solve_scp_stacked(problem: SCPProblem, u_init: torch.Tensor, *,

@@ -10,8 +10,9 @@ stopped, plant noise included: the generator's state is saved and restored
 into the generator of the carry it is loaded into, on that generator's
 device.
 
-The per-process shard files of a distributed run (``proc_path``,
-``save_sharded``, ``load_sharded``) come with the scale-out slice.
+A distributed sweep writes one file per rank (``proc_path``,
+``save_sharded``, ``load_sharded``): each rank holds its block of the
+batch as one tensor and writes that block with its global offset.
 """
 from __future__ import annotations
 
@@ -108,3 +109,82 @@ def resume_or_init(path: str, init_fn, *args, **kw):
     if os.path.exists(_npz(path)):
         return load(path, carry)
     return carry, 0
+
+
+# ---- one file per rank of a distributed (torch.distributed) run ----
+#
+# No rank holds the whole batch: each writes its OWN block of every carry
+# tensor with the block's global offset and shape, and the rank count. A
+# rank's block is one contiguous tensor, so ``scp_tpu``'s ``_local_block``
+# (the gathering of a process's addressable shards of a global jax Array)
+# has no counterpart.
+
+
+def proc_path(path: str, process_index: int | None = None) -> str:
+    """A rank's checkpoint file, ``<base>.proc<k>.npz`` (``np.savez``
+    appends ``.npz`` to names without it, so it stays last); ``k`` defaults
+    to this rank (0 without a process group)."""
+    if process_index is None:
+        import torch.distributed as dist
+        process_index = dist.get_rank() if dist.is_initialized() else 0
+    base = path[:-4] if path.endswith(".npz") else path
+    return f"{base}.proc{process_index}.npz"
+
+
+def _world() -> tuple[int, int]:
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def save_sharded(path: str, carry: Any, step: int, offset: int,
+                 global_batch: int) -> None:
+    """Write THIS rank's block of a data-sharded carry: every tensor
+    field's block (rows ``offset .. offset + B`` of ``global_batch``) with
+    its offset and global shape; ints, ``None`` and generator states as
+    :func:`save` writes them; the rank and the rank count."""
+    rank, world = _world()
+    payload = {"step": np.asarray(step),
+               "fields": np.asarray(carry._fields),
+               "kinds": np.asarray([_kind(v) for v in carry]),
+               "process_index": np.asarray(rank),
+               "process_count": np.asarray(world)}
+    for name, value in zip(carry._fields, carry):
+        kind = _kind(value)
+        if kind == "tensor":
+            payload[f"leaf_{name}"] = value.detach().cpu().numpy()
+            payload[f"start_{name}"] = np.asarray(offset)
+            payload[f"gshape_{name}"] = np.asarray(
+                (global_batch,) + tuple(value.shape[1:]))
+        elif kind == "int":
+            payload[f"leaf_{name}"] = np.asarray(value)
+        elif kind == "generator":
+            payload[f"leaf_{name}"] = value.get_state().numpy()
+    _atomic_savez(proc_path(path, rank), **payload)
+
+
+def load_sharded(path: str, carry_like: Any, offset: int,
+                 global_batch: int) -> tuple[Any, int]:
+    """Restore THIS rank's block from its file (:func:`save_sharded`),
+    using ``carry_like`` (this rank's block) for structure, dtypes and
+    devices. A file written by another rank count, or whose block is not
+    rows ``offset .. offset + B`` of ``global_batch``, raises
+    ``ValueError``."""
+    rank, world = _world()
+    with np.load(proc_path(path, rank)) as f:
+        if int(f["process_count"]) != world:
+            raise ValueError(
+                f"checkpoint written with {int(f['process_count'])} ranks; "
+                f"this job has {world}")
+        for name, like in zip(carry_like._fields, carry_like):
+            if _kind(like) != "tensor" or f"start_{name}" not in f:
+                continue
+            want = (global_batch,) + tuple(like.shape[1:])
+            got = (int(f[f"start_{name}"]),
+                   tuple(int(x) for x in f[f"gshape_{name}"]))
+            if got != (offset, want):
+                raise ValueError(
+                    f"checkpoint field {name}: block at {got[0]} of "
+                    f"{got[1]}, this rank holds {offset} of {want}")
+    return load(proc_path(path, rank), carry_like)

@@ -1,7 +1,8 @@
 """The port's command line against scp_tpu's, on the CPU: the config each
 flag set builds, a float64 closed loop's summary against scp_tpu's
 ``engine.simulate`` (floats within 1e-8, counts exact), the Monte-Carlo
-and export branches, and the refusals."""
+and export branches, ``sweep``'s summary against ``scp_tpu.cli.cmd_sweep``'s
+(within 1e-12), and the refusals."""
 import argparse
 import dataclasses
 import functools
@@ -15,10 +16,12 @@ import pytest
 import torch
 
 from scp_tpu import cli as jcli
+from scp_tpu.scenarios import batch as jbatch
 from scp_tpu.sim import engine as jengine
-from scp_tpu_torch import cli as tcli
+from scp_tpu_torch import cli as tcli, convert
+from scp_tpu_torch.scenarios import batch as tbatch
 
-from torch_parity import jit_fast
+from torch_parity import jit_fast, tonp
 
 FLAG_GRID = list(itertools.product(
     [("circle", 0), ("circle", 3), ("frog", 2), ("parallel", 5)],
@@ -133,20 +136,50 @@ def test_run_export_json_measures_step_times(tmp_path):
     (["run", "--controller", "side_selection", "--kkt", "dense", "--cpu"],
      "--kkt has no effect"),
     (["run", "--f64"], "--f64 runs on the CPU only"),
+    (["sweep", "--f64"], "--f64 runs on the CPU only"),
 ])
 def test_run_refusals_before_any_work(argv, says, capsys, monkeypatch):
     def no_work(*a, **k):
         raise AssertionError("the run must be refused before any work")
     monkeypatch.setattr(tcli, "_build", no_work)
+    monkeypatch.setattr(tcli, "sweep_inputs", no_work)
     with pytest.raises(SystemExit) as e:
         tcli.main(argv)
     assert e.value.code == 2
     assert says in capsys.readouterr().err
 
 
-def test_sweep_names_the_scale_out_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        tcli.main(["sweep", "--cpu", "--batch", "2"])
+def test_sweep_names_the_scale_out_item(capsys, monkeypatch):
+    """Scale-out (ROADMAP item 11) is ported: ``sweep --cpu --f64`` prints
+    ``scp_tpu.cli.cmd_sweep``'s summary for the same flags (circle-3,
+    hp = 5, 16 instances, 2 steps, seed 5) on the same batch — scp_tpu's,
+    converted, since the two packages' generators differ — its floats
+    within 1e-12; the wall time and the mesh (8 JAX devices here, one
+    rank) aside."""
+    argv = ["sweep", "--cpu", "--f64", "--n-veh", "3", "--hp", "5",
+            "--batch", "16", "--steps", "2", "--seed", "5"]
+    jcli.cmd_sweep(argparse.Namespace(
+        scenario="circle", batch=16, n_veh=3, steps=2, hp=5,
+        controller="scp", rect_obstacles=False, n_model=1, batched=False,
+        kkt="", checkpoint="", checkpoint_every=0, seed=5, f64=True,
+        cpu=True))
+    want = json.loads(capsys.readouterr().out)
+
+    def scp_tpu_batch(kind, n, generator=None, dtype=None, device=None,
+                      **kw):
+        cfg_j, data_j = jbatch.make_batch(kind, n, key=jax.random.PRNGKey(5),
+                                          dtype=jnp.float64, **kw)
+        return (convert.config_from_dict(dataclasses.asdict(cfg_j)),
+                convert.scenario_from_numpy(tonp(data_j), dtype, device))
+    monkeypatch.setattr(tbatch, "make_batch", scp_tpu_batch)
+    got = tcli.main(argv)
+    assert json.loads(capsys.readouterr().out) == got
+    assert got["mesh"] == {"data": 1, "model": 1} and got["wall_s"] > 0
+    for k in ("scenario", "batch", "steps"):
+        assert got[k] == want[k], k
+    for k in ("feasible_frac", "mean_obj", "mean_scp_iters"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-12, atol=1e-12,
+                                   err_msg=k)
 
 
 def test_bench_subcommand_sets_the_module_constants(monkeypatch):

@@ -154,6 +154,20 @@ def test_solve_scp_batch_per_instance_path(phases):
     (dict(qp_cheap_k=True), "cheap_k"),
 ])
 def test_solve_scp_unported_options_raise(kw, item):
+    if item == "item 11":
+        # roadmap item 11 is ported (tests/test_torch_horizon.py holds the
+        # horizon-sharded solve against scp_tpu); what stays refused is the
+        # banded KKT with axis_name, which scp_tpu solves dense without a
+        # word, and axis_name without the global row count
+        _, problem_t, _, u0_t, u_lim, skw = _setup(
+            "circle", 2, 6, dict(qp_kkt="banded"), n_veh=2, radius=6.0)
+        with pytest.raises(ValueError, match="not horizon-sharded"):
+            tscp.solve_scp(problem_t, u0_t, u_lim=u_lim, **{**skw, **kw})
+        with pytest.raises(ValueError, match="requires n_con_total"):
+            tscp.solve_scp(problem_t, u0_t, u_lim=u_lim,
+                           **{**skw, "qp_kkt": "dense",
+                              "axis_name": kw["axis_name"]})
+        return
     if item == "item 8":
         # roadmap item 8 is ported: with the stage statement that
         # controller_pre builds, qp_kkt="banded" solves the same SCP as the
