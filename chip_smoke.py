@@ -10,9 +10,9 @@ fused structured IPM iteration K1, the dense-G IPM iteration K2, the
 batched Cholesky and the Cholesky solve — in shared memory below n = 240,
 with the matrix in device memory from there — the two G matvecs, and the
 Riccati factor and solve sweeps K6 / K7), holds each against its plain
-PyTorch version on the card, and drives thirteen paths of the port at full
-width, every kernel's launch count set to 0 just before a path and read
-just after:
+PyTorch version on the card, and drives the paths of the port below at
+full width, every kernel's launch count set to 0 just before a path and
+read just after:
 
 * the calibrated batched step — ``mpc_step_batch`` on the randomized
   4-vehicle circle batch, B = 1024, hp = hu = 20, float32, ``tuned_f32`` with
@@ -70,6 +70,19 @@ just after:
 * (iii) ONE nominal frog scenario under the same controller through
   ``mpc_step`` for the full closed loop: step latency, two K2 and two
   G-product launches a step (5 and 1 wide);
+* (l) the shapes past one block's shared memory, where the fused IPM
+  kernels keep the KKT matrix and its factor in device memory (their
+  device tier): (l1) side selection at parallel-11, hp = hu = 20, B = 256
+  (two K1 launches a step in the device tier, 1280 and 256 wide), (l2)
+  circle-4 at hp = 64, B = 256, ``tuned_f32`` with ``qp_kkt="dense"`` (K1's
+  device tier at nu = 256; step 0 also against the long-horizon path's
+  banded step), (l3) that path's first QP on its dense rows through K2's
+  device tier (n = 257), (l4) each kernel forced into its device tier
+  against its shared tier on identical inputs at the bench and frog
+  shapes (bit for bit expected), (l5) circle-16 at hp = 10, B = 256
+  (``TUNED_F32_V16``: K1's shared tier with its slabs packed) and (l6) the
+  DEFAULT (adaptive) side-selection settings on frog, B = 64 (the factor,
+  the solve and both G products);
 * (j) the entry points a user calls: ``scp_tpu_torch.bench.worker()`` at
   its own settings (K1 on its throughput steps, K3 / K4 on its latency
   steps; its solves/s and latency printed beside paths (a) and (c)), and
@@ -1698,11 +1711,15 @@ def reset_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """Every kernel's launches since :func:`reset_counts`."""
+    """Every kernel's launches since :func:`reset_counts` (K1 and K2 in
+    their shared-memory tier under the wrappers' names, in their device
+    tier with ``_device``)."""
     from scp_tpu_torch.ops import ipm_kernel, linalg_kernel as lk
     from scp_tpu_torch.ops import riccati_kernel as rk
     return {"ipm_iterate_struct": ipm_kernel.launch_count,
             "ipm_iterate_dense": ipm_kernel.dense_launch_count,
+            "ipm_iterate_struct_device": ipm_kernel.device_launch_count,
+            "ipm_iterate_dense_device": ipm_kernel.dense_device_launch_count,
             **lk.launch_counts, **rk.launch_counts}
 
 
@@ -2570,13 +2587,13 @@ SS_STEER_SHARE, SS_STEER_MIN, SS_BOUND_TOL = 0.5, 1e-3, 1e-4
 # same run (the plain versions' step on inputs perturbed by 2^-23).
 
 
-def ss_config(cfg):
+def ss_config(cfg, hp: int = SS_HP):
     """The calibrated float32 side-selection controller, composed as the
     reference CLI composes it (``TUNED_F32_OVERRIDES`` updated by
-    ``TUNED_F32_SIDE_SELECTION``), at hp = hu = SS_HP."""
+    ``TUNED_F32_SIDE_SELECTION``), at hp = hu = ``hp``."""
     from scp_tpu_torch import config as config_lib
     return config_lib.tuned_f32(
-        cfg.replace(controller="side_selection", hp=SS_HP, hu=SS_HP),
+        cfg.replace(controller="side_selection", hp=hp, hu=hp),
         **config_lib.TUNED_F32_SIDE_SELECTION)
 
 
@@ -2619,6 +2636,11 @@ def ss_step0_errors(out_k, out_p, out_d, run_perturbed, one_scenario):
            "plain_u_pred_vs_f64_max": float(du_p64.max()),
            "plain_u_pred_vs_f64_p99": _q99(du_p64),
            "same_qp_iters": bool((out_k.qp_iters == out_p.qp_iters).all()),
+           # (whether a low share is float32's or the controller's own)
+           "feasible_share": {k: float(o.feasible.float().mean())
+                              for k, o in (("kernels", out_k),
+                                           ("plain", out_p),
+                                           ("float64", out_d))},
            **{f"yardstick_{k}": v for k, v in y.items()}}
     if one_scenario:
         rep["limits"] = {"u_pred_vs_plain_max": UPRED_ABS_LIMIT,
@@ -2644,6 +2666,249 @@ def ss_step0_errors(out_k, out_p, out_d, run_perturbed, one_scenario):
     ok = (u_ok and rep["finite"]
           and rep["flags_differ"] <= rep["yardstick_flags_differ_allowed"])
     return rep, ok
+
+
+class SideSelectionChecks:
+    """What the side-selection paths ((i)-(iii), and (l1) past K1's shared
+    tier) check on a step of the controller: the kernel wrappers they route
+    (K1, K2 and the G products), every first-step launch held against its
+    plain version (``launch_rows`` collects them), step 0 three ways, the
+    launch counts, the times."""
+    NAMES = ("ipm_iterate_struct", "ipm_iterate_dense", "gmv", "gtmv")
+
+    def __init__(self, dev, card, seed):
+        self.dev, self.card, self.seed = dev, card, seed
+        self.real, self.plain = real_of(*self.NAMES), plain_of(*self.NAMES)
+        self.launch_rows = []     # every first-step launch's agreement
+
+    def first_step_launches(self, kept_names, step, carry):
+        """The step with every launch of ``kept_names`` kept (it doubles
+        as the warm-up): ``(output, {name: [(args, kw), ...]})``."""
+        kept = {k: [] for k in kept_names}
+
+        def keeper(name):
+            def keep(*a, **k):
+                kept[name].append((a, k))
+                return self.real[name](*a, **k)
+            return keep
+        return routed({k: keeper(k) for k in kept_names}, step, carry), kept
+
+    def step_three_ways(self, cfg, data, carry, entry, one_scenario,
+                        names=None):
+        """One step from ``(data, carry)`` through the kernels, the plain
+        versions (of ``names``, the side-selection QPs' kernels by default),
+        float64 and the perturbed draws, under ss_step0_errors."""
+        from scp_tpu_torch.config import tree_map
+        plain_all = plain_of(*(names or self.NAMES))
+
+        def run(d, c):
+            return entry(cfg, d, c)[1]
+        out_k = run(data, carry)
+        torch.cuda.synchronize()
+        out_p = routed(plain_all, run, data, carry)
+        out_d = routed(plain_all, run, as_f64(data), as_f64(carry))
+        return ss_step0_errors(
+            out_k, out_p, out_d,
+            lambda gen: routed(plain_all, run,
+                               *(tree_map(lambda t: _perturb(t, gen), x)
+                                 for x in (data, carry))),
+            one_scenario)
+
+    @staticmethod
+    def expect_launches(path, got, n_steps, kernel):
+        """Exactly two launches of ``kernel`` (a key of ``launch_counts``:
+        a wrapper's name, or with ``_device`` its device tier's) a step
+        and no other kernel but K5a, which the dense-G branch launches
+        once per QP (its cold start's G x0)."""
+        want = {k: 0 for k in got}
+        want[kernel] = 2 * n_steps
+        if kernel.startswith("ipm_iterate_dense"):
+            want["gmv"] = 2 * n_steps
+        if got != want:
+            fail(f"side-selection path {path}: launches {got}, wanted "
+                 f"{want} ({n_steps} steps)")
+
+    def kernel_checks(self, path, kernel, kept):
+        """Each launch of the first step against its plain version on its
+        own inputs; returns the largest difference on the controls."""
+        real, plain, dev = self.real, self.plain, self.dev
+        errs = []
+        for i, (a, k) in enumerate(kept[kernel]):
+            case = f"side_selection_{path}_launch{i}_B{a[0].shape[0]}"
+            row = {"path": path, "kernel": kernel, "B": a[0].shape[0],
+                   "n_iters": k["n_iters"]}
+            if kernel == "ipm_iterate_dense":
+                e = check_dense(case, a, k)
+                row.update({key: e[key] for key in (
+                    "u_kernel_vs_plain_max", "u_kernel_vs_plain_median",
+                    "u_kernel_vs_f64_max", "u_plain_vs_f64_max",
+                    "u_perturbed_vs_plain_max", "u_median_allowed",
+                    "frozen_differ", "frozen_differ_allowed",
+                    "one_iter_max_abs_err", "one_iter_max_rel_err",
+                    "state_perturbed_vs_plain_max_abs")})
+            else:
+                nu = a[4].shape[1] * a[4].shape[2]
+                gsl = a[3]
+                if not (k["lower_tri"] and bool((gsl[:, -2 * nu:] == 0).all())
+                        and bool((gsl[:, :-2 * nu] < 0).all())):
+                    fail(f"{case}: not the lower-triangular slabs with the "
+                         f"hard rate rows last")
+                e = check_kernel(case, a, k, real[kernel], plain[kernel])
+                row.update({key: e[key] for key in (
+                    "u_kernel_vs_plain_max", "u_kernel_vs_plain_median",
+                    "u_kernel_vs_f64_max", "u_plain_vs_f64_max",
+                    "one_iter_max_abs_err", "limits")})
+            self.launch_rows.append(row)
+            errs.append(e["u_kernel_vs_plain_max"])
+        # K5a's G x0 on its own inputs, and on the same G with a random x
+        # (x0 is the warm start, zero at a closed loop's first step)
+        gen = torch.Generator(device=dev).manual_seed(self.seed)
+        for i, (a, k) in enumerate(kept.get("gmv", ())):
+            if k:
+                fail(f"side-selection path {path}: K5a called with {k}")
+            G, x = a
+            xr = torch.randn(x.shape, generator=gen, device=dev,
+                             dtype=x.dtype)
+            for tag, args in (("", a), ("_random_x", (G, xr))):
+                e = check_vector("gmv", f"side_selection_{path}_gmv{i}_"
+                                 f"B{G.shape[0]}{tag}", real["gmv"],
+                                 plain["gmv"], args, MATVEC_REL_LIMIT)
+                self.launch_rows.append({
+                    "path": path, "kernel": "gmv" + tag, "B": G.shape[0],
+                    "shape": list(G.shape[1:]),
+                    **{key: e[key] for key in (
+                        "kernel_vs_plain_max_abs", "kernel_vs_f64_max_abs",
+                        "plain_vs_f64_max_abs", "scale")}})
+        return max(errs)
+
+    def times(self, path, kernel, kept, reps=10):
+        """Device time of each first-step launch by CUDA-graph replay
+        (``reps`` calls a graph), the plain version by CUDA events, the
+        bound; K5a's cold-start G x0 by graph replay, with ``torch.bmm`` on
+        the same inputs."""
+        real, plain = self.real, self.plain
+        cells = {}
+        for a, k in kept[kernel]:
+            w = a[0].shape[0]
+            cell = {"n_iters": k["n_iters"],
+                    "ms": graph_ms(lambda: real[kernel](*a, **k), reps),
+                    "plain_ms": time_cuda(lambda: plain[kernel](*a, **k), 3,
+                                          warmup=1)}
+            if kernel == "ipm_iterate_dense":
+                B_, mg, n = a[0].shape
+                nb, d = a[2].shape[1:3]
+                work = dense_work(B_, mg, n, nb, d, k["schur_slack"],
+                                  k["n_cor"], k["n_iters"])
+                cell["mg"], cell["n"] = mg, n
+            else:
+                P, S = a[0].shape[1], a[2].shape[1]
+                hp, hu = a[0].shape[2:]
+                V = a[4].shape[1]
+                work = k1_work(P, S, hp, hu, V, w, k["n_iters"], k["n_cor"],
+                               k["lower_tri"])
+                cell["shape"] = {"P": P, "S": S, "hp": hp, "hu": hu, "V": V}
+            cell["bound_ms"], cell["bound_by"] = bound_of(*work)
+            cells[f"{path}_B{w}"] = cell
+        gmv_cells = {}
+        for a, _ in kept.get("gmv", ()):
+            (w, m, n), (G, x) = a[0].shape, a
+            cell = {"m": m, "n": n,
+                    "ms": graph_ms(lambda: real["gmv"](G, x), 10),
+                    "plain_ms": graph_ms(lambda: plain["gmv"](G, x), 10),
+                    "library_ms": graph_ms(
+                        lambda: torch.bmm(G, x[:, :, None]), 10)}
+            cell["bound_ms"], cell["bound_by"] = linalg_bound_ms(
+                "gmv", w, n, m)
+            gmv_cells[f"{path}_B{w}"] = cell
+        return cells, gmv_cells
+
+    def batch_path(self, path, kind, B, kernel, hp=SS_HP, count_key=None,
+                   steps=SS_STEPS, timed_steps=SS_TIMED_STEPS, **kw):
+        """Path ``path``: the controller at hp = hu = ``hp`` on the
+        randomized ``kind`` batch of ``B`` through ``mpc_step_batch``, every
+        first-step launch of ``kernel`` checked, ``steps`` chained steps
+        counted (``count_key``: the count the two launches a step go to,
+        the wrapper's own by default) and then through the plain version,
+        ``timed_steps`` timed, step 0 three ways. Returns ``(cfg, carry0,
+        step, kept, report, step 0 within its limits)``."""
+        from scp_tpu_torch.ops import constraints as con
+        from scp_tpu_torch.scenarios import batch as batch_lib
+        from scp_tpu_torch.sim import engine
+        gen = torch.Generator(device=self.dev).manual_seed(self.seed)
+        cfg, data = batch_lib.make_batch(kind, B, generator=gen,
+                                         dtype=torch.float32,
+                                         device=self.dev, **kw)
+        cfg = ss_config(cfg, hp)
+        carry0 = engine.init_carry(cfg, data)
+
+        def step(c, cf=cfg):
+            return engine.mpc_step_batch(cf, data, c)
+
+        kept_names = (kernel, "gmv") if kernel == "ipm_iterate_dense" \
+            else (kernel,)
+        (_, out_first), kept = self.first_step_launches(kept_names, step,
+                                                        carry0)
+        widths = [a[0].shape[0] for a, _ in kept[kernel]]
+        iters = [k["n_iters"] for _, k in kept[kernel]]
+        if widths != [SS_CANDIDATES * B, B] or iters != [
+                cfg.side_selection_cand_iters, cfg.qp_fixed_iters]:
+            fail(f"side-selection path {path}: first-step launches "
+                 f"{list(zip(widths, iters))}")
+        max_err = self.kernel_checks(path, kernel, kept)
+        # the chained steps, counted (with the scatters of dense rows) and
+        # timed, then through the plain version
+        ch = chain_vs_plain(step, carry0, steps, (kernel,),
+                            spy=(con, "scatter_slabs"))
+        outs, got = ch["outs"], ch["counts"]
+        self.expect_launches(path, got, steps, count_key or kernel)
+        c = ch["carry"]
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            c, _ = step(c)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / timed_steps * 1e3
+        for i, out in enumerate(outs):
+            finite_outputs(out, f"side-selection path {path} step {i}")
+            if out.u_pred.shape != (B, hp, cfg.n_veh):
+                fail(f"side-selection path {path} step {i}: unexpected "
+                     f"output shapes")
+        err0, ok0 = self.step_three_ways(cfg, data, carry0,
+                                         engine.mpc_step_batch, False)
+        rep = {"phase": f"side_selection_path_{path}", "card": self.card,
+               "scenario": kind, "B": B, "n_veh": cfg.n_veh, "hp": hp,
+               "n": cfg.n_veh * hp + 1,
+               "config": "tuned_f32 + TUNED_F32_SIDE_SELECTION "
+                         "(8 IPM iterations per candidate, 12 per round)",
+               "steps": steps, "timed_steps": timed_steps,
+               "launches_per_step": {k: v / steps for k, v in got.items()},
+               "dense_row_scatters_per_step": ch["spy_calls"] / steps,
+               "first_step_launch_widths": widths,
+               "host_reads_per_step": ch["host_reads"] / steps,
+               "step_ms": step_ms, "chained_step_ms": ch["chained_step_ms"],
+               "solves_per_s": B / step_ms * 1e3,
+               "peak_device_memory_mib": ch["peak_mib"],
+               "step_peak_above_resident_mib":
+                   ch["step_peak_above_resident_mib"],
+               **{k: ch[k] for k in ("feasible_share", "feasible_share_plain",
+                                     "feasible_floor")},
+               "sides_stable_share": float(torch.stack(
+                   [o.sides_stable.float().mean() for o in outs]).mean()),
+               "mean_qp_iters": float(torch.stack(
+                   [o.qp_iters.float().mean() for o in outs]).mean()),
+               "first_step_repeats": float(
+                   (out_first.u_pred - outs[0].u_pred).abs().max()),
+               "kernel_vs_plain_max_abs_err": max_err,
+               "step0": err0}
+        return cfg, carry0, step, kept, rep, ok0
+
+    @staticmethod
+    def path_failures(path, rep, ok0):
+        if not ok0:
+            fail(f"side-selection path {path}, step 0 off its limits: "
+                 f"{rep['step0']}")
+        if rep["feasible_share"] < rep["feasible_floor"]:
+            fail(f"side-selection path {path}: feasible share "
+                 f"{rep['feasible_share']}, floor {rep['feasible_floor']}")
 
 
 def side_selection_phases(dev, card, seed) -> dict:
@@ -2675,229 +2940,16 @@ def side_selection_phases(dev, card, seed) -> dict:
     (i) / (ii) is held to the plain versions' on the same chained inputs
     less FROG_FEASIBLE_SLACK, (iii)'s to SIM_FEASIBLE_FLOOR. Returns, per
     kernel of these paths, the entries added to the ``kernels`` line."""
-    from scp_tpu_torch.config import tree_map
-    from scp_tpu_torch.ops import constraints as con, ipm_kernel
-    from scp_tpu_torch.scenarios import batch as batch_lib, builders
+    from scp_tpu_torch.ops import ipm_kernel
+    from scp_tpu_torch.scenarios import builders
     from scp_tpu_torch.sim import engine
 
-    names = ("ipm_iterate_struct", "ipm_iterate_dense", "gmv", "gtmv")
-    real, plain = real_of(*names), plain_of(*names)
-    launch_rows = []          # every first-step launch's agreement
-
-    def first_step_launches(kept_names, step, carry):
-        """The step with every launch of ``kept_names`` kept (it doubles
-        as the warm-up): ``(output, {name: [(args, kw), ...]})``."""
-        kept = {k: [] for k in kept_names}
-
-        def keeper(name):
-            def keep(*a, **k):
-                kept[name].append((a, k))
-                return real[name](*a, **k)
-            return keep
-        return routed({k: keeper(k) for k in kept_names}, step, carry), kept
-
-    def step_three_ways(cfg, data, carry, entry, one_scenario):
-        """One step from ``(data, carry)`` through the kernels, the plain
-        versions, float64 and the perturbed draws, under
-        ss_step0_errors."""
-        plain_all = plain_of(*names)
-
-        def run(d, c):
-            return entry(cfg, d, c)[1]
-        out_k = run(data, carry)
-        torch.cuda.synchronize()
-        out_p = routed(plain_all, run, data, carry)
-        out_d = routed(plain_all, run, as_f64(data), as_f64(carry))
-        return ss_step0_errors(
-            out_k, out_p, out_d,
-            lambda gen: routed(plain_all, run,
-                               *(tree_map(lambda t: _perturb(t, gen), x)
-                                 for x in (data, carry))),
-            one_scenario)
-
-    def expect_launches(path, got, n_steps, kernel):
-        """Exactly two launches of ``kernel`` a step and no other kernel
-        but K5a, which the dense-G branch launches once per QP (its cold
-        start's G x0)."""
-        want = {k: 0 for k in got}
-        want[kernel] = 2 * n_steps
-        if kernel == "ipm_iterate_dense":
-            want["gmv"] = 2 * n_steps
-        if got != want:
-            fail(f"side-selection path {path}: launches {got}, wanted "
-                 f"{want} ({n_steps} steps)")
-
-    def kernel_checks(path, kernel, kept):
-        """Each launch of the first step against its plain version on its
-        own inputs; returns the largest difference on the controls."""
-        errs = []
-        for i, (a, k) in enumerate(kept[kernel]):
-            case = f"side_selection_{path}_launch{i}_B{a[0].shape[0]}"
-            row = {"path": path, "kernel": kernel, "B": a[0].shape[0],
-                   "n_iters": k["n_iters"]}
-            if kernel == "ipm_iterate_dense":
-                e = check_dense(case, a, k)
-                row.update({key: e[key] for key in (
-                    "u_kernel_vs_plain_max", "u_kernel_vs_plain_median",
-                    "u_kernel_vs_f64_max", "u_plain_vs_f64_max",
-                    "u_perturbed_vs_plain_max", "u_median_allowed",
-                    "frozen_differ", "frozen_differ_allowed",
-                    "one_iter_max_abs_err", "one_iter_max_rel_err",
-                    "state_perturbed_vs_plain_max_abs")})
-            else:
-                nu = a[4].shape[1] * a[4].shape[2]
-                gsl = a[3]
-                if not (k["lower_tri"] and bool((gsl[:, -2 * nu:] == 0).all())
-                        and bool((gsl[:, :-2 * nu] < 0).all())):
-                    fail(f"{case}: not the lower-triangular slabs with the "
-                         f"hard rate rows last")
-                e = check_kernel(case, a, k, real[kernel], plain[kernel])
-                row.update({key: e[key] for key in (
-                    "u_kernel_vs_plain_max", "u_kernel_vs_plain_median",
-                    "u_kernel_vs_f64_max", "u_plain_vs_f64_max",
-                    "one_iter_max_abs_err", "limits")})
-            launch_rows.append(row)
-            errs.append(e["u_kernel_vs_plain_max"])
-        # K5a's G x0 on its own inputs, and on the same G with a random x
-        # (x0 is the warm start, zero at a closed loop's first step)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        for i, (a, k) in enumerate(kept.get("gmv", ())):
-            if k:
-                fail(f"side-selection path {path}: K5a called with {k}")
-            G, x = a
-            xr = torch.randn(x.shape, generator=gen, device=dev,
-                             dtype=x.dtype)
-            for tag, args in (("", a), ("_random_x", (G, xr))):
-                e = check_vector("gmv", f"side_selection_{path}_gmv{i}_"
-                                 f"B{G.shape[0]}{tag}", real["gmv"],
-                                 plain["gmv"], args, MATVEC_REL_LIMIT)
-                launch_rows.append({"path": path, "kernel": "gmv" + tag,
-                                    "B": G.shape[0],
-                                    "shape": list(G.shape[1:]),
-                                    **{key: e[key] for key in (
-                                        "kernel_vs_plain_max_abs",
-                                        "kernel_vs_f64_max_abs",
-                                        "plain_vs_f64_max_abs", "scale")}})
-        return max(errs)
-
-    def times(path, kernel, kept):
-        """Device time of each first-step launch by CUDA-graph replay, the
-        plain version by CUDA events, the bound; K5a's cold-start G x0
-        by graph replay, with ``torch.bmm`` on the same inputs."""
-        cells = {}
-        for a, k in kept[kernel]:
-            w = a[0].shape[0]
-            cell = {"n_iters": k["n_iters"],
-                    "ms": graph_ms(lambda: real[kernel](*a, **k), 10),
-                    "plain_ms": time_cuda(lambda: plain[kernel](*a, **k), 3,
-                                          warmup=1)}
-            if kernel == "ipm_iterate_dense":
-                B_, mg, n = a[0].shape
-                nb, d = a[2].shape[1:3]
-                work = dense_work(B_, mg, n, nb, d, k["schur_slack"],
-                                  k["n_cor"], k["n_iters"])
-                cell["mg"], cell["n"] = mg, n
-            else:
-                P, S = a[0].shape[1], a[2].shape[1]
-                hp, hu = a[0].shape[2:]
-                V = a[4].shape[1]
-                work = k1_work(P, S, hp, hu, V, w, k["n_iters"], k["n_cor"],
-                               k["lower_tri"])
-                cell["shape"] = {"P": P, "S": S, "hp": hp, "hu": hu, "V": V}
-            cell["bound_ms"], cell["bound_by"] = bound_of(*work)
-            cells[f"{path}_B{w}"] = cell
-        gmv_cells = {}
-        for a, _ in kept.get("gmv", ()):
-            (w, m, n), (G, x) = a[0].shape, a
-            cell = {"m": m, "n": n,
-                    "ms": graph_ms(lambda: real["gmv"](G, x), 10),
-                    "plain_ms": graph_ms(lambda: plain["gmv"](G, x), 10),
-                    "library_ms": graph_ms(
-                        lambda: torch.bmm(G, x[:, :, None]), 10)}
-            cell["bound_ms"], cell["bound_by"] = linalg_bound_ms(
-                "gmv", w, n, m)
-            gmv_cells[f"{path}_B{w}"] = cell
-        return cells, gmv_cells
-
-    def batch_path(path, kind, B, kernel, **kw):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        cfg, data = batch_lib.make_batch(kind, B, generator=gen,
-                                         dtype=torch.float32, device=dev,
-                                         **kw)
-        cfg = ss_config(cfg)
-        carry0 = engine.init_carry(cfg, data)
-
-        def step(c, cf=cfg):
-            return engine.mpc_step_batch(cf, data, c)
-
-        kept_names = (kernel, "gmv") if kernel == "ipm_iterate_dense" \
-            else (kernel,)
-        (_, out_first), kept = first_step_launches(kept_names, step, carry0)
-        widths = [a[0].shape[0] for a, _ in kept[kernel]]
-        iters = [k["n_iters"] for _, k in kept[kernel]]
-        if widths != [SS_CANDIDATES * B, B] or iters != [
-                cfg.side_selection_cand_iters, cfg.qp_fixed_iters]:
-            fail(f"side-selection path {path}: first-step launches "
-                 f"{list(zip(widths, iters))}")
-        max_err = kernel_checks(path, kernel, kept)
-        # the chained steps, counted (with the scatters of dense rows) and
-        # timed, then through the plain version
-        ch = chain_vs_plain(step, carry0, SS_STEPS, (kernel,),
-                            spy=(con, "scatter_slabs"))
-        outs, got = ch["outs"], ch["counts"]
-        expect_launches(path, got, SS_STEPS, kernel)
-        c = ch["carry"]
-        t0 = time.perf_counter()
-        for _ in range(SS_TIMED_STEPS):
-            c, _ = step(c)
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) / SS_TIMED_STEPS * 1e3
-        for i, out in enumerate(outs):
-            finite_outputs(out, f"side-selection path {path} step {i}")
-            if out.u_pred.shape != (B, SS_HP, cfg.n_veh):
-                fail(f"side-selection path {path} step {i}: unexpected "
-                     f"output shapes")
-        err0, ok0 = step_three_ways(cfg, data, carry0, engine.mpc_step_batch,
-                                    False)
-        rep = {"phase": f"side_selection_path_{path}", "card": card,
-               "scenario": kind, "B": B, "n_veh": cfg.n_veh, "hp": SS_HP,
-               "n": cfg.n_veh * SS_HP + 1,
-               "config": "tuned_f32 + TUNED_F32_SIDE_SELECTION "
-                         "(8 IPM iterations per candidate, 12 per round)",
-               "steps": SS_STEPS, "timed_steps": SS_TIMED_STEPS,
-               "launches_per_step": {k: v / SS_STEPS for k, v in got.items()},
-               "dense_row_scatters_per_step": ch["spy_calls"] / SS_STEPS,
-               "first_step_launch_widths": widths,
-               "host_reads_per_step": ch["host_reads"] / SS_STEPS,
-               "step_ms": step_ms, "chained_step_ms": ch["chained_step_ms"],
-               "solves_per_s": B / step_ms * 1e3,
-               "peak_device_memory_mib": ch["peak_mib"],
-               "step_peak_above_resident_mib":
-                   ch["step_peak_above_resident_mib"],
-               **{k: ch[k] for k in ("feasible_share", "feasible_share_plain",
-                                     "feasible_floor")},
-               "sides_stable_share": float(torch.stack(
-                   [o.sides_stable.float().mean() for o in outs]).mean()),
-               "mean_qp_iters": float(torch.stack(
-                   [o.qp_iters.float().mean() for o in outs]).mean()),
-               "first_step_repeats": float(
-                   (out_first.u_pred - outs[0].u_pred).abs().max()),
-               "kernel_vs_plain_max_abs_err": max_err,
-               "step0": err0}
-        return cfg, carry0, step, kept, rep, ok0
-
-    def path_failures(path, rep, ok0):
-        if not ok0:
-            fail(f"side-selection path {path}, step 0 off its limits: "
-                 f"{rep['step0']}")
-        if rep["feasible_share"] < rep["feasible_floor"]:
-            fail(f"side-selection path {path}: feasible share "
-                 f"{rep['feasible_share']}, floor {rep['feasible_floor']}")
+    h = SideSelectionChecks(dev, card, seed)
 
     entries = {}
     # ---- (i) frog, B = 1024, K2 ----
     t_path = time.perf_counter()
-    cfg_f, carry_f, step_f, kept_f, rep_f, ok_f = batch_path(
+    cfg_f, carry_f, step_f, kept_f, rep_f, ok_f = h.batch_path(
         "i", "frog", SS_FROG_B, "ipm_iterate_dense")
     # two steps in rotated-rectangle mode: the same launches
     cfg_r = cfg_f.replace(obst_as_qcqp=False)
@@ -2914,17 +2966,17 @@ def side_selection_phases(dev, card, seed) -> dict:
         "launches_per_step": {k: v / SS_RECT_STEPS
                               for k, v in rect_counts.items()},
         "feasible_share_last": float(out.feasible.float().mean())}
-    expect_launches("i (rectangle mode)", rect_counts, SS_RECT_STEPS,
+    h.expect_launches("i (rectangle mode)", rect_counts, SS_RECT_STEPS,
                     "ipm_iterate_dense")
-    rep_f["times"], rep_f["gmv_times"] = times("i", "ipm_iterate_dense",
+    rep_f["times"], rep_f["gmv_times"] = h.times("i", "ipm_iterate_dense",
                                                kept_f)
     rep_f["wall_s"] = time.perf_counter() - t_path
     emit(rep_f)
-    path_failures("i", rep_f, ok_f)
+    h.path_failures("i", rep_f, ok_f)
 
     # ---- (ii) parallel-11, B = 256, K1 with the hard rate rows ----
     t_path = time.perf_counter()
-    _, _, _, kept_p, rep_p, ok_p = batch_path(
+    _, _, _, kept_p, rep_p, ok_p = h.batch_path(
         "ii", "parallel", SS_PAR_B, "ipm_iterate_struct", n_veh=SS_PAR_VEH)
     a0 = kept_p["ipm_iterate_struct"][0][0]
     P_s, S_s = a0[0].shape[1], a0[2].shape[1]
@@ -2937,7 +2989,7 @@ def side_selection_phases(dev, card, seed) -> dict:
                  k1_smem_bytes=ipm_kernel.smem_bytes(
                      P_s, S_s, SS_HP, SS_HP, SS_PAR_VEH, True),
                  dense_rows_mib_if_built=dense_bytes / 2 ** 20,
-                 times=times("ii", "ipm_iterate_struct", kept_p)[0],
+                 times=h.times("ii", "ipm_iterate_struct", kept_p)[0],
                  wall_s=time.perf_counter() - t_path)
     emit(rep_p)
     if ctas < 1:
@@ -2949,7 +3001,7 @@ def side_selection_phases(dev, card, seed) -> dict:
              f"structured route (none wanted), "
              f"{rep_f['dense_row_scatters_per_step']} on the dense-G route "
              f"(one per QP wanted)")
-    path_failures("ii", rep_p, ok_p)
+    h.path_failures("ii", rep_p, ok_p)
 
     # ---- (iii) one frog scenario, the full closed loop ----
     t_path = time.perf_counter()
@@ -2961,13 +3013,13 @@ def side_selection_phases(dev, card, seed) -> dict:
         return engine.mpc_step(cfg1, data1, c)
 
     carry1 = engine.init_carry(cfg1, data1)
-    _, kept1 = first_step_launches(("ipm_iterate_dense", "gmv"), step1,
+    _, kept1 = h.first_step_launches(("ipm_iterate_dense", "gmv"), step1,
                                    carry1)
     widths1 = [a[0].shape[0] for a, _ in kept1["ipm_iterate_dense"]]
     if widths1 != [SS_CANDIDATES, 1]:
         fail(f"side-selection path iii: first-step launch widths {widths1}")
-    max_err1 = kernel_checks("iii", "ipm_iterate_dense", kept1)
-    err1, ok1 = step_three_ways(cfg1, data1, carry1, engine.mpc_step, True)
+    max_err1 = h.kernel_checks("iii", "ipm_iterate_dense", kept1)
+    err1, ok1 = h.step_three_ways(cfg1, data1, carry1, engine.mpc_step, True)
     reset_counts()
     lats, feas1, stable1, steer1 = [], [], [], []
     c_i, steer_step = carry1, None
@@ -2991,7 +3043,7 @@ def side_selection_phases(dev, card, seed) -> dict:
     if steer_step is None:
         fail(f"side-selection path iii: no step has {SS_STEER_SHARE} of its "
              f"controls steering off their bounds")
-    err_steer, ok_steer = step_three_ways(cfg1, data1, steer_step[1],
+    err_steer, ok_steer = h.step_three_ways(cfg1, data1, steer_step[1],
                                         engine.mpc_step, True)
     lats.sort()
     rep1 = {"phase": "side_selection_path_iii", "card": card,
@@ -3014,11 +3066,11 @@ def side_selection_phases(dev, card, seed) -> dict:
             "steer_step": steer_step[0],
             "steer_step_steering_share": steer1[steer_step[0]],
             "steer_step_errors": err_steer}
-    rep1["times"], rep1["gmv_times"] = times("iii", "ipm_iterate_dense",
+    rep1["times"], rep1["gmv_times"] = h.times("iii", "ipm_iterate_dense",
                                              kept1)
     rep1["wall_s"] = time.perf_counter() - t_path
     emit(rep1)
-    expect_launches("iii", got1, n_calls, "ipm_iterate_dense")
+    h.expect_launches("iii", got1, n_calls, "ipm_iterate_dense")
     if not ok1:
         fail(f"side-selection path iii, step 0 off its limits: {err1}")
     if not ok_steer:
@@ -3028,7 +3080,7 @@ def side_selection_phases(dev, card, seed) -> dict:
         fail(f"side-selection path iii: feasible share "
              f"{rep1['feasible_share']} below {SIM_FEASIBLE_FLOOR}")
     emit({"phase": "side_selection_first_step_launches", "card": card,
-          "launches": launch_rows,
+          "launches": h.launch_rows,
           "limits": {"ipm_iterate_dense": DENSE_LIMITS,
                      "ipm_iterate_struct": "the row's own",
                      "gmv": {"vs_f64": "2 x plain float32's + 1e-5 x scale",
@@ -3050,9 +3102,488 @@ def side_selection_phases(dev, card, seed) -> dict:
     entries["gmv"].update({
         "side_selection_times": {**rep_f["gmv_times"], **rep1["gmv_times"]},
         "side_selection_max_abs_err": max(
-            r["kernel_vs_plain_max_abs"] for r in launch_rows
+            r["kernel_vs_plain_max_abs"] for r in h.launch_rows
             if r["kernel"].startswith("gmv"))})
     return entries
+
+
+# ---- path (l): K1 and K2 past one block's shared memory ----
+L_HP = 20                  # (l1) side selection at parallel-11, hp = hu = 20
+L_STEPS, L_TIMED_STEPS = 3, 1
+L_TIME_REPS = 3            # (l1) launches a graph when timing K1
+L_LONG_B, L_LONG_HP, L_LONG_STEPS = 256, 64, 2   # (l2), (l3): circle-4
+L_DENSE_ITERS = 7          # (l3) K2's fixed iterations
+L_V16_B, L_V16_VEH, L_V16_HP, L_V16_STEPS = 256, 16, 10, 2   # (l5)
+L_ADAPT_B, L_ADAPT_STEPS = 64, 3                 # (l6): frog, DEFAULT
+LINALG_NAMES = ("cholesky", "cho_solve", "gmv", "gtmv")
+
+
+def tier_of_launch(kernel, a, k):
+    """The storage tier (``ipm_kernel.Tier``) a launch of ``kernel`` with
+    arguments ``(a, k)`` runs in."""
+    from scp_tpu_torch.ops import ipm_kernel as ik
+    if kernel == "ipm_iterate_dense":
+        B_, mg, n = a[DENSE_G].shape
+        pb = a[DENSE_PB]
+        nb, d = (0, 0) if pb is None else tuple(pb.shape[1:3])
+        return ik.dense_tier(mg, n, nb, d, k["schur_slack"], k["n_cor"],
+                             k.get("tier"))
+    P, hp, hu = a[0].shape[1:]
+    S = 0 if a[2] is None else a[2].shape[1]
+    return ik.struct_tier(P, S, hp, hu, a[4].shape[1], k["lower_tri"],
+                          k.get("tier"))
+
+
+def tiers_agree(kernel, args, kw) -> dict:
+    """``kernel``'s wrapper in the tier its shape takes and forced into its
+    device tier on identical inputs: bit for bit (the same sums in the same
+    order), or else within check_kernel's limits on the controls and the
+    one-iteration state; both tiers' device times by graph replay."""
+    from scp_tpu_torch.ops import ipm_kernel as ik
+    fn = getattr(ik, kernel)
+    dev_kw = {**kw, "tier": "device"}
+    a, b = fn(*args, **kw), fn(*args, **dev_kw)
+    a1 = fn(*args, **{**kw, "n_iters": 1})
+    b1 = fn(*args, **{**dev_kw, "n_iters": 1})
+    torch.cuda.synchronize()
+    nu = args[DENSE_STATE if kernel == "ipm_iterate_dense" else 7].shape[1] - 1
+    du = (a[0][:, :nu] - b[0][:, :nu]).abs().amax(dim=1)
+    one = max(float((x - y)[:, :-1].abs().max())
+              for x, y in zip(a1[:1] + a1[4:], b1[:1] + b1[4:]))
+    rep = {"B": args[0].shape[0], "n_iters": kw["n_iters"],
+           "tier": tier_of_launch(kernel, args, kw).tier,
+           "bit_identical": all(torch.equal(x, y) for x, y in zip(a, b)),
+           "max_abs_diff": max(float((x - y).abs().max())
+                               for x, y in zip(a, b)),
+           "u_max": float(du.max()), "u_median": float(du.median()),
+           "one_iter_max_abs_err": one,
+           "ms": graph_ms(lambda: fn(*args, **kw), 10),
+           "device_tier_ms": graph_ms(lambda: fn(*args, **dev_kw), 10)}
+    rep["within_limits"] = rep["bit_identical"] or (
+        rep["u_max"] <= U_ABS_LIMIT and rep["u_median"] <= U_MEDIAN_LIMIT
+        and one <= ONE_ITER_LIMIT)
+    return rep
+
+
+def device_tier_phases(dev, card, seed) -> dict:
+    """Path (l): the shapes past one block's shared memory, where K1 and K2
+    run in their device tier (the KKT matrix and its factor in device
+    memory), each path's launch counts set to 0 just before it and read
+    just after:
+
+    (l1) side selection at parallel-11, hp = hu = L_HP, B = SS_PAR_B, the
+         calibrated settings (``ss_config``) through ``mpc_step_batch``
+         (``SideSelectionChecks.batch_path``): exactly two K1 launches a
+         step, both in the device tier (5B wide at 8 iterations, B wide at
+         12), every first-step launch against its plain version, step 0
+         three ways, the feasible share against the plain versions' less
+         FROG_FEASIBLE_SLACK; the workspace and the peak device memory;
+    (l2) circle-4, hp = hu = L_LONG_HP, B = L_LONG_B, ``tuned_f32`` with
+         ``qp_kkt="dense"`` (TUNED_F32_PHASES): K1 in the device tier at
+         nu = 256 on every launch, the first launch of each width against
+         its plain version, L_LONG_STEPS chained steps and then through the
+         plain version; step 0 against the plain version and float64 under
+         run_yardstick, and against path (d)'s banded step (K6 / K7, the
+         same batch and carry) under the same yardstick;
+    (l3) (l2)'s first full-width QP with its dense rows scattered, through
+         ``solve_qp_batched(fixed_iters=L_DENSE_ITERS, kkt="dense")``
+         without the pair statement: one K2 launch in the device tier (n =
+         257), held by check_dense;
+    (l4) each kernel in its shape's tier and forced into the device tier
+         on identical inputs (``tiers_agree``): K1 at the bench shape (B =
+         BATCH) and K2 at frog's (B = 1024, mg = 440, n = 21);
+    (l5) circle-16, hp = hu = L_V16_HP, B = L_V16_B, ``tuned_f32`` with
+         ``TUNED_F32_V16`` and TUNED_F32_PHASES: K1's shared tier (one CTA
+         an SM, its slabs packed; ``kkt="auto"`` took the banded KKT here
+         before the route read the packed carve), the first launch of each
+         width against its plain version, L_V16_STEPS chained steps and
+         their feasible share against the plain version's;
+    (l6) the DEFAULT (adaptive) side-selection settings, frog, B =
+         L_ADAPT_B: L_ADAPT_STEPS chained steps through the adaptive branch
+         (the factor, the solve and both G products), their launches and
+         feasible share against the plain versions', step 0 three ways.
+
+    Returns the ``kernels`` line's entries of the two device tiers and the
+    additions to K1's, keyed by name."""
+    from scp_tpu_torch import config as config_lib
+    from scp_tpu_torch.config import tree_map
+    from scp_tpu_torch.ops import constraints as con, ipm_kernel
+    from scp_tpu_torch.scenarios import batch as batch_lib
+    from scp_tpu_torch.sim import engine
+    from scp_tpu_torch.solvers import qp
+    from scp_tpu_torch.testing import (DENSE_ARG_ORDER, dense_kernel_inputs,
+                                       kernel_inputs, torch_kernel_args)
+
+    h = SideSelectionChecks(dev, card, seed)
+    real, plain = h.real, h.plain
+    phases = config_lib.TUNED_F32_PHASES
+
+    def require_tier(path, kernel, kept, want):
+        tiers = [tier_of_launch(kernel, a, k) for a, k in kept[kernel]]
+        if any(t.tier != want for t in tiers):
+            fail(f"path {path}: {kernel} launched in tiers "
+                 f"{[t.tier for t in tiers]}, {want} wanted")
+        return tiers
+
+    def width_checks(path, kernel, kept):
+        """The first launch at each width against its plain version
+        (check_kernel); returns the largest control difference and the
+        launches checked."""
+        seen, errs = {}, []
+        for a, k in kept[kernel]:
+            seen.setdefault(a[0].shape[0], (a, k))
+        for w, (a, k) in sorted(seen.items(), reverse=True):
+            errs.append(check_kernel(f"{path}_B{w}", a, k, real[kernel],
+                                     plain[kernel])["u_kernel_vs_plain_max"])
+        return max(errs), seen
+
+    def k1_cell(a, k, reps=10):
+        P, hp, hu = a[0].shape[1:]
+        S = 0 if a[2] is None else a[2].shape[1]
+        V, w = a[4].shape[1], a[0].shape[0]
+        cell = {"B": w, "n_iters": k["n_iters"],
+                "shape": {"P": P, "S": S, "hp": hp, "hu": hu, "V": V},
+                "tier": tier_of_launch("ipm_iterate_struct", a, k)._asdict(),
+                "resident_ctas_per_sm": ipm_kernel.resident_ctas_per_sm(
+                    P, S, hp, hu, V, k["lower_tri"], k.get("tier")),
+                "ms": graph_ms(lambda: real["ipm_iterate_struct"](*a, **k),
+                               reps),
+                "plain_ms": time_cuda(
+                    lambda: plain["ipm_iterate_struct"](*a, **k), 3,
+                    warmup=1)}
+        cell["bound_ms"], cell["bound_by"] = k1_bound_ms(
+            (P, S, hp, hu, V), w, k["n_iters"], k["n_cor"], k["lower_tri"])
+        return cell
+
+    # ---- (l1) side selection at parallel-11, hp = 20 ----
+    t_path = time.perf_counter()
+    _, _, _, kept1, rep1, ok1 = h.batch_path(
+        "l1", "parallel", SS_PAR_B, "ipm_iterate_struct", hp=L_HP,
+        count_key="ipm_iterate_struct_device", steps=L_STEPS,
+        timed_steps=L_TIMED_STEPS, n_veh=SS_PAR_VEH)
+    tiers1 = require_tier("l1", "ipm_iterate_struct", kept1, "device")
+    times1 = h.times("l1", "ipm_iterate_struct", kept1, reps=L_TIME_REPS)[0]
+    a0 = kept1["ipm_iterate_struct"][0][0]
+    P1, S1 = a0[0].shape[1], a0[2].shape[1]
+    ctas1 = ipm_kernel.resident_ctas_per_sm(P1, S1, L_HP, L_HP, SS_PAR_VEH,
+                                            True)
+    rep1.update(
+        phase="device_tier_path_l1", k1_tiers=[t._asdict() for t in tiers1],
+        k1_smem_bytes_whole_carve=ipm_kernel.smem_bytes(
+            P1, S1, L_HP, L_HP, SS_PAR_VEH, True),
+        k1_workspace_mib={f"B{a[0].shape[0]}": a[0].shape[0]
+                          * t.workspace_floats * 4 / 2 ** 20
+                          for (a, _), t in zip(kept1["ipm_iterate_struct"],
+                                               tiers1)},
+        k1_resident_ctas_per_sm=ctas1, times=times1,
+        wall_s=time.perf_counter() - t_path)
+    emit(rep1)
+    h.path_failures("l1", rep1, ok1)
+
+    # ---- (l2) circle-4, hp = 64, the dense KKT forced: K1's device tier --
+    t_path = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg, data = batch_lib.make_batch("circle", L_LONG_B, generator=gen,
+                                     dtype=torch.float32, device=dev,
+                                     n_veh=4)
+    cfg_b = config_lib.tuned_f32(cfg.replace(hp=L_LONG_HP, hu=L_LONG_HP))
+    cfg_d = cfg_b.replace(qp_kkt="dense")
+    carry0 = engine.init_carry(cfg_d, data)
+
+    def step2(c, cf=cfg_d, d=data):
+        return engine.mpc_step_batch(cf, d, c, phases=phases)
+
+    qp_first: list = []
+    real_qp = qp.solve_qp_batched
+
+    def qp_spy(*args, **kw):
+        if not qp_first and args[1].shape[0] == L_LONG_B:
+            qp_first.append((args, kw))
+        return real_qp(*args, **kw)
+
+    qp.solve_qp_batched = qp_spy
+    try:
+        (_, out_first2), kept2 = h.first_step_launches(
+            ("ipm_iterate_struct",), step2, carry0)
+    finally:
+        qp.solve_qp_batched = real_qp
+    if not qp_first:
+        fail("path l2 made no full-width QP call")
+    tiers2 = require_tier("l2", "ipm_iterate_struct", kept2, "device")
+    err2, seen2 = width_checks("l2_circle4_hp64_dense", "ipm_iterate_struct",
+                               kept2)
+    ch2 = chain_vs_plain(step2, carry0, L_LONG_STEPS, ("ipm_iterate_struct",))
+    got2 = ch2["counts"]
+    outs2 = ch2["outs"]
+    for i, out in enumerate(outs2):
+        finite_outputs(out, f"path l2 step {i}")
+        if out.u_pred.shape != (L_LONG_B, L_LONG_HP, 4):
+            fail(f"path l2 step {i}: unexpected output shapes")
+    # step 0: the kernels' (outs2[0]) against the plain version's, float64's
+    # and, under the same yardstick, path (d)'s banded step (K6 / K7)
+    k1_plain = plain_of("ipm_iterate_struct")
+    out_p2 = ch2["outs_plain"][0]
+    out_d2 = routed(k1_plain, step2, as_f64(carry0), cfg_d, as_f64(data))
+    out_b2 = step2(carry0, cfg_b)[1]
+    torch.cuda.synchronize()
+
+    def perturbed2(g):
+        return routed(k1_plain, step2,
+                      tree_map(lambda t: _perturb(t, g), carry0), cfg_d,
+                      tree_map(lambda t: _perturb(t, g), data))[1]
+
+    def controls(o):
+        return o.u_pred.flatten(1)
+
+    def feasible(o):
+        return o.feasible
+
+    y2 = run_yardstick(perturbed2, controls, feasible, out_p2, out_d2[1],
+                       "feasible")
+
+    def against(other):
+        uk, uo = controls(outs2[0]), controls(other)
+        ud = controls(out_d2[1])
+        e_ko = (uk - uo).abs().amax(dim=1)
+        e_kd = (uk.double() - ud).abs().amax(dim=1)
+        return {**y2, "finite": bool(torch.isfinite(uk).all()),
+                "feasible_differ": int(
+                    (feasible(outs2[0]) != feasible(other)).sum()),
+                "u_kernel_vs_plain_median": float(e_ko.median()),
+                "u_kernel_vs_plain_p99": _q99(e_ko),
+                "u_kernel_vs_plain_max": float(e_ko.max()),
+                "u_kernel_vs_f64_p99": _q99(e_kd),
+                "u_kernel_vs_f64_max": float(e_kd.max())}
+    e_p2, e_b2 = against(out_p2), against(out_b2)
+    rep2 = {"phase": "device_tier_path_l2", "card": card, "B": L_LONG_B,
+            "n_veh": 4, "hp": L_LONG_HP, "n": 4 * L_LONG_HP + 1,
+            "config": "tuned_f32, qp_kkt=dense, TUNED_F32_PHASES",
+            "steps": L_LONG_STEPS,
+            "launches_per_step": {k: v / L_LONG_STEPS
+                                  for k, v in got2.items()},
+            "first_step_k1_widths": sorted(seen2, reverse=True),
+            "k1_tiers": sorted({tuple(t) for t in tiers2}),
+            "chained_step_ms": ch2["chained_step_ms"],
+            "peak_device_memory_mib": ch2["peak_mib"],
+            **{k: ch2[k] for k in ("feasible_share", "feasible_share_plain",
+                                   "feasible_floor")},
+            "first_step_repeats": float(
+                (out_first2.u_pred - outs2[0].u_pred).abs().max()),
+            "kernel_vs_plain_max_abs_err": err2,
+            "k1_full_width": k1_cell(*seen2[L_LONG_B], reps=5),
+            "step0_vs_plain": e_p2, "step0_vs_banded_path_d": e_b2,
+            "limits": RUN_LIMITS, "wall_s": time.perf_counter() - t_path}
+    emit(rep2)
+    if got2["ipm_iterate_struct_device"] == 0 or any(
+            v for k, v in got2.items() if k != "ipm_iterate_struct_device"):
+        fail(f"path l2: launches {got2}; K1's device tier only wanted")
+    if run_off_limits(e_p2, "feasible") or run_off_limits(e_b2, "feasible"):
+        fail(f"path l2 step 0 off the yardstick: against plain {e_p2}, "
+             f"against the banded step {e_b2}")
+    if rep2["feasible_share"] < rep2["feasible_floor"]:
+        fail(f"path l2: feasible share {rep2['feasible_share']}, floor "
+             f"{rep2['feasible_floor']}")
+
+    # ---- (l3) (l2)'s first QP on its dense rows: K2's device tier ----
+    t_path = time.perf_counter()
+    args, kw = qp_first[0]
+    gi, gj, gob = kw["g_slabs"]
+    pb = kw["p_blocks"]
+    rows = con.scatter_slabs(pb.shape[1], gi, gj, gob, pb.dtype)
+    G = torch.cat([rows, torch.full((L_LONG_B, rows.shape[1], 1), -1.0,
+                                    dtype=pb.dtype, device=dev)], 2)
+    h_kw = {**kw, "fixed_iters": L_DENSE_ITERS, "kkt": "dense",
+            "banded": None, "g_struct": None, "g_slabs": None,
+            "g_slack_mask": None}
+    h_args = (args[0], args[1], G.contiguous(), *args[3:])
+    reset_counts()
+    sol3, kept3 = h.first_step_launches(
+        ("ipm_iterate_dense",),
+        lambda _: qp.solve_qp_batched(*h_args, **h_kw), None)
+    got3 = launch_counts()
+    if got3["ipm_iterate_dense_device"] != 1 or got3["ipm_iterate_dense"] \
+            or len(kept3["ipm_iterate_dense"]) != 1:
+        fail(f"path l3: launches {got3}; one K2 launch in the device tier "
+             f"wanted")
+    a3, k3 = kept3["ipm_iterate_dense"][0]
+    tier3 = require_tier("l3", "ipm_iterate_dense", kept3, "device")[0]
+    e3 = check_dense("l3_hp64_dense_device_tier_B256", a3, k3)
+    B3, mg3, n3 = a3[DENSE_G].shape
+    nb3, d3 = a3[DENSE_PB].shape[1:3]
+    cell3 = {"B": B3, "mg": mg3, "n": n3, "n_iters": k3["n_iters"],
+             "tier": tier3._asdict(),
+             "min_ctas": ipm_kernel.dense_min_ctas(B3, _sm_count()),
+             "resident_ctas_per_sm": ipm_kernel.dense_resident_ctas_per_sm(
+                 mg3, n3, nb3, d3, k3["schur_slack"], k3["n_cor"],
+                 ipm_kernel.dense_min_ctas(B3, _sm_count())),
+             "ms": graph_ms(lambda: real["ipm_iterate_dense"](*a3, **k3), 5),
+             "plain_ms": time_cuda(
+                 lambda: plain["ipm_iterate_dense"](*a3, **k3), 3, warmup=1)}
+    cell3["bound_ms"], cell3["bound_by"] = bound_of(*dense_work(
+        B3, mg3, n3, nb3, d3, k3["schur_slack"], k3["n_cor"], k3["n_iters"]))
+    emit({"phase": "device_tier_path_l3", "card": card,
+          "launches": got3, "finite": bool(torch.isfinite(sol3.x).all()),
+          "converged_share": float(sol3.converged.float().mean()),
+          "k2": cell3, "kernel_vs_plain": e3,
+          "wall_s": time.perf_counter() - t_path})
+
+    # ---- (l4) the device tier against the shared one, identical inputs --
+    t_path = time.perf_counter()
+    arrs, pairs, ov = kernel_inputs(B=BATCH, V=N_VEH, hp=HP, hu=HP, n_obst=0,
+                                    seed=seed)
+    kw4 = dict(pairs=pairs, obst_veh=ov, tol=1e-6, reg_rel=3e-6, n_cor=0,
+               n_iters=7, lower_tri=True)
+    t4 = {"k1_bench_shape": tiers_agree(
+        "ipm_iterate_struct", torch_kernel_args(arrs, device=dev), kw4)}
+    t4["k1_bench_shape"]["device_tier_resident_ctas_per_sm"] = \
+        ipm_kernel.resident_ctas_per_sm(len(pairs), 0, HP, HP, N_VEH, True,
+                                        tier="device")
+    darr = dense_kernel_inputs(FROG_B, 440, 1, FROG_HP, seed=seed)
+    dargs = [None if darr[k] is None else torch.as_tensor(darr[k],
+                                                          device=dev)
+             for k in DENSE_ARG_ORDER]
+    t4["k2_frog_shape"] = tiers_agree(
+        "ipm_iterate_dense", dargs,
+        dict(tol=1e-6, reg_rel=3e-6, n_cor=0, n_iters=7, schur_slack=True))
+    emit({"phase": "device_tier_path_l4", "card": card, **t4,
+          "limits": {"bit_identical": "expected",
+                     "else": {"u_abs": U_ABS_LIMIT, "u_median":
+                              U_MEDIAN_LIMIT, "one_iter": ONE_ITER_LIMIT}},
+          "wall_s": time.perf_counter() - t_path})
+    for k, r in t4.items():
+        if r["tier"] != "shared" or not r["within_limits"]:
+            fail(f"path l4, {k}: the device tier against the shared one on "
+                 f"identical inputs: {r}")
+
+    # ---- (l5) circle-16, hp = 10: K1's shared tier, slabs packed ----
+    t_path = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg5, data5 = batch_lib.make_batch("circle", L_V16_B, generator=gen,
+                                       dtype=torch.float32, device=dev,
+                                       n_veh=L_V16_VEH)
+    cfg5 = config_lib.tuned_f32(cfg5.replace(hp=L_V16_HP, hu=L_V16_HP),
+                                **config_lib.TUNED_F32_V16)
+    carry5 = engine.init_carry(cfg5, data5)
+
+    def step5(c):
+        return engine.mpc_step_batch(cfg5, data5, c, phases=phases)
+
+    (_, out_first5), kept5 = h.first_step_launches(("ipm_iterate_struct",),
+                                                   step5, carry5)
+    if not kept5["ipm_iterate_struct"]:
+        fail("path l5 made no K1 launch (kkt='auto' took another route)")
+    require_tier("l5", "ipm_iterate_struct", kept5, "shared")
+    err5, seen5 = width_checks("l5_circle16_hp10", "ipm_iterate_struct",
+                               kept5)
+    ch5 = chain_vs_plain(step5, carry5, L_V16_STEPS, ("ipm_iterate_struct",))
+    got5 = ch5["counts"]
+    for i, out in enumerate(ch5["outs"]):
+        finite_outputs(out, f"path l5 step {i}")
+    a5, k5 = kept5["ipm_iterate_struct"][0]
+    cell5 = k1_cell(a5, k5)
+    rep5 = {"phase": "device_tier_path_l5", "card": card, "B": L_V16_B,
+            "n_veh": L_V16_VEH, "hp": L_V16_HP, "n": L_V16_VEH * L_V16_HP + 1,
+            "config": "tuned_f32 + TUNED_F32_V16, TUNED_F32_PHASES "
+                      "(qp_kkt=auto)",
+            "steps": L_V16_STEPS,
+            "launches_per_step": {k: v / L_V16_STEPS
+                                  for k, v in got5.items()},
+            "first_step_k1_widths": sorted(seen5, reverse=True),
+            "chained_step_ms": ch5["chained_step_ms"],
+            "solves_per_s": L_V16_B / ch5["chained_step_ms"] * 1e3,
+            **{k: ch5[k] for k in ("feasible_share", "feasible_share_plain",
+                                   "feasible_floor")},
+            "first_step_repeats": float(
+                (out_first5.u_pred - ch5["outs"][0].u_pred).abs().max()),
+            "kernel_vs_plain_max_abs_err": err5, "k1": cell5,
+            "wall_s": time.perf_counter() - t_path}
+    emit(rep5)
+    if got5["ipm_iterate_struct"] == 0 or any(
+            v for k, v in got5.items() if k != "ipm_iterate_struct"):
+        fail(f"path l5: launches {got5}; K1's shared tier only wanted")
+    if cell5["resident_ctas_per_sm"] < 1:
+        fail(f"path l5: K1 holds {cell5['resident_ctas_per_sm']} CTAs an SM")
+    if rep5["feasible_share"] < rep5["feasible_floor"]:
+        fail(f"path l5: feasible share {rep5['feasible_share']}, floor "
+             f"{rep5['feasible_floor']}")
+
+    # ---- (l6) the DEFAULT (adaptive) side-selection settings, frog ----
+    t_path = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg6, data6 = batch_lib.make_batch("frog", L_ADAPT_B, generator=gen,
+                                       dtype=torch.float32, device=dev)
+    cfg6 = cfg6.replace(controller="side_selection")
+    carry6 = engine.init_carry(cfg6, data6)
+
+    def step6(c):
+        return engine.mpc_step_batch(cfg6, data6, c)
+
+    step6(carry6)                                          # warm
+    ch6 = chain_vs_plain(step6, carry6, L_ADAPT_STEPS, LINALG_NAMES)
+    got6 = ch6["counts"]
+    for i, out in enumerate(ch6["outs"]):
+        finite_outputs(out, f"path l6 step {i}")
+    err6, ok6 = h.step_three_ways(cfg6, data6, carry6, engine.mpc_step_batch,
+                                  False, names=LINALG_NAMES)
+    rep6 = {"phase": "device_tier_path_l6", "card": card, "B": L_ADAPT_B,
+            "scenario": "frog", "hp": cfg6.hp,
+            "config": "DEFAULT SCPConfig, controller=side_selection "
+                      "(adaptive IPM)",
+            "steps": L_ADAPT_STEPS,
+            "launches_per_step": {k: v / L_ADAPT_STEPS
+                                  for k, v in got6.items()},
+            "host_reads_per_step": ch6["host_reads"] / L_ADAPT_STEPS,
+            "chained_step_ms": ch6["chained_step_ms"],
+            **{k: ch6[k] for k in ("feasible_share", "feasible_share_plain",
+                                   "feasible_floor")},
+            "sides_stable_share": float(torch.stack(
+                [o.sides_stable.float().mean() for o in ch6["outs"]]).mean()),
+            "mean_qp_iters": float(torch.stack(
+                [o.qp_iters.float().mean() for o in ch6["outs"]]).mean()),
+            "step0": err6, "wall_s": time.perf_counter() - t_path}
+    emit(rep6)
+    if min(got6[k] for k in LINALG_NAMES) == 0 or any(
+            v for k, v in got6.items() if k not in LINALG_NAMES):
+        fail(f"path l6: launches {got6}; the factor, the solve and both G "
+             f"products only wanted")
+    h.path_failures("l6", rep6, ok6)
+    emit({"phase": "device_tier_first_step_launches", "card": card,
+          "launches": h.launch_rows, "limits": "the row's own"})
+    reset_counts()
+
+    w1 = f"l1_B{SS_CANDIDATES * SS_PAR_B}"
+    k1_dev = {"name": "ipm_iterate_struct_device", "route": "cuda",
+              "source": "scp_tpu_torch/csrc/ipm_struct.cu",
+              "replaces": "scp_tpu/ops/pallas_linalg.py:1195",
+              "tier": "device", "launches": rep1["launches_per_step"][
+                  "ipm_iterate_struct_device"] * L_STEPS,
+              "launches_per_step_l1": rep1["launches_per_step"][
+                  "ipm_iterate_struct_device"],
+              "launches_per_step_l2": rep2["launches_per_step"][
+                  "ipm_iterate_struct_device"],
+              "max_abs_err": max(rep1["kernel_vs_plain_max_abs_err"], err2),
+              **{k: times1[w1][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by")},
+              "library_ms": None, "times": times1,
+              "times_l2": rep2["k1_full_width"],
+              "bench_shape_forced": t4["k1_bench_shape"]}
+    k2_dev = {"name": "ipm_iterate_dense_device", "route": "cuda",
+              "source": "scp_tpu_torch/csrc/ipm_dense.cu",
+              "replaces": "scp_tpu/ops/pallas_linalg.py:1107",
+              "tier": "device",
+              "launches": got3["ipm_iterate_dense_device"],
+              "max_abs_err": e3["u_kernel_vs_plain_max"],
+              **{k: cell3[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")},
+              "library_ms": None, "times_l3": cell3,
+              "frog_shape_forced": t4["k2_frog_shape"]}
+    torch.cuda.empty_cache()
+    return {"ipm_iterate_struct_device": k1_dev,
+            "ipm_iterate_dense_device": k2_dev,
+            "ipm_iterate_struct": {"circle16_hp10_l5": cell5,
+                                   "launches_per_step_l5": rep5[
+                                       "launches_per_step"][
+                                           "ipm_iterate_struct"]}}
 
 
 # ---- path (j): the entry points (cli / bench) ----
@@ -4060,6 +4591,10 @@ def main() -> None:
     ss_entries = side_selection_phases(dev, card, SEED)
     phase_end["side_selection"] = time.perf_counter()
 
+    # ---- path (l): K1 and K2 past one block's shared memory ----
+    tier_entries = device_tier_phases(dev, card, SEED)
+    phase_end["device_tiers"] = time.perf_counter()
+
     # ---- path (j): the entry points, cli and bench ----
     entry_counts = entry_point_phases(dev, card, SEED,
                                       (cfg, data, carry0, PHASES))
@@ -4073,9 +4608,12 @@ def main() -> None:
         k: round(t - marks[i][1], 2) for i, (k, t) in enumerate(marks[1:])},
         "total": round(marks[-1][1] - marks[0][1], 2)})
 
-    reports = [kernel_report] + linalg_reports + new_reports
+    reports = [kernel_report] + linalg_reports + new_reports + [
+        tier_entries.pop(k) for k in ("ipm_iterate_struct_device",
+                                      "ipm_iterate_dense_device")]
     for r in reports:
         r.update(ss_entries.get(r["name"], {}))
+        r.update(tier_entries.get(r["name"], {}))
         if r["name"] in entry_counts:
             r["entry_points_launches"] = entry_counts[r["name"]]
         if r["name"] in scale_counts:

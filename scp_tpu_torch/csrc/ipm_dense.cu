@@ -45,6 +45,18 @@
 // arguments: one compiled kernel (per place of G and launch bound) serves
 // every shape.
 //
+// Two storage tiers of the factor, one template (kKDev). Where the factor
+// and the vectors exceed one block's shared memory (the dense QP of
+// circle-4 at hp = 64: n = 257, 370,416 bytes, of which the 256 x 257
+// factor takes 263,168), the device tier keeps the factor in a
+// per-instance workspace in device memory (rows padded to a multiple of 32
+// floats) and G in device memory too; the vectors and the P blocks stay in
+// shared memory. The factor and the solves are the same chol_blocked.cuh
+// code on that pointer, every sum in the same order as in shared memory.
+// The workspace is written and read inside the launch, never through the
+// read-only path; the block barriers order it within the CTA. The tier
+// follows from the shape (ipm_kernel.py::dense_tier).
+//
 // What bounds it on this card: operations. Per QP at frog (n = 21, nk = 20,
 // mg = 440, 7 iterations) ~1.1 M multiply-adds in float32 outside the tensor
 // cores (the product 92k an iteration, the slack border 9k, four G passes
@@ -95,21 +107,29 @@ __device__ unsigned long long g_section_cycles[16];
 
 struct DenseShape {
   int B, mg, n, m;
-  int nk, ldk;        // factored system and its leading dimension (odd)
+  int nk, ldk;        // factored system and its leading dimension
+  int k_dev;          // the factor in the device-memory workspace
   int nb, d;          // P blocks (nb = 0: a dense P in device memory)
   int schur;          // eliminate the slack border
   int g_smem, ldg;    // G held in shared memory, its leading dimension
   int sep_dz;         // dz has storage of its own (n_cor > 0)
 };
 
+// The factor's leading dimension: odd in shared memory, a multiple of 32
+// floats in the device tier's workspace.
+__host__ __device__ inline int dense_kkt_ld(int nk, int k_dev) {
+  return k_dev ? (nk + 31) & ~31 : nk | 1;
+}
+
 __host__ __device__ inline DenseShape make_dense_shape(int B, int mg, int n,
                                                        int nb, int d,
                                                        int schur, int g_smem,
-                                                       int n_cor) {
+                                                       int n_cor, int k_dev) {
   DenseShape s;
   s.B = B; s.mg = mg; s.n = n; s.m = mg + 2 * n;
   s.nk = schur ? n - 1 : n;
-  s.ldk = s.nk | 1;
+  s.k_dev = k_dev;
+  s.ldk = dense_kkt_ld(s.nk, k_dev);
   s.nb = nb; s.d = d; s.schur = schur;
   s.g_smem = g_smem;
   s.ldg = g_smem ? (n | 1) : n;
@@ -124,7 +144,7 @@ constexpr int kGPad = 4;
 // Shared-memory carve (in 4-byte words); must match
 // ipm_kernel.py::dense_smem_bytes.
 __host__ __device__ inline long dense_smem_words(const DenseShape& s) {
-  long w = (long)s.nk * s.ldk;             // factor
+  long w = s.k_dev ? 0 : (long)s.nk * s.ldk;   // factor
   w += (long)s.nb * s.d * s.d;             // P blocks
   w += (8L + s.sep_dz) * s.m;              // s z rp w a1 a2 a3 ds (+ dz)
   w += 9L * s.n;                           // q pdiag x px dsc kb rhs dx dinv
@@ -139,10 +159,17 @@ struct DenseSmem : scpk::IpmVecs {
   float* g;  // shared-memory copy of G, or null
 };
 
-__device__ inline DenseSmem carve_dense(float* base, const DenseShape& s) {
+// kKDev: the factor at `kws` (device memory), else first in shared memory.
+template <bool kKDev>
+__device__ inline DenseSmem carve_dense(float* base, const DenseShape& s,
+                                        float* kws) {
   DenseSmem sm;
   float* p = base;
-  sm.K = p; p += (long)s.nk * s.ldk;
+  if (kKDev) {
+    sm.K = kws;
+  } else {
+    sm.K = p; p += (long)s.nk * s.ldk;
+  }
   sm.pb = p; p += (long)s.nb * s.d * s.d;
   sm.s = p; p += s.m;   sm.z = p; p += s.m;   sm.rp = p; p += s.m;
   sm.w = p; p += s.m;   sm.a1 = p; p += s.m;  sm.a2 = p; p += s.m;
@@ -308,6 +335,7 @@ struct DenseArgs {
   const float *G, *P, *pb, *q, *pdiag;
   const float *x, *sg, *su, *sl, *zg, *zu, *zl, *rpg, *rpu, *rpl, *scal;
   float *xo, *sgo, *suo, *slo, *zgo, *zuo, *zlo, *rpgo, *rpuo, *rplo, *scalo;
+  float* ws;  // the device tier's workspace: nk x ldk floats per instance
   int n_iters, n_cor;
   float tol, tol_stall, reg_rel;
 };
@@ -316,13 +344,15 @@ struct DenseArgs {
 // kMinCtas: the launch bound, 4 CTAs an SM (64 registers a thread: four
 // share an SM at single-vehicle frog) or 2 (128 registers: fewer spills,
 // for a batch that is one wave at two CTAs an SM); the launcher's caller
-// picks it (ipm_kernel.py::dense_min_ctas).
-template <bool kGSmem, int kMinCtas>
+// picks it (ipm_kernel.py::dense_min_ctas). kKDev: the storage tier of the
+// factor (see the head of this file).
+template <bool kGSmem, int kMinCtas, bool kKDev>
 __global__ void __launch_bounds__(kThreads, kMinCtas)
 ipm_dense_kernel(DenseArgs a, DenseShape s) {
   extern __shared__ float smem_base[];
-  const DenseSmem sm = carve_dense(smem_base, s);
   const long b = blockIdx.x;
+  const DenseSmem sm = carve_dense<kKDev>(
+      smem_base, s, kKDev ? a.ws + b * s.nk * s.ldk : nullptr);
   const int tid = threadIdx.x, nt = blockDim.x;
   const int mg = s.mg, n = s.n, m = s.m, nk = s.nk;
   const int nbd = s.nb * s.d;
@@ -438,7 +468,7 @@ ipm_dense_kernel(DenseArgs a, DenseShape s) {
       }
     }
     SECTION(kSecScale);
-    scpk::factor_kkt(sm, dims);
+    scpk::factor_kkt<kKDev>(sm, dims);
     SECTION(kSecFactor);
 
 #ifdef SCP_PROFILE_SECTIONS
@@ -473,21 +503,29 @@ ipm_dense_kernel(DenseArgs a, DenseShape s) {
 
 using DenseKernel = void (*)(DenseArgs, DenseShape);
 
-// The instantiation for G in shared memory or not and a launch bound of
-// `min_ctas` (2 or 4; anything else: null), with its index in the tables
-// below.
-DenseKernel dense_kernel(int g_smem, int min_ctas, int* index) {
+// The instantiation for G in shared memory or not, a launch bound of
+// `min_ctas` (2 or 4) and the factor in shared or device memory (`k_dev`;
+// G then in device memory), with its index in the tables below; null for
+// any other combination.
+DenseKernel dense_kernel(int g_smem, int min_ctas, int k_dev, int* index) {
   if (min_ctas != 2 && min_ctas != 4) return nullptr;
+  if (k_dev) {
+    if (g_smem) return nullptr;
+    *index = 4 + (min_ctas == 4);
+    return min_ctas == 4 ? ipm_dense_kernel<false, 4, true>
+                         : ipm_dense_kernel<false, 2, true>;
+  }
   *index = 2 * (g_smem != 0) + (min_ctas == 4);
   if (g_smem)
-    return min_ctas == 4 ? ipm_dense_kernel<true, 4> : ipm_dense_kernel<true, 2>;
-  return min_ctas == 4 ? ipm_dense_kernel<false, 4>
-                       : ipm_dense_kernel<false, 2>;
+    return min_ctas == 4 ? ipm_dense_kernel<true, 4, false>
+                         : ipm_dense_kernel<true, 2, false>;
+  return min_ctas == 4 ? ipm_dense_kernel<false, 4, false>
+                       : ipm_dense_kernel<false, 2, false>;
 }
 
 // Per instantiation and device.
-int ipm_dense_smem_granted[4][scpk::kMaxDevices];
-int ipm_dense_carveout_set[4][scpk::kMaxDevices];
+int ipm_dense_smem_granted[6][scpk::kMaxDevices];
+int ipm_dense_carveout_set[6][scpk::kMaxDevices];
 
 // Raise the kernel's dynamic shared-memory limit to `smem_bytes` and, once
 // per device, prefer the largest shared-memory carve-out of the SM's
@@ -512,11 +550,15 @@ cudaError_t prepare(DenseKernel kernel, int index, long smem_bytes) {
 
 extern "C" {
 
-// Launch on `stream` at the launch bound `min_ctas` (2 or 4 CTAs an SM).
+// Launch on `stream` at the launch bound `min_ctas` (2 or 4 CTAs an SM),
+// the factor in shared memory (`k_dev` 0) or in `ws` (`k_dev` 1: B x nk x
+// ldk floats, ldk = nk rounded up to a multiple of 32; G in device memory).
 // Returns cudaGetLastError() (0 = launched), or -1 when `smem_bytes`
-// disagrees with the kernel's own carve, `min_ctas` is neither 2 nor 4, or
-// the P operands do not match nb: exactly one of `P` (dense, B x n x n;
-// nb = 0) and `pb` (blocks, B x nb x d x d) is non-null.
+// disagrees with the kernel's own carve or `ws_floats` with its workspace
+// (0 and a null `ws` in shared memory), `min_ctas` is neither 2 nor 4, G is
+// asked in shared memory with the factor in device memory, or the P
+// operands do not match nb: exactly one of `P` (dense, B x n x n; nb = 0)
+// and `pb` (blocks, B x nb x d x d) is non-null.
 int ipm_dense_launch(
     const float* G, const float* P, const float* pb,
     const float* q, const float* pdiag,
@@ -525,16 +567,19 @@ int ipm_dense_launch(
     const float* rpg, const float* rpu, const float* rpl, const float* scal,
     float* xo, float* sgo, float* suo, float* slo,
     float* zgo, float* zuo, float* zlo,
-    float* rpgo, float* rpuo, float* rplo, float* scalo,
-    int B, int mg, int n, int nb, int d, int schur, int g_smem, int n_iters,
-    int n_cor, int min_ctas, float tol, float tol_stall, float reg_rel,
-    long smem_bytes, void* stream) {
+    float* rpgo, float* rpuo, float* rplo, float* scalo, float* ws,
+    int B, int mg, int n, int nb, int d, int schur, int g_smem, int k_dev,
+    int n_iters, int n_cor, int min_ctas, float tol, float tol_stall,
+    float reg_rel, long smem_bytes, long ws_floats, void* stream) {
   const DenseShape s = make_dense_shape(B, mg, n, nb, d, schur, g_smem,
-                                        n_cor);
+                                        n_cor, k_dev != 0);
   if (smem_bytes != 4L * dense_smem_words(s)) return -1;
+  if (ws_floats != (k_dev ? (long)B * s.nk * s.ldk : 0)
+      || (ws != nullptr) != (k_dev != 0))
+    return -1;
   if ((nb > 0) != (pb != nullptr) || (nb > 0) == (P != nullptr)) return -1;
   int index = 0;
-  const DenseKernel kernel = dense_kernel(g_smem, min_ctas, &index);
+  const DenseKernel kernel = dense_kernel(g_smem, min_ctas, k_dev, &index);
   if (kernel == nullptr) return -1;
   DenseArgs a;
   a.G = G; a.P = P; a.pb = pb; a.q = q; a.pdiag = pdiag;
@@ -543,7 +588,7 @@ int ipm_dense_launch(
   a.scal = scal;
   a.xo = xo; a.sgo = sgo; a.suo = suo; a.slo = slo;
   a.zgo = zgo; a.zuo = zuo; a.zlo = zlo;
-  a.rpgo = rpgo; a.rpuo = rpuo; a.rplo = rplo; a.scalo = scalo;
+  a.rpgo = rpgo; a.rpuo = rpuo; a.rplo = rplo; a.scalo = scalo; a.ws = ws;
   a.n_iters = n_iters; a.n_cor = n_cor;
   a.tol = tol; a.tol_stall = tol_stall; a.reg_rel = reg_rel;
   cudaError_t err = prepare(kernel, index, smem_bytes);
@@ -552,16 +597,17 @@ int ipm_dense_launch(
   return (int)cudaGetLastError();
 }
 
-// CTAs of the kernel at the launch bound `min_ctas` that can be resident on
-// one SM at a shape (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the
-// launch's own shared memory and carve-out) into `ctas`. Returns a CUDA
-// error code, or -1 for a `min_ctas` other than 2 or 4.
+// CTAs of the kernel at the launch bound `min_ctas` and tier `k_dev` that
+// can be resident on one SM at a shape
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the launch's own
+// shared memory and carve-out) into `ctas`. Returns a CUDA error code, or
+// -1 for a combination dense_kernel has no instantiation of.
 int ipm_dense_occupancy(int mg, int n, int nb, int d, int schur, int g_smem,
-                        int n_cor, int min_ctas, int* ctas) {
+                        int k_dev, int n_cor, int min_ctas, int* ctas) {
   const long smem_bytes = 4L * dense_smem_words(
-      make_dense_shape(1, mg, n, nb, d, schur, g_smem, n_cor));
+      make_dense_shape(1, mg, n, nb, d, schur, g_smem, n_cor, k_dev != 0));
   int index = 0;
-  const DenseKernel kernel = dense_kernel(g_smem, min_ctas, &index);
+  const DenseKernel kernel = dense_kernel(g_smem, min_ctas, k_dev, &index);
   if (kernel == nullptr) return -1;
   cudaError_t err = prepare(kernel, index, smem_bytes);
   if (err != cudaSuccess) return (int)err;

@@ -49,6 +49,25 @@
 //     bytes at P = 6, hp = hu = 20, V = 4, so that four CTAs share an SM
 //     (__launch_bounds__(256, 4): 64 registers a thread).
 //
+// Two storage tiers, one template (ipm_struct_kernel<kDev>). The shared
+// tier (kDev false) is the design above. Past one block's shared memory
+// (the side-selection QP of parallel-11 at hp = 20: 481,908 bytes; a dense
+// KKT at circle-4, hp = 64: 471,904) the device tier (kDev true) keeps the
+// KKT matrix and its factor in a per-instance workspace in device memory
+// (rows padded to a multiple of 32 floats, so that a row starts a 128-byte
+// line) and reads the slabs in place from the input tensors (whole rows of
+// hu; with lower_tri the zero entries are skipped as in the shared tier,
+// not stored packed); the vectors, the P blocks, the slack column and the
+// index tables stay in shared memory. The factor and the solves are the
+// same chol_blocked.cuh code on a pointer into device memory, as in
+// linalg.cu's chol_large_kernel: its panel rows, diagonal blocks and
+// trailing tiles go through L1 / L2. Every sum is taken in the same order
+// in both tiers, so on the same inputs they agree bit for bit. The
+// workspace is written and read inside the launch: it is never read
+// through the read-only (non-coherent) path, and the block barriers order
+// it within the CTA. The tier follows from the shape alone (the wrapper,
+// ipm_kernel.py::struct_tier).
+//
 // No fast-math: the Jacobi scaling (1/sqrt of the analytic diagonal) and
 // barrier ratios z/s up to 1e10 are why f32 works at all here.
 #include <cuda_runtime.h>
@@ -95,42 +114,55 @@ struct Shape {
   int lower_tri;            // slabs are zero for u > k
 };
 
+// The factor's leading dimension: odd in shared memory (column walks hit
+// distinct banks), a multiple of 32 floats in the device tier's workspace.
+__host__ __device__ inline int kkt_ld(int nu, bool dev) {
+  return dev ? (nu + 31) & ~31 : nu | 1;
+}
+
 __host__ __device__ inline Shape make_shape(int P, int S, int hp, int hu,
-                                            int V, int lower_tri) {
+                                            int V, int lower_tri, bool dev) {
   Shape d;
   d.P = P; d.S = S; d.hp = hp; d.hu = hu; d.V = V;
   d.nu = V * hu;
   d.n = d.nu + 1;
   d.mg = (P + S) * hp;
   d.m = d.mg + 2 * d.n;
-  d.ldk = d.nu | 1;
+  d.ldk = kkt_ld(d.nu, dev);
   d.lower_tri = lower_tri;
   return d;
 }
 
-// A slab in shared memory: row k (k < hp) holds its entries u < len(k) at
-// off(k) + u. With lower_tri the slabs are zero for u > k and only the
-// min(k + 1, hu) leading entries of a row are stored (packed); else whole
-// rows of hu.
+// A slab: row k (k < hp) holds its entries u < len(k) at off(k) + u. With
+// lower_tri the slabs are zero for u > k, and only the min(k + 1, hu)
+// leading entries of a row are read. In shared memory (kDev false) only
+// those are stored (packed rows: the next row starts len(k) further); the
+// device tier reads the input tensors in place, whole rows of hu.
 __host__ __device__ inline int slab_row_len(const Shape& d, int k) {
   return d.lower_tri ? min(k + 1, d.hu) : d.hu;
 }
 
+template <bool kDev>
 __host__ __device__ inline int slab_row_off(const Shape& d, int k) {
-  if (!d.lower_tri) return k * d.hu;
+  if (kDev || !d.lower_tri) return k * d.hu;
   return k < d.hu ? k * (k + 1) / 2
                   : d.hu * (d.hu + 1) / 2 + (k - d.hu) * d.hu;
 }
 
+template <bool kDev>
 __host__ __device__ inline int slab_words(const Shape& d) {
-  return slab_row_off(d, d.hp);
+  return slab_row_off<kDev>(d, d.hp);
 }
 
-// Shared-memory carve (in 4-byte words); must match ipm_kernel.py::smem_bytes.
+// Shared-memory carve (in 4-byte words) of a tier; must match
+// ipm_kernel.py::smem_bytes (kDev false) / struct_tier (kDev true).
+template <bool kDev>
 __host__ __device__ inline long smem_words(const Shape& d) {
   long w = 0;
-  w += (long)d.nu * d.ldk;                 // K / factor
-  w += (2L * d.P + d.S) * slab_words(d);   // gi, gj, gob
+  if (!kDev) {
+    w += (long)d.nu * d.ldk;                        // K / factor
+    w += (2L * d.P + d.S) * slab_words<false>(d);   // gi, gj, gob
+  }
   w += (long)d.V * d.hu * d.hu;            // pb
   w += d.mg;                               // gsl
   w += 9L * d.m;                           // s z rp w a1 a2 a3 dz ds
@@ -143,18 +175,42 @@ __host__ __device__ inline long smem_words(const Shape& d) {
 
 // The shared vectors (scpk::IpmVecs) plus the slabs, P blocks and tables.
 struct Smem : scpk::IpmVecs {
-  float *gi, *gj, *gob, *pb, *gsl;
+  const float *gi, *gj, *gob;  // the slabs: read only, once loaded
+  float *pb, *gsl;
   int *pair_of, *pi, *pj, *ov;
 };
 
-__device__ inline Smem carve(float* base, const Shape& d) {
+struct Args {
+  const float *gi, *gj, *gob, *gsl, *pb, *q, *pdiag;
+  const float *x, *sg, *su, *sl, *zg, *zu, *zl, *rpg, *rpu, *rpl, *scal;
+  const int *pair_idx, *obst_veh;
+  float *xo, *sgo, *suo, *slo, *zgo, *zuo, *zlo, *rpgo, *rpuo, *rplo, *scalo;
+  float* ws;  // the device tier's workspace: nu x ldk floats per instance
+  int n_iters, n_cor;
+  float tol, tol_stall, reg_rel;
+};
+
+// Instance b's working set: in the shared tier all of it in shared memory
+// from `base`; in the device tier K in the workspace and the slabs in the
+// input tensors, the rest from `base`.
+template <bool kDev>
+__device__ inline Smem carve(float* base, const Shape& d, const Args& a,
+                             long b) {
   Smem sm;
   float* p = base;
-  const int sw = slab_words(d);
-  sm.K = p; p += (long)d.nu * d.ldk;
-  sm.gi = p; p += (long)d.P * sw;
-  sm.gj = p; p += (long)d.P * sw;
-  sm.gob = p; p += (long)d.S * sw;
+  if (kDev) {
+    const long slab = (long)d.hp * d.hu;
+    sm.K = a.ws + b * d.nu * d.ldk;
+    sm.gi = a.gi + b * d.P * slab;
+    sm.gj = a.gj + b * d.P * slab;
+    sm.gob = d.S ? a.gob + b * d.S * slab : nullptr;
+  } else {
+    const int sw = slab_words<false>(d);
+    sm.K = p; p += (long)d.nu * d.ldk;
+    sm.gi = p; p += (long)d.P * sw;
+    sm.gj = p; p += (long)d.P * sw;
+    sm.gob = p; p += (long)d.S * sw;
+  }
   sm.pb = p; p += (long)d.V * d.hu * d.hu;
   sm.gsl = p; p += d.mg;
   sm.s = p; p += d.m;   sm.z = p; p += d.m;   sm.rp = p; p += d.m;
@@ -173,12 +229,12 @@ __device__ inline Smem carve(float* base, const Shape& d) {
 
 // sum_rows vec[row] * g[row, col]  (SQ: * g^2) over every slab row that
 // touches column `c` (< nu) — the column walk of G^T v and of diag(G^T W G).
-template <bool SQ>
+template <bool SQ, bool kDev>
 __device__ inline float col_accum(const Smem& sm, const Shape& d,
                                   const float* vec, int c) {
   const int v = c / d.hu, u = c - v * d.hu;
   const int k0 = d.lower_tri ? u : 0;
-  const int slab = slab_words(d), off0 = slab_row_off(d, k0) + u;
+  const int slab = slab_words<kDev>(d), off0 = slab_row_off<kDev>(d, k0) + u;
   float acc = 0.0f;
   for (int p = 0; p < d.P + d.S; ++p) {
     const float* g;
@@ -196,18 +252,19 @@ __device__ inline float col_accum(const Smem& sm, const Shape& d,
     for (int k = k0; k < d.hp; ++k) {
       const float gv = g[off];
       acc += vr[k] * (SQ ? gv * gv : gv);
-      off += slab_row_len(d, k);
+      off += kDev ? d.hu : slab_row_len(d, k);
     }
   }
   return acc;
 }
 
 // (G x)[r] for slab row r (< mg), slack column included.
+template <bool kDev>
 __device__ inline float row_dot(const Smem& sm, const Shape& d,
                                 const float* xv, int r) {
   const int blk = r / d.hp, k = r - blk * d.hp;
   const int umax = slab_row_len(d, k);
-  const int at = slab_row_off(d, k), slab = slab_words(d);
+  const int at = slab_row_off<kDev>(d, k), slab = slab_words<kDev>(d);
   float acc = 0.0f;
   if (blk < d.P) {
     const float* gi = sm.gi + blk * slab + at;
@@ -240,11 +297,12 @@ __device__ inline float slack_dot(const float* a, const float* b, int len) {
 
 // The slab product G x / G^T v of scpk::mehrotra_step (the slack column is
 // the equilibrated gsl).
+template <bool kDev>
 struct SlabRows {
   const Smem& sm;
   const Shape& d;
   __device__ float col(const float* v, int c) const {
-    if (c < d.nu) return col_accum<false>(sm, d, v, c);
+    if (c < d.nu) return col_accum<false, kDev>(sm, d, v, c);
     return slack_dot(sm.gsl, v, d.mg);
   }
   // A vehicle's columns start a warp (lanes = hu rounded up to 32 slots
@@ -267,7 +325,7 @@ struct SlabRows {
     }
   }
   __device__ float row(const float* x, int r) const {
-    return row_dot(sm, d, x, r);
+    return row_dot<kDev>(sm, d, x, r);
   }
 };
 
@@ -280,7 +338,8 @@ __device__ inline void copy_in(float* dst, const float* src, long count) {
 __device__ inline void load_slabs(float* dst, const float* src, int count,
                                   const Shape& d) {
   constexpr int kBatch = 8;
-  const int full = d.hp * d.hu, sw = slab_words(d), total = count * full;
+  const int full = d.hp * d.hu, sw = slab_words<false>(d);
+  const int total = count * full;
   for (int e0 = threadIdx.x; e0 < total; e0 += kBatch * kThreads) {
     float v[kBatch];
     int at[kBatch];  // shared-memory index, -1: not stored
@@ -289,7 +348,7 @@ __device__ inline void load_slabs(float* dst, const float* src, int count,
       const int e = e0 + i * kThreads, p = e / full, r = e - p * full;
       const int k = r / d.hu, u = r - k * d.hu;
       at[i] = (e < total && u < slab_row_len(d, k))
-                  ? p * sw + slab_row_off(d, k) + u : -1;
+                  ? p * sw + slab_row_off<false>(d, k) + u : -1;
       v[i] = at[i] >= 0 ? src[e] : 0.0f;
     }
 #pragma unroll
@@ -299,8 +358,8 @@ __device__ inline void load_slabs(float* dst, const float* src, int count,
 }
 
 // One row k of tile_slab_product: acc[u][v] += w_k ga[k][r0 + u]
-// gb[k][c0 + v], the row's entries at off .. off + len; with kGuard the
-// entries past len count as zero.
+// gb[k][c0 + v], the row's entries from off; with kGuard the entries past
+// len count as zero.
 template <bool kGuard>
 __device__ __forceinline__ void tile_row(float (&acc)[4][4], const float* ga,
                                          const float* gb, float wk, int off,
@@ -324,6 +383,7 @@ __device__ __forceinline__ void tile_row(float (&acc)[4][4], const float* ga,
 // hold the whole tile (from max(r0, c0) + 3 on with lower_tri, every row
 // without, for a tile inside the hu columns) go without the guards, two at
 // a time, so that their loads are in flight together.
+template <bool kDev>
 __device__ inline void tile_slab_product(float (&acc)[4][4], const float* ga,
                                          const float* gb, const float* w,
                                          const Shape& d, int r0, int c0) {
@@ -331,17 +391,17 @@ __device__ inline void tile_slab_product(float (&acc)[4][4], const float* ga,
   const bool inside = r0 + 4 <= d.hu && c0 + 4 <= d.hu;
   const int k1 = !inside ? d.hp
                          : min(d.lower_tri ? k0 + 3 : k0, d.hp);
-  int off = slab_row_off(d, k0), k = k0;
+  int off = slab_row_off<kDev>(d, k0), k = k0;
   for (; k < k1; ++k) {
     const int len = slab_row_len(d, k);
     tile_row<true>(acc, ga, gb, w[k], off, len, r0, c0);
-    off += len;
+    off += kDev ? d.hu : len;
   }
 #pragma unroll 2
   for (; k < d.hp; ++k) {
     const int len = slab_row_len(d, k);
     tile_row<false>(acc, ga, gb, w[k], off, len, r0, c0);
-    off += len;
+    off += kDev ? d.hu : len;
   }
 }
 
@@ -350,10 +410,11 @@ __device__ inline void tile_slab_product(float (&acc)[4][4], const float* ga,
 // triangle: sum over the slabs that touch both vehicles of (W g_r)^T g_c
 // (+ the P block on the diagonal), Jacobi-scaled, minus the rank-1 border
 // of the eliminated slack, the regularised unit diagonal.
+template <bool kDev>
 __device__ inline void form_tile(const Smem& sm, const Shape& d, int vr,
                                  int vc, int r0, int c0, float inv_kappa,
                                  float one_reg) {
-  const int slab = slab_words(d);
+  const int slab = slab_words<kDev>(d);
   float acc[4][4];
 #pragma unroll
   for (int u = 0; u < 4; ++u)
@@ -365,18 +426,18 @@ __device__ inline void form_tile(const Smem& sm, const Shape& d, int vr,
       if (sm.pi[p] == vr) g = sm.gi + p * slab;
       else if (sm.pj[p] == vr) g = sm.gj + p * slab;
       else continue;
-      tile_slab_product(acc, g, g, sm.w + p * d.hp, d, r0, c0);
+      tile_slab_product<kDev>(acc, g, g, sm.w + p * d.hp, d, r0, c0);
     }
     for (int o = 0; o < d.S; ++o)
       if (sm.ov[o] == vr)
-        tile_slab_product(acc, sm.gob + o * slab, sm.gob + o * slab,
-                          sm.w + (d.P + o) * d.hp, d, r0, c0);
+        tile_slab_product<kDev>(acc, sm.gob + o * slab, sm.gob + o * slab,
+                                sm.w + (d.P + o) * d.hp, d, r0, c0);
   } else {
     // pairs are (i, j) with i < j: the row vehicle vr is the pair's j
     const int p = sm.pair_of[vc * d.V + vr];
     if (p >= 0)
-      tile_slab_product(acc, sm.gj + p * slab, sm.gi + p * slab,
-                        sm.w + p * d.hp, d, r0, c0);
+      tile_slab_product<kDev>(acc, sm.gj + p * slab, sm.gi + p * slab,
+                              sm.w + p * d.hp, d, r0, c0);
   }
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
@@ -394,20 +455,13 @@ __device__ inline void form_tile(const Smem& sm, const Shape& d, int vr,
   }
 }
 
-struct Args {
-  const float *gi, *gj, *gob, *gsl, *pb, *q, *pdiag;
-  const float *x, *sg, *su, *sl, *zg, *zu, *zl, *rpg, *rpu, *rpl, *scal;
-  const int *pair_idx, *obst_veh;
-  float *xo, *sgo, *suo, *slo, *zgo, *zuo, *zlo, *rpgo, *rpuo, *rplo, *scalo;
-  int n_iters, n_cor;
-  float tol, tol_stall, reg_rel;
-};
-
+// kDev: the storage tier (see the head of this file).
+template <bool kDev>
 __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
 ipm_struct_kernel(Args a, Shape d) {
   extern __shared__ float smem_base[];
-  const Smem sm = carve(smem_base, d);
   const long b = blockIdx.x;
+  const Smem sm = carve<kDev>(smem_base, d, a, b);
   const int tid = threadIdx.x, nt = blockDim.x;
   const long slab = (long)d.hp * d.hu;   // in device memory
   const int mg = d.mg, n = d.n, nu = d.nu, m = d.m;
@@ -418,9 +472,12 @@ ipm_struct_kernel(Args a, Shape d) {
 
   SECTION_INIT();
   // ---- load the instance ----
-  load_slabs(sm.gi, a.gi + b * d.P * slab, d.P, d);
-  load_slabs(sm.gj, a.gj + b * d.P * slab, d.P, d);
-  if (d.S) load_slabs(sm.gob, a.gob + b * d.S * slab, d.S, d);
+  if (!kDev) {  // (the slab pointers of this tier are shared memory's own)
+    load_slabs(const_cast<float*>(sm.gi), a.gi + b * d.P * slab, d.P, d);
+    load_slabs(const_cast<float*>(sm.gj), a.gj + b * d.P * slab, d.P, d);
+    if (d.S)
+      load_slabs(const_cast<float*>(sm.gob), a.gob + b * d.S * slab, d.S, d);
+  }
   copy_in(sm.pb, a.pb + b * d.V * d.hu * d.hu, (long)d.V * d.hu * d.hu);
   copy_in(sm.gsl, a.gsl + b * mg, mg);
   copy_in(sm.q, a.q + b * n, n);
@@ -450,7 +507,7 @@ ipm_struct_kernel(Args a, Shape d) {
   const float one_reg = 1.0f + a.reg_rel;
   float mu = mu_prev;
   const scpk::IpmDims dims{mg, n, m, nu, d.ldk, true};
-  const SlabRows rows{sm, d};
+  const SlabRows<kDev> rows{sm, d};
   auto mark = [&](int i) { SECTION(i); };
   __syncthreads();
   SECTION(kSecLoad);
@@ -473,7 +530,7 @@ ipm_struct_kernel(Args a, Shape d) {
         const float* xb = sm.x + v * d.hu;
         px = 0.0f;
         for (int j = 0; j < d.hu; ++j) px += prow[j] * xb[j];
-        gsq = col_accum<true>(sm, d, sm.w, c);
+        gsq = col_accum<true, kDev>(sm, d, sm.w, c);
       } else {
         px = sm.pdiag[c] * sm.x[c];
         gsq = slack_dot(sm.a1, sm.gsl, mg);
@@ -489,7 +546,7 @@ ipm_struct_kernel(Args a, Shape d) {
       const int c = rows.col_at(t);
       if (c >= 0 && c < nu)
         sm.kb[c] =
-            sm.dsc[c] * col_accum<false>(sm, d, sm.a1, c) * sm.dsc[nu];
+            sm.dsc[c] * col_accum<false, kDev>(sm, d, sm.a1, c) * sm.dsc[nu];
     }
     __syncthreads();
     SECTION(kSecDiag);
@@ -500,10 +557,10 @@ ipm_struct_kernel(Args a, Shape d) {
       const int ti = (t - blk * tiles) / tb, tj = t - blk * tiles - ti * tb;
       while (blk > vr) blk -= ++vr;   // blk = vr (vr + 1) / 2 + vc
       if (blk == vr && tj > ti) continue;
-      form_tile(sm, d, vr, blk, 4 * ti, 4 * tj, inv_kappa, one_reg);
+      form_tile<kDev>(sm, d, vr, blk, 4 * ti, 4 * tj, inv_kappa, one_reg);
     }
     SECTION(kSecForm);
-    scpk::factor_kkt(sm, dims);
+    scpk::factor_kkt<kDev>(sm, dims);
     SECTION(kSecChol);
 
     scpk::mehrotra_step(rows, sm, dims, mu, mu_prev, frozen, a.n_cor, a.tol,
@@ -533,34 +590,49 @@ ipm_struct_kernel(Args a, Shape d) {
   SECTION(kSecStore);
 }
 
-int ipm_struct_smem_granted[scpk::kMaxDevices];
-int ipm_struct_carveout_set[scpk::kMaxDevices];
+// Per tier and device.
+int ipm_struct_smem_granted[2][scpk::kMaxDevices];
+int ipm_struct_carveout_set[2][scpk::kMaxDevices];
 
-// Raise the kernel's dynamic shared-memory limit to `smem_bytes` and, once
-// per device, prefer the largest shared-memory carve-out of the SM's
-// unified L1 / shared memory, so that four CTAs of the bench shape fit.
+// Raise the tier's kernel's dynamic shared-memory limit to `smem_bytes`
+// and, once per device, prefer the largest shared-memory carve-out of the
+// SM's unified L1 / shared memory, so that four CTAs of the bench shape fit.
+template <bool kDev>
 cudaError_t prepare(long smem_bytes) {
-  cudaError_t err = scpk::ensure_dyn_smem(ipm_struct_kernel,
-                                          ipm_struct_smem_granted, smem_bytes);
+  cudaError_t err = scpk::ensure_dyn_smem(
+      ipm_struct_kernel<kDev>, ipm_struct_smem_granted[kDev], smem_bytes);
   if (err != cudaSuccess) return err;
   int dev = 0;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= scpk::kMaxDevices) return cudaErrorInvalidDevice;
-  if (ipm_struct_carveout_set[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(ipm_struct_kernel,
+  if (ipm_struct_carveout_set[kDev][dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(ipm_struct_kernel<kDev>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess) ipm_struct_carveout_set[dev] = 1;
+  if (err == cudaSuccess) ipm_struct_carveout_set[kDev][dev] = 1;
   return err;
+}
+
+template <bool kDev>
+int launch_tier(const Args& a, const Shape& d, int B, long smem_bytes,
+                cudaStream_t stream) {
+  cudaError_t err = prepare<kDev>(smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  ipm_struct_kernel<kDev><<<B, kThreads, smem_bytes, stream>>>(a, d);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`. Returns cudaGetLastError() (0 = launched), or -1 when
-// `smem_bytes` disagrees with the kernel's own carve.
+// Launch on `stream` in the storage tier `device_tier` (0: shared memory;
+// 1: the KKT matrix in `ws`, B x nu x ldk floats with ldk = nu rounded up to
+// a multiple of 32, and the slabs read in place). Returns cudaGetLastError()
+// (0 = launched), or -1 when `smem_bytes` disagrees with the tier's own
+// carve or `ws_floats` with its workspace (0 and a null `ws` in the shared
+// tier).
 int ipm_struct_launch(
     const float* gi, const float* gj, const float* gob, const float* gsl,
     const float* pb, const float* q, const float* pdiag,
@@ -570,13 +642,18 @@ int ipm_struct_launch(
     const int* pair_idx, const int* obst_veh,
     float* xo, float* sgo, float* suo, float* slo,
     float* zgo, float* zuo, float* zlo,
-    float* rpgo, float* rpuo, float* rplo, float* scalo,
+    float* rpgo, float* rpuo, float* rplo, float* scalo, float* ws,
     int B, int P, int S, int hp, int hu, int V,
-    int n_iters, int n_cor, int lower_tri,
+    int n_iters, int n_cor, int lower_tri, int device_tier,
     float tol, float tol_stall, float reg_rel,
-    long smem_bytes, void* stream) {
-  const Shape d = make_shape(P, S, hp, hu, V, lower_tri);
-  if (smem_bytes != 4L * smem_words(d)) return -1;
+    long smem_bytes, long ws_floats, void* stream) {
+  const bool dev = device_tier != 0;
+  const Shape d = make_shape(P, S, hp, hu, V, lower_tri, dev);
+  const long words = dev ? smem_words<true>(d) : smem_words<false>(d);
+  const long want_ws = dev ? (long)B * d.nu * d.ldk : 0;
+  if (smem_bytes != 4L * words || ws_floats != want_ws
+      || (ws != nullptr) != dev)
+    return -1;
   Args a;
   a.gi = gi; a.gj = gj; a.gob = gob; a.gsl = gsl; a.pb = pb; a.q = q;
   a.pdiag = pdiag; a.x = x; a.sg = sg; a.su = su; a.sl = sl;
@@ -584,26 +661,29 @@ int ipm_struct_launch(
   a.scal = scal; a.pair_idx = pair_idx; a.obst_veh = obst_veh;
   a.xo = xo; a.sgo = sgo; a.suo = suo; a.slo = slo;
   a.zgo = zgo; a.zuo = zuo; a.zlo = zlo;
-  a.rpgo = rpgo; a.rpuo = rpuo; a.rplo = rplo; a.scalo = scalo;
+  a.rpgo = rpgo; a.rpuo = rpuo; a.rplo = rplo; a.scalo = scalo; a.ws = ws;
   a.n_iters = n_iters; a.n_cor = n_cor;
   a.tol = tol; a.tol_stall = tol_stall; a.reg_rel = reg_rel;
-  cudaError_t err = prepare(smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  ipm_struct_kernel<<<B, kThreads, smem_bytes, (cudaStream_t)stream>>>(a, d);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return dev ? launch_tier<true>(a, d, B, smem_bytes, st)
+             : launch_tier<false>(a, d, B, smem_bytes, st);
 }
 
-// CTAs of the kernel that can be resident on one SM at a shape
+// CTAs of the tier's kernel that can be resident on one SM at a shape
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the launch's own
 // shared memory and carve-out) into `ctas`. Returns a CUDA error code.
 int ipm_struct_occupancy(int P, int S, int hp, int hu, int V, int lower_tri,
-                         int* ctas) {
-  const long smem_bytes = 4L * smem_words(
-      make_shape(P, S, hp, hu, V, lower_tri));
-  cudaError_t err = prepare(smem_bytes);
+                         int device_tier, int* ctas) {
+  const bool dev = device_tier != 0;
+  const Shape d = make_shape(P, S, hp, hu, V, lower_tri, dev);
+  const long smem_bytes = 4L * (dev ? smem_words<true>(d)
+                                    : smem_words<false>(d));
+  cudaError_t err = dev ? prepare<true>(smem_bytes)
+                        : prepare<false>(smem_bytes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, ipm_struct_kernel, kThreads, (size_t)smem_bytes);
+      ctas, dev ? ipm_struct_kernel<true> : ipm_struct_kernel<false>,
+      kThreads, (size_t)smem_bytes);
 }
 
 #ifdef SCP_PROFILE_SECTIONS

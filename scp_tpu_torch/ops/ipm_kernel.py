@@ -35,28 +35,65 @@ last variable), ``mg = (P + S) * hp``:
 raises if it cannot; for CPU tensors it takes :func:`ipm_iterate_struct_plain`.
 The kernel library is built with ``nvcc`` from ``scp_tpu_torch/csrc`` at first
 use (``ops/_cuda_build.py``).
+
+Both kernels have two storage tiers, chosen by the shape alone
+(:func:`struct_tier`, :func:`dense_tier`): the whole per-instance working
+set in one block's shared memory (``"shared"``), or, past it, the KKT matrix
+and its factor in a per-instance workspace in device memory that the
+wrapper allocates (``"device"``; K1 then reads its slabs in place from the
+inputs, K2 its G). The arithmetic is the same in both. Past the device
+tier's own shared memory the wrapper raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from scp_tpu_torch.ops import _cuda_build
 from scp_tpu_torch.ops._cuda_build import SMEM_LIMIT_BYTES
 
-# Launches of the structured kernel (K1) and of the dense-G kernel (K2) since
-# the last reset (incremented where each kernel is launched and nowhere else).
+# Launches of the structured kernel (K1) and of the dense-G kernel (K2) in
+# their shared-memory tier, and of each in its device tier, since the last
+# reset (incremented where each kernel is launched and nowhere else).
 launch_count = 0
 dense_launch_count = 0
+device_launch_count = 0
+dense_device_launch_count = 0
 
 _tables: dict = {}
 
 
 def reset_launch_count() -> None:
     global launch_count, dense_launch_count
+    global device_launch_count, dense_device_launch_count
     launch_count = 0
     dense_launch_count = 0
+    device_launch_count = 0
+    dense_device_launch_count = 0
+
+
+class Tier(NamedTuple):
+    """Where a fused kernel keeps an instance's working set: ``tier`` is
+    ``"shared"`` (all of it in the block's shared memory) or ``"device"``
+    (the KKT matrix and its factor in a device-memory workspace of
+    ``workspace_floats`` floats per instance, 0 in the shared tier);
+    ``smem_bytes``: the launch's dynamic shared memory; ``g_smem``: K2's G
+    in shared memory (False for K1)."""
+    tier: str
+    smem_bytes: int
+    workspace_floats: int
+    g_smem: bool = False
+
+
+
+def kkt_ld(nk: int, device: bool) -> int:
+    """Leading dimension of the factored KKT matrix (``nk`` columns): odd in
+    shared memory, a multiple of 32 floats (128-byte rows) in the device
+    tier's workspace (``csrc/ipm_struct.cu::kkt_ld``,
+    ``ipm_dense.cu::dense_kkt_ld``)."""
+    return (nk + 31) // 32 * 32 if device else nk | 1
 
 
 # Floats of the fused kernels' block-reduction scratch
@@ -75,55 +112,74 @@ def slab_words(hp: int, hu: int, lower_tri: bool) -> int:
 
 
 def smem_bytes(P: int, S: int, hp: int, hu: int, V: int,
-               lower_tri: bool = False) -> int:
-    """Dynamic shared memory of the kernel for a shape (mirrors the carve in
-    ``csrc/ipm_struct.cu::smem_words``). Lower-triangular slabs are stored
-    packed, so ``lower_tri`` only ever takes bytes off."""
+               lower_tri: bool = False, device: bool = False) -> int:
+    """Dynamic shared memory of the kernel for a shape in a tier (mirrors
+    the carve in ``csrc/ipm_struct.cu::smem_words``): in the shared tier the
+    factor, the slabs and the rest; in the device tier (``device``) the rest
+    alone — the vectors, the P blocks, the slack column and the index
+    tables. Lower-triangular slabs are stored packed in shared memory, so
+    ``lower_tri`` only ever takes bytes off."""
     nu = V * hu
     n = nu + 1
     mg = (P + S) * hp
     m = mg + 2 * n
-    ldk = nu | 1
-    words = (nu * ldk + (2 * P + S) * slab_words(hp, hu, lower_tri)
-             + V * hu * hu + mg + 9 * m + 9 * n + _RED_WORDS
+    words = (V * hu * hu + mg + 9 * m + 9 * n + _RED_WORDS
              + V * V + 2 * P + S + 1)
+    if not device:
+        words += nu * kkt_ld(nu, False) \
+            + (2 * P + S) * slab_words(hp, hu, lower_tri)
     return 4 * words
 
 
-def fits_smem(P: int, S: int, hp: int, hu: int, V: int) -> bool:
-    """Whether the structured kernel's per-instance working set fits a
-    block's shared memory (the ``kkt="auto"`` route takes the banded KKT
-    path where it does not). The route does not depend on ``lower_tri``:
-    the carve with whole slab rows bounds both."""
-    return smem_bytes(P, S, hp, hu, V) <= SMEM_LIMIT_BYTES
+def fits_smem(P: int, S: int, hp: int, hu: int, V: int,
+              lower_tri: bool = False) -> bool:
+    """Whether the structured kernel's whole per-instance working set fits
+    a block's shared memory (its shared tier) with the slabs as the launch
+    stores them (packed with ``lower_tri``); the ``kkt="auto"`` route takes
+    the banded KKT path past it when a stage statement is given."""
+    return smem_bytes(P, S, hp, hu, V, lower_tri) <= SMEM_LIMIT_BYTES
 
 
-def check_smem_gate(P: int, S: int, hp: int, hu: int, V: int,
-                    lower_tri: bool = False) -> int:
-    """The structured kernel's gate: shapes whose per-instance working set
-    exceeds a block's shared memory are refused loudly. Returns the bytes
-    of the launch."""
-    need = smem_bytes(P, S, hp, hu, V, lower_tri)
+def struct_tier(P: int, S: int, hp: int, hu: int, V: int,
+                lower_tri: bool = False, tier: str | None = None) -> Tier:
+    """The structured kernel's storage tier at a shape: the shared tier
+    where :func:`fits_smem` holds, else the device tier (the ``nu x ldk``
+    KKT matrix in a device-memory workspace, the slabs read in place);
+    ``tier="device"`` forces the device tier at any shape it holds.
+    Raises ``NotImplementedError``, naming the bytes, where the tier's own
+    shared memory exceeds a block's."""
+    if tier not in (None, "device"):
+        raise ValueError(f"unknown tier {tier!r}")
+    dev = tier == "device" or (tier is None and not fits_smem(
+        P, S, hp, hu, V, lower_tri))
+    need = smem_bytes(P, S, hp, hu, V, lower_tri, dev)
     if need > SMEM_LIMIT_BYTES:
+        full = smem_bytes(P, S, hp, hu, V, lower_tri)
         raise NotImplementedError(
             f"the fused structured IPM kernel needs {need} bytes of shared "
-            f"memory per instance at P={P}, S={S}, hp={hp}, hu={hu}, V={V} "
-            f"(limit {SMEM_LIMIT_BYTES}); qp_kkt='auto' with a banded stage "
-            f"statement takes the banded KKT path there")
-    return need
+            f"memory per instance in its {'device' if dev else 'shared'} "
+            f"tier at P={P}, S={S}, hp={hp}, hu={hu}, V={V} ({full} with "
+            f"the factor and the slabs; limit {SMEM_LIMIT_BYTES}); "
+            f"qp_kkt='auto' with a banded stage statement takes the banded "
+            f"KKT path there")
+    nu = V * hu
+    return Tier("device" if dev else "shared", need,
+                nu * kkt_ld(nu, True) if dev else 0)
 
 
 def resident_ctas_per_sm(P: int, S: int, hp: int, hu: int, V: int,
-                         lower_tri: bool) -> int:
+                         lower_tri: bool, tier: str | None = None) -> int:
     """CTAs of the structured kernel that one SM of the current CUDA device
-    holds at a shape (the CUDA occupancy calculator, with the launch's
-    shared memory). Needs the card: it builds and loads the library."""
+    holds at a shape in its tier (:func:`struct_tier`; the CUDA occupancy
+    calculator, with the launch's shared memory). Needs the card: it builds
+    and loads the library."""
+    dev = struct_tier(P, S, hp, hu, V, lower_tri, tier).tier == "device"
     fn = _cuda_build.load_library().ipm_struct_occupancy
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     ctas = ctypes.c_int(0)
-    err = fn(P, S, hp, hu, V, int(lower_tri), ctypes.byref(ctas))
+    err = fn(P, S, hp, hu, V, int(lower_tri), int(dev), ctypes.byref(ctas))
     if err != 0:
         raise RuntimeError(f"ipm_struct_occupancy failed with CUDA error "
                            f"{err}")
@@ -135,8 +191,8 @@ def _launcher():
     fn = _cuda_build.load_library().ipm_struct_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([p] * 18 + [p, p] + [p] * 11 + [i] * 9 + [f] * 3
-                       + [ctypes.c_long, p])
+        fn.argtypes = ([p] * 18 + [p, p] + [p] * 12 + [i] * 10 + [f] * 3
+                       + [ctypes.c_long, ctypes.c_long, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -189,11 +245,13 @@ def ipm_iterate_struct(gi, gj, gob, gsl, pb, q, pdiag,
                        x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal,
                        *, pairs, obst_veh, tol: float, reg_rel: float,
                        n_cor: int = 0, n_iters: int = 1,
-                       lower_tri: bool = False):
+                       lower_tri: bool = False, tier: str | None = None):
     """Run ``n_iters`` fused Mehrotra iterations; returns the updated
     ``(x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)``.
 
-    CUDA tensors (float32, contiguous) go to the hand-written kernel —
+    CUDA tensors (float32, contiguous) go to the hand-written kernel in the
+    storage tier :func:`struct_tier` picks for the shape (``tier="device"``
+    forces the device tier, for checking it against the shared one) —
     there is no fallback: a failing build, load or launch raises. CPU
     tensors go to :func:`ipm_iterate_struct_plain`.
     """
@@ -203,7 +261,7 @@ def ipm_iterate_struct(gi, gj, gob, gsl, pb, q, pdiag,
             gi, gj, gob, gsl, pb, q, pdiag, *state, pairs=pairs,
             obst_veh=obst_veh, tol=tol, reg_rel=reg_rel, n_cor=n_cor,
             n_iters=n_iters, lower_tri=lower_tri)
-    global launch_count
+    global launch_count, device_launch_count
     B, P, S, hp, hu, V, n, mg = _check_shapes(
         gi, gj, gob, gsl, pb, q, pdiag, state, pairs, obst_veh)
     if gi.dtype != torch.float32:
@@ -213,23 +271,31 @@ def ipm_iterate_struct(gi, gj, gob, gsl, pb, q, pdiag,
     for t in ins:
         if t is not None and not t.is_contiguous():
             raise ValueError("the CUDA IPM kernel needs contiguous tensors")
-    need = check_smem_gate(P, S, hp, hu, V, lower_tri)
+    tr = struct_tier(P, S, hp, hu, V, lower_tri, tier)
+    dev = tr.tier == "device"
     launch = _launcher()
     pt, ot = _index_tables(pairs, obst_veh, gi.device)
-    outs = [torch.empty_like(t) for t in state]
-    ptr = [0 if t is None else t.data_ptr() for t in ins]
+    outs = [torch.empty_like(o) for o in state]
+    ws = torch.empty((B, tr.workspace_floats), dtype=torch.float32,
+                     device=gi.device) if dev else None
+    ptr = [0 if a is None else a.data_ptr() for a in ins]
     with torch.cuda.device(gi.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
             *ptr, pt.data_ptr(), ot.data_ptr() if S else 0,
-            *[t.data_ptr() for t in outs],
+            *[o.data_ptr() for o in outs], ws.data_ptr() if dev else 0,
             B, P, S, hp, hu, V, int(n_iters), int(n_cor), int(lower_tri),
-            float(tol), float(tol * 1e3), float(reg_rel), need, stream)
+            int(dev), float(tol), float(tol * 1e3), float(reg_rel),
+            tr.smem_bytes, B * tr.workspace_floats, stream)
     if err != 0:
         raise RuntimeError(
             f"ipm_struct_launch failed with CUDA error {err} "
-            f"(B={B}, P={P}, S={S}, hp={hp}, hu={hu}, V={V}, smem={need})")
-    launch_count += 1
+            f"(B={B}, P={P}, S={S}, hp={hp}, hu={hu}, V={V}, tier={tr.tier}, "
+            f"smem={tr.smem_bytes})")
+    if dev:
+        device_launch_count += 1
+    else:
+        launch_count += 1
     return tuple(outs)
 
 
@@ -401,12 +467,15 @@ def ipm_iterate_struct_plain(gi, gj, gob, gsl, pb, q, pdiag,
                              x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal,
                              *, pairs, obst_veh, tol: float, reg_rel: float,
                              n_cor: int = 0, n_iters: int = 1,
-                             lower_tri: bool = False):
+                             lower_tri: bool = False,
+                             tier: str | None = None):
     """Plain PyTorch version of :func:`ipm_iterate_struct` (float32 or
-    float64, any device): the same function through dense batched algebra
-    and ``torch.linalg`` — an oracle, not a fast path. ``lower_tri`` only
-    lets the kernel skip exact zeros, so it is ignored here."""
-    del lower_tri
+    float64, any device), of both its storage tiers: the same function
+    through dense batched algebra and ``torch.linalg`` — an oracle, not a
+    fast path. ``lower_tri`` only lets the kernel skip exact zeros and
+    ``tier`` only says where it keeps its working set, so both are ignored
+    here."""
+    del lower_tri, tier
     B, P, hp, hu = gi.shape
     V = pb.shape[1]
     nu = V * hu
@@ -467,17 +536,20 @@ def ipm_iterate_struct_plain(gi, gj, gob, gsl, pb, q, pdiag,
 # ---------------------------------------------------------------------------
 
 def dense_smem_bytes(mg: int, n: int, nb: int, d: int, schur: bool,
-                     g_smem: bool, n_cor: int = 1) -> int:
+                     g_smem: bool, n_cor: int = 1,
+                     device: bool = False) -> int:
     """Dynamic shared memory of the dense-G kernel (mirrors the carve in
-    ``csrc/ipm_dense.cu::dense_smem_words``): the factor, the P blocks
-    (``nb = 0``: a dense P, which stays in device memory and takes none),
-    the step's vectors (one m-vector fewer without Gondzio correctors:
-    ``n_cor = 0``) and, with ``g_smem``, G itself (with an odd leading
-    dimension and four padding words)."""
+    ``csrc/ipm_dense.cu::dense_smem_words``): the factor (none in the
+    device tier, ``device``), the P blocks (``nb = 0``: a dense P, which
+    stays in device memory and takes none), the step's vectors (one
+    m-vector fewer without Gondzio correctors: ``n_cor = 0``) and, with
+    ``g_smem``, G itself (with an odd leading dimension and four padding
+    words)."""
     nk = n - 1 if schur else n
     m = mg + 2 * n
-    words = (nk * (nk | 1) + nb * d * d + (8 + (n_cor > 0)) * m + 9 * n
-             + _RED_WORDS + 1)
+    words = (nb * d * d + (8 + (n_cor > 0)) * m + 9 * n + _RED_WORDS + 1)
+    if not device:
+        words += nk * kkt_ld(nk, False)
     if g_smem:
         words += mg * (n | 1) + 4      # G and four zeroed words past it
     return 4 * words
@@ -490,22 +562,35 @@ def fits_dense_smem(mg: int, n: int, nb: int, d: int, schur: bool) -> bool:
     return dense_smem_bytes(mg, n, nb, d, schur, False) <= SMEM_LIMIT_BYTES
 
 
-def check_dense_smem_gate(mg: int, n: int, nb: int, d: int, schur: bool,
-                          n_cor: int = 1) -> tuple[int, bool]:
-    """The dense-G kernel's gate: a factor plus vectors beyond a block's
-    shared memory is refused; G goes into shared memory when it fits too.
-    Returns the bytes of the launch and whether G is in shared memory."""
-    if not fits_dense_smem(mg, n, nb, d, schur):
-        need = dense_smem_bytes(mg, n, nb, d, schur, False)
+def dense_tier(mg: int, n: int, nb: int, d: int, schur: bool,
+               n_cor: int = 1, tier: str | None = None) -> Tier:
+    """The dense-G kernel's storage tier at a shape: the shared tier where
+    :func:`fits_dense_smem` holds (G in shared memory too when that fits),
+    else the device tier (the ``nk x ldk`` factor in a device-memory
+    workspace, G in device memory); ``tier="device"`` forces the device
+    tier at any shape it holds. Raises ``NotImplementedError``,
+    naming the bytes, where the tier's own shared memory exceeds a
+    block's."""
+    if tier not in (None, "device"):
+        raise ValueError(f"unknown tier {tier!r}")
+    dev = tier == "device" or (tier is None and not fits_dense_smem(
+        mg, n, nb, d, schur))
+    need = dense_smem_bytes(mg, n, nb, d, schur, False, n_cor, dev)
+    if need > SMEM_LIMIT_BYTES:
+        full = dense_smem_bytes(mg, n, nb, d, schur, False, n_cor)
         raise NotImplementedError(
             f"the dense-G fused IPM kernel needs {need} bytes of shared "
-            f"memory per instance at mg={mg}, n={n} (limit "
+            f"memory per instance in its {'device' if dev else 'shared'} "
+            f"tier at mg={mg}, n={n} ({full} with the factor; limit "
             f"{SMEM_LIMIT_BYTES}); qp_kkt='auto' with a banded stage "
             f"statement takes the banded KKT path there")
+    nk = n - 1 if schur else n
+    if dev:
+        return Tier("device", need, nk * kkt_ld(nk, True), False)
     with_g = dense_smem_bytes(mg, n, nb, d, schur, True, n_cor)
     if with_g <= SMEM_LIMIT_BYTES:
-        return with_g, True
-    return dense_smem_bytes(mg, n, nb, d, schur, False, n_cor), False
+        return Tier("shared", with_g, 0, True)
+    return Tier("shared", need, 0, False)
 
 
 def dense_min_ctas(B: int, sm_count: int) -> int:
@@ -523,19 +608,20 @@ def _sm_count(device) -> int:
 
 def dense_resident_ctas_per_sm(mg: int, n: int, nb: int, d: int,
                                schur: bool, n_cor: int,
-                               min_ctas: int = 4) -> int:
+                               min_ctas: int = 4,
+                               tier: str | None = None) -> int:
     """CTAs of the dense-G kernel built for ``min_ctas`` CTAs an SM that
-    one SM of the current CUDA device holds at a shape (the CUDA occupancy
-    calculator, with the launch's shared memory). Needs the card: it builds
-    and loads the library."""
+    one SM of the current CUDA device holds at a shape in its tier
+    (:func:`dense_tier`; the CUDA occupancy calculator, with the launch's
+    shared memory). Needs the card: it builds and loads the library."""
     fn = _cuda_build.load_library().ipm_dense_occupancy
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    _, g_smem = check_dense_smem_gate(mg, n, nb, d, schur, n_cor)
+    t = dense_tier(mg, n, nb, d, schur, n_cor, tier)
     ctas = ctypes.c_int(0)
-    err = fn(mg, n, nb, d, int(schur), int(g_smem), n_cor, min_ctas,
-             ctypes.byref(ctas))
+    err = fn(mg, n, nb, d, int(schur), int(t.g_smem),
+             int(t.tier == "device"), n_cor, min_ctas, ctypes.byref(ctas))
     if err != 0:
         raise RuntimeError(f"ipm_dense_occupancy failed with CUDA error "
                            f"{err}")
@@ -547,8 +633,8 @@ def _dense_launcher():
     fn = _cuda_build.load_library().ipm_dense_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([p] * 16 + [p] * 11 + [i] * 10 + [f] * 3
-                       + [ctypes.c_long, p])
+        fn.argtypes = ([p] * 16 + [p] * 12 + [i] * 11 + [f] * 3
+                       + [ctypes.c_long, ctypes.c_long, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -598,7 +684,8 @@ def _check_launchable(ins):
 def ipm_iterate_dense(G, P, pb, q, pdiag,
                       x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal,
                       *, n_iters: int = 1, tol: float, reg_rel: float,
-                      n_cor: int = 0, schur_slack: bool = False):
+                      n_cor: int = 0, schur_slack: bool = False,
+                      tier: str | None = None):
     """Run ``n_iters`` fused Mehrotra iterations of the dense-G QP; returns
     the updated ``(x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)``.
 
@@ -614,8 +701,10 @@ def ipm_iterate_dense(G, P, pb, q, pdiag,
     from one call to the next.
 
     CUDA tensors (float32, contiguous) go to the hand-written kernel, at
-    the launch bound :func:`dense_min_ctas` picks for ``B``; there is no
-    fallback. CPU tensors go to :func:`ipm_iterate_dense_plain`.
+    the launch bound :func:`dense_min_ctas` picks for ``B``, in the storage
+    tier :func:`dense_tier` picks for the shape (``tier="device"`` forces
+    the device tier); there is no fallback. CPU tensors go to
+    :func:`ipm_iterate_dense_plain`.
     """
     state = (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)
     B, mg, n, nb, d = _check_dense(G, P, pb, q, pdiag, state)
@@ -623,38 +712,47 @@ def ipm_iterate_dense(G, P, pb, q, pdiag,
         return ipm_iterate_dense_plain(
             G, P, pb, q, pdiag, *state, n_iters=n_iters, tol=tol,
             reg_rel=reg_rel, n_cor=n_cor, schur_slack=schur_slack)
-    global dense_launch_count
+    global dense_launch_count, dense_device_launch_count
     ins = [G, P, pb, q, pdiag, *state]
     _check_launchable(ins)
-    need, g_smem = check_dense_smem_gate(mg, n, nb, d, schur_slack, n_cor)
+    t = dense_tier(mg, n, nb, d, schur_slack, n_cor, tier)
+    dev = t.tier == "device"
     min_ctas = dense_min_ctas(B, _sm_count(G.device))
     launch = _dense_launcher()
-    outs = [torch.empty_like(t) for t in state]
-    ptr = [0 if t is None else t.data_ptr() for t in ins]
+    outs = [torch.empty_like(o) for o in state]
+    ws = torch.empty((B, t.workspace_floats), dtype=torch.float32,
+                     device=G.device) if dev else None
+    ptr = [0 if a is None else a.data_ptr() for a in ins]
     with torch.cuda.device(G.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
-            *ptr, *[t.data_ptr() for t in outs],
-            B, mg, n, nb, d, int(schur_slack), int(g_smem), int(n_iters),
-            int(n_cor), min_ctas, float(tol), float(tol * 1e3),
-            float(reg_rel), need, stream)
+            *ptr, *[o.data_ptr() for o in outs], ws.data_ptr() if dev else 0,
+            B, mg, n, nb, d, int(schur_slack), int(t.g_smem), int(dev),
+            int(n_iters), int(n_cor), min_ctas, float(tol),
+            float(tol * 1e3), float(reg_rel), t.smem_bytes,
+            B * t.workspace_floats, stream)
     if err != 0:
         raise RuntimeError(
             f"ipm_dense_launch failed with CUDA error {err} "
-            f"(B={B}, mg={mg}, n={n}, nb={nb}, d={d}, smem={need}, "
-            f"min_ctas={min_ctas})")
-    dense_launch_count += 1
+            f"(B={B}, mg={mg}, n={n}, nb={nb}, d={d}, tier={t.tier}, "
+            f"smem={t.smem_bytes}, min_ctas={min_ctas})")
+    if dev:
+        dense_device_launch_count += 1
+    else:
+        dense_launch_count += 1
     return tuple(outs)
 
 
 def ipm_iterate_dense_plain(G, P, pb, q, pdiag,
                             x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal,
                             *, n_iters: int = 1, tol: float, reg_rel: float,
-                            n_cor: int = 0, schur_slack: bool = False):
+                            n_cor: int = 0, schur_slack: bool = False,
+                            tier: str | None = None):
     """Plain PyTorch version of :func:`ipm_iterate_dense` (float32 or
-    float64, any device): per iteration the product ``G^T diag(zg / sg) G``
-    and ``P x`` in batched algebra, then the same step through
-    ``torch.linalg``."""
+    float64, any device), of both its storage tiers (``tier`` is ignored):
+    per iteration the product ``G^T diag(zg / sg) G`` and ``P x`` in
+    batched algebra, then the same step through ``torch.linalg``."""
+    del tier
     B, mg, n = G.shape
     m = mg + 2 * n
     nk = n - 1 if schur_slack else n

@@ -501,6 +501,8 @@ def solve_side_selection_stacked(
                                            device=device)], dim=1)
         stated = dict(fixed_iters=fixed_iters, p_blocks=2.0 * phi_,
                       slack_schur=True, g_struct=g_struct, g_slabs=slabs)
+        # the fused kernels in whichever storage tier holds the shape (at
+        # parallel-11, hp = 20, K1's device tier)
         route = qp._route(q_, h, None, banded=None, kkt="dense", **stated)
         # P stated by p_blocks (+ zero slack tail); the fixed-count solves
         # take the cheap certificate (an honest one costs two G passes and

@@ -761,8 +761,13 @@ def _route(q, h, G, *, fixed_iters, p_blocks, slack_schur, g_struct,
            g_slabs, banded, kkt) -> str:
     """The branch of :func:`solve_qp_batched` for these operands: "banded",
     "adaptive", "struct" (K1) or "dense" (K2). ``kkt="auto"`` takes the
-    kernels where their shared-memory gates admit the shape and the banded
-    KKT past them: for the adaptive branch the gate is
+    kernels where their shared-memory tier holds the shape (K1's with the
+    slabs as the launch stores them: packed under ``lower_tri``) and the
+    banded KKT past it when a stage statement is given; without one, and
+    under ``kkt="dense"``, a fused kernel runs in whichever storage tier
+    holds the shape (``ipm_kernel.struct_tier`` / ``dense_tier``: past the
+    shared tier the device tier, as ``scp_tpu`` falls back from its fused
+    kernel to its XLA path). For the adaptive branch the gate is
     ``linalg_kernel.fits_chol_smem`` (n < 240), although the dense factor
     and solve take any n (from n = 240 with the matrix in device memory),
     so ``kkt="dense"`` runs the adaptive branch at every n. The route
@@ -778,21 +783,24 @@ def _route(q, h, G, *, fixed_iters, p_blocks, slack_schur, g_struct,
     if _structured(g_struct, g_slabs, p_blocks, slack_schur):
         route = "struct"
         nb, hu = p_blocks.shape[1], p_blocks.shape[2]
-        fits = ipm_kernel.fits_smem(len(g_struct[0]), len(g_struct[1]),
-                                    int(g_struct[2]), hu, nb)
+        shape = (len(g_struct[0]), len(g_struct[1]), int(g_struct[2]), hu,
+                 nb, bool(g_struct[4]) if len(g_struct) > 4 else False)
+        fits = ipm_kernel.fits_smem(*shape)
     else:
         route = "dense"
         nb, d = (0, 0) if p_blocks is None else tuple(p_blocks.shape[1:3])
-        fits = ipm_kernel.fits_dense_smem(mg, n, nb, d, slack_schur)
+        shape = (mg, n, nb, d, slack_schur)
+        fits = ipm_kernel.fits_dense_smem(*shape)
     if kkt == "dense" or fits:
         return route
     if banded is None:
-        raise NotImplementedError(
-            f"kkt='auto': the fused {route} IPM kernel's shared memory does "
-            f"not hold this shape (n={n}, mg={mg}) and no banded stage "
-            f"statement was given — pass banded=BandedData(...) "
-            f"(SCPProblem.banded_pre + constraints.linearize_ycoefs) to take "
-            f"the banded KKT path")
+        # past the shared tier the device tier; past that too the tier
+        # function raises, naming the bytes and the banded statement
+        if route == "struct":
+            ipm_kernel.struct_tier(*shape)
+        else:
+            ipm_kernel.dense_tier(*shape)
+        return route
     return "banded"
 
 
@@ -843,12 +851,13 @@ def solve_qp_batched(P, q, G, h, lb, ub, *, max_iter: int = 30,
       ignored here too.
 
     ``kkt="dense"`` takes the first three (the adaptive branch at any n:
-    from n = 240 its factor and solve keep the matrix in device memory);
+    from n = 240 its factor and solve keep the matrix in device memory; a
+    fused kernel in its device-memory tier past its shared one);
     ``"banded"`` the last; ``"auto"`` takes the fused kernels where their
-    shared-memory gates admit the shape (the adaptive branch where the
+    shared-memory tier holds the shape (the adaptive branch where the
     shared-memory factor's does, n < 240, or wherever no ``banded`` is
-    given) and the banded branch past them — past a fused kernel's gate
-    without ``banded`` it raises.
+    given) and the banded branch past them — without ``banded`` a fused
+    kernel's device tier, and past that too it raises.
     ``certificate=False`` takes the cheap convergence certificate of the
     fused branches (primal residual from the kernel's recurrence).
     """

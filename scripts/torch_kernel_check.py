@@ -13,6 +13,7 @@ Run from the root of a checkout on a machine with an NVIDIA GPU::
     python3 scripts/torch_kernel_check.py --sections      # K3's cycles
     python3 scripts/torch_kernel_check.py --sections k6k7 # K6 / K7's
     python3 scripts/torch_kernel_check.py --pivots        # K6 / K7's pivots
+    python3 scripts/torch_kernel_check.py --tiers         # K1 / K2 tiers
 
 The default mode builds the kernel library (printing ``ptxas -v``), runs the
 structured IPM kernel (K1) on seeded inputs at the bench shape and two odd
@@ -61,6 +62,12 @@ trailing updates with the next diagonal block, store) at n = 81, B = 1 and
 stage by section (thread 0 of block 0, per stage) at V = 4, B = 1 and 256,
 and of the generic kernels at V = 16; ``--sections k2`` K2's cycles per
 IPM iteration by section (block 0, one frog QP, B = 64 and 1024).
+``--tiers`` builds the library (printing ``ptxas -v``) and holds K1's and
+K2's device-memory tier against their shared-memory tier on the same
+inputs (bit for bit: the same sums in the same order) at the bench shape,
+two odd K1 shapes and frog's K2 shape, and against the plain version past
+the shared tier (parallel-11's side-selection QP and circle-4 at hp = 20 /
+64 for K1, path (h)'s n = 257 for K2); the default mode runs it too.
 ``--pivots`` compiles a test that
 includes ``csrc/riccati.cu`` and holds its branch-free pivot square root and
 reciprocal to ``__fsqrt_rn`` / ``__frcp_rn`` bit for bit on every float in
@@ -316,12 +323,124 @@ def check_k1() -> float:
     return worst
 
 
+# (B, V, hp, hu, n_obst, seed, hard_rows, n_cor, lower_tri, n_iters):
+# shapes past K1's shared tier — parallel-11's side-selection QP at hp = 20
+# (55 pairs, 66 single-vehicle slabs with every fifth row hard) and
+# circle-4 at hp = 64
+K1_DEVICE_CASES = (
+    (64, 11, 20, 20, 6, 3, True, 0, True, 8),
+    (32, 4, 64, 64, 0, 4, False, 0, True, 7),
+)
+
+
+def _tier_pair(fn, args, kw):
+    """``fn`` in its shared tier and forced into its device tier on the
+    same inputs: whether every output is bit for bit the same, and the
+    largest difference."""
+    a = fn(*args, **kw)
+    b = fn(*args, **kw, tier="device")
+    torch.cuda.synchronize()
+    return {"bit_identical": all(torch.equal(x, y) for x, y in zip(a, b)),
+            "max_abs_diff": max(float((x - y).abs().max())
+                                for x, y in zip(a, b))}
+
+
+def check_tiers() -> None:
+    """K1 and K2 in their device-memory tier (see the module docstring);
+    exits non-zero on a case off its limits."""
+    from scp_tpu_torch.ops import ipm_kernel as ik
+    from scp_tpu_torch.testing import (DENSE_ARG_ORDER, kernel_inputs,
+                                       torch_kernel_args)
+    bad = []
+    for i, (B, V, hp, hu, no, seed, hard, n_cor, tri) in enumerate(K1_CASES):
+        B = 1024 if i == 0 else B
+        arrs, pairs, ov = kernel_inputs(B=B, V=V, hp=hp, hu=hu, n_obst=no,
+                                        seed=seed, hard_rows=hard)
+        args = torch_kernel_args(arrs, device="cuda")
+        kw = dict(pairs=pairs, obst_veh=ov, tol=1e-6, reg_rel=3e-6,
+                  n_cor=n_cor, n_iters=7, lower_tri=tri)
+        rep = {"case": f"k1_tiers_B{B}_V{V}_hp{hp}_hu{hu}_tri{int(tri)}",
+               **_tier_pair(ik.ipm_iterate_struct, args, kw)}
+        print(json.dumps(rep), flush=True)
+        if not rep["bit_identical"]:
+            bad.append(rep["case"])
+    for B, V, hp, hu, no, seed, hard, n_cor, tri, n_it in K1_DEVICE_CASES:
+        arrs, pairs, ov = kernel_inputs(B=B, V=V, hp=hp, hu=hu, n_obst=no,
+                                        seed=seed, hard_rows=hard)
+        args = torch_kernel_args(arrs, device="cuda")
+        kw = dict(pairs=pairs, obst_veh=ov, tol=1e-6, reg_rel=3e-6,
+                  n_cor=n_cor, n_iters=n_it, lower_tri=tri)
+        tier = ik.struct_tier(len(pairs), len(ov), hp, hu, V, tri)
+        ik.reset_launch_count()
+        out_k = ik.ipm_iterate_struct(*args, **kw)
+        out_p = ik.ipm_iterate_struct_plain(*args, **kw)
+        one_k = ik.ipm_iterate_struct(*args, **{**kw, "n_iters": 1})
+        one_p = ik.ipm_iterate_struct_plain(*args, **{**kw, "n_iters": 1})
+        torch.cuda.synchronize()
+        nu = V * hu
+        du = (out_k[0][:, :nu] - out_p[0][:, :nu]).abs().amax(dim=1)
+        one = max(float((x - y)[:, :-1].abs().max()) for x, y in
+                  zip(one_k[:1] + one_k[4:], one_p[:1] + one_p[4:]))
+        rep = {"case": f"k1_device_tier_B{B}_V{V}_hp{hp}_hu{hu}",
+               "tier": tier._asdict(),
+               "device_launches": ik.device_launch_count,
+               "shared_launches": ik.launch_count,
+               "u_max": float(du.max()), "u_median": float(du.median()),
+               "one_iter_max_abs_err": one,
+               "finite": all(bool(torch.isfinite(t).all()) for t in out_k),
+               "frozen_kernel": float(out_k[10][:, 1].mean()),
+               "frozen_plain": float(out_p[10][:, 1].mean())}
+        print(json.dumps(rep), flush=True)
+        if (tier.tier != "device" or rep["device_launches"] != 2
+                or rep["shared_launches"] or not rep["finite"]
+                or rep["u_max"] > 20 * U_ABS_LIMIT
+                or rep["u_median"] > 20 * U_MEDIAN_LIMIT or one > 1e-4):
+            bad.append(rep["case"])
+    # K2: frog's shape in both tiers, path (h)'s n = 257 in its device tier
+    for B, mg, nb, d, n_cor in ((1024, 440, 1, 20, 0), (64, 384, 4, 64, 0)):
+        t = dense_inputs("cuda", (B, mg, nb, d), seed=mg)
+        args = [t[k] for k in DENSE_ARG_ORDER]
+        kw = dict(tol=1e-6, reg_rel=3e-6, n_cor=n_cor, schur_slack=True,
+                  n_iters=DENSE_ITERS)
+        tier = ik.dense_tier(mg, nb * d + 1, nb, d, True, n_cor)
+        rep = {"case": f"k2_B{B}_mg{mg}_n{nb * d + 1}", "tier": tier._asdict()}
+        if tier.tier == "shared":
+            rep.update(_tier_pair(ik.ipm_iterate_dense, args, kw))
+            ok = rep["bit_identical"]
+        else:
+            ok_, op = (f(*args, **kw) for f in (
+                ik.ipm_iterate_dense, ik.ipm_iterate_dense_plain))
+            one_k, one_p = (f(*args, **{**kw, "n_iters": 1}) for f in (
+                ik.ipm_iterate_dense, ik.ipm_iterate_dense_plain))
+            torch.cuda.synchronize()
+            du = (ok_[0] - op[0])[:, :-1].abs().amax(1)
+            one = max(float((x - y)[:, :-1].abs().max()) for x, y in
+                      zip(one_k[:1] + one_k[4:], one_p[:1] + one_p[4:]))
+            rep.update({"u_max": float(du.max()),
+                        "u_median": float(du.median()),
+                        "one_iter_max_abs_err": one,
+                        "finite": all(bool(torch.isfinite(x).all())
+                                      for x in ok_),
+                        "frozen_equal": bool(torch.equal(ok_[10][:, 1],
+                                                         op[10][:, 1]))})
+            ok = (rep["finite"] and one <= 1e-4
+                  and rep["u_median"] <= 20 * U_MEDIAN_LIMIT)
+        print(json.dumps(rep), flush=True)
+        if not ok:
+            bad.append(rep["case"])
+    print(json.dumps({"tier_cases_failed": bad}), flush=True)
+    if bad:
+        sys.exit(1)
+
+
 def check_new_kernels() -> None:
     from scp_tpu_torch.ops import (_cuda_build, ipm_kernel, riccati,
                                    riccati_kernel)
     from scp_tpu_torch.testing import DENSE_ARG_ORDER, riccati_inputs
     _cuda_build.build_library(verbose=True)
     check_k1()
+    if hasattr(ipm_kernel, "struct_tier"):
+        check_tiers()
     dev = "cuda"
     worst = 0.0
     two_rhs = hasattr(riccati_kernel, "solve_geometry")
@@ -606,14 +725,21 @@ def k1_times(rnd, dev) -> None:
               n_iters=7, lower_tri=True)
     ctas = (ipm_kernel.resident_ctas_per_sm(6, 0, 20, 20, 4, True)
             if hasattr(ipm_kernel, "resident_ctas_per_sm") else None)
-    for w in (1024, 256, 64):
-        aw = [None if a is None else a[:w].contiguous() for a in args]
-        ms = _graph_ms([lambda: ipm_kernel.ipm_iterate_struct(*aw, **kw)]
-                       * 10)
-        print(json.dumps({"round": rnd, "kernel": "ipm_iterate_struct",
-                          "B": w, "graph_ms_per_call": ms,
-                          "ms_per_iteration": ms / 7,
-                          "resident_ctas_per_sm": ctas}), flush=True)
+    tiers = ((None, ctas),)
+    if hasattr(ipm_kernel, "struct_tier"):   # and the device tier forced
+        tiers += (("device", ipm_kernel.resident_ctas_per_sm(
+            6, 0, 20, 20, 4, True, tier="device")),)
+    for tier, ctas_t in tiers:
+        kw_t = kw if tier is None else {**kw, "tier": tier}
+        for w in (1024, 256, 64):
+            aw = [None if a is None else a[:w].contiguous() for a in args]
+            ms = _graph_ms(
+                [lambda: ipm_kernel.ipm_iterate_struct(*aw, **kw_t)] * 10)
+            print(json.dumps({"round": rnd, "kernel": "ipm_iterate_struct",
+                              "tier": tier or "shape's", "B": w,
+                              "graph_ms_per_call": ms,
+                              "ms_per_iteration": ms / 7,
+                              "resident_ctas_per_sm": ctas_t}), flush=True)
 
 
 def _profiler_ms(calls, reps=20) -> float:
@@ -1244,6 +1370,8 @@ def main() -> None:
                     metavar="KERNEL",
                     help="cycles by section (default: k3)")
     ap.add_argument("--pivots", action="store_true")
+    ap.add_argument("--tiers", action="store_true",
+                    help="build, then K1 / K2 in their device tier only")
     args = ap.parse_args()
     if args.compare:            # two dumps: no device needed
         compare(*args.compare)
@@ -1256,6 +1384,10 @@ def main() -> None:
         kernel_times(args.times or TIMED)
     elif args.pivots:
         pivot_check()
+    elif args.tiers:
+        from scp_tpu_torch.ops import _cuda_build
+        _cuda_build.build_library(verbose=True)
+        check_tiers()
     elif args.sections is not None:
         if "k6k7" in args.sections:
             k6k7_sections()

@@ -141,11 +141,15 @@ def _spy(monkeypatch, module, name, calls):
 
 @pytest.mark.parametrize("past_gate", [False, True])
 def test_auto_routes_by_shape(monkeypatch, past_gate):
-    """kkt="auto": the structured kernel where its shared memory holds the
-    shape, the banded branch just past the gate (the gate is moved to the
-    test shape, so the CPU plain path stays small)."""
+    """kkt="auto": the structured kernel where its shared-memory tier holds
+    the shape (the carve with the slabs packed, as the launch stores
+    them), the banded branch just past it (the limit is moved to the test
+    shape, so the CPU plain path stays small); without a stage statement
+    K1's device tier takes the shape, and only past that tier's own carve
+    the route refuses, naming the stage statement."""
     _, ta = scp_qp_data("circle", 2, 5, np.float64, n_veh=3, banded=True)
-    need = ipm_kernel.smem_bytes(3, 0, 5, 5, 3)
+    tri = bool(ta["g_struct"][4])
+    need = ipm_kernel.smem_bytes(3, 0, 5, 5, 3, tri)
     monkeypatch.setattr(ipm_kernel, "SMEM_LIMIT_BYTES",
                         need - 1 if past_gate else need)
     calls = []
@@ -158,7 +162,18 @@ def test_auto_routes_by_shape(monkeypatch, past_gate):
                                ta["ub"], banded=ta["banded"], **kw)
     if past_gate:
         assert set(calls) == {"riccati_factor"} and len(calls) == 6
-        # without a stage statement the shape is refused, naming it
+        # without a stage statement: K1's device tier
+        calls.clear()
+        dev = tqp.solve_qp_batched(None, ta["q"], None, ta["h"], ta["lb"],
+                                   ta["ub"], **kw)
+        assert calls == ["ipm_iterate_struct"]
+        assert ipm_kernel.struct_tier(3, 0, 5, 5, 3, tri).tier == "device"
+        assert bool(torch.isfinite(dev.x).all())
+        # past the device tier's own carve the shape is refused, naming
+        # the stage statement
+        monkeypatch.setattr(ipm_kernel, "SMEM_LIMIT_BYTES",
+                            ipm_kernel.smem_bytes(3, 0, 5, 5, 3, tri,
+                                                  device=True) - 1)
         with pytest.raises(NotImplementedError, match="banded stage"):
             tqp.solve_qp_batched(None, ta["q"], None, ta["h"], ta["lb"],
                                  ta["ub"], **kw)

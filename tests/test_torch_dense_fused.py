@@ -245,7 +245,8 @@ def test_dense_carve_at_frog_fits_four_ctas():
     frog = ik.dense_smem_bytes(440, 21, 1, 20, True, True, n_cor=0)
     assert frog == 56_568
     assert 4 * (frog + 1024) <= 228 * 1024
-    assert ik.check_dense_smem_gate(440, 21, 1, 20, True, 0) == (frog, True)
+    assert ik.dense_tier(440, 21, 1, 20, True, 0) \
+        == ("shared", frog, 0, True)
     with_cor = ik.dense_smem_bytes(440, 21, 1, 20, True, True, n_cor=1)
     assert with_cor == frog + 4 * (440 + 42)
     assert with_cor == _old_dense_smem_bytes(440, 21, 1, 20, True, True) + 16
@@ -255,29 +256,66 @@ def test_dense_carve_at_frog_fits_four_ctas():
 
 @pytest.mark.parametrize("schur", [True, False])
 def test_dense_gate_admits_no_fewer_shapes(schur):
-    """The route and the gate follow the new carve and admit every shape
-    (and every G in shared memory) the one-iteration kernel admitted; past
-    the limit the gate raises."""
+    """The route and the shared tier follow the new carve and admit every
+    shape (and every G in shared memory) the one-iteration kernel admitted;
+    past it the device tier takes the shape (the factor in device memory,
+    G too) with the rest of the carve, and only past that the tier
+    function raises, naming the bytes."""
     ik = ipm_kernel
     limit = ik.SMEM_LIMIT_BYTES
     for mg in (12, 120, 440, 900, 2000, 6000, 20000):
         for nb, d in ((1, 20), (4, 16), (0, 0), (2, 7), (8, 20)):
             n = max(nb * d, 20) + 1
+            nk = n - 1 if schur else n
             old_fits = _old_dense_smem_bytes(mg, n, nb, d, schur,
                                              False) <= limit
             assert ik.fits_dense_smem(mg, n, nb, d, schur) == old_fits
             for n_cor in (0, 1, 2):
+                rest = ik.dense_smem_bytes(mg, n, nb, d, schur, False, n_cor,
+                                           device=True)
+                assert rest == ik.dense_smem_bytes(
+                    mg, n, nb, d, schur, False, n_cor) - 4 * nk * (nk | 1)
                 if not old_fits:
-                    with pytest.raises(NotImplementedError):
-                        ik.check_dense_smem_gate(mg, n, nb, d, schur, n_cor)
+                    if rest > limit:
+                        with pytest.raises(NotImplementedError,
+                                           match=f"{rest} bytes"):
+                            ik.dense_tier(mg, n, nb, d, schur, n_cor)
+                        continue
+                    assert ik.dense_tier(mg, n, nb, d, schur, n_cor) \
+                        == ("device", rest, nk * ik.kkt_ld(nk, True), False)
                     continue
-                need, g_smem = ik.check_dense_smem_gate(mg, n, nb, d, schur,
-                                                         n_cor)
-                assert need == ik.dense_smem_bytes(mg, n, nb, d, schur,
-                                                   g_smem, n_cor) <= limit
+                t = ik.dense_tier(mg, n, nb, d, schur, n_cor)
+                assert t.tier == "shared" and t.workspace_floats == 0
+                assert t.smem_bytes == ik.dense_smem_bytes(
+                    mg, n, nb, d, schur, t.g_smem, n_cor) <= limit
                 old_g = _old_dense_smem_bytes(mg, n, nb, d, schur,
                                               True) <= limit
-                assert g_smem or not old_g
+                assert t.g_smem or not old_g
+
+
+def test_dense_tier_at_the_hp64_qp():
+    """Path (h)'s dense QP (circle-4, hp = 64: mg = 384, n = 257, four 64 x
+    64 P blocks, the slack eliminated): 370,416 bytes with the factor, past
+    a block; the device tier holds it in 107,248 (the 256 x 257 factor,
+    263,168 bytes, in a workspace of 256 rows of 256 floats), and the route
+    takes K2 there under kkt="dense" and, without a stage statement, under
+    "auto"."""
+    ik = ipm_kernel
+    assert ik.dense_smem_bytes(384, 257, 4, 64, True, False) == 370_416
+    assert ik.dense_tier(384, 257, 4, 64, True) \
+        == ("device", 107_248, 256 * 256, False)
+    assert ik.dense_tier(440, 21, 1, 20, True, 0, tier="device") \
+        == ("device", 56_568 - 4 * 20 * 21 - 4 * (440 * 21 + 4),
+            20 * 32, False)
+    q, h = torch.zeros((1, 257)), torch.zeros((1, 384))
+    pb = torch.zeros((1, 4, 64, 64))
+    for kkt in ("dense", "auto"):
+        assert tqp._route(q, h, None, fixed_iters=7, p_blocks=pb,
+                          slack_schur=True, g_struct=None, g_slabs=None,
+                          banded=None, kkt=kkt) == "dense"
+    assert tqp._route(q, h, None, fixed_iters=7, p_blocks=pb,
+                      slack_schur=True, g_struct=None, g_slabs=None,
+                      banded=object(), kkt="auto") == "banded"
 
 
 @pytest.mark.parametrize("B,sms,want", [

@@ -173,11 +173,15 @@ def test_failed_factorization_freezes_instead_of_raising():
 
 
 def test_shared_memory_gate():
-    # bench shape fits three times into an SM's shared memory
+    """The bench shape fits three times into an SM's shared memory and takes
+    the shared tier with that carve; circle-4 at hp = 64 (nu = 256) no
+    longer raises: the device tier takes it."""
     assert ik.smem_bytes(6, 0, 20, 20, 4) < ik.SMEM_LIMIT_BYTES // 3
-    assert ik.check_smem_gate(6, 0, 20, 20, 4) == ik.smem_bytes(6, 0, 20, 20, 4)
-    with pytest.raises(NotImplementedError, match="banded KKT path"):
-        ik.check_smem_gate(6, 0, 64, 64, 4)
+    assert ik.struct_tier(6, 0, 20, 20, 4) \
+        == ("shared", ik.smem_bytes(6, 0, 20, 20, 4), 0, False)
+    t = ik.struct_tier(6, 0, 64, 64, 4)
+    assert t.tier == "device" and t.smem_bytes <= ik.SMEM_LIMIT_BYTES
+    assert t.workspace_floats == 256 * 256
 
 
 # Shared memory an H100 SM offers CTAs (228 KB), and what it reserves for
@@ -194,9 +198,11 @@ def test_carve_and_gate(case):
     """The structured kernel's shared-memory carve (``smem_bytes``, which
     the launcher checks against the kernel's own): at the bench shape
     (P = 6, hp = hu = 20, V = 4, lower-triangular slabs, stored packed) four
-    CTAs share an SM; the gate admits that shape and refuses hp = 64
-    (the banded path's); the carve grows with hp and with P, and packing
-    never takes more than whole rows."""
+    CTAs share an SM; the shared tier admits that shape and not hp = 64,
+    which the device tier takes (the factor and the slabs out of shared
+    memory) and the ``kkt="auto"`` route sends to the banded path; past the
+    device tier too the tier function raises; the carve grows with hp and
+    with P, and packing never takes more than whole rows."""
     bench = (6, 0, 20, 20, 4)
     if case == "four_ctas_at_bench_shape":
         need = ik.smem_bytes(*bench, lower_tri=True)
@@ -205,13 +211,19 @@ def test_carve_and_gate(case):
         assert 4 * (ik.smem_bytes(*bench) + CTA_RESERVED_BYTES) \
             > SM_SHARED_BYTES
     elif case == "gate_admits_bench_refuses_hp64":
-        assert ik.check_smem_gate(*bench, lower_tri=True) \
-            == ik.smem_bytes(*bench, lower_tri=True)
-        assert ik.fits_smem(*bench)
+        assert ik.struct_tier(*bench, lower_tri=True) \
+            == ("shared", ik.smem_bytes(*bench, lower_tri=True), 0, False)
+        assert ik.fits_smem(*bench) and ik.fits_smem(*bench, lower_tri=True)
         for tri in (False, True):
-            with pytest.raises(NotImplementedError, match="banded KKT path"):
-                ik.check_smem_gate(6, 0, 64, 64, 4, lower_tri=tri)
-        assert not ik.fits_smem(6, 0, 64, 64, 4)
+            assert not ik.fits_smem(6, 0, 64, 64, 4, tri)
+            t = ik.struct_tier(6, 0, 64, 64, 4, lower_tri=tri)
+            assert t == ("device", ik.smem_bytes(6, 0, 64, 64, 4, tri, True),
+                         256 * 256, False)
+            with pytest.raises(NotImplementedError,
+                               match="banded KKT path") as err:
+                ik.struct_tier(6, 0, 200, 200, 4, lower_tri=tri)
+            assert str(ik.smem_bytes(6, 0, 200, 200, 4, tri, True)) \
+                in str(err.value)
     elif case in ("grows_with_hp", "grows_with_P"):
         for tri in (False, True):
             if case == "grows_with_hp":
@@ -229,6 +241,85 @@ def test_carve_and_gate(case):
                     <= ik.slab_words(hp, hu, False) == hp * hu
                 assert ik.smem_bytes(3, 2, hp, hu, 3, lower_tri=True) \
                     <= ik.smem_bytes(3, 2, hp, hu, 3)
+
+
+# (P, S, hp, hu, V, lower_tri) -> (tier, shared bytes, workspace floats):
+# the bench shape, the side-selection QP of parallel-11 (55 pairs, 44
+# obstacle + 22 hard rate slabs) at hp = 10 / 16 / 20, circle-4 at hp = 64,
+# circle-8 at hp = 20 and circle-16 at hp = 10 (in the shared tier only
+# with their slabs packed), circle-16 at hp = 16. In the device tier the
+# bytes are the rest of the carve (the vectors, the P blocks, the slack
+# column, the tables) and the workspace nu rows of nu rounded up to 32.
+TIER_SHAPES = {
+    "bench": ((6, 0, 20, 20, 4, True), ("shared", 56_192, 0)),
+    "parallel11_hp10": ((55, 66, 10, 10, 11, True), ("shared", 153_668, 0)),
+    "parallel11_hp16": ((55, 66, 16, 16, 11, True),
+                        ("device", 109_140, 176 * 192)),
+    "parallel11_hp20": ((55, 66, 20, 20, 11, True),
+                        ("device", 139_588, 220 * 224)),
+    "circle4_hp64": ((6, 0, 64, 64, 4, True), ("device", 108_896, 256 * 256)),
+    "circle8_hp20": ((28, 0, 20, 20, 8, True), ("shared", 203_280, 0)),
+    "circle16_hp10": ((120, 0, 10, 10, 16, True), ("shared", 229_744, 0)),
+    "circle16_hp16": ((120, 0, 16, 16, 16, True),
+                      ("device", 123_056, 256 * 256)),
+}
+# whole carves (shared tier) of the shapes past it, for the record
+WHOLE_CARVES = {"parallel11_hp16": 329_492, "parallel11_hp20": 481_908,
+                "circle4_hp64": 471_904, "circle16_hp16": 516_784}
+
+
+@pytest.mark.parametrize("name", sorted(TIER_SHAPES))
+def test_struct_tier_at_real_shapes(name):
+    """The tier function at the side-selection, long-horizon and circle-8 /
+    16 shapes: the shared tier where the packed carve fits a block (232,448
+    bytes), the device tier past it, with the device tier's carve the whole
+    one less the factor and the slabs; forcing the device tier gives the
+    same carve at every shape."""
+    shape, want = TIER_SHAPES[name]
+    P, S, hp, hu, V, tri = shape
+    t = ik.struct_tier(*shape)
+    assert (t.tier, t.smem_bytes, t.workspace_floats) == want
+    whole = ik.smem_bytes(*shape)
+    nu = V * hu
+    rest = whole - 4 * (nu * (nu | 1)
+                        + (2 * P + S) * ik.slab_words(hp, hu, tri))
+    assert ik.smem_bytes(*shape, device=True) == rest
+    assert ik.struct_tier(*shape, tier="device") \
+        == ("device", rest, nu * ik.kkt_ld(nu, True), False)
+    if t.tier == "device":
+        assert whole == WHOLE_CARVES[name] > ik.SMEM_LIMIT_BYTES
+        assert not ik.fits_smem(*shape)
+    else:
+        assert whole == want[1] <= ik.SMEM_LIMIT_BYTES
+        assert ik.fits_smem(*shape)
+    assert ik.kkt_ld(nu, True) % 32 == 0 and ik.kkt_ld(nu, False) % 2 == 1
+
+
+def test_struct_tier_raises_only_past_the_device_tier():
+    """Past the device tier's own carve (parallel-11 at hp = 64: 567,444
+    bytes of vectors alone) the tier function raises, naming the bytes and
+    the whole carve; only the device tier can be forced."""
+    with pytest.raises(NotImplementedError,
+                       match="567444 bytes .* device tier .*4017044 with"):
+        ik.struct_tier(55, 66, 64, 64, 11, True)
+    with pytest.raises(ValueError, match="unknown tier"):
+        ik.struct_tier(6, 0, 20, 20, 4, True, tier="shared")
+
+
+def test_device_tier_keyword_runs_the_plain_version_on_the_cpu():
+    """``tier="device"`` only picks where the kernel keeps its working set:
+    on CPU tensors the wrapper runs the plain version, bit for bit the call
+    without it, and the plain version takes the keyword too."""
+    arrs, pairs, obst_veh = kernel_inputs(B=3, V=2, hp=4, hu=4, n_obst=1,
+                                          seed=8)
+    kw = dict(pairs=pairs, obst_veh=obst_veh, tol=1e-6, reg_rel=3e-6,
+              n_iters=3, lower_tri=True)
+    args = torch_kernel_args(arrs)
+    want = ik.ipm_iterate_struct(*args, **kw)
+    for fn in (ik.ipm_iterate_struct, ik.ipm_iterate_struct_plain):
+        got = fn(*args, **kw, tier="device")
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ik.launch_count == ik.device_launch_count == 0
 
 
 @pytest.mark.parametrize("breakage", ["shape", "dtype", "pairs", "order"])

@@ -519,10 +519,19 @@ def test_fixed_count_routes_and_dense_rows(monkeypatch, kind, route):
 
 def test_calibrated_parallel11_k1_gate():
     """Parallel-11's side-selection QP (55 pairs, 44 obstacle + 22 rate
-    slabs): at hp = 10 one K1 CTA per SM holds it; at hp = 20 the gate
-    refuses it loudly, naming the bytes."""
+    slabs): at hp = 10 one K1 CTA per SM holds it in the shared tier; at
+    hp = 16 and 20 its whole carve (329,492 / 481,908 bytes) is past a
+    block's shared memory and K1's device tier takes it (the factor and the
+    slabs in device memory, 109,140 / 139,588 bytes of the rest); only past
+    that tier (hp = 64) the tier function refuses, naming the bytes."""
     assert ipm_kernel.smem_bytes(55, 66, 10, 10, 11, lower_tri=True) \
         == 153_668
-    assert ipm_kernel.check_smem_gate(55, 66, 10, 10, 11, True) == 153_668
-    with pytest.raises(NotImplementedError, match="481908 bytes"):
-        ipm_kernel.check_smem_gate(55, 66, 20, 20, 11, lower_tri=True)
+    assert ipm_kernel.struct_tier(55, 66, 10, 10, 11, True) \
+        == ("shared", 153_668, 0, False)
+    for hp, whole, rest in ((16, 329_492, 109_140), (20, 481_908, 139_588)):
+        assert ipm_kernel.smem_bytes(55, 66, hp, hp, 11, True) == whole
+        nu = 11 * hp
+        assert ipm_kernel.struct_tier(55, 66, hp, hp, 11, lower_tri=True) \
+            == ("device", rest, nu * ((nu + 31) // 32 * 32), False)
+    with pytest.raises(NotImplementedError, match="567444 bytes"):
+        ipm_kernel.struct_tier(55, 66, 64, 64, 11, lower_tri=True)

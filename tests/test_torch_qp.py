@@ -195,29 +195,43 @@ def test_unported_branches_raise(breakage):
 
 
 def test_auto_kkt_refuses_shapes_beyond_shared_memory():
-    """The structured kernel's gate refuses the hp = 64 circle-4 shape
-    (n = 257) loudly, and qp_kkt="auto" routes by it: the structured kernel
-    at the bench shape, the banded branch past the gate given a stage
-    statement, a refusal naming the stage statement without one."""
+    """qp_kkt="auto" routes by K1's shared-memory tier, with the slabs as
+    the launch stores them (packed under lower_tri): the structured kernel
+    at the bench shape and at circle-8, hp = 20 / circle-16, hp = 10 (which
+    fit only packed), the banded branch past the tier given a stage
+    statement (circle-4, hp = 64), and without one K1's device tier — the
+    fallback scp_tpu takes there too; kkt="dense" takes the fused kernel in
+    either tier. Only past the device tier (hp = 200) the route refuses,
+    naming the stage statement."""
     from scp_tpu_torch.ops import ipm_kernel
-    with pytest.raises(NotImplementedError, match="banded KKT path"):
-        ipm_kernel.check_smem_gate(P=6, S=0, hp=64, hu=64, V=4)
+    assert ipm_kernel.struct_tier(P=6, S=0, hp=64, hu=64, V=4).tier \
+        == "device"
     assert ipm_kernel.fits_smem(6, 0, 20, 20, 4)
     assert not ipm_kernel.fits_smem(6, 0, 64, 64, 4)
 
-    def route(hp, banded):
-        pairs = tuple((i, j) for i in range(4) for j in range(i + 1, 4))
-        return tqp._route(torch.zeros((1, 4 * hp + 1)),
-                          torch.zeros((1, 6 * hp)), None, fixed_iters=7,
-                          p_blocks=torch.zeros((1, 4, hp, hp)),
+    def route(hp, banded, V=4, kkt="auto"):
+        pairs = tuple((i, j) for i in range(V) for j in range(i + 1, V))
+        return tqp._route(torch.zeros((1, V * hp + 1)),
+                          torch.zeros((1, len(pairs) * hp)), None,
+                          fixed_iters=7,
+                          p_blocks=torch.zeros((1, V, hp, hp)),
                           slack_schur=True,
                           g_struct=(pairs, (), hp, hp, True),
-                          g_slabs=(), banded=banded, kkt="auto")
+                          g_slabs=(), banded=banded, kkt=kkt)
 
     assert route(20, None) == "struct"
     assert route(64, object()) == "banded"
+    assert route(64, None) == "struct"
+    assert route(64, object(), kkt="dense") == "struct"
+    # packed, these fit the shared tier; with whole slab rows they would not
+    for V, hp in ((8, 20), (16, 10)):
+        P = V * (V - 1) // 2
+        assert ipm_kernel.fits_smem(P, 0, hp, hp, V, True)
+        assert not ipm_kernel.fits_smem(P, 0, hp, hp, V)
+        assert route(hp, object(), V=V) == "struct"
     with pytest.raises(NotImplementedError, match="banded stage statement"):
-        route(64, None)
+        route(200, None)
+    assert route(200, object()) == "banded"
     with pytest.raises(ValueError):
         _, ta = _qp_data("circle", 2, 6, np.float64, n_veh=2, radius=8.0)
         tqp.solve_qp_batched(None, ta["q"], None, ta["h"], ta["lb"], ta["ub"],

@@ -162,3 +162,37 @@ def test_tuned_f32_side_selection_routes(monkeypatch, kind, n_veh, b,
     for name, val in out._asdict().items():
         if val.is_floating_point():
             assert bool(torch.isfinite(val).all()), name
+
+
+def test_parallel11_past_the_shared_tier_matches_scp_tpu(monkeypatch):
+    """Side selection at parallel-11, hp = hu = 16 — a QP past K1's shared
+    tier (329,492 bytes), which the port runs in K1's device tier where
+    scp_tpu falls back from its fused kernel to its XLA path: one step,
+    B = 1, float64, 12 fixed IPM iterations a round and 8 a candidate, the
+    port on the CPU (the plain version of both tiers) against scp_tpu's
+    mpc_step_batch to U_TOL, with the same selections. Both launches (the 5
+    candidates, then the round) take the structured route, in the device
+    tier."""
+    over = dict(SMALL, hp=16, hu=16, qp_fixed_iters=12,
+                side_selection_cand_iters=8)
+    cfg_j, data_j, cfg_t, data_t = scenario_pair(
+        "parallel", 1, seed=11, cfg_over=over, n_veh=11)
+    carry_j = jax.vmap(lambda d: jengine.init_carry(cfg_j, d))(data_j)
+    step = jit_fast(lambda d, c: jengine.mpc_step_batch(cfg_j, d, c),
+                    data_j, carry_j)
+    _, out_j = step(data_j, carry_j)
+    out_j = jax.tree_util.tree_map(np.asarray, out_j)
+
+    tiers, real = [], ipm_kernel.ipm_iterate_struct
+
+    def spy(*a, **k):
+        gi, gob, pb = a[0], a[2], a[4]
+        tiers.append((gi.shape[0], k["n_iters"], ipm_kernel.struct_tier(
+            gi.shape[1], gob.shape[1], gi.shape[2], gi.shape[3],
+            pb.shape[1], k["lower_tri"]).tier))
+        return real(*a, **k)
+    monkeypatch.setattr(ipm_kernel, "ipm_iterate_struct", spy)
+    _, out_t = tengine.mpc_step_batch(cfg_t, data_t,
+                                      tengine.init_carry(cfg_t, data_t))
+    assert tiers == [(5, 8, "device"), (1, 12, "device")]
+    _compare(out_t, out_j)
