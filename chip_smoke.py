@@ -47,8 +47,9 @@ read just after:
 * (g) the calibrated one-scenario controller at the long horizon —
   ``mpc_step`` of one circle-4 scenario at hp = 64 under ``tuned_f32`` as
   it stands (``qp_kkt="auto"``: per instance the dense KKT, so the factor
-  and the solve at n = 257, B = 1, past the shared-memory kernels; no
-  Riccati sweep, no K1), 6 steps of latency, step 0 through the plain
+  and the solve at n = 257, B = 1, past the shared-memory kernels: the
+  factor over a thread block cluster of 8 CTAs; no Riccati sweep, no K1),
+  6 steps of latency, step 0 through the plain
   versions and in float64, and against the banded one-scenario step's
   step 0 (the same QPs through the banded KKT);
 * (h) one QP of the adaptive dense branch at hp = 64, B = 256 — the
@@ -70,16 +71,19 @@ read just after:
 * (iii) ONE nominal frog scenario under the same controller through
   ``mpc_step`` for the full closed loop: step latency, two K2 and two
   G-product launches a step (5 and 1 wide);
-* (l) the shapes past one block's shared memory, where the fused IPM
-  kernels keep the KKT matrix and its factor in device memory (their
-  device tier): (l1) side selection at parallel-11, hp = hu = 20, B = 256
-  (two K1 launches a step in the device tier, 1280 and 256 wide), (l2)
-  circle-4 at hp = 64, B = 256, ``tuned_f32`` with ``qp_kkt="dense"`` (K1's
-  device tier at nu = 256; step 0 also against the long-horizon path's
-  banded step), (l3) that path's first QP on its dense rows through K2's
-  device tier (n = 257), (l4) each kernel forced into its device tier
-  against its shared tier on identical inputs at the bench and frog
-  shapes (bit for bit expected), (l5) circle-16 at hp = 10, B = 256
+* (l) the shapes past one block's shared memory, where K1 keeps the KKT
+  matrix and its factor in the shared memory of a thread block cluster
+  (its cluster tier) and K2 in device memory (its device tier): (l1) side
+  selection at parallel-11, hp = hu = 20, B = 256 (two K1 launches a step
+  in the cluster tier, 1280 and 256 wide, each first launch bit for bit
+  K1's device tier forced and timed beside it), (l2) circle-4 at hp = 64,
+  B = 256, ``tuned_f32`` with ``qp_kkt="dense"`` (K1's cluster tier at
+  nu = 256, the full width against the device tier likewise; step 0 also
+  against the long-horizon path's banded step), (l3) that path's first QP
+  on its dense rows through K2's device tier (n = 257), (l4) each kernel
+  forced into its device tier, and K1 into its cluster tier, against its
+  shared tier on identical inputs at the bench and frog shapes (bit for
+  bit expected), (l5) circle-16 at hp = 10, B = 256
   (``TUNED_F32_V16``: K1's shared tier with its slabs packed) and (l6) the
   DEFAULT (adaptive) side-selection settings on frog, B = 64 (the factor,
   the solve and both G products);
@@ -119,8 +123,11 @@ state kept, as there). The Cholesky, solve and G-product kernels are also
 held at their edges: the factor and the solve at n = 1, 15, 16, 17, 32, 33,
 81, 239 and B = 1, 3, 1023 (across their 16-column panels and blocks) with
 an indefinite instance (a NaN factor) among good ones, and past the
-shared-memory kernels at n = 240, 257, 330, 400 and B = 1, 256, 1024 (1024
-up to n = 257) with an indefinite instance among good ones at n = 257; both
+shared-memory kernels at n = 240, 257, 330, 400 and B = 1, 256, 1024 (the
+factor over a thread block cluster, each case also bit for bit the one-CTA
+kernel with the matrix in device memory) with an indefinite instance among
+good ones at n = 257 (again over 8 CTAs, its failing pivot on rank 6, alone
+and among good ones); both
 G products on the dense P shape (1024, 81, 81) with unaligned instance
 bases, views that start 4 bytes past a 16-byte boundary, a tile larger than
 one stage (900 x 65), B = 1, the hp = 64 shape (256, 384, 257) and rows
@@ -219,6 +226,7 @@ FLAGS_AGREE_FLOOR = 0.99
 # n past the shared-memory factor and solve (from 240 the matrix stays in
 # device memory): the hp = 64 shape's 257, and two more above it
 LARGE_NS = (240, 257, 330, 400)
+LARGE_WIDTHS = (1, 256, 1024)   # the batch widths of every large-n case
 
 # Published peaks of one H100 SXM (dense, no sparsity).
 PEAK_F32_FLOPS = 67e12
@@ -634,14 +642,30 @@ def linalg_boundary_cases(dev, real, plain) -> None:
                      "_vs_plain", real["cho_solve"], plain["cho_solve"],
                      (L, rhs), FIRST_ITER_REL_LIMIT)
 
-    # past the shared-memory kernels (n >= 240: the matrix in device
-    # memory), B = 1 / 256 / 1024 (1024 up to the hp = 64 shape's n = 257)
+    # past the shared-memory kernels (n >= 240), B = 1 / 256 / 1024: the
+    # factor over a thread block cluster (chol_cluster_kernel) against the
+    # plain version, and bit for bit the one-CTA large-n kernel
+    # (chol_large_kernel, the matrix in device memory, forced with
+    # variant="device") on the same inputs: every entry takes the same
+    # operations in the same order in both
     for n in LARGE_NS:
-        for b in (1, 256, 1024):
-            if b == 1024 and n > 257:
-                continue
-            check_factor(f"large_n{n}_B{b}", spd(b, n), real["cholesky"],
+        for b in LARGE_WIDTHS:
+            K = spd(b, n)
+            if lk.chol_route(b, n) != "cluster":
+                fail(f"n = {n}, B = {b}: the factor is routed to "
+                     f"{lk.chol_route(b, n)}, the cluster kernel wanted")
+            check_factor(f"large_n{n}_B{b}", K, real["cholesky"],
                          plain["cholesky"], True)
+            same = torch.equal(real["cholesky"](K),
+                               lk.cholesky(K, variant="device"))
+            emit({"phase": "kernel_vs_plain", "kernel": "cholesky_cluster",
+                  "case": f"large_n{n}_B{b}_vs_chol_large_kernel",
+                  "cluster_ctas": lk.chol_cluster_geometry(b, n)[0],
+                  "bit_identical": same})
+            if not same:
+                fail(f"n = {n}, B = {b}: the cluster factor differs from "
+                     f"chol_large_kernel's on the same inputs")
+            del K
             L = plain["cholesky"](spd(b, n)).contiguous()
             rhs = torch.randn((b, n), generator=gen, device=dev)
             check_vector("cho_solve", f"large_n{n}_B{b}", real["cho_solve"],
@@ -669,6 +693,28 @@ def linalg_boundary_cases(dev, real, plain) -> None:
              f"and leave the other instances alone")
     check_factor(f"large_n{n}_one_indefinite_among_good_vs_plain", K,
                  real["cholesky"], plain["cholesky"], True)
+    # ... again over a cluster of 8 CTAs, the failing pivot (row 100,
+    # stripe 6) on rank 6: alone (B = 1) and among good instances (B = 3)
+    for b in (1, 3):
+        K = spd(b, n)
+        L_good = real["cholesky"](K)
+        bad = b // 2
+        K[bad, 100, 100] = -1.0
+        L = real["cholesky"](K)
+        torch.cuda.synchronize()
+        geo = lk.chol_cluster_geometry(b, n)
+        owner = lk.stripe_deal(n, geo[0])[0][100 // lk.CHOL_STRIPE]
+        others = [i for i in range(b) if i != bad]
+        nan_ok = (bool(torch.isnan(L[bad]).all())
+                  and torch.equal(L[others], L_good[others])
+                  and geo[0] == 8 and owner != 0)
+        emit({"phase": "kernel_vs_plain", "kernel": "cholesky_cluster",
+              "case": f"large_n{n}_B{b}_indefinite_pivot_on_rank_{owner}",
+              "cluster_ctas": geo[0], "nan_there_only": nan_ok})
+        if not nan_ok:
+            fail(f"n = {n}, B = {b}, a cluster of {geo[0]}: a pivot that "
+                 f"fails on rank {owner} must make that instance NaN and "
+                 f"leave the others alone")
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -1713,12 +1759,14 @@ def reset_counts() -> None:
 def launch_counts() -> dict:
     """Every kernel's launches since :func:`reset_counts` (K1 and K2 in
     their shared-memory tier under the wrappers' names, in their device
-    tier with ``_device``)."""
+    tier with ``_device``, K1 in its cluster tier with ``_cluster``; the
+    large-n factor over a cluster as ``cholesky_cluster``)."""
     from scp_tpu_torch.ops import ipm_kernel, linalg_kernel as lk
     from scp_tpu_torch.ops import riccati_kernel as rk
     return {"ipm_iterate_struct": ipm_kernel.launch_count,
             "ipm_iterate_dense": ipm_kernel.dense_launch_count,
             "ipm_iterate_struct_device": ipm_kernel.device_launch_count,
+            "ipm_iterate_struct_cluster": ipm_kernel.cluster_launch_count,
             "ipm_iterate_dense_device": ipm_kernel.dense_device_launch_count,
             **lk.launch_counts, **rk.launch_counts}
 
@@ -1822,6 +1870,10 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
 
     names = ("cholesky", "cho_solve", "gmv", "gtmv")
     real, plain = real_of(*names), plain_of(*names)
+
+    def large_kernel(K):
+        return lk.cholesky(K, variant="device")
+
     library = {
         "cholesky": lambda K: torch.linalg.cholesky_ex(K)[0],
         "cho_solve": lambda L, b: torch.cholesky_solve(b[:, :, None], L)}
@@ -1844,7 +1896,16 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
     reports = {
         "cholesky": {"name": "cholesky_large_n", "replaces":
                      "scp_tpu/ops/pallas_linalg.py:220",
-                     "also_replaces": "scp_tpu/ops/pallas_linalg.py:305"},
+                     "also_replaces": "scp_tpu/ops/pallas_linalg.py:305",
+                     "kernel": "chol_large_kernel (variant='device'): off "
+                               "the main path since the cluster factor, "
+                               "which takes every n up to its capacity"},
+        "cholesky_cluster": {"name": "cholesky_cluster", "replaces":
+                             "scp_tpu/ops/pallas_linalg.py:220",
+                             "also_replaces":
+                                 "scp_tpu/ops/pallas_linalg.py:305",
+                             "kernel": "chol_cluster_kernel "
+                                       "(csrc/chol_cluster.cuh)"},
         "cho_solve": {"name": "cho_solve_large_n", "replaces":
                       "scp_tpu/ops/pallas_linalg.py:241",
                       "also_replaces": "scp_tpu/ops/pallas_linalg.py:340"}}
@@ -1912,7 +1973,8 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
              "config": "tuned_f32 as it stands (qp_kkt=auto: solve_scp -> "
                        "solve_qp with the dense KKT), 7 fixed IPM iterations",
              "feasible_share": g_feas, "feasible_floor": SIM_FEASIBLE_FLOOR,
-             "launches_per_step": {k: counts[k] / calls for k in names},
+             "launches_per_step": {k: counts[k] / calls for k in
+                                   names + ("cholesky_cluster",)},
              "step0_launches": step0_counts,
              "riccati_and_k1_launches": [others0, others],
              "latency_reps": LATENCY_REPS,
@@ -1933,10 +1995,11 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
              "vs_banded_limit": "2 x (dense + banded plain float32 "
                                 "distances from float64) + u_pred limit"}
     emit(g_rep)
-    if min(step0_counts["cholesky"], step0_counts["cho_solve"],
-           counts["cholesky"], counts["cho_solve"]) == 0:
-        fail(f"path (g) did not launch the factor and the solve: "
-             f"{step0_counts}, {counts}")
+    if min(step0_counts["cholesky_cluster"], step0_counts["cho_solve"],
+           counts["cholesky_cluster"], counts["cho_solve"]) == 0 \
+            or step0_counts["cholesky"] or counts["cholesky"]:
+        fail(f"path (g) did not launch the cluster factor and the solve, "
+             f"or launched another factor: {step0_counts}, {counts}")
     if max(others0 + others) != 0:
         fail(f"path (g) launched the Riccati sweeps or K1: {others0}, "
              f"{others}")
@@ -1948,10 +2011,16 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
     if ge > 2 * (pd + e_pd) + UPRED_ABS_LIMIT:
         fail(f"path (g) step 0 against the banded path (e): {ge}, limit "
              f"{2 * (pd + e_pd) + UPRED_ABS_LIMIT}")
-    for k in ("cholesky", "cho_solve"):
+    for k in ("cholesky", "cholesky_cluster", "cho_solve"):
         reports[k]["launches"] = counts[k]
         reports[k]["launches_per_step_path_g"] = counts[k] / calls
-    reports["cholesky"]["max_abs_err"] = rep_f["kernel_vs_plain_max_abs"]
+    reports["cholesky_cluster"]["max_abs_err"] = \
+        rep_f["kernel_vs_plain_max_abs"]
+    # chol_large_kernel forced on the same step-0 inputs
+    reports["cholesky"]["max_abs_err"] = check_factor(
+        "one_scenario_dense_hp64_step0_B1_chol_large_kernel",
+        first["cholesky"][0], large_kernel, plain["cholesky"],
+        True)["kernel_vs_plain_max_abs"]
     reports["cho_solve"]["max_abs_err"] = rep_s["kernel_vs_plain_max_abs"]
 
     # ---- (h) one QP of the adaptive dense branch, hp = 64, B = 256 ----
@@ -2030,8 +2099,10 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
              "u_plain_vs_f64_max": float(h_pd.max()), **y,
              "limits": RUN_LIMITS}
     emit(h_rep)
-    if min(h_counts.values()) == 0:
-        fail(f"path (h) did not launch every kernel: {h_counts}")
+    if min(h_counts[k] for k in ("cholesky_cluster", "cho_solve", "gmv",
+                                 "gtmv")) == 0 or h_counts["cholesky"]:
+        fail(f"path (h) did not launch every kernel (the factor: the "
+             f"cluster kernel): {h_counts}")
     if run_off_limits(h_rep, "converged"):
         fail(f"path (h), kernels vs plain: {h_rep}")
     # the kernels on the path's own first-iteration inputs at B = 256
@@ -2049,25 +2120,54 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
 
     # ---- times (n = 257: path (h)'s B = 256, path (g)'s B = 1) ----
     times = {"phase": "large_n_times", "card": card, "cells": {}}
-    for k in ("cholesky", "cho_solve"):
-        cells = {w: large_n_times(k, a, real[k], plain[k], library[k], n)
-                 for w, a in (("256", first[k]), ("1", g_args[k]))}
+    for k, kernel in (("cholesky_cluster", real["cholesky"]),
+                      ("cholesky", large_kernel),
+                      ("cho_solve", real["cho_solve"])):
+        kk = "cho_solve" if k == "cho_solve" else "cholesky"
+        cells = {w: large_n_times(kk, a, kernel, plain[kk], library[kk], n)
+                 for w, a in (("256", first[kk]), ("1", g_args[kk]))}
         times["cells"][k] = cells
         reports[k].update({key: cells["256"].get(key) for key in (
             "ms", "cold_ms", "plain_ms", "library_ms", "library_cold_ms",
             "bound_ms", "bound_by")})
         reports[k]["B"], reports[k]["n"] = B, n
         reports[k]["ms_B1"] = cells["1"]["ms"]
+        reports[k]["library_ms_B1"] = cells["1"]["library_ms"]
+    # the cluster factor, chol_large_kernel and cholesky_ex in the same
+    # call at every LARGE_NS x B (seeded SPD inputs; device time by graph
+    # replay), with the cluster's size
+    gen = torch.Generator(device=dev).manual_seed(LONG_HP)
+    grid = {}
+    for nn in LARGE_NS:
+        for w in LARGE_WIDTHS:
+            a = torch.randn((w, nn, nn), generator=gen, device=dev)
+            K = a @ a.transpose(1, 2) / nn + torch.eye(nn, device=dev)
+            del a
+            grid[f"n{nn}_B{w}"] = {
+                "cluster_ctas": lk.chol_cluster_geometry(w, nn)[0],
+                "cluster_ms": graph_ms(lambda: real["cholesky"](K), 5),
+                "chol_large_kernel_ms": graph_ms(lambda: large_kernel(K), 5),
+                "cholesky_ex_ms": graph_ms(lambda: library["cholesky"](K),
+                                           5),
+                "bound_ms": linalg_bound_ms("cholesky", w, nn)[0]}
+            del K
+    times["factor_grid"] = grid
+    slow = [k for k, c in grid.items()
+            if c["cluster_ms"] > c["chol_large_kernel_ms"]
+            or (k.endswith("_B1") and c["cluster_ms"] > c["cholesky_ex_ms"])]
+    times["factor_grid_cluster_slower"] = slow
+    reports["cholesky_cluster"]["factor_grid"] = grid
     # the bounds of every large-n case timed by scripts/torch_kernel_check.py
-    # --times k3k4large (n = 240 / 257 / 400 at B = 1024 / 256 / 1)
+    # --times k3k4large (n = 240 / 257 / 330 / 400 at B = 1024 / 256 / 1)
     times["bounds_ms"] = {f"{k}_n{nn}_B{w}": linalg_bound_ms(k, w, nn)
                           for k in ("cholesky", "cho_solve")
-                          for nn in (240, 257, 400) for w in (1024, 256, 1)}
+                          for nn in LARGE_NS for w in (1024, 256, 1)}
     times["bounds_ms"]["gtmv_m384_n257_B256"] = linalg_bound_ms(
         "gtmv", B, n, G.shape[1])
     emit(times)
     reset_counts()
-    return [reports["cholesky"], reports["cho_solve"]]
+    return [reports["cholesky"], reports["cholesky_cluster"],
+            reports["cho_solve"]]
 
 
 def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
@@ -3134,14 +3234,16 @@ def tier_of_launch(kernel, a, k):
                           k.get("tier"))
 
 
-def tiers_agree(kernel, args, kw) -> dict:
-    """``kernel``'s wrapper in the tier its shape takes and forced into its
-    device tier on identical inputs: bit for bit (the same sums in the same
-    order), or else within check_kernel's limits on the controls and the
-    one-iteration state; both tiers' device times by graph replay."""
+def tiers_agree(kernel, args, kw, other="device", reps=10) -> dict:
+    """``kernel``'s wrapper in the tier its shape takes and forced into
+    tier ``other`` (the device tier, or K1's cluster tier) on identical
+    inputs: bit for bit (the same sums in the same order), or else within
+    check_kernel's limits on the controls and the one-iteration state; both
+    tiers' device times by graph replay (``ms``, ``other_ms``; the device
+    tier's also as ``device_tier_ms``)."""
     from scp_tpu_torch.ops import ipm_kernel as ik
     fn = getattr(ik, kernel)
-    dev_kw = {**kw, "tier": "device"}
+    dev_kw = {**kw, "tier": other}
     a, b = fn(*args, **kw), fn(*args, **dev_kw)
     a1 = fn(*args, **{**kw, "n_iters": 1})
     b1 = fn(*args, **{**dev_kw, "n_iters": 1})
@@ -3157,8 +3259,11 @@ def tiers_agree(kernel, args, kw) -> dict:
                                for x, y in zip(a, b)),
            "u_max": float(du.max()), "u_median": float(du.median()),
            "one_iter_max_abs_err": one,
-           "ms": graph_ms(lambda: fn(*args, **kw), 10),
-           "device_tier_ms": graph_ms(lambda: fn(*args, **dev_kw), 10)}
+           "other": other,
+           "ms": graph_ms(lambda: fn(*args, **kw), reps),
+           "other_ms": graph_ms(lambda: fn(*args, **dev_kw), reps)}
+    if other == "device":
+        rep["device_tier_ms"] = rep["other_ms"]
     rep["within_limits"] = rep["bit_identical"] or (
         rep["u_max"] <= U_ABS_LIMIT and rep["u_median"] <= U_MEDIAN_LIMIT
         and one <= ONE_ITER_LIMIT)
@@ -3259,26 +3364,36 @@ def device_tier_phases(dev, card, seed) -> dict:
     t_path = time.perf_counter()
     _, _, _, kept1, rep1, ok1 = h.batch_path(
         "l1", "parallel", SS_PAR_B, "ipm_iterate_struct", hp=L_HP,
-        count_key="ipm_iterate_struct_device", steps=L_STEPS,
+        count_key="ipm_iterate_struct_cluster", steps=L_STEPS,
         timed_steps=L_TIMED_STEPS, n_veh=SS_PAR_VEH)
-    tiers1 = require_tier("l1", "ipm_iterate_struct", kept1, "device")
+    tiers1 = require_tier("l1", "ipm_iterate_struct", kept1, "cluster")
     times1 = h.times("l1", "ipm_iterate_struct", kept1, reps=L_TIME_REPS)[0]
     a0 = kept1["ipm_iterate_struct"][0][0]
     P1, S1 = a0[0].shape[1], a0[2].shape[1]
-    ctas1 = ipm_kernel.resident_ctas_per_sm(P1, S1, L_HP, L_HP, SS_PAR_VEH,
-                                            True)
+    ctas1, clusters1 = ipm_kernel.cluster_occupancy(P1, S1, L_HP, L_HP,
+                                                    SS_PAR_VEH, True)
+    # the cluster tier against the device tier forced on the first launch
+    # of each width: bit for bit, and both timed in this call
+    agree1 = {f"B{a[0].shape[0]}": tiers_agree("ipm_iterate_struct", a, k,
+                                               reps=L_TIME_REPS)
+              for a, k in kept1["ipm_iterate_struct"]}
+    for w, r in agree1.items():
+        times1[f"l1_{w}"]["device_tier_ms"] = r["other_ms"]
     rep1.update(
         phase="device_tier_path_l1", k1_tiers=[t._asdict() for t in tiers1],
+        k1_cluster_geometry=ipm_kernel.cluster_geometry(P1, S1, L_HP, L_HP,
+                                                        SS_PAR_VEH),
         k1_smem_bytes_whole_carve=ipm_kernel.smem_bytes(
             P1, S1, L_HP, L_HP, SS_PAR_VEH, True),
-        k1_workspace_mib={f"B{a[0].shape[0]}": a[0].shape[0]
-                          * t.workspace_floats * 4 / 2 ** 20
-                          for (a, _), t in zip(kept1["ipm_iterate_struct"],
-                                               tiers1)},
-        k1_resident_ctas_per_sm=ctas1, times=times1,
+        k1_resident_ctas_per_sm=ctas1, k1_resident_clusters=clusters1,
+        times=times1, cluster_vs_device_tier=agree1,
         wall_s=time.perf_counter() - t_path)
     emit(rep1)
     h.path_failures("l1", rep1, ok1)
+    for w, r in agree1.items():
+        if not r["bit_identical"]:
+            fail(f"path l1, {w}: the cluster tier differs from the device "
+                 f"tier on identical inputs: {r}")
 
     # ---- (l2) circle-4, hp = 64, the dense KKT forced: K1's device tier --
     t_path = time.perf_counter()
@@ -3309,7 +3424,7 @@ def device_tier_phases(dev, card, seed) -> dict:
         qp.solve_qp_batched = real_qp
     if not qp_first:
         fail("path l2 made no full-width QP call")
-    tiers2 = require_tier("l2", "ipm_iterate_struct", kept2, "device")
+    tiers2 = require_tier("l2", "ipm_iterate_struct", kept2, "cluster")
     err2, seen2 = width_checks("l2_circle4_hp64_dense", "ipm_iterate_struct",
                                kept2)
     ch2 = chain_vs_plain(step2, carry0, L_LONG_STEPS, ("ipm_iterate_struct",))
@@ -3371,12 +3486,17 @@ def device_tier_phases(dev, card, seed) -> dict:
                 (out_first2.u_pred - outs2[0].u_pred).abs().max()),
             "kernel_vs_plain_max_abs_err": err2,
             "k1_full_width": k1_cell(*seen2[L_LONG_B], reps=5),
+            "cluster_vs_device_tier_full_width": tiers_agree(
+                "ipm_iterate_struct", *seen2[L_LONG_B], reps=5),
             "step0_vs_plain": e_p2, "step0_vs_banded_path_d": e_b2,
             "limits": RUN_LIMITS, "wall_s": time.perf_counter() - t_path}
     emit(rep2)
-    if got2["ipm_iterate_struct_device"] == 0 or any(
-            v for k, v in got2.items() if k != "ipm_iterate_struct_device"):
-        fail(f"path l2: launches {got2}; K1's device tier only wanted")
+    if got2["ipm_iterate_struct_cluster"] == 0 or any(
+            v for k, v in got2.items() if k != "ipm_iterate_struct_cluster"):
+        fail(f"path l2: launches {got2}; K1's cluster tier only wanted")
+    if not rep2["cluster_vs_device_tier_full_width"]["bit_identical"]:
+        fail(f"path l2: the cluster tier differs from the device tier on "
+             f"identical inputs: {rep2['cluster_vs_device_tier_full_width']}")
     if run_off_limits(e_p2, "feasible") or run_off_limits(e_b2, "feasible"):
         fail(f"path l2 step 0 off the yardstick: against plain {e_p2}, "
              f"against the banded step {e_b2}")
@@ -3433,8 +3553,10 @@ def device_tier_phases(dev, card, seed) -> dict:
                                     seed=seed)
     kw4 = dict(pairs=pairs, obst_veh=ov, tol=1e-6, reg_rel=3e-6, n_cor=0,
                n_iters=7, lower_tri=True)
-    t4 = {"k1_bench_shape": tiers_agree(
-        "ipm_iterate_struct", torch_kernel_args(arrs, device=dev), kw4)}
+    args4 = torch_kernel_args(arrs, device=dev)
+    t4 = {"k1_bench_shape": tiers_agree("ipm_iterate_struct", args4, kw4),
+          "k1_bench_shape_cluster": tiers_agree("ipm_iterate_struct", args4,
+                                                kw4, "cluster")}
     t4["k1_bench_shape"]["device_tier_resident_ctas_per_sm"] = \
         ipm_kernel.resident_ctas_per_sm(len(pairs), 0, HP, HP, N_VEH, True,
                                         tier="device")
@@ -3452,8 +3574,8 @@ def device_tier_phases(dev, card, seed) -> dict:
           "wall_s": time.perf_counter() - t_path})
     for k, r in t4.items():
         if r["tier"] != "shared" or not r["within_limits"]:
-            fail(f"path l4, {k}: the device tier against the shared one on "
-                 f"identical inputs: {r}")
+            fail(f"path l4, {k}: the {r['other']} tier against the shared "
+                 f"one on identical inputs: {r}")
 
     # ---- (l5) circle-16, hp = 10: K1's shared tier, slabs packed ----
     t_path = time.perf_counter()
@@ -3552,20 +3674,40 @@ def device_tier_phases(dev, card, seed) -> dict:
     reset_counts()
 
     w1 = f"l1_B{SS_CANDIDATES * SS_PAR_B}"
+    per1, per2 = rep1["launches_per_step"], rep2["launches_per_step"]
+    k1_cl = {"name": "ipm_iterate_struct_cluster", "route": "cuda",
+             "source": "scp_tpu_torch/csrc/ipm_struct.cu",
+             "also_source": "scp_tpu_torch/csrc/chol_cluster.cuh",
+             "replaces": "scp_tpu/ops/pallas_linalg.py:1195",
+             "tier": "cluster",
+             "launches": per1["ipm_iterate_struct_cluster"] * L_STEPS
+             + per2["ipm_iterate_struct_cluster"] * L_LONG_STEPS,
+             "launches_per_step_l1": per1["ipm_iterate_struct_cluster"],
+             "launches_per_step_l2": per2["ipm_iterate_struct_cluster"],
+             "max_abs_err": max(rep1["kernel_vs_plain_max_abs_err"], err2),
+             **{k: times1[w1][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by")},
+             "library_ms": None, "times": times1,
+             "times_l2": rep2["k1_full_width"],
+             "vs_device_tier_l1": agree1,
+             "vs_device_tier_l2": rep2["cluster_vs_device_tier_full_width"],
+             "bench_shape_forced": t4["k1_bench_shape_cluster"]}
+    # the device tier: off paths (l1) / (l2) since the cluster tier, timed
+    # forced on their inputs in this call
     k1_dev = {"name": "ipm_iterate_struct_device", "route": "cuda",
               "source": "scp_tpu_torch/csrc/ipm_struct.cu",
               "replaces": "scp_tpu/ops/pallas_linalg.py:1195",
-              "tier": "device", "launches": rep1["launches_per_step"][
-                  "ipm_iterate_struct_device"] * L_STEPS,
-              "launches_per_step_l1": rep1["launches_per_step"][
-                  "ipm_iterate_struct_device"],
-              "launches_per_step_l2": rep2["launches_per_step"][
-                  "ipm_iterate_struct_device"],
-              "max_abs_err": max(rep1["kernel_vs_plain_max_abs_err"], err2),
-              **{k: times1[w1][k] for k in ("ms", "plain_ms", "bound_ms",
+              "tier": "device", "launches": per1[
+                  "ipm_iterate_struct_device"] * L_STEPS
+              + per2["ipm_iterate_struct_device"] * L_LONG_STEPS,
+              "on_paths": "none since the cluster tier: forced "
+                          "(tier='device') on the inputs of (l1) / (l2)",
+              "max_abs_err": max(r["max_abs_diff"] for r in agree1.values()),
+              "ms": times1[w1]["device_tier_ms"],
+              **{k: times1[w1][k] for k in ("plain_ms", "bound_ms",
                                             "bound_by")},
-              "library_ms": None, "times": times1,
-              "times_l2": rep2["k1_full_width"],
+              "library_ms": None,
+              "ms_l2": rep2["cluster_vs_device_tier_full_width"]["other_ms"],
               "bench_shape_forced": t4["k1_bench_shape"]}
     k2_dev = {"name": "ipm_iterate_dense_device", "route": "cuda",
               "source": "scp_tpu_torch/csrc/ipm_dense.cu",
@@ -3578,7 +3720,8 @@ def device_tier_phases(dev, card, seed) -> dict:
               "library_ms": None, "times_l3": cell3,
               "frog_shape_forced": t4["k2_frog_shape"]}
     torch.cuda.empty_cache()
-    return {"ipm_iterate_struct_device": k1_dev,
+    return {"ipm_iterate_struct_cluster": k1_cl,
+            "ipm_iterate_struct_device": k1_dev,
             "ipm_iterate_dense_device": k2_dev,
             "ipm_iterate_struct": {"circle16_hp10_l5": cell5,
                                    "launches_per_step_l5": rep5[
@@ -4256,8 +4399,9 @@ def scale_out_phases(dev, card, backend: str = "nccl") -> dict:
         emit(k2b)
         for r, rr in enumerate(res):
             require_launches(f"(k2 beta) rank {r}", rr["beta"]["launches"],
-                             ["cholesky", "cho_solve"])
-            # at n = 257 every factor and solve is the large-n kernels'
+                             ["cholesky_cluster", "cho_solve"])
+            # at n = 257 every factor is the cluster kernel's, every solve
+            # the large-n kernel's
             add({f"{k}_large_n" if k in ("cholesky", "cho_solve") else k: v
                  for k, v in rr["beta"]["launches"].items()})
         if not k2b["ranks_bitwise_equal"] \
@@ -4609,7 +4753,8 @@ def main() -> None:
         "total": round(marks[-1][1] - marks[0][1], 2)})
 
     reports = [kernel_report] + linalg_reports + new_reports + [
-        tier_entries.pop(k) for k in ("ipm_iterate_struct_device",
+        tier_entries.pop(k) for k in ("ipm_iterate_struct_cluster",
+                                      "ipm_iterate_struct_device",
                                       "ipm_iterate_dense_device")]
     for r in reports:
         r.update(ss_entries.get(r["name"], {}))

@@ -150,16 +150,27 @@ __device__ inline void factor_kkt(const IpmVecs& v, const IpmDims& d) {
   if (threadIdx.x == 0 && *v.bad) v.dinv[0] = CUDART_NAN_F;
 }
 
+// The two triangular solves against the factored KKT matrix (v.K, leading
+// dimension ld) in place in y: the blocked solve of chol_blocked.cuh. A
+// kernel whose factor lies elsewhere overloads this on its Rows type
+// (ipm_struct.cu's cluster tier: the factor's rows on other CTAs).
+template <class Rows>
+__device__ inline void kkt_tri_solve(const Rows&, const IpmVecs& v, int n,
+                                     int ld, float* y) {
+  chol_blocked_solve_smem<kIpmThreads>(v.K, n, ld, v.dinv, y);
+}
+
 // dx = K^-1 rhs through the Jacobi scaling (and, with the Schur border, the
 // bordered back-substitution for the slack); in place in v.rhs. All threads
 // call.
-__device__ inline void solve_kkt(const IpmVecs& v, const IpmDims& d,
-                                 float inv_kappa) {
+template <class Rows>
+__device__ inline void solve_kkt(const Rows& g, const IpmVecs& v,
+                                 const IpmDims& d, float inv_kappa) {
   __syncthreads();
   if (!d.schur) {
     for (int c = threadIdx.x; c < d.n; c += blockDim.x)
       v.rhs[c] = v.dsc[c] * v.rhs[c];
-    chol_blocked_solve_smem<kIpmThreads>(v.K, d.n, d.ldk, v.dinv, v.rhs);
+    kkt_tri_solve(g, v, d.n, d.ldk, v.rhs);
     for (int c = threadIdx.x; c < d.n; c += blockDim.x)
       v.rhs[c] = v.dsc[c] * v.rhs[c];
     __syncthreads();
@@ -170,7 +181,7 @@ __device__ inline void solve_kkt(const IpmVecs& v, const IpmDims& d,
   __syncthreads();
   for (int c = threadIdx.x; c < nu; c += blockDim.x)
     v.rhs[c] = v.dsc[c] * v.rhs[c] - v.kb[c] * (inv_kappa * rw);
-  chol_blocked_solve_smem<kIpmThreads>(v.K, nu, d.ldk, v.dinv, v.rhs);
+  kkt_tri_solve(g, v, nu, d.ldk, v.rhs);
   float part = 0.0f;
   for (int c = threadIdx.x; c < nu; c += blockDim.x)
     part += v.kb[c] * v.rhs[c];
@@ -233,7 +244,7 @@ __device__ inline void mehrotra_step(const Rows& g, const IpmVecs& v,
   __syncthreads();
   build_rhs(g, v, d, v.a3, true);
   mark(kSecRhs);
-  solve_kkt(v, d, inv_kappa);
+  solve_kkt(g, v, d, inv_kappa);
   mark(kSecSolve);
   ghat_mv(g, d, v.rhs, v.a3);
   __syncthreads();
@@ -272,7 +283,7 @@ __device__ inline void mehrotra_step(const Rows& g, const IpmVecs& v,
   mark(kSecVector);
   build_rhs(g, v, d, v.a3, true);
   mark(kSecRhs);
-  solve_kkt(v, d, inv_kappa);
+  solve_kkt(g, v, d, inv_kappa);
   mark(kSecSolve);
   ghat_mv(g, d, v.rhs, v.a3);
   for (int c = tid; c < n; c += nt) v.dx[c] = v.rhs[c];
@@ -301,7 +312,7 @@ __device__ inline void mehrotra_step(const Rows& g, const IpmVecs& v,
     mark(kSecVector);
     build_rhs(g, v, d, v.a2, false);
     mark(kSecRhs);
-    solve_kkt(v, d, inv_kappa);
+    solve_kkt(g, v, d, inv_kappa);
     mark(kSecSolve);
     ghat_mv(g, d, v.rhs, v.a3);
     __syncthreads();

@@ -49,7 +49,8 @@
 //     bytes at P = 6, hp = hu = 20, V = 4, so that four CTAs share an SM
 //     (__launch_bounds__(256, 4): 64 registers a thread).
 //
-// Two storage tiers, one template (ipm_struct_kernel<kDev>). The shared
+// Three storage tiers: ipm_struct_kernel<kDev> (shared, device) and
+// ipm_struct_cluster_kernel. The shared
 // tier (kDev false) is the design above. Past one block's shared memory
 // (the side-selection QP of parallel-11 at hp = 20: 481,908 bytes; a dense
 // KKT at circle-4, hp = 64: 471,904) the device tier (kDev true) keeps the
@@ -65,14 +66,32 @@
 // in both tiers, so on the same inputs they agree bit for bit. The
 // workspace is written and read inside the launch: it is never read
 // through the read-only (non-coherent) path, and the block barriers order
-// it within the CTA. The tier follows from the shape alone (the wrapper,
-// ipm_kernel.py::struct_tier).
+// it within the CTA.
+//
+// Between the two, the cluster tier (ipm_struct_cluster_kernel): one
+// instance per thread block cluster of C CTAs on neighbouring SMs. Rank 0
+// holds the device tier's carve (the vectors, the P blocks, the slack
+// column, the tables) and runs the step algebra as the device tier does;
+// the KKT matrix lives in 16-row stripes dealt over the ranks' shared
+// memory (chol_cluster.cuh). Each iteration rank 0 computes the weights,
+// the Jacobi scale and the border; every other rank copies them through
+// distributed shared memory (DSMEM); every rank forms the 4 x 4 tiles
+// whose rows lie in its stripes (the slabs read in place from device
+// memory, as in the device tier); all ranks run the cluster factor; rank
+// 0's solves read the factor's rows through DSMEM (chol_rows_solve). The
+// factor thus sits in shared memory instead of L1 / L2, and the tiles are
+// formed on C SMs. The same sums in the same order, so the cluster tier is
+// bit for bit the device tier. The tier follows from the shape alone (the
+// wrapper, ipm_kernel.py::struct_tier: shared, else cluster, else
+// device).
 //
 // No fast-math: the Jacobi scaling (1/sqrt of the analytic diagonal) and
 // barrier ratios z/s up to 1e10 are why f32 works at all here.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "chol_cluster.cuh"
 #include "ipm_common.cuh"
 #include "smem.cuh"
 
@@ -173,6 +192,29 @@ __host__ __device__ inline long smem_words(const Shape& d) {
   return w;
 }
 
+// The cluster tier's carve (in 4-byte words) on every rank: the device
+// tier's (smem_words<true>), then, from the next 16-byte boundary, the
+// factor's buffers (scpk::stripe_buffer_words: its diagonal-block and panel
+// buffers, its mbarriers and this rank's stripe area of `area_words`), the
+// deal (two ints a stripe) and, at an even word, the factor's row pointers
+// (nu of 8 bytes); must match ipm_kernel.py::cluster_smem_bytes.
+__host__ __device__ inline long cluster_base_word(const Shape& d) {
+  return (smem_words<true>(d) + 3) & ~3L;
+}
+
+__host__ __device__ inline long cluster_krow_word(const Shape& d, int C,
+                                                  int area_words) {
+  const long w = cluster_base_word(d)
+                 + scpk::stripe_buffer_words(d.nu, C, area_words)
+                 + 2L * scpk::stripe_count(d.nu);
+  return (w + 1) & ~1L;
+}
+
+__host__ __device__ inline long cluster_smem_words(const Shape& d, int C,
+                                                   int area_words) {
+  return cluster_krow_word(d, C, area_words) + 2L * d.nu;
+}
+
 // The shared vectors (scpk::IpmVecs) plus the slabs, P blocks and tables.
 struct Smem : scpk::IpmVecs {
   const float *gi, *gj, *gob;  // the slabs: read only, once loaded
@@ -188,6 +230,14 @@ struct Args {
   float* ws;  // the device tier's workspace: nu x ldk floats per instance
   int n_iters, n_cor;
   float tol, tol_stall, reg_rel;
+};
+
+// The cluster tier's own arguments: the stripes' owners and offsets
+// (2 x ceil(nu / 16) ints in device memory), the CTAs of an instance's
+// cluster, each rank's stripe area (floats).
+struct ClusterArgs {
+  const int* deal;
+  int C, area_words;
 };
 
 // Instance b's working set: in the shared tier all of it in shared memory
@@ -329,6 +379,21 @@ struct SlabRows {
   }
 };
 
+// The cluster tier's rows: the device tier's slab products, and the
+// factor's rows on the cluster's ranks (krow[r]: row r's generic address),
+// which the step's solves read through DSMEM.
+struct ClusterRows : SlabRows<true> {
+  const float* const* krow;
+};
+
+// The step's triangular solves in the cluster tier (found for ClusterRows
+// by scpk::solve_kkt): chol_blocked_solve_smem on the row pointers.
+__device__ inline void kkt_tri_solve(const ClusterRows& g,
+                                     const scpk::IpmVecs& v, int n, int,
+                                     float* y) {
+  scpk::chol_rows_solve<kThreads>(g.krow, n, v.dinv, y);
+}
+
 __device__ inline void copy_in(float* dst, const float* src, long count) {
   for (long i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
 }
@@ -451,6 +516,59 @@ __device__ inline void form_tile(const Smem& sm, const Shape& d, int vr,
       const float border = (inv_kappa * sm.kb[r]) * sm.kb[c];
       sm.K[r * d.ldk + c] =
           (r == c) ? one_reg - border : val * (sm.dsc[r] * sm.dsc[c]) - border;
+    }
+  }
+}
+
+// form_tile with each entry handed to put(r, c, value) (the cluster tier's
+// stripes) instead of stored at K[r * ldk + c]; the same sums in the same
+// order. (A copy, so that the shared and device tiers compile as before.)
+// One 4 x 4 tile (rows r0 .., columns c0 .. of the hu x hu block) of the
+// (vr, vc) block (vc <= vr) of the scaled, bordered KKT matrix, lower
+// triangle: sum over the slabs that touch both vehicles of (W g_r)^T g_c
+// (+ the P block on the diagonal), Jacobi-scaled, minus the rank-1 border
+// of the eliminated slack, the regularised unit diagonal.
+template <bool kDev, class Put>
+__device__ inline void form_tile_put(const Smem& sm, const Shape& d, int vr,
+                                     int vc, int r0, int c0, float inv_kappa,
+                                     float one_reg, Put put) {
+  const int slab = slab_words<kDev>(d);
+  float acc[4][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[u][v] = 0.0f;
+  if (vr == vc) {
+    for (int p = 0; p < d.P; ++p) {
+      const float* g;
+      if (sm.pi[p] == vr) g = sm.gi + p * slab;
+      else if (sm.pj[p] == vr) g = sm.gj + p * slab;
+      else continue;
+      tile_slab_product<kDev>(acc, g, g, sm.w + p * d.hp, d, r0, c0);
+    }
+    for (int o = 0; o < d.S; ++o)
+      if (sm.ov[o] == vr)
+        tile_slab_product<kDev>(acc, sm.gob + o * slab, sm.gob + o * slab,
+                                sm.w + (d.P + o) * d.hp, d, r0, c0);
+  } else {
+    // pairs are (i, j) with i < j: the row vehicle vr is the pair's j
+    const int p = sm.pair_of[vc * d.V + vr];
+    if (p >= 0)
+      tile_slab_product<kDev>(acc, sm.gj + p * slab, sm.gi + p * slab,
+                              sm.w + p * d.hp, d, r0, c0);
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int ar = r0 + u, ac = c0 + v;
+      if (ar >= d.hu || ac >= d.hu || (vr == vc && ac > ar)) continue;
+      const int r = vr * d.hu + ar, c = vc * d.hu + ac;
+      float val = acc[u][v];
+      if (vr == vc) val += sm.pb[(vr * d.hu + ar) * d.hu + ac];
+      const float border = (inv_kappa * sm.kb[r]) * sm.kb[c];
+      put(r, c,
+          (r == c) ? one_reg - border : val * (sm.dsc[r] * sm.dsc[c]) - border);
     }
   }
 }
@@ -590,36 +708,256 @@ ipm_struct_kernel(Args a, Shape d) {
   SECTION(kSecStore);
 }
 
-// Per tier and device.
-int ipm_struct_smem_granted[2][scpk::kMaxDevices];
-int ipm_struct_carveout_set[2][scpk::kMaxDevices];
+// The cluster tier (see the head of this file): one instance per cluster
+// of cl.C CTAs. Rank 0 holds the device tier's carve and runs the step;
+// every rank holds stripes of the KKT matrix, forms their tiles and runs
+// the factor. The load, the diagonal and border, the formation loop and the
+// store are ipm_struct_kernel<true>'s.
+__global__ void __launch_bounds__(kThreads, 1)
+ipm_struct_cluster_kernel(Args a, Shape d, ClusterArgs cl) {
+  extern __shared__ __align__(16) float cl_smem[];
+  float* smem_base = cl_smem;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const long b = blockIdx.x / cl.C;
+  const int rank = (int)cluster.block_rank();
+  const bool lead = rank == 0;
+  const Smem sm = carve<true>(smem_base, d, a, b);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int mg = d.mg, n = d.n, nu = d.nu, m = d.m;
+  const int tb = (d.hu + 3) >> 2, tiles = tb * tb;
+  const int n_tiles = d.V * (d.V + 1) / 2 * tiles;
+  // this rank's view of the stripes (after the device tier's carve)
+  scpk::Stripes st;
+  st.n = nu;
+  st.ns = scpk::stripe_count(nu);
+  st.rank = rank;
+  st.C = (unsigned)cl.C;
+  float* fbase = smem_base + cluster_base_word(d);
+  st.carve(fbase, cl.area_words);
+  int* tab = reinterpret_cast<int*>(
+      fbase + scpk::stripe_buffer_words(nu, cl.C, cl.area_words));
+  st.owner = tab;
+  st.off = tab + st.ns;
+  st.dinv = sm.dinv;
+  st.bad = sm.bad;
+  float** krow = reinterpret_cast<float**>(
+      smem_base + cluster_krow_word(d, cl.C, cl.area_words));
+  for (int e = tid; e < 2 * st.ns; e += nt) tab[e] = cl.deal[e];
 
-// Raise the tier's kernel's dynamic shared-memory limit to `smem_bytes`
-// and, once per device, prefer the largest shared-memory carve-out of the
-// SM's unified L1 / shared memory, so that four CTAs of the bench shape fit.
-template <bool kDev>
-cudaError_t prepare(long smem_bytes) {
+  SECTION_INIT();
+  // ---- load the instance: the state on rank 0, the P blocks and the
+  // tables (what formation reads) on every rank ----
+  copy_in(sm.pb, a.pb + b * d.V * d.hu * d.hu, (long)d.V * d.hu * d.hu);
+  if (lead) {
+    copy_in(sm.gsl, a.gsl + b * mg, mg);
+    copy_in(sm.q, a.q + b * n, n);
+    copy_in(sm.pdiag, a.pdiag + b * n, n);
+    copy_in(sm.x, a.x + b * n, n);
+    copy_in(sm.s, a.sg + b * mg, mg);
+    copy_in(sm.s + mg, a.su + b * n, n);
+    copy_in(sm.s + mg + n, a.sl + b * n, n);
+    copy_in(sm.z, a.zg + b * mg, mg);
+    copy_in(sm.z + mg, a.zu + b * n, n);
+    copy_in(sm.z + mg + n, a.zl + b * n, n);
+    copy_in(sm.rp, a.rpg + b * mg, mg);
+    copy_in(sm.rp + mg, a.rpu + b * n, n);
+    copy_in(sm.rp + mg + n, a.rpl + b * n, n);
+  }
+  for (int i = tid; i < d.V * d.V; i += nt) sm.pair_of[i] = -1;
+  for (int p = tid; p < d.P; p += nt) {
+    sm.pi[p] = a.pair_idx[2 * p];
+    sm.pj[p] = a.pair_idx[2 * p + 1];
+  }
+  for (int o = tid; o < d.S; o += nt) sm.ov[o] = a.obst_veh[o];
+  __syncthreads();
+  for (int p = tid; p < d.P; p += nt)
+    sm.pair_of[sm.pi[p] * d.V + sm.pj[p]] = p;
+  if (lead)   // the factor's rows, for rank 0's solves
+    for (int r = tid; r < nu; r += nt) {
+      const int s = r / scpk::kPanel;
+      krow[r] = cluster.map_shared_rank(st.area, st.owner[s]) + st.off[s]
+                + (r - s * scpk::kPanel) * scpk::stripe_ld(s);
+    }
+  float mu_prev = a.scal[b * 2];
+  bool frozen = a.scal[b * 2 + 1] > 0.5f;
+  const float inv_kappa = 1.0f / (1.0f + a.reg_rel);
+  const float one_reg = 1.0f + a.reg_rel;
+  float mu = mu_prev;
+  const scpk::IpmDims dims{mg, n, m, nu, d.ldk, true};
+  const ClusterRows rows{{sm, d}, krow};
+  auto mark = [&](int i) { SECTION(i); };
+  __syncthreads();
+  SECTION(kSecLoad);
+
+  for (int it = 0; it < a.n_iters; ++it) {
+    if (lead) {
+      // ---- barrier weights and mu ----
+      mu = scpk::weights_and_mu(sm, dims);
+      // ---- the border column of the eliminated slack, unscaled ----
+      for (int r = tid; r < mg; r += nt) sm.a1[r] = sm.w[r] * sm.gsl[r];
+      __syncthreads();
+      // ---- P x, analytic KKT diagonal, Jacobi scale ----
+      for (int t = tid; t < rows.col_slots(); t += nt) {
+        const int c = rows.col_at(t);
+        if (c < 0) continue;
+        float px, gsq;
+        if (c < nu) {
+          const int v = c / d.hu, u = c - v * d.hu;
+          const float* prow = sm.pb + (v * d.hu + u) * d.hu;
+          const float* xb = sm.x + v * d.hu;
+          px = 0.0f;
+          for (int j = 0; j < d.hu; ++j) px += prow[j] * xb[j];
+          gsq = col_accum<true, true>(sm, d, sm.w, c);
+        } else {
+          px = sm.pdiag[c] * sm.x[c];
+          gsq = slack_dot(sm.a1, sm.gsl, mg);
+        }
+        const float dbox = sm.w[mg + c] + sm.w[mg + n + c];
+        const float dk = sm.pdiag[c] + gsq + dbox;
+        sm.px[c] = px;
+        sm.dsc[c] = 1.0f / sqrtf(fmaxf(dk, 1e-30f));
+      }
+      // ---- scaled border column of the eliminated slack ----
+      __syncthreads();
+      for (int t = tid; t < rows.col_slots(); t += nt) {
+        const int c = rows.col_at(t);
+        if (c >= 0 && c < nu)
+          sm.kb[c] =
+              sm.dsc[c] * col_accum<false, true>(sm, d, sm.a1, c) * sm.dsc[nu];
+      }
+    }
+    // every rank forms its stripes' tiles from rank 0's weights, Jacobi
+    // scale and border
+    cluster.sync();
+    if (!lead) {
+      const float* w0 = cluster.map_shared_rank(sm.w, 0);
+      const float* dsc0 = cluster.map_shared_rank(sm.dsc, 0);
+      const float* kb0 = cluster.map_shared_rank(sm.kb, 0);
+      for (int r = tid; r < mg; r += nt) sm.w[r] = w0[r];
+      for (int c = tid; c < n; c += nt) sm.dsc[c] = dsc0[c];
+      for (int c = tid; c < nu; c += nt) sm.kb[c] = kb0[c];
+      __syncthreads();
+    }
+    SECTION(kSecDiag);
+
+    // ---- form the tiles with a row in this rank's stripes ----
+    for (int t = tid; t < n_tiles; t += nt) {
+      int blk = t / tiles, vr = 0;
+      const int ti = (t - blk * tiles) / tb, tj = t - blk * tiles - ti * tb;
+      while (blk > vr) blk -= ++vr;   // blk = vr (vr + 1) / 2 + vc
+      if (blk == vr && tj > ti) continue;
+      const int r_lo = vr * d.hu + 4 * ti;
+      const int r_hi = min(r_lo + 3, vr * d.hu + d.hu - 1);
+      if (!st.mine(r_lo / scpk::kPanel) && !st.mine(r_hi / scpk::kPanel))
+        continue;
+      form_tile_put<true>(sm, d, vr, blk, 4 * ti, 4 * tj, inv_kappa, one_reg,
+                          [&](int r, int c, float v) {
+                            const int s = r / scpk::kPanel;
+                            if (st.mine(s))
+                              st.local(s)[(r - s * scpk::kPanel)
+                                          * scpk::stripe_ld(s) + c] = v;
+                          });
+    }
+    SECTION(kSecForm);
+    // the factor over the cluster (a failed pivot: NaN into dinv[0], as
+    // scpk::factor_kkt does)
+    const bool failed = scpk::chol_cluster<kThreads>(st);
+    if (lead && tid == 0 && failed) sm.dinv[0] = CUDART_NAN_F;
+    SECTION(kSecChol);
+
+    if (lead) {
+      scpk::mehrotra_step(rows, sm, dims, mu, mu_prev, frozen, a.n_cor,
+                          a.tol, a.tol_stall, inv_kappa, mark);
+      SECTION(kSecUpdate);
+    }
+  }
+  cluster.sync();   // no rank leaves while rank 0's solves read its stripes
+
+  // ---- write the state back ----
+  if (lead) {
+    for (int c = tid; c < n; c += nt) {
+      a.xo[b * n + c] = sm.x[c];
+      a.suo[b * n + c] = sm.s[mg + c];
+      a.slo[b * n + c] = sm.s[mg + n + c];
+      a.zuo[b * n + c] = sm.z[mg + c];
+      a.zlo[b * n + c] = sm.z[mg + n + c];
+      a.rpuo[b * n + c] = sm.rp[mg + c];
+      a.rplo[b * n + c] = sm.rp[mg + n + c];
+    }
+    for (int r = tid; r < mg; r += nt) {
+      a.sgo[b * mg + r] = sm.s[r];
+      a.zgo[b * mg + r] = sm.z[r];
+      a.rpgo[b * mg + r] = sm.rp[r];
+    }
+    if (tid == 0) {
+      a.scalo[b * 2] = mu;
+      a.scalo[b * 2 + 1] = frozen ? 1.0f : 0.0f;
+    }
+  }
+  SECTION(kSecStore);
+}
+
+// Per tier (0: shared, 1: device, 2: cluster) and device.
+int ipm_struct_smem_granted[3][scpk::kMaxDevices];
+int ipm_struct_carveout_set[3][scpk::kMaxDevices];
+
+// Raise `kernel`'s dynamic shared-memory limit to `smem_bytes` and, once per
+// device, prefer the largest shared-memory carve-out of the SM's unified L1 /
+// shared memory, so that four CTAs of the bench shape fit.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int tier, long smem_bytes) {
   cudaError_t err = scpk::ensure_dyn_smem(
-      ipm_struct_kernel<kDev>, ipm_struct_smem_granted[kDev], smem_bytes);
+      kernel, ipm_struct_smem_granted[tier], smem_bytes);
   if (err != cudaSuccess) return err;
   int dev = 0;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= scpk::kMaxDevices) return cudaErrorInvalidDevice;
-  if (ipm_struct_carveout_set[kDev][dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(ipm_struct_kernel<kDev>,
+  if (ipm_struct_carveout_set[tier][dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess) ipm_struct_carveout_set[kDev][dev] = 1;
+  if (err == cudaSuccess) ipm_struct_carveout_set[tier][dev] = 1;
   return err;
 }
 
 template <bool kDev>
 int launch_tier(const Args& a, const Shape& d, int B, long smem_bytes,
                 cudaStream_t stream) {
-  cudaError_t err = prepare<kDev>(smem_bytes);
+  cudaError_t err = prepare(ipm_struct_kernel<kDev>, kDev, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   ipm_struct_kernel<kDev><<<B, kThreads, smem_bytes, stream>>>(a, d);
+  return (int)cudaGetLastError();
+}
+
+// The cluster tier's launch: B clusters of C CTAs (grid B x C, the cluster
+// along x). `clusters`: how many such clusters the device holds at once
+// (cudaOccupancyMaxActiveClusters); with `run` false nothing is launched.
+int cluster_launch(const Args& a, const Shape& d, const ClusterArgs& cl,
+                   int B, long smem_bytes, cudaStream_t stream, bool run,
+                   int* clusters) {
+  auto kernel = ipm_struct_cluster_kernel;
+  cudaError_t err = prepare(kernel, 2, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((long long)B * cl.C));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cl.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (!run) return 0;
+  if (*clusters < 1) return -2;
+  err = cudaLaunchKernelEx(&cfg, kernel, a, d, cl);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -669,6 +1007,68 @@ int ipm_struct_launch(
              : launch_tier<false>(a, d, B, smem_bytes, st);
 }
 
+// Launch on `stream` in the cluster tier: one cluster of C CTAs per
+// instance, the KKT matrix in the cluster's stripes dealt by `deal` (2 x
+// ceil(nu / 16) ints in device memory: owner ranks, then offsets), each
+// rank's stripe area `area_words` floats. The other arguments as
+// ipm_struct_launch's. Returns 0 when launched, -1 when `smem_bytes`
+// disagrees with the carve, -2 when no cluster of C CTAs of `smem_bytes`
+// can be resident (nothing is launched), else a CUDA error.
+int ipm_struct_cluster_launch(
+    const float* gi, const float* gj, const float* gob, const float* gsl,
+    const float* pb, const float* q, const float* pdiag,
+    const float* x, const float* sg, const float* su, const float* sl,
+    const float* zg, const float* zu, const float* zl,
+    const float* rpg, const float* rpu, const float* rpl, const float* scal,
+    const int* pair_idx, const int* obst_veh,
+    float* xo, float* sgo, float* suo, float* slo,
+    float* zgo, float* zuo, float* zlo,
+    float* rpgo, float* rpuo, float* rplo, float* scalo, const int* deal,
+    int B, int P, int S, int hp, int hu, int V,
+    int n_iters, int n_cor, int lower_tri, int C, int area_words,
+    float tol, float tol_stall, float reg_rel,
+    long smem_bytes, void* stream) {
+  const Shape d = make_shape(P, S, hp, hu, V, lower_tri, true);
+  if (C < 1 || C > scpk::kClusterMaxRanks || area_words < 0
+      || smem_bytes != 4L * cluster_smem_words(d, C, area_words)
+      || deal == nullptr)
+    return -1;
+  Args a;
+  a.gi = gi; a.gj = gj; a.gob = gob; a.gsl = gsl; a.pb = pb; a.q = q;
+  a.pdiag = pdiag; a.x = x; a.sg = sg; a.su = su; a.sl = sl;
+  a.zg = zg; a.zu = zu; a.zl = zl; a.rpg = rpg; a.rpu = rpu; a.rpl = rpl;
+  a.scal = scal; a.pair_idx = pair_idx; a.obst_veh = obst_veh;
+  a.xo = xo; a.sgo = sgo; a.suo = suo; a.slo = slo;
+  a.zgo = zgo; a.zuo = zuo; a.zlo = zlo;
+  a.rpgo = rpgo; a.rpuo = rpuo; a.rplo = rplo; a.scalo = scalo;
+  a.ws = nullptr;
+  a.n_iters = n_iters; a.n_cor = n_cor;
+  a.tol = tol; a.tol_stall = tol_stall; a.reg_rel = reg_rel;
+  const ClusterArgs cl{deal, C, area_words};
+  int clusters = 0;
+  return cluster_launch(a, d, cl, B, smem_bytes, (cudaStream_t)stream, true,
+                        &clusters);
+}
+
+// The cluster tier at a shape: CTAs of its kernel one SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into `ctas`, clusters of
+// C the device holds at once (cudaOccupancyMaxActiveClusters) into
+// `clusters`. Returns a CUDA error code (-1: bad arguments).
+int ipm_struct_cluster_occupancy(int P, int S, int hp, int hu, int V,
+                                 int lower_tri, int C, int area_words,
+                                 int* ctas, int* clusters) {
+  const Shape d = make_shape(P, S, hp, hu, V, lower_tri, true);
+  if (C < 1 || C > scpk::kClusterMaxRanks || area_words < 0) return -1;
+  const long smem_bytes = 4L * cluster_smem_words(d, C, area_words);
+  const Args a = {};
+  const ClusterArgs cl{nullptr, C, area_words};
+  const int err = cluster_launch(a, d, cl, 1, smem_bytes, nullptr, false,
+                                 clusters);
+  if (err != 0) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, ipm_struct_cluster_kernel, kThreads, (size_t)smem_bytes);
+}
+
 // CTAs of the tier's kernel that can be resident on one SM at a shape
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the launch's own
 // shared memory and carve-out) into `ctas`. Returns a CUDA error code.
@@ -678,8 +1078,8 @@ int ipm_struct_occupancy(int P, int S, int hp, int hu, int V, int lower_tri,
   const Shape d = make_shape(P, S, hp, hu, V, lower_tri, dev);
   const long smem_bytes = 4L * (dev ? smem_words<true>(d)
                                     : smem_words<false>(d));
-  cudaError_t err = dev ? prepare<true>(smem_bytes)
-                        : prepare<false>(smem_bytes);
+  cudaError_t err = dev ? prepare(ipm_struct_kernel<true>, 1, smem_bytes)
+                        : prepare(ipm_struct_kernel<false>, 0, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       ctas, dev ? ipm_struct_kernel<true> : ipm_struct_kernel<false>,

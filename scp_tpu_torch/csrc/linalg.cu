@@ -6,8 +6,10 @@
 //   gmv_staged_kernel         G (B,m,n), x (B,n) -> out (B,m), out_b = G_b x_b
 //   gtmv_cluster_kernel       G (B,m,n), v (B,m) -> out (B,n),
 //                             out_b = G_b^T v_b
-//   chol_large_kernel, cho_solve_large_kernel: the factor and the solve for
-//                             n >= 240, the matrix in device memory
+//   chol_cluster_kernel       the factor for n >= 240 while a thread
+//                             block cluster's shared memory holds the matrix
+//   chol_large_kernel, cho_solve_large_kernel: the factor past that and the
+//                             solve for n >= 240, the matrix in device memory
 //
 // They replace, in scp_tpu/ops/pallas_linalg.py: cholesky_lane and
 // _batched_cholesky_impl (_cholesky_panel_kernel), cho_solve_lane and
@@ -81,16 +83,31 @@
 // (ops/linalg_kernel.py::gtmv_geometry) keeps the grid to one wave and a
 // CTA's rows in as few chunks as that allows.
 //
-// K3 / K4 for n >= 240 (chol_large_kernel, cho_solve_large_kernel): one
-// instance's n x n matrix no longer fits a block's shared memory, so the
-// factor works in place in its output L in device memory (the lower
-// triangle of K copied in first, zeros above), through the same blocked
-// factor of chol_blocked.cuh at leading dimension n: the panel rows, the
-// diagonal blocks and the trailing tiles are read and written through the
-// L1 / L2 caches, and only 1 / diag and the flag stay in shared memory.
-// The solve reads L from device memory the same way, with 1 / diag and
-// the right-hand side in shared memory. Neither changes the shared-memory
-// kernels above, which every n < 240 still takes.
+// K3 for n >= 240 (chol_cluster_kernel): one instance's n x n matrix no
+// longer fits a block's shared memory, so it is spread over the shared
+// memory of a thread block cluster of C <= 8 CTAs on neighbouring SMs
+// (chol_cluster.cuh): 16-row stripes of the lower triangle dealt over the
+// ranks, each rank solving its stripes' panel rows and updating their
+// tiles from a local copy of the panel, two cluster barriers a panel. The
+// wrapper (ops/linalg_kernel.py::chol_cluster_geometry) takes the smallest
+// C that holds the stripes (1 at n = 257, 2 at n = 400) and raises it
+// while B x C is below the card's SMs, so one instance at B = 1 spreads
+// over 8 SMs. One CTA of 256 threads on one SM walking a matrix in device
+// memory (chol_large_kernel) left 131 SMs idle at B = 1 and took every
+// panel operand through L1 / L2 (8 loads per 16 FMAs a register tile);
+// here every operand is in shared memory, and the pivot chain and the
+// barriers are what bound it. The factor is bit for bit chol_large_kernel's.
+//
+// K3 past a cluster's capacity and K4 for n >= 240 (chol_large_kernel,
+// cho_solve_large_kernel): one CTA per instance; the factor works in
+// place in its output L in device memory (the lower triangle of K copied
+// in first, zeros above), through the same blocked factor of
+// chol_blocked.cuh at leading dimension n: the panel rows, the diagonal
+// blocks and the trailing tiles are read and written through the L1 / L2
+// caches, and only 1 / diag and the flag stay in shared memory. The solve
+// reads L from device memory the same way, with 1 / diag and the
+// right-hand side in shared memory. None of them changes the
+// shared-memory kernels above, which every n < 240 still takes.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -98,7 +115,7 @@
 #include <cstdint>
 
 // Built with -DSCP_PROFILE_SECTIONS (scripts/torch_kernel_check.py
-// --sections) chol_blocked_kernel adds up, for block 0, the clock cycles
+// --sections) the factor kernels add up, for block 0, the clock cycles
 // between section marks (CHOL_SECTION in chol_blocked.cuh); without it the
 // marks compile to nothing.
 #ifdef SCP_PROFILE_SECTIONS
@@ -121,6 +138,7 @@ __device__ long long g_chol_t0;  // block 0, thread 0 only
 #endif
 
 #include "chol_blocked.cuh"
+#include "chol_cluster.cuh"
 #include "smem.cuh"
 
 namespace {
@@ -442,14 +460,75 @@ chol_large_kernel(const float* __restrict__ K, float* __restrict__ L,
   const size_t base = (size_t)blockIdx.x * n * n;
   float* A = L + base;
   const float* Kb = K + base;
+  CHOL_SECTION_INIT();
   if (tid == 0) *bad = 0;
   for (int r = warp; r < n; r += NT / 32)   // a row per warp
     for (int c = lane; c < n; c += 32)
       A[r * n + c] = c <= r ? Kb[r * n + c] : 0.0f;
+  CHOL_SECTION(0);
   scpk::chol_blocked_smem<NT>(A, n, n, dinv, bad);
   if (*bad != 0)
     for (int r = warp; r < n; r += NT / 32)
       for (int c = lane; c < n; c += 32) A[r * n + c] = CUDART_NAN_F;
+  CHOL_SECTION(4);
+}
+
+// K3 from n = 240 while a cluster holds the matrix: one cluster of C CTAs
+// per instance (grid = B * C, cluster = C along x), the lower triangle in
+// the cluster's stripes (chol_cluster.cuh). Shared memory on every rank:
+// the factor's buffers (scpk::stripe_buffer_words: the diagonal-block
+// buffers, the mbarriers, this rank's stripe area of `area_words`, the
+// panel buffers), 1 / diag (n), the deal (owner and offset per stripe) and
+// the flag. Each rank loads and stores its own stripes' rows; the factor's
+// upper triangle is written as zeros, an instance with a failed pivot on
+// any rank as NaN throughout. NT threads a CTA.
+template <int NT>
+__global__ void __launch_bounds__(NT, 1)
+chol_cluster_kernel(const float* __restrict__ K, float* __restrict__ L,
+                    const int* __restrict__ deal, int n, int C,
+                    int area_words) {
+  extern __shared__ __align__(16) float cl_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, ns = scpk::stripe_count(n);
+  scpk::Stripes st;
+  st.n = n;
+  st.ns = ns;
+  st.rank = (int)cluster.block_rank();
+  st.C = (unsigned)C;
+  st.carve(cl_smem, area_words);
+  st.dinv = cl_smem + scpk::stripe_buffer_words(n, C, area_words);
+  int* tab = reinterpret_cast<int*>(st.dinv + n);
+  st.owner = tab;
+  st.off = tab + ns;
+  st.bad = tab + 2 * ns;
+  const size_t base = (size_t)(blockIdx.x / C) * n * n;
+  CHOL_SECTION_INIT();
+  for (int e = tid; e < 2 * ns; e += NT) tab[e] = deal[e];
+  __syncthreads();
+  for (int s = 0; s < ns; ++s) {
+    if (!st.mine(s)) continue;
+    const int ld = scpk::stripe_ld(s), w = min(n, ld - 1);
+    const int rows = scpk::stripe_rows(n, s);
+    float* S = st.local(s);
+    const float* src = K + base + (size_t)s * scpk::kPanel * n;
+    for (int e = tid; e < rows * w; e += NT) {
+      const int r = e / w, c = e - r * w;
+      if (c <= s * scpk::kPanel + r) S[r * ld + c] = src[(size_t)r * n + c];
+    }
+  }
+  const bool poisoned = scpk::chol_cluster<NT>(st);
+  for (int s = 0; s < ns; ++s) {
+    if (!st.mine(s)) continue;
+    const int ld = scpk::stripe_ld(s), rows = scpk::stripe_rows(n, s);
+    const float* S = st.local(s);
+    float* dst = L + base + (size_t)s * scpk::kPanel * n;
+    for (int e = tid; e < rows * n; e += NT) {
+      const int r = e / n, c = e - r * n;
+      dst[e] = poisoned ? CUDART_NAN_F
+                        : (c <= s * scpk::kPanel + r ? S[r * ld + c] : 0.0f);
+    }
+  }
+  CHOL_SECTION(4);
 }
 
 // K4 for n >= 240: one CTA per instance, L read from device memory.
@@ -494,6 +573,37 @@ cudaError_t launch_solve(const float* L, const float* b, float* x, int B,
   if (err != cudaSuccess) return err;
   cho_solve_batched_kernel<NT><<<B, NT, smem_bytes, stream>>>(L, b, x, n);
   return cudaGetLastError();
+}
+
+// The cluster factor's launch: B clusters of C CTAs (grid B x C, the
+// cluster along x). Returns -2 when no cluster of C CTAs with
+// `smem_bytes` each can be resident on the device (nothing is launched).
+int cluster_factor_launch(const float* K, float* L, const int* deal, int B,
+                          int n, int C, int area_words, long smem_bytes,
+                          cudaStream_t stream) {
+  static int granted[scpk::kMaxDevices];
+  auto kernel = chol_cluster_kernel<kLargeThreads>;
+  cudaError_t err = scpk::ensure_dyn_smem(kernel, granted, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * C));
+  cfg.blockDim = dim3(kLargeThreads);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return -2;
+  err = cudaLaunchKernelEx(&cfg, kernel, K, L, deal, n, C, area_words);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -629,9 +739,30 @@ int cho_solve_large_launch(const float* L, const float* b, float* x, int B,
   return (int)cudaGetLastError();
 }
 
+// K3 from n = 240 in a cluster: chol_cluster_kernel, `C` CTAs (one
+// cluster) of `threads` per instance, `deal` the stripes' owners and
+// offsets (2 x ceil(n / 16) ints in device memory). Returns -1 when the
+// geometry disagrees with the kernel's carve, -2 when no cluster can be
+// resident (nothing is launched).
+int chol_cluster_launch(const float* K, float* L, const int* deal, int B,
+                        int n, int C, int threads, int area_words,
+                        long smem_bytes, void* stream) {
+  const int ns = scpk::stripe_count(n);
+  if (C < 1 || C > scpk::kClusterMaxRanks || area_words < 0
+      || smem_bytes != 4L * (scpk::stripe_buffer_words(n, C, area_words)
+                             + n + 2 * ns + 1)
+      || (long long)n * n > 0x7fffffffLL
+      || (long long)B * C > 0x7fffffffLL)
+    return -1;
+  if (threads != kLargeThreads) return -1;
+  return cluster_factor_launch(K, L, deal, B, n, C, area_words, smem_bytes,
+                               (cudaStream_t)stream);
+}
+
 #ifdef SCP_PROFILE_SECTIONS
-// Copy block 0's cycle sums of chol_blocked_kernel (load, first diagonal
-// block, panel rows, trailing update with the next diagonal block, store)
+// Copy block 0's cycle sums of the factor kernel last run (load, first
+// diagonal block, panel rows, trailing update with the next diagonal
+// block, store)
 // to `out` and clear them. Synchronises the device.
 int chol_read_sections(unsigned long long* out) {
   unsigned long long zero[8] = {0};

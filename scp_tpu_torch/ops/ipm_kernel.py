@@ -36,13 +36,18 @@ raises if it cannot; for CPU tensors it takes :func:`ipm_iterate_struct_plain`.
 The kernel library is built with ``nvcc`` from ``scp_tpu_torch/csrc`` at first
 use (``ops/_cuda_build.py``).
 
-Both kernels have two storage tiers, chosen by the shape alone
+Both kernels have storage tiers, chosen by the shape alone
 (:func:`struct_tier`, :func:`dense_tier`): the whole per-instance working
 set in one block's shared memory (``"shared"``), or, past it, the KKT matrix
 and its factor in a per-instance workspace in device memory that the
 wrapper allocates (``"device"``; K1 then reads its slabs in place from the
-inputs, K2 its G). The arithmetic is the same in both. Past the device
-tier's own shared memory the wrapper raises ``NotImplementedError``.
+inputs, K2 its G). K1 has a third between the two (``"cluster"``): one
+instance per thread block cluster of ``C`` CTAs, the KKT matrix and its
+factor in the cluster's shared memory (16-row stripes dealt over the ranks,
+``csrc/chol_cluster.cuh``), rank 0 holding the rest of the device tier's
+carve and running the step. The arithmetic is the same in every tier. Past
+the device tier's own shared memory the wrapper raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,36 +56,47 @@ from typing import NamedTuple
 
 import torch
 
-from scp_tpu_torch.ops import _cuda_build
+from scp_tpu_torch.ops import _cuda_build, linalg_kernel
 from scp_tpu_torch.ops._cuda_build import SMEM_LIMIT_BYTES
 
 # Launches of the structured kernel (K1) and of the dense-G kernel (K2) in
-# their shared-memory tier, and of each in its device tier, since the last
-# reset (incremented where each kernel is launched and nowhere else).
+# their shared-memory tier, of each in its device tier and of K1 in its
+# cluster tier, since the last reset (incremented where each kernel is
+# launched and nowhere else).
 launch_count = 0
 dense_launch_count = 0
 device_launch_count = 0
 dense_device_launch_count = 0
+cluster_launch_count = 0
+
+# K1's cluster tier: the cluster sizes tried, smallest first (the first
+# whose ranks each hold their carve is taken). A cluster holds one instance
+# on C SMs, so at a batch that fills the card the smallest wins.
+STRUCT_CLUSTER_SIZES = (2, 4, 8)
+TIERS = ("shared", "cluster", "device")
 
 _tables: dict = {}
 
 
 def reset_launch_count() -> None:
-    global launch_count, dense_launch_count
+    global launch_count, dense_launch_count, cluster_launch_count
     global device_launch_count, dense_device_launch_count
     launch_count = 0
     dense_launch_count = 0
     device_launch_count = 0
     dense_device_launch_count = 0
+    cluster_launch_count = 0
 
 
 class Tier(NamedTuple):
     """Where a fused kernel keeps an instance's working set: ``tier`` is
-    ``"shared"`` (all of it in the block's shared memory) or ``"device"``
-    (the KKT matrix and its factor in a device-memory workspace of
-    ``workspace_floats`` floats per instance, 0 in the shared tier);
-    ``smem_bytes``: the launch's dynamic shared memory; ``g_smem``: K2's G
-    in shared memory (False for K1)."""
+    ``"shared"`` (all of it in the block's shared memory), ``"cluster"``
+    (K1: the KKT matrix in the stripes of a thread block cluster,
+    :func:`cluster_geometry`) or ``"device"`` (the KKT matrix and its
+    factor in a device-memory workspace of ``workspace_floats`` floats per
+    instance, 0 in the other tiers); ``smem_bytes``: the launch's dynamic
+    shared memory per CTA; ``g_smem``: K2's G in shared memory (False for
+    K1)."""
     tier: str
     smem_bytes: int
     workspace_floats: int
@@ -140,18 +156,60 @@ def fits_smem(P: int, S: int, hp: int, hu: int, V: int,
     return smem_bytes(P, S, hp, hu, V, lower_tri) <= SMEM_LIMIT_BYTES
 
 
+def cluster_smem_bytes(P: int, S: int, hp: int, hu: int, V: int, C: int,
+                       area_words: int) -> int:
+    """Dynamic shared memory of a rank of the cluster tier (mirrors
+    ``csrc/ipm_struct.cu::cluster_smem_words``): the device tier's carve,
+    from the next 16-byte boundary the cluster factor's buffers
+    (``linalg_kernel.stripe_buffer_words``), the deal (two ints a stripe)
+    and, at an even word, the factor's row pointers (8 bytes a row)."""
+    nu = V * hu
+    ns = -(-nu // linalg_kernel.CHOL_STRIPE)
+    base = -(-smem_bytes(P, S, hp, hu, V, device=True) // 16) * 4
+    words = base + linalg_kernel.stripe_buffer_words(nu, C, area_words) \
+        + 2 * ns
+    return 4 * ((words + 1) // 2 * 2 + 2 * nu)
+
+
+def cluster_geometry(P: int, S: int, hp: int, hu: int,
+                     V: int) -> tuple[int, int, int] | None:
+    """``(C, area words, shared-memory bytes per CTA)`` of K1's cluster
+    tier at a shape: the first of :data:`STRUCT_CLUSTER_SIZES` whose ranks
+    each hold the device tier's carve and their share of the stripes of
+    the ``nu x nu`` KKT matrix (dealt cyclically,
+    ``linalg_kernel.stripe_deal``), or None."""
+    nu = V * hu
+    for C in STRUCT_CLUSTER_SIZES:
+        area = linalg_kernel.stripe_deal(nu, C)[2]
+        need = cluster_smem_bytes(P, S, hp, hu, V, C, area)
+        if need <= SMEM_LIMIT_BYTES:
+            return C, area, need
+    return None
+
+
 def struct_tier(P: int, S: int, hp: int, hu: int, V: int,
                 lower_tri: bool = False, tier: str | None = None) -> Tier:
     """The structured kernel's storage tier at a shape: the shared tier
-    where :func:`fits_smem` holds, else the device tier (the ``nu x ldk``
-    KKT matrix in a device-memory workspace, the slabs read in place);
-    ``tier="device"`` forces the device tier at any shape it holds.
+    where :func:`fits_smem` holds, else the cluster tier where a cluster
+    holds the KKT matrix (:func:`cluster_tier`), else the device tier (the
+    ``nu x ldk`` KKT matrix in a device-memory workspace, the slabs read in
+    place); ``tier`` forces one of :data:`TIERS` at any shape it holds.
     Raises ``NotImplementedError``, naming the bytes, where the tier's own
     shared memory exceeds a block's."""
-    if tier not in (None, "device"):
+    if tier not in (None,) + TIERS:
         raise ValueError(f"unknown tier {tier!r}")
-    dev = tier == "device" or (tier is None and not fits_smem(
-        P, S, hp, hu, V, lower_tri))
+    fits = fits_smem(P, S, hp, hu, V, lower_tri)
+    if tier == "cluster" or (tier is None and not fits):
+        cl = cluster_geometry(P, S, hp, hu, V)
+        if cl is not None:
+            return Tier("cluster", cl[2], 0)
+        if tier == "cluster":
+            raise NotImplementedError(
+                f"the fused structured IPM kernel's cluster tier needs more "
+                f"than {SMEM_LIMIT_BYTES} bytes of shared memory a CTA at "
+                f"P={P}, S={S}, hp={hp}, hu={hu}, V={V} with "
+                f"{STRUCT_CLUSTER_SIZES[-1]} CTAs")
+    dev = tier == "device" or (tier is None and not fits)
     need = smem_bytes(P, S, hp, hu, V, lower_tri, dev)
     if need > SMEM_LIMIT_BYTES:
         full = smem_bytes(P, S, hp, hu, V, lower_tri)
@@ -173,7 +231,10 @@ def resident_ctas_per_sm(P: int, S: int, hp: int, hu: int, V: int,
     holds at a shape in its tier (:func:`struct_tier`; the CUDA occupancy
     calculator, with the launch's shared memory). Needs the card: it builds
     and loads the library."""
-    dev = struct_tier(P, S, hp, hu, V, lower_tri, tier).tier == "device"
+    t = struct_tier(P, S, hp, hu, V, lower_tri, tier)
+    if t.tier == "cluster":
+        return cluster_occupancy(P, S, hp, hu, V, lower_tri)[0]
+    dev = t.tier == "device"
     fn = _cuda_build.load_library().ipm_struct_occupancy
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -186,13 +247,36 @@ def resident_ctas_per_sm(P: int, S: int, hp: int, hu: int, V: int,
     return ctas.value
 
 
-def _launcher():
-    """The library's ``ipm_struct_launch`` with its argument types set."""
-    fn = _cuda_build.load_library().ipm_struct_launch
+def cluster_occupancy(P: int, S: int, hp: int, hu: int, V: int,
+                      lower_tri: bool) -> tuple[int, int]:
+    """``(CTAs one SM holds, clusters the device holds at once)`` of K1's
+    cluster tier at a shape (:func:`cluster_geometry`; the CUDA occupancy
+    calculator). Needs the card."""
+    C, area, _ = cluster_geometry(P, S, hp, hu, V)
+    fn = _cuda_build.load_library().ipm_struct_cluster_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+    ctas, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(P, S, hp, hu, V, int(lower_tri), C, area, ctypes.byref(ctas),
+             ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError(f"ipm_struct_cluster_occupancy failed with CUDA "
+                           f"error {err}")
+    return ctas.value, clusters.value
+
+
+def _launcher(cluster: bool = False):
+    """The library's ``ipm_struct_launch`` (``ipm_struct_cluster_launch``)
+    with its argument types set."""
+    lib = _cuda_build.load_library()
+    fn = lib.ipm_struct_cluster_launch if cluster else lib.ipm_struct_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([p] * 18 + [p, p] + [p] * 12 + [i] * 10 + [f] * 3
-                       + [ctypes.c_long, ctypes.c_long, p])
+        fn.argtypes = ([p] * 18 + [p, p] + [p] * 12 + [i] * (11 if cluster
+                                                          else 10)
+                       + [f] * 3 + [ctypes.c_long]
+                       + ([] if cluster else [ctypes.c_long]) + [p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -250,10 +334,11 @@ def ipm_iterate_struct(gi, gj, gob, gsl, pb, q, pdiag,
     ``(x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)``.
 
     CUDA tensors (float32, contiguous) go to the hand-written kernel in the
-    storage tier :func:`struct_tier` picks for the shape (``tier="device"``
-    forces the device tier, for checking it against the shared one) —
-    there is no fallback: a failing build, load or launch raises. CPU
-    tensors go to :func:`ipm_iterate_struct_plain`.
+    storage tier :func:`struct_tier` picks for the shape (``tier`` forces
+    one, for checking the tiers against each other) — there is no
+    fallback: a failing build, load or launch raises, and so does a
+    cluster that cannot be resident. CPU tensors go to
+    :func:`ipm_iterate_struct_plain`.
     """
     state = (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)
     if gi.device.type != "cuda":
@@ -261,7 +346,7 @@ def ipm_iterate_struct(gi, gj, gob, gsl, pb, q, pdiag,
             gi, gj, gob, gsl, pb, q, pdiag, *state, pairs=pairs,
             obst_veh=obst_veh, tol=tol, reg_rel=reg_rel, n_cor=n_cor,
             n_iters=n_iters, lower_tri=lower_tri)
-    global launch_count, device_launch_count
+    global launch_count, device_launch_count, cluster_launch_count
     B, P, S, hp, hu, V, n, mg = _check_shapes(
         gi, gj, gob, gsl, pb, q, pdiag, state, pairs, obst_veh)
     if gi.dtype != torch.float32:
@@ -273,12 +358,33 @@ def ipm_iterate_struct(gi, gj, gob, gsl, pb, q, pdiag,
             raise ValueError("the CUDA IPM kernel needs contiguous tensors")
     tr = struct_tier(P, S, hp, hu, V, lower_tri, tier)
     dev = tr.tier == "device"
-    launch = _launcher()
     pt, ot = _index_tables(pairs, obst_veh, gi.device)
     outs = [torch.empty_like(o) for o in state]
+    ptr = [0 if a is None else a.data_ptr() for a in ins]
+    if tr.tier == "cluster":
+        C, area, _ = cluster_geometry(P, S, hp, hu, V)
+        table = linalg_kernel.deal_tensor(
+            V * hu, C, linalg_kernel.stripe_deal(V * hu, C), gi.device)
+        with torch.cuda.device(gi.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _launcher(cluster=True)(
+                *ptr, pt.data_ptr(), ot.data_ptr() if S else 0,
+                *[o.data_ptr() for o in outs], table.data_ptr(),
+                B, P, S, hp, hu, V, int(n_iters), int(n_cor), int(lower_tri),
+                C, area, float(tol), float(tol * 1e3),
+                float(reg_rel), tr.smem_bytes, stream)
+        if err != 0:
+            why = ("no cluster can be resident" if err == -2
+                   else f"CUDA error {err}")
+            raise RuntimeError(
+                f"ipm_struct_cluster_launch failed: {why} (B={B}, P={P}, "
+                f"S={S}, hp={hp}, hu={hu}, V={V}, cluster of {C} CTAs, "
+                f"{tr.smem_bytes} bytes of shared memory each)")
+        cluster_launch_count += 1
+        return tuple(outs)
+    launch = _launcher()
     ws = torch.empty((B, tr.workspace_floats), dtype=torch.float32,
                      device=gi.device) if dev else None
-    ptr = [0 if a is None else a.data_ptr() for a in ins]
     with torch.cuda.device(gi.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(

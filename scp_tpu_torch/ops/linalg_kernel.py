@@ -15,16 +15,19 @@ layout, so each TPU pair (lane API and ``vmap`` front) is ONE kernel here.
   ``G (B, m, n), v (B, m) -> (B, n)``.
 
 Launch geometry is decided here and checked by the launchers
-(:func:`chol_geometry`, :func:`solve_geometry`, :func:`gmv_geometry`,
-:func:`gtmv_geometry`). The factor and the solve run one CTA per instance
-on panels / blocks of :data:`CHOL_PANEL` columns (``csrc/chol_blocked.cuh``):
-while one instance's matrix fits a block's shared memory
-(:func:`fits_chol_smem`, n < 240) it is held there; from n = 240 (hp = 64
-with 4 vehicles is n = 257) the factor works in place in its output in
-device memory and the solve reads the factor from there, with only the
-vectors in shared memory, so every n a 32-bit index reaches within one
-instance is taken (n <= 46,340 for the factor; n <= 29,056 for the solve,
-whose two vectors must fit shared memory). The G product stages row tiles
+(:func:`chol_geometry`, :func:`chol_cluster_geometry`,
+:func:`solve_geometry`, :func:`gmv_geometry`, :func:`gtmv_geometry`). The
+factor and the solve work on panels / blocks of :data:`CHOL_PANEL` columns
+(``csrc/chol_blocked.cuh``): while one instance's matrix fits a block's
+shared memory (:func:`fits_chol_smem`, n < 240) one CTA holds it there;
+from n = 240 (hp = 64 with 4 vehicles is n = 257) the factor spreads it over
+the shared memory of a thread block cluster of up to 8 CTAs
+(``csrc/chol_cluster.cuh``, :func:`chol_route`) while that holds it (n <=
+686), and past that works in place in its output in device memory on one
+CTA; the solve reads the factor from device memory, with only the vectors
+in shared memory, so every n a 32-bit index reaches within one instance is
+taken (n <= 46,340 for the factor; n <= 29,056 for the solve, whose two
+vectors must fit shared memory). The G product stages row tiles
 of at most :data:`GMV_STAGE_BYTES` in shared memory, one CTA each (a row
 wider than that in runs of columns); G^T v stages an instance's rows the
 same way over a thread block cluster of at most :data:`GTMV_MAX_CLUSTER`
@@ -82,12 +85,26 @@ CTA_RESERVED_SMEM = 1024
 # The factor and the solve from n = 240 (chol_large_kernel,
 # cho_solve_large_kernel): one CTA of LARGE_THREADS threads per instance.
 LARGE_THREADS = 256
+# The factor from n = 240 while a thread block cluster holds the matrix
+# (chol_cluster_kernel, csrc/chol_cluster.cuh): the lower triangle in
+# CHOL_STRIPE-row stripes dealt cyclically over C CTAs of one cluster, C
+# the smallest of CHOL_CLUSTER_SIZES whose ranks each hold their stripes,
+# the panel buffer and the vectors, raised while B x C is below
+# CHOL_CLUSTER_SMS (the SMs of an H100) so that a small batch spreads over
+# the card. Past the largest cluster, chol_large_kernel takes the factor.
+CHOL_STRIPE = 16
+CHOL_CLUSTER_SIZES = (1, 2, 4, 8)
+CHOL_CLUSTER_SMS = 132
+# The large-n factor's variants (``cholesky(..., variant=)``): the cluster
+# kernel, and the one-CTA kernel with the matrix in device memory.
+CHOL_LARGE_VARIANTS = ("cluster", "device")
 # Within one instance the kernels index with 32-bit integers.
 MAX_INDEX = 2 ** 31 - 1
 
 # Launches of each CUDA kernel since the last reset (incremented where the
 # kernel is launched and nowhere else).
-launch_counts = {"cholesky": 0, "cho_solve": 0, "gmv": 0, "gtmv": 0}
+launch_counts = {"cholesky": 0, "cho_solve": 0, "gmv": 0, "gtmv": 0,
+                 "cholesky_cluster": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _ARGTYPES = {
@@ -98,7 +115,9 @@ _ARGTYPES = {
                             _P],
     "chol_large_launch": [_P, _P, _I, _I, _I, _L, _P],
     "cho_solve_large_launch": [_P, _P, _P, _I, _I, _I, _L, _P],
+    "chol_cluster_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
 }
+_deals: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -139,10 +158,88 @@ def _check_large(n: int, smem: int) -> None:
                          f"memory (limit {SMEM_LIMIT_BYTES})")
 
 
+def stripe_words(n: int, s: int) -> int:
+    """Floats of stripe ``s`` of an n x n lower triangle: rows ``16 s ..``
+    (fewer in the last), columns ``0 .. 16 s + 15``, leading dimension
+    ``16 (s + 1) + 1`` (``csrc/chol_cluster.cuh``)."""
+    return min(CHOL_STRIPE, n - CHOL_STRIPE * s) * (CHOL_STRIPE * (s + 1) + 1)
+
+
+def stripe_deal(n: int, C: int) -> tuple[list[int], list[int], int]:
+    """The stripes of an n x n factor dealt cyclically over ``C`` ranks:
+    ``(owner, offset, area words)`` — each stripe's rank, its offset in
+    that rank's stripe area, and the largest area a rank needs."""
+    ns = -(-n // CHOL_STRIPE)
+    owner = [s % C for s in range(ns)]
+    offset, used = [], [0] * C
+    for s in range(ns):
+        offset.append(used[owner[s]])
+        used[owner[s]] += stripe_words(n, s)
+    return owner, offset, max(used)
+
+
+def stripe_buffer_words(n: int, C: int, area_words: int) -> int:
+    """Floats of a rank's buffers of the cluster factor
+    (``csrc/chol_cluster.cuh::stripe_buffer_words``): two diagonal-block
+    buffers (16 x 16 and 16 reciprocals each), four mbarriers (8 words),
+    the stripe area (rounded up to 16 bytes) and the panel buffers (two of
+    16 columns of the rows rounded up to a stripe, plus one stripe; one
+    when C = 1)."""
+    panel_rows = CHOL_STRIPE * (-(-n // CHOL_STRIPE) + 1)
+    return (2 * (CHOL_STRIPE * CHOL_STRIPE + CHOL_STRIPE) + 8
+            + -(-area_words // 4) * 4
+            + (2 if C > 1 else 1) * CHOL_STRIPE * panel_rows)
+
+
+def chol_cluster_smem_bytes(n: int, C: int, area_words: int) -> int:
+    """Dynamic shared memory of a rank of the cluster factor: its buffers
+    (:func:`stripe_buffer_words`), ``1 / diag``, the deal (two ints a
+    stripe) and the flag."""
+    ns = -(-n // CHOL_STRIPE)
+    return 4 * (stripe_buffer_words(n, C, area_words) + n + 2 * ns + 1)
+
+
+def chol_cluster_geometry(B: int, n: int, sms: int = CHOL_CLUSTER_SMS):
+    """``(C, threads, shared-memory bytes per CTA, (owner, offset, area
+    words))`` of the cluster factor — ``C`` CTAs, one cluster, per
+    instance: the smallest of :data:`CHOL_CLUSTER_SIZES` whose ranks each
+    fit a block's shared memory, raised while ``B * C < sms`` — or None
+    when even the largest cluster cannot hold the matrix."""
+    _check_large(n, 0)
+    fits = [C for C in CHOL_CLUSTER_SIZES
+            if chol_cluster_smem_bytes(n, C, stripe_deal(n, C)[2])
+            <= SMEM_LIMIT_BYTES]
+    if not fits:
+        return None
+    C = next((c for c in fits if B * c >= sms), fits[-1])
+    deal = stripe_deal(n, C)
+    return C, LARGE_THREADS, chol_cluster_smem_bytes(n, C, deal[2]), deal
+
+
+def chol_route(B: int, n: int, variant: str | None = None) -> str:
+    """The factor kernel for ``B`` instances of n x n: ``"shared"``
+    (chol_blocked_kernel) while :func:`fits_chol_smem`, else ``"cluster"``
+    (chol_cluster_kernel) while a cluster holds the matrix, else
+    ``"device"`` (chol_large_kernel). ``variant`` forces ``"cluster"`` or
+    ``"device"`` at any n (``ValueError`` where the cluster cannot hold
+    it)."""
+    if variant not in (None,) + CHOL_LARGE_VARIANTS:
+        raise ValueError(f"unknown factor variant {variant!r}")
+    if variant is None and fits_chol_smem(n):
+        return "shared"
+    has_cluster = chol_cluster_geometry(B, n) is not None
+    if variant == "cluster" and not has_cluster:
+        raise ValueError(f"n={n}: the matrix does not fit a cluster of "
+                         f"{CHOL_CLUSTER_SIZES[-1]} CTAs")
+    if variant == "device" or not has_cluster:
+        return "device"
+    return "cluster"
+
+
 def chol_geometry(B: int, n: int) -> tuple[int, int]:
-    """``(threads, shared-memory bytes per CTA)`` of the factor, which runs
-    one CTA per instance: the matrix in shared memory while
-    :func:`fits_chol_smem`, else in device memory."""
+    """``(threads, shared-memory bytes per CTA)`` of the one-CTA factors:
+    the matrix in shared memory while :func:`fits_chol_smem`, else in
+    device memory (the cluster factor: :func:`chol_cluster_geometry`)."""
     if not fits_chol_smem(n):
         smem = chol_large_smem_bytes(n)
         _check_large(n, smem)
@@ -248,17 +345,45 @@ def _launch(name, symbol, first, *args):
     launch_counts[name] += 1
 
 
-def cholesky(K: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factors of a batch of SPD matrices."""
+def deal_tensor(n: int, C: int, deal, device) -> torch.Tensor:
+    key = (n, C, str(device))
+    if key not in _deals:
+        _deals[key] = torch.tensor(deal[0] + deal[1], dtype=torch.int32,
+                                   device=device)
+    return _deals[key]
+
+
+def cholesky(K: torch.Tensor, variant: str | None = None) -> torch.Tensor:
+    """Lower Cholesky factors of a batch of SPD matrices, by the kernel
+    :func:`chol_route` picks (``variant`` forces a large-n kernel)."""
     B, n = K.shape[0], K.shape[-1]
     if not _cuda_build.check_operands("cholesky", [(K, (B, n, n))]):
         return linalg.cholesky_plain(K)
-    symbol = ("chol_batched_launch" if fits_chol_smem(n)
-              else "chol_large_launch")
-    geometry = chol_geometry(B, n)
+    route = chol_route(B, n, variant)
     L = torch.empty_like(K)
+    if route == "cluster":
+        C, threads, smem, deal = chol_cluster_geometry(B, n)
+        fn = getattr(_cuda_build.load_library(), "chol_cluster_launch")
+        if fn.argtypes is None:
+            fn.argtypes = _ARGTYPES["chol_cluster_launch"]
+            fn.restype = ctypes.c_int
+        table = deal_tensor(n, C, deal, K.device)
+        with torch.cuda.device(K.device):
+            err = fn(K.data_ptr(), L.data_ptr(), table.data_ptr(), B, n, C,
+                     threads, deal[2], smem,
+                     torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            why = ("no cluster can be resident" if err == -2
+                   else f"CUDA error {err}")
+            raise RuntimeError(
+                f"chol_cluster_launch failed: {why} (B={B}, n={n}, "
+                f"cluster of {C} CTAs, {smem} bytes of shared memory each)")
+        launch_counts["cholesky_cluster"] += 1
+        return L
+    symbol = "chol_batched_launch" if route == "shared" else \
+        "chol_large_launch"
     _launch("cholesky", symbol, K, K.data_ptr(), L.data_ptr(), B, n,
-            *geometry)
+            *chol_geometry(B, n))
     return L
 
 

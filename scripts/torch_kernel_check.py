@@ -44,9 +44,11 @@ with one and two right-hand sides, by graph replay), K2 (one QP of
 frog's shape, 7 iterations, B = 1024 / 512 / 256 / 64, warm and cold L2,
 at each of its two launch bounds), K5b (m = 120, n = 81 at B = 1024 / 256
 / 64 / 1 and the hp = 64 shape m = 384, n = 257 at B = 256, warm and cold,
-beside ``torch.bmm``), ``k3k4large``: K3 and K4 at n = 240, 257 and 400
-(warm and cold, beside ``torch.linalg.cholesky_ex`` /
-``torch.cholesky_solve``), K3 (n = 81, B = 1024 / 256 / 64 / 1,
+beside ``torch.bmm``), ``k3k4large``: K3 and K4 at n = 240, 257, 330 and
+400 (warm and cold, beside ``torch.linalg.cholesky_ex`` /
+``torch.cholesky_solve``; K3's cluster kernel, its one-CTA kernel and the
+cluster kernel at each cluster size that holds the matrix, with the size
+the geometry picks), K3 (n = 81, B = 1024 / 256 / 64 / 1,
 with its thread count varied) and K5a (m = 120, n = 81 at B = 1024 / 256 /
 64 and the P shape m = n = 81 at B = 1024, with its stage and grid target
 varied), beside ``torch.linalg.cholesky_ex`` / ``torch.bmm``, three ways,
@@ -58,16 +60,18 @@ the variants that checkout lacks are skipped. ``--sections`` builds the
 library with ``-DSCP_PROFILE_SECTIONS`` and prints where block 0 of the
 blocked factor spends its clock cycles (load, diagonal blocks, panel rows,
 trailing updates with the next diagonal block, store) at n = 81, B = 1 and
-1024, for each thread count; ``--sections k6k7`` the cycles of K6's and K7's
+1024, for each thread count, and at n = 257 for each large-n kernel; ``--sections k6k7`` the cycles of K6's and K7's
 stage by section (thread 0 of block 0, per stage) at V = 4, B = 1 and 256,
 and of the generic kernels at V = 16; ``--sections k2`` K2's cycles per
 IPM iteration by section (block 0, one frog QP, B = 64 and 1024).
-``--tiers`` builds the library (printing ``ptxas -v``) and holds K1's and
-K2's device-memory tier against their shared-memory tier on the same
-inputs (bit for bit: the same sums in the same order) at the bench shape,
-two odd K1 shapes and frog's K2 shape, and against the plain version past
-the shared tier (parallel-11's side-selection QP and circle-4 at hp = 20 /
-64 for K1, path (h)'s n = 257 for K2); the default mode runs it too.
+``--tiers`` builds the library (printing ``ptxas -v``) and holds K1's
+device-memory and cluster tiers and K2's device-memory tier against their
+shared-memory tier on the same inputs (bit for bit: the same sums in the
+same order) at the bench shape, two odd K1 shapes and frog's K2 shape, and
+against the plain version past the shared tier (parallel-11's
+side-selection QP at hp = 20 and circle-4 at hp = 64 for K1, in the
+cluster tier and bit for bit the device tier; path (h)'s n = 257 for K2);
+the default mode runs it too.
 ``--pivots`` compiles a test that
 includes ``csrc/riccati.cu`` and holds its branch-free pivot square root and
 reciprocal to ``__fsqrt_rn`` / ``__frcp_rn`` bit for bit on every float in
@@ -333,12 +337,12 @@ K1_DEVICE_CASES = (
 )
 
 
-def _tier_pair(fn, args, kw):
-    """``fn`` in its shared tier and forced into its device tier on the
+def _tier_pair(fn, args, kw, tier="device"):
+    """``fn`` in the tier its shape takes and forced into ``tier`` on the
     same inputs: whether every output is bit for bit the same, and the
     largest difference."""
     a = fn(*args, **kw)
-    b = fn(*args, **kw, tier="device")
+    b = fn(*args, **kw, tier=tier)
     torch.cuda.synchronize()
     return {"bit_identical": all(torch.equal(x, y) for x, y in zip(a, b)),
             "max_abs_diff": max(float((x - y).abs().max())
@@ -359,11 +363,16 @@ def check_tiers() -> None:
         args = torch_kernel_args(arrs, device="cuda")
         kw = dict(pairs=pairs, obst_veh=ov, tol=1e-6, reg_rel=3e-6,
                   n_cor=n_cor, n_iters=7, lower_tri=tri)
-        rep = {"case": f"k1_tiers_B{B}_V{V}_hp{hp}_hu{hu}_tri{int(tri)}",
-               **_tier_pair(ik.ipm_iterate_struct, args, kw)}
-        print(json.dumps(rep), flush=True)
-        if not rep["bit_identical"]:
-            bad.append(rep["case"])
+        for other in ("device", "cluster"):
+            if other == "cluster" and "cluster" not in getattr(
+                    ik, "TIERS", ()):
+                continue                     # an older checkout
+            rep = {"case": f"k1_tiers_B{B}_V{V}_hp{hp}_hu{hu}_tri{int(tri)}"
+                           f"_{other}",
+                   **_tier_pair(ik.ipm_iterate_struct, args, kw, other)}
+            print(json.dumps(rep), flush=True)
+            if not rep["bit_identical"]:
+                bad.append(rep["case"])
     for B, V, hp, hu, no, seed, hard, n_cor, tri, n_it in K1_DEVICE_CASES:
         arrs, pairs, ov = kernel_inputs(B=B, V=V, hp=hp, hu=hu, n_obst=no,
                                         seed=seed, hard_rows=hard)
@@ -373,6 +382,9 @@ def check_tiers() -> None:
         tier = ik.struct_tier(len(pairs), len(ov), hp, hu, V, tri)
         ik.reset_launch_count()
         out_k = ik.ipm_iterate_struct(*args, **kw)
+        cluster = tier.tier == "cluster"
+        if cluster:   # the cluster tier bit for bit the device tier
+            out_dev = ik.ipm_iterate_struct(*args, **kw, tier="device")
         out_p = ik.ipm_iterate_struct_plain(*args, **kw)
         one_k = ik.ipm_iterate_struct(*args, **{**kw, "n_iters": 1})
         one_p = ik.ipm_iterate_struct_plain(*args, **{**kw, "n_iters": 1})
@@ -383,15 +395,21 @@ def check_tiers() -> None:
                   zip(one_k[:1] + one_k[4:], one_p[:1] + one_p[4:]))
         rep = {"case": f"k1_device_tier_B{B}_V{V}_hp{hp}_hu{hu}",
                "tier": tier._asdict(),
+               "cluster_launches": getattr(ik, "cluster_launch_count", 0),
                "device_launches": ik.device_launch_count,
                "shared_launches": ik.launch_count,
+               "cluster_bit_identical_device": (
+                   all(torch.equal(x, y) for x, y in zip(out_k, out_dev))
+                   if cluster else None),
                "u_max": float(du.max()), "u_median": float(du.median()),
                "one_iter_max_abs_err": one,
                "finite": all(bool(torch.isfinite(t).all()) for t in out_k),
                "frozen_kernel": float(out_k[10][:, 1].mean()),
                "frozen_plain": float(out_p[10][:, 1].mean())}
         print(json.dumps(rep), flush=True)
-        if (tier.tier != "device" or rep["device_launches"] != 2
+        if (rep["cluster_bit_identical_device"] is False
+                or rep["device_launches"] + rep["cluster_launches"] != 2
+                + cluster
                 or rep["shared_launches"] or not rep["finite"]
                 or rep["u_max"] > 20 * U_ABS_LIMIT
                 or rep["u_median"] > 20 * U_MEDIAN_LIMIT or one > 1e-4):
@@ -540,8 +558,9 @@ def check_linalg_kernels() -> None:
             if n >= 239 and B == 1023:
                 B = 257
             K = _spd(rng, B, n, dev)
-            if B == 3:
-                K[1, n // 2, n // 2] = -1.0  # one indefinite instance
+            if B == 3:   # one indefinite instance (from n = 240 its pivot
+                bad_row = n // 2 if n < 240 else 100   # on rank 6 of 8)
+                K[1, bad_row, bad_row] = -1.0
             L_k = lk.cholesky(K)
             L_p = linalg.cholesky_plain(K)
             L_d = linalg.cholesky_plain(K.double())
@@ -560,6 +579,14 @@ def check_linalg_kernels() -> None:
                    "kernel_vs_f64": e_kd, "plain_vs_f64": e_pd,
                    "kernel_vs_plain": float((Lk - Lp).abs().max()),
                    "upper_zero": upper == 0.0, "nan_instances_ok": nan_ok}
+            if n >= 240 and len(_chol_variants()) > 1:
+                # the cluster factor bit for bit the one-CTA large-n kernel
+                geo = lk.chol_cluster_geometry(B, n)
+                rep["route"] = lk.chol_route(B, n)
+                rep["cluster_geometry"] = list(geo[:3])
+                rep["bit_identical_device_variant"] = _same_bits(
+                    L_k, lk.cholesky(K, variant="device"))
+                nan_ok = nan_ok and rep["bit_identical_device_variant"]
             print(json.dumps(rep), flush=True)
             if (not nan_ok or upper != 0.0
                     or resid > 2e-5 * float(K[ok].abs().max())
@@ -634,7 +661,9 @@ def check_linalg_kernels() -> None:
             e_pd = float((o_p.double() - o_d).abs().max())
             e_kp = float((o_k - o_p).abs().max())
             rep = {"case": f"{name}_{case}",
-                   "geometry": list(getattr(lk, geometry)(B, m, n)),
+                   "geometry": list(getattr(lk, geometry)(
+                       B, m, n, *(lk.sm_resources(dev) if name == "gtmv"
+                                 else ()))),
                    "base_mod_16": G.data_ptr() % 16, "kernel_vs_plain": e_kp,
                    "kernel_vs_f64": e_kd, "plain_vs_f64": e_pd,
                    "scale": scale,
@@ -1033,7 +1062,7 @@ def k5b_variants(rnd, dev) -> None:
 # The factor and the solve past the shared-memory kernels: n = 240, 257
 # (hp = 64 with 4 vehicles) and 400, at the widths of the hp = 64 paths
 K3K4_LARGE_CASES = ((240, (1024, 256, 1)), (257, (1024, 256, 1)),
-                    (400, (256, 1)))
+                    (330, (1024, 256, 1)), (400, (1024, 256, 1)))
 
 
 def k3k4large_times(rnd, dev) -> None:
@@ -1064,15 +1093,38 @@ def k3k4large_times(rnd, dev) -> None:
                           for _ in range(count)]
                 rep = {"round": rnd, "kernel": name, "n": n, "B": w,
                        "input_copies": count}
+                variants = [(None, None)]
+                if name == "cholesky":
+                    variants = [(v, None) for v in _chol_variants()]
+                    if len(_chol_variants()) > 1:   # the cluster's size
+                        variants += [("cluster", c)
+                                     for c in lk.CHOL_CLUSTER_SIZES]
                 try:
-                    fn(*args)
+                    for v, c in variants:
+                        key = v if c is None else f"cluster_C{c}"
+                        saved = lk.CHOL_CLUSTER_SIZES
+                        if c is not None:
+                            if lk.chol_cluster_smem_bytes(
+                                    n, c, lk.stripe_deal(n, c)[2]) > \
+                                    lk.SMEM_LIMIT_BYTES:
+                                continue
+                            lk.CHOL_CLUSTER_SIZES = (c,)
+                        try:
+                            call = (lambda a: _cholesky(a, v)) \
+                                if name == "cholesky" else (lambda *a: fn(*a))
+                            call(*args)
+                            rep.setdefault("graph_ms_per_call", {})[key] = {
+                                "warm": _graph_ms([lambda: call(*args)] * 10),
+                                "cold": _graph_ms([lambda c_=c_: call(*c_)
+                                                   for c_ in copies])}
+                            if v == "cluster":
+                                rep.setdefault("cluster_size", {})[key] = \
+                                    lk.chol_cluster_geometry(w, n)[0]
+                        finally:
+                            lk.CHOL_CLUSTER_SIZES = saved
                     rep["geometry"] = list(
                         (lk.chol_geometry if name == "cholesky"
                          else lk.solve_geometry)(w, n))
-                    rep["graph_ms_per_call"] = {
-                        "warm": _graph_ms([lambda: fn(*args)] * 10),
-                        "cold": _graph_ms([lambda c=c: fn(*c)
-                                           for c in copies])}
                 except NotImplementedError as exc:
                     rep["refused"] = str(exc)[:80]
                 rep["library_profiler_ms_per_call"] = {
@@ -1212,7 +1264,35 @@ def linalg_times(rnd, K, dev, which) -> None:
          lk.GMV_MIN_CTAS) = saved
 
 
+def _same_bits(a, b) -> bool:
+    """Bit for bit equal float32 tensors (NaN entries included)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _chol_variants() -> tuple:
+    """The factor variants ``linalg_kernel.cholesky`` can be forced into
+    from n = 240 in this checkout (an older one has no keyword: its one
+    large-n kernel is reported as ``"device"``)."""
+    import inspect
+    from scp_tpu_torch.ops import linalg_kernel as lk
+    if "variant" in inspect.signature(lk.cholesky).parameters:
+        return lk.CHOL_LARGE_VARIANTS
+    return ("device",)
+
+
+def _cholesky(K, variant=None):
+    from scp_tpu_torch.ops import linalg_kernel as lk
+    if variant is None or len(_chol_variants()) == 1:
+        return lk.cholesky(K)
+    return lk.cholesky(K, variant=variant)
+
+
 def k3_sections() -> None:
+    """Clock cycles of block 0 of the factor by section: the shared-memory
+    kernel at n = 81 (each thread count) and the large-n kernels at n = 257
+    (each variant: ``device``, one CTA with the matrix in device memory;
+    ``cluster``, the stripes over a cluster, block 0 = rank 0 of instance
+    0), B = 1 and 1024."""
     import ctypes
     import subprocess
     from scp_tpu_torch.ops import _cuda_build, linalg_kernel as lk
@@ -1226,26 +1306,43 @@ def k3_sections() -> None:
     buf = (ctypes.c_ulonglong * 8)()
     rng = np.random.default_rng(6)
     saved = (lk.CHOL_FEW_INSTANCES, lk.CHOL_FEW_THREADS)
+
+    def run(call, rep):
+        call()
+        torch.cuda.synchronize()
+        lib.chol_read_sections(buf)
+        reps = 10
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        if lib.chol_read_sections(buf) != 0:
+            sys.exit("reading the section counters failed")
+        cyc = {k: buf[i] / reps for i, k in enumerate(names)}
+        print(json.dumps({**rep, "ms_per_call_instrumented":
+                          start.elapsed_time(end) / reps,
+                          "block0_cycles": sum(cyc.values()),
+                          "cycles": cyc}), flush=True)
+
     try:
         for B in (1, 1024):
             K = _spd(rng, B, 81, "cuda")
             for threads in (128, 256):
                 lk.CHOL_FEW_INSTANCES, lk.CHOL_FEW_THREADS = 1 << 30, threads
-                lk.cholesky(K)
-                torch.cuda.synchronize()
-                lib.chol_read_sections(buf)
-                reps = 10
-                for _ in range(reps):
-                    lk.cholesky(K)
-                torch.cuda.synchronize()
-                if lib.chol_read_sections(buf) != 0:
-                    sys.exit("reading the section counters failed")
-                cyc = {k: buf[i] / reps for i, k in enumerate(names)}
-                print(json.dumps({"B": B, "n": 81, "threads": threads,
-                                  "block0_cycles": sum(cyc.values()),
-                                  "cycles": cyc}), flush=True)
+                run(lambda: lk.cholesky(K),
+                    {"B": B, "n": 81, "threads": threads})
     finally:
         lk.CHOL_FEW_INSTANCES, lk.CHOL_FEW_THREADS = saved
+    for B in (1, 1024):
+        K = _spd(rng, B, 257, "cuda")
+        for variant in _chol_variants():
+            rep = {"B": B, "n": 257, "variant": variant}
+            if variant == "cluster":
+                rep["geometry"] = list(lk.chol_cluster_geometry(B, 257)[:3])
+            run(lambda: _cholesky(K, variant), rep)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

@@ -20,8 +20,10 @@ import torch
 
 from scp_tpu.ops import pallas_linalg as pll
 from scp_tpu_torch.ops import ipm_kernel as ik
+from scp_tpu_torch.ops import linalg_kernel as lk
 from scp_tpu_torch.testing import (KERNEL_ARG_ORDER, STATE_NAMES,
                                    kernel_inputs, torch_kernel_args)
+from torch_parity import assert_stripes_cover
 
 B = pll.TB
 
@@ -175,11 +177,15 @@ def test_failed_factorization_freezes_instead_of_raising():
 def test_shared_memory_gate():
     """The bench shape fits three times into an SM's shared memory and takes
     the shared tier with that carve; circle-4 at hp = 64 (nu = 256) no
-    longer raises: the device tier takes it."""
+    longer raises: the cluster tier takes it, and the device tier where
+    forced."""
     assert ik.smem_bytes(6, 0, 20, 20, 4) < ik.SMEM_LIMIT_BYTES // 3
     assert ik.struct_tier(6, 0, 20, 20, 4) \
         == ("shared", ik.smem_bytes(6, 0, 20, 20, 4), 0, False)
     t = ik.struct_tier(6, 0, 64, 64, 4)
+    assert t.tier == "cluster" and t.smem_bytes <= ik.SMEM_LIMIT_BYTES
+    assert t.workspace_floats == 0
+    t = ik.struct_tier(6, 0, 64, 64, 4, tier="device")
     assert t.tier == "device" and t.smem_bytes <= ik.SMEM_LIMIT_BYTES
     assert t.workspace_floats == 256 * 256
 
@@ -200,6 +206,7 @@ def test_carve_and_gate(case):
     (P = 6, hp = hu = 20, V = 4, lower-triangular slabs, stored packed) four
     CTAs share an SM; the shared tier admits that shape and not hp = 64,
     which the device tier takes (the factor and the slabs out of shared
+    memory; by default the cluster tier, the factor in a cluster's shared
     memory) and the ``kkt="auto"`` route sends to the banded path; past the
     device tier too the tier function raises; the carve grows with hp and
     with P, and packing never takes more than whole rows."""
@@ -217,6 +224,9 @@ def test_carve_and_gate(case):
         for tri in (False, True):
             assert not ik.fits_smem(6, 0, 64, 64, 4, tri)
             t = ik.struct_tier(6, 0, 64, 64, 4, lower_tri=tri)
+            assert t == ("cluster", ik.cluster_geometry(6, 0, 64, 64, 4)[2],
+                         0, False)
+            t = ik.struct_tier(6, 0, 64, 64, 4, lower_tri=tri, tier="device")
             assert t == ("device", ik.smem_bytes(6, 0, 64, 64, 4, tri, True),
                          256 * 256, False)
             with pytest.raises(NotImplementedError,
@@ -243,25 +253,28 @@ def test_carve_and_gate(case):
                     <= ik.smem_bytes(3, 2, hp, hu, 3)
 
 
-# (P, S, hp, hu, V, lower_tri) -> (tier, shared bytes, workspace floats):
-# the bench shape, the side-selection QP of parallel-11 (55 pairs, 44
-# obstacle + 22 hard rate slabs) at hp = 10 / 16 / 20, circle-4 at hp = 64,
-# circle-8 at hp = 20 and circle-16 at hp = 10 (in the shared tier only
-# with their slabs packed), circle-16 at hp = 16. In the device tier the
-# bytes are the rest of the carve (the vectors, the P blocks, the slack
-# column, the tables) and the workspace nu rows of nu rounded up to 32.
+# (P, S, hp, hu, V, lower_tri) -> (tier, shared bytes, workspace floats,
+# CTAs an instance): the bench shape, the side-selection QP of parallel-11
+# (55 pairs, 44 obstacle + 22 hard rate slabs) at hp = 10 / 16 / 20,
+# circle-4 at hp = 64, circle-8 at hp = 20 and circle-16 at hp = 10 (in the
+# shared tier only with their slabs packed), circle-16 at hp = 16. Past the
+# shared tier the cluster tier: two CTAs an instance (four at circle-16),
+# each with the device tier's carve (the vectors, the P blocks, the slack column, the tables),
+# its half of the KKT matrix's 16-row stripes, the panel buffer, the
+# diagonal-block buffers, the deal and the row pointers.
 TIER_SHAPES = {
-    "bench": ((6, 0, 20, 20, 4, True), ("shared", 56_192, 0)),
-    "parallel11_hp10": ((55, 66, 10, 10, 11, True), ("shared", 153_668, 0)),
+    "bench": ((6, 0, 20, 20, 4, True), ("shared", 56_192, 0, 1)),
+    "parallel11_hp10": ((55, 66, 10, 10, 11, True),
+                        ("shared", 153_668, 0, 1)),
     "parallel11_hp16": ((55, 66, 16, 16, 11, True),
-                        ("device", 109_140, 176 * 192)),
+                        ("cluster", 174_680, 0, 2)),
     "parallel11_hp20": ((55, 66, 20, 20, 11, True),
-                        ("device", 139_588, 220 * 224)),
-    "circle4_hp64": ((6, 0, 64, 64, 4, True), ("device", 108_896, 256 * 256)),
-    "circle8_hp20": ((28, 0, 20, 20, 8, True), ("shared", 203_280, 0)),
-    "circle16_hp10": ((120, 0, 10, 10, 16, True), ("shared", 229_744, 0)),
+                        ("cluster", 228_592, 0, 2)),
+    "circle4_hp64": ((6, 0, 64, 64, 4, True), ("cluster", 222_336, 0, 2)),
+    "circle8_hp20": ((28, 0, 20, 20, 8, True), ("shared", 203_280, 0, 1)),
+    "circle16_hp10": ((120, 0, 10, 10, 16, True), ("shared", 229_744, 0, 1)),
     "circle16_hp16": ((120, 0, 16, 16, 16, True),
-                      ("device", 123_056, 256 * 256)),
+                      ("cluster", 203_472, 0, 4)),
 }
 # whole carves (shared tier) of the shapes past it, for the record
 WHOLE_CARVES = {"parallel11_hp16": 329_492, "parallel11_hp20": 481_908,
@@ -272,13 +285,15 @@ WHOLE_CARVES = {"parallel11_hp16": 329_492, "parallel11_hp20": 481_908,
 def test_struct_tier_at_real_shapes(name):
     """The tier function at the side-selection, long-horizon and circle-8 /
     16 shapes: the shared tier where the packed carve fits a block (232,448
-    bytes), the device tier past it, with the device tier's carve the whole
-    one less the factor and the slabs; forcing the device tier gives the
-    same carve at every shape."""
+    bytes), the cluster tier past it (its C and bytes a CTA); forcing the
+    device tier gives the whole carve less the factor and the slabs at
+    every shape, and each rank's cluster carve is that plus its stripes."""
     shape, want = TIER_SHAPES[name]
     P, S, hp, hu, V, tri = shape
     t = ik.struct_tier(*shape)
-    assert (t.tier, t.smem_bytes, t.workspace_floats) == want
+    geo = ik.cluster_geometry(*shape[:5])
+    C = geo[0] if t.tier == "cluster" else 1
+    assert (t.tier, t.smem_bytes, t.workspace_floats, C) == want
     whole = ik.smem_bytes(*shape)
     nu = V * hu
     rest = whole - 4 * (nu * (nu | 1)
@@ -286,9 +301,15 @@ def test_struct_tier_at_real_shapes(name):
     assert ik.smem_bytes(*shape, device=True) == rest
     assert ik.struct_tier(*shape, tier="device") \
         == ("device", rest, nu * ik.kkt_ld(nu, True), False)
-    if t.tier == "device":
+    area = lk.stripe_deal(nu, geo[0])[2]
+    assert geo[1] == area and geo[2] == ik.cluster_smem_bytes(
+        P, S, hp, hu, V, geo[0], area) <= ik.SMEM_LIMIT_BYTES
+    assert ik.struct_tier(*shape, tier="cluster") == ("cluster", geo[2], 0,
+                                                      False)
+    if t.tier == "cluster":
         assert whole == WHOLE_CARVES[name] > ik.SMEM_LIMIT_BYTES
         assert not ik.fits_smem(*shape)
+        assert geo[2] - rest >= 4 * area
     else:
         assert whole == want[1] <= ik.SMEM_LIMIT_BYTES
         assert ik.fits_smem(*shape)
@@ -298,12 +319,57 @@ def test_struct_tier_at_real_shapes(name):
 def test_struct_tier_raises_only_past_the_device_tier():
     """Past the device tier's own carve (parallel-11 at hp = 64: 567,444
     bytes of vectors alone) the tier function raises, naming the bytes and
-    the whole carve; only the device tier can be forced."""
+    the whole carve; a tier forced past its own carve raises too, and an
+    unknown tier's name is refused."""
     with pytest.raises(NotImplementedError,
                        match="567444 bytes .* device tier .*4017044 with"):
         ik.struct_tier(55, 66, 64, 64, 11, True)
     with pytest.raises(ValueError, match="unknown tier"):
-        ik.struct_tier(6, 0, 20, 20, 4, True, tier="shared")
+        ik.struct_tier(6, 0, 20, 20, 4, True, tier="global")
+    with pytest.raises(NotImplementedError, match="shared tier"):
+        ik.struct_tier(55, 66, 20, 20, 11, True, tier="shared")
+    with pytest.raises(NotImplementedError, match="cluster tier"):
+        ik.struct_tier(55, 66, 64, 64, 11, True, tier="cluster")
+
+
+@pytest.mark.parametrize("shape", [(55, 66, 20, 20, 11), (6, 0, 64, 64, 4),
+                                   (6, 0, 20, 20, 4), (120, 0, 16, 16, 16),
+                                   (3, 2, 7, 10, 3)])
+def test_cluster_geometry(shape):
+    """K1's cluster tier: the smallest of STRUCT_CLUSTER_SIZES whose ranks
+    each fit a block; the stripes cover the KKT matrix's lower triangle
+    once, and no smaller cluster fits."""
+    P, S, hp, hu, V = shape
+    C, area, need = ik.cluster_geometry(*shape)
+    nu = V * hu
+    assert C in ik.STRUCT_CLUSTER_SIZES and need <= ik.SMEM_LIMIT_BYTES
+    for smaller in ik.STRUCT_CLUSTER_SIZES[:ik.STRUCT_CLUSTER_SIZES.index(C)]:
+        assert ik.cluster_smem_bytes(
+            P, S, hp, hu, V, smaller, lk.stripe_deal(nu, smaller)[2]) \
+            > ik.SMEM_LIMIT_BYTES
+    assert_stripes_cover(nu, C)
+
+
+def test_cluster_tier_keyword_runs_the_plain_version_on_the_cpu():
+    """``tier="cluster"`` only picks where the kernel keeps its KKT matrix:
+    on CPU tensors the wrapper runs the plain version, bit for bit the call
+    without it, and that matches scp_tpu's fused Pallas iterations (in
+    interpret mode) on the same seeded inputs."""
+    arrs, pairs, obst_veh = kernel_inputs(B=B, V=3, hp=5, hu=8, n_obst=1,
+                                          seed=12)
+    kw = dict(pairs=pairs, obst_veh=obst_veh, tol=1e-6, reg_rel=3e-6,
+              n_iters=1, lower_tri=True)
+    args = torch_kernel_args(arrs)
+    plain = ik.ipm_iterate_struct(*args, **kw)
+    got = ik.ipm_iterate_struct(*args, **kw, tier="cluster")
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    assert ik.launch_count == ik.cluster_launch_count == 0
+    want = _pallas(arrs, pairs, obst_veh, 5, 8, n_iters=1, n_cor=0,
+                   lower_tri=True)
+    got = dict(zip(STATE_NAMES, (g.numpy() for g in got)))
+    for k in ("x", "zg", "zu", "zl", "rpg", "rpu", "rpl"):
+        np.testing.assert_allclose(got[k], want[k], atol=2e-5, rtol=1e-4,
+                                   err_msg=k)
 
 
 def test_device_tier_keyword_runs_the_plain_version_on_the_cpu():

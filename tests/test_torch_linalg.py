@@ -20,6 +20,7 @@ from scp_tpu.ops import linalg as jl
 from scp_tpu.ops import pallas_linalg as pll
 from scp_tpu_torch.ops import linalg as tl
 from scp_tpu_torch.ops import linalg_kernel as tk
+from torch_parity import assert_stripes_cover
 
 F32_REL = 2e-5
 TDT_OF = {np.float32: torch.float32, np.float64: torch.float64}
@@ -106,7 +107,7 @@ def test_wrappers_take_the_plain_versions_on_cpu(dtype):
     assert torch.equal(tk.gmv(G, rhs), tl.gmv_plain(G, rhs))
     assert torch.equal(tk.gtmv(G, v), tl.gtmv_plain(G, v))
     assert tk.launch_counts == {"cholesky": 0, "cho_solve": 0, "gmv": 0,
-                                "gtmv": 0}
+                                "gtmv": 0, "cholesky_cluster": 0}
 
 
 @pytest.mark.parametrize("kernel", ["cholesky_lane", "cho_solve_lane",
@@ -210,6 +211,73 @@ def test_shared_memory_gate_threshold():
     assert tk.chol_geometry(1, 46_340)[1] <= tk.SMEM_LIMIT_BYTES
     with pytest.raises(ValueError, match="64-bit indices"):
         tk.chol_geometry(1, 46_341)
+
+
+@pytest.mark.parametrize("B", [1, 3, 256, 1024])
+def test_cluster_factor_geometry(B):
+    """The large-n factor over a thread block cluster (n = 240 .. 600): at
+    most 8 CTAs an instance, each rank's carve within a block's 232,448
+    bytes, the smallest cluster that holds the stripes, raised toward 8
+    while B x C is below the card's 132 SMs, and the stripes covering the
+    lower triangle exactly once."""
+    limit = tk.SMEM_LIMIT_BYTES
+    for n in range(240, 601):
+        C, threads, smem, deal = tk.chol_cluster_geometry(B, n)
+        assert C in tk.CHOL_CLUSTER_SIZES and C <= 8
+        assert threads == tk.LARGE_THREADS
+        assert deal == tk.stripe_deal(n, C)
+        assert smem == tk.chol_cluster_smem_bytes(n, C, deal[2]) <= limit
+        fits = [c for c in tk.CHOL_CLUSTER_SIZES
+                if tk.chol_cluster_smem_bytes(n, c, tk.stripe_deal(n, c)[2])
+                <= limit]
+        assert C == next((c for c in fits if B * c >= tk.CHOL_CLUSTER_SMS),
+                         fits[-1])
+        if n in (240, 257, 330, 400, 511, 600):
+            assert_stripes_cover(n, C)
+    # the sizes the records name: one CTA an instance at n = 257 from
+    # B = 256, two at n = 400; eight at B = 1
+    assert tk.chol_cluster_geometry(256, 257)[0] == 1
+    assert tk.chol_cluster_geometry(1024, 400)[0] == 2
+    assert tk.chol_cluster_geometry(1, 257)[0] == 8
+
+
+def test_factor_route():
+    """n < 240: the shared-memory factor; from 240 the cluster factor while
+    a cluster of 8 holds the stripes; past it the one-CTA kernel with the
+    matrix in device memory, which ``variant="device"`` forces at any n;
+    ``variant="cluster"`` past the cluster's capacity is refused."""
+    cap = max(n for n in range(240, 1200)
+              if tk.chol_cluster_geometry(1, n) is not None)
+    assert 600 <= cap < 1200
+    assert tk.chol_cluster_geometry(1, cap + 1) is None
+    for B in (1, 3, 256, 1024):
+        assert tk.chol_route(B, 239) == "shared"
+        for n in (240, 257, 400, cap):
+            assert tk.chol_route(B, n) == "cluster"
+            assert tk.chol_route(B, n, "device") == "device"
+            assert tk.chol_route(B, n, "cluster") == "cluster"
+        assert tk.chol_route(B, cap + 1) == "device"
+        assert tk.chol_route(B, 81, "device") == "device"
+        with pytest.raises(ValueError, match="does not fit a cluster"):
+            tk.chol_route(B, cap + 1, "cluster")
+    with pytest.raises(ValueError, match="unknown factor variant"):
+        tk.chol_route(1, 257, "global")
+
+
+@pytest.mark.parametrize("variant", [None, "cluster", "device"])
+def test_large_n_variants_take_the_plain_version_on_cpu(variant):
+    """Either large-n factor forced on CPU tensors runs the plain version,
+    bit for bit the call without the keyword, within F32_REL of scp_tpu's
+    ``blocked_cholesky`` at n = 257 (hp = 64 with 4 vehicles), and counts
+    no launch."""
+    rng = np.random.default_rng(257)
+    K = _spd(rng, 2, 257, np.float32)
+    L_j = jax.vmap(jl.blocked_cholesky)(jnp.asarray(K))
+    tk.reset_launch_counts()
+    L_t = tk.cholesky(torch.as_tensor(K), variant=variant)
+    assert torch.equal(L_t, tk.cholesky(torch.as_tensor(K)))
+    assert _rel(torch.tril(L_t), np.tril(np.asarray(L_j))) < F32_REL
+    assert not any(tk.launch_counts.values())
 
 
 @pytest.mark.parametrize("breakage", ["solve_shape", "mv_shape", "dtype",

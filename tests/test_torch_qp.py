@@ -199,13 +199,14 @@ def test_auto_kkt_refuses_shapes_beyond_shared_memory():
     the launch stores them (packed under lower_tri): the structured kernel
     at the bench shape and at circle-8, hp = 20 / circle-16, hp = 10 (which
     fit only packed), the banded branch past the tier given a stage
-    statement (circle-4, hp = 64), and without one K1's device tier — the
-    fallback scp_tpu takes there too; kkt="dense" takes the fused kernel in
-    either tier. Only past the device tier (hp = 200) the route refuses,
-    naming the stage statement."""
+    statement (circle-4, hp = 64), and without one K1 past its shared tier
+    (its cluster tier there; the device tier past that) — the fallback
+    scp_tpu takes there too; kkt="dense" takes the fused kernel in any
+    tier. Only past the device tier (hp = 200) the route refuses, naming
+    the stage statement."""
     from scp_tpu_torch.ops import ipm_kernel
     assert ipm_kernel.struct_tier(P=6, S=0, hp=64, hu=64, V=4).tier \
-        == "device"
+        == "cluster"
     assert ipm_kernel.fits_smem(6, 0, 20, 20, 4)
     assert not ipm_kernel.fits_smem(6, 0, 64, 64, 4)
 

@@ -166,12 +166,12 @@ def test_tuned_f32_side_selection_routes(monkeypatch, kind, n_veh, b,
 
 def test_parallel11_past_the_shared_tier_matches_scp_tpu(monkeypatch):
     """Side selection at parallel-11, hp = hu = 16 — a QP past K1's shared
-    tier (329,492 bytes), which the port runs in K1's device tier where
+    tier (329,492 bytes), which the port runs in K1's cluster tier where
     scp_tpu falls back from its fused kernel to its XLA path: one step,
     B = 1, float64, 12 fixed IPM iterations a round and 8 a candidate, the
-    port on the CPU (the plain version of both tiers) against scp_tpu's
+    port on the CPU (the plain version of every tier) against scp_tpu's
     mpc_step_batch to U_TOL, with the same selections. Both launches (the 5
-    candidates, then the round) take the structured route, in the device
+    candidates, then the round) take the structured route, in the cluster
     tier."""
     over = dict(SMALL, hp=16, hu=16, qp_fixed_iters=12,
                 side_selection_cand_iters=8)
@@ -194,5 +194,5 @@ def test_parallel11_past_the_shared_tier_matches_scp_tpu(monkeypatch):
     monkeypatch.setattr(ipm_kernel, "ipm_iterate_struct", spy)
     _, out_t = tengine.mpc_step_batch(cfg_t, data_t,
                                       tengine.init_carry(cfg_t, data_t))
-    assert tiers == [(5, 8, "device"), (1, 12, "device")]
+    assert tiers == [(5, 8, "cluster"), (1, 12, "cluster")]
     _compare(out_t, out_j)

@@ -115,3 +115,25 @@ def scp_qp_data(kind, b, hp, np_dtype, seed=2, banded=False, **kw):
         t_args["banded"] = tqp.BandedData(
             *[tt(a) for a in (a_blk, b_blk, yp, yo, qy, ru)])
     return jax_args, t_args
+
+
+def assert_stripes_cover(n, C):
+    """The cluster factor's deal (``linalg_kernel.stripe_deal``): every
+    entry of the n x n lower triangle in exactly one 16-row stripe, each
+    rank's stripes disjoint and within its area."""
+    from scp_tpu_torch.ops import linalg_kernel as lk
+    owner, offset, area = lk.stripe_deal(n, C)
+    used = [set() for _ in range(C)]
+    seen = np.zeros((n, n), dtype=int)
+    for s, (q, off) in enumerate(zip(owner, offset)):
+        rows, ld = min(16, n - 16 * s), 16 * (s + 1) + 1
+        assert rows * ld == lk.stripe_words(n, s) and 0 <= q < C
+        span = set(range(off, off + rows * ld))
+        assert not span & used[q] and off + rows * ld <= area
+        used[q] |= span
+        for r in range(rows):
+            seen[16 * s + r, :16 * s + r + 1] += 1
+    assert (seen[np.tril_indices(n)] == 1).all()
+    assert (seen[np.triu_indices(n, 1)] == 0).all()
+    assert area == max(len(u) for u in used)
+
