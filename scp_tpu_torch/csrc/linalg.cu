@@ -88,15 +88,19 @@
 // memory of a thread block cluster of C <= 8 CTAs on neighbouring SMs
 // (chol_cluster.cuh): 16-row stripes of the lower triangle dealt over the
 // ranks, each rank solving its stripes' panel rows and updating their
-// tiles from a local copy of the panel, two cluster barriers a panel. The
-// wrapper (ops/linalg_kernel.py::chol_cluster_geometry) takes the smallest
-// C that holds the stripes (1 at n = 257, 2 at n = 400) and raises it
-// while B x C is below the card's SMs, so one instance at B = 1 spreads
-// over 8 SMs. One CTA of 256 threads on one SM walking a matrix in device
-// memory (chol_large_kernel) left 131 SMs idle at B = 1 and took every
-// panel operand through L1 / L2 (8 loads per 16 FMAs a register tile);
-// here every operand is in shared memory, and the pivot chain and the
-// barriers are what bound it. The factor is bit for bit chol_large_kernel's.
+// tiles from a local copy of the panel, the panels and diagonal blocks
+// passed between ranks by st.async stores that the receivers' mbarriers
+// count. The wrapper (ops/linalg_kernel.py::chol_cluster_geometry) takes
+// the smallest C that holds the stripes (1 at n = 257, 2 at n = 400) and
+// raises it while B x C is below the card's SMs, so one instance at B = 1
+// spreads over 8 SMs. One CTA of 256 threads on one SM walking a matrix in
+// device memory (chol_large_kernel) left 131 SMs idle at B = 1 and took
+// every panel operand through L1 / L2 (8 loads per 16 FMAs a register
+// tile); here every operand is in shared memory (2 loads per 16 FMAs), and
+// what bounds it at B = 1 is a panel's chain on the next diagonal block's
+// owner: that block's update, its 16 pivots and the push to every rank
+// (~3 us a panel on an H100, PERF.md). The factor is bit for bit
+// chol_large_kernel's.
 //
 // K3 past a cluster's capacity and K4 for n >= 240 (chol_large_kernel,
 // cho_solve_large_kernel): one CTA per instance; the factor works in
@@ -134,6 +138,26 @@ __device__ long long g_chol_t0;  // block 0, thread 0 only
       g_chol_cycles[i] += chol_t1 - g_chol_t0;             \
       g_chol_t0 = chol_t1;                                 \
     }                                                      \
+  } while (0)
+#endif
+
+// Built with -DSCP_CLUSTER_TRACE (scripts/torch_kernel_check.py --sections
+// k3trace) thread 0 of each rank of instance 0 of the cluster factor stores
+// the global timer (ns) at six points of each panel (CHOL_TRACE in
+// chol_cluster.cuh): the diagonal block taken, its panel rows solved, pushed,
+// the other ranks' received, the next block factored (its owner only) and
+// the trailing update done.
+#ifdef SCP_CLUSTER_TRACE
+constexpr int kTracePanels = 64, kTracePoints = 6;
+__device__ unsigned long long g_cl_trace[8 * kTracePanels * kTracePoints];
+#define CHOL_TRACE(p, i)                                                  \
+  do {                                                                    \
+    if (blockIdx.x < st.C && threadIdx.x == 0 && (p) < kTracePanels) {    \
+      unsigned long long chol_now;                                        \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(chol_now));        \
+      g_cl_trace[(st.rank * kTracePanels + (p)) * kTracePoints + (i)] =   \
+          chol_now;                                                       \
+    }                                                                     \
   } while (0)
 #endif
 
@@ -769,6 +793,17 @@ int chol_read_sections(unsigned long long* out) {
   cudaError_t err = cudaMemcpyFromSymbol(out, g_chol_cycles, sizeof(zero));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaMemcpyToSymbol(g_chol_cycles, zero, sizeof(zero));
+}
+#endif
+
+#ifdef SCP_CLUSTER_TRACE
+// Copy the cluster factor's trace (8 ranks x 64 panels x 6 points of the
+// global timer, ns; 0 where not reached) to `out` and clear it.
+int chol_read_trace(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_cl_trace, sizeof(g_cl_trace));
+  if (err != cudaSuccess) return (int)err;
+  static unsigned long long zero[8 * kTracePanels * kTracePoints];
+  return (int)cudaMemcpyToSymbol(g_cl_trace, zero, sizeof(zero));
 }
 #endif
 

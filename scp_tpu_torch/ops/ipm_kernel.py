@@ -176,8 +176,8 @@ def cluster_geometry(P: int, S: int, hp: int, hu: int,
     """``(C, area words, shared-memory bytes per CTA)`` of K1's cluster
     tier at a shape: the first of :data:`STRUCT_CLUSTER_SIZES` whose ranks
     each hold the device tier's carve and their share of the stripes of
-    the ``nu x nu`` KKT matrix (dealt cyclically,
-    ``linalg_kernel.stripe_deal``), or None."""
+    the ``nu x nu`` KKT matrix (``linalg_kernel.stripe_deal``), or
+    None."""
     nu = V * hu
     for C in STRUCT_CLUSTER_SIZES:
         area = linalg_kernel.stripe_deal(nu, C)[2]

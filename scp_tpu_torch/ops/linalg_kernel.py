@@ -23,7 +23,7 @@ shared memory (:func:`fits_chol_smem`, n < 240) one CTA holds it there;
 from n = 240 (hp = 64 with 4 vehicles is n = 257) the factor spreads it over
 the shared memory of a thread block cluster of up to 8 CTAs
 (``csrc/chol_cluster.cuh``, :func:`chol_route`) while that holds it (n <=
-686), and past that works in place in its output in device memory on one
+716), and past that works in place in its output in device memory on one
 CTA; the solve reads the factor from device memory, with only the vectors
 in shared memory, so every n a 32-bit index reaches within one instance is
 taken (n <= 46,340 for the factor; n <= 29,056 for the solve, whose two
@@ -87,7 +87,7 @@ CTA_RESERVED_SMEM = 1024
 LARGE_THREADS = 256
 # The factor from n = 240 while a thread block cluster holds the matrix
 # (chol_cluster_kernel, csrc/chol_cluster.cuh): the lower triangle in
-# CHOL_STRIPE-row stripes dealt cyclically over C CTAs of one cluster, C
+# CHOL_STRIPE-row stripes dealt over C CTAs of one cluster (stripe_deal), C
 # the smallest of CHOL_CLUSTER_SIZES whose ranks each hold their stripes,
 # the panel buffer and the vectors, raised while B x C is below
 # CHOL_CLUSTER_SMS (the SMs of an H100) so that a small batch spreads over
@@ -166,11 +166,18 @@ def stripe_words(n: int, s: int) -> int:
 
 
 def stripe_deal(n: int, C: int) -> tuple[list[int], list[int], int]:
-    """The stripes of an n x n factor dealt cyclically over ``C`` ranks:
-    ``(owner, offset, area words)`` — each stripe's rank, its offset in
-    that rank's stripe area, and the largest area a rank needs."""
+    """The stripes of an n x n factor dealt over ``C`` ranks, largest
+    first, each to the rank with the fewest floats so far (the lowest rank
+    on a tie), which evens the ranks' areas, rows and trailing tiles (a
+    cyclic deal left the last rank the largest stripes: measured slower at
+    n = 330 / 400, PERF.md): ``(owner, offset, area words)`` — each
+    stripe's rank, its offset in that rank's stripe area, and the largest
+    area a rank needs."""
     ns = -(-n // CHOL_STRIPE)
-    owner = [s % C for s in range(ns)]
+    owner, load = [0] * ns, [0] * C
+    for s in sorted(range(ns), key=lambda s: -stripe_words(n, s)):
+        owner[s] = min(range(C), key=lambda q: (load[q], q))
+        load[owner[s]] += stripe_words(n, s)
     offset, used = [], [0] * C
     for s in range(ns):
         offset.append(used[owner[s]])

@@ -60,7 +60,9 @@ the variants that checkout lacks are skipped. ``--sections`` builds the
 library with ``-DSCP_PROFILE_SECTIONS`` and prints where block 0 of the
 blocked factor spends its clock cycles (load, diagonal blocks, panel rows,
 trailing updates with the next diagonal block, store) at n = 81, B = 1 and
-1024, for each thread count, and at n = 257 for each large-n kernel; ``--sections k6k7`` the cycles of K6's and K7's
+1024, for each thread count, and at n = 257 for each large-n kernel;
+``--sections k3trace`` the cluster factor's timeline across its ranks at
+B = 1 (each step's duration, the hop between ranks, a panel's period); ``--sections k6k7`` the cycles of K6's and K7's
 stage by section (thread 0 of block 0, per stage) at V = 4, B = 1 and 256,
 and of the generic kernels at V = 16; ``--sections k2`` K2's cycles per
 IPM iteration by section (block 0, one frog QP, B = 64 and 1024).
@@ -1348,6 +1350,65 @@ def k3_sections() -> None:
                          text=True).stdout.strip())
 
 
+TRACE_POINTS = ("taken", "solved", "pushed", "received", "next_factored",
+                "trailing_done")
+
+
+def k3_trace() -> None:
+    """The cluster factor's timeline at B = 1 (n = 257 and 400, C = 8): the
+    library built with ``-DSCP_CLUSTER_TRACE`` records the global timer on
+    thread 0 of each rank at six points of each panel (``TRACE_POINTS``);
+    prints, per n, the medians over panels of each rank's step durations,
+    the next diagonal block's owner's (its update, pivots and push), the
+    hop from that push to each rank holding the block, and a panel's
+    period."""
+    import ctypes
+    import subprocess
+    from scp_tpu_torch.ops import _cuda_build, linalg_kernel as lk
+    if "SCP_CLUSTER_TRACE" not in _cuda_build.BUILD_DEFINES:
+        _cuda_build.BUILD_DEFINES += ("SCP_CLUSTER_TRACE",)
+    lib = _cuda_build.load_library()
+    lib.chol_read_trace.argtypes = [ctypes.c_void_p]
+    lib.chol_read_trace.restype = ctypes.c_int
+    panels, points = 64, len(TRACE_POINTS)
+    buf = (ctypes.c_ulonglong * (8 * panels * points))()
+    rng = np.random.default_rng(6)
+    for n in (257, 400):
+        K = _spd(rng, 1, n, "cuda")
+        C, _, _, (owner, _, _) = lk.chol_cluster_geometry(1, n)
+        for _ in range(5):
+            lk.cholesky(K)
+        torch.cuda.synchronize()
+        if lib.chol_read_trace(buf) != 0:
+            sys.exit("reading the trace failed")
+        t = np.array(buf, dtype=np.float64).reshape(8, panels, points)
+        ns = -(-n // 16)
+        med = {}
+        for a, b in ((0, 1), (1, 2), (2, 3), (3, 5)):
+            d = t[:C, :ns - 1, b] - t[:C, :ns - 1, a]
+            med[f"{TRACE_POINTS[a]}->{TRACE_POINTS[b]}"] = float(
+                np.median(d))
+        lead = [owner[p + 1] for p in range(ns - 1)]
+        own = np.array([t[lead[p], p, 4] - t[lead[p], p, 2]
+                        for p in range(ns - 1)])
+        hop = np.array([t[:C, p + 1, 0] - t[lead[p], p, 4]
+                        for p in range(ns - 2)])
+        period = t[:C, 1:ns - 1, 0] - t[:C, :ns - 2, 0]
+        print(json.dumps({
+            "n": n, "C": C, "panels": ns - 1,
+            "median_ns_by_step": med,
+            "owner_update_pivots_push_ns": float(np.median(own)),
+            "hop_push_to_rank_taken_ns": {
+                "median": float(np.median(hop)), "min": float(hop.min()),
+                "max": float(hop.max())},
+            "panel_period_ns": float(np.median(period)),
+            "factor_ns": float(t[:C, ns - 2, 5].max() - t[:C, 0, 0].min())}),
+            flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+
+
 PIVOT_TEST = r"""
 #include <cstdio>
 #include "riccati.cu"
@@ -1463,7 +1524,8 @@ def main() -> None:
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
     ap.add_argument("--times", nargs="*", choices=TIMED, metavar="KERNEL",
                     help=f"time these kernels (default: all of {TIMED})")
-    ap.add_argument("--sections", nargs="*", choices=("k3", "k6k7", "k2"),
+    ap.add_argument("--sections", nargs="*",
+                    choices=("k3", "k6k7", "k2", "k3trace"),
                     metavar="KERNEL",
                     help="cycles by section (default: k3)")
     ap.add_argument("--pivots", action="store_true")
@@ -1490,6 +1552,8 @@ def main() -> None:
             k6k7_sections()
         if "k2" in args.sections:
             k2_sections()
+        if "k3trace" in args.sections:
+            k3_trace()
         if not args.sections or "k3" in args.sections:
             k3_sections()
     else:

@@ -258,8 +258,8 @@ def test_carve_and_gate(case):
 # (55 pairs, 44 obstacle + 22 hard rate slabs) at hp = 10 / 16 / 20,
 # circle-4 at hp = 64, circle-8 at hp = 20 and circle-16 at hp = 10 (in the
 # shared tier only with their slabs packed), circle-16 at hp = 16. Past the
-# shared tier the cluster tier: two CTAs an instance (four at circle-16),
-# each with the device tier's carve (the vectors, the P blocks, the slack column, the tables),
+# shared tier the cluster tier: two CTAs an instance, each with the
+# device tier's carve (the vectors, the P blocks, the slack column, the tables),
 # its half of the KKT matrix's 16-row stripes, the panel buffer, the
 # diagonal-block buffers, the deal and the row pointers.
 TIER_SHAPES = {
@@ -267,14 +267,14 @@ TIER_SHAPES = {
     "parallel11_hp10": ((55, 66, 10, 10, 11, True),
                         ("shared", 153_668, 0, 1)),
     "parallel11_hp16": ((55, 66, 16, 16, 11, True),
-                        ("cluster", 174_680, 0, 2)),
+                        ("cluster", 171_608, 0, 2)),
     "parallel11_hp20": ((55, 66, 20, 20, 11, True),
-                        ("cluster", 228_592, 0, 2)),
-    "circle4_hp64": ((6, 0, 64, 64, 4, True), ("cluster", 222_336, 0, 2)),
+                        ("cluster", 227_072, 0, 2)),
+    "circle4_hp64": ((6, 0, 64, 64, 4, True), ("cluster", 218_240, 0, 2)),
     "circle8_hp20": ((28, 0, 20, 20, 8, True), ("shared", 203_280, 0, 1)),
     "circle16_hp10": ((120, 0, 10, 10, 16, True), ("shared", 229_744, 0, 1)),
     "circle16_hp16": ((120, 0, 16, 16, 16, True),
-                      ("cluster", 203_472, 0, 4)),
+                      ("cluster", 232_400, 0, 2)),
 }
 # whole carves (shared tier) of the shapes past it, for the record
 WHOLE_CARVES = {"parallel11_hp16": 329_492, "parallel11_hp20": 481_908,

@@ -522,7 +522,7 @@ def test_calibrated_parallel11_k1_gate():
     slabs): at hp = 10 one K1 CTA per SM holds it in the shared tier; at
     hp = 16 and 20 its whole carve (329,492 / 481,908 bytes) is past a
     block's shared memory and K1's cluster tier takes it (two CTAs an
-    instance, the factor in their shared memory, 174,680 / 228,592 bytes
+    instance, the factor in their shared memory, 171,608 / 227,072 bytes
     each), and the device tier where forced (the factor and the slabs in
     device memory, 109,140 / 139,588 bytes of the rest); only past that
     tier (hp = 64) the tier function refuses, naming the bytes."""
@@ -530,8 +530,8 @@ def test_calibrated_parallel11_k1_gate():
         == 153_668
     assert ipm_kernel.struct_tier(55, 66, 10, 10, 11, True) \
         == ("shared", 153_668, 0, False)
-    for hp, whole, rest, rank in ((16, 329_492, 109_140, 174_680),
-                                  (20, 481_908, 139_588, 228_592)):
+    for hp, whole, rest, rank in ((16, 329_492, 109_140, 171_608),
+                                  (20, 481_908, 139_588, 227_072)):
         assert ipm_kernel.smem_bytes(55, 66, hp, hp, 11, True) == whole
         nu = 11 * hp
         assert ipm_kernel.struct_tier(55, 66, hp, hp, 11, lower_tri=True) \
