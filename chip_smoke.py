@@ -71,19 +71,21 @@ read just after:
 * (iii) ONE nominal frog scenario under the same controller through
   ``mpc_step`` for the full closed loop: step latency, two K2 and two
   G-product launches a step (5 and 1 wide);
-* (l) the shapes past one block's shared memory, where K1 keeps the KKT
-  matrix and its factor in the shared memory of a thread block cluster
-  (its cluster tier) and K2 in device memory (its device tier): (l1) side
+* (l) the shapes past one block's shared memory, where K1 and K2 keep the
+  KKT matrix and its factor in the shared memory of a thread block
+  cluster (their cluster tiers): (l1) side
   selection at parallel-11, hp = hu = 20, B = 256 (two K1 launches a step
   in the cluster tier, 1280 and 256 wide, each first launch bit for bit
   K1's device tier forced and timed beside it), (l2) circle-4 at hp = 64,
   B = 256, ``tuned_f32`` with ``qp_kkt="dense"`` (K1's cluster tier at
   nu = 256, the full width against the device tier likewise; step 0 also
   against the long-horizon path's banded step), (l3) that path's first QP
-  on its dense rows through K2's device tier (n = 257), (l4) each kernel
-  forced into its device tier, and K1 into its cluster tier, against its
+  on its dense rows through K2's cluster tier (n = 257; against the device
+  tier forced on the same inputs under the yardstick, both timed), (l4)
+  each kernel forced into its device and its cluster tier against its
   shared tier on identical inputs at the bench and frog shapes (bit for
-  bit expected), (l5) circle-16 at hp = 10, B = 256
+  bit expected, but K2's cluster tier, whose product sums in another order:
+  the yardstick), (l5) circle-16 at hp = 10, B = 256
   (``TUNED_F32_V16``: K1's shared tier with its slabs packed) and (l6) the
   DEFAULT (adaptive) side-selection settings on frog, B = 64 (the factor,
   the solve and both G products);
@@ -227,6 +229,7 @@ FLAGS_AGREE_FLOOR = 0.99
 # device memory): the hp = 64 shape's 257, and two more above it
 LARGE_NS = (240, 257, 330, 400)
 LARGE_WIDTHS = (1, 256, 1024)   # the batch widths of every large-n case
+SOLVE_WIDTHS = (1, 16, 256, 1024)   # ... of the staged solve's bit check
 
 # Published peaks of one H100 SXM (dense, no sparsity).
 PEAK_F32_FLOPS = 67e12
@@ -670,6 +673,32 @@ def linalg_boundary_cases(dev, real, plain) -> None:
             rhs = torch.randn((b, n), generator=gen, device=dev)
             check_vector("cho_solve", f"large_n{n}_B{b}", real["cho_solve"],
                          plain["cho_solve"], (L, rhs), FIRST_ITER_REL_LIMIT)
+    # the large-n solve on its staged triangle (cho_solve_staged_kernel,
+    # n <= 331, forced past the batch the route gives it) bit for bit the
+    # parent's one-CTA solve (cho_solve_large_kernel, forced with
+    # variant="device") on the same inputs at every LARGE_NS x B = 1 / 16 /
+    # 256 / 1,024 — the same operations in the same order (n = 400, past
+    # one block, takes that kernel itself); garbage above L's diagonal,
+    # which neither may read
+    for n in LARGE_NS:
+        for b in SOLVE_WIDTHS:
+            L = plain["cholesky"](spd(b, n)).contiguous()
+            L += torch.triu(torch.full_like(L, 7.0), 1)
+            rhs = torch.randn((b, n), generator=gen, device=dev)
+            fits = lk.solve_staged_smem_bytes(n) <= lk.SMEM_LIMIT_BYTES
+            before = lk.launch_counts["cho_solve_staged"]
+            x_s = lk.cho_solve(L, rhs, variant="staged" if fits else None)
+            staged = lk.launch_counts["cho_solve_staged"] - before
+            same = torch.equal(x_s, lk.cho_solve(L, rhs, variant="device"))
+            emit({"phase": "kernel_vs_plain", "kernel": "cho_solve_staged",
+                  "case": f"large_n{n}_B{b}_vs_cho_solve_large_kernel",
+                  "route": lk.solve_route(b, n), "staged_launches": staged,
+                  "bit_identical": same})
+            if not same or staged != fits:
+                fail(f"n = {n}, B = {b}: the large-n solve ({staged} staged "
+                     f"launches) differs from cho_solve_large_kernel's on "
+                     f"the same inputs")
+            del L
     n = 257
     K = spd(6, n)
     L_good = real["cholesky"](K)
@@ -1759,8 +1788,9 @@ def reset_counts() -> None:
 def launch_counts() -> dict:
     """Every kernel's launches since :func:`reset_counts` (K1 and K2 in
     their shared-memory tier under the wrappers' names, in their device
-    tier with ``_device``, K1 in its cluster tier with ``_cluster``; the
-    large-n factor over a cluster as ``cholesky_cluster``)."""
+    tier with ``_device``, in their cluster tier with ``_cluster``; the
+    large-n factor over a cluster as ``cholesky_cluster``, the large-n
+    solve on its staged triangle as ``cho_solve_staged``)."""
     from scp_tpu_torch.ops import ipm_kernel, linalg_kernel as lk
     from scp_tpu_torch.ops import riccati_kernel as rk
     return {"ipm_iterate_struct": ipm_kernel.launch_count,
@@ -1768,6 +1798,8 @@ def launch_counts() -> dict:
             "ipm_iterate_struct_device": ipm_kernel.device_launch_count,
             "ipm_iterate_struct_cluster": ipm_kernel.cluster_launch_count,
             "ipm_iterate_dense_device": ipm_kernel.dense_device_launch_count,
+            "ipm_iterate_dense_cluster":
+                ipm_kernel.dense_cluster_launch_count,
             **lk.launch_counts, **rk.launch_counts}
 
 
@@ -1874,6 +1906,12 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
     def large_kernel(K):
         return lk.cholesky(K, variant="device")
 
+    def large_solve(L, b):
+        return lk.cho_solve(L, b, variant="device")
+
+    def staged_solve(L, b):
+        return lk.cho_solve(L, b, variant="staged")
+
     library = {
         "cholesky": lambda K: torch.linalg.cholesky_ex(K)[0],
         "cho_solve": lambda L, b: torch.cholesky_solve(b[:, :, None], L)}
@@ -1908,7 +1946,17 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
                                        "(csrc/chol_cluster.cuh)"},
         "cho_solve": {"name": "cho_solve_large_n", "replaces":
                       "scp_tpu/ops/pallas_linalg.py:241",
-                      "also_replaces": "scp_tpu/ops/pallas_linalg.py:340"}}
+                      "also_replaces": "scp_tpu/ops/pallas_linalg.py:340",
+                      "kernel": "cho_solve_large_kernel: past one wave of "
+                                "instances (B > 132: path (h)) and past "
+                                "n = 331; forced with variant='device'"},
+        "cho_solve_staged": {"name": "cho_solve_staged", "replaces":
+                             "scp_tpu/ops/pallas_linalg.py:241",
+                             "also_replaces":
+                                 "scp_tpu/ops/pallas_linalg.py:340",
+                             "kernel": "cho_solve_staged_kernel: L's lower "
+                                       "triangle staged into shared memory "
+                                       "once"}}
     for r in reports.values():
         r.update(route="cuda", source="scp_tpu_torch/csrc/linalg.cu")
 
@@ -1995,11 +2043,14 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
              "vs_banded_limit": "2 x (dense + banded plain float32 "
                                 "distances from float64) + u_pred limit"}
     emit(g_rep)
-    if min(step0_counts["cholesky_cluster"], step0_counts["cho_solve"],
-           counts["cholesky_cluster"], counts["cho_solve"]) == 0 \
-            or step0_counts["cholesky"] or counts["cholesky"]:
-        fail(f"path (g) did not launch the cluster factor and the solve, "
-             f"or launched another factor: {step0_counts}, {counts}")
+    if min(step0_counts["cholesky_cluster"],
+           step0_counts["cho_solve_staged"], counts["cholesky_cluster"],
+           counts["cho_solve_staged"]) == 0 \
+            or step0_counts["cholesky"] or counts["cholesky"] \
+            or step0_counts["cho_solve"] or counts["cho_solve"]:
+        fail(f"path (g) did not launch the cluster factor and the staged "
+             f"solve, or launched another factor or solve: {step0_counts}, "
+             f"{counts}")
     if max(others0 + others) != 0:
         fail(f"path (g) launched the Riccati sweeps or K1: {others0}, "
              f"{others}")
@@ -2011,7 +2062,8 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
     if ge > 2 * (pd + e_pd) + UPRED_ABS_LIMIT:
         fail(f"path (g) step 0 against the banded path (e): {ge}, limit "
              f"{2 * (pd + e_pd) + UPRED_ABS_LIMIT}")
-    for k in ("cholesky", "cholesky_cluster", "cho_solve"):
+    for k in ("cholesky", "cholesky_cluster", "cho_solve",
+              "cho_solve_staged"):
         reports[k]["launches"] = counts[k]
         reports[k]["launches_per_step_path_g"] = counts[k] / calls
     reports["cholesky_cluster"]["max_abs_err"] = \
@@ -2021,7 +2073,13 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
         "one_scenario_dense_hp64_step0_B1_chol_large_kernel",
         first["cholesky"][0], large_kernel, plain["cholesky"],
         True)["kernel_vs_plain_max_abs"]
-    reports["cho_solve"]["max_abs_err"] = rep_s["kernel_vs_plain_max_abs"]
+    reports["cho_solve_staged"]["max_abs_err"] = \
+        rep_s["kernel_vs_plain_max_abs"]
+    # cho_solve_large_kernel forced on the same step-0 inputs
+    reports["cho_solve"]["max_abs_err"] = check_vector(
+        "cho_solve", "one_scenario_dense_hp64_step0_B1_cho_solve_large_"
+        "kernel", large_solve, plain["cho_solve"], first["cho_solve"],
+        FIRST_ITER_REL_LIMIT)["kernel_vs_plain_max_abs"]
 
     # ---- (h) one QP of the adaptive dense branch, hp = 64, B = 256 ----
     args, kw = qp_call
@@ -2099,10 +2157,15 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
              "u_plain_vs_f64_max": float(h_pd.max()), **y,
              "limits": RUN_LIMITS}
     emit(h_rep)
-    if min(h_counts[k] for k in ("cholesky_cluster", "cho_solve", "gmv",
+    h_solve = ("cho_solve_staged" if lk.solve_route(B, n) == "staged"
+               else "cho_solve")
+    if min(h_counts[k] for k in ("cholesky_cluster", h_solve, "gmv",
                                  "gtmv")) == 0 or h_counts["cholesky"]:
         fail(f"path (h) did not launch every kernel (the factor: the "
-             f"cluster kernel): {h_counts}")
+             f"cluster kernel, the solve: {h_solve}): {h_counts}")
+    for k in ("cho_solve", "cho_solve_staged"):   # the route is the batch's
+        reports[k]["launches"] += h_counts[k]
+        reports[k]["launches_per_qp_path_h"] = h_counts[k]
     if run_off_limits(h_rep, "converged"):
         fail(f"path (h), kernels vs plain: {h_rep}")
     # the kernels on the path's own first-iteration inputs at B = 256
@@ -2122,17 +2185,23 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
     times = {"phase": "large_n_times", "card": card, "cells": {}}
     for k, kernel in (("cholesky_cluster", real["cholesky"]),
                       ("cholesky", large_kernel),
-                      ("cho_solve", real["cho_solve"])):
-        kk = "cho_solve" if k == "cho_solve" else "cholesky"
+                      ("cho_solve_staged", staged_solve),
+                      ("cho_solve", large_solve)):
+        kk = "cholesky" if k.startswith("cholesky") else "cho_solve"
         cells = {w: large_n_times(kk, a, kernel, plain[kk], library[kk], n)
                  for w, a in (("256", first[kk]), ("1", g_args[kk]))}
         times["cells"][k] = cells
-        reports[k].update({key: cells["256"].get(key) for key in (
+        # the line's numbers at the batch the route gives the kernel on the
+        # paths: the staged solve at B = 1 (path (g)), the rest at B = 256
+        # (path (h)); the other width beside them
+        main, other = (("1", "256") if k == "cho_solve_staged"
+                       else ("256", "1"))
+        reports[k].update({key: cells[main].get(key) for key in (
             "ms", "cold_ms", "plain_ms", "library_ms", "library_cold_ms",
             "bound_ms", "bound_by")})
-        reports[k]["B"], reports[k]["n"] = B, n
-        reports[k]["ms_B1"] = cells["1"]["ms"]
-        reports[k]["library_ms_B1"] = cells["1"]["library_ms"]
+        reports[k]["B"], reports[k]["n"] = int(main), n
+        reports[k][f"ms_B{other}"] = cells[other]["ms"]
+        reports[k][f"library_ms_B{other}"] = cells[other]["library_ms"]
     # the cluster factor, chol_large_kernel and cholesky_ex in the same
     # call at every LARGE_NS x B (seeded SPD inputs; device time by graph
     # replay), with the cluster's size
@@ -2157,6 +2226,34 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
             or (k.endswith("_B1") and c["cluster_ms"] > c["cholesky_ex_ms"])]
     times["factor_grid_cluster_slower"] = slow
     reports["cholesky_cluster"]["factor_grid"] = grid
+    # the staged solve, cho_solve_large_kernel and torch.cholesky_solve
+    # (which a graph cannot capture: CUDA events around back-to-back calls)
+    # in the same call at every LARGE_NS x B
+    sgrid = {}
+    for nn in LARGE_NS:
+        for w in LARGE_WIDTHS:
+            a = torch.randn((w, nn, nn), generator=gen, device=dev)
+            L = torch.linalg.cholesky(a @ a.transpose(1, 2) / nn
+                                      + torch.eye(nn, device=dev)
+                                      ).contiguous()
+            del a
+            rhs = torch.randn((w, nn), generator=gen, device=dev)
+            fits = lk.solve_staged_smem_bytes(nn) <= lk.SMEM_LIMIT_BYTES
+            sgrid[f"n{nn}_B{w}"] = {
+                "route": lk.solve_route(w, nn),
+                "staged_ms": graph_ms(lambda: staged_solve(L, rhs), 10)
+                if fits else None,
+                "cho_solve_large_kernel_ms": graph_ms(
+                    lambda: large_solve(L, rhs), 10),
+                "cholesky_solve_ms": time_cuda(
+                    lambda: library["cho_solve"](L, rhs), 10),
+                "bound_ms": linalg_bound_ms("cho_solve", w, nn)[0]}
+            del L
+    times["solve_grid"] = sgrid
+    times["solve_grid_staged_slower"] = [
+        k for k, c in sgrid.items() if c["staged_ms"] is not None
+        and c["staged_ms"] > c["cho_solve_large_kernel_ms"]]
+    reports["cho_solve_staged"]["solve_grid"] = sgrid
     # the bounds of every large-n case timed by scripts/torch_kernel_check.py
     # --times k3k4large (n = 240 / 257 / 330 / 400 at B = 1024 / 256 / 1)
     times["bounds_ms"] = {f"{k}_n{nn}_B{w}": linalg_bound_ms(k, w, nn)
@@ -2167,7 +2264,7 @@ def dense_hp64_phases(dev, card, qp_call, adaptive_qp, banded_one
     emit(times)
     reset_counts()
     return [reports["cholesky"], reports["cholesky_cluster"],
-            reports["cho_solve"]]
+            reports["cho_solve"], reports["cho_solve_staged"]]
 
 
 def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
@@ -3270,6 +3367,46 @@ def tiers_agree(kernel, args, kw, other="device", reps=10) -> dict:
     return rep
 
 
+def dense_tier_against(case, args, kw, other, e_taken, reps=10) -> dict:
+    """K2 in the tier its shape takes against the tier ``other`` forced on
+    identical inputs. The forced tier is held to its plain version first
+    (``check_dense``: every iteration, the whole launch under the
+    yardstick); then the two tiers' whole launches against each other:
+    bit for bit, or else the controls' median distance and the freeze
+    flags that differ within twice the larger of the two runs'
+    allowances against plain (``e_taken``: the taken tier's check_dense
+    entry), since each tier may part from plain that far on its own side
+    (the cluster tier sums its product in another order). Both tiers'
+    device times by graph replay (``ms``, ``other_ms``)."""
+    from scp_tpu_torch.ops import ipm_kernel as ik
+    fkw = {**kw, "tier": other}
+    e_other = check_dense(f"{case}_{other}_tier_forced", args, fkw)
+    a, b = ik.ipm_iterate_dense(*args, **kw), ik.ipm_iterate_dense(*args,
+                                                                    **fkw)
+    torch.cuda.synchronize()
+    nu = args[DENSE_G].shape[2] - 1
+    du = (a[0][:, :nu] - b[0][:, :nu]).abs().amax(dim=1)
+    rep = {"B": args[DENSE_G].shape[0], "n_iters": kw["n_iters"],
+           "tier": tier_of_launch("ipm_iterate_dense", args, kw).tier,
+           "other": other,
+           "bit_identical": all(torch.equal(x, y) for x, y in zip(a, b)),
+           "u_max": float(du.max()), "u_median": float(du.median()),
+           "frozen_differ": int((a[10][:, 1] != b[10][:, 1]).sum()),
+           "u_median_allowed": 2 * max(e_taken["u_median_allowed"],
+                                       e_other["u_median_allowed"]),
+           "frozen_differ_allowed": 2 * max(
+               e_taken["frozen_differ_allowed"],
+               e_other["frozen_differ_allowed"]),
+           "other_vs_plain_u_max": e_other["u_kernel_vs_plain_max"],
+           "ms": graph_ms(lambda: ik.ipm_iterate_dense(*args, **kw), reps),
+           "other_ms": graph_ms(lambda: ik.ipm_iterate_dense(*args, **fkw),
+                                reps)}
+    rep["within_limits"] = rep["bit_identical"] or (
+        rep["u_median"] <= rep["u_median_allowed"]
+        and rep["frozen_differ"] <= rep["frozen_differ_allowed"])
+    return rep
+
+
 def device_tier_phases(dev, card, seed) -> dict:
     """Path (l): the shapes past one block's shared memory, where K1 and K2
     run in their device tier (the KKT matrix and its factor in device
@@ -3292,11 +3429,13 @@ def device_tier_phases(dev, card, seed) -> dict:
          same batch and carry) under the same yardstick;
     (l3) (l2)'s first full-width QP with its dense rows scattered, through
          ``solve_qp_batched(fixed_iters=L_DENSE_ITERS, kkt="dense")``
-         without the pair statement: one K2 launch in the device tier (n =
-         257), held by check_dense;
+         without the pair statement: one K2 launch in the cluster tier (n =
+         257), held by check_dense, and against the device tier forced on
+         the same inputs (``dense_tier_against``), both timed;
     (l4) each kernel in its shape's tier and forced into the device tier
          on identical inputs (``tiers_agree``): K1 at the bench shape (B =
-         BATCH) and K2 at frog's (B = 1024, mg = 440, n = 21);
+         BATCH) and K2 at frog's (B = 1024, mg = 440, n = 21); each forced
+         into its cluster tier too (K2 under ``dense_tier_against``);
     (l5) circle-16, hp = hu = L_V16_HP, B = L_V16_B, ``tuned_f32`` with
          ``TUNED_F32_V16`` and TUNED_F32_PHASES: K1's shared tier (one CTA
          an SM, its slabs packed; ``kkt="auto"`` took the banded KKT here
@@ -3504,7 +3643,7 @@ def device_tier_phases(dev, card, seed) -> dict:
         fail(f"path l2: feasible share {rep2['feasible_share']}, floor "
              f"{rep2['feasible_floor']}")
 
-    # ---- (l3) (l2)'s first QP on its dense rows: K2's device tier ----
+    # ---- (l3) (l2)'s first QP on its dense rows: K2's cluster tier ----
     t_path = time.perf_counter()
     args, kw = qp_first[0]
     gi, gj, gob = kw["g_slabs"]
@@ -3521,31 +3660,44 @@ def device_tier_phases(dev, card, seed) -> dict:
         ("ipm_iterate_dense",),
         lambda _: qp.solve_qp_batched(*h_args, **h_kw), None)
     got3 = launch_counts()
-    if got3["ipm_iterate_dense_device"] != 1 or got3["ipm_iterate_dense"] \
+    if got3["ipm_iterate_dense_cluster"] != 1 or got3["ipm_iterate_dense"] \
+            or got3["ipm_iterate_dense_device"] \
             or len(kept3["ipm_iterate_dense"]) != 1:
-        fail(f"path l3: launches {got3}; one K2 launch in the device tier "
+        fail(f"path l3: launches {got3}; one K2 launch in the cluster tier "
              f"wanted")
     a3, k3 = kept3["ipm_iterate_dense"][0]
-    tier3 = require_tier("l3", "ipm_iterate_dense", kept3, "device")[0]
-    e3 = check_dense("l3_hp64_dense_device_tier_B256", a3, k3)
+    tier3 = require_tier("l3", "ipm_iterate_dense", kept3, "cluster")[0]
+    e3 = check_dense("l3_hp64_dense_cluster_tier_B256", a3, k3)
+    vs3 = dense_tier_against("l3_hp64_dense_B256", a3, k3, "device", e3,
+                             reps=5)
     B3, mg3, n3 = a3[DENSE_G].shape
     nb3, d3 = a3[DENSE_PB].shape[1:3]
+    occ3 = ipm_kernel.dense_cluster_occupancy(
+        mg3, n3, nb3, d3, k3["schur_slack"], k3["n_cor"])
     cell3 = {"B": B3, "mg": mg3, "n": n3, "n_iters": k3["n_iters"],
              "tier": tier3._asdict(),
-             "min_ctas": ipm_kernel.dense_min_ctas(B3, _sm_count()),
-             "resident_ctas_per_sm": ipm_kernel.dense_resident_ctas_per_sm(
-                 mg3, n3, nb3, d3, k3["schur_slack"], k3["n_cor"],
-                 ipm_kernel.dense_min_ctas(B3, _sm_count())),
-             "ms": graph_ms(lambda: real["ipm_iterate_dense"](*a3, **k3), 5),
+             "cluster_ctas": ipm_kernel.dense_cluster_geometry(
+                 mg3, n3, k3["schur_slack"], k3["n_cor"])[0],
+             "resident_ctas_per_sm": occ3[0], "clusters_resident": occ3[1],
+             "device_tier_resident_ctas_per_sm":
+                 ipm_kernel.dense_resident_ctas_per_sm(
+                     mg3, n3, nb3, d3, k3["schur_slack"], k3["n_cor"],
+                     ipm_kernel.dense_min_ctas(B3, _sm_count()), "device"),
+             "ms": vs3["ms"], "device_tier_ms": vs3["other_ms"],
              "plain_ms": time_cuda(
                  lambda: plain["ipm_iterate_dense"](*a3, **k3), 3, warmup=1)}
     cell3["bound_ms"], cell3["bound_by"] = bound_of(*dense_work(
         B3, mg3, n3, nb3, d3, k3["schur_slack"], k3["n_cor"], k3["n_iters"]))
+    cell3["faster_than_device_tier_and_plain"] = \
+        cell3["ms"] < min(cell3["device_tier_ms"], cell3["plain_ms"])
     emit({"phase": "device_tier_path_l3", "card": card,
           "launches": got3, "finite": bool(torch.isfinite(sol3.x).all()),
           "converged_share": float(sol3.converged.float().mean()),
-          "k2": cell3, "kernel_vs_plain": e3,
+          "k2": cell3, "kernel_vs_plain": e3, "vs_device_tier": vs3,
           "wall_s": time.perf_counter() - t_path})
+    if not vs3["within_limits"]:
+        fail(f"path l3: the cluster tier against the device tier forced on "
+             f"the same inputs: {vs3}")
 
     # ---- (l4) the device tier against the shared one, identical inputs --
     t_path = time.perf_counter()
@@ -3564,9 +3716,11 @@ def device_tier_phases(dev, card, seed) -> dict:
     dargs = [None if darr[k] is None else torch.as_tensor(darr[k],
                                                           device=dev)
              for k in DENSE_ARG_ORDER]
-    t4["k2_frog_shape"] = tiers_agree(
-        "ipm_iterate_dense", dargs,
-        dict(tol=1e-6, reg_rel=3e-6, n_cor=0, n_iters=7, schur_slack=True))
+    kw4d = dict(tol=1e-6, reg_rel=3e-6, n_cor=0, n_iters=7, schur_slack=True)
+    t4["k2_frog_shape"] = tiers_agree("ipm_iterate_dense", dargs, kw4d)
+    t4["k2_frog_shape_cluster"] = dense_tier_against(
+        "l4_k2_frog_shape", dargs, kw4d, "cluster",
+        check_dense("l4_k2_frog_shape_shared_tier", dargs, kw4d))
     emit({"phase": "device_tier_path_l4", "card": card, **t4,
           "limits": {"bit_identical": "expected",
                      "else": {"u_abs": U_ABS_LIMIT, "u_median":
@@ -3709,19 +3863,37 @@ def device_tier_phases(dev, card, seed) -> dict:
               "library_ms": None,
               "ms_l2": rep2["cluster_vs_device_tier_full_width"]["other_ms"],
               "bench_shape_forced": t4["k1_bench_shape"]}
+    k2_cl = {"name": "ipm_iterate_dense_cluster", "route": "cuda",
+             "source": "scp_tpu_torch/csrc/ipm_dense.cu",
+             "also_source": "scp_tpu_torch/csrc/chol_cluster.cuh, "
+                            "scp_tpu_torch/csrc/bulk_copy.cuh",
+             "replaces": "scp_tpu/ops/pallas_linalg.py:1107",
+             "tier": "cluster",
+             "launches": got3["ipm_iterate_dense_cluster"],
+             "max_abs_err": e3["u_kernel_vs_plain_max"],
+             **{k: cell3[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by")},
+             "library_ms": None, "times_l3": cell3,
+             "vs_device_tier_l3": vs3,
+             "frog_shape_forced": t4["k2_frog_shape_cluster"]}
+    # the device tier: off path (l3) since the cluster tier, timed forced
+    # on its inputs in this call
     k2_dev = {"name": "ipm_iterate_dense_device", "route": "cuda",
               "source": "scp_tpu_torch/csrc/ipm_dense.cu",
               "replaces": "scp_tpu/ops/pallas_linalg.py:1107",
               "tier": "device",
               "launches": got3["ipm_iterate_dense_device"],
-              "max_abs_err": e3["u_kernel_vs_plain_max"],
-              **{k: cell3[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by")},
-              "library_ms": None, "times_l3": cell3,
+              "on_paths": "none since the cluster tier: forced "
+                          "(tier='device') on the inputs of (l3)",
+              "max_abs_err": vs3["other_vs_plain_u_max"],
+              "ms": cell3["device_tier_ms"],
+              **{k: cell3[k] for k in ("plain_ms", "bound_ms", "bound_by")},
+              "library_ms": None,
               "frog_shape_forced": t4["k2_frog_shape"]}
     torch.cuda.empty_cache()
     return {"ipm_iterate_struct_cluster": k1_cl,
             "ipm_iterate_struct_device": k1_dev,
+            "ipm_iterate_dense_cluster": k2_cl,
             "ipm_iterate_dense_device": k2_dev,
             "ipm_iterate_struct": {"circle16_hp10_l5": cell5,
                                    "launches_per_step_l5": rep5[
@@ -4399,9 +4571,9 @@ def scale_out_phases(dev, card, backend: str = "nccl") -> dict:
         emit(k2b)
         for r, rr in enumerate(res):
             require_launches(f"(k2 beta) rank {r}", rr["beta"]["launches"],
-                             ["cholesky_cluster", "cho_solve"])
+                             ["cholesky_cluster", "cho_solve_staged"])
             # at n = 257 every factor is the cluster kernel's, every solve
-            # the large-n kernel's
+            # the staged kernel's
             add({f"{k}_large_n" if k in ("cholesky", "cho_solve") else k: v
                  for k, v in rr["beta"]["launches"].items()})
         if not k2b["ranks_bitwise_equal"] \
@@ -4755,6 +4927,7 @@ def main() -> None:
     reports = [kernel_report] + linalg_reports + new_reports + [
         tier_entries.pop(k) for k in ("ipm_iterate_struct_cluster",
                                       "ipm_iterate_struct_device",
+                                      "ipm_iterate_dense_cluster",
                                       "ipm_iterate_dense_device")]
     for r in reports:
         r.update(ss_entries.get(r["name"], {}))

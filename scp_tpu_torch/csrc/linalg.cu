@@ -161,6 +161,25 @@ __device__ unsigned long long g_cl_trace[8 * kTracePanels * kTracePoints];
   } while (0)
 #endif
 
+// Built with -DSCP_PROFILE_SECTIONS the staged solve also records, for
+// block 0, the clock cycles from its start at which each stripe's copy was
+// seen complete (by thread 224, which waits for them in order after its
+// own rows), at which warp 0 ended the forward and the backward
+// substitutions, and at which warp 0 started and ended its part of each
+// step (scripts/torch_kernel_check.py --sections k4).
+#ifdef SCP_PROFILE_SECTIONS
+constexpr int kSolveTraceWords = 256;
+__device__ unsigned long long g_solve_trace[kSolveTraceWords];
+#define SOLVE_TRACE(i)                                                    \
+  do {                                                                    \
+    if (blockIdx.x == 0 && threadIdx.x == 0 && (i) < kSolveTraceWords)    \
+      g_solve_trace[i] = clock64() - trace_t0;                            \
+  } while (0)
+#else
+#define SOLVE_TRACE(i)
+#endif
+
+#include "bulk_copy.cuh"
 #include "chol_blocked.cuh"
 #include "chol_cluster.cuh"
 #include "smem.cuh"
@@ -249,67 +268,13 @@ cho_solve_batched_kernel(const float* __restrict__ L,
   for (int i = tid; i < n; i += NT) x[(size_t)blockIdx.x * n + i] = y[i];
 }
 
-// ---- K5a: bulk copies into shared memory on an mbarrier ----
-__device__ inline unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ inline void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ inline void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// The floats src[0 .. len) go to dst[pad + e], pad = (src / 4) % 4, so that
-// dst and src agree modulo 16 bytes (dst is 16-byte aligned). The aligned
-// span [b0, b1) of the source is ONE bulk copy that completes on `bar`
-// (thread 0 calls; it is also the barrier's one arrival, with the byte
-// count it awaits); stage_edges loads the rest.
-struct Span {
-  uintptr_t a0, b0, b1;
-  int pad;
-  __device__ Span(const float* src, int len) {
-    a0 = (uintptr_t)src;
-    b0 = (a0 + 15) & ~(uintptr_t)15;
-    b1 = (a0 + 4 * (uintptr_t)len) & ~(uintptr_t)15;
-    if (b1 < b0) b1 = b0;
-    pad = (int)((a0 >> 2) & 3);
-  }
-  __device__ int head() const { return (int)((b0 - a0) >> 2); }
-  __device__ int tail() const { return (int)((b1 - a0) >> 2); }
-};
-
-__device__ inline void stage_copy(const float* src, int len, float* dst,
-                                  uint64_t* bar) {
-  const Span sp(src, len);
-  const unsigned bytes = (unsigned)(sp.b1 - sp.b0);
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-  if (bytes > 0)
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n"
-        :: "r"(smem_addr(dst + sp.pad + sp.head())), "l"(sp.b0), "r"(bytes),
-           "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ inline void stage_edges(const float* src, int len, float* dst) {
-  const Span sp(src, len);
-  const bool span = sp.b1 > sp.b0;
-  const int h = span ? sp.head() : len, t = span ? sp.tail() : len;
-  for (int e = threadIdx.x; e < h; e += blockDim.x) dst[sp.pad + e] = src[e];
-  for (int e = t + threadIdx.x; e < len; e += blockDim.x)
-    dst[sp.pad + e] = src[e];
-}
+// ---- K5a / K5b / the staged solve: bulk copies on an mbarrier
+// (bulk_copy.cuh) ----
+using scpk::mbar_init;
+using scpk::mbar_test;
+using scpk::mbar_wait;
+using scpk::stage_copy;
+using scpk::stage_edges;
 
 // One CTA per row tile (`rows_per_tile` rows) of one instance; `tiles`
 // CTAs cover an instance. The tile is staged `cols` columns at a time:
@@ -575,6 +540,210 @@ cho_solve_large_kernel(const float* __restrict__ L,
   for (int i = tid; i < n; i += NT) x[(size_t)blockIdx.x * n + i] = y[i];
 }
 
+// K4 from n = 240 while L's lower triangle fits one block's shared memory:
+// the staged solve's layout. Row r of the triangle sits in a 16-byte-
+// aligned slot of (r + 7) & ~3 floats: its r + 1 entries after the at most
+// three floats that make the entries' addresses and the row's in device
+// memory agree modulo 16 bytes (so that one bulk copy stages the row's
+// aligned middle). staged_row_slot(r) is the slot's offset in floats (the
+// sum of the slots before it, in closed form), staged_row_slot(n) the
+// triangle's floats.
+__host__ __device__ inline long staged_row_slot(long r) {
+  const long t = r & 3;
+  return r * (r - 1) / 2 + 7 * r - 6 * (r >> 2) - (t == 0 ? 0 : t == 3 ? 4 : 3);
+}
+
+// Words of the staged solve's shared memory (must match
+// ops/linalg_kernel.py::solve_staged_smem_bytes): an mbarrier a 16-row
+// stripe (8 bytes each), then 1 / diag, the right-hand side, each row's
+// count of blocks taken out of it and each row's offset in the triangle (n
+// each), each part rounded up to 16 bytes, then the triangle.
+__host__ __device__ inline long staged_solve_words(int n) {
+  return ((2L * scpk::stripe_count(n) + 3) & ~3L) + ((4L * n + 3) & ~3L)
+         + staged_row_slot(n);
+}
+
+// K4 from n = 240 while the triangle fits (n <= 331; staged_solve_words):
+// one CTA per instance stages L's lower triangle into shared memory ONCE
+// and solves against it there, forward and backward, with the operations
+// of chol_blocked_solve_smem in its order (chol_cluster.cuh's row-pointer
+// form: lead_forward / lead_backward on warp 0, the other warps' updates),
+// so the result is bit for bit cho_solve_large_kernel's. Each row is one
+// bulk copy of its aligned span, issued by the row's thread, which loads
+// the few floats before and after it itself (with the row's diagonal and
+// right-hand side entry: one device-memory latency a row); the rows of a
+// 16-row stripe complete on the stripe's mbarrier. The forward
+// substitution starts when stripe 0 has landed, while the later stripes
+// are in flight: warp 0 waits for the stripe of the block it solves next;
+// the other warps take block b out of the rows of the stripes that have
+// landed by then (mbar_test), a row whose stripe landed late first taking
+// the blocks it missed, in order (`done` counts them per row; warp 0 does
+// the same for the block it is about to solve), so every row takes its
+// blocks in the order of chol_blocked_solve_smem. L is read from device
+// memory once (cho_solve_large_kernel: twice, through L1 / L2), but what
+// bounds one instance is warp 0's block chain, as there: ~1.1k cycles a
+// block on an H100 (16 dependent pivots, each a multiply, a shuffle and an
+// FMA), 34 blocks at n = 257, whichever memory feeds it (PERF.md;
+// scripts/torch_kernel_check.py --sections k4). The kernel holds one
+// instance an SM (141 KB at n = 257), so past one wave of instances the
+// one-CTA kernel, eight instances an SM hiding each other's chains, is
+// faster; the wrapper routes by the batch (linalg_kernel.solve_route).
+template <int NT>
+__global__ void __launch_bounds__(NT, 1)
+cho_solve_staged_kernel(const float* __restrict__ L,
+                        const float* __restrict__ b, float* __restrict__ x,
+                        int n) {
+  extern __shared__ __align__(16) float sv_smem[];
+  using scpk::kPanel;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ns = scpk::stripe_count(n);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sv_smem);
+  float* dinv = sv_smem + ((2 * ns + 3) & ~3);
+  float* y = dinv + n;
+  int* done = reinterpret_cast<int*>(y + n);
+  int* roff = done + n;
+  float* tri = dinv + ((4 * n + 3) & ~3);
+  const float* A = L + (size_t)blockIdx.x * n * n;
+  // row r's entries: in its slot, past the floats that align it
+  const auto row = [=](int r) -> const float* { return tri + roff[r]; };
+#ifdef SCP_PROFILE_SECTIONS
+  const long long trace_t0 = clock64();
+  const bool tracer = blockIdx.x == 0 && tid == 224;
+#endif
+  if (tid == 0) {
+    for (int s = 0; s < ns; ++s)
+      mbar_init(bar + s, (unsigned)scpk::stripe_rows(n, s));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // a row a thread: its aligned span by one bulk copy, the rest by loads
+  // issued together, then the thread's arrival (which releases its
+  // stores)
+  for (int r = tid; r < n; r += NT) {
+    const float* src = A + (size_t)r * n;
+    uint64_t* rb = bar + r / kPanel;
+    const int slot = (int)staged_row_slot(r);
+    float* dst = tri + slot;
+    const scpk::Span sp(src, r + 1);
+    const float diag = src[r], br = b[(size_t)blockIdx.x * n + r];
+    if (sp.bytes() > 0) {
+      asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
+                   :: "r"(scpk::cta_addr(rb)), "r"(sp.bytes()) : "memory");
+      scpk::span_bulk_copy(sp, dst, rb);
+      const int h = sp.head(), t = sp.tail();   // at most three floats
+      float hv[3], tv[3];                       // before and after it
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        hv[e] = e < h ? src[e] : 0.0f;
+        tv[e] = t + e <= r ? src[t + e] : 0.0f;
+      }
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        if (e < h) dst[sp.pad + e] = hv[e];
+        if (t + e <= r) dst[sp.pad + t + e] = tv[e];
+      }
+    } else {   // a row without an aligned 16 bytes: at most seven floats
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = e <= r ? src[e] : 0.0f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (e <= r) dst[sp.pad + e] = v[e];
+    }
+    dinv[r] = 1.0f / diag;
+    y[r] = br;
+    done[r] = 0;
+    roff[r] = slot + sp.pad;
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(scpk::cta_addr(rb)) : "memory");
+  }
+#ifdef SCP_PROFILE_SECTIONS
+  if (tracer)
+    for (int s = 0; s < ns && s < 32; ++s) {
+      mbar_wait(bar + s, 0);
+      g_solve_trace[s] = clock64() - trace_t0;
+    }
+#endif
+  // blocks done[r] .. upto - 1 out of y[r] (the other warps' update of
+  // chol_blocked_solve_smem, block by block)
+  const auto take = [&](int r, int upto) {
+    const int from = done[r];
+    if (from >= upto) return;
+    const float* lr = row(r);
+    float yr = y[r];
+    for (int j = from; j < upto; ++j) {
+      const float* xb = y + j * kPanel;
+      float s = 0.0f, s2 = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kPanel; c += 2) {
+        s += lr[j * kPanel + c] * xb[c];
+        s2 += lr[j * kPanel + c + 1] * xb[c + 1];
+      }
+      yr -= s + s2;
+    }
+    y[r] = yr;
+    done[r] = upto;
+  };
+  const int nblk = ns;
+  // ---- forward: L z = y ---- (no block barrier first: a row's entries,
+  // y, 1 / diag, count and offset are read only after a wait on its
+  // stripe's mbarrier, which the row's thread released them to)
+  if (warp == 0) {
+    mbar_wait(bar, 0);
+    __syncwarp();
+    scpk::rows_lead_forward(row, n, dinv, y, -1, 0);
+  }
+  __syncthreads();
+  for (int blk = 0; blk + 1 < nblk; ++blk) {
+    const int j0 = blk * kPanel, j1 = j0 + kPanel;
+    if (warp == 0) {
+      SOLVE_TRACE(64 + 2 * blk);
+      mbar_wait(bar + blk + 1, 0);
+      if (lane < kPanel && j1 + lane < n) take(j1 + lane, blk);
+      __syncwarp();
+      scpk::rows_lead_forward(row, n, dinv, y, j0, j1);
+      SOLVE_TRACE(65 + 2 * blk);
+    } else {
+      for (int r = j1 + kPanel + tid - 32; r < n; r += NT - 32)
+        if (mbar_test(bar + r / kPanel, 0)) take(r, blk + 1);
+    }
+    __syncthreads();
+  }
+  SOLVE_TRACE(32);
+  // ---- backward: L^T x = z, on the same stripes (every stripe landed:
+  // the other warps acquire the ones they have not waited for) ----
+  if (warp != 0)
+    for (int s = 0; s < ns; ++s) mbar_wait(bar + s, 0);
+  if (warp == 0)
+    scpk::rows_lead_backward(row, n, dinv, y, (nblk - 1) * kPanel, -1);
+  __syncthreads();
+  for (int blk = nblk - 1; blk > 0; --blk) {
+    const int j0 = blk * kPanel, w = min(kPanel, n - j0), jp = j0 - kPanel;
+    if (warp == 0) {
+      SOLVE_TRACE(128 + 2 * blk);
+      scpk::rows_lead_backward(row, n, dinv, y, jp, j0);
+      SOLVE_TRACE(129 + 2 * blk);
+    } else {
+      const float* xb = y + j0;
+      const float* rj[kPanel];   // the block's rows
+#pragma unroll
+      for (int c = 0; c < kPanel; ++c) rj[c] = row(min(j0 + c, n - 1));
+      for (int r = tid - 32; r < jp; r += NT - 32) {
+        float s = 0.0f, s2 = 0.0f;
+#pragma unroll
+        for (int c = 0; c < kPanel; c += 2) {
+          if (c < w) s += rj[c][r] * xb[c];
+          if (c + 1 < w) s2 += rj[c + 1][r] * xb[c + 1];
+        }
+        y[r] -= s + s2;
+      }
+    }
+    __syncthreads();
+  }
+  SOLVE_TRACE(33);
+  for (int i = tid; i < n; i += NT) x[(size_t)blockIdx.x * n + i] = y[i];
+}
+
 int gmv_smem_granted[scpk::kMaxDevices];
 
 template <int NT>
@@ -763,6 +932,24 @@ int cho_solve_large_launch(const float* L, const float* b, float* x, int B,
   return (int)cudaGetLastError();
 }
 
+// K4 from n = 240 while the triangle fits: cho_solve_staged_kernel, one
+// instance per CTA of `threads` (256).
+int cho_solve_staged_launch(const float* L, const float* b, float* x, int B,
+                            int n, int threads, long smem_bytes,
+                            void* stream) {
+  if (threads != kLargeThreads
+      || smem_bytes != 4L * staged_solve_words(n)
+      || (long long)n * n > 0x7fffffffLL)
+    return -1;
+  static int granted[scpk::kMaxDevices];
+  cudaError_t err = scpk::ensure_dyn_smem(
+      cho_solve_staged_kernel<kLargeThreads>, granted, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cho_solve_staged_kernel<kLargeThreads>
+      <<<B, kLargeThreads, smem_bytes, (cudaStream_t)stream>>>(L, b, x, n);
+  return (int)cudaGetLastError();
+}
+
 // K3 from n = 240 in a cluster: chol_cluster_kernel, `C` CTAs (one
 // cluster) of `threads` per instance, `deal` the stripes' owners and
 // offsets (2 x ceil(n / 16) ints in device memory). Returns -1 when the
@@ -793,6 +980,19 @@ int chol_read_sections(unsigned long long* out) {
   cudaError_t err = cudaMemcpyFromSymbol(out, g_chol_cycles, sizeof(zero));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaMemcpyToSymbol(g_chol_cycles, zero, sizeof(zero));
+}
+#endif
+
+#ifdef SCP_PROFILE_SECTIONS
+// Copy the staged solve's trace of block 0 (kSolveTraceWords: the cycles at
+// which each stripe was seen landed, then at 32 / 33 the ends of the
+// forward and the backward substitutions) to `out` and clear it.
+int cho_solve_read_trace(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_solve_trace,
+                                         sizeof(g_solve_trace));
+  if (err != cudaSuccess) return (int)err;
+  static unsigned long long zero[kSolveTraceWords];
+  return (int)cudaMemcpyToSymbol(g_solve_trace, zero, sizeof(zero));
 }
 #endif
 

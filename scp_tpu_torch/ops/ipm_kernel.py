@@ -41,13 +41,14 @@ Both kernels have storage tiers, chosen by the shape alone
 set in one block's shared memory (``"shared"``), or, past it, the KKT matrix
 and its factor in a per-instance workspace in device memory that the
 wrapper allocates (``"device"``; K1 then reads its slabs in place from the
-inputs, K2 its G). K1 has a third between the two (``"cluster"``): one
-instance per thread block cluster of ``C`` CTAs, the KKT matrix and its
+inputs, K2 its G). Both have a third between the two (``"cluster"``):
+one instance per thread block cluster of ``C`` CTAs, the KKT matrix and its
 factor in the cluster's shared memory (16-row stripes dealt over the ranks,
-``csrc/chol_cluster.cuh``), rank 0 holding the rest of the device tier's
-carve and running the step. The arithmetic is the same in every tier. Past
-the device tier's own shared memory the wrapper raises
-``NotImplementedError``.
+``csrc/chol_cluster.cuh``), rank 0 holding the step's vectors and running
+the step. The arithmetic is the same in every tier, but for the order in
+which K2's cluster tier sums each entry of its product (it streams G
+through shared memory by rows; :func:`dense_cluster_geometry`). Past the
+device tier's own shared memory the wrapper raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -60,20 +61,26 @@ from scp_tpu_torch.ops import _cuda_build, linalg_kernel
 from scp_tpu_torch.ops._cuda_build import SMEM_LIMIT_BYTES
 
 # Launches of the structured kernel (K1) and of the dense-G kernel (K2) in
-# their shared-memory tier, of each in its device tier and of K1 in its
-# cluster tier, since the last reset (incremented where each kernel is
-# launched and nowhere else).
+# their shared-memory tier, of each in its device tier and in its cluster
+# tier, since the last reset (incremented where each kernel is launched and
+# nowhere else).
 launch_count = 0
 dense_launch_count = 0
 device_launch_count = 0
 dense_device_launch_count = 0
 cluster_launch_count = 0
+dense_cluster_launch_count = 0
 
-# K1's cluster tier: the cluster sizes tried, smallest first (the first
-# whose ranks each hold their carve is taken). A cluster holds one instance
-# on C SMs, so at a batch that fills the card the smallest wins.
+# K1's and K2's cluster tiers: the cluster sizes tried, smallest first (the
+# first whose ranks each hold their carve is taken). A cluster holds one
+# instance on C SMs, so at a batch that fills the card the smallest wins.
 STRUCT_CLUSTER_SIZES = (2, 4, 8)
+DENSE_CLUSTER_SIZES = (2, 4, 8)
 TIERS = ("shared", "cluster", "device")
+DENSE_TIERS = TIERS
+# G rows a stage of K2's cluster tier streams (csrc/ipm_dense.cu::
+# kGStageRows)
+DENSE_STAGE_ROWS = 16
 
 _tables: dict = {}
 
@@ -81,18 +88,21 @@ _tables: dict = {}
 def reset_launch_count() -> None:
     global launch_count, dense_launch_count, cluster_launch_count
     global device_launch_count, dense_device_launch_count
+    global dense_cluster_launch_count
     launch_count = 0
     dense_launch_count = 0
     device_launch_count = 0
     dense_device_launch_count = 0
     cluster_launch_count = 0
+    dense_cluster_launch_count = 0
 
 
 class Tier(NamedTuple):
     """Where a fused kernel keeps an instance's working set: ``tier`` is
     ``"shared"`` (all of it in the block's shared memory), ``"cluster"``
-    (K1: the KKT matrix in the stripes of a thread block cluster,
-    :func:`cluster_geometry`) or ``"device"`` (the KKT matrix and its
+    (the KKT matrix in the stripes of a thread block cluster,
+    :func:`cluster_geometry`, :func:`dense_cluster_geometry`) or
+    ``"device"`` (the KKT matrix and its
     factor in a device-memory workspace of ``workspace_floats`` floats per
     instance, 0 in the other tiers); ``smem_bytes``: the launch's dynamic
     shared memory per CTA; ``g_smem``: K2's G in shared memory (False for
@@ -668,19 +678,70 @@ def fits_dense_smem(mg: int, n: int, nb: int, d: int, schur: bool) -> bool:
     return dense_smem_bytes(mg, n, nb, d, schur, False) <= SMEM_LIMIT_BYTES
 
 
+def dense_cluster_smem_bytes(mg: int, n: int, schur: bool, n_cor: int,
+                             C: int, area_words: int) -> int:
+    """Dynamic shared memory of a rank of K2's cluster tier (mirrors
+    ``csrc/ipm_dense.cu::DenseClusterCarve``): the step's vectors (the
+    device tier's carve without the P blocks, which it reads from device
+    memory), from the next 16-byte boundary the cluster factor's buffers
+    (``linalg_kernel.stripe_buffer_words``), the deal (two ints a stripe),
+    at an even word the factor's row pointers (8 bytes a row), from a
+    16-byte boundary the G ring's two mbarriers (16 bytes) and two stages
+    of :data:`DENSE_STAGE_ROWS` rows of G (and three floats of alignment,
+    rounded up to 16 bytes each), the staged panel twice (its rows scaled
+    by w and not, leading dimension a multiple of 4 covering n and the
+    warp tiles' columns) and the border's nk + 1 sums."""
+    nk = n - 1 if schur else n
+    ns = -(-nk // linalg_kernel.CHOL_STRIPE)
+    vec = dense_smem_bytes(mg, n, 0, 0, schur, False, n_cor, True) // 4
+    deal = -(-vec // 4) * 4 + linalg_kernel.stripe_buffer_words(
+        nk, C, area_words)
+    krow = -(-(deal + 2 * ns) // 2) * 2
+    raw = -(-(krow + 2 * nk) // 4) * 4 + 4
+    stage = (DENSE_STAGE_ROWS * n + 6) // 4 * 4
+    lda = max(-(-n // 4) * 4, -(-(linalg_kernel.CHOL_STRIPE * ns) // 32) * 32)
+    return 4 * (raw + 2 * stage + 2 * DENSE_STAGE_ROWS * lda + nk + 1)
+
+
+def dense_cluster_geometry(mg: int, n: int, schur: bool,
+                           n_cor: int = 1) -> tuple[int, int, int] | None:
+    """``(C, area words, shared-memory bytes per CTA)`` of K2's cluster
+    tier at a shape: the first of :data:`DENSE_CLUSTER_SIZES` whose ranks
+    each hold the carve with their share of the stripes of the ``nk x nk``
+    KKT matrix (``linalg_kernel.stripe_deal``), or None. At (l3)'s QP
+    (circle-4, hp = 64: mg = 384, n = 257) C = 2, one CTA an SM."""
+    nk = n - 1 if schur else n
+    for C in DENSE_CLUSTER_SIZES:
+        area = linalg_kernel.stripe_deal(nk, C)[2]
+        need = dense_cluster_smem_bytes(mg, n, schur, n_cor, C, area)
+        if need <= SMEM_LIMIT_BYTES:
+            return C, area, need
+    return None
+
+
 def dense_tier(mg: int, n: int, nb: int, d: int, schur: bool,
                n_cor: int = 1, tier: str | None = None) -> Tier:
     """The dense-G kernel's storage tier at a shape: the shared tier where
     :func:`fits_dense_smem` holds (G in shared memory too when that fits),
-    else the device tier (the ``nk x ldk`` factor in a device-memory
-    workspace, G in device memory); ``tier="device"`` forces the device
-    tier at any shape it holds. Raises ``NotImplementedError``,
-    naming the bytes, where the tier's own shared memory exceeds a
-    block's."""
-    if tier not in (None, "device"):
+    else the cluster tier where a cluster holds the KKT matrix
+    (:func:`dense_cluster_geometry`), else the device tier (the ``nk x
+    ldk`` factor in a device-memory workspace, G in device memory);
+    ``tier`` forces one of :data:`DENSE_TIERS` at any shape it holds.
+    Raises ``NotImplementedError``, naming the bytes, where the tier's own
+    shared memory exceeds a block's."""
+    if tier not in (None,) + DENSE_TIERS:
         raise ValueError(f"unknown tier {tier!r}")
-    dev = tier == "device" or (tier is None and not fits_dense_smem(
-        mg, n, nb, d, schur))
+    fits = fits_dense_smem(mg, n, nb, d, schur)
+    if tier == "cluster" or (tier is None and not fits):
+        cl = dense_cluster_geometry(mg, n, schur, n_cor)
+        if cl is not None:
+            return Tier("cluster", cl[2], 0, False)
+        if tier == "cluster":
+            raise NotImplementedError(
+                f"the dense-G fused IPM kernel's cluster tier needs more "
+                f"than {SMEM_LIMIT_BYTES} bytes of shared memory a CTA at "
+                f"mg={mg}, n={n} with {DENSE_CLUSTER_SIZES[-1]} CTAs")
+    dev = tier == "device" or (tier is None and not fits)
     need = dense_smem_bytes(mg, n, nb, d, schur, False, n_cor, dev)
     if need > SMEM_LIMIT_BYTES:
         full = dense_smem_bytes(mg, n, nb, d, schur, False, n_cor)
@@ -720,11 +781,13 @@ def dense_resident_ctas_per_sm(mg: int, n: int, nb: int, d: int,
     one SM of the current CUDA device holds at a shape in its tier
     (:func:`dense_tier`; the CUDA occupancy calculator, with the launch's
     shared memory). Needs the card: it builds and loads the library."""
+    t = dense_tier(mg, n, nb, d, schur, n_cor, tier)
+    if t.tier == "cluster":
+        return dense_cluster_occupancy(mg, n, nb, d, schur, n_cor)[0]
     fn = _cuda_build.load_library().ipm_dense_occupancy
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    t = dense_tier(mg, n, nb, d, schur, n_cor, tier)
     ctas = ctypes.c_int(0)
     err = fn(mg, n, nb, d, int(schur), int(t.g_smem),
              int(t.tier == "device"), n_cor, min_ctas, ctypes.byref(ctas))
@@ -734,13 +797,35 @@ def dense_resident_ctas_per_sm(mg: int, n: int, nb: int, d: int,
     return ctas.value
 
 
-def _dense_launcher():
-    """The library's ``ipm_dense_launch`` with its argument types set."""
-    fn = _cuda_build.load_library().ipm_dense_launch
+def dense_cluster_occupancy(mg: int, n: int, nb: int, d: int, schur: bool,
+                            n_cor: int) -> tuple[int, int]:
+    """``(CTAs one SM holds, clusters the device holds at once)`` of K2's
+    cluster tier at a shape (:func:`dense_cluster_geometry`; the CUDA
+    occupancy calculator). Needs the card."""
+    C, area, _ = dense_cluster_geometry(mg, n, schur, n_cor)
+    fn = _cuda_build.load_library().ipm_dense_cluster_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+    ctas, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(mg, n, nb, d, int(schur), n_cor, C, area, ctypes.byref(ctas),
+             ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError(f"ipm_dense_cluster_occupancy failed with CUDA "
+                           f"error {err}")
+    return ctas.value, clusters.value
+
+
+def _dense_launcher(cluster: bool = False):
+    """The library's ``ipm_dense_launch`` (``ipm_dense_cluster_launch``)
+    with its argument types set."""
+    lib = _cuda_build.load_library()
+    fn = lib.ipm_dense_cluster_launch if cluster else lib.ipm_dense_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([p] * 16 + [p] * 12 + [i] * 11 + [f] * 3
-                       + [ctypes.c_long, ctypes.c_long, p])
+        fn.argtypes = ([p] * 16 + [p] * 12 + [i] * (10 if cluster else 11)
+                       + [f] * 3 + [ctypes.c_long]
+                       + ([] if cluster else [ctypes.c_long]) + [p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -806,10 +891,12 @@ def ipm_iterate_dense(G, P, pb, q, pdiag,
     :func:`ipm_iterate_struct`'s; ``scal``'s mu / frozen carry the freeze
     from one call to the next.
 
-    CUDA tensors (float32, contiguous) go to the hand-written kernel, at
-    the launch bound :func:`dense_min_ctas` picks for ``B``, in the storage
-    tier :func:`dense_tier` picks for the shape (``tier="device"`` forces
-    the device tier); there is no fallback. CPU tensors go to
+    CUDA tensors (float32, contiguous) go to the hand-written kernel in
+    the storage tier :func:`dense_tier` picks for the shape (``tier``
+    forces one, for checking the tiers against each other), in the shared
+    and device tiers at the launch bound :func:`dense_min_ctas` picks for
+    ``B``; there is no fallback: a failing build, load or launch raises,
+    and so does a cluster that cannot be resident. CPU tensors go to
     :func:`ipm_iterate_dense_plain`.
     """
     state = (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)
@@ -819,16 +906,38 @@ def ipm_iterate_dense(G, P, pb, q, pdiag,
             G, P, pb, q, pdiag, *state, n_iters=n_iters, tol=tol,
             reg_rel=reg_rel, n_cor=n_cor, schur_slack=schur_slack)
     global dense_launch_count, dense_device_launch_count
+    global dense_cluster_launch_count
     ins = [G, P, pb, q, pdiag, *state]
     _check_launchable(ins)
     t = dense_tier(mg, n, nb, d, schur_slack, n_cor, tier)
+    outs = [torch.empty_like(o) for o in state]
+    ptr = [0 if a is None else a.data_ptr() for a in ins]
+    if t.tier == "cluster":
+        nk = n - 1 if schur_slack else n
+        C, area, _ = dense_cluster_geometry(mg, n, schur_slack, n_cor)
+        table = linalg_kernel.deal_tensor(
+            nk, C, linalg_kernel.stripe_deal(nk, C), G.device)
+        with torch.cuda.device(G.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _dense_launcher(cluster=True)(
+                *ptr, *[o.data_ptr() for o in outs], table.data_ptr(),
+                B, mg, n, nb, d, int(schur_slack), int(n_iters), int(n_cor),
+                C, area, float(tol), float(tol * 1e3), float(reg_rel),
+                t.smem_bytes, stream)
+        if err != 0:
+            why = ("no cluster can be resident" if err == -2
+                   else f"CUDA error {err}")
+            raise RuntimeError(
+                f"ipm_dense_cluster_launch failed: {why} (B={B}, mg={mg}, "
+                f"n={n}, nb={nb}, d={d}, cluster of {C} CTAs, "
+                f"{t.smem_bytes} bytes of shared memory each)")
+        dense_cluster_launch_count += 1
+        return tuple(outs)
     dev = t.tier == "device"
     min_ctas = dense_min_ctas(B, _sm_count(G.device))
     launch = _dense_launcher()
-    outs = [torch.empty_like(o) for o in state]
     ws = torch.empty((B, t.workspace_floats), dtype=torch.float32,
                      device=G.device) if dev else None
-    ptr = [0 if a is None else a.data_ptr() for a in ins]
     with torch.cuda.device(G.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
@@ -855,7 +964,7 @@ def ipm_iterate_dense_plain(G, P, pb, q, pdiag,
                             n_cor: int = 0, schur_slack: bool = False,
                             tier: str | None = None):
     """Plain PyTorch version of :func:`ipm_iterate_dense` (float32 or
-    float64, any device), of both its storage tiers (``tier`` is ignored):
+    float64, any device), of every storage tier (``tier`` is ignored):
     per iteration the product ``G^T diag(zg / sg) G`` and ``P x`` in
     batched algebra, then the same step through ``torch.linalg``."""
     del tier

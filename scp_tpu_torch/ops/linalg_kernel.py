@@ -27,7 +27,11 @@ the shared memory of a thread block cluster of up to 8 CTAs
 CTA; the solve reads the factor from device memory, with only the vectors
 in shared memory, so every n a 32-bit index reaches within one instance is
 taken (n <= 46,340 for the factor; n <= 29,056 for the solve, whose two
-vectors must fit shared memory). The G product stages row tiles
+vectors must fit shared memory). From n = 240 the solve stages the
+factor's lower triangle into one block's shared memory once, by bulk
+copies of its rows, while it fits (n <= 331) and the batch is one wave of
+instances (:func:`solve_route`), and reads it from device memory past
+that. The G product stages row tiles
 of at most :data:`GMV_STAGE_BYTES` in shared memory, one CTA each (a row
 wider than that in runs of columns); G^T v stages an instance's rows the
 same way over a thread block cluster of at most :data:`GTMV_MAX_CLUSTER`
@@ -98,13 +102,22 @@ CHOL_CLUSTER_SMS = 132
 # The large-n factor's variants (``cholesky(..., variant=)``): the cluster
 # kernel, and the one-CTA kernel with the matrix in device memory.
 CHOL_LARGE_VARIANTS = ("cluster", "device")
+# The large-n solve's variants (``cho_solve(..., variant=)``): the triangle
+# staged into shared memory (cho_solve_staged_kernel), and the factor read
+# from device memory (cho_solve_large_kernel). The staged kernel holds one
+# instance an SM; past SOLVE_STAGED_MAX_BATCH instances (one wave on an
+# H100's 132 SMs) the one-CTA kernel, several instances an SM hiding each
+# other's block chains, is faster (PERF.md, measured at n = 240 / 257 /
+# 330 by scripts/torch_kernel_check.py --times k3k4large).
+SOLVE_LARGE_VARIANTS = ("staged", "device")
+SOLVE_STAGED_MAX_BATCH = 132
 # Within one instance the kernels index with 32-bit integers.
 MAX_INDEX = 2 ** 31 - 1
 
 # Launches of each CUDA kernel since the last reset (incremented where the
 # kernel is launched and nowhere else).
 launch_counts = {"cholesky": 0, "cho_solve": 0, "gmv": 0, "gtmv": 0,
-                 "cholesky_cluster": 0}
+                 "cholesky_cluster": 0, "cho_solve_staged": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _ARGTYPES = {
@@ -115,6 +128,7 @@ _ARGTYPES = {
                             _P],
     "chol_large_launch": [_P, _P, _I, _I, _I, _L, _P],
     "cho_solve_large_launch": [_P, _P, _P, _I, _I, _I, _L, _P],
+    "cho_solve_staged_launch": [_P, _P, _P, _I, _I, _I, _L, _P],
     "chol_cluster_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
 }
 _deals: dict = {}
@@ -147,6 +161,50 @@ def solve_large_smem_bytes(n: int) -> int:
     """Dynamic shared memory of the solve from n = 240: ``1 / diag`` and
     the right-hand side (the factor is read from device memory)."""
     return 4 * 2 * n
+
+
+def staged_row_slot(r: int) -> int:
+    """Offset (floats) of row ``r``'s slot in the staged solve's packed
+    triangle: every row before it in a 16-byte-aligned slot of ``(i + 7)
+    & ~3`` floats, its ``i + 1`` entries after at most three floats of
+    alignment (``csrc/linalg.cu::staged_row_slot``, in closed form there);
+    ``staged_row_slot(n)`` is the triangle's floats."""
+    return sum((i + 7) & ~3 for i in range(r))
+
+
+def solve_staged_smem_bytes(n: int) -> int:
+    """Dynamic shared memory of the staged large-n solve
+    (``csrc/linalg.cu::staged_solve_words``): an 8-byte mbarrier a 16-row
+    stripe, ``1 / diag``, the right-hand side, a count and an offset a row
+    (n each), each part rounded up to 16 bytes, then the staged
+    triangle."""
+    ns = -(-n // CHOL_STRIPE)
+    return 4 * (-(-2 * ns // 4) * 4 + -(-4 * n // 4) * 4
+                + staged_row_slot(n))
+
+
+def solve_route(B: int, n: int, variant: str | None = None) -> str:
+    """The solve kernel for ``B`` n x n factors: ``"shared"``
+    (cho_solve_batched_kernel) while :func:`fits_chol_smem`, else
+    ``"staged"`` (cho_solve_staged_kernel) while the lower triangle fits a
+    block's shared memory (:func:`solve_staged_smem_bytes`; n <= 331) and
+    B <= :data:`SOLVE_STAGED_MAX_BATCH`, else ``"device"``
+    (cho_solve_large_kernel, the factor read from device memory).
+    ``variant`` forces ``"staged"`` or ``"device"`` at any n and B
+    (``ValueError`` where the triangle does not fit)."""
+    if variant not in (None,) + SOLVE_LARGE_VARIANTS:
+        raise ValueError(f"unknown solve variant {variant!r}")
+    if variant is None and fits_chol_smem(n):
+        return "shared"
+    staged = solve_staged_smem_bytes(n) <= SMEM_LIMIT_BYTES
+    if variant == "staged" and not staged:
+        raise ValueError(f"n={n}: the staged solve needs "
+                         f"{solve_staged_smem_bytes(n)} bytes of shared "
+                         f"memory (limit {SMEM_LIMIT_BYTES})")
+    if variant == "device" or not staged or (
+            variant is None and B > SOLVE_STAGED_MAX_BATCH):
+        return "device"
+    return "staged"
 
 
 def _check_large(n: int, smem: int) -> None:
@@ -394,18 +452,27 @@ def cholesky(K: torch.Tensor, variant: str | None = None) -> torch.Tensor:
     return L
 
 
-def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve ``(L L^T) x = b`` against :func:`cholesky`'s factors."""
+def cho_solve(L: torch.Tensor, b: torch.Tensor,
+              variant: str | None = None) -> torch.Tensor:
+    """Solve ``(L L^T) x = b`` against :func:`cholesky`'s factors, by the
+    kernel :func:`solve_route` picks (``variant`` forces a large-n
+    kernel)."""
     B, n = b.shape
     if not _cuda_build.check_operands("cho_solve",
                                       [(L, (B, n, n)), (b, (B, n))]):
         return linalg.cho_solve_plain(L, b)
-    symbol = ("cho_solve_batched_launch" if fits_chol_smem(n)
-              else "cho_solve_large_launch")
-    geometry = solve_geometry(B, n)
+    route = solve_route(B, n, variant)
     x = torch.empty_like(b)
+    if route == "staged":
+        _check_large(n, 0)
+        _launch("cho_solve_staged", "cho_solve_staged_launch", L,
+                L.data_ptr(), b.data_ptr(), x.data_ptr(), B, n,
+                LARGE_THREADS, solve_staged_smem_bytes(n))
+        return x
+    symbol = ("cho_solve_batched_launch" if route == "shared"
+              else "cho_solve_large_launch")
     _launch("cho_solve", symbol, L, L.data_ptr(), b.data_ptr(), x.data_ptr(),
-            B, n, *geometry)
+            B, n, *solve_geometry(B, n))
     return x
 
 

@@ -12,6 +12,7 @@ Run from the root of a checkout on a machine with an NVIDIA GPU::
     python3 scripts/torch_kernel_check.py --times k1 k4   # some of them
     python3 scripts/torch_kernel_check.py --sections      # K3's cycles
     python3 scripts/torch_kernel_check.py --sections k6k7 # K6 / K7's
+    python3 scripts/torch_kernel_check.py --sections k2 k4 # K2's, K4's
     python3 scripts/torch_kernel_check.py --pivots        # K6 / K7's pivots
     python3 scripts/torch_kernel_check.py --tiers         # K1 / K2 tiers
 
@@ -42,13 +43,16 @@ for each thread count, beside ``torch.cholesky_solve``), K6 / K7 (V = 4,
 K = 64, B = 256 / 64 / 16 / 1 and V = 16, B = 256; warm and cold L2; K7
 with one and two right-hand sides, by graph replay), K2 (one QP of
 frog's shape, 7 iterations, B = 1024 / 512 / 256 / 64, warm and cold L2,
-at each of its two launch bounds), K5b (m = 120, n = 81 at B = 1024 / 256
+at each of its two launch bounds; one QP of (l3)'s shape, B = 256, mg =
+384, n = 257, in each tier past the shared one beside the plain
+version), K5b (m = 120, n = 81 at B = 1024 / 256
 / 64 / 1 and the hp = 64 shape m = 384, n = 257 at B = 256, warm and cold,
 beside ``torch.bmm``), ``k3k4large``: K3 and K4 at n = 240, 257, 330 and
 400 (warm and cold, beside ``torch.linalg.cholesky_ex`` /
 ``torch.cholesky_solve``; K3's cluster kernel, its one-CTA kernel and the
 cluster kernel at each cluster size that holds the matrix, with the size
-the geometry picks), K3 (n = 81, B = 1024 / 256 / 64 / 1,
+the geometry picks; K4's staged solve where it holds the triangle and its
+one-CTA solve), K3 (n = 81, B = 1024 / 256 / 64 / 1,
 with its thread count varied) and K5a (m = 120, n = 81 at B = 1024 / 256 /
 64 and the P shape m = n = 81 at B = 1024, with its stage and grid target
 varied), beside ``torch.linalg.cholesky_ex`` / ``torch.bmm``, three ways,
@@ -65,15 +69,22 @@ trailing updates with the next diagonal block, store) at n = 81, B = 1 and
 B = 1 (each step's duration, the hop between ranks, a panel's period); ``--sections k6k7`` the cycles of K6's and K7's
 stage by section (thread 0 of block 0, per stage) at V = 4, B = 1 and 256,
 and of the generic kernels at V = 16; ``--sections k2`` K2's cycles per
-IPM iteration by section (block 0, one frog QP, B = 64 and 1024).
+IPM iteration by section (block 0, one frog QP, B = 64 and 1024; one (l3)
+QP at B = 256 in each tier past the shared one, the cluster tier's
+product by part); ``--sections k4`` the staged solve's timeline in block
+0 at n = 257 (each stripe's landing, the ends of the substitutions).
 ``--tiers`` builds the library (printing ``ptxas -v``) and holds K1's
 device-memory and cluster tiers and K2's device-memory tier against their
 shared-memory tier on the same inputs (bit for bit: the same sums in the
-same order) at the bench shape, two odd K1 shapes and frog's K2 shape, and
-against the plain version past the shared tier (parallel-11's
-side-selection QP at hp = 20 and circle-4 at hp = 64 for K1, in the
-cluster tier and bit for bit the device tier; path (h)'s n = 257 for K2);
-the default mode runs it too.
+same order) at the bench shape, two odd K1 shapes and frog's K2 shape, K2's
+cluster tier there too (its product sums in another order: to the
+plain-version limits), and against the plain version past the shared tier
+(parallel-11's side-selection QP at hp = 20 and circle-4 at hp = 64 for
+K1, in the cluster tier and bit for bit the device tier; path (h)'s
+n = 257 for K2, in the cluster tier, also against the device tier forced);
+the default mode runs it too, and holds the staged large-n solve bit for
+bit ``cho_solve_large_kernel`` at n = 240 / 257 / 330 / 400 x B = 1 / 16 /
+256 / 1,024 (an instance base 4 bytes past 16 at B = 16).
 ``--pivots`` compiles a test that
 includes ``csrc/riccati.cu`` and holds its branch-free pivot square root and
 reciprocal to ``__fsqrt_rn`` / ``__frcp_rn`` bit for bit on every float in
@@ -351,6 +362,28 @@ def _tier_pair(fn, args, kw, tier="device"):
                                 for x, y in zip(a, b))}
 
 
+def _dense_against(args, kw, fn, extra) -> dict:
+    """K2 in the tier its shape takes against ``fn(..., **extra)`` (the
+    plain version, or K2 with a tier forced) on the same inputs: the whole
+    launch and one iteration."""
+    from scp_tpu_torch.ops import ipm_kernel as ik
+    a, b = ik.ipm_iterate_dense(*args, **kw), fn(*args, **kw, **extra)
+    one = {**kw, "n_iters": 1}
+    a1, b1 = ik.ipm_iterate_dense(*args, **one), fn(*args, **one, **extra)
+    torch.cuda.synchronize()
+    du = (a[0] - b[0])[:, :-1].abs().amax(1)
+    err1 = max(float((x - y)[:, :-1].abs().max())
+               for x, y in zip(a1[:1] + a1[4:], b1[:1] + b1[4:]))
+    rep = {"u_max": float(du.max()), "u_median": float(du.median()),
+           "one_iter_max_abs_err": err1,
+           "finite": all(bool(torch.isfinite(x).all()) for x in a),
+           "frozen_equal": bool(torch.equal(a[10][:, 1], b[10][:, 1])),
+           "bit_identical": all(torch.equal(x, y) for x, y in zip(a, b))}
+    rep["ok"] = (rep["finite"] and err1 <= 1e-4
+                 and rep["u_median"] <= 20 * U_MEDIAN_LIMIT)
+    return rep
+
+
 def check_tiers() -> None:
     """K1 and K2 in their device-memory tier (see the module docstring);
     exits non-zero on a case off its limits."""
@@ -416,7 +449,13 @@ def check_tiers() -> None:
                 or rep["u_max"] > 20 * U_ABS_LIMIT
                 or rep["u_median"] > 20 * U_MEDIAN_LIMIT or one > 1e-4):
             bad.append(rep["case"])
-    # K2: frog's shape in both tiers, path (h)'s n = 257 in its device tier
+    # K2: frog's shape in its shared tier against the device tier forced
+    # (bit for bit) and the cluster tier forced; path (h)'s n = 257 in the
+    # tier its shape takes (the cluster tier) against the plain version
+    # and the device tier forced. Past bit equality (the cluster tier sums
+    # its product in another order): finite, one iteration within 1e-4 on
+    # every state entry, the controls' median within 20 x U_MEDIAN_LIMIT.
+    tiers = getattr(ik, "DENSE_TIERS", ("shared", "device"))
     for B, mg, nb, d, n_cor in ((1024, 440, 1, 20, 0), (64, 384, 4, 64, 0)):
         t = dense_inputs("cuda", (B, mg, nb, d), seed=mg)
         args = [t[k] for k in DENSE_ARG_ORDER]
@@ -424,27 +463,20 @@ def check_tiers() -> None:
                   n_iters=DENSE_ITERS)
         tier = ik.dense_tier(mg, nb * d + 1, nb, d, True, n_cor)
         rep = {"case": f"k2_B{B}_mg{mg}_n{nb * d + 1}", "tier": tier._asdict()}
+        ok = True
+        others = [(f"{x}_forced", ik.ipm_iterate_dense, {"tier": x})
+                  for x in tiers if x not in ("shared", tier.tier)]
         if tier.tier == "shared":
             rep.update(_tier_pair(ik.ipm_iterate_dense, args, kw))
             ok = rep["bit_identical"]
+            others = [o for o in others if o[0] != "device_forced"]
         else:
-            ok_, op = (f(*args, **kw) for f in (
-                ik.ipm_iterate_dense, ik.ipm_iterate_dense_plain))
-            one_k, one_p = (f(*args, **{**kw, "n_iters": 1}) for f in (
-                ik.ipm_iterate_dense, ik.ipm_iterate_dense_plain))
-            torch.cuda.synchronize()
-            du = (ok_[0] - op[0])[:, :-1].abs().amax(1)
-            one = max(float((x - y)[:, :-1].abs().max()) for x, y in
-                      zip(one_k[:1] + one_k[4:], one_p[:1] + one_p[4:]))
-            rep.update({"u_max": float(du.max()),
-                        "u_median": float(du.median()),
-                        "one_iter_max_abs_err": one,
-                        "finite": all(bool(torch.isfinite(x).all())
-                                      for x in ok_),
-                        "frozen_equal": bool(torch.equal(ok_[10][:, 1],
-                                                         op[10][:, 1]))})
-            ok = (rep["finite"] and one <= 1e-4
-                  and rep["u_median"] <= 20 * U_MEDIAN_LIMIT)
+            others.insert(0, ("plain", ik.ipm_iterate_dense_plain, {}))
+        ik.reset_launch_count()
+        for name, fn, extra in others:
+            rep[name] = _dense_against(args, kw, fn, extra)
+            ok = ok and rep[name]["ok"]
+        rep["cluster_launches"] = getattr(ik, "dense_cluster_launch_count", 0)
         print(json.dumps(rep), flush=True)
         if not ok:
             bad.append(rep["case"])
@@ -624,10 +656,54 @@ def check_linalg_kernels() -> None:
                    "kernel_vs_plain": e_kp, "kernel_vs_f64": e_kd,
                    "plain_vs_f64": e_pd, "scale": scale,
                    "nan_instances_ok": nan_ok}
+            if n >= 240 and len(_solve_variants()) > 1:
+                # the staged solve bit for bit the parent's large-n kernel
+                rep["route"] = lk.solve_route(B, n)
+                rep["bit_identical_device_variant"] = _same_bits(
+                    x_k, lk.cho_solve(L, b, variant="device"))
+                nan_ok = nan_ok and rep["bit_identical_device_variant"]
             print(json.dumps(rep), flush=True)
             if (not nan_ok or e_kd > 2 * e_pd + 1e-5 * scale
                     or e_kp > 1e-4 * scale):
                 bad.append(rep["case"])
+    # the staged solve bit for bit cho_solve_large_kernel at every large n
+    # (past its capacity, n = 400, both are that kernel) x B = 1 / 16 /
+    # 256 / 1,024, on factors of seeded SPD matrices with garbage above
+    # the diagonal, the instance base 4 bytes past 16 at B = 16
+    if len(_solve_variants()) > 1:
+        gen = torch.Generator(device=dev).manual_seed(14)
+        for n in (240, 257, 330, 400):
+            for B in (1, 16, 256, 1024):
+                a = torch.randn((B, n, n), generator=gen, device=dev)
+                L = torch.linalg.cholesky(a @ a.transpose(1, 2) / n
+                                          + torch.eye(n, device=dev))
+                L = L.contiguous()
+                del a
+                L += torch.triu(torch.full_like(L, 7.0), 1)
+                if B == 16:   # a copy at a base 4 bytes past 16
+                    base = torch.empty(B * n * n + 1, device=dev)
+                    base[1:] = L.flatten()
+                    L = base[1:].view(B, n, n)
+                b = torch.as_tensor(rng.normal(size=(B, n)),
+                                    dtype=torch.float32, device=dev)
+                fits = lk.solve_staged_smem_bytes(n) <= lk.SMEM_LIMIT_BYTES
+                lk.reset_launch_counts()
+                x_s = lk.cho_solve(L, b, variant="staged" if fits else None)
+                staged = lk.launch_counts["cho_solve_staged"]
+                x_dev = lk.cho_solve(L, b, variant="device")
+                torch.cuda.synchronize()
+                rep = {"case": f"cho_solve_staged_B{B}_n{n}",
+                       "route": lk.solve_route(B, n), "staged_launches": staged,
+                       "base_mod_16": L.data_ptr() % 16,
+                       "bit_identical_device_variant": _same_bits(x_s,
+                                                                  x_dev),
+                       "finite": bool(torch.isfinite(x_s).all())}
+                print(json.dumps(rep), flush=True)
+                if (not rep["bit_identical_device_variant"]
+                        or not rep["finite"]
+                        or staged != fits):
+                    bad.append(rep["case"])
+                del L, x_s, x_dev
     flat = torch.as_tensor(rng.normal(size=1024 * 120 * 81 + 1),
                            dtype=torch.float32, device=dev)
     cases = {"path_B1024_m120_n81": (1024, 120, 81, None),
@@ -909,7 +985,11 @@ STATE = ("x", "sg", "su", "sl", "zg", "zu", "zl", "rpg", "rpu", "rpl",
 K2_FINE_SECTIONS = ("load", "weights_mu", "product", "border", "px_diag",
                     "scale", "factor", "pred_rhs", "pred_solve",
                     "pred_vector", "corr_rhs", "corr_solve", "corr_vector",
-                    "step", "store")
+                    "step", "store", "product_ring_wait",
+                    "product_panel_copy", "product_tiles",
+                    "product_border_sums")
+# (the cluster tier's product_* parts lie inside its "product"; a checkout
+# without them reads zeros there)
 K2_GROUPS = {"load": ("load",),
              "weights_mu_product": ("weights_mu", "product", "border",
                                     "px_diag"),
@@ -1096,6 +1176,11 @@ def k3k4large_times(rnd, dev) -> None:
                 rep = {"round": rnd, "kernel": name, "n": n, "B": w,
                        "input_copies": count}
                 variants = [(None, None)]
+                if name == "cho_solve" and len(_solve_variants()) > 1:
+                    variants = [(v, None) for v in _solve_variants()
+                                if v != "staged"
+                                or lk.solve_staged_smem_bytes(n)
+                                <= lk.SMEM_LIMIT_BYTES]
                 if name == "cholesky":
                     variants = [(v, None) for v in _chol_variants()]
                     if len(_chol_variants()) > 1:   # the cluster's size
@@ -1113,7 +1198,9 @@ def k3k4large_times(rnd, dev) -> None:
                             lk.CHOL_CLUSTER_SIZES = (c,)
                         try:
                             call = (lambda a: _cholesky(a, v)) \
-                                if name == "cholesky" else (lambda *a: fn(*a))
+                                if name == "cholesky" else (
+                                    (lambda *a: fn(*a)) if v is None
+                                    else (lambda *a: fn(*a, variant=v)))
                             call(*args)
                             rep.setdefault("graph_ms_per_call", {})[key] = {
                                 "warm": _graph_ms([lambda: call(*args)] * 10),
@@ -1137,10 +1224,103 @@ def k3k4large_times(rnd, dev) -> None:
                 del copies
 
 
+# (l3)'s K2 shape: circle-4 at hp = 64, B = 256, mg = 384, n = 257, four
+# 64 x 64 P blocks, the slack eliminated, no Gondzio corrector
+K2_L3_SHAPE = (256, 384, 4, 64)
+
+
+def _k2_tiers(shape) -> tuple:
+    """K2's tiers a checkout can run ``shape`` in: the one its shape takes
+    (None) and, past the shared tier, each tier it can force there."""
+    from scp_tpu_torch.ops import ipm_kernel as ik
+    B, mg, nb, d = shape
+    out = [None]
+    for tier in getattr(ik, "DENSE_TIERS", ("device",)):
+        if tier == "shared":
+            continue
+        try:
+            ik.dense_tier(mg, nb * d + 1, nb, d, True, 0, tier)
+        except (NotImplementedError, ValueError):
+            continue
+        out.append(tier)
+    return tuple(out)
+
+
+def k2_l3_times(rnd, dev) -> None:
+    """One QP of (l3)'s shape (``K2_L3_SHAPE``, 7 iterations) in each tier
+    the checkout has (the one the shape takes first), by graph replay, warm
+    and cold, beside the plain version (CUDA events)."""
+    from scp_tpu_torch.ops import ipm_kernel as ik
+    B, mg, nb, d = K2_L3_SHAPE
+    t = dense_inputs(dev, K2_L3_SHAPE, seed=mg)
+    nbytes = sum(v.numel() * 4 for v in t.values() if v is not None)
+    count = 1 + -(-L2_ROTATE_BYTES // nbytes)
+    copies = [{k: None if v is None else v.clone() for k, v in t.items()}
+              for _ in range(count)]
+    rep = {"round": rnd, "kernel": "dense_qp_l3", "B": B, "mg": mg,
+           "n": nb * d + 1, "n_iters": DENSE_ITERS, "input_copies": count,
+           "tier_taken": ik.dense_tier(mg, nb * d + 1, nb, d, True,
+                                       0).tier}
+    for tier in _k2_tiers(K2_L3_SHAPE):
+        kw = DENSE_KW if tier is None else {**DENSE_KW, "tier": tier}
+        rep.setdefault("graph_ms_per_qp", {})[tier or "taken"] = {
+            "warm": _graph_ms([dense_qp(t, kw)] * 3, replays=3),
+            "cold": _graph_ms([dense_qp(c, kw) for c in copies],
+                              replays=3)}
+    state = [t[k] for k in STATE]
+    plain = lambda: ik.ipm_iterate_dense_plain(   # noqa: E731
+        t["G"], t.get("P"), t["pb"], t["q"], t["pdiag"], *state,
+        n_iters=DENSE_ITERS, **DENSE_KW)
+    plain()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        plain()
+    end.record()
+    torch.cuda.synchronize()
+    rep["plain_ms_per_qp"] = start.elapsed_time(end) / 3
+    print(json.dumps(rep), flush=True)
+    del copies
+
+
+# The staged solve against the one-CTA solve across the widths of one wave
+# of CTAs (132 SMs of an H100) and past it
+K4_WIDTHS = (1, 8, 32, 66, 132, 133, 200, 264)
+
+
+def k4_width_times(rnd, dev) -> None:
+    """The large-n solve's two kernels (``variant="staged"`` and
+    ``"device"``) at n = 240 / 257 / 330 and ``K4_WIDTHS``, by graph
+    replay (warm), in turns; a checkout without the staged solve is
+    skipped."""
+    from scp_tpu_torch.ops import linalg_kernel as lk
+    if len(_solve_variants()) < 2:
+        return
+    gen = torch.Generator(device=dev).manual_seed(44)
+    for n in (240, 257, 330):
+        a = torch.randn((max(K4_WIDTHS), n, n), generator=gen, device=dev)
+        L_all = torch.linalg.cholesky(a @ a.transpose(1, 2) / n
+                                      + torch.eye(n, device=dev))
+        del a
+        b_all = torch.randn((max(K4_WIDTHS), n), generator=gen, device=dev)
+        for w in K4_WIDTHS:
+            L, b = L_all[:w].contiguous(), b_all[:w].contiguous()
+            ms = {v: _graph_ms([lambda v=v: lk.cho_solve(L, b, variant=v)]
+                               * 20) for v in ("staged", "device")}
+            print(json.dumps({"round": rnd, "kernel": "cho_solve_widths",
+                              "n": n, "B": w, "graph_ms_per_call": ms,
+                              "staged_over_device": ms["staged"]
+                              / ms["device"]}), flush=True)
+        del L_all
+
+
 def k2_sections() -> None:
     """Clock cycles of block 0 of K2 by section, per IPM iteration, over
-    one QP of the dense-G branch (frog's shape, 7 iterations) at B = 64 and
-    1024."""
+    one QP of the dense-G branch (7 iterations): frog's shape at B = 64 and
+    1024, and (l3)'s (``K2_L3_SHAPE``) at B = 256 in each tier past the
+    shared one (in the cluster tier block 0 is rank 0 of instance 0)."""
     import ctypes
     import subprocess
     from scp_tpu_torch.ops import _cuda_build, ipm_kernel
@@ -1149,10 +1329,14 @@ def k2_sections() -> None:
     lib = _cuda_build.load_library()
     lib.ipm_dense_read_sections.argtypes = [ctypes.c_void_p]
     lib.ipm_dense_read_sections.restype = ctypes.c_int
-    buf = (ctypes.c_ulonglong * 16)()
+    buf = (ctypes.c_ulonglong * 24)()
     t_all = dense_inputs("cuda")
-    for B in (64, 1024):
-        qp = dense_qp(_cut(t_all, B))
+    t_l3 = dense_inputs("cuda", K2_L3_SHAPE, seed=K2_L3_SHAPE[1])
+    cases = [(B, None, _cut(t_all, B)) for B in (64, 1024)] + [
+        (K2_L3_SHAPE[0], tier, t_l3) for tier in _k2_tiers(K2_L3_SHAPE)]
+    for B, tier, t in cases:
+        qp = dense_qp(t, DENSE_KW if tier is None
+                      else {**DENSE_KW, "tier": tier})
         qp()
         torch.cuda.synchronize()
         lib.ipm_dense_read_sections(buf)
@@ -1169,8 +1353,11 @@ def k2_sections() -> None:
         fine = {k: buf[i] / reps / DENSE_ITERS
                 for i, k in enumerate(K2_FINE_SECTIONS)}
         cyc = {g: sum(fine[k] for k in ks) for g, ks in K2_GROUPS.items()}
+        mg, n = t["G"].shape[1:]
         print(json.dumps({
-            "B": B, "n_iters": DENSE_ITERS,
+            "B": B, "mg": mg, "n": n, "tier": tier or ipm_kernel.dense_tier(
+                mg, n, t["pb"].shape[1], t["pb"].shape[2], True, 0).tier,
+            "n_iters": DENSE_ITERS,
             "min_ctas": ipm_kernel.dense_min_ctas(B, _sm_count()),
             "ms_per_qp_instrumented": start.elapsed_time(end) / reps,
             "cycles_per_iteration": sum(cyc.values()),
@@ -1201,10 +1388,12 @@ def kernel_times(which) -> None:
             k6k7_times(rnd, dev)
         if "k2" in which:
             k2_times(rnd, dev)
+            k2_l3_times(rnd, dev)
         if "k5b" in which:
             k5b_times(rnd, dev)
         if "k3k4large" in which:
             k3k4large_times(rnd, dev)
+            k4_width_times(rnd, dev)
         if "k5bvar" in which:
             k5b_variants(rnd, dev)
         linalg_times(rnd, K, dev, which)
@@ -1269,6 +1458,16 @@ def linalg_times(rnd, K, dev, which) -> None:
 def _same_bits(a, b) -> bool:
     """Bit for bit equal float32 tensors (NaN entries included)."""
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _solve_variants() -> tuple:
+    """The solve variants ``linalg_kernel.cho_solve`` can be forced into
+    from n = 240 in this checkout (an older one: ``"device"`` only)."""
+    import inspect
+    from scp_tpu_torch.ops import linalg_kernel as lk
+    if "variant" in inspect.signature(lk.cho_solve).parameters:
+        return lk.SOLVE_LARGE_VARIANTS
+    return ("device",)
 
 
 def _chol_variants() -> tuple:
@@ -1345,6 +1544,66 @@ def k3_sections() -> None:
             if variant == "cluster":
                 rep["geometry"] = list(lk.chol_cluster_geometry(B, 257)[:3])
             run(lambda: _cholesky(K, variant), rep)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+
+
+def k4_sections() -> None:
+    """The staged large-n solve's timeline in block 0 at n = 257, B = 1 and
+    1,024 (a library built with ``-DSCP_PROFILE_SECTIONS``): the clock
+    cycles from the kernel's start at which each 16-row stripe's copy was
+    seen landed, and at which the forward and the backward substitutions
+    ended; the call's time by CUDA events beside the one-CTA solve's
+    (``variant="device"``) in the same build."""
+    import ctypes
+    import subprocess
+    from scp_tpu_torch.ops import _cuda_build, linalg_kernel as lk
+    if "SCP_PROFILE_SECTIONS" not in _cuda_build.BUILD_DEFINES:
+        _cuda_build.BUILD_DEFINES += ("SCP_PROFILE_SECTIONS",)
+    lib = _cuda_build.load_library()
+    lib.cho_solve_read_trace.argtypes = [ctypes.c_void_p]
+    lib.cho_solve_read_trace.restype = ctypes.c_int
+    buf = (ctypes.c_ulonglong * 256)()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n = 257
+    for B in (1, 1024):
+        a = torch.randn((B, n, n), generator=gen, device="cuda")
+        L = torch.linalg.cholesky(a @ a.transpose(1, 2) / n
+                                  + torch.eye(n, device="cuda")).contiguous()
+        b = torch.randn((B, n), generator=gen, device="cuda")
+        ms = {}
+        for v in ("staged", "device"):
+            lk.cho_solve(L, b, variant=v)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                lk.cho_solve(L, b, variant=v)
+            end.record()
+            torch.cuda.synchronize()
+            ms[v] = start.elapsed_time(end) / 20
+        lk.cho_solve(L, b, variant="staged")
+        torch.cuda.synchronize()
+        if lib.cho_solve_read_trace(buf) != 0:
+            sys.exit("reading the solve's trace failed")
+        ns = -(-n // 16)
+        fwd = [(buf[64 + 2 * k], buf[65 + 2 * k]) for k in range(ns - 1)]
+        bwd = [(buf[128 + 2 * k], buf[129 + 2 * k])
+               for k in range(ns - 1, 0, -1)]
+        print(json.dumps({
+            "B": B, "n": n, "ms_per_call_instrumented": ms,
+            "stripe_landed_cycles": [buf[i] for i in range(ns)],
+            "forward_end_cycles": buf[32], "backward_end_cycles": buf[33],
+            # warp 0's part of each step, and the wait for the step's end
+            "forward_lead_cycles": [b - a for a, b in fwd],
+            "forward_step_cycles": [fwd[k + 1][0] - fwd[k][0]
+                                    for k in range(len(fwd) - 1)],
+            "backward_lead_cycles": [b - a for a, b in bwd],
+            "backward_step_cycles": [bwd[k + 1][0] - bwd[k][0]
+                                     for k in range(len(bwd) - 1)]}),
+            flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
@@ -1525,7 +1784,7 @@ def main() -> None:
     ap.add_argument("--times", nargs="*", choices=TIMED, metavar="KERNEL",
                     help=f"time these kernels (default: all of {TIMED})")
     ap.add_argument("--sections", nargs="*",
-                    choices=("k3", "k6k7", "k2", "k3trace"),
+                    choices=("k3", "k6k7", "k2", "k3trace", "k4"),
                     metavar="KERNEL",
                     help="cycles by section (default: k3)")
     ap.add_argument("--pivots", action="store_true")
@@ -1552,6 +1811,8 @@ def main() -> None:
             k6k7_sections()
         if "k2" in args.sections:
             k2_sections()
+        if "k4" in args.sections:
+            k4_sections()
         if "k3trace" in args.sections:
             k3_trace()
         if not args.sections or "k3" in args.sections:

@@ -29,6 +29,7 @@ from scp_tpu.solvers import scp as jscp
 from scp_tpu.utils import debug as jdebug
 from scp_tpu_torch import config as tconfig, convert
 from scp_tpu_torch.ops import ipm_kernel
+from scp_tpu_torch.ops import linalg_kernel as lk
 from scp_tpu_torch.scenarios import builders as tbuilders
 from scp_tpu_torch.sim import engine as tengine
 from scp_tpu_torch.solvers import qp as tqp
@@ -36,8 +37,8 @@ from scp_tpu_torch.solvers import scp as tscp
 from scp_tpu_torch.testing import DENSE_ARG_ORDER, dense_kernel_inputs
 from scp_tpu_torch.utils import debug as tdebug
 
-from torch_parity import (assert_close, jax_problem, scenario_pair,
-                          scp_qp_data, tonp)
+from torch_parity import (assert_close, assert_stripes_cover, jax_problem,
+                          scenario_pair, scp_qp_data, tonp)
 
 
 def _interpret(fn):
@@ -258,9 +259,10 @@ def test_dense_carve_at_frog_fits_four_ctas():
 def test_dense_gate_admits_no_fewer_shapes(schur):
     """The route and the shared tier follow the new carve and admit every
     shape (and every G in shared memory) the one-iteration kernel admitted;
-    past it the device tier takes the shape (the factor in device memory,
-    G too) with the rest of the carve, and only past that the tier
-    function raises, naming the bytes."""
+    past it the cluster tier takes the shape where the smallest cluster
+    holds it (the KKT matrix in its stripes), else the device tier (the
+    factor in device memory, G too) with the rest of the carve, and only
+    past that the tier function raises, naming the bytes."""
     ik = ipm_kernel
     limit = ik.SMEM_LIMIT_BYTES
     for mg in (12, 120, 440, 900, 2000, 6000, 20000):
@@ -276,6 +278,20 @@ def test_dense_gate_admits_no_fewer_shapes(schur):
                 assert rest == ik.dense_smem_bytes(
                     mg, n, nb, d, schur, False, n_cor) - 4 * nk * (nk | 1)
                 if not old_fits:
+                    cl = ik.dense_cluster_geometry(mg, n, schur, n_cor)
+                    sizes = [c for c in ik.DENSE_CLUSTER_SIZES
+                             if ik.dense_cluster_smem_bytes(
+                                 mg, n, schur, n_cor, c,
+                                 lk.stripe_deal(nk, c)[2]) <= limit]
+                    if sizes:
+                        C = sizes[0]
+                        assert cl == (C, lk.stripe_deal(nk, C)[2],
+                                      ik.dense_cluster_smem_bytes(
+                                          mg, n, schur, n_cor, C, cl[1]))
+                        assert ik.dense_tier(mg, n, nb, d, schur, n_cor) \
+                            == ("cluster", cl[2], 0, False)
+                        continue
+                    assert cl is None
                     if rest > limit:
                         with pytest.raises(NotImplementedError,
                                            match=f"{rest} bytes"):
@@ -296,13 +312,16 @@ def test_dense_gate_admits_no_fewer_shapes(schur):
 def test_dense_tier_at_the_hp64_qp():
     """Path (h)'s dense QP (circle-4, hp = 64: mg = 384, n = 257, four 64 x
     64 P blocks, the slack eliminated): 370,416 bytes with the factor, past
-    a block; the device tier holds it in 107,248 (the 256 x 257 factor,
-    263,168 bytes, in a workspace of 256 rows of 256 floats), and the route
-    takes K2 there under kkt="dense" and, without a stage statement, under
-    "auto"."""
+    a block; a cluster of two CTAs holds it in 218,308 bytes each (with a
+    Gondzio corrector's vector; :func:`test_dense_cluster_carve_at_l3`),
+    the device tier forced in 107,248 (the 256 x 257 factor, 263,168 bytes,
+    in a workspace of 256 rows of 256 floats), and the route takes K2 there
+    under kkt="dense" and, without a stage statement, under "auto"."""
     ik = ipm_kernel
     assert ik.dense_smem_bytes(384, 257, 4, 64, True, False) == 370_416
     assert ik.dense_tier(384, 257, 4, 64, True) \
+        == ("cluster", 218_308, 0, False)
+    assert ik.dense_tier(384, 257, 4, 64, True, tier="device") \
         == ("device", 107_248, 256 * 256, False)
     assert ik.dense_tier(440, 21, 1, 20, True, 0, tier="device") \
         == ("device", 56_568 - 4 * 20 * 21 - 4 * (440 * 21 + 4),
@@ -316,6 +335,93 @@ def test_dense_tier_at_the_hp64_qp():
     assert tqp._route(q, h, None, fixed_iters=7, p_blocks=pb,
                       slack_schur=True, g_struct=None, g_slabs=None,
                       banded=object(), kkt="auto") == "banded"
+
+
+def test_dense_cluster_carve_at_l3():
+    """K2's cluster tier at (l3)'s QP (mg = 384, n = 257, nk = 256, no
+    corrector), in words, as the kernel carves it: the step's vectors 8 x
+    898 + 9 x 257 + 33 = 9,530 (no P blocks, no factor, no G), the
+    stripes from 9,532; the factor's buffers 2 x 272 + 8 + 17,536 (this
+    rank's stripes: the deal halves the triangle's 35,072) + 2 x 16 x 272
+    = 26,792; the deal 32 -> 36,356; the row pointers 512 -> 36,868; the
+    ring's mbarriers 4 -> 36,872; two stages of 16 rows (16 x 257 + 3
+    rounded to 4,116) -> 45,104; the panel twice at a leading dimension of
+    260 -> 53,424; the border's 257 -> 53,681 words, 214,724 bytes: C = 2,
+    one CTA an SM (228 KB), the stripes covering the triangle once."""
+    ik = ipm_kernel
+    assert lk.stripe_deal(256, 2)[2] == 35_072 // 2 == 17_536
+    assert ik.dense_cluster_smem_bytes(384, 257, True, 0, 2, 17_536) \
+        == 4 * 53_681 == 214_724
+    assert ik.dense_cluster_geometry(384, 257, True, 0) == (2, 17_536,
+                                                            214_724)
+    assert ik.dense_tier(384, 257, 4, 64, True, 0) \
+        == ("cluster", 214_724, 0, False)
+    assert 2 * (214_724 + 1024) > 228 * 1024
+    # with a corrector one m-vector more: the vectors 10,428 words, the
+    # stripes from 10,428 (896 words later)
+    assert ik.dense_cluster_smem_bytes(384, 257, True, 1, 2, 17_536) \
+        == 214_724 + 4 * 896
+    assert_stripes_cover(256, 2)
+
+
+@pytest.mark.parametrize("tier", ["shared", "cluster", "device"])
+def test_dense_tier_keyword_runs_the_plain_version_on_the_cpu(tier):
+    """``tier`` only picks where the kernel keeps its KKT matrix: on CPU
+    tensors the wrapper runs the plain version, bit for bit the call
+    without it, and counts no launch; forced on the card past a tier's
+    capacity, the tier function raises, naming it."""
+    a = dense_kernel_inputs(3, 30, 4, 5, seed=21)
+    t = [None if a[k] is None else torch.as_tensor(a[k])
+         for k in DENSE_ARG_ORDER]
+    kw = dict(n_iters=3, tol=1e-6, reg_rel=3e-6, n_cor=0, schur_slack=True)
+    ipm_kernel.reset_launch_count()
+    want = ipm_kernel.ipm_iterate_dense(*t, **kw)
+    got = ipm_kernel.ipm_iterate_dense(*t, **kw, tier=tier)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert ipm_kernel.dense_launch_count == 0
+    assert ipm_kernel.dense_cluster_launch_count == 0
+    assert ipm_kernel.dense_device_launch_count == 0
+    assert ipm_kernel.dense_tier(30, 21, 4, 5, True, 0, tier).tier == tier
+    with pytest.raises(NotImplementedError, match=f"{tier} tier"):
+        ipm_kernel.dense_tier(60_000, 21, 4, 5, True, 0, tier)
+    with pytest.raises(ValueError, match="unknown tier"):
+        ipm_kernel.dense_tier(30, 21, 4, 5, True, 0, "global")
+
+
+def test_plain_k2_at_the_l3_shape_scaled_down():
+    """(l3)'s QP — circle-4's dense rows, four P blocks, the slack
+    eliminated, 7 fixed iterations, no corrector — at hp = 5 (mg = 30, n =
+    21), B = 2, float64: the port's dense fixed-count branch (K2's plain
+    version on the CPU) against ``scp_tpu``'s fixed-count path off the TPU
+    (``use_pallas=False``, its XLA loop, which it takes at (l3)'s size): 1e-9
+    on x and the duals (two orders of the same float64 sums), the same
+    frozen flags."""
+    ja, ta = scp_qp_data("circle", 2, 5, np.float64, n_veh=4)
+    n, mg = ta["q"].shape[1], ta["h"].shape[1]
+    assert (n, mg, ta["p_blocks"].shape[1:]) == (21, 30, (4, 5, 5))
+    kw = dict(fixed_iters=7, tol=1e-6, correctors=0, slack_schur=True)
+    want = jqp.solve_qp_batched(
+        ja["P"], ja["q"], ja["G"], ja["h"], ja["lb"], ja["ub"], x0=ja["x0"],
+        use_pallas=False, p_blocks=ja["p_blocks"], **kw)
+    calls = []
+    real = ipm_kernel.ipm_iterate_dense
+
+    def spy(*args, **k):
+        calls.append(ipm_kernel.dense_tier(
+            mg, n, 4, 5, True, k["n_cor"], "cluster").tier)
+        return real(*args, **k)
+
+    ipm_kernel.ipm_iterate_dense = spy
+    try:
+        got = tqp.solve_qp_batched(
+            None, ta["q"], ta["G"], ta["h"], ta["lb"], ta["ub"],
+            x0=ta["x0"], p_blocks=ta["p_blocks"], kkt="dense", **kw)
+    finally:
+        ipm_kernel.ipm_iterate_dense = real
+    assert calls == ["cluster"] and got.x.dtype == torch.float64
+    assert_close(got.x, want.x, 1e-9, name="x")
+    assert_close(got.z, want.z, 1e-9, rtol=1e-9, name="z")
+    assert_close(got.converged, want.converged, 0, name="converged")
 
 
 @pytest.mark.parametrize("B,sms,want", [

@@ -107,7 +107,8 @@ def test_wrappers_take_the_plain_versions_on_cpu(dtype):
     assert torch.equal(tk.gmv(G, rhs), tl.gmv_plain(G, rhs))
     assert torch.equal(tk.gtmv(G, v), tl.gtmv_plain(G, v))
     assert tk.launch_counts == {"cholesky": 0, "cho_solve": 0, "gmv": 0,
-                                "gtmv": 0, "cholesky_cluster": 0}
+                                "gtmv": 0, "cholesky_cluster": 0,
+                                "cho_solve_staged": 0}
 
 
 @pytest.mark.parametrize("kernel", ["cholesky_lane", "cho_solve_lane",
@@ -277,6 +278,86 @@ def test_large_n_variants_take_the_plain_version_on_cpu(variant):
     L_t = tk.cholesky(torch.as_tensor(K), variant=variant)
     assert torch.equal(L_t, tk.cholesky(torch.as_tensor(K)))
     assert _rel(torch.tril(L_t), np.tril(np.asarray(L_j))) < F32_REL
+    assert not any(tk.launch_counts.values())
+
+
+@pytest.mark.parametrize("n", [240, 257, 330, 331])
+def test_staged_solve_geometry(n):
+    """The staged large-n solve's carve: row r of the lower triangle in a
+    16-byte-aligned slot of (r + 7) & ~3 floats, which holds its r + 1
+    entries after any of the four alignments a row can have in device
+    memory; the slots' offsets in the closed form the kernel computes;
+    16-row stripes, one mbarrier each, awaiting each of their rows; the
+    whole within a block's 232,448 bytes (at n = 257: mbarriers 36 words,
+    1 / diag, the right-hand side, the counts and the row offsets 1,028,
+    the triangle 34,308: 141,488 bytes, one CTA an SM)."""
+    def closed(r):       # csrc/linalg.cu::staged_row_slot
+        t = r & 3
+        return r * (r - 1) // 2 + 7 * r - 6 * (r >> 2) - (0, 3, 3, 4)[t]
+
+    slot = [tk.staged_row_slot(r) for r in range(n + 1)]
+    assert slot == [closed(r) for r in range(n + 1)]
+    for r in range(n):
+        width = slot[r + 1] - slot[r]
+        assert slot[r] % 4 == 0 and width == (r + 7) & ~3
+        assert 3 + r + 1 <= width
+    ns = -(-n // 16)
+    rows = [min(16, n - 16 * s) for s in range(ns)]
+    assert sum(rows) == n and rows[:-1] == [16] * (ns - 1)
+    words = -(-2 * ns // 4) * 4 + -(-4 * n // 4) * 4 + slot[n]
+    assert tk.solve_staged_smem_bytes(n) == 4 * words <= tk.SMEM_LIMIT_BYTES
+    assert 4 * slot[n] >= 4 * n * (n + 1) // 2
+    if n == 257:
+        assert (-(-2 * ns // 4) * 4, -(-4 * n // 4) * 4, slot[n]) \
+            == (36, 1_028, 34_308)
+        assert tk.solve_staged_smem_bytes(n) == 141_488
+        assert 2 * (141_488 + 1024) > 228 * 1024
+
+
+@pytest.mark.parametrize("n,want", [(239, "shared"), (240, "staged"),
+                                    (257, "staged"), (330, "staged"),
+                                    (331, "staged"), (332, "device"),
+                                    (400, "device")])
+def test_solve_route(n, want):
+    """n < 240: the shared-memory solve; from 240 the staged solve while
+    the triangle fits one block's shared memory (n <= 331) and the batch is
+    one wave of instances (B <= 132), else the one-CTA kernel reading L
+    from device memory, which ``variant="device"`` forces at any n and B;
+    ``variant="staged"`` past the triangle's capacity is refused, at any
+    B it forces the staged kernel."""
+    big = tk.SOLVE_STAGED_MAX_BATCH + 1
+    assert tk.SOLVE_STAGED_MAX_BATCH == 132
+    for B in (1, 16, 132):
+        assert tk.solve_route(B, n) == want
+    assert tk.solve_route(big, n) == ("shared" if want == "shared"
+                                      else "device")
+    for B in (1, big):
+        assert tk.solve_route(B, n, "device") == "device"
+        if tk.solve_staged_smem_bytes(n) <= tk.SMEM_LIMIT_BYTES:
+            assert tk.solve_route(B, n, "staged") == "staged"
+        else:
+            with pytest.raises(ValueError, match="staged solve needs"):
+                tk.solve_route(B, n, "staged")
+    with pytest.raises(ValueError, match="unknown solve variant"):
+        tk.solve_route(1, n, "cluster")
+
+
+@pytest.mark.parametrize("variant", [None, "staged", "device"])
+def test_large_n_solve_variants_take_the_plain_version_on_cpu(variant):
+    """Either large-n solve forced on CPU tensors runs the plain version,
+    bit for bit the call without the keyword, within F32_REL of scp_tpu's
+    ``blocked_cho_solve`` at n = 257 (hp = 64 with 4 vehicles), and counts
+    no launch."""
+    rng = np.random.default_rng(258)
+    K = _spd(rng, 2, 257, np.float32)
+    rhs = rng.normal(size=(2, 257)).astype(np.float32)
+    L_j = jax.vmap(jl.blocked_cholesky)(jnp.asarray(K))
+    x_j = jax.vmap(jl.blocked_cho_solve)(L_j, jnp.asarray(rhs))
+    L_t = torch.as_tensor(np.tril(np.asarray(L_j)))
+    tk.reset_launch_counts()
+    x_t = tk.cho_solve(L_t, torch.as_tensor(rhs), variant=variant)
+    assert torch.equal(x_t, tk.cho_solve(L_t, torch.as_tensor(rhs)))
+    assert _rel(x_t, x_j) < F32_REL
     assert not any(tk.launch_counts.values())
 
 
