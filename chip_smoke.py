@@ -89,6 +89,18 @@ read just after:
   (``TUNED_F32_V16``: K1's shared tier with its slabs packed) and (l6) the
   DEFAULT (adaptive) side-selection settings on frog, B = 64 (the factor,
   the solve and both G products);
+* (m) K1's global tier, past its device tier's own carve (the step's
+  vectors in device memory too): (m1) forced on path (l)'s inputs, bit
+  for bit the cluster tier on (l1)'s launches and the device tier on
+  (l2)'s and at the bench shape, both placements (cluster, device), timed
+  beside them; (m2) the calibrated side-selection step at parallel-11,
+  hp = hu = 64, B = 64 (two K1 launches a step in the global tier, 320 and
+  64 wide, a cluster of 8 CTAs an instance; 3 chained steps, the first
+  also through the plain versions and float64, the feasible share against
+  the plain versions'; both launches bit for bit in the device placement
+  and timed); (m3) one circle-16 hp = 64 QP under ``qp_kkt="dense"``
+  (B = 4, the device placement) against its plain version; (m4) ``cli run
+  --controller side_selection --scenario parallel --hp 64 --steps 1``;
 * (j) the entry points a user calls: ``scp_tpu_torch.bench.worker()`` at
   its own settings (K1 on its throughput steps, K3 / K4 on its latency
   steps; its solves/s and latency printed beside paths (a) and (c)), and
@@ -1788,7 +1800,8 @@ def reset_counts() -> None:
 def launch_counts() -> dict:
     """Every kernel's launches since :func:`reset_counts` (K1 and K2 in
     their shared-memory tier under the wrappers' names, in their device
-    tier with ``_device``, in their cluster tier with ``_cluster``; the
+    tier with ``_device``, in their cluster tier with ``_cluster``, K1 in
+    its global tier with ``_global``; the
     large-n factor over a cluster as ``cholesky_cluster``, the large-n
     solve on its staged triangle as ``cho_solve_staged``)."""
     from scp_tpu_torch.ops import ipm_kernel, linalg_kernel as lk
@@ -1800,6 +1813,7 @@ def launch_counts() -> dict:
             "ipm_iterate_dense_device": ipm_kernel.dense_device_launch_count,
             "ipm_iterate_dense_cluster":
                 ipm_kernel.dense_cluster_launch_count,
+            "ipm_iterate_struct_global": ipm_kernel.global_launch_count,
             **lk.launch_counts, **rk.launch_counts}
 
 
@@ -3305,6 +3319,9 @@ def side_selection_phases(dev, card, seed) -> dict:
 
 
 # ---- path (l): K1 and K2 past one block's shared memory ----
+# K1's launches of (l1) and (l2)'s full width and (l4)'s bench-shape inputs,
+# which path (m) holds the global tier against its twins on
+M_INPUTS: dict = {}
 L_HP = 20                  # (l1) side selection at parallel-11, hp = hu = 20
 L_STEPS, L_TIMED_STEPS = 3, 1
 L_TIME_REPS = 3            # (l1) launches a graph when timing K1
@@ -3516,6 +3533,7 @@ def device_tier_phases(dev, card, seed) -> dict:
     agree1 = {f"B{a[0].shape[0]}": tiers_agree("ipm_iterate_struct", a, k,
                                                reps=L_TIME_REPS)
               for a, k in kept1["ipm_iterate_struct"]}
+    M_INPUTS["l1"] = kept1["ipm_iterate_struct"]
     for w, r in agree1.items():
         times1[f"l1_{w}"]["device_tier_ms"] = r["other_ms"]
     rep1.update(
@@ -3633,6 +3651,7 @@ def device_tier_phases(dev, card, seed) -> dict:
     if got2["ipm_iterate_struct_cluster"] == 0 or any(
             v for k, v in got2.items() if k != "ipm_iterate_struct_cluster"):
         fail(f"path l2: launches {got2}; K1's cluster tier only wanted")
+    M_INPUTS["l2"] = seen2[L_LONG_B]
     if not rep2["cluster_vs_device_tier_full_width"]["bit_identical"]:
         fail(f"path l2: the cluster tier differs from the device tier on "
              f"identical inputs: {rep2['cluster_vs_device_tier_full_width']}")
@@ -3706,6 +3725,7 @@ def device_tier_phases(dev, card, seed) -> dict:
     kw4 = dict(pairs=pairs, obst_veh=ov, tol=1e-6, reg_rel=3e-6, n_cor=0,
                n_iters=7, lower_tri=True)
     args4 = torch_kernel_args(arrs, device=dev)
+    M_INPUTS["bench"] = (args4, kw4)
     t4 = {"k1_bench_shape": tiers_agree("ipm_iterate_struct", args4, kw4),
           "k1_bench_shape_cluster": tiers_agree("ipm_iterate_struct", args4,
                                                 kw4, "cluster")}
@@ -3899,6 +3919,258 @@ def device_tier_phases(dev, card, seed) -> dict:
                                    "launches_per_step_l5": rep5[
                                        "launches_per_step"][
                                            "ipm_iterate_struct"]}}
+
+
+# ---- path (m): K1's global tier (the step's vectors in device memory) ----
+M_HP = 64                  # (m2) side selection at parallel-11, hp = hu = 64
+M_B = 64
+M_STEPS, M_TIMED_STEPS = 3, 1
+M_TIME_REPS = 1            # (m2) launches a graph when timing K1
+M_TWIN_REPS = 3            # (m1) ... and when timing the twins
+M_V16_B, M_V16_VEH = 4, 16     # (m3) circle-16 at hp = M_HP, the dense KKT
+
+
+@contextlib.contextmanager
+def global_placement(placement):
+    """K1's global tier in its device placement for the block
+    (``placement="device"``: ``GLOBAL_CLUSTER_SIZES`` emptied, at any
+    shape), or as the shape takes it (None)."""
+    from scp_tpu_torch.ops import ipm_kernel as ik
+    sizes = ik.GLOBAL_CLUSTER_SIZES
+    if placement == "device":
+        ik.GLOBAL_CLUSTER_SIZES = ()
+    try:
+        yield
+    finally:
+        ik.GLOBAL_CLUSTER_SIZES = sizes
+
+
+class _FirstLaunch(Exception):
+    """Raised by the capture of a step's first K1 launch (path (m3))."""
+
+
+def global_tier_phases(dev, card, seed) -> dict:
+    """Path (m): K1's global tier, past its device tier's own carve (the
+    step's vectors in a device-memory workspace, the KKT matrix in a
+    cluster's stripes or, in its device placement, in the workspace), each
+    path's launch counts set to 0 just before it and read just after:
+
+    (m1) the global tier forced on path (l)'s inputs against its twins on
+         the same inputs, bit for bit, both timed: the cluster tier on
+         (l1)'s two launches (parallel-11, hp = 20), the device tier on
+         (l2)'s full width (circle-4, hp = 64) and at the bench shape
+         (path (l4)'s inputs), the cluster tier there too; its device
+         placement against the device tier on (l1)'s wide launch, (l2)'s
+         and the bench shape's;
+    (m2) the calibrated side-selection step at parallel-11, hp = hu =
+         M_HP, B = M_B through ``mpc_step_batch``
+         (``SideSelectionChecks.batch_path``): exactly two K1 launches a
+         step, both in the global tier (5B wide at 8 iterations, B wide at
+         12), every first-step launch against its plain version and
+         float64, M_STEPS chained steps and then through the plain
+         version (the feasible share no worse than its less
+         FROG_FEASIBLE_SLACK), step 0 three ways (the flags under the
+         yardstick); both launches again in the device placement, bit for
+         bit, both placements timed; the peak device memory;
+    (m3) circle-16 at hp = hu = M_HP, ``qp_kkt="dense"``, B = M_V16_B: the
+         step's first K1 launch (one QP, the global tier's device
+         placement: no cluster of 8 holds its stripes) against its plain
+         version and float64, timed;
+    (m4) ``cli run --controller side_selection --scenario parallel --hp
+         M_HP --steps 1``: exit 0, K1's global tier launched and no other
+         tier of K1 or K2.
+
+    Returns the ``kernels`` line's entry of the global tier."""
+    from scp_tpu_torch import config as config_lib
+    from scp_tpu_torch.ops import ipm_kernel
+    from scp_tpu_torch.scenarios import batch as batch_lib
+    from scp_tpu_torch.sim import engine
+
+    h = SideSelectionChecks(dev, card, seed)
+    real, plain = h.real, h.plain
+    k1 = "ipm_iterate_struct"
+
+    def geometry(a):
+        P, hp, hu = a[0].shape[1:]
+        S = 0 if a[2] is None else a[2].shape[1]
+        return ipm_kernel.global_geometry(P, S, hp, hu, a[4].shape[1])
+
+    # ---- (m1) bit for bit against the twins, path (l)'s inputs ----
+    t_path = time.perf_counter()
+    (a_l1, k_l1), (a_l1n, k_l1n) = M_INPUTS["l1"]
+    a_l2, k_l2 = M_INPUTS["l2"]
+    a_b, k_b = M_INPUTS["bench"]
+    w_l1, w_l1n = a_l1[0].shape[0], a_l1n[0].shape[0]
+    cases = {f"l1_B{w_l1}_vs_cluster": (a_l1, k_l1, "cluster", None),
+             f"l1_B{w_l1n}_vs_cluster": (a_l1n, k_l1n, "cluster", None),
+             f"l2_B{a_l2[0].shape[0]}_vs_device": (a_l2, k_l2, "device",
+                                                   None),
+             "bench_vs_cluster": (a_b, k_b, "cluster", None),
+             "bench_vs_device": (a_b, k_b, "device", None),
+             f"l1_B{w_l1}_device_placement_vs_device": (a_l1, k_l1, "device",
+                                                        "device"),
+             f"l2_B{a_l2[0].shape[0]}_device_placement_vs_device": (
+                 a_l2, k_l2, "device", "device"),
+             "bench_device_placement_vs_device": (a_b, k_b, "device",
+                                                  "device")}
+    m1 = {}
+    for name, (a, k, other, placement) in cases.items():
+        with global_placement(placement):
+            r = tiers_agree(k1, a, {**k, "tier": "global"}, other,
+                            reps=M_TWIN_REPS)
+            r["global_geometry"] = geometry(a)._asdict()
+        m1[name] = r
+    M_INPUTS.clear()
+    emit({"phase": "global_tier_path_m1", "card": card, **m1,
+          "limits": {"bit_identical": "required"},
+          "wall_s": time.perf_counter() - t_path})
+    for name, r in m1.items():
+        if not r["bit_identical"]:
+            fail(f"path m1, {name}: the global tier differs from the "
+                 f"{r['other']} tier on identical inputs: {r}")
+    torch.cuda.empty_cache()
+
+    # ---- (m2) side selection at parallel-11, hp = 64 ----
+    t_path = time.perf_counter()
+    _, _, _, kept_m, rep_m, ok_m = h.batch_path(
+        "m", "parallel", M_B, k1, hp=M_HP,
+        count_key="ipm_iterate_struct_global", steps=M_STEPS,
+        timed_steps=M_TIMED_STEPS, n_veh=SS_PAR_VEH)
+    tiers_m = [tier_of_launch(k1, a, k) for a, k in kept_m[k1]]
+    if any(t.tier != "global" for t in tiers_m):
+        fail(f"path m: K1 launched in tiers {[t.tier for t in tiers_m]}, "
+             f"global wanted")
+    times_m = h.times("m", k1, kept_m, reps=M_TIME_REPS)[0]
+    a0 = kept_m[k1][0][0]
+    P_m, S_m = a0[0].shape[1], a0[2].shape[1]
+    shape_m = (P_m, S_m, M_HP, M_HP, SS_PAR_VEH)
+    placements = {}
+    for a, k in kept_m[k1]:
+        w = a[0].shape[0]
+        out_c = real[k1](*a, **k)
+        with global_placement("device"):
+            out_d = real[k1](*a, **k)
+            torch.cuda.synchronize()
+            placements[f"B{w}"] = {
+                "bit_identical": all(torch.equal(x, y)
+                                     for x, y in zip(out_c, out_d)),
+                "cluster_placement_ms": times_m[f"m_B{w}"]["ms"],
+                "device_placement_ms": graph_ms(
+                    lambda: real[k1](*a, **k), M_TIME_REPS),
+                "device_placement_resident_ctas_per_sm":
+                    ipm_kernel.global_occupancy(*shape_m, True)[0]}
+        del out_c, out_d
+    rep_m.update(
+        phase="global_tier_path_m2", k1_tiers=[t._asdict() for t in tiers_m],
+        k1_global_geometry=ipm_kernel.global_geometry(*shape_m)._asdict(),
+        k1_device_tier_carve_bytes=ipm_kernel.smem_bytes(*shape_m, True,
+                                                         True),
+        k1_resident_ctas_per_sm_and_clusters=ipm_kernel.global_occupancy(
+            *shape_m, True),
+        k1_slabs_mib_per_candidate_launch=sum(
+            t.numel() * 4 for t in a0[:3] if t is not None) / 2 ** 20,
+        times=times_m, placements=placements,
+        wall_s=time.perf_counter() - t_path)
+    emit(rep_m)
+    h.path_failures("m", rep_m, ok_m)
+    for w, r in placements.items():
+        if not r["bit_identical"]:
+            fail(f"path m2, {w}: the global tier's two placements differ on "
+                 f"identical inputs: {r}")
+    del kept_m
+    torch.cuda.empty_cache()
+
+    # ---- (m3) circle-16, hp = 64, the dense KKT: the device placement ----
+    t_path = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg3, data3 = batch_lib.make_batch("circle", M_V16_B, generator=gen,
+                                       dtype=torch.float32, device=dev,
+                                       n_veh=M_V16_VEH)
+    cfg3 = config_lib.tuned_f32(cfg3.replace(hp=M_HP, hu=M_HP),
+                                **config_lib.TUNED_F32_V16
+                                ).replace(qp_kkt="dense")
+    first: list = []
+
+    def capture(*a, **k):
+        first.append((a, k))
+        raise _FirstLaunch
+
+    try:
+        routed({k1: capture}, engine.mpc_step_batch, cfg3, data3,
+               engine.init_carry(cfg3, data3),
+               phases=config_lib.TUNED_F32_PHASES)
+    except _FirstLaunch:
+        pass
+    if not first:
+        fail("path m3 made no K1 launch")
+    a3, k3 = first[0]
+    tier3, geo3 = tier_of_launch(k1, a3, k3), geometry(a3)
+    if tier3.tier != "global" or geo3.placement != "device":
+        fail(f"path m3: K1 in {tier3} / {geo3}, the global tier's device "
+             f"placement wanted")
+    e3 = check_kernel(f"m3_circle16_hp{M_HP}_dense_B{M_V16_B}", a3, k3,
+                      real[k1], plain[k1])
+    P3, S3 = a3[0].shape[1], 0 if a3[2] is None else a3[2].shape[1]
+    cell3 = {"B": M_V16_B, "n_iters": k3["n_iters"],
+             "shape": {"P": P3, "S": S3, "hp": M_HP, "hu": M_HP,
+                       "V": M_V16_VEH},
+             "tier": tier3._asdict(), "global_geometry": geo3._asdict(),
+             "resident_ctas_per_sm": ipm_kernel.global_occupancy(
+                 P3, S3, M_HP, M_HP, M_V16_VEH, k3["lower_tri"])[0],
+             "ms": graph_ms(lambda: real[k1](*a3, **k3), M_TIME_REPS),
+             "plain_ms": time_cuda(lambda: plain[k1](*a3, **k3), 2,
+                                   warmup=1)}
+    cell3["bound_ms"], cell3["bound_by"] = k1_bound_ms(
+        (P3, S3, M_HP, M_HP, M_V16_VEH), M_V16_B, k3["n_iters"], k3["n_cor"],
+        k3["lower_tri"])
+    emit({"phase": "global_tier_path_m3", "card": card, "k1": cell3,
+          "kernel_vs_plain": e3, "wall_s": time.perf_counter() - t_path})
+    del first, a3
+    torch.cuda.empty_cache()
+
+    # ---- (m4) the CLI at hp = 64 ----
+    t_path = time.perf_counter()
+    argv = ["run", "--controller", "side_selection", "--scenario",
+            "parallel", "--hp", str(M_HP), "--steps", "1"]
+    r4 = run_cli(argv + (["--cpu"] if dev.type == "cpu" else []))
+    got4 = r4["launches"]
+    emit({"phase": "global_tier_path_m4", "card": card, **r4,
+          "wall_s": time.perf_counter() - t_path})
+    others = [k for k, v in got4.items() if v and k.startswith("ipm_")
+              and k != "ipm_iterate_struct_global"]
+    if r4["exit_code"] or not got4["ipm_iterate_struct_global"] or others:
+        fail(f"path m4: cli {' '.join(argv)}: exit {r4['exit_code']}, "
+             f"launches {got4}; K1's global tier only wanted")
+
+    per = rep_m["launches_per_step"]
+    emit({"phase": "global_tier_summary", "card": card,
+          "launches_per_step_m2": per,
+          "launches_m3_check": 2, "launches_m4_cli": got4,
+          "peak_device_memory_mib_m2": rep_m["peak_device_memory_mib"],
+          "step_peak_above_resident_mib_m2":
+              rep_m["step_peak_above_resident_mib"],
+          "chained_step_ms_m2": rep_m["chained_step_ms"],
+          "feasible_share_m2": rep_m["feasible_share"],
+          "feasible_share_plain_m2": rep_m["feasible_share_plain"]})
+    w_m = f"m_B{SS_CANDIDATES * M_B}"
+    k1_gl = {"name": "ipm_iterate_struct_global", "route": "cuda",
+             "source": "scp_tpu_torch/csrc/ipm_struct.cu",
+             "also_source": "scp_tpu_torch/csrc/chol_cluster.cuh",
+             "replaces": "scp_tpu/ops/pallas_linalg.py:1195",
+             "tier": "global",
+             "launches": per["ipm_iterate_struct_global"] * M_STEPS,
+             "launches_per_step_m2": per["ipm_iterate_struct_global"],
+             "max_abs_err": max(rep_m["kernel_vs_plain_max_abs_err"],
+                                e3["u_kernel_vs_plain_max"]),
+             **{k: times_m[w_m][k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by")},
+             "library_ms": None, "times_m2": times_m,
+             "placements_m2": placements, "times_m3": cell3,
+             "vs_twins_m1": {k: {key: r[key] for key in (
+                 "B", "n_iters", "other", "bit_identical", "ms", "other_ms")}
+                 for k, r in m1.items()},
+             "cli_launches_m4": got4["ipm_iterate_struct_global"]}
+    return {"ipm_iterate_struct_global": k1_gl}
 
 
 # ---- path (j): the entry points (cli / bench) ----
@@ -4911,6 +5183,10 @@ def main() -> None:
     tier_entries = device_tier_phases(dev, card, SEED)
     phase_end["device_tiers"] = time.perf_counter()
 
+    # ---- path (m): K1's global tier, parallel-11 side selection at hp = 64
+    global_entries = global_tier_phases(dev, card, SEED)
+    phase_end["global_tier"] = time.perf_counter()
+
     # ---- path (j): the entry points, cli and bench ----
     entry_counts = entry_point_phases(dev, card, SEED,
                                       (cfg, data, carry0, PHASES))
@@ -4928,7 +5204,8 @@ def main() -> None:
         tier_entries.pop(k) for k in ("ipm_iterate_struct_cluster",
                                       "ipm_iterate_struct_device",
                                       "ipm_iterate_dense_cluster",
-                                      "ipm_iterate_dense_device")]
+                                      "ipm_iterate_dense_device")] + [
+        global_entries["ipm_iterate_struct_global"]]
     for r in reports:
         r.update(ss_entries.get(r["name"], {}))
         r.update(tier_entries.get(r["name"], {}))

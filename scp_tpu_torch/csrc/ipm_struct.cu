@@ -49,8 +49,9 @@
 //     bytes at P = 6, hp = hu = 20, V = 4, so that four CTAs share an SM
 //     (__launch_bounds__(256, 4): 64 registers a thread).
 //
-// Three storage tiers: ipm_struct_kernel<kDev> (shared, device) and
-// ipm_struct_cluster_kernel. The shared
+// Four storage tiers: ipm_struct_kernel<kDev> (shared, device),
+// ipm_struct_cluster_kernel<false> (cluster) and the global tier (both
+// kernels with kGlobal, at the end of this comment). The shared
 // tier (kDev false) is the design above. Past one block's shared memory
 // (the side-selection QP of parallel-11 at hp = 20: 481,908 bytes; a dense
 // KKT at circle-4, hp = 64: 471,904) the device tier (kDev true) keeps the
@@ -81,9 +82,26 @@
 // 0's solves read the factor's rows through DSMEM (chol_rows_solve). The
 // factor thus sits in shared memory instead of L1 / L2, and the tiles are
 // formed on C SMs. The same sums in the same order, so the cluster tier is
-// bit for bit the device tier. The tier follows from the shape alone (the
-// wrapper, ipm_kernel.py::struct_tier: shared, else cluster, else
-// device).
+// bit for bit the device tier.
+//
+// Past the device tier's carve (its vectors alone: parallel-11's side-
+// selection QP from hp = 32, 239,380 bytes; circle-16 from hp = 28) the
+// global tier keeps the step's vectors in device memory too: a per-instance
+// workspace (global_vec_words: s z rp w a1 a2 a3 dz ds, x px dsc kb rhs dx
+// dinv), the P blocks, the slack column, q and pdiag read in place from the
+// inputs; shared memory keeps the reduction scratch, the index tables and
+// the failure flag. It is a compile-time flag (kGlobal) on the two kernels
+// above, so their other instantiations compile as before: in its cluster
+// placement (ipm_struct_cluster_kernel<true>) the KKT matrix lies in the
+// stripes of a cluster of at most 8 CTAs, whose ranks read rank 0's
+// weights, Jacobi scale and border from the workspace (no copy; a fence on
+// each side of the cluster barrier publishes them), each rank with its own
+// 1 / diag; in its device placement (ipm_struct_kernel<true, true>) the KKT
+// matrix lies after the vectors in the workspace, as in the device tier.
+// The arithmetic and its order are those of the other tiers, so the global
+// tier is bit for bit the cluster and the device tier wherever they run.
+// The tier follows from the shape alone (the wrapper, ipm_kernel.py::
+// struct_tier: shared, else cluster, else device, else global).
 //
 // No fast-math: the Jacobi scaling (1/sqrt of the analytic diagonal) and
 // barrier ratios z/s up to 1e10 are why f32 works at all here.
@@ -198,21 +216,47 @@ __host__ __device__ inline long smem_words(const Shape& d) {
 // buffers, its mbarriers and this rank's stripe area of `area_words`), the
 // deal (two ints a stripe) and, at an even word, the factor's row pointers
 // (nu of 8 bytes); must match ipm_kernel.py::cluster_smem_bytes.
-__host__ __device__ inline long cluster_base_word(const Shape& d) {
-  return (smem_words<true>(d) + 3) & ~3L;
+//
+// The global tier (kGlobal) keeps only the reduction scratch, the index
+// tables and the failure flag in shared memory (global_smem_words; its
+// device placement's whole carve, and in its cluster placement what the
+// stripes follow); must match ipm_kernel.py::global_smem_bytes.
+__host__ __device__ inline long global_smem_words(const Shape& d) {
+  return scpk::kRedWords + (long)d.V * d.V + 2L * d.P + d.S + 1;
 }
 
+template <bool kGlobal = false>
+__host__ __device__ inline long cluster_base_word(const Shape& d) {
+  return ((kGlobal ? global_smem_words(d) : smem_words<true>(d)) + 3) & ~3L;
+}
+
+template <bool kGlobal = false>
 __host__ __device__ inline long cluster_krow_word(const Shape& d, int C,
                                                   int area_words) {
-  const long w = cluster_base_word(d)
+  const long w = cluster_base_word<kGlobal>(d)
                  + scpk::stripe_buffer_words(d.nu, C, area_words)
                  + 2L * scpk::stripe_count(d.nu);
   return (w + 1) & ~1L;
 }
 
+template <bool kGlobal = false>
 __host__ __device__ inline long cluster_smem_words(const Shape& d, int C,
                                                    int area_words) {
-  return cluster_krow_word(d, C, area_words) + 2L * d.nu;
+  return cluster_krow_word<kGlobal>(d, C, area_words) + 2L * d.nu;
+}
+
+// The global tier's workspace of one instance (floats): the step's vectors
+// (global_vec_words: nine m-vectors s z rp w a1 a2 a3 dz ds, seven
+// n-vectors x px dsc kb rhs dx dinv, and in the cluster placement the
+// other C - 1 ranks' 1 / diag after rank 0's), rounded up to 32 floats, and
+// in the device placement (C = 1) the nu x ldk KKT matrix after them; must
+// match ipm_kernel.py::global_layout.
+__host__ __device__ inline long global_vec_words(const Shape& d, int C) {
+  return (9L * d.m + 7L * d.n + (long)(C - 1) * d.n + 31) & ~31L;
+}
+
+__host__ __device__ inline long global_ws_words(const Shape& d, int C) {
+  return global_vec_words(d, C) + (C == 1 ? (long)d.nu * d.ldk : 0L);
 }
 
 // The shared vectors (scpk::IpmVecs) plus the slabs, P blocks and tables.
@@ -275,6 +319,45 @@ __device__ inline Smem carve(float* base, const Shape& d, const Args& a,
   sm.pi = ip; ip += d.P;  sm.pj = ip; ip += d.P;  sm.ov = ip; ip += d.S;
   sm.bad = ip;
   return sm;
+}
+
+// The global tier's working set of instance b (see the head of this file):
+// the vectors in its slot of the workspace a.ws (global_ws_words floats an
+// instance), the KKT matrix after them in the device placement (C = 1), the
+// slabs, P blocks, slack column, q and pdiag read in place; the reduction
+// scratch, the tables and the flag in shared memory from `base`.
+__device__ inline Smem carve_global(float* base, const Shape& d,
+                                    const Args& a, long b, int C) {
+  Smem sm;
+  const long slab = (long)d.hp * d.hu;
+  float* p = a.ws + b * global_ws_words(d, C);
+  sm.K = C == 1 ? p + global_vec_words(d, C) : nullptr;
+  sm.gi = a.gi + b * d.P * slab;
+  sm.gj = a.gj + b * d.P * slab;
+  sm.gob = d.S ? a.gob + b * d.S * slab : nullptr;
+  sm.pb = const_cast<float*>(a.pb + b * d.V * d.hu * d.hu);
+  sm.gsl = const_cast<float*>(a.gsl + b * d.mg);
+  sm.q = const_cast<float*>(a.q + b * d.n);
+  sm.pdiag = const_cast<float*>(a.pdiag + b * d.n);
+  sm.s = p; p += d.m;   sm.z = p; p += d.m;   sm.rp = p; p += d.m;
+  sm.w = p; p += d.m;   sm.a1 = p; p += d.m;  sm.a2 = p; p += d.m;
+  sm.a3 = p; p += d.m;  sm.dz = p; p += d.m;  sm.ds = p; p += d.m;
+  sm.x = p; p += d.n;   sm.px = p; p += d.n;  sm.dsc = p; p += d.n;
+  sm.kb = p; p += d.n;  sm.rhs = p; p += d.n; sm.dx = p; p += d.n;
+  sm.dinv = p;
+  sm.red = base;
+  int* ip = reinterpret_cast<int*>(base + scpk::kRedWords);
+  sm.pair_of = ip; ip += d.V * d.V;
+  sm.pi = ip; ip += d.P;  sm.pj = ip; ip += d.P;  sm.ov = ip; ip += d.S;
+  sm.bad = ip;
+  return sm;
+}
+
+template <bool kDev, bool kGlobal>
+__device__ inline Smem carve_tier(float* base, const Shape& d, const Args& a,
+                                  long b, int C) {
+  if constexpr (kGlobal) return carve_global(base, d, a, b, C);
+  else return carve<kDev>(base, d, a, b);
 }
 
 // sum_rows vec[row] * g[row, col]  (SQ: * g^2) over every slab row that
@@ -573,13 +656,14 @@ __device__ inline void form_tile_put(const Smem& sm, const Shape& d, int vr,
   }
 }
 
-// kDev: the storage tier (see the head of this file).
-template <bool kDev>
+// kDev: the storage tier (see the head of this file); kDev and kGlobal:
+// the global tier's device placement.
+template <bool kDev, bool kGlobal = false>
 __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
 ipm_struct_kernel(Args a, Shape d) {
   extern __shared__ float smem_base[];
   const long b = blockIdx.x;
-  const Smem sm = carve<kDev>(smem_base, d, a, b);
+  const Smem sm = carve_tier<kDev, kGlobal>(smem_base, d, a, b, 1);
   const int tid = threadIdx.x, nt = blockDim.x;
   const long slab = (long)d.hp * d.hu;   // in device memory
   const int mg = d.mg, n = d.n, nu = d.nu, m = d.m;
@@ -596,10 +680,12 @@ ipm_struct_kernel(Args a, Shape d) {
     if (d.S)
       load_slabs(const_cast<float*>(sm.gob), a.gob + b * d.S * slab, d.S, d);
   }
-  copy_in(sm.pb, a.pb + b * d.V * d.hu * d.hu, (long)d.V * d.hu * d.hu);
-  copy_in(sm.gsl, a.gsl + b * mg, mg);
-  copy_in(sm.q, a.q + b * n, n);
-  copy_in(sm.pdiag, a.pdiag + b * n, n);
+  if (!kGlobal) {  // (the global tier reads them in place)
+    copy_in(sm.pb, a.pb + b * d.V * d.hu * d.hu, (long)d.V * d.hu * d.hu);
+    copy_in(sm.gsl, a.gsl + b * mg, mg);
+    copy_in(sm.q, a.q + b * n, n);
+    copy_in(sm.pdiag, a.pdiag + b * n, n);
+  }
   copy_in(sm.x, a.x + b * n, n);
   copy_in(sm.s, a.sg + b * mg, mg);
   copy_in(sm.s + mg, a.su + b * n, n);
@@ -712,7 +798,9 @@ ipm_struct_kernel(Args a, Shape d) {
 // of cl.C CTAs. Rank 0 holds the device tier's carve and runs the step;
 // every rank holds stripes of the KKT matrix, forms their tiles and runs
 // the factor. The load, the diagonal and border, the formation loop and the
-// store are ipm_struct_kernel<true>'s.
+// store are ipm_struct_kernel<true>'s. kGlobal: the global tier's cluster
+// placement (the vectors in the workspace, read there by every rank).
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads, 1)
 ipm_struct_cluster_kernel(Args a, Shape d, ClusterArgs cl) {
   extern __shared__ __align__(16) float cl_smem[];
@@ -722,7 +810,7 @@ ipm_struct_cluster_kernel(Args a, Shape d, ClusterArgs cl) {
   const long b = blockIdx.x / cl.C;
   const int rank = (int)cluster.block_rank();
   const bool lead = rank == 0;
-  const Smem sm = carve<true>(smem_base, d, a, b);
+  const Smem sm = carve_tier<true, kGlobal>(smem_base, d, a, b, cl.C);
   const int tid = threadIdx.x, nt = blockDim.x;
   const int mg = d.mg, n = d.n, nu = d.nu, m = d.m;
   const int tb = (d.hu + 3) >> 2, tiles = tb * tb;
@@ -733,26 +821,31 @@ ipm_struct_cluster_kernel(Args a, Shape d, ClusterArgs cl) {
   st.ns = scpk::stripe_count(nu);
   st.rank = rank;
   st.C = (unsigned)cl.C;
-  float* fbase = smem_base + cluster_base_word(d);
+  float* fbase = smem_base + cluster_base_word<kGlobal>(d);
   st.carve(fbase, cl.area_words);
   int* tab = reinterpret_cast<int*>(
       fbase + scpk::stripe_buffer_words(nu, cl.C, cl.area_words));
   st.owner = tab;
   st.off = tab + st.ns;
-  st.dinv = sm.dinv;
+  // (in the global tier each rank its own 1 / diag: rank r's r n further)
+  st.dinv = kGlobal ? sm.dinv + (long)rank * d.n : sm.dinv;
   st.bad = sm.bad;
   float** krow = reinterpret_cast<float**>(
-      smem_base + cluster_krow_word(d, cl.C, cl.area_words));
+      smem_base + cluster_krow_word<kGlobal>(d, cl.C, cl.area_words));
   for (int e = tid; e < 2 * st.ns; e += nt) tab[e] = cl.deal[e];
 
   SECTION_INIT();
   // ---- load the instance: the state on rank 0, the P blocks and the
-  // tables (what formation reads) on every rank ----
-  copy_in(sm.pb, a.pb + b * d.V * d.hu * d.hu, (long)d.V * d.hu * d.hu);
+  // tables (what formation reads) on every rank (the global tier reads the
+  // P blocks, the slack column, q and pdiag in place) ----
+  if (!kGlobal)
+    copy_in(sm.pb, a.pb + b * d.V * d.hu * d.hu, (long)d.V * d.hu * d.hu);
   if (lead) {
-    copy_in(sm.gsl, a.gsl + b * mg, mg);
-    copy_in(sm.q, a.q + b * n, n);
-    copy_in(sm.pdiag, a.pdiag + b * n, n);
+    if (!kGlobal) {
+      copy_in(sm.gsl, a.gsl + b * mg, mg);
+      copy_in(sm.q, a.q + b * n, n);
+      copy_in(sm.pdiag, a.pdiag + b * n, n);
+    }
     copy_in(sm.x, a.x + b * n, n);
     copy_in(sm.s, a.sg + b * mg, mg);
     copy_in(sm.s + mg, a.su + b * n, n);
@@ -828,9 +921,13 @@ ipm_struct_cluster_kernel(Args a, Shape d, ClusterArgs cl) {
       }
     }
     // every rank forms its stripes' tiles from rank 0's weights, Jacobi
-    // scale and border
+    // scale and border (in the global tier read in place from the
+    // workspace: a device-scope fence on each side of the barrier makes
+    // rank 0's stores visible to the other SMs' loads)
+    if (kGlobal) __threadfence();
     cluster.sync();
-    if (!lead) {
+    if (kGlobal) __threadfence();
+    if (!kGlobal && !lead) {
       const float* w0 = cluster.map_shared_rank(sm.w, 0);
       const float* dsc0 = cluster.map_shared_rank(sm.dsc, 0);
       const float* kb0 = cluster.map_shared_rank(sm.kb, 0);
@@ -898,9 +995,10 @@ ipm_struct_cluster_kernel(Args a, Shape d, ClusterArgs cl) {
   SECTION(kSecStore);
 }
 
-// Per tier (0: shared, 1: device, 2: cluster) and device.
-int ipm_struct_smem_granted[3][scpk::kMaxDevices];
-int ipm_struct_carveout_set[3][scpk::kMaxDevices];
+// Per tier (0: shared, 1: device, 2: cluster, 3 / 4: the global tier's
+// device / cluster placement) and device.
+int ipm_struct_smem_granted[5][scpk::kMaxDevices];
+int ipm_struct_carveout_set[5][scpk::kMaxDevices];
 
 // Raise `kernel`'s dynamic shared-memory limit to `smem_bytes` and, once per
 // device, prefer the largest shared-memory carve-out of the SM's unified L1 /
@@ -922,23 +1020,25 @@ cudaError_t prepare(Kernel kernel, int tier, long smem_bytes) {
   return err;
 }
 
-template <bool kDev>
+template <bool kDev, bool kGlobal = false>
 int launch_tier(const Args& a, const Shape& d, int B, long smem_bytes,
                 cudaStream_t stream) {
-  cudaError_t err = prepare(ipm_struct_kernel<kDev>, kDev, smem_bytes);
+  cudaError_t err = prepare(ipm_struct_kernel<kDev, kGlobal>,
+                            kGlobal ? 3 : kDev, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  ipm_struct_kernel<kDev><<<B, kThreads, smem_bytes, stream>>>(a, d);
+  ipm_struct_kernel<kDev, kGlobal><<<B, kThreads, smem_bytes, stream>>>(a, d);
   return (int)cudaGetLastError();
 }
 
 // The cluster tier's launch: B clusters of C CTAs (grid B x C, the cluster
 // along x). `clusters`: how many such clusters the device holds at once
 // (cudaOccupancyMaxActiveClusters); with `run` false nothing is launched.
+template <bool kGlobal = false>
 int cluster_launch(const Args& a, const Shape& d, const ClusterArgs& cl,
                    int B, long smem_bytes, cudaStream_t stream, bool run,
                    int* clusters) {
-  auto kernel = ipm_struct_cluster_kernel;
-  cudaError_t err = prepare(kernel, 2, smem_bytes);
+  auto kernel = ipm_struct_cluster_kernel<kGlobal>;
+  cudaError_t err = prepare(kernel, kGlobal ? 4 : 2, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((long long)B * cl.C));
@@ -1066,7 +1166,7 @@ int ipm_struct_cluster_occupancy(int P, int S, int hp, int hu, int V,
                                  clusters);
   if (err != 0) return err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, ipm_struct_cluster_kernel, kThreads, (size_t)smem_bytes);
+      ctas, ipm_struct_cluster_kernel<false>, kThreads, (size_t)smem_bytes);
 }
 
 // CTAs of the tier's kernel that can be resident on one SM at a shape
@@ -1084,6 +1184,82 @@ int ipm_struct_occupancy(int P, int S, int hp, int hu, int V, int lower_tri,
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       ctas, dev ? ipm_struct_kernel<true> : ipm_struct_kernel<false>,
       kThreads, (size_t)smem_bytes);
+}
+
+// Launch on `stream` in the global tier: with C = 1 its device placement
+// (one CTA an instance, the KKT matrix in the workspace after the vectors;
+// `deal` null, `area_words` 0), else its cluster placement (one cluster of
+// C CTAs an instance, the KKT matrix in the stripes dealt by `deal` as in
+// ipm_struct_cluster_launch). `ws`: B x global_ws_words floats. The other
+// arguments as ipm_struct_launch's. Returns 0 when launched, -1 when
+// `smem_bytes` or `ws_floats` disagrees with the placement's carve or
+// workspace, -2 when no cluster of C CTAs can be resident, else a CUDA
+// error.
+int ipm_struct_global_launch(
+    const float* gi, const float* gj, const float* gob, const float* gsl,
+    const float* pb, const float* q, const float* pdiag,
+    const float* x, const float* sg, const float* su, const float* sl,
+    const float* zg, const float* zu, const float* zl,
+    const float* rpg, const float* rpu, const float* rpl, const float* scal,
+    const int* pair_idx, const int* obst_veh,
+    float* xo, float* sgo, float* suo, float* slo,
+    float* zgo, float* zuo, float* zlo,
+    float* rpgo, float* rpuo, float* rplo, float* scalo, float* ws,
+    const int* deal, int B, int P, int S, int hp, int hu, int V,
+    int n_iters, int n_cor, int lower_tri, int C, int area_words,
+    float tol, float tol_stall, float reg_rel,
+    long smem_bytes, long ws_floats, void* stream) {
+  const Shape d = make_shape(P, S, hp, hu, V, lower_tri, true);
+  if (C < 1 || C > scpk::kClusterMaxRanks || area_words < 0
+      || ws == nullptr || ws_floats != (long)B * global_ws_words(d, C)
+      || (C > 1) != (deal != nullptr)
+      || smem_bytes != 4L * (C == 1 ? global_smem_words(d)
+                             : cluster_smem_words<true>(d, C, area_words)))
+    return -1;
+  Args a;
+  a.gi = gi; a.gj = gj; a.gob = gob; a.gsl = gsl; a.pb = pb; a.q = q;
+  a.pdiag = pdiag; a.x = x; a.sg = sg; a.su = su; a.sl = sl;
+  a.zg = zg; a.zu = zu; a.zl = zl; a.rpg = rpg; a.rpu = rpu; a.rpl = rpl;
+  a.scal = scal; a.pair_idx = pair_idx; a.obst_veh = obst_veh;
+  a.xo = xo; a.suo = suo; a.slo = slo; a.sgo = sgo;
+  a.zgo = zgo; a.zuo = zuo; a.zlo = zlo;
+  a.rpgo = rpgo; a.rpuo = rpuo; a.rplo = rplo; a.scalo = scalo; a.ws = ws;
+  a.n_iters = n_iters; a.n_cor = n_cor;
+  a.tol = tol; a.tol_stall = tol_stall; a.reg_rel = reg_rel;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (C == 1) return launch_tier<true, true>(a, d, B, smem_bytes, st);
+  const ClusterArgs cl{deal, C, area_words};
+  int clusters = 0;
+  return cluster_launch<true>(a, d, cl, B, smem_bytes, st, true, &clusters);
+}
+
+// The global tier at a shape in its placement (C as in
+// ipm_struct_global_launch): CTAs of its kernel one SM holds into `ctas`,
+// and in the cluster placement clusters of C the device holds at once into
+// `clusters` (0 in the device placement). Returns a CUDA error code (-1:
+// bad arguments).
+int ipm_struct_global_occupancy(int P, int S, int hp, int hu, int V,
+                                int lower_tri, int C, int area_words,
+                                int* ctas, int* clusters) {
+  const Shape d = make_shape(P, S, hp, hu, V, lower_tri, true);
+  if (C < 1 || C > scpk::kClusterMaxRanks || area_words < 0) return -1;
+  *clusters = 0;
+  if (C == 1) {
+    const long smem_bytes = 4L * global_smem_words(d);
+    const cudaError_t err =
+        prepare(ipm_struct_kernel<true, true>, 3, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas, ipm_struct_kernel<true, true>, kThreads, (size_t)smem_bytes);
+  }
+  const long smem_bytes = 4L * cluster_smem_words<true>(d, C, area_words);
+  const Args a = {};
+  const ClusterArgs cl{nullptr, C, area_words};
+  const int err = cluster_launch<true>(a, d, cl, 1, smem_bytes, nullptr,
+                                       false, clusters);
+  if (err != 0) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, ipm_struct_cluster_kernel<true>, kThreads, (size_t)smem_bytes);
 }
 
 #ifdef SCP_PROFILE_SECTIONS

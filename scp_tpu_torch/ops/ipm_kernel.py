@@ -47,8 +47,13 @@ factor in the cluster's shared memory (16-row stripes dealt over the ranks,
 ``csrc/chol_cluster.cuh``), rank 0 holding the step's vectors and running
 the step. The arithmetic is the same in every tier, but for the order in
 which K2's cluster tier sums each entry of its product (it streams G
-through shared memory by rows; :func:`dense_cluster_geometry`). Past the
-device tier's own shared memory the wrapper raises ``NotImplementedError``.
+through shared memory by rows; :func:`dense_cluster_geometry`). K1 has a
+fourth past its device tier's own shared memory (``"global"``,
+:func:`global_geometry`): the step's vectors in a device-memory workspace
+too, the KKT matrix in a cluster's stripes where a cluster of at most 8
+holds them and in the workspace otherwise; K1 raises
+``NotImplementedError`` only where a tier is forced at a shape it cannot
+hold, K2 past its device tier's own shared memory.
 """
 from __future__ import annotations
 
@@ -62,22 +67,27 @@ from scp_tpu_torch.ops._cuda_build import SMEM_LIMIT_BYTES
 
 # Launches of the structured kernel (K1) and of the dense-G kernel (K2) in
 # their shared-memory tier, of each in its device tier and in its cluster
-# tier, since the last reset (incremented where each kernel is launched and
-# nowhere else).
+# tier, and of K1 in its global tier, since the last reset (incremented
+# where each kernel is launched and nowhere else).
 launch_count = 0
 dense_launch_count = 0
 device_launch_count = 0
 dense_device_launch_count = 0
 cluster_launch_count = 0
 dense_cluster_launch_count = 0
+global_launch_count = 0
 
 # K1's and K2's cluster tiers: the cluster sizes tried, smallest first (the
 # first whose ranks each hold their carve is taken). A cluster holds one
 # instance on C SMs, so at a batch that fills the card the smallest wins.
 STRUCT_CLUSTER_SIZES = (2, 4, 8)
 DENSE_CLUSTER_SIZES = (2, 4, 8)
-TIERS = ("shared", "cluster", "device")
-DENSE_TIERS = TIERS
+# K1's global tier: the cluster sizes of its cluster placement, smallest
+# first; where none holds the stripes (or with none listed) its device
+# placement.
+GLOBAL_CLUSTER_SIZES = (2, 4, 8)
+TIERS = ("shared", "cluster", "device", "global")
+DENSE_TIERS = ("shared", "cluster", "device")
 # G rows a stage of K2's cluster tier streams (csrc/ipm_dense.cu::
 # kGStageRows)
 DENSE_STAGE_ROWS = 16
@@ -88,25 +98,29 @@ _tables: dict = {}
 def reset_launch_count() -> None:
     global launch_count, dense_launch_count, cluster_launch_count
     global device_launch_count, dense_device_launch_count
-    global dense_cluster_launch_count
+    global dense_cluster_launch_count, global_launch_count
     launch_count = 0
     dense_launch_count = 0
     device_launch_count = 0
     dense_device_launch_count = 0
     cluster_launch_count = 0
     dense_cluster_launch_count = 0
+    global_launch_count = 0
 
 
 class Tier(NamedTuple):
     """Where a fused kernel keeps an instance's working set: ``tier`` is
     ``"shared"`` (all of it in the block's shared memory), ``"cluster"``
     (the KKT matrix in the stripes of a thread block cluster,
-    :func:`cluster_geometry`, :func:`dense_cluster_geometry`) or
-    ``"device"`` (the KKT matrix and its
-    factor in a device-memory workspace of ``workspace_floats`` floats per
-    instance, 0 in the other tiers); ``smem_bytes``: the launch's dynamic
-    shared memory per CTA; ``g_smem``: K2's G in shared memory (False for
-    K1)."""
+    :func:`cluster_geometry`, :func:`dense_cluster_geometry`),
+    ``"device"`` (the KKT matrix and its factor in a device-memory
+    workspace of ``workspace_floats`` floats per instance, 0 in the shared
+    and cluster tiers) or, for K1, ``"global"`` (the step's vectors in a
+    device-memory workspace of ``workspace_floats`` floats per instance —
+    the vectors, and in the device placement the KKT matrix after them:
+    :func:`global_geometry`, :func:`global_layout`); ``smem_bytes``: the
+    launch's dynamic shared memory per CTA; ``g_smem``: K2's G in shared
+    memory (False for K1)."""
     tier: str
     smem_bytes: int
     workspace_floats: int
@@ -173,11 +187,18 @@ def cluster_smem_bytes(P: int, S: int, hp: int, hu: int, V: int, C: int,
     from the next 16-byte boundary the cluster factor's buffers
     (``linalg_kernel.stripe_buffer_words``), the deal (two ints a stripe)
     and, at an even word, the factor's row pointers (8 bytes a row)."""
-    nu = V * hu
+    return _stripes_after(smem_bytes(P, S, hp, hu, V, device=True) // 4,
+                          V * hu, C, area_words)
+
+
+def _stripes_after(words: int, nu: int, C: int, area_words: int) -> int:
+    """Bytes of a cluster-tier rank's carve whose first ``words`` hold
+    the step's share (``csrc/ipm_struct.cu::cluster_smem_words``): then,
+    from the next 16-byte boundary, the cluster factor's buffers, the deal
+    and, at an even word, the row pointers."""
     ns = -(-nu // linalg_kernel.CHOL_STRIPE)
-    base = -(-smem_bytes(P, S, hp, hu, V, device=True) // 16) * 4
-    words = base + linalg_kernel.stripe_buffer_words(nu, C, area_words) \
-        + 2 * ns
+    words = -(-words // 4) * 4 \
+        + linalg_kernel.stripe_buffer_words(nu, C, area_words) + 2 * ns
     return 4 * ((words + 1) // 2 * 2 + 2 * nu)
 
 
@@ -197,17 +218,114 @@ def cluster_geometry(P: int, S: int, hp: int, hu: int,
     return None
 
 
+def global_smem_bytes(P: int, S: int, hp: int, hu: int, V: int, C: int = 1,
+                      area_words: int = 0) -> int:
+    """Dynamic shared memory of a CTA of K1's global tier (mirrors
+    ``csrc/ipm_struct.cu::global_smem_words`` / ``cluster_smem_words<
+    true>``): the reduction scratch, the index tables and the failure flag;
+    with ``C`` > 1 (the cluster placement) then, from the next 16-byte
+    boundary, the cluster factor's buffers, the deal and the row pointers
+    laid out as in :func:`cluster_smem_bytes`."""
+    words = _RED_WORDS + V * V + 2 * P + S + 1
+    if C == 1:
+        return 4 * words
+    return _stripes_after(words, V * hu, C, area_words)
+
+
+def global_layout(P: int, S: int, hp: int, hu: int, V: int,
+                  C: int) -> dict[str, tuple[int, int]]:
+    """``name -> (offset, floats)`` of one instance's slot of K1's global
+    workspace (mirrors ``csrc/ipm_struct.cu::carve_global``): the nine
+    m-vectors, the seven n-vectors, with ``C`` > 1 (the cluster placement)
+    the other ranks' ``1 / diag`` after rank 0's (``dinv1`` ..), and with
+    ``C`` = 1 (the device placement) the ``nu x ldk`` KKT matrix ``K`` from
+    the vectors' end rounded up to 32 floats. The P blocks, the slack
+    column, ``q`` and ``pdiag`` are read in place from the inputs."""
+    nu = V * hu
+    n = nu + 1
+    m = (P + S) * hp + 2 * n
+    names = [(k, m) for k in ("s", "z", "rp", "w", "a1", "a2", "a3", "dz",
+                              "ds")]
+    names += [(k, n) for k in ("x", "px", "dsc", "kb", "rhs", "dx", "dinv")]
+    names += [(f"dinv{r}", n) for r in range(1, C)]
+    out, at = {}, 0
+    for k, size in names:
+        out[k] = (at, size)
+        at += size
+    if C == 1:
+        out["K"] = (-(-at // 32) * 32, nu * kkt_ld(nu, True))
+    return out
+
+
+def global_vec_floats(P: int, S: int, hp: int, hu: int, V: int,
+                      C: int) -> int:
+    """Floats of the vectors of one instance's slot of K1's global
+    workspace (:func:`global_layout`), rounded up to 32 (``csrc/
+    ipm_struct.cu::global_vec_words``)."""
+    lay = global_layout(P, S, hp, hu, V, C)
+    return -(-sum(size for k, (_, size) in lay.items() if k != "K")
+             // 32) * 32
+
+
+class GlobalGeometry(NamedTuple):
+    """K1's global tier at a shape: ``placement`` is ``"cluster"`` (the
+    KKT matrix in the stripes of a cluster of ``C`` CTAs, each rank's
+    stripe area ``area_words`` floats) or ``"device"`` (``C`` = 1, the KKT
+    matrix in the workspace); ``smem_bytes`` a CTA; ``vec_floats`` and
+    ``workspace_floats`` (the vectors, and the KKT matrix in the device
+    placement) an instance."""
+    placement: str
+    C: int
+    area_words: int
+    smem_bytes: int
+    vec_floats: int
+    workspace_floats: int
+
+
+def global_geometry(P: int, S: int, hp: int, hu: int,
+                    V: int) -> GlobalGeometry:
+    """K1's global tier at a shape: its cluster placement with the first
+    of :data:`GLOBAL_CLUSTER_SIZES` whose ranks each hold the reduced carve
+    (:func:`global_smem_bytes`) and their share of the stripes of the
+    ``nu x nu`` KKT matrix (parallel-11's side-selection QP at hp = 32 to
+    64: C = 2 to 8), else its device placement (circle-16 at hp = 64)."""
+    nu = V * hu
+    for C in GLOBAL_CLUSTER_SIZES:
+        area = linalg_kernel.stripe_deal(nu, C)[2]
+        need = global_smem_bytes(P, S, hp, hu, V, C, area)
+        if need <= SMEM_LIMIT_BYTES:
+            vec = global_vec_floats(P, S, hp, hu, V, C)
+            return GlobalGeometry("cluster", C, area, need, vec, vec)
+    vec = global_vec_floats(P, S, hp, hu, V, 1)
+    return GlobalGeometry("device", 1, 0, global_smem_bytes(P, S, hp, hu, V),
+                          vec, vec + nu * kkt_ld(nu, True))
+
+
+def _global_tier(P, S, hp, hu, V) -> Tier:
+    g = global_geometry(P, S, hp, hu, V)
+    if g.smem_bytes > SMEM_LIMIT_BYTES:
+        raise NotImplementedError(
+            f"the fused structured IPM kernel's global tier needs "
+            f"{g.smem_bytes} bytes of shared memory a CTA (its index "
+            f"tables) at P={P}, S={S}, V={V}; limit {SMEM_LIMIT_BYTES}")
+    return Tier("global", g.smem_bytes, g.workspace_floats)
+
+
 def struct_tier(P: int, S: int, hp: int, hu: int, V: int,
                 lower_tri: bool = False, tier: str | None = None) -> Tier:
     """The structured kernel's storage tier at a shape: the shared tier
     where :func:`fits_smem` holds, else the cluster tier where a cluster
-    holds the KKT matrix (:func:`cluster_tier`), else the device tier (the
-    ``nu x ldk`` KKT matrix in a device-memory workspace, the slabs read in
-    place); ``tier`` forces one of :data:`TIERS` at any shape it holds.
-    Raises ``NotImplementedError``, naming the bytes, where the tier's own
-    shared memory exceeds a block's."""
+    holds the KKT matrix (:func:`cluster_geometry`), else the device tier
+    (the ``nu x ldk`` KKT matrix in a device-memory workspace, the slabs
+    read in place) where its shared memory holds the vectors, else the
+    global tier (the vectors in device memory too,
+    :func:`global_geometry`); ``tier`` forces one of :data:`TIERS` at any
+    shape it holds. Raises ``NotImplementedError``, naming the bytes, only
+    where a forced tier's own shared memory exceeds a block's."""
     if tier not in (None,) + TIERS:
         raise ValueError(f"unknown tier {tier!r}")
+    if tier == "global":
+        return _global_tier(P, S, hp, hu, V)
     fits = fits_smem(P, S, hp, hu, V, lower_tri)
     if tier == "cluster" or (tier is None and not fits):
         cl = cluster_geometry(P, S, hp, hu, V)
@@ -221,15 +339,17 @@ def struct_tier(P: int, S: int, hp: int, hu: int, V: int,
                 f"{STRUCT_CLUSTER_SIZES[-1]} CTAs")
     dev = tier == "device" or (tier is None and not fits)
     need = smem_bytes(P, S, hp, hu, V, lower_tri, dev)
+    if need > SMEM_LIMIT_BYTES and tier is None:
+        return _global_tier(P, S, hp, hu, V)
     if need > SMEM_LIMIT_BYTES:
         full = smem_bytes(P, S, hp, hu, V, lower_tri)
         raise NotImplementedError(
             f"the fused structured IPM kernel needs {need} bytes of shared "
             f"memory per instance in its {'device' if dev else 'shared'} "
             f"tier at P={P}, S={S}, hp={hp}, hu={hu}, V={V} ({full} with "
-            f"the factor and the slabs; limit {SMEM_LIMIT_BYTES}); "
-            f"qp_kkt='auto' with a banded stage statement takes the banded "
-            f"KKT path there")
+            f"the factor and the slabs; limit {SMEM_LIMIT_BYTES}); the "
+            f"global tier (tier='global' or none) keeps the vectors in "
+            f"device memory there")
     nu = V * hu
     return Tier("device" if dev else "shared", need,
                 nu * kkt_ld(nu, True) if dev else 0)
@@ -244,6 +364,8 @@ def resident_ctas_per_sm(P: int, S: int, hp: int, hu: int, V: int,
     t = struct_tier(P, S, hp, hu, V, lower_tri, tier)
     if t.tier == "cluster":
         return cluster_occupancy(P, S, hp, hu, V, lower_tri)[0]
+    if t.tier == "global":
+        return global_occupancy(P, S, hp, hu, V, lower_tri)[0]
     dev = t.tier == "device"
     fn = _cuda_build.load_library().ipm_struct_occupancy
     if fn.argtypes is None:
@@ -274,6 +396,38 @@ def cluster_occupancy(P: int, S: int, hp: int, hu: int, V: int,
         raise RuntimeError(f"ipm_struct_cluster_occupancy failed with CUDA "
                            f"error {err}")
     return ctas.value, clusters.value
+
+
+def global_occupancy(P: int, S: int, hp: int, hu: int, V: int,
+                     lower_tri: bool) -> tuple[int, int]:
+    """``(CTAs one SM holds, clusters the device holds at once)`` of K1's
+    global tier at a shape in its placement (:func:`global_geometry`; 0
+    clusters in the device placement; the CUDA occupancy calculator).
+    Needs the card."""
+    g = global_geometry(P, S, hp, hu, V)
+    fn = _cuda_build.load_library().ipm_struct_global_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+    ctas, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(P, S, hp, hu, V, int(lower_tri), g.C, g.area_words,
+             ctypes.byref(ctas), ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError(f"ipm_struct_global_occupancy failed with CUDA "
+                           f"error {err}")
+    return ctas.value, clusters.value
+
+
+def _global_launcher():
+    """The library's ``ipm_struct_global_launch`` with its argument types
+    set."""
+    fn = _cuda_build.load_library().ipm_struct_global_launch
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = ([p] * 18 + [p, p] + [p] * 11 + [p, p] + [i] * 11
+                       + [f] * 3 + [ctypes.c_long] * 2 + [p])
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _launcher(cluster: bool = False):
@@ -357,6 +511,7 @@ def ipm_iterate_struct(gi, gj, gob, gsl, pb, q, pdiag,
             obst_veh=obst_veh, tol=tol, reg_rel=reg_rel, n_cor=n_cor,
             n_iters=n_iters, lower_tri=lower_tri)
     global launch_count, device_launch_count, cluster_launch_count
+    global global_launch_count
     B, P, S, hp, hu, V, n, mg = _check_shapes(
         gi, gj, gob, gsl, pb, q, pdiag, state, pairs, obst_veh)
     if gi.dtype != torch.float32:
@@ -371,6 +526,31 @@ def ipm_iterate_struct(gi, gj, gob, gsl, pb, q, pdiag,
     pt, ot = _index_tables(pairs, obst_veh, gi.device)
     outs = [torch.empty_like(o) for o in state]
     ptr = [0 if a is None else a.data_ptr() for a in ins]
+    if tr.tier == "global":
+        g = global_geometry(P, S, hp, hu, V)
+        ws = torch.empty((B, g.workspace_floats), dtype=torch.float32,
+                         device=gi.device)
+        table = linalg_kernel.deal_tensor(
+            V * hu, g.C, linalg_kernel.stripe_deal(V * hu, g.C),
+            gi.device) if g.C > 1 else None
+        with torch.cuda.device(gi.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _global_launcher()(
+                *ptr, pt.data_ptr(), ot.data_ptr() if S else 0,
+                *[o.data_ptr() for o in outs], ws.data_ptr(),
+                0 if table is None else table.data_ptr(),
+                B, P, S, hp, hu, V, int(n_iters), int(n_cor), int(lower_tri),
+                g.C, g.area_words, float(tol), float(tol * 1e3),
+                float(reg_rel), g.smem_bytes, B * g.workspace_floats, stream)
+        if err != 0:
+            why = ("no cluster can be resident" if err == -2
+                   else f"CUDA error {err}")
+            raise RuntimeError(
+                f"ipm_struct_global_launch failed: {why} (B={B}, P={P}, "
+                f"S={S}, hp={hp}, hu={hu}, V={V}, {g.placement} placement, "
+                f"C={g.C}, {g.smem_bytes} bytes of shared memory a CTA)")
+        global_launch_count += 1
+        return tuple(outs)
     if tr.tier == "cluster":
         C, area, _ = cluster_geometry(P, S, hp, hu, V)
         table = linalg_kernel.deal_tensor(
@@ -586,7 +766,7 @@ def ipm_iterate_struct_plain(gi, gj, gob, gsl, pb, q, pdiag,
                              lower_tri: bool = False,
                              tier: str | None = None):
     """Plain PyTorch version of :func:`ipm_iterate_struct` (float32 or
-    float64, any device), of both its storage tiers: the same function
+    float64, any device), of every storage tier: the same function
     through dense batched algebra and ``torch.linalg`` — an oracle, not a
     fast path. ``lower_tri`` only lets the kernel skip exact zeros and
     ``tier`` only says where it keeps its working set, so both are ignored

@@ -8,13 +8,22 @@ parent unpacked into a git-ignored directory, this script given by path)::
     python3 /path/to/scripts/torch_k1_ab.py change OUT   # in the change
     python3 scripts/torch_k1_ab.py --compare OUT/sass_parent.txt OUT/sass_change.txt
     python3 /path/to/scripts/torch_k1_ab.py parent OUT k2   # K2's
+    python3 /path/to/scripts/torch_k1_ab.py parent2 OUT noptxas  # again
 
 The first form builds the checkout's kernel library, times the structured
 IPM kernel (K1) in the tier its shape takes at P = 6, hp = hu = 20, V = 4,
 B = 1,024, 7 iterations, seeded inputs, by CUDA-graph replay (10 launches
-a graph, 5 replays; six readings), prints one JSON line, and writes the
-opcodes of the SASS of K1's shared-tier kernel (``cuobjdump -sass``) to
-``OUT/sass_<name>.txt``. With ``k2`` it times the dense-G kernel (K2) on
+a graph, 5 replays; six readings), and at (l1)'s shape (parallel-11's
+side-selection QP at hp = 20: 55 pairs, 66 single-block slabs, B = 1,280,
+8 iterations) in its cluster tier and its device tier forced (3 launches a
+graph, 3 replays; three readings each), prints one JSON line with the
+``ptxas -v`` lines of K1's shared, device and cluster kernels (compiled
+again from ``csrc/ipm_struct.cu``), and writes the opcodes of the SASS of
+those three kernels (``cuobjdump -sass``) to ``OUT/sass_<name>.txt``
+(shared), ``OUT/sass_<name>_device.txt`` and ``OUT/sass_<name>_cluster.txt``
+(the kernels' mangled names differ between checkouts that template them
+differently; the predicates of ``K1_TIERS`` find each); ``noptxas`` skips
+the second compile (a repeated run of a checkout). With ``k2`` it times the dense-G kernel (K2) on
 one frog QP (mg = 440, n = 21, 7 iterations) at B = 1,024 and 256 (the
 launch bounds of four and two CTAs an SM that ``dense_min_ctas`` picks
 there) and writes the opcodes of its two shared-tier instantiations with
@@ -92,7 +101,43 @@ def measure_k2(name: str, out_dir: str) -> None:
     print(json.dumps(rep))
 
 
-def measure(name: str, out_dir: str) -> None:
+# K1's shared, device and cluster kernels by mangled name: the shared
+# tier's is untemplated in a parent without tiers, ``<false>`` with them and
+# ``<false, false>`` once the global tier was added; the device tier's
+# ``<true>`` / ``<true, false>``; the cluster tier's untemplated /
+# ``<false>`` (the global tier's instantiations, ``<true, true>`` and
+# ``cluster<true>``, are left out)
+K1_TIERS = {
+    "shared": lambda h: "ipm_struct_kernel" in h and "ILb1" not in h,
+    "device": lambda h: ("ipm_struct_kernel" in h and "ILb1E" in h
+                         and "ILb1ELb1E" not in h),
+    "cluster": lambda h: "ipm_struct_cluster_kernel" in h
+                         and "ILb1E" not in h,
+}
+
+
+def ptxas_lines(csrc) -> dict:
+    """``ptxas -v``'s lines (stack frame and spills, registers) of K1's
+    tiers in ``K1_TIERS``, from compiling ``csrc/ipm_struct.cu`` again."""
+    from scp_tpu_torch.ops import _cuda_build
+    err = subprocess.run(
+        ["/usr/local/cuda/bin/nvcc", *_cuda_build.NVCC_FLAGS, "-Xptxas",
+         "-v", "-c", "-o", os.devnull, str(csrc / "ipm_struct.cu")],
+        capture_output=True, text=True).stderr.splitlines()
+    out = {}
+    for i, line in enumerate(err):
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if not m:
+            continue
+        tier = next((t for t, want in K1_TIERS.items() if want(m.group(1))),
+                    None)
+        if tier:
+            out[tier] = [x.split(":", 1)[-1].strip() for x in err[i + 1:i + 4]
+                         if "stack frame" in x or "registers" in x]
+    return out
+
+
+def measure(name: str, out_dir: str, ptxas: bool = True) -> None:
     sys.path.insert(0, os.getcwd())
     from scp_tpu_torch.ops import _cuda_build, ipm_kernel
     from scp_tpu_torch.testing import kernel_inputs, torch_kernel_args
@@ -102,15 +147,28 @@ def measure(name: str, out_dir: str) -> None:
     args = torch_kernel_args(arrs, device="cuda")
     kw = dict(pairs=pairs, obst_veh=ov, tol=1e-6, reg_rel=3e-6, n_cor=0,
               n_iters=7, lower_tri=True)
-    ms = [graph_ms(lambda: ipm_kernel.ipm_iterate_struct(*args, **kw))
-          for _ in range(6)]
-    # the structured kernel's shared-memory instantiation (a parent without
-    # the tiers has one, untemplated)
-    ops = sass_ops(lib, lambda h: "ipm_struct_kernel" in h
-                   and "ILb1" not in h)
-    with open(os.path.join(out_dir, f"sass_{name}.txt"), "w") as f:
-        f.write("\n".join(ops))
-    print(json.dumps({"who": name, "ms": ms, "sass_instructions": len(ops)}))
+    rep = {"who": name,
+           "ms": [graph_ms(lambda: ipm_kernel.ipm_iterate_struct(*args, **kw))
+                  for _ in range(6)]}
+    del args
+    arrs, pairs, ov = kernel_inputs(B=1280, V=11, hp=20, hu=20, n_obst=6,
+                                    seed=3, hard_rows=True)
+    args = torch_kernel_args(arrs, device="cuda")
+    kw = dict(pairs=pairs, obst_veh=ov, tol=1e-6, reg_rel=3e-6, n_cor=0,
+              n_iters=8, lower_tri=True)
+    for tier in ("cluster", "device"):
+        rep[f"l1_{tier}_ms"] = [graph_ms(
+            lambda: ipm_kernel.ipm_iterate_struct(*args, **kw, tier=tier),
+            reps=3, replays=3) for _ in range(3)]
+    for tier, want in K1_TIERS.items():
+        ops = sass_ops(lib, want)
+        tag = "" if tier == "shared" else f"_{tier}"
+        with open(os.path.join(out_dir, f"sass_{name}{tag}.txt"), "w") as f:
+            f.write("\n".join(ops))
+        rep[f"sass_instructions_{tier}"] = len(ops)
+    if ptxas:
+        rep["ptxas"] = ptxas_lines(_cuda_build.CSRC)
+    print(json.dumps(rep))
 
 
 def compare(path_a: str, path_b: str) -> None:
@@ -130,4 +188,4 @@ if __name__ == "__main__":
     elif sys.argv[3:4] == ["k2"]:
         measure_k2(*sys.argv[1:3])
     else:
-        measure(*sys.argv[1:3])
+        measure(*sys.argv[1:3], ptxas=sys.argv[3:4] != ["noptxas"])

@@ -15,6 +15,7 @@ Run from the root of a checkout on a machine with an NVIDIA GPU::
     python3 scripts/torch_kernel_check.py --sections k2 k4 # K2's, K4's
     python3 scripts/torch_kernel_check.py --pivots        # K6 / K7's pivots
     python3 scripts/torch_kernel_check.py --tiers         # K1 / K2 tiers
+    python3 scripts/torch_kernel_check.py --global        # K1's global tier
 
 The default mode builds the kernel library (printing ``ptxas -v``), runs the
 structured IPM kernel (K1) on seeded inputs at the bench shape and two odd
@@ -85,6 +86,15 @@ n = 257 for K2, in the cluster tier, also against the device tier forced);
 the default mode runs it too, and holds the staged large-n solve bit for
 bit ``cho_solve_large_kernel`` at n = 240 / 257 / 330 / 400 x B = 1 / 16 /
 256 / 1,024 (an instance base 4 bytes past 16 at B = 16).
+``--global`` builds the library and holds K1's global tier (the step's
+vectors in device memory) bit for bit against the cluster and device
+tiers forced on the same seeded inputs at the bench shape and at
+parallel-11's side-selection QP at hp = 20 (both placements: the cluster
+one it takes there, and the device one with ``GLOBAL_CLUSTER_SIZES``
+emptied), its two placements against each other at parallel-11, hp = 64,
+and each against the plain version there and at circle-16, hp = 64 (the
+device placement), with their device times by graph replay, the CTAs and
+clusters resident, and the fences of the cluster kernel's SASS.
 ``--pivots`` compiles a test that
 includes ``csrc/riccati.cu`` and holds its branch-free pivot square root and
 reciprocal to ``__fsqrt_rn`` / ``__frcp_rn`` bit for bit on every float in
@@ -481,6 +491,113 @@ def check_tiers() -> None:
         if not ok:
             bad.append(rep["case"])
     print(json.dumps({"tier_cases_failed": bad}), flush=True)
+    if bad:
+        sys.exit(1)
+
+
+# (B, V, hp, n_obst, hard_rows, seed): the bench shape, parallel-11's
+# side-selection QP at hp = 20, 64 (its 66 single-block slabs as 6 a
+# vehicle) and circle-16 at hp = 64
+K1_GLOBAL_CASES = ((1024, 4, 20, 0, False, 1), (256, 11, 20, 6, True, 3),
+                   (64, 11, 64, 6, True, 5), (4, 16, 64, 0, False, 6))
+
+
+def _graph_one(fn, reps=3, replays=3) -> float:
+    """Device ms a call of ``fn`` by CUDA-graph replay."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(replays):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (reps * replays)
+
+
+def check_global() -> None:
+    """K1's global tier on seeded inputs (see the module docstring)."""
+    import subprocess
+    from scp_tpu_torch.ops import _cuda_build, ipm_kernel as ik
+    from scp_tpu_torch.testing import kernel_inputs, torch_kernel_args
+    lib = _cuda_build.build_library(verbose=True)
+    bad = []
+    sizes = ik.GLOBAL_CLUSTER_SIZES
+
+    def run(args, kw, tier, placement=None):
+        ik.GLOBAL_CLUSTER_SIZES = () if placement == "device" else sizes
+        try:
+            return ik.ipm_iterate_struct(*args, **kw, tier=tier)
+        finally:
+            ik.GLOBAL_CLUSTER_SIZES = sizes
+
+    for B, V, hp, no, hard, seed in K1_GLOBAL_CASES:
+        arrs, pairs, ov = kernel_inputs(B=B, V=V, hp=hp, hu=hp, n_obst=no,
+                                        seed=seed, hard_rows=hard)
+        args = torch_kernel_args(arrs, device="cuda")
+        kw = dict(pairs=pairs, obst_veh=ov, tol=1e-6, reg_rel=3e-6, n_cor=0,
+                  n_iters=8, lower_tri=True)
+        shape = (len(pairs), len(ov), hp, hp, V)
+        taken = ik.struct_tier(*shape, True)
+        geo = ik.global_geometry(*shape)
+        ik.reset_launch_count()
+        out_g = run(args, kw, "global")
+        rep = {"case": f"k1_global_B{B}_V{V}_hp{hp}", "taken": taken.tier,
+               "geometry": geo._asdict()}
+        twins = {}
+        for other in ("cluster", "device"):
+            try:
+                twins[other] = run(args, kw, other)
+            except NotImplementedError:
+                continue
+        if geo.placement == "cluster":
+            try:
+                twins["global_device_placement"] = run(args, kw, "global",
+                                                       "device")
+            except RuntimeError as e:
+                rep["device_placement_error"] = str(e)
+        torch.cuda.synchronize()
+        rep["launches"] = {"global": ik.global_launch_count,
+                           "cluster": ik.cluster_launch_count,
+                           "device": ik.device_launch_count}
+        for k, o in twins.items():
+            rep[f"bit_identical_{k}"] = all(torch.equal(x, y)
+                                            for x, y in zip(out_g, o))
+            if not rep[f"bit_identical_{k}"]:
+                bad.append(f"{rep['case']}_vs_{k}")
+        out_p = ik.ipm_iterate_struct_plain(*args, **kw)
+        nu = V * hp
+        du = (out_g[0][:, :nu] - out_p[0][:, :nu]).abs().amax(dim=1)
+        rep.update(u_max=float(du.max()), u_median=float(du.median()),
+                   finite=all(bool(torch.isfinite(t).all()) for t in out_g),
+                   frozen_kernel=float(out_g[10][:, 1].mean()),
+                   frozen_plain=float(out_p[10][:, 1].mean()))
+        if not rep["finite"] or rep["u_median"] > 20 * U_MEDIAN_LIMIT:
+            bad.append(rep["case"])
+        rep["ms"] = {"global": _graph_one(lambda: run(args, kw, "global"))}
+        for k in twins:
+            rep["ms"][k] = _graph_one(
+                lambda k=k: run(args, kw, "global", "device")
+                if k == "global_device_placement" else run(args, kw, k))
+        rep["resident"] = ik.global_occupancy(*shape, True)
+        print(json.dumps(rep), flush=True)
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
+                           str(lib)], capture_output=True, text=True).stdout
+    for f in sass.split("Function : ")[1:]:
+        name = f.split("\n")[0]
+        if "ipm_struct" in name:
+            ops = [w for w in ("MEMBAR", "CCTL", "FENCE", "ERRBAR", "UCGABAR")
+                   if w in f]
+            print(json.dumps({"sass_function": name.strip(),
+                              "has": {w: f.count(w) for w in ops}}),
+                  flush=True)
+    print(json.dumps({"global_cases_failed": bad}), flush=True)
     if bad:
         sys.exit(1)
 
@@ -1790,6 +1907,8 @@ def main() -> None:
     ap.add_argument("--pivots", action="store_true")
     ap.add_argument("--tiers", action="store_true",
                     help="build, then K1 / K2 in their device tier only")
+    ap.add_argument("--global", dest="global_tier", action="store_true",
+                    help="build, then K1's global tier")
     args = ap.parse_args()
     if args.compare:            # two dumps: no device needed
         compare(*args.compare)
@@ -1802,6 +1921,8 @@ def main() -> None:
         kernel_times(args.times or TIMED)
     elif args.pivots:
         pivot_check()
+    elif args.global_tier:
+        check_global()
     elif args.tiers:
         from scp_tpu_torch.ops import _cuda_build
         _cuda_build.build_library(verbose=True)

@@ -6,7 +6,8 @@ Run on a machine with an NVIDIA GPU, from the repository root::
                                                   long_horizon|instance64|
                                                   instance64_dense|frog|
                                                   ss_frog|ss_parallel]
-                                          [--batch B] [--steps 3]
+                                          [--batch B] [--steps 3] [--hp HP]
+                                          [--warmup 3] [--parts 5]
 
 Drives one path of ``scp_tpu_torch.sim.engine`` (float32, warm) under
 ``torch.profiler``; the first six on the 4-vehicle circle:
@@ -36,13 +37,17 @@ Drives one path of ``scp_tpu_torch.sim.engine`` (float32, warm) under
   IPM kernel: the 5B-wide candidates, then the reselection round);
 * ``ss_parallel`` — the same on the randomized 11-vehicle parallel batch
   (B = 256 unless ``--batch``): the structured IPM kernel with the hard
-  rate rows.
+  rate rows (from ``--hp 32`` in its global tier: ``--hp 64 --steps 1
+  --warmup 1 --parts 1`` times one step at hp = 64).
+
+``--hp`` overrides the path's horizon (hp = hu), ``--warmup`` the steps
+run before the profiled ones, ``--parts`` the passes of the part timing.
 
 It prints JSON lines: the wall time per step, the device-busy share (sum of
 kernel time over wall time), the number of kernel launches per step, the
 device time and launches of each hand-written kernel (with its device time
-per launch and its share of the step's device time), and the ten kernels
-with the most device time. A second pass times the step's three parts
+per launch and its share of the step's device time), the ten kernels
+with the most device time and the peak device memory. A second pass times the step's three parts
 (controller_pre, the SCP or side-selection solve, step_post) with a
 synchronise after each.
 """
@@ -67,6 +72,9 @@ def main():
                     default="tuned")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--hp", type=int, default=None)
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--parts", type=int, default=5)
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
@@ -86,6 +94,7 @@ def main():
     side = opts.path.startswith("ss_")
     hp = 64 if opts.path in ("long_horizon", "instance64",
                              "instance64_dense") else 10 if side else 20
+    hp = opts.hp or hp
     if one:
         cfg, data = builders.circle(4, dtype=torch.float32, device=dev)
     elif opts.path in ("frog", "ss_frog"):
@@ -129,9 +138,10 @@ def main():
                                    **scp_kw), None
 
     carry = engine.init_carry(cfg, data)
-    for _ in range(3):                                  # warm up
+    for _ in range(opts.warmup):                        # warm up
         carry, _ = step(carry)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
@@ -148,7 +158,8 @@ def main():
     own = {}
     # (substrings of the kernels' names: riccati_factor matches the factor
     # kernels of every design, gtmv_ the G^T v kernel of every design)
-    for name in ("ipm_struct_kernel", "ipm_dense_kernel", "chol_blocked_kernel",
+    for name in ("ipm_struct_kernel", "ipm_struct_cluster_kernel",
+                 "ipm_dense_kernel", "chol_blocked_kernel",
                  "chol_large_kernel", "cho_solve_batched_kernel",
                  "cho_solve_large_kernel", "gmv_staged_kernel", "gtmv_",
                  "riccati_factor", "riccati_solve"):
@@ -166,6 +177,7 @@ def main():
         "device_busy_ms_per_step": dev_us / 1e3 / opts.steps,
         "device_busy_share": dev_us / 1e3 / opts.steps / wall_ms,
         "kernel_launches_per_step": launches / opts.steps,
+        "peak_device_memory_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
         "hand_written_kernels": own,
         "top_kernels": [{"name": e.key[:80], "ms_per_step":
                          e.device_time_total / 1e3 / opts.steps,
@@ -174,7 +186,7 @@ def main():
 
     # the step's three parts, a synchronise after each (no profiler)
     parts = {"controller_pre": 0.0, "solve": 0.0, "step_post": 0.0}
-    n = 5
+    n = opts.parts
     for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.time()

@@ -145,8 +145,8 @@ def test_auto_routes_by_shape(monkeypatch, past_gate):
     the shape (the carve with the slabs packed, as the launch stores
     them), the banded branch just past it (the limit is moved to the test
     shape, so the CPU plain path stays small); without a stage statement
-    K1's device tier takes the shape, and only past that tier's own carve
-    the route refuses, naming the stage statement."""
+    K1's device tier takes the shape, and past that tier's own carve its
+    global tier."""
     _, ta = scp_qp_data("circle", 2, 5, np.float64, n_veh=3, banded=True)
     tri = bool(ta["g_struct"][4])
     need = ipm_kernel.smem_bytes(3, 0, 5, 5, 3, tri)
@@ -169,14 +169,18 @@ def test_auto_routes_by_shape(monkeypatch, past_gate):
         assert calls == ["ipm_iterate_struct"]
         assert ipm_kernel.struct_tier(3, 0, 5, 5, 3, tri).tier == "device"
         assert bool(torch.isfinite(dev.x).all())
-        # past the device tier's own carve the shape is refused, naming
-        # the stage statement
+        # past the device tier's own carve K1's global tier takes the
+        # shape (the vectors in device memory too): the same plain version
+        # here, bit for bit
         monkeypatch.setattr(ipm_kernel, "SMEM_LIMIT_BYTES",
                             ipm_kernel.smem_bytes(3, 0, 5, 5, 3, tri,
                                                   device=True) - 1)
-        with pytest.raises(NotImplementedError, match="banded stage"):
-            tqp.solve_qp_batched(None, ta["q"], None, ta["h"], ta["lb"],
-                                 ta["ub"], **kw)
+        assert ipm_kernel.struct_tier(3, 0, 5, 5, 3, tri).tier == "global"
+        calls.clear()
+        glob = tqp.solve_qp_batched(None, ta["q"], None, ta["h"], ta["lb"],
+                                    ta["ub"], **kw)
+        assert calls == ["ipm_iterate_struct"]
+        assert torch.equal(glob.x, dev.x)
     else:
         assert calls == ["ipm_iterate_struct"]
     assert bool(torch.isfinite(sol.x).all())

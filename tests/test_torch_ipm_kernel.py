@@ -208,7 +208,8 @@ def test_carve_and_gate(case):
     which the device tier takes (the factor and the slabs out of shared
     memory; by default the cluster tier, the factor in a cluster's shared
     memory) and the ``kkt="auto"`` route sends to the banded path; past the
-    device tier too the tier function raises; the carve grows with hp and
+    device tier's own carve the global tier takes the shape, and the device
+    tier forced there raises, naming the bytes; the carve grows with hp and
     with P, and packing never takes more than whole rows."""
     bench = (6, 0, 20, 20, 4)
     if case == "four_ctas_at_bench_shape":
@@ -229,9 +230,12 @@ def test_carve_and_gate(case):
             t = ik.struct_tier(6, 0, 64, 64, 4, lower_tri=tri, tier="device")
             assert t == ("device", ik.smem_bytes(6, 0, 64, 64, 4, tri, True),
                          256 * 256, False)
+            assert ik.struct_tier(6, 0, 200, 200, 4, lower_tri=tri).tier \
+                == "global"
             with pytest.raises(NotImplementedError,
-                               match="banded KKT path") as err:
-                ik.struct_tier(6, 0, 200, 200, 4, lower_tri=tri)
+                               match="global tier") as err:
+                ik.struct_tier(6, 0, 200, 200, 4, lower_tri=tri,
+                               tier="device")
             assert str(ik.smem_bytes(6, 0, 200, 200, 4, tri, True)) \
                 in str(err.value)
     elif case in ("grows_with_hp", "grows_with_P"):
@@ -318,18 +322,144 @@ def test_struct_tier_at_real_shapes(name):
 
 def test_struct_tier_raises_only_past_the_device_tier():
     """Past the device tier's own carve (parallel-11 at hp = 64: 567,444
-    bytes of vectors alone) the tier function raises, naming the bytes and
-    the whole carve; a tier forced past its own carve raises too, and an
-    unknown tier's name is refused."""
+    bytes of vectors alone) the global tier takes the shape (its vectors in
+    device memory: 231,024 bytes a CTA of a cluster of 8); the device tier
+    forced there raises, naming the bytes and the whole carve; a tier
+    forced past its own carve raises too, and an unknown tier's name is
+    refused."""
+    assert ik.struct_tier(55, 66, 64, 64, 11, True) \
+        == ("global", 231_024, 92_256, False)
     with pytest.raises(NotImplementedError,
                        match="567444 bytes .* device tier .*4017044 with"):
-        ik.struct_tier(55, 66, 64, 64, 11, True)
+        ik.struct_tier(55, 66, 64, 64, 11, True, tier="device")
     with pytest.raises(ValueError, match="unknown tier"):
-        ik.struct_tier(6, 0, 20, 20, 4, True, tier="global")
+        ik.struct_tier(6, 0, 20, 20, 4, True, tier="banded")
     with pytest.raises(NotImplementedError, match="shared tier"):
         ik.struct_tier(55, 66, 20, 20, 11, True, tier="shared")
     with pytest.raises(NotImplementedError, match="cluster tier"):
         ik.struct_tier(55, 66, 64, 64, 11, True, tier="cluster")
+
+
+# (P, S, hp, hu, V) -> (placement, C, bytes a CTA, workspace floats an
+# instance) of K1's global tier: parallel-11's side-selection QP at hp = 32
+# (the first horizon past the device tier's carve, 239,380 bytes) and 64,
+# circle-16 at hp = 28 (235,184 bytes of device-tier carve) and 64 (no
+# cluster of 8 holds its stripes: the device placement, the 1,024 x 1,024
+# KKT matrix after the vectors), and forced at the bench shape and at
+# (l1)'s (parallel-11, hp = 20), where a cluster of 2 holds it.
+GLOBAL_SHAPES = {
+    "parallel11_hp32": ((55, 66, 32, 32, 11), ("cluster", 2, 184_384, 44_032)),
+    "parallel11_hp64": ((55, 66, 64, 64, 11), ("cluster", 8, 231_024, 92_256)),
+    "circle16_hp28": ((120, 0, 28, 28, 16), ("cluster", 4, 173_456, 42_816)),
+    "circle16_hp64": ((120, 0, 64, 64, 16),
+                      ("device", 1, 2_116, 94_752 + 1024 * 1024)),
+    "bench_forced": ((6, 0, 20, 20, 4), ("cluster", 2, 23_816, 3_200)),
+    "l1_forced": ((55, 66, 20, 20, 11), ("cluster", 2, 88_800, 27_552)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GLOBAL_SHAPES))
+def test_global_geometry(name):
+    """K1's global tier: the placement, the cluster size (the smallest of
+    GLOBAL_CLUSTER_SIZES whose ranks each hold the reduced carve — the
+    scratch, the tables, the flag, the stripes, the factor's buffers, the
+    deal, the row pointers — and their stripes, which cover the lower
+    triangle once), the bytes a CTA and the workspace an instance;
+    ``struct_tier`` takes it where the device tier's carve exceeds a block
+    and ``tier="global"`` forces it anywhere."""
+    shape, want = GLOBAL_SHAPES[name]
+    P, S, hp, hu, V = shape
+    g = ik.global_geometry(*shape)
+    assert (g.placement, g.C, g.smem_bytes, g.workspace_floats) == want
+    assert g.smem_bytes <= ik.SMEM_LIMIT_BYTES
+    nu = V * hu
+    assert g.vec_floats == ik.global_vec_floats(*shape, g.C)
+    forced = ik.struct_tier(*shape, True, tier="global")
+    assert forced == ("global", g.smem_bytes, g.workspace_floats, False)
+    if name.endswith("_forced"):
+        assert ik.struct_tier(*shape, True).tier != "global"
+    else:
+        assert ik.smem_bytes(*shape, True, True) > ik.SMEM_LIMIT_BYTES
+        assert ik.struct_tier(*shape, True) == forced
+        assert ik.struct_tier(*shape, False) == forced
+    if g.placement == "cluster":
+        assert g.area_words == lk.stripe_deal(nu, g.C)[2]
+        assert g.smem_bytes == ik.global_smem_bytes(*shape, g.C, g.area_words)
+        assert g.workspace_floats == g.vec_floats
+        for smaller in ik.GLOBAL_CLUSTER_SIZES[
+                :ik.GLOBAL_CLUSTER_SIZES.index(g.C)]:
+            assert ik.global_smem_bytes(
+                *shape, smaller, lk.stripe_deal(nu, smaller)[2]) \
+                > ik.SMEM_LIMIT_BYTES
+        assert_stripes_cover(nu, g.C)
+        # the cluster tier's carve on the same stripes: the device tier's
+        # vectors in place of the reduced ones
+        assert ik.cluster_smem_bytes(*shape, g.C, g.area_words) \
+            - g.smem_bytes >= ik.smem_bytes(*shape, True, True) \
+            - ik.global_smem_bytes(*shape) - 16
+    else:
+        assert all(ik.global_smem_bytes(*shape, C, lk.stripe_deal(nu, C)[2])
+                   > ik.SMEM_LIMIT_BYTES for C in ik.GLOBAL_CLUSTER_SIZES)
+        assert g.smem_bytes == ik.global_smem_bytes(*shape) \
+            == 4 * (32 + V * V + 2 * P + S + 1)
+        assert g.workspace_floats == g.vec_floats \
+            + nu * ik.kkt_ld(nu, True)
+
+
+@pytest.mark.parametrize("C", [1, 2, 8])
+@pytest.mark.parametrize("shape", [(55, 66, 64, 64, 11), (120, 0, 64, 64, 16),
+                                   (3, 2, 7, 10, 3)])
+def test_global_workspace_layout(shape, C):
+    """One instance's slot of the global workspace, mirroring
+    ``csrc/ipm_struct.cu::carve_global``: every vector the kernel keeps
+    there placed once, in the carve's order, none overlapping another, the
+    other ranks' ``1 / diag`` after rank 0's (the cluster placement), the
+    vectors rounded up to 32 floats, and in the device placement the KKT
+    matrix from there to the slot's end (128-byte rows)."""
+    P, S, hp, hu, V = shape
+    nu = V * hu
+    n, mg = nu + 1, (P + S) * hp
+    m = mg + 2 * n
+    lay = ik.global_layout(*shape, C)
+    vecs = ["s", "z", "rp", "w", "a1", "a2", "a3", "dz", "ds", "x", "px",
+            "dsc", "kb", "rhs", "dx", "dinv"] + [f"dinv{r}"
+                                                 for r in range(1, C)]
+    assert list(lay) == vecs + (["K"] if C == 1 else [])
+    sizes = {k: m for k in vecs[:9]} | {k: n for k in vecs[9:]}
+    end = 0
+    for k in vecs:
+        assert lay[k] == (end, sizes[k]), k
+        end += sizes[k]
+    vec = ik.global_vec_floats(*shape, C)
+    assert vec == -(-end // 32) * 32 == -(-(9 * m + (6 + C) * n) // 32) * 32
+    spans = sorted(lay.values())
+    assert all(a + la <= b for (a, la), (b, _) in zip(spans, spans[1:]))
+    if C == 1:
+        assert lay["K"] == (vec, nu * ik.kkt_ld(nu, True))
+        assert lay["K"][0] % 32 == 0
+
+
+def test_global_tier_keyword_runs_the_plain_version_on_the_cpu():
+    """``tier="global"`` only says where the kernel keeps its working set:
+    on CPU tensors the wrapper runs the plain version, bit for bit the call
+    without it, no launch is counted, and that matches scp_tpu's fused
+    Pallas iterations (in interpret mode) on the same seeded inputs."""
+    arrs, pairs, obst_veh = kernel_inputs(B=B, V=3, hp=5, hu=8, n_obst=1,
+                                          seed=14)
+    kw = dict(pairs=pairs, obst_veh=obst_veh, tol=1e-6, reg_rel=3e-6,
+              n_iters=1, lower_tri=True)
+    args = torch_kernel_args(arrs)
+    plain = ik.ipm_iterate_struct(*args, **kw)
+    for fn in (ik.ipm_iterate_struct, ik.ipm_iterate_struct_plain):
+        got = fn(*args, **kw, tier="global")
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    assert ik.global_launch_count == ik.launch_count == 0
+    want = _pallas(arrs, pairs, obst_veh, 5, 8, n_iters=1, n_cor=0,
+                   lower_tri=True)
+    got = dict(zip(STATE_NAMES, (g.numpy() for g in got)))
+    for k in ("x", "zg", "zu", "zl", "rpg", "rpu", "rpl"):
+        np.testing.assert_allclose(got[k], want[k], atol=2e-5, rtol=1e-4,
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("shape", [(55, 66, 20, 20, 11), (6, 0, 64, 64, 4),

@@ -202,8 +202,8 @@ def test_auto_kkt_refuses_shapes_beyond_shared_memory():
     statement (circle-4, hp = 64), and without one K1 past its shared tier
     (its cluster tier there; the device tier past that) — the fallback
     scp_tpu takes there too; kkt="dense" takes the fused kernel in any
-    tier. Only past the device tier (hp = 200) the route refuses, naming
-    the stage statement."""
+    tier. Past the device tier's own carve (hp = 200) K1's global tier
+    takes the shape: the route no longer refuses it."""
     from scp_tpu_torch.ops import ipm_kernel
     assert ipm_kernel.struct_tier(P=6, S=0, hp=64, hu=64, V=4).tier \
         == "cluster"
@@ -230,8 +230,8 @@ def test_auto_kkt_refuses_shapes_beyond_shared_memory():
         assert ipm_kernel.fits_smem(P, 0, hp, hp, V, True)
         assert not ipm_kernel.fits_smem(P, 0, hp, hp, V)
         assert route(hp, object(), V=V) == "struct"
-    with pytest.raises(NotImplementedError, match="banded stage statement"):
-        route(200, None)
+    assert route(200, None) == "struct"
+    assert ipm_kernel.struct_tier(6, 0, 200, 200, 4, True).tier == "global"
     assert route(200, object()) == "banded"
     with pytest.raises(ValueError):
         _, ta = _qp_data("circle", 2, 6, np.float64, n_veh=2, radius=8.0)

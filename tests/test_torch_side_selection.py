@@ -196,3 +196,54 @@ def test_parallel11_past_the_shared_tier_matches_scp_tpu(monkeypatch):
                                       tengine.init_carry(cfg_t, data_t))
     assert tiers == [(5, 8, "cluster"), (1, 12, "cluster")]
     _compare(out_t, out_j)
+
+
+def test_parallel11_global_tier_matches_scp_tpu(monkeypatch):
+    """Side selection at parallel-11, hp = hu = 32 — the smallest horizon
+    at which K1 takes its global tier (the device tier's vectors alone
+    need 239,380 bytes of shared memory), where scp_tpu falls back from its
+    fused kernel to its XLA path: one calibrated step (12 fixed IPM
+    iterations a round, 8 a candidate), B = 1, float64, the port on the CPU
+    (the plain version of every tier) against scp_tpu's mpc_step_batch: the
+    controls to 1e-8, the objectives to 1e-6 (rtol 1e-8), every discrete
+    output equal. Both launches (the 5 candidates, then the round) take the
+    structured route, in the global tier."""
+    over = dict(SMALL, hp=32, hu=32, qp_fixed_iters=12,
+                side_selection_cand_iters=8)
+    cfg_j, data_j, cfg_t, data_t = scenario_pair(
+        "parallel", 1, seed=11, cfg_over=over, n_veh=11)
+    carry_j = jax.vmap(lambda d: jengine.init_carry(cfg_j, d))(data_j)
+    step = jit_fast(lambda d, c: jengine.mpc_step_batch(cfg_j, d, c),
+                    data_j, carry_j)
+    _, out_j = step(data_j, carry_j)
+    out_j = jax.tree_util.tree_map(np.asarray, out_j)
+
+    from scp_tpu_torch.solvers import qp as tqp
+    routes, real_route = [], tqp._route
+
+    def route_spy(*a, **k):
+        routes.append(real_route(*a, **k))
+        return routes[-1]
+    monkeypatch.setattr(tqp, "_route", route_spy)
+    tiers, real = [], ipm_kernel.ipm_iterate_struct
+
+    def spy(*a, **k):
+        gi, gob, pb = a[0], a[2], a[4]
+        tiers.append((gi.shape[0], k["n_iters"], ipm_kernel.struct_tier(
+            gi.shape[1], gob.shape[1], gi.shape[2], gi.shape[3],
+            pb.shape[1], k["lower_tri"]).tier))
+        return real(*a, **k)
+    monkeypatch.setattr(ipm_kernel, "ipm_iterate_struct", spy)
+    _, out_t = tengine.mpc_step_batch(cfg_t, data_t,
+                                      tengine.init_carry(cfg_t, data_t))
+    # (side selection asks for the route of each QP before solving it)
+    assert routes == ["struct"] * 4
+    assert tiers == [(5, 8, "global"), (1, 12, "global")]
+    for name in out_j._fields:
+        want, got = getattr(out_j, name), getattr(out_t, name)
+        if want.dtype.kind in "biu":
+            assert_close(got, want, 0, name=name)
+        elif name in ("obj", "pred_obj"):
+            assert_close(got, want, 1e-6, rtol=1e-8, name=name)
+        elif name in ("u_applied", "u_pred"):
+            assert_close(got, want, 1e-8, name=name)
