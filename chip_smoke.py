@@ -92,15 +92,14 @@ read just after:
 * (m) K1's global tier, past its device tier's own carve (the step's
   vectors in device memory too): (m1) forced on path (l)'s inputs, bit
   for bit the cluster tier on (l1)'s launches and the device tier on
-  (l2)'s and at the bench shape, both placements (cluster, device), timed
-  beside them; (m2) the calibrated side-selection step at parallel-11,
-  hp = hu = 64, B = 64 (two K1 launches a step in the global tier, 320 and
-  64 wide, a cluster of 8 CTAs an instance; 3 chained steps, the first
-  also through the plain versions and float64, the feasible share against
-  the plain versions'; both launches bit for bit in the device placement
-  and timed); (m3) one circle-16 hp = 64 QP under ``qp_kkt="dense"``
-  (B = 4, the device placement) against its plain version; (m4) ``cli run
-  --controller side_selection --scenario parallel --hp 64 --steps 1``;
+  (l1)'s wide launch, (l2)'s and at the bench shape, timed beside them;
+  (m2) the calibrated side-selection step at parallel-11, hp = hu = 64,
+  B = 64 (two K1 launches a step in the global tier, 320 and 64 wide; 3
+  chained steps, the first also through the plain versions and float64,
+  the feasible share against the plain versions'); (m3) one circle-16
+  hp = 64 QP under ``qp_kkt="dense"`` (B = 4) against its plain version;
+  (m4) ``cli run --controller side_selection --scenario parallel --hp 64
+  --steps 1``;
 * (j) the entry points a user calls: ``scp_tpu_torch.bench.worker()`` at
   its own settings (K1 on its throughput steps, K3 / K4 on its latency
   steps; its solves/s and latency printed beside paths (a) and (c)), and
@@ -3930,38 +3929,20 @@ M_TWIN_REPS = 3            # (m1) ... and when timing the twins
 M_V16_B, M_V16_VEH = 4, 16     # (m3) circle-16 at hp = M_HP, the dense KKT
 
 
-@contextlib.contextmanager
-def global_placement(placement):
-    """K1's global tier in its device placement for the block
-    (``placement="device"``: ``GLOBAL_CLUSTER_SIZES`` emptied, at any
-    shape), or as the shape takes it (None)."""
-    from scp_tpu_torch.ops import ipm_kernel as ik
-    sizes = ik.GLOBAL_CLUSTER_SIZES
-    if placement == "device":
-        ik.GLOBAL_CLUSTER_SIZES = ()
-    try:
-        yield
-    finally:
-        ik.GLOBAL_CLUSTER_SIZES = sizes
-
-
 class _FirstLaunch(Exception):
     """Raised by the capture of a step's first K1 launch (path (m3))."""
 
 
 def global_tier_phases(dev, card, seed) -> dict:
     """Path (m): K1's global tier, past its device tier's own carve (the
-    step's vectors in a device-memory workspace, the KKT matrix in a
-    cluster's stripes or, in its device placement, in the workspace), each
+    step's vectors and the KKT matrix in a device-memory workspace), each
     path's launch counts set to 0 just before it and read just after:
 
     (m1) the global tier forced on path (l)'s inputs against its twins on
          the same inputs, bit for bit, both timed: the cluster tier on
-         (l1)'s two launches (parallel-11, hp = 20), the device tier on
-         (l2)'s full width (circle-4, hp = 64) and at the bench shape
-         (path (l4)'s inputs), the cluster tier there too; its device
-         placement against the device tier on (l1)'s wide launch, (l2)'s
-         and the bench shape's;
+         (l1)'s two launches (parallel-11, hp = 20) and the device tier on
+         the wide one, the device tier on (l2)'s full width (circle-4,
+         hp = 64), and both at the bench shape (path (l4)'s inputs);
     (m2) the calibrated side-selection step at parallel-11, hp = hu =
          M_HP, B = M_B through ``mpc_step_batch``
          (``SideSelectionChecks.batch_path``): exactly two K1 launches a
@@ -3970,11 +3951,9 @@ def global_tier_phases(dev, card, seed) -> dict:
          float64, M_STEPS chained steps and then through the plain
          version (the feasible share no worse than its less
          FROG_FEASIBLE_SLACK), step 0 three ways (the flags under the
-         yardstick); both launches again in the device placement, bit for
-         bit, both placements timed; the peak device memory;
+         yardstick); the peak device memory;
     (m3) circle-16 at hp = hu = M_HP, ``qp_kkt="dense"``, B = M_V16_B: the
-         step's first K1 launch (one QP, the global tier's device
-         placement: no cluster of 8 holds its stripes) against its plain
+         step's first K1 launch (one QP) captured, then against its plain
          version and float64, timed;
     (m4) ``cli run --controller side_selection --scenario parallel --hp
          M_HP --steps 1``: exit 0, K1's global tier launched and no other
@@ -4001,24 +3980,17 @@ def global_tier_phases(dev, card, seed) -> dict:
     a_l2, k_l2 = M_INPUTS["l2"]
     a_b, k_b = M_INPUTS["bench"]
     w_l1, w_l1n = a_l1[0].shape[0], a_l1n[0].shape[0]
-    cases = {f"l1_B{w_l1}_vs_cluster": (a_l1, k_l1, "cluster", None),
-             f"l1_B{w_l1n}_vs_cluster": (a_l1n, k_l1n, "cluster", None),
-             f"l2_B{a_l2[0].shape[0]}_vs_device": (a_l2, k_l2, "device",
-                                                   None),
-             "bench_vs_cluster": (a_b, k_b, "cluster", None),
-             "bench_vs_device": (a_b, k_b, "device", None),
-             f"l1_B{w_l1}_device_placement_vs_device": (a_l1, k_l1, "device",
-                                                        "device"),
-             f"l2_B{a_l2[0].shape[0]}_device_placement_vs_device": (
-                 a_l2, k_l2, "device", "device"),
-             "bench_device_placement_vs_device": (a_b, k_b, "device",
-                                                  "device")}
+    cases = {f"l1_B{w_l1}_vs_cluster": (a_l1, k_l1, "cluster"),
+             f"l1_B{w_l1n}_vs_cluster": (a_l1n, k_l1n, "cluster"),
+             f"l1_B{w_l1}_vs_device": (a_l1, k_l1, "device"),
+             f"l2_B{a_l2[0].shape[0]}_vs_device": (a_l2, k_l2, "device"),
+             "bench_vs_cluster": (a_b, k_b, "cluster"),
+             "bench_vs_device": (a_b, k_b, "device")}
     m1 = {}
-    for name, (a, k, other, placement) in cases.items():
-        with global_placement(placement):
-            r = tiers_agree(k1, a, {**k, "tier": "global"}, other,
-                            reps=M_TWIN_REPS)
-            r["global_geometry"] = geometry(a)._asdict()
+    for name, (a, k, other) in cases.items():
+        r = tiers_agree(k1, a, {**k, "tier": "global"}, other,
+                        reps=M_TWIN_REPS)
+        r["global_geometry"] = geometry(a)._asdict()
         m1[name] = r
     M_INPUTS.clear()
     emit({"phase": "global_tier_path_m1", "card": card, **m1,
@@ -4044,43 +4016,22 @@ def global_tier_phases(dev, card, seed) -> dict:
     a0 = kept_m[k1][0][0]
     P_m, S_m = a0[0].shape[1], a0[2].shape[1]
     shape_m = (P_m, S_m, M_HP, M_HP, SS_PAR_VEH)
-    placements = {}
-    for a, k in kept_m[k1]:
-        w = a[0].shape[0]
-        out_c = real[k1](*a, **k)
-        with global_placement("device"):
-            out_d = real[k1](*a, **k)
-            torch.cuda.synchronize()
-            placements[f"B{w}"] = {
-                "bit_identical": all(torch.equal(x, y)
-                                     for x, y in zip(out_c, out_d)),
-                "cluster_placement_ms": times_m[f"m_B{w}"]["ms"],
-                "device_placement_ms": graph_ms(
-                    lambda: real[k1](*a, **k), M_TIME_REPS),
-                "device_placement_resident_ctas_per_sm":
-                    ipm_kernel.global_occupancy(*shape_m, True)[0]}
-        del out_c, out_d
     rep_m.update(
         phase="global_tier_path_m2", k1_tiers=[t._asdict() for t in tiers_m],
         k1_global_geometry=ipm_kernel.global_geometry(*shape_m)._asdict(),
         k1_device_tier_carve_bytes=ipm_kernel.smem_bytes(*shape_m, True,
                                                          True),
-        k1_resident_ctas_per_sm_and_clusters=ipm_kernel.global_occupancy(
-            *shape_m, True),
+        k1_resident_ctas_per_sm=ipm_kernel.global_occupancy(*shape_m,
+                                                              True),
         k1_slabs_mib_per_candidate_launch=sum(
             t.numel() * 4 for t in a0[:3] if t is not None) / 2 ** 20,
-        times=times_m, placements=placements,
-        wall_s=time.perf_counter() - t_path)
+        times=times_m, wall_s=time.perf_counter() - t_path)
     emit(rep_m)
     h.path_failures("m", rep_m, ok_m)
-    for w, r in placements.items():
-        if not r["bit_identical"]:
-            fail(f"path m2, {w}: the global tier's two placements differ on "
-                 f"identical inputs: {r}")
     del kept_m
     torch.cuda.empty_cache()
 
-    # ---- (m3) circle-16, hp = 64, the dense KKT: the device placement ----
+    # ---- (m3) circle-16, hp = 64, the dense KKT ----
     t_path = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(seed)
     cfg3, data3 = batch_lib.make_batch("circle", M_V16_B, generator=gen,
@@ -4105,18 +4056,23 @@ def global_tier_phases(dev, card, seed) -> dict:
         fail("path m3 made no K1 launch")
     a3, k3 = first[0]
     tier3, geo3 = tier_of_launch(k1, a3, k3), geometry(a3)
-    if tier3.tier != "global" or geo3.placement != "device":
-        fail(f"path m3: K1 in {tier3} / {geo3}, the global tier's device "
-             f"placement wanted")
+    if tier3.tier != "global":
+        fail(f"path m3: K1 in {tier3}, the global tier wanted")
+    reset_counts()
     e3 = check_kernel(f"m3_circle16_hp{M_HP}_dense_B{M_V16_B}", a3, k3,
                       real[k1], plain[k1])
+    got3 = launch_counts()
+    if not got3["ipm_iterate_struct_global"] or any(
+            v for k, v in got3.items() if k != "ipm_iterate_struct_global"):
+        fail(f"path m3: launches {got3}; K1's global tier only wanted")
     P3, S3 = a3[0].shape[1], 0 if a3[2] is None else a3[2].shape[1]
     cell3 = {"B": M_V16_B, "n_iters": k3["n_iters"],
              "shape": {"P": P3, "S": S3, "hp": M_HP, "hu": M_HP,
                        "V": M_V16_VEH},
              "tier": tier3._asdict(), "global_geometry": geo3._asdict(),
+             "launches_check": got3["ipm_iterate_struct_global"],
              "resident_ctas_per_sm": ipm_kernel.global_occupancy(
-                 P3, S3, M_HP, M_HP, M_V16_VEH, k3["lower_tri"])[0],
+                 P3, S3, M_HP, M_HP, M_V16_VEH, k3["lower_tri"]),
              "ms": graph_ms(lambda: real[k1](*a3, **k3), M_TIME_REPS),
              "plain_ms": time_cuda(lambda: plain[k1](*a3, **k3), 2,
                                    warmup=1)}
@@ -4145,7 +4101,8 @@ def global_tier_phases(dev, card, seed) -> dict:
     per = rep_m["launches_per_step"]
     emit({"phase": "global_tier_summary", "card": card,
           "launches_per_step_m2": per,
-          "launches_m3_check": 2, "launches_m4_cli": got4,
+          "launches_m3_check": got3["ipm_iterate_struct_global"],
+          "launches_m4_cli": got4,
           "peak_device_memory_mib_m2": rep_m["peak_device_memory_mib"],
           "step_peak_above_resident_mib_m2":
               rep_m["step_peak_above_resident_mib"],
@@ -4155,7 +4112,7 @@ def global_tier_phases(dev, card, seed) -> dict:
     w_m = f"m_B{SS_CANDIDATES * M_B}"
     k1_gl = {"name": "ipm_iterate_struct_global", "route": "cuda",
              "source": "scp_tpu_torch/csrc/ipm_struct.cu",
-             "also_source": "scp_tpu_torch/csrc/chol_cluster.cuh",
+             "also_source": "scp_tpu_torch/csrc/chol_blocked.cuh",
              "replaces": "scp_tpu/ops/pallas_linalg.py:1195",
              "tier": "global",
              "launches": per["ipm_iterate_struct_global"] * M_STEPS,
@@ -4164,8 +4121,7 @@ def global_tier_phases(dev, card, seed) -> dict:
                                 e3["u_kernel_vs_plain_max"]),
              **{k: times_m[w_m][k] for k in ("ms", "plain_ms", "bound_ms",
                                               "bound_by")},
-             "library_ms": None, "times_m2": times_m,
-             "placements_m2": placements, "times_m3": cell3,
+             "library_ms": None, "times_m2": times_m, "times_m3": cell3,
              "vs_twins_m1": {k: {key: r[key] for key in (
                  "B", "n_iters", "other", "bit_identical", "ms", "other_ms")}
                  for k, r in m1.items()},

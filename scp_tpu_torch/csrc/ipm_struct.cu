@@ -50,8 +50,8 @@
 //     (__launch_bounds__(256, 4): 64 registers a thread).
 //
 // Four storage tiers: ipm_struct_kernel<kDev> (shared, device),
-// ipm_struct_cluster_kernel<false> (cluster) and the global tier (both
-// kernels with kGlobal, at the end of this comment). The shared
+// ipm_struct_cluster_kernel (cluster) and ipm_struct_kernel<true, true>
+// (global, at the end of this comment). The shared
 // tier (kDev false) is the design above. Past one block's shared memory
 // (the side-selection QP of parallel-11 at hp = 20: 481,908 bytes; a dense
 // KKT at circle-4, hp = 64: 471,904) the device tier (kDev true) keeps the
@@ -88,20 +88,15 @@
 // selection QP from hp = 32, 239,380 bytes; circle-16 from hp = 28) the
 // global tier keeps the step's vectors in device memory too: a per-instance
 // workspace (global_vec_words: s z rp w a1 a2 a3 dz ds, x px dsc kb rhs dx
-// dinv), the P blocks, the slack column, q and pdiag read in place from the
-// inputs; shared memory keeps the reduction scratch, the index tables and
-// the failure flag. It is a compile-time flag (kGlobal) on the two kernels
-// above, so their other instantiations compile as before: in its cluster
-// placement (ipm_struct_cluster_kernel<true>) the KKT matrix lies in the
-// stripes of a cluster of at most 8 CTAs, whose ranks read rank 0's
-// weights, Jacobi scale and border from the workspace (no copy; a fence on
-// each side of the cluster barrier publishes them), each rank with its own
-// 1 / diag; in its device placement (ipm_struct_kernel<true, true>) the KKT
-// matrix lies after the vectors in the workspace, as in the device tier.
-// The arithmetic and its order are those of the other tiers, so the global
-// tier is bit for bit the cluster and the device tier wherever they run.
-// The tier follows from the shape alone (the wrapper, ipm_kernel.py::
-// struct_tier: shared, else cluster, else device, else global).
+// dinv, then the nu x ldk KKT matrix as in the device tier), the P blocks,
+// the slack column, q and pdiag read in place from the inputs; shared
+// memory keeps the reduction scratch, the index tables and the failure
+// flag. It is a compile-time flag (kGlobal) on the device tier's kernel, so
+// the other instantiations compile as before. The arithmetic and its order
+// are the device tier's, so the global tier is bit for bit the device and
+// the cluster tier wherever they run. The tier follows from the shape alone
+// (the wrapper, ipm_kernel.py::struct_tier: shared, else cluster, else
+// device, else global).
 //
 // No fast-math: the Jacobi scaling (1/sqrt of the analytic diagonal) and
 // barrier ratios z/s up to 1e10 are why f32 works at all here.
@@ -216,47 +211,40 @@ __host__ __device__ inline long smem_words(const Shape& d) {
 // buffers, its mbarriers and this rank's stripe area of `area_words`), the
 // deal (two ints a stripe) and, at an even word, the factor's row pointers
 // (nu of 8 bytes); must match ipm_kernel.py::cluster_smem_bytes.
-//
-// The global tier (kGlobal) keeps only the reduction scratch, the index
-// tables and the failure flag in shared memory (global_smem_words; its
-// device placement's whole carve, and in its cluster placement what the
-// stripes follow); must match ipm_kernel.py::global_smem_bytes.
-__host__ __device__ inline long global_smem_words(const Shape& d) {
-  return scpk::kRedWords + (long)d.V * d.V + 2L * d.P + d.S + 1;
-}
-
-template <bool kGlobal = false>
 __host__ __device__ inline long cluster_base_word(const Shape& d) {
-  return ((kGlobal ? global_smem_words(d) : smem_words<true>(d)) + 3) & ~3L;
+  return (smem_words<true>(d) + 3) & ~3L;
 }
 
-template <bool kGlobal = false>
 __host__ __device__ inline long cluster_krow_word(const Shape& d, int C,
                                                   int area_words) {
-  const long w = cluster_base_word<kGlobal>(d)
+  const long w = cluster_base_word(d)
                  + scpk::stripe_buffer_words(d.nu, C, area_words)
                  + 2L * scpk::stripe_count(d.nu);
   return (w + 1) & ~1L;
 }
 
-template <bool kGlobal = false>
 __host__ __device__ inline long cluster_smem_words(const Shape& d, int C,
                                                    int area_words) {
-  return cluster_krow_word<kGlobal>(d, C, area_words) + 2L * d.nu;
+  return cluster_krow_word(d, C, area_words) + 2L * d.nu;
+}
+
+// The global tier (kGlobal) keeps only the reduction scratch, the index
+// tables and the failure flag in shared memory; must match
+// ipm_kernel.py::global_smem_bytes.
+__host__ __device__ inline long global_smem_words(const Shape& d) {
+  return scpk::kRedWords + (long)d.V * d.V + 2L * d.P + d.S + 1;
 }
 
 // The global tier's workspace of one instance (floats): the step's vectors
 // (global_vec_words: nine m-vectors s z rp w a1 a2 a3 dz ds, seven
-// n-vectors x px dsc kb rhs dx dinv, and in the cluster placement the
-// other C - 1 ranks' 1 / diag after rank 0's), rounded up to 32 floats, and
-// in the device placement (C = 1) the nu x ldk KKT matrix after them; must
-// match ipm_kernel.py::global_layout.
-__host__ __device__ inline long global_vec_words(const Shape& d, int C) {
-  return (9L * d.m + 7L * d.n + (long)(C - 1) * d.n + 31) & ~31L;
+// n-vectors x px dsc kb rhs dx dinv), rounded up to 32 floats, then the
+// nu x ldk KKT matrix; must match ipm_kernel.py::global_layout.
+__host__ __device__ inline long global_vec_words(const Shape& d) {
+  return (9L * d.m + 7L * d.n + 31) & ~31L;
 }
 
-__host__ __device__ inline long global_ws_words(const Shape& d, int C) {
-  return global_vec_words(d, C) + (C == 1 ? (long)d.nu * d.ldk : 0L);
+__host__ __device__ inline long global_ws_words(const Shape& d) {
+  return global_vec_words(d) + (long)d.nu * d.ldk;
 }
 
 // The shared vectors (scpk::IpmVecs) plus the slabs, P blocks and tables.
@@ -323,15 +311,15 @@ __device__ inline Smem carve(float* base, const Shape& d, const Args& a,
 
 // The global tier's working set of instance b (see the head of this file):
 // the vectors in its slot of the workspace a.ws (global_ws_words floats an
-// instance), the KKT matrix after them in the device placement (C = 1), the
-// slabs, P blocks, slack column, q and pdiag read in place; the reduction
-// scratch, the tables and the flag in shared memory from `base`.
+// instance), the KKT matrix after them, the slabs, P blocks, slack column,
+// q and pdiag read in place; the reduction scratch, the tables and the
+// flag in shared memory from `base`.
 __device__ inline Smem carve_global(float* base, const Shape& d,
-                                    const Args& a, long b, int C) {
+                                    const Args& a, long b) {
   Smem sm;
   const long slab = (long)d.hp * d.hu;
-  float* p = a.ws + b * global_ws_words(d, C);
-  sm.K = C == 1 ? p + global_vec_words(d, C) : nullptr;
+  float* p = a.ws + b * global_ws_words(d);
+  sm.K = p + global_vec_words(d);
   sm.gi = a.gi + b * d.P * slab;
   sm.gj = a.gj + b * d.P * slab;
   sm.gob = d.S ? a.gob + b * d.S * slab : nullptr;
@@ -355,8 +343,8 @@ __device__ inline Smem carve_global(float* base, const Shape& d,
 
 template <bool kDev, bool kGlobal>
 __device__ inline Smem carve_tier(float* base, const Shape& d, const Args& a,
-                                  long b, int C) {
-  if constexpr (kGlobal) return carve_global(base, d, a, b, C);
+                                  long b) {
+  if constexpr (kGlobal) return carve_global(base, d, a, b);
   else return carve<kDev>(base, d, a, b);
 }
 
@@ -657,13 +645,13 @@ __device__ inline void form_tile_put(const Smem& sm, const Shape& d, int vr,
 }
 
 // kDev: the storage tier (see the head of this file); kDev and kGlobal:
-// the global tier's device placement.
+// the global tier.
 template <bool kDev, bool kGlobal = false>
 __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
 ipm_struct_kernel(Args a, Shape d) {
   extern __shared__ float smem_base[];
   const long b = blockIdx.x;
-  const Smem sm = carve_tier<kDev, kGlobal>(smem_base, d, a, b, 1);
+  const Smem sm = carve_tier<kDev, kGlobal>(smem_base, d, a, b);
   const int tid = threadIdx.x, nt = blockDim.x;
   const long slab = (long)d.hp * d.hu;   // in device memory
   const int mg = d.mg, n = d.n, nu = d.nu, m = d.m;
@@ -798,9 +786,7 @@ ipm_struct_kernel(Args a, Shape d) {
 // of cl.C CTAs. Rank 0 holds the device tier's carve and runs the step;
 // every rank holds stripes of the KKT matrix, forms their tiles and runs
 // the factor. The load, the diagonal and border, the formation loop and the
-// store are ipm_struct_kernel<true>'s. kGlobal: the global tier's cluster
-// placement (the vectors in the workspace, read there by every rank).
-template <bool kGlobal>
+// store are ipm_struct_kernel<true>'s.
 __global__ void __launch_bounds__(kThreads, 1)
 ipm_struct_cluster_kernel(Args a, Shape d, ClusterArgs cl) {
   extern __shared__ __align__(16) float cl_smem[];
@@ -810,7 +796,7 @@ ipm_struct_cluster_kernel(Args a, Shape d, ClusterArgs cl) {
   const long b = blockIdx.x / cl.C;
   const int rank = (int)cluster.block_rank();
   const bool lead = rank == 0;
-  const Smem sm = carve_tier<true, kGlobal>(smem_base, d, a, b, cl.C);
+  const Smem sm = carve<true>(smem_base, d, a, b);
   const int tid = threadIdx.x, nt = blockDim.x;
   const int mg = d.mg, n = d.n, nu = d.nu, m = d.m;
   const int tb = (d.hu + 3) >> 2, tiles = tb * tb;
@@ -821,31 +807,26 @@ ipm_struct_cluster_kernel(Args a, Shape d, ClusterArgs cl) {
   st.ns = scpk::stripe_count(nu);
   st.rank = rank;
   st.C = (unsigned)cl.C;
-  float* fbase = smem_base + cluster_base_word<kGlobal>(d);
+  float* fbase = smem_base + cluster_base_word(d);
   st.carve(fbase, cl.area_words);
   int* tab = reinterpret_cast<int*>(
       fbase + scpk::stripe_buffer_words(nu, cl.C, cl.area_words));
   st.owner = tab;
   st.off = tab + st.ns;
-  // (in the global tier each rank its own 1 / diag: rank r's r n further)
-  st.dinv = kGlobal ? sm.dinv + (long)rank * d.n : sm.dinv;
+  st.dinv = sm.dinv;
   st.bad = sm.bad;
   float** krow = reinterpret_cast<float**>(
-      smem_base + cluster_krow_word<kGlobal>(d, cl.C, cl.area_words));
+      smem_base + cluster_krow_word(d, cl.C, cl.area_words));
   for (int e = tid; e < 2 * st.ns; e += nt) tab[e] = cl.deal[e];
 
   SECTION_INIT();
   // ---- load the instance: the state on rank 0, the P blocks and the
-  // tables (what formation reads) on every rank (the global tier reads the
-  // P blocks, the slack column, q and pdiag in place) ----
-  if (!kGlobal)
-    copy_in(sm.pb, a.pb + b * d.V * d.hu * d.hu, (long)d.V * d.hu * d.hu);
+  // tables (what formation reads) on every rank ----
+  copy_in(sm.pb, a.pb + b * d.V * d.hu * d.hu, (long)d.V * d.hu * d.hu);
   if (lead) {
-    if (!kGlobal) {
-      copy_in(sm.gsl, a.gsl + b * mg, mg);
-      copy_in(sm.q, a.q + b * n, n);
-      copy_in(sm.pdiag, a.pdiag + b * n, n);
-    }
+    copy_in(sm.gsl, a.gsl + b * mg, mg);
+    copy_in(sm.q, a.q + b * n, n);
+    copy_in(sm.pdiag, a.pdiag + b * n, n);
     copy_in(sm.x, a.x + b * n, n);
     copy_in(sm.s, a.sg + b * mg, mg);
     copy_in(sm.s + mg, a.su + b * n, n);
@@ -921,13 +902,9 @@ ipm_struct_cluster_kernel(Args a, Shape d, ClusterArgs cl) {
       }
     }
     // every rank forms its stripes' tiles from rank 0's weights, Jacobi
-    // scale and border (in the global tier read in place from the
-    // workspace: a device-scope fence on each side of the barrier makes
-    // rank 0's stores visible to the other SMs' loads)
-    if (kGlobal) __threadfence();
+    // scale and border
     cluster.sync();
-    if (kGlobal) __threadfence();
-    if (!kGlobal && !lead) {
+    if (!lead) {
       const float* w0 = cluster.map_shared_rank(sm.w, 0);
       const float* dsc0 = cluster.map_shared_rank(sm.dsc, 0);
       const float* kb0 = cluster.map_shared_rank(sm.kb, 0);
@@ -995,10 +972,9 @@ ipm_struct_cluster_kernel(Args a, Shape d, ClusterArgs cl) {
   SECTION(kSecStore);
 }
 
-// Per tier (0: shared, 1: device, 2: cluster, 3 / 4: the global tier's
-// device / cluster placement) and device.
-int ipm_struct_smem_granted[5][scpk::kMaxDevices];
-int ipm_struct_carveout_set[5][scpk::kMaxDevices];
+// Per tier (0: shared, 1: device, 2: cluster, 3: global) and device.
+int ipm_struct_smem_granted[4][scpk::kMaxDevices];
+int ipm_struct_carveout_set[4][scpk::kMaxDevices];
 
 // Raise `kernel`'s dynamic shared-memory limit to `smem_bytes` and, once per
 // device, prefer the largest shared-memory carve-out of the SM's unified L1 /
@@ -1033,12 +1009,11 @@ int launch_tier(const Args& a, const Shape& d, int B, long smem_bytes,
 // The cluster tier's launch: B clusters of C CTAs (grid B x C, the cluster
 // along x). `clusters`: how many such clusters the device holds at once
 // (cudaOccupancyMaxActiveClusters); with `run` false nothing is launched.
-template <bool kGlobal = false>
 int cluster_launch(const Args& a, const Shape& d, const ClusterArgs& cl,
                    int B, long smem_bytes, cudaStream_t stream, bool run,
                    int* clusters) {
-  auto kernel = ipm_struct_cluster_kernel<kGlobal>;
-  cudaError_t err = prepare(kernel, kGlobal ? 4 : 2, smem_bytes);
+  auto kernel = ipm_struct_cluster_kernel;
+  cudaError_t err = prepare(kernel, 2, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((long long)B * cl.C));
@@ -1166,7 +1141,7 @@ int ipm_struct_cluster_occupancy(int P, int S, int hp, int hu, int V,
                                  clusters);
   if (err != 0) return err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, ipm_struct_cluster_kernel<false>, kThreads, (size_t)smem_bytes);
+      ctas, ipm_struct_cluster_kernel, kThreads, (size_t)smem_bytes);
 }
 
 // CTAs of the tier's kernel that can be resident on one SM at a shape
@@ -1186,15 +1161,11 @@ int ipm_struct_occupancy(int P, int S, int hp, int hu, int V, int lower_tri,
       kThreads, (size_t)smem_bytes);
 }
 
-// Launch on `stream` in the global tier: with C = 1 its device placement
-// (one CTA an instance, the KKT matrix in the workspace after the vectors;
-// `deal` null, `area_words` 0), else its cluster placement (one cluster of
-// C CTAs an instance, the KKT matrix in the stripes dealt by `deal` as in
-// ipm_struct_cluster_launch). `ws`: B x global_ws_words floats. The other
+// Launch on `stream` in the global tier: one CTA an instance, the vectors
+// and the KKT matrix in `ws` (B x global_ws_words floats). The other
 // arguments as ipm_struct_launch's. Returns 0 when launched, -1 when
-// `smem_bytes` or `ws_floats` disagrees with the placement's carve or
-// workspace, -2 when no cluster of C CTAs can be resident, else a CUDA
-// error.
+// `smem_bytes` or `ws_floats` disagrees with the tier's carve or
+// workspace, else a CUDA error.
 int ipm_struct_global_launch(
     const float* gi, const float* gj, const float* gob, const float* gsl,
     const float* pb, const float* q, const float* pdiag,
@@ -1205,16 +1176,13 @@ int ipm_struct_global_launch(
     float* xo, float* sgo, float* suo, float* slo,
     float* zgo, float* zuo, float* zlo,
     float* rpgo, float* rpuo, float* rplo, float* scalo, float* ws,
-    const int* deal, int B, int P, int S, int hp, int hu, int V,
-    int n_iters, int n_cor, int lower_tri, int C, int area_words,
+    int B, int P, int S, int hp, int hu, int V,
+    int n_iters, int n_cor, int lower_tri,
     float tol, float tol_stall, float reg_rel,
     long smem_bytes, long ws_floats, void* stream) {
   const Shape d = make_shape(P, S, hp, hu, V, lower_tri, true);
-  if (C < 1 || C > scpk::kClusterMaxRanks || area_words < 0
-      || ws == nullptr || ws_floats != (long)B * global_ws_words(d, C)
-      || (C > 1) != (deal != nullptr)
-      || smem_bytes != 4L * (C == 1 ? global_smem_words(d)
-                             : cluster_smem_words<true>(d, C, area_words)))
+  if (ws == nullptr || ws_floats != (long)B * global_ws_words(d)
+      || smem_bytes != 4L * global_smem_words(d))
     return -1;
   Args a;
   a.gi = gi; a.gj = gj; a.gob = gob; a.gsl = gsl; a.pb = pb; a.q = q;
@@ -1226,40 +1194,20 @@ int ipm_struct_global_launch(
   a.rpgo = rpgo; a.rpuo = rpuo; a.rplo = rplo; a.scalo = scalo; a.ws = ws;
   a.n_iters = n_iters; a.n_cor = n_cor;
   a.tol = tol; a.tol_stall = tol_stall; a.reg_rel = reg_rel;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (C == 1) return launch_tier<true, true>(a, d, B, smem_bytes, st);
-  const ClusterArgs cl{deal, C, area_words};
-  int clusters = 0;
-  return cluster_launch<true>(a, d, cl, B, smem_bytes, st, true, &clusters);
+  return launch_tier<true, true>(a, d, B, smem_bytes, (cudaStream_t)stream);
 }
 
-// The global tier at a shape in its placement (C as in
-// ipm_struct_global_launch): CTAs of its kernel one SM holds into `ctas`,
-// and in the cluster placement clusters of C the device holds at once into
-// `clusters` (0 in the device placement). Returns a CUDA error code (-1:
-// bad arguments).
+// CTAs of the global tier's kernel that can be resident on one SM at a
+// shape, into `ctas`. Returns a CUDA error code.
 int ipm_struct_global_occupancy(int P, int S, int hp, int hu, int V,
-                                int lower_tri, int C, int area_words,
-                                int* ctas, int* clusters) {
+                                int lower_tri, int* ctas) {
   const Shape d = make_shape(P, S, hp, hu, V, lower_tri, true);
-  if (C < 1 || C > scpk::kClusterMaxRanks || area_words < 0) return -1;
-  *clusters = 0;
-  if (C == 1) {
-    const long smem_bytes = 4L * global_smem_words(d);
-    const cudaError_t err =
-        prepare(ipm_struct_kernel<true, true>, 3, smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        ctas, ipm_struct_kernel<true, true>, kThreads, (size_t)smem_bytes);
-  }
-  const long smem_bytes = 4L * cluster_smem_words<true>(d, C, area_words);
-  const Args a = {};
-  const ClusterArgs cl{nullptr, C, area_words};
-  const int err = cluster_launch<true>(a, d, cl, 1, smem_bytes, nullptr,
-                                       false, clusters);
-  if (err != 0) return err;
+  const long smem_bytes = 4L * global_smem_words(d);
+  const cudaError_t err =
+      prepare(ipm_struct_kernel<true, true>, 3, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, ipm_struct_cluster_kernel<true>, kThreads, (size_t)smem_bytes);
+      ctas, ipm_struct_kernel<true, true>, kThreads, (size_t)smem_bytes);
 }
 
 #ifdef SCP_PROFILE_SECTIONS

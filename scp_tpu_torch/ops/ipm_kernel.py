@@ -49,11 +49,10 @@ the step. The arithmetic is the same in every tier, but for the order in
 which K2's cluster tier sums each entry of its product (it streams G
 through shared memory by rows; :func:`dense_cluster_geometry`). K1 has a
 fourth past its device tier's own shared memory (``"global"``,
-:func:`global_geometry`): the step's vectors in a device-memory workspace
-too, the KKT matrix in a cluster's stripes where a cluster of at most 8
-holds them and in the workspace otherwise; K1 raises
-``NotImplementedError`` only where a tier is forced at a shape it cannot
-hold, K2 past its device tier's own shared memory.
+:func:`global_geometry`): the step's vectors in the device-memory workspace
+too, before the KKT matrix; K1 raises ``NotImplementedError`` only where a
+tier is forced at a shape it cannot hold, K2 past its device tier's own
+shared memory.
 """
 from __future__ import annotations
 
@@ -82,10 +81,6 @@ global_launch_count = 0
 # instance on C SMs, so at a batch that fills the card the smallest wins.
 STRUCT_CLUSTER_SIZES = (2, 4, 8)
 DENSE_CLUSTER_SIZES = (2, 4, 8)
-# K1's global tier: the cluster sizes of its cluster placement, smallest
-# first; where none holds the stripes (or with none listed) its device
-# placement.
-GLOBAL_CLUSTER_SIZES = (2, 4, 8)
 TIERS = ("shared", "cluster", "device", "global")
 DENSE_TIERS = ("shared", "cluster", "device")
 # G rows a stage of K2's cluster tier streams (csrc/ipm_dense.cu::
@@ -115,10 +110,10 @@ class Tier(NamedTuple):
     :func:`cluster_geometry`, :func:`dense_cluster_geometry`),
     ``"device"`` (the KKT matrix and its factor in a device-memory
     workspace of ``workspace_floats`` floats per instance, 0 in the shared
-    and cluster tiers) or, for K1, ``"global"`` (the step's vectors in a
-    device-memory workspace of ``workspace_floats`` floats per instance —
-    the vectors, and in the device placement the KKT matrix after them:
-    :func:`global_geometry`, :func:`global_layout`); ``smem_bytes``: the
+    and cluster tiers) or, for K1, ``"global"`` (the step's vectors and
+    the KKT matrix after them in a device-memory workspace of
+    ``workspace_floats`` floats per instance: :func:`global_geometry`,
+    :func:`global_layout`); ``smem_bytes``: the
     launch's dynamic shared memory per CTA; ``g_smem``: K2's G in shared
     memory (False for K1)."""
     tier: str
@@ -187,18 +182,11 @@ def cluster_smem_bytes(P: int, S: int, hp: int, hu: int, V: int, C: int,
     from the next 16-byte boundary the cluster factor's buffers
     (``linalg_kernel.stripe_buffer_words``), the deal (two ints a stripe)
     and, at an even word, the factor's row pointers (8 bytes a row)."""
-    return _stripes_after(smem_bytes(P, S, hp, hu, V, device=True) // 4,
-                          V * hu, C, area_words)
-
-
-def _stripes_after(words: int, nu: int, C: int, area_words: int) -> int:
-    """Bytes of a cluster-tier rank's carve whose first ``words`` hold
-    the step's share (``csrc/ipm_struct.cu::cluster_smem_words``): then,
-    from the next 16-byte boundary, the cluster factor's buffers, the deal
-    and, at an even word, the row pointers."""
+    nu = V * hu
     ns = -(-nu // linalg_kernel.CHOL_STRIPE)
-    words = -(-words // 4) * 4 \
-        + linalg_kernel.stripe_buffer_words(nu, C, area_words) + 2 * ns
+    base = -(-smem_bytes(P, S, hp, hu, V, device=True) // 16) * 4
+    words = base + linalg_kernel.stripe_buffer_words(nu, C, area_words) \
+        + 2 * ns
     return 4 * ((words + 1) // 2 * 2 + 2 * nu)
 
 
@@ -218,28 +206,19 @@ def cluster_geometry(P: int, S: int, hp: int, hu: int,
     return None
 
 
-def global_smem_bytes(P: int, S: int, hp: int, hu: int, V: int, C: int = 1,
-                      area_words: int = 0) -> int:
+def global_smem_bytes(P: int, S: int, hp: int, hu: int, V: int) -> int:
     """Dynamic shared memory of a CTA of K1's global tier (mirrors
-    ``csrc/ipm_struct.cu::global_smem_words`` / ``cluster_smem_words<
-    true>``): the reduction scratch, the index tables and the failure flag;
-    with ``C`` > 1 (the cluster placement) then, from the next 16-byte
-    boundary, the cluster factor's buffers, the deal and the row pointers
-    laid out as in :func:`cluster_smem_bytes`."""
-    words = _RED_WORDS + V * V + 2 * P + S + 1
-    if C == 1:
-        return 4 * words
-    return _stripes_after(words, V * hu, C, area_words)
+    ``csrc/ipm_struct.cu::global_smem_words``): the reduction scratch, the
+    index tables and the failure flag."""
+    return 4 * (_RED_WORDS + V * V + 2 * P + S + 1)
 
 
-def global_layout(P: int, S: int, hp: int, hu: int, V: int,
-                  C: int) -> dict[str, tuple[int, int]]:
+def global_layout(P: int, S: int, hp: int, hu: int,
+                  V: int) -> dict[str, tuple[int, int]]:
     """``name -> (offset, floats)`` of one instance's slot of K1's global
     workspace (mirrors ``csrc/ipm_struct.cu::carve_global``): the nine
-    m-vectors, the seven n-vectors, with ``C`` > 1 (the cluster placement)
-    the other ranks' ``1 / diag`` after rank 0's (``dinv1`` ..), and with
-    ``C`` = 1 (the device placement) the ``nu x ldk`` KKT matrix ``K`` from
-    the vectors' end rounded up to 32 floats. The P blocks, the slack
+    m-vectors, the seven n-vectors, and the ``nu x ldk`` KKT matrix ``K``
+    from the vectors' end rounded up to 32 floats. The P blocks, the slack
     column, ``q`` and ``pdiag`` are read in place from the inputs."""
     nu = V * hu
     n = nu + 1
@@ -247,36 +226,18 @@ def global_layout(P: int, S: int, hp: int, hu: int, V: int,
     names = [(k, m) for k in ("s", "z", "rp", "w", "a1", "a2", "a3", "dz",
                               "ds")]
     names += [(k, n) for k in ("x", "px", "dsc", "kb", "rhs", "dx", "dinv")]
-    names += [(f"dinv{r}", n) for r in range(1, C)]
     out, at = {}, 0
     for k, size in names:
         out[k] = (at, size)
         at += size
-    if C == 1:
-        out["K"] = (-(-at // 32) * 32, nu * kkt_ld(nu, True))
+    out["K"] = (-(-at // 32) * 32, nu * kkt_ld(nu, True))
     return out
 
 
-def global_vec_floats(P: int, S: int, hp: int, hu: int, V: int,
-                      C: int) -> int:
-    """Floats of the vectors of one instance's slot of K1's global
-    workspace (:func:`global_layout`), rounded up to 32 (``csrc/
-    ipm_struct.cu::global_vec_words``)."""
-    lay = global_layout(P, S, hp, hu, V, C)
-    return -(-sum(size for k, (_, size) in lay.items() if k != "K")
-             // 32) * 32
-
-
 class GlobalGeometry(NamedTuple):
-    """K1's global tier at a shape: ``placement`` is ``"cluster"`` (the
-    KKT matrix in the stripes of a cluster of ``C`` CTAs, each rank's
-    stripe area ``area_words`` floats) or ``"device"`` (``C`` = 1, the KKT
-    matrix in the workspace); ``smem_bytes`` a CTA; ``vec_floats`` and
-    ``workspace_floats`` (the vectors, and the KKT matrix in the device
-    placement) an instance."""
-    placement: str
-    C: int
-    area_words: int
+    """K1's global tier at a shape: ``smem_bytes`` a CTA (one an
+    instance); ``vec_floats`` (the vectors, rounded up to 32) and
+    ``workspace_floats`` (the vectors and the KKT matrix) an instance."""
     smem_bytes: int
     vec_floats: int
     workspace_floats: int
@@ -284,21 +245,11 @@ class GlobalGeometry(NamedTuple):
 
 def global_geometry(P: int, S: int, hp: int, hu: int,
                     V: int) -> GlobalGeometry:
-    """K1's global tier at a shape: its cluster placement with the first
-    of :data:`GLOBAL_CLUSTER_SIZES` whose ranks each hold the reduced carve
-    (:func:`global_smem_bytes`) and their share of the stripes of the
-    ``nu x nu`` KKT matrix (parallel-11's side-selection QP at hp = 32 to
-    64: C = 2 to 8), else its device placement (circle-16 at hp = 64)."""
-    nu = V * hu
-    for C in GLOBAL_CLUSTER_SIZES:
-        area = linalg_kernel.stripe_deal(nu, C)[2]
-        need = global_smem_bytes(P, S, hp, hu, V, C, area)
-        if need <= SMEM_LIMIT_BYTES:
-            vec = global_vec_floats(P, S, hp, hu, V, C)
-            return GlobalGeometry("cluster", C, area, need, vec, vec)
-    vec = global_vec_floats(P, S, hp, hu, V, 1)
-    return GlobalGeometry("device", 1, 0, global_smem_bytes(P, S, hp, hu, V),
-                          vec, vec + nu * kkt_ld(nu, True))
+    """K1's global tier at a shape (:func:`global_smem_bytes`,
+    :func:`global_layout`)."""
+    off, size = global_layout(P, S, hp, hu, V)["K"]
+    return GlobalGeometry(global_smem_bytes(P, S, hp, hu, V), off,
+                          off + size)
 
 
 def _global_tier(P, S, hp, hu, V) -> Tier:
@@ -365,7 +316,7 @@ def resident_ctas_per_sm(P: int, S: int, hp: int, hu: int, V: int,
     if t.tier == "cluster":
         return cluster_occupancy(P, S, hp, hu, V, lower_tri)[0]
     if t.tier == "global":
-        return global_occupancy(P, S, hp, hu, V, lower_tri)[0]
+        return global_occupancy(P, S, hp, hu, V, lower_tri)
     dev = t.tier == "device"
     fn = _cuda_build.load_library().ipm_struct_occupancy
     if fn.argtypes is None:
@@ -399,23 +350,19 @@ def cluster_occupancy(P: int, S: int, hp: int, hu: int, V: int,
 
 
 def global_occupancy(P: int, S: int, hp: int, hu: int, V: int,
-                     lower_tri: bool) -> tuple[int, int]:
-    """``(CTAs one SM holds, clusters the device holds at once)`` of K1's
-    global tier at a shape in its placement (:func:`global_geometry`; 0
-    clusters in the device placement; the CUDA occupancy calculator).
-    Needs the card."""
-    g = global_geometry(P, S, hp, hu, V)
+                     lower_tri: bool) -> int:
+    """CTAs of K1's global tier one SM holds at a shape (the CUDA
+    occupancy calculator). Needs the card."""
     fn = _cuda_build.load_library().ipm_struct_global_occupancy
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    ctas, clusters = ctypes.c_int(0), ctypes.c_int(0)
-    err = fn(P, S, hp, hu, V, int(lower_tri), g.C, g.area_words,
-             ctypes.byref(ctas), ctypes.byref(clusters))
+    ctas = ctypes.c_int(0)
+    err = fn(P, S, hp, hu, V, int(lower_tri), ctypes.byref(ctas))
     if err != 0:
         raise RuntimeError(f"ipm_struct_global_occupancy failed with CUDA "
                            f"error {err}")
-    return ctas.value, clusters.value
+    return ctas.value
 
 
 def _global_launcher():
@@ -424,7 +371,7 @@ def _global_launcher():
     fn = _cuda_build.load_library().ipm_struct_global_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([p] * 18 + [p, p] + [p] * 11 + [p, p] + [i] * 11
+        fn.argtypes = ([p] * 18 + [p, p] + [p] * 11 + [p] + [i] * 9
                        + [f] * 3 + [ctypes.c_long] * 2 + [p])
         fn.restype = ctypes.c_int
     return fn
@@ -530,25 +477,19 @@ def ipm_iterate_struct(gi, gj, gob, gsl, pb, q, pdiag,
         g = global_geometry(P, S, hp, hu, V)
         ws = torch.empty((B, g.workspace_floats), dtype=torch.float32,
                          device=gi.device)
-        table = linalg_kernel.deal_tensor(
-            V * hu, g.C, linalg_kernel.stripe_deal(V * hu, g.C),
-            gi.device) if g.C > 1 else None
         with torch.cuda.device(gi.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = _global_launcher()(
                 *ptr, pt.data_ptr(), ot.data_ptr() if S else 0,
                 *[o.data_ptr() for o in outs], ws.data_ptr(),
-                0 if table is None else table.data_ptr(),
                 B, P, S, hp, hu, V, int(n_iters), int(n_cor), int(lower_tri),
-                g.C, g.area_words, float(tol), float(tol * 1e3),
-                float(reg_rel), g.smem_bytes, B * g.workspace_floats, stream)
+                float(tol), float(tol * 1e3), float(reg_rel), g.smem_bytes,
+                B * g.workspace_floats, stream)
         if err != 0:
-            why = ("no cluster can be resident" if err == -2
-                   else f"CUDA error {err}")
             raise RuntimeError(
-                f"ipm_struct_global_launch failed: {why} (B={B}, P={P}, "
-                f"S={S}, hp={hp}, hu={hu}, V={V}, {g.placement} placement, "
-                f"C={g.C}, {g.smem_bytes} bytes of shared memory a CTA)")
+                f"ipm_struct_global_launch failed with CUDA error {err} "
+                f"(B={B}, P={P}, S={S}, hp={hp}, hu={hu}, V={V}, "
+                f"{g.smem_bytes} bytes of shared memory a CTA)")
         global_launch_count += 1
         return tuple(outs)
     if tr.tier == "cluster":

@@ -104,15 +104,13 @@ def measure_k2(name: str, out_dir: str) -> None:
 # K1's shared, device and cluster kernels by mangled name: the shared
 # tier's is untemplated in a parent without tiers, ``<false>`` with them and
 # ``<false, false>`` once the global tier was added; the device tier's
-# ``<true>`` / ``<true, false>``; the cluster tier's untemplated /
-# ``<false>`` (the global tier's instantiations, ``<true, true>`` and
-# ``cluster<true>``, are left out)
+# ``<true>`` / ``<true, false>`` (the global tier's ``<true, true>`` is left
+# out); the cluster tier's untemplated
 K1_TIERS = {
     "shared": lambda h: "ipm_struct_kernel" in h and "ILb1" not in h,
     "device": lambda h: ("ipm_struct_kernel" in h and "ILb1E" in h
                          and "ILb1ELb1E" not in h),
-    "cluster": lambda h: "ipm_struct_cluster_kernel" in h
-                         and "ILb1E" not in h,
+    "cluster": lambda h: "ipm_struct_cluster_kernel" in h,
 }
 
 

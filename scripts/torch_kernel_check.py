@@ -87,14 +87,11 @@ the default mode runs it too, and holds the staged large-n solve bit for
 bit ``cho_solve_large_kernel`` at n = 240 / 257 / 330 / 400 x B = 1 / 16 /
 256 / 1,024 (an instance base 4 bytes past 16 at B = 16).
 ``--global`` builds the library and holds K1's global tier (the step's
-vectors in device memory) bit for bit against the cluster and device
-tiers forced on the same seeded inputs at the bench shape and at
-parallel-11's side-selection QP at hp = 20 (both placements: the cluster
-one it takes there, and the device one with ``GLOBAL_CLUSTER_SIZES``
-emptied), its two placements against each other at parallel-11, hp = 64,
-and each against the plain version there and at circle-16, hp = 64 (the
-device placement), with their device times by graph replay, the CTAs and
-clusters resident, and the fences of the cluster kernel's SASS.
+vectors and the KKT matrix in device memory) bit for bit against the
+cluster and device tiers forced on the same seeded inputs at the bench
+shape and at parallel-11's side-selection QP at hp = 20, and against the
+plain version there and at parallel-11 and circle-16, hp = 64, with the
+device times by graph replay and the CTAs resident an SM.
 ``--pivots`` compiles a test that
 includes ``csrc/riccati.cu`` and holds its branch-free pivot square root and
 reciprocal to ``__fsqrt_rn`` / ``__frcp_rn`` bit for bit on every float in
@@ -523,19 +520,13 @@ def _graph_one(fn, reps=3, replays=3) -> float:
 
 def check_global() -> None:
     """K1's global tier on seeded inputs (see the module docstring)."""
-    import subprocess
     from scp_tpu_torch.ops import _cuda_build, ipm_kernel as ik
     from scp_tpu_torch.testing import kernel_inputs, torch_kernel_args
-    lib = _cuda_build.build_library(verbose=True)
+    _cuda_build.build_library(verbose=True)
     bad = []
-    sizes = ik.GLOBAL_CLUSTER_SIZES
 
-    def run(args, kw, tier, placement=None):
-        ik.GLOBAL_CLUSTER_SIZES = () if placement == "device" else sizes
-        try:
-            return ik.ipm_iterate_struct(*args, **kw, tier=tier)
-        finally:
-            ik.GLOBAL_CLUSTER_SIZES = sizes
+    def run(args, kw, tier):
+        return ik.ipm_iterate_struct(*args, **kw, tier=tier)
 
     for B, V, hp, no, hard, seed in K1_GLOBAL_CASES:
         arrs, pairs, ov = kernel_inputs(B=B, V=V, hp=hp, hu=hp, n_obst=no,
@@ -556,12 +547,6 @@ def check_global() -> None:
                 twins[other] = run(args, kw, other)
             except NotImplementedError:
                 continue
-        if geo.placement == "cluster":
-            try:
-                twins["global_device_placement"] = run(args, kw, "global",
-                                                       "device")
-            except RuntimeError as e:
-                rep["device_placement_error"] = str(e)
         torch.cuda.synchronize()
         rep["launches"] = {"global": ik.global_launch_count,
                            "cluster": ik.cluster_launch_count,
@@ -582,21 +567,9 @@ def check_global() -> None:
             bad.append(rep["case"])
         rep["ms"] = {"global": _graph_one(lambda: run(args, kw, "global"))}
         for k in twins:
-            rep["ms"][k] = _graph_one(
-                lambda k=k: run(args, kw, "global", "device")
-                if k == "global_device_placement" else run(args, kw, k))
+            rep["ms"][k] = _graph_one(lambda k=k: run(args, kw, k))
         rep["resident"] = ik.global_occupancy(*shape, True)
         print(json.dumps(rep), flush=True)
-    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
-                           str(lib)], capture_output=True, text=True).stdout
-    for f in sass.split("Function : ")[1:]:
-        name = f.split("\n")[0]
-        if "ipm_struct" in name:
-            ops = [w for w in ("MEMBAR", "CCTL", "FENCE", "ERRBAR", "UCGABAR")
-                   if w in f]
-            print(json.dumps({"sass_function": name.strip(),
-                              "has": {w: f.count(w) for w in ops}}),
-                  flush=True)
     print(json.dumps({"global_cases_failed": bad}), flush=True)
     if bad:
         sys.exit(1)

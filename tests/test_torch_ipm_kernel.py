@@ -322,13 +322,13 @@ def test_struct_tier_at_real_shapes(name):
 
 def test_struct_tier_raises_only_past_the_device_tier():
     """Past the device tier's own carve (parallel-11 at hp = 64: 567,444
-    bytes of vectors alone) the global tier takes the shape (its vectors in
-    device memory: 231,024 bytes a CTA of a cluster of 8); the device tier
+    bytes of vectors alone) the global tier takes the shape (its vectors
+    and the KKT matrix in device memory: 1,320 bytes a CTA); the device tier
     forced there raises, naming the bytes and the whole carve; a tier
     forced past its own carve raises too, and an unknown tier's name is
     refused."""
     assert ik.struct_tier(55, 66, 64, 64, 11, True) \
-        == ("global", 231_024, 92_256, False)
+        == ("global", 1_320, 87_328 + 704 * 704, False)
     with pytest.raises(NotImplementedError,
                        match="567444 bytes .* device tier .*4017044 with"):
         ik.struct_tier(55, 66, 64, 64, 11, True, tier="device")
@@ -340,40 +340,38 @@ def test_struct_tier_raises_only_past_the_device_tier():
         ik.struct_tier(55, 66, 64, 64, 11, True, tier="cluster")
 
 
-# (P, S, hp, hu, V) -> (placement, C, bytes a CTA, workspace floats an
-# instance) of K1's global tier: parallel-11's side-selection QP at hp = 32
-# (the first horizon past the device tier's carve, 239,380 bytes) and 64,
-# circle-16 at hp = 28 (235,184 bytes of device-tier carve) and 64 (no
-# cluster of 8 holds its stripes: the device placement, the 1,024 x 1,024
-# KKT matrix after the vectors), and forced at the bench shape and at
-# (l1)'s (parallel-11, hp = 20), where a cluster of 2 holds it.
+# (P, S, hp, hu, V) -> (bytes a CTA, workspace floats an instance) of K1's
+# global tier: parallel-11's side-selection QP at hp = 32 (the first
+# horizon past the device tier's carve, 239,380 bytes) and 64, circle-16 at
+# hp = 28 (235,184 bytes of device-tier carve) and 64 (the vectors, then
+# the 1,024 x 1,024 KKT matrix), and forced at the bench shape and at
+# (l1)'s (parallel-11, hp = 20).
 GLOBAL_SHAPES = {
-    "parallel11_hp32": ((55, 66, 32, 32, 11), ("cluster", 2, 184_384, 44_032)),
-    "parallel11_hp64": ((55, 66, 64, 64, 11), ("cluster", 8, 231_024, 92_256)),
-    "circle16_hp28": ((120, 0, 28, 28, 16), ("cluster", 4, 173_456, 42_816)),
-    "circle16_hp64": ((120, 0, 64, 64, 16),
-                      ("device", 1, 2_116, 94_752 + 1024 * 1024)),
-    "bench_forced": ((6, 0, 20, 20, 4), ("cluster", 2, 23_816, 3_200)),
-    "l1_forced": ((55, 66, 20, 20, 11), ("cluster", 2, 88_800, 27_552)),
+    "parallel11_hp32": ((55, 66, 32, 32, 11), (1_320, 43_680 + 352 * 352)),
+    "parallel11_hp64": ((55, 66, 64, 64, 11), (1_320, 87_328 + 704 * 704)),
+    "circle16_hp28": ((120, 0, 28, 28, 16), (2_116, 41_472 + 448 * 448)),
+    "circle16_hp64": ((120, 0, 64, 64, 16), (2_116, 94_752 + 1024 * 1024)),
+    "bench_forced": ((6, 0, 20, 20, 4), (244, 3_136 + 80 * 96)),
+    "l1_forced": ((55, 66, 20, 20, 11), (1_320, 27_328 + 220 * 224)),
 }
 
 
 @pytest.mark.parametrize("name", sorted(GLOBAL_SHAPES))
 def test_global_geometry(name):
-    """K1's global tier: the placement, the cluster size (the smallest of
-    GLOBAL_CLUSTER_SIZES whose ranks each hold the reduced carve — the
-    scratch, the tables, the flag, the stripes, the factor's buffers, the
-    deal, the row pointers — and their stripes, which cover the lower
-    triangle once), the bytes a CTA and the workspace an instance;
-    ``struct_tier`` takes it where the device tier's carve exceeds a block
-    and ``tier="global"`` forces it anywhere."""
+    """K1's global tier: the bytes a CTA (the scratch, the tables and the
+    flag) and the workspace an instance (the vectors rounded up to 32
+    floats, then the ``nu x ldk`` KKT matrix); ``struct_tier`` takes it
+    where the device tier's carve exceeds a block and ``tier="global"``
+    forces it anywhere."""
     shape, want = GLOBAL_SHAPES[name]
     P, S, hp, hu, V = shape
     g = ik.global_geometry(*shape)
-    assert (g.placement, g.C, g.smem_bytes, g.workspace_floats) == want
-    assert g.smem_bytes <= ik.SMEM_LIMIT_BYTES
+    assert (g.smem_bytes, g.workspace_floats) == want
+    assert g.smem_bytes == ik.global_smem_bytes(*shape) \
+        == 4 * (32 + V * V + 2 * P + S + 1) <= ik.SMEM_LIMIT_BYTES
     nu = V * hu
-    assert g.vec_floats == ik.global_vec_floats(*shape, g.C)
+    assert g.vec_floats == ik.global_layout(*shape)["K"][0]
+    assert g.workspace_floats == g.vec_floats + nu * ik.kkt_ld(nu, True)
     forced = ik.struct_tier(*shape, True, tier="global")
     assert forced == ("global", g.smem_bytes, g.workspace_floats, False)
     if name.endswith("_forced"):
@@ -382,61 +380,35 @@ def test_global_geometry(name):
         assert ik.smem_bytes(*shape, True, True) > ik.SMEM_LIMIT_BYTES
         assert ik.struct_tier(*shape, True) == forced
         assert ik.struct_tier(*shape, False) == forced
-    if g.placement == "cluster":
-        assert g.area_words == lk.stripe_deal(nu, g.C)[2]
-        assert g.smem_bytes == ik.global_smem_bytes(*shape, g.C, g.area_words)
-        assert g.workspace_floats == g.vec_floats
-        for smaller in ik.GLOBAL_CLUSTER_SIZES[
-                :ik.GLOBAL_CLUSTER_SIZES.index(g.C)]:
-            assert ik.global_smem_bytes(
-                *shape, smaller, lk.stripe_deal(nu, smaller)[2]) \
-                > ik.SMEM_LIMIT_BYTES
-        assert_stripes_cover(nu, g.C)
-        # the cluster tier's carve on the same stripes: the device tier's
-        # vectors in place of the reduced ones
-        assert ik.cluster_smem_bytes(*shape, g.C, g.area_words) \
-            - g.smem_bytes >= ik.smem_bytes(*shape, True, True) \
-            - ik.global_smem_bytes(*shape) - 16
-    else:
-        assert all(ik.global_smem_bytes(*shape, C, lk.stripe_deal(nu, C)[2])
-                   > ik.SMEM_LIMIT_BYTES for C in ik.GLOBAL_CLUSTER_SIZES)
-        assert g.smem_bytes == ik.global_smem_bytes(*shape) \
-            == 4 * (32 + V * V + 2 * P + S + 1)
-        assert g.workspace_floats == g.vec_floats \
-            + nu * ik.kkt_ld(nu, True)
 
 
-@pytest.mark.parametrize("C", [1, 2, 8])
-@pytest.mark.parametrize("shape", [(55, 66, 64, 64, 11), (120, 0, 64, 64, 16),
-                                   (3, 2, 7, 10, 3)])
-def test_global_workspace_layout(shape, C):
+@pytest.mark.parametrize("shape", [shape for shape, _ in GLOBAL_SHAPES.values()]
+                         + [(3, 2, 7, 10, 3), (1, 0, 3, 5, 2), (4, 3, 9, 6, 3)])
+def test_global_workspace_layout(shape):
     """One instance's slot of the global workspace, mirroring
     ``csrc/ipm_struct.cu::carve_global``: every vector the kernel keeps
     there placed once, in the carve's order, none overlapping another, the
-    other ranks' ``1 / diag`` after rank 0's (the cluster placement), the
-    vectors rounded up to 32 floats, and in the device placement the KKT
-    matrix from there to the slot's end (128-byte rows)."""
+    vectors rounded up to 32 floats, and the KKT matrix from there to the
+    slot's end (128-byte rows)."""
     P, S, hp, hu, V = shape
     nu = V * hu
     n, mg = nu + 1, (P + S) * hp
     m = mg + 2 * n
-    lay = ik.global_layout(*shape, C)
+    lay = ik.global_layout(*shape)
     vecs = ["s", "z", "rp", "w", "a1", "a2", "a3", "dz", "ds", "x", "px",
-            "dsc", "kb", "rhs", "dx", "dinv"] + [f"dinv{r}"
-                                                 for r in range(1, C)]
-    assert list(lay) == vecs + (["K"] if C == 1 else [])
+            "dsc", "kb", "rhs", "dx", "dinv"]
+    assert list(lay) == vecs + ["K"]
     sizes = {k: m for k in vecs[:9]} | {k: n for k in vecs[9:]}
     end = 0
     for k in vecs:
         assert lay[k] == (end, sizes[k]), k
         end += sizes[k]
-    vec = ik.global_vec_floats(*shape, C)
-    assert vec == -(-end // 32) * 32 == -(-(9 * m + (6 + C) * n) // 32) * 32
+    vec = ik.global_geometry(*shape).vec_floats
+    assert vec == -(-end // 32) * 32 == -(-(9 * m + 7 * n) // 32) * 32
     spans = sorted(lay.values())
     assert all(a + la <= b for (a, la), (b, _) in zip(spans, spans[1:]))
-    if C == 1:
-        assert lay["K"] == (vec, nu * ik.kkt_ld(nu, True))
-        assert lay["K"][0] % 32 == 0
+    assert lay["K"] == (vec, nu * ik.kkt_ld(nu, True))
+    assert lay["K"][0] % 32 == 0
 
 
 def test_global_tier_keyword_runs_the_plain_version_on_the_cpu():

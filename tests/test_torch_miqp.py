@@ -526,9 +526,9 @@ def test_calibrated_parallel11_k1_gate():
     each), and the device tier where forced (the factor and the slabs in
     device memory, 109,140 / 139,588 bytes of the rest); past that tier's
     own carve (hp = 32: 239,380 bytes; hp = 64: 567,444) the global tier
-    takes it (the vectors in device memory too: clusters of 2 and 8,
-    184,384 / 231,024 bytes a CTA), and the device tier forced there
-    refuses, naming the bytes."""
+    takes it (the vectors in device memory too, before the KKT matrix:
+    1,320 bytes a CTA), and the device tier forced there refuses, naming
+    the bytes."""
     assert ipm_kernel.smem_bytes(55, 66, 10, 10, 11, lower_tri=True) \
         == 153_668
     assert ipm_kernel.struct_tier(55, 66, 10, 10, 11, True) \
@@ -543,13 +543,12 @@ def test_calibrated_parallel11_k1_gate():
         assert ipm_kernel.struct_tier(55, 66, hp, hp, 11, lower_tri=True,
                                       tier="device") \
             == ("device", rest, nu * ((nu + 31) // 32 * 32), False)
-    for hp, rest, C, rank in ((32, 239_380, 2, 184_384),
-                              (64, 567_444, 8, 231_024)):
+    for hp, rest in ((32, 239_380), (64, 567_444)):
         assert ipm_kernel.smem_bytes(55, 66, hp, hp, 11, True, True) == rest
         g = ipm_kernel.global_geometry(55, 66, hp, hp, 11)
-        assert (g.placement, g.C, g.smem_bytes) == ("cluster", C, rank)
+        assert g.smem_bytes == 1_320
         assert ipm_kernel.struct_tier(55, 66, hp, hp, 11, lower_tri=True) \
-            == ("global", rank, g.workspace_floats, False)
+            == ("global", 1_320, g.workspace_floats, False)
         with pytest.raises(NotImplementedError, match=f"{rest} bytes"):
             ipm_kernel.struct_tier(55, 66, hp, hp, 11, lower_tri=True,
                                    tier="device")
