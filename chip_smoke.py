@@ -100,6 +100,16 @@ read just after:
   hp = 64 QP under ``qp_kkt="dense"`` (B = 4) against its plain version;
   (m4) ``cli run --controller side_selection --scenario parallel --hp 64
   --steps 1``;
+* (n) the banded KKT past 24 vehicles, K6 / K7 in their device tier (a CTA
+  per instance, the cost-to-go in a device-memory workspace): (n1) both
+  sweeps against their plain versions, float64 and 2^-23-perturbed inputs
+  at V = 25 / 32 / 48, V = 4 forced into the device tier beside its shared
+  tier, the workspace instantiations at V = 25; (n2) the calibrated
+  circle-32 step at hp = hu = 20, B = 64 (every K6 / K7 launch in the
+  device tier, two K7 a K6, no K1; two chained steps, also through the
+  plain versions, whose feasible share floors the kernels'); (n3) ``cli
+  run --scenario circle --n-veh 25 --steps 2``, one scenario and
+  ``--mc 8``;
 * (j) the entry points a user calls: ``scp_tpu_torch.bench.worker()`` at
   its own settings (K1 on its throughput steps, K3 / K4 on its latency
   steps; its solves/s and latency printed beside paths (a) and (c)), and
@@ -2411,9 +2421,11 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
           "u_pred_p99_limit": UPRED_ABS_LIMIT})
     if k1_launches != 0:
         fail(f"the long-horizon path launched K1 {k1_launches} times")
-    if min(counts.values()) == 0:
+    if min(counts[k] for k in ric) == 0:
         fail(f"the long-horizon path did not run the Riccati kernels: "
              f"{counts}")
+    if counts["riccati_factor_device"] or counts["riccati_solve_device"]:
+        fail(f"the long-horizon path (V = 4) left the shared tier: {counts}")
     if counts["riccati_solve"] != 2 * counts["riccati_factor"]:
         fail(f"the long-horizon path made {counts['riccati_solve']} K7 "
              f"launches for {counts['riccati_factor']} K6 launches (two per "
@@ -2484,8 +2496,12 @@ def long_horizon_and_dense_phases(dev, card, seed) -> list[dict]:
                                           int(0.90 * len(lats)))],
           "step_latency_ms_max": lats[-1],
           "step_latency_ms_min": lats[0], **one_rep})
-    if min(one_counts.values()) == 0:
+    if min(one_counts[k] for k in ric) == 0:
         fail(f"the one-scenario banded step did not run K6 / K7: "
+             f"{one_counts}")
+    if one_counts["riccati_factor_device"] \
+            or one_counts["riccati_solve_device"]:
+        fail(f"the one-scenario banded step (V = 4) left the shared tier: "
              f"{one_counts}")
     if one_counts["riccati_solve"] != 2 * one_counts["riccati_factor"]:
         fail(f"the one-scenario banded step made "
@@ -4129,6 +4145,315 @@ def global_tier_phases(dev, card, seed) -> dict:
     return {"ipm_iterate_struct_global": k1_gl}
 
 
+# ---- path (n): the banded KKT past 24 vehicles (K6 / K7's device tier) ----
+WIDE_CHECKS = ((25, 9, 10), (32, 4, 20), (48, 3, 8))   # (n1) (V, B, K)
+WIDE_VEH, WIDE_HP, WIDE_B = 32, 20, 64   # (n2) circle-32 at hp = hu = 20
+WIDE_STEPS = 2             # (n2) chained steps after the warm-up
+WIDE_TIME_REPS = 3         # (n2) launches a graph when timing K6 / K7
+WIDE_CLI_VEH, WIDE_CLI_STEPS, WIDE_CLI_MC = 25, 2, 8   # (n3) cli run
+
+
+def riccati_yardstick(f_args, s_args, outs_k) -> dict:
+    """The plain versions against themselves on inputs perturbed by one
+    part in 2^23 (PERTURB_DRAWS draws): for each output of the factor and
+    of the solve on its factor (``s_args``' right-hand side), the largest
+    distance of a draw (every input perturbed) from the plain version on
+    the exact inputs, beside the kernel's (``outs_k``: f, lh, kg and du
+    solved on the kernel's factor) and the limit: the kernel within
+    WHOLE_MEDIAN_FACTOR x the draws' + 1e-5 of the output's scale."""
+    from scp_tpu_torch.ops import riccati
+    gen = torch.Generator(device=f_args[0].device).manual_seed(23)
+    fp = riccati.riccati_factor_plain(*f_args)
+    r = s_args[-1]
+    dp = riccati.riccati_solve_plain(*fp, f_args[0], f_args[1], r)
+    draws = []
+    for _ in range(PERTURB_DRAWS):
+        fa = [_perturb(t, gen) for t in f_args]
+        fq = riccati.riccati_factor_plain(*fa)
+        dq = riccati.riccati_solve_plain(*fq, fa[0], fa[1], _perturb(r, gen))
+        draws.append([float((x - y).abs().max()) for x, y in
+                      zip((*fq, dq), (*fp, dp))])
+    rep = {}
+    for i, (name, p_, k) in enumerate(zip(("f", "lh", "kg", "du"),
+                                          (*fp, dp), outs_k)):
+        yard = max(d[i] for d in draws)
+        scale = max(float(p_.abs().max()), 1e-30)
+        e = float((k - p_).abs().max())
+        rep[name] = {"kernel_vs_plain": e, "perturbed_plain_vs_plain": yard,
+                     "ratio": e / max(yard, 1e-30),
+                     "limit": WHOLE_MEDIAN_FACTOR * yard + 1e-5 * scale,
+                     "within": e <= WHOLE_MEDIAN_FACTOR * yard + 1e-5 * scale}
+    return rep
+
+
+def wide_banded_phases(dev, card, seed) -> dict:
+    """Path (n): the banded KKT past 24 vehicles, where K6 / K7 run in their
+    device tier (a CTA per instance, the cost-to-go in a device-memory
+    workspace), each path's counts set to 0 just before it and read just
+    after:
+
+    (n1) the device tier on seeded inputs at V = 25 (B = 9, K = 10), V = 32
+         (B = 4, K = 20) and V = 48 (B = 3, K = 8), one and two right-hand
+         sides, against the plain versions and the float64 oracle
+         (``check_riccati``) and the yardstick of 2^-23-perturbed inputs
+         (``riccati_yardstick``); V = 4 forced into the device tier beside
+         its shared tier; both workspace instantiations (the small part
+         out of shared memory, ``DEVICE_SMEM_BYTES = 0``) at V = 25;
+    (n2) the calibrated step at circle-WIDE_VEH, hp = hu = WIDE_HP, B = WIDE_B
+         (``tuned_f32``, ``TUNED_F32_PHASES``; ``qp_kkt="auto"`` routes to
+         the banded branch): a warm-up step whose first full-width K6 / K7
+         launches (the first IPM iteration) and its seventh factor are kept
+         and checked against plain and float64, WIDE_STEPS chained steps
+         timed, then through the plain versions (the first step against
+         the kernels' first, the feasible share the floor less
+         FROG_FEASIBLE_SLACK); launches a step by tier (the device tier
+         only, two K7 launches a K6 launch, no K1), peak memory, K6 / K7
+         timed on the kept inputs beside ``riccati_work``'s bound;
+    (n3) ``cli run --scenario circle --n-veh WIDE_CLI_VEH --steps
+         WIDE_CLI_STEPS``
+         (one scenario: ``"auto"`` is the dense KKT per instance, as in
+         ``scp_tpu``; exit 0) and the same with ``--mc WIDE_CLI_MC`` (the
+         batched step: exit 0, the device tier launched).
+
+    Returns the ``kernels`` line's entries of the device tier."""
+    from scp_tpu_torch import config as config_lib
+    from scp_tpu_torch.ops import ipm_kernel, riccati_kernel as rk
+    from scp_tpu_torch.scenarios import batch as batch_lib
+    from scp_tpu_torch.sim import engine
+    from scp_tpu_torch.testing import riccati_inputs
+
+    ric = ("riccati_factor", "riccati_solve")
+    dev_keys = ("riccati_factor_device", "riccati_solve_device")
+    real = real_of(*ric)
+
+    # ---- (n1) seeded inputs ----
+    t_path = time.perf_counter()
+    n1, n1_err = {}, {k: (0.0, 0.0) for k in ric}
+
+    def seeded(B_c, V_c, K_c):
+        t = {k: torch.as_tensor(v, device=dev)
+             for k, v in riccati_inputs(B_c, V_c, K_c, seed=V_c).items()}
+        t["a_blk"] = (0.9 * t["a_blk"]).contiguous()   # stable dynamics
+        return t
+
+    for V_c, B_c, K_c in WIDE_CHECKS:
+        t = seeded(B_c, V_c, K_c)
+        f_args = (t["a_blk"], t["b_blk"], t["hy"], t["hu"])
+        reset_counts()
+        fac = real["riccati_factor"](*f_args)
+        r2 = torch.stack([t["r"], t["r"].flip(1)]).contiguous()
+        case = f"n1_V{V_c}_B{B_c}_K{K_c}"
+        e_f, e_s = check_riccati(case, f_args, (*fac, t["a_blk"],
+                                                t["b_blk"], r2))
+        counts = launch_counts()
+        du1 = real["riccati_solve"](*fac, t["a_blk"], t["b_blk"], t["r"])
+        torch.cuda.synchronize()
+        yard = riccati_yardstick(f_args, (*fac, t["a_blk"], t["b_blk"],
+                                          t["r"]), (*fac, du1))
+        n1[case] = {"launches": {k: counts[k] for k in ric + dev_keys},
+                    "factor_err": e_f, "solve_err": e_s, "yardstick": yard,
+                    "factor_geometry": rk.factor_device_geometry(
+                        V_c)._asdict(),
+                    "solve_geometry_two_rhs": rk.solve_device_geometry(
+                        V_c, 2)._asdict()}
+        for k, e in (("riccati_factor", e_f), ("riccati_solve", e_s)):
+            n1_err[k] = max(n1_err[k], e)
+        if any(counts[k] for k in ric) or not all(counts[k] for k in
+                                                    dev_keys):
+            fail(f"path n1, {case}: launches {counts}; the device tier "
+                 f"only wanted")
+        off = [k for k, v in yard.items() if not v["within"]]
+        if off:
+            fail(f"path n1, {case}: the device tier is off the perturbation "
+                 f"yardstick on {off}: {yard}")
+    # V = 4 forced into the device tier, beside its shared tier
+    t = seeded(16, 4, 64)
+    f_args = (t["a_blk"], t["b_blk"], t["hy"], t["hu"])
+    r2 = torch.stack([t["r"], t["r"].flip(1)]).contiguous()
+    fac_d = real["riccati_factor"](*f_args, tier="device")
+    fac_s = real["riccati_factor"](*f_args)
+    du_d = real["riccati_solve"](*fac_s, t["a_blk"], t["b_blk"], r2,
+                                 tier="device")
+    du_s = real["riccati_solve"](*fac_s, t["a_blk"], t["b_blk"], r2)
+    torch.cuda.synchronize()
+    scale = {k: _scale(x) for k, x in zip(("f", "lh", "kg", "du"),
+                                          (*fac_s, du_s))}
+    forced = {k: _scale(x - y) / scale[k] for k, x, y in
+              zip(("f", "lh", "kg", "du"), (*fac_d, du_d), (*fac_s, du_s))}
+    n1["V4_forced_device_vs_shared_rel"] = forced
+    if max(forced.values()) > RICCATI_REL_LIMIT:
+        fail(f"path n1: V = 4 in the device tier differs from the shared "
+             f"tier by {forced} of scale (limit {RICCATI_REL_LIMIT})")
+    # both workspace instantiations (the small part in device memory)
+    cap = rk.DEVICE_SMEM_BYTES
+    rk.DEVICE_SMEM_BYTES = 0
+    try:
+        t = seeded(2, 25, 6)
+        reset_counts()
+        f_args = (t["a_blk"], t["b_blk"], t["hy"], t["hu"])
+        fac = real["riccati_factor"](*f_args)
+        check_riccati("n1_V25_workspace_instantiations", f_args,
+                      (*fac, t["a_blk"], t["b_blk"],
+                       torch.stack([t["r"], t["r"].flip(1)]).contiguous()))
+        n1["workspace_instantiations"] = {
+            "launches": {k: launch_counts()[k] for k in dev_keys},
+            "factor_geometry": rk.factor_device_geometry(25)._asdict(),
+            "solve_geometry": rk.solve_device_geometry(25, 2)._asdict()}
+    finally:
+        rk.DEVICE_SMEM_BYTES = cap
+    emit({"phase": "wide_banded_path_n1", "card": card, **n1,
+          "limits": {"vs_f64": "2 x plain float32's + 1e-5 x scale",
+                     "first_iter_rel": RICCATI_REL_LIMIT,
+                     "yardstick": f"{WHOLE_MEDIAN_FACTOR} x the perturbed "
+                                  f"draws' + 1e-5 x scale"},
+          "wall_s": time.perf_counter() - t_path})
+
+    # ---- (n2) the calibrated circle-32 step at hp = 20 ----
+    t_path = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg, data = batch_lib.make_batch("circle", WIDE_B, generator=gen,
+                                     dtype=torch.float32, device=dev,
+                                     n_veh=WIDE_VEH)
+    cfg = config_lib.tuned_f32(cfg.replace(hp=WIDE_HP, hu=WIDE_HP))
+    carry0 = engine.init_carry(cfg, data)
+
+    def step(c):
+        return engine.mpc_step_batch(cfg, data, c,
+                                     phases=config_lib.TUNED_F32_PHASES)
+
+    kept: dict[str, list] = {k: [] for k in ric}
+
+    def keep(name):
+        def call(*args, **kw):
+            if args[0].shape[0] == WIDE_B and len(kept[name]) < 7:
+                kept[name].append(args)
+            return real[name](*args, **kw)
+        return call
+
+    t0 = time.perf_counter()
+    routed({k: keep(k) for k in ric}, step, carry0)
+    warm_s = time.perf_counter() - t0
+    if len(kept["riccati_factor"]) < 7 or not kept["riccati_solve"]:
+        fail(f"path n2 made {len(kept['riccati_factor'])} full-width K6 "
+             f"calls in its first QP (seven wanted)")
+    f_first, s_first = kept["riccati_factor"][0], kept["riccati_solve"][0]
+    case = f"n2_circle{WIDE_VEH}_hp{WIDE_HP}"
+    e_f, e_s = check_riccati(f"{case}_first_iteration", f_first, s_first)
+    e_f7, _ = check_riccati(f"{case}_seventh_factor",
+                            kept["riccati_factor"][6], s_first,
+                            first_iter=False)
+    err = {"riccati_factor": max(e_f, e_f7, n1_err["riccati_factor"]),
+           "riccati_solve": max(e_s, n1_err["riccati_solve"])}
+    r = chain_vs_plain(step, carry0, WIDE_STEPS, ric)
+    counts = r["counts"]
+    per = {k: v / WIDE_STEPS for k, v in counts.items() if v}
+    for i, out in enumerate(r["outs"]):
+        finite_outputs(out, f"path n2 step {i}")
+        if out.u_pred.shape != (WIDE_B, WIDE_HP, WIDE_VEH):
+            fail(f"path n2 step {i}: u_pred {tuple(out.u_pred.shape)}")
+    du = u_pred_diff(r["outs"][0], r["outs_plain"][0])
+    V_n, K_n = f_first[0].shape[1], f_first[2].shape[1]
+    times = {}
+    for k, args, n_rhs in (("riccati_factor", f_first, 1),
+                           ("riccati_solve", s_first, 2),
+                           ("riccati_solve_one_rhs",
+                            solve_args_at(s_first, WIDE_B, rhs=0), 1)):
+        fn = real["riccati_factor" if k == "riccati_factor"
+                  else "riccati_solve"]
+        plain = plain_of(*ric)["riccati_factor" if k == "riccati_factor"
+                               else "riccati_solve"]
+        bound, by = bound_of(*riccati_work(
+            "riccati_factor" if k == "riccati_factor" else "riccati_solve",
+            WIDE_B, V_n, K_n, n_rhs))
+        times[k] = {"ms": graph_ms(lambda: fn(*args), WIDE_TIME_REPS),
+                    "plain_ms": time_cuda(lambda: plain(*args), 2, warmup=1),
+                    "bound_ms": bound, "bound_by": by}
+    rep = {"phase": "wide_banded_path_n2", "card": card, "B": WIDE_B,
+           "n_veh": WIDE_VEH, "hp": WIDE_HP,
+           "pairs": WIDE_VEH * (WIDE_VEH - 1) // 2,
+           "W": 6 * WIDE_VEH, "K": K_n, "steps": WIDE_STEPS,
+           "config": "tuned_f32 (qp_kkt=auto, 7 fixed IPM iterations), "
+                     "TUNED_F32_PHASES",
+           "warm_up_step_s": warm_s,
+           "chained_step_ms": r["chained_step_ms"],
+           "solves_per_s": WIDE_B / r["chained_step_ms"] * 1e3,
+           "launches_per_step": per, "host_reads_per_step":
+               r["host_reads"] / WIDE_STEPS,
+           "feasible_share": r["feasible_share"],
+           "feasible_share_plain": r["feasible_share_plain"],
+           "feasible_floor": r["feasible_floor"],
+           "mean_scp_iters": float(torch.stack(
+               [o.scp_iters.float().mean() for o in r["outs"]]).mean()),
+           "step0_vs_plain_u_pred_median": float(du.median()),
+           "step0_vs_plain_u_pred_p99": float(du.quantile(0.99)),
+           "step0_vs_plain_u_pred_max_abs": float(du.max()),
+           "step0_vs_plain_feasible_agree": float(
+               (r["outs"][0].feasible == r["outs_plain"][0].feasible)
+               .float().mean()),
+           "peak_device_memory_mib": r["peak_mib"],
+           "step_peak_above_resident_mib":
+               r["step_peak_above_resident_mib"],
+           "factor_geometry": rk.factor_device_geometry(V_n)._asdict(),
+           "solve_geometry_two_rhs": rk.solve_device_geometry(
+               V_n, 2)._asdict(),
+           "times": times, "wall_s": time.perf_counter() - t_path}
+    emit(rep)
+    if any(counts[k] for k in ric) or counts["ipm_iterate_struct"] \
+            or any(counts[k] for k in ("ipm_iterate_struct_device",
+                                       "ipm_iterate_struct_cluster",
+                                       "ipm_iterate_struct_global")):
+        fail(f"path n2: launches {counts}; K6 / K7 in the device tier "
+             f"only wanted (no K1, no shared-tier sweep)")
+    if not counts["riccati_factor_device"] or counts[
+            "riccati_solve_device"] != 2 * counts["riccati_factor_device"]:
+        fail(f"path n2: {counts['riccati_solve_device']} K7 launches for "
+             f"{counts['riccati_factor_device']} K6 launches (two a factor "
+             f"wanted)")
+    if r["feasible_share"] < r["feasible_floor"]:
+        fail(f"path n2: feasible share {r['feasible_share']} below the "
+             f"plain versions' less {FROG_FEASIBLE_SLACK} "
+             f"({r['feasible_floor']})")
+    del kept, r
+    torch.cuda.empty_cache()
+
+    # ---- (n3) the CLI past 24 vehicles ----
+    t_path = time.perf_counter()
+    on_cpu = ["--cpu"] if dev.type == "cpu" else []
+    base = ["run", "--scenario", "circle", "--n-veh", str(WIDE_CLI_VEH),
+            "--steps", str(WIDE_CLI_STEPS)]
+    r_one = run_cli(base + on_cpu)
+    r_mc = run_cli(base + ["--mc", str(WIDE_CLI_MC)] + on_cpu)
+    emit({"phase": "wide_banded_path_n3", "card": card, "one": r_one,
+          "mc": r_mc, "wall_s": time.perf_counter() - t_path})
+    if r_one["exit_code"] or r_mc["exit_code"]:
+        fail(f"path n3: cli run exit codes {r_one['exit_code']} / "
+             f"{r_mc['exit_code']}")
+    require_launches(" ".join(r_mc["argv"]), r_mc["launches"],
+                     list(dev_keys))
+    if any(r_mc["launches"][k] for k in ric):
+        fail(f"path n3: cli run --mc launched the shared-tier sweeps: "
+             f"{r_mc['launches']}")
+
+    entries = {}
+    for k, key, tk in (("riccati_factor", "riccati_factor_device",
+                        "riccati_factor"),
+                       ("riccati_solve", "riccati_solve_device",
+                        "riccati_solve")):
+        entries[key] = {
+            "name": key, "route": "cuda", "tier": "device",
+            "source": "scp_tpu_torch/csrc/riccati.cu",
+            "replaces": "scp_tpu/ops/pallas_riccati.py:"
+                        + ("247" if k == "riccati_factor" else "307"),
+            "launches": counts[key], "launches_per_step_n2": per.get(key, 0),
+            "max_abs_err": err[k][0], "max_err_rel_to_scale": err[k][1],
+            **{x: times[tk][x] for x in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by")},
+            "library_ms": None,      # no single PyTorch call computes it
+            "times_n2": times if k == "riccati_solve" else times[tk],
+            "cli_launches_n3": r_mc["launches"][key]}
+    return entries
+
+
 # ---- path (j): the entry points (cli / bench) ----
 # Numbers other paths measured in this run, for path (j) to print beside
 # its own: path (a)'s solves/s, path (c)'s step latency.
@@ -5143,6 +5468,10 @@ def main() -> None:
     global_entries = global_tier_phases(dev, card, SEED)
     phase_end["global_tier"] = time.perf_counter()
 
+    # ---- path (n): K6 / K7's device tier, circle-32 at hp = 20 ----
+    wide_entries = wide_banded_phases(dev, card, SEED)
+    phase_end["wide_banded"] = time.perf_counter()
+
     # ---- path (j): the entry points, cli and bench ----
     entry_counts = entry_point_phases(dev, card, SEED,
                                       (cfg, data, carry0, PHASES))
@@ -5161,7 +5490,9 @@ def main() -> None:
                                       "ipm_iterate_struct_device",
                                       "ipm_iterate_dense_cluster",
                                       "ipm_iterate_dense_device")] + [
-        global_entries["ipm_iterate_struct_global"]]
+        global_entries["ipm_iterate_struct_global"],
+        wide_entries["riccati_factor_device"],
+        wide_entries["riccati_solve_device"]]
     for r in reports:
         r.update(ss_entries.get(r["name"], {}))
         r.update(tier_entries.get(r["name"], {}))

@@ -26,6 +26,7 @@ an instance into NaN.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -51,26 +52,39 @@ def chol_small(M: torch.Tensor) -> torch.Tensor:
 
 
 def chol_solve_small(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve ``(L L^T) x = b`` by substitution; ``L (..., V, V)`` lower,
-    ``b (..., V)`` or ``(..., V, M)``."""
-    v = L.shape[-1]
+    """Solve ``(L L^T) x = b``, ``L (..., V, V)`` lower, ``b (..., V)`` or
+    ``(..., V, M)``: the two triangular substitutions, each one batched
+    call (``torch.linalg.solve_triangular``), so that a wide V costs no more
+    launches than a narrow one."""
     vec = b.ndim == L.ndim - 1
     if vec:
         b = b[..., None]
-    y = [None] * v
-    for i in range(v):
-        s = b[..., i, :]
-        for p in range(i):
-            s = s - L[..., i, p, None] * y[p]
-        y[i] = s / L[..., i, i, None]
-    x = [None] * v
-    for i in reversed(range(v)):
-        s = y[i]
-        for p in range(i + 1, v):
-            s = s - L[..., p, i, None] * x[p]
-        x[i] = s / L[..., i, i, None]
-    out = torch.stack(x, dim=-2)
-    return out[..., 0] if vec else out
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+    return x[..., 0] if vec else x
+
+
+@functools.lru_cache(maxsize=64)
+def _pair_tables(pairs: tuple, v: int, device: torch.device) -> tuple:
+    """Index tables of :func:`build_hy` on ``device``: ``tab (V, n)``, the
+    pairs that add to vehicle v's diagonal block, in pair order (padded
+    with P, a zero block), and ``(oi, oj, op)``: each pair's two
+    off-diagonal blocks (i, j) and (j, i) and the pair that fills them.
+    Refuses a pair of a vehicle with itself and a repeated pair."""
+    per = [[] for _ in range(v)]
+    for p, (i, j) in enumerate(pairs):
+        if i == j:
+            raise ValueError(f"pair {p} joins vehicle {i} with itself")
+        per[i].append(p)
+        per[j].append(p)
+    blocks = [(i, j) for i, j in pairs] + [(j, i) for i, j in pairs]
+    if len(set(blocks)) != len(blocks):
+        raise ValueError("a vehicle pair is listed twice")
+    n = max(len(x) for x in per)
+    tab = [x + [len(pairs)] * (n - len(x)) for x in per]
+    idx = lambda a: torch.tensor(a, dtype=torch.long, device=device)
+    return (idx(tab), idx([b[0] for b in blocks]),
+            idx([b[1] for b in blocks]), idx(list(range(len(pairs))) * 2))
 
 
 def build_hy(pairs: tuple, y_pair: torch.Tensor, y_obst: torch.Tensor,
@@ -84,25 +98,32 @@ def build_hy(pairs: tuple, y_pair: torch.Tensor, y_obst: torch.Tensor,
     K)`` / ``w_obst (B, V, O, K)``: the IPM's barrier weights of those rows,
     already multiplied by the squared equilibration scale; ``qy_stage (B, V,
     K)``: diagonal tracking weight per vehicle and stage.
+
+    Pair p adds ``w y y^T`` to the diagonal blocks (i, i) and (j, j) and
+    subtracts it from (i, j) and (j, i); each diagonal block sums its pairs'
+    terms in pair order, then the obstacle rows', then the tracking weight
+    (``scp_tpu``'s order), a few batched operations whatever the number of
+    pairs.
     """
     b, v, o, k, _ = y_obst.shape
-    hy = y_obst.new_zeros((b, k, v, NY, v, NY))
-    for p, (i, j) in enumerate(pairs):
-        wyy = torch.einsum("bk,bka,bkc->bkac", w_pair[:, p], y_pair[:, p],
-                           y_pair[:, p])
-        hy[:, :, i, :, i, :] += wyy
-        hy[:, :, j, :, j, :] += wyy
-        hy[:, :, i, :, j, :] -= wyy
-        hy[:, :, j, :, i, :] -= wyy
+    blocks = y_obst.new_zeros((b, k, v, v, NY, NY))   # blocks[.., i, j, a, c]
+    diag = y_obst.new_zeros((b, k, v, NY, NY))
+    if pairs:
+        tab, oi, oj, op = _pair_tables(tuple(pairs), v, y_obst.device)
+        wyy = ((w_pair[..., None, None] * y_pair[..., :, None])
+               * y_pair[..., None, :]).transpose(1, 2)    # (B, K, P, NY, NY)
+        wyy0 = torch.cat([wyy, wyy.new_zeros((b, k, 1, NY, NY))], 2)
+        for s in range(tab.shape[1]):
+            diag = diag + wyy0[:, :, tab[:, s]]
+        blocks[:, :, oi, oj] = -wyy[:, :, op]
     if o:
-        wyy_o = torch.einsum("bvok,bvoka,bvokc->bvkac", w_obst, y_obst,
-                             y_obst)
-        for vv in range(v):
-            hy[:, :, vv, :, vv, :] += wyy_o[:, vv]
-    for vv in range(v):
-        for a in range(NY):
-            hy[:, :, vv, a, vv, a] += qy_stage[:, vv]
-    return hy.reshape(b, k, v * NY, v * NY)
+        diag = diag + torch.einsum("bvok,bvoka,bvokc->bvkac", w_obst, y_obst,
+                                   y_obst).transpose(1, 2)
+    for a in range(NY):
+        diag[..., a, a] += qy_stage.transpose(1, 2)
+    ar = torch.arange(v, device=y_obst.device)
+    blocks[:, :, ar, ar] = diag
+    return blocks.transpose(3, 4).reshape(b, k, v * NY, v * NY)
 
 
 class RiccatiFactor(NamedTuple):

@@ -9,6 +9,8 @@ parent unpacked into a git-ignored directory, this script given by path)::
     python3 scripts/torch_k1_ab.py --compare OUT/sass_parent.txt OUT/sass_change.txt
     python3 /path/to/scripts/torch_k1_ab.py parent OUT k2   # K2's
     python3 /path/to/scripts/torch_k1_ab.py parent2 OUT noptxas  # again
+    python3 /path/to/scripts/torch_k1_ab.py parent OUT ric   # K6 / K7's
+    python3 scripts/torch_k1_ab.py --compare-ric OUT/sass_parent_ric.json OUT/sass_change_ric.json
 
 The first form builds the checkout's kernel library, times the structured
 IPM kernel (K1) in the tier its shape takes at P = 6, hp = hu = 20, V = 4,
@@ -29,8 +31,17 @@ launch bounds of four and two CTAs an SM that ``dense_min_ctas`` picks
 there) and writes the opcodes of its two shared-tier instantiations with
 G in shared memory to ``OUT/sass_<name>_k2_<bound>.txt``. ``--compare``
 prints the two opcode counts, their similarity ratio and the number of
-differing blocks (``difflib``). Run parent, change, change, parent in one
-call.
+differing blocks (``difflib``). With ``ric`` it times the Riccati
+sweeps (K6 / K7) in their shared tier at V = 4 and V = 16 (B = 256, K =
+64; the solve with one and two right-hand sides) and writes the opcodes
+of every shared-tier instantiation (``riccati_factor_warp_kernel<V>``,
+``riccati_factor_generic_kernel``, ``riccati_solve_kernel<V, NR>``) by
+mangled name to ``OUT/sass_<name>_ric.json`` with their ``ptxas -v``
+lines, and the first step of the long-horizon path (circle-4, hp = 64,
+B = 256) and of the one-scenario banded step to ``OUT/steps_<name>.pt``;
+``--compare-ric`` says, kernel by kernel, whether two such files hold the
+same opcodes, and whether the steps are bit for bit the same. Run parent,
+change, change, parent in one call.
 """
 import difflib
 import json
@@ -67,8 +78,13 @@ def sass_ops(lib, want) -> list:
     sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
                            str(lib)], capture_output=True, text=True).stdout
     mine = [f for f in sass.split("Function : ") if want(f.split("\n")[0])]
+    return _ops_of(mine[0]) if mine else []
+
+
+def _ops_of(function: str) -> list:
+    """The opcodes of one function's ``cuobjdump -sass`` text."""
     ops = []
-    for line in mine[0].split("\n")[1:] if mine else []:
+    for line in function.split("\n")[1:]:
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(@!?U?P\w+\s+)?"
                      r"([A-Z][A-Z0-9_.]*)", line)
         if m:
@@ -169,6 +185,100 @@ def measure(name: str, out_dir: str, ptxas: bool = True) -> None:
     print(json.dumps(rep))
 
 
+RIC_SHARED = ("riccati_factor_warp_kernel", "riccati_factor_generic_kernel",
+              "riccati_solve_kernel")
+
+
+def measure_ric(name: str, out_dir: str) -> None:
+    sys.path.insert(0, os.getcwd())
+    from scp_tpu_torch.ops import _cuda_build, riccati_kernel as rk
+    from scp_tpu_torch.testing import riccati_inputs
+    lib = _cuda_build.build_library()
+    rep = {"who": name, "kernel": "k6k7_shared"}
+    for V in (4, 16):
+        t = {k: torch.as_tensor(v, device="cuda")
+             for k, v in riccati_inputs(256, V, 64, seed=4).items()}
+        t["a_blk"] = (0.9 * t["a_blk"]).contiguous()
+        f_args = tuple(t[k] for k in ("a_blk", "b_blk", "hy", "hu"))
+        fac = rk.riccati_factor(*f_args)
+        r2 = torch.stack([t["r"], t["r"].flip(1)]).contiguous()
+        s1 = (*fac, t["a_blk"], t["b_blk"], t["r"])
+        s2 = (*fac, t["a_blk"], t["b_blk"], r2)
+        for k, fn, args in (("factor", rk.riccati_factor, f_args),
+                            ("solve_one", rk.riccati_solve, s1),
+                            ("solve_two", rk.riccati_solve, s2)):
+            rep[f"V{V}_{k}_ms"] = [graph_ms(lambda: fn(*args), reps=5,
+                                            replays=3) for _ in range(3)]
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
+                           str(lib)], capture_output=True, text=True).stdout
+    funcs = {}
+    for f in sass.split("Function : ")[1:]:
+        head = f.split("\n")[0].strip()
+        if any(k in head for k in RIC_SHARED):
+            funcs[head] = _ops_of(f)
+    with open(os.path.join(out_dir, f"sass_{name}_ric.json"), "w") as fh:
+        json.dump(funcs, fh)
+    rep["sass_kernels"] = {k: len(v) for k, v in funcs.items()}
+    torch.save(banded_steps(), os.path.join(out_dir, f"steps_{name}.pt"))
+    err = subprocess.run(
+        ["/usr/local/cuda/bin/nvcc", *_cuda_build.NVCC_FLAGS, "-Xptxas",
+         "-v", "-c", "-o", os.devnull, str(_cuda_build.CSRC / "riccati.cu")],
+        capture_output=True, text=True).stderr.splitlines()
+    rep["ptxas"] = {}
+    for i, line in enumerate(err):
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m and any(k in m.group(1) for k in RIC_SHARED):
+            rep["ptxas"][m.group(1)] = [
+                x.split(":", 1)[-1].strip() for x in err[i + 1:i + 4]
+                if "stack frame" in x or "registers" in x]
+    print(json.dumps(rep))
+
+
+def banded_steps() -> dict:
+    """The first step of the long-horizon path (circle-4, hp = 64,
+    B = 256, ``tuned_f32``: K6 / K7 through ``qp_kkt="auto"``) and of the
+    one-scenario banded step (``qp_kkt="banded"``), seed 42: their
+    StepOutputs' tensors, for a bitwise comparison of two checkouts."""
+    from scp_tpu_torch import config as config_lib
+    from scp_tpu_torch.scenarios import batch as batch_lib, builders
+    from scp_tpu_torch.sim import engine
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    cfg, data = batch_lib.make_batch("circle", 256, generator=gen,
+                                     dtype=torch.float32, device="cuda",
+                                     n_veh=4)
+    cfg = config_lib.tuned_f32(cfg.replace(hp=64, hu=64))
+    _, out_d = engine.mpc_step_batch(cfg, data, engine.init_carry(cfg, data),
+                                     phases=config_lib.TUNED_F32_PHASES)
+    cfg1, data1 = builders.circle(4, dtype=torch.float32, device="cuda")
+    cfg1 = config_lib.tuned_f32(cfg1.replace(hp=64, hu=64), qp_kkt="banded")
+    _, out_e = engine.mpc_step(cfg1, data1, engine.init_carry(cfg1, data1))
+    return {f"{p}_{k}": v.cpu() for p, o in (("d", out_d), ("e", out_e))
+            for k, v in o._asdict().items() if torch.is_tensor(v)}
+
+
+def _unhashed(name: str) -> str:
+    """A mangled name without its anonymous namespace's per-build hash
+    (``_GLOBAL__N__<hex>_<n>_riccati_cu_<hex>``)."""
+    return re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}",
+                  "_GLOBAL__N_", name)
+
+
+def compare_ric(path_a: str, path_b: str) -> None:
+    a, b = ({_unhashed(k): v for k, v in json.load(open(p)).items()}
+            for p in (path_a, path_b))
+    out = {"kernels": len(a), "same_names": sorted(a) == sorted(b),
+           "identical": sum(1 for k in a if a[k] == b.get(k)),
+           "differ": [k for k in a if a[k] != b.get(k)],
+           "only_in_b": [k for k in b if k not in a]}
+    steps = [p.replace("sass_", "steps_").replace("_ric.json", ".pt")
+             for p in (path_a, path_b)]
+    if all(os.path.exists(p) for p in steps):
+        sa, sb = (torch.load(p) for p in steps)
+        out["steps_bit_identical"] = {k: torch.equal(sa[k], sb[k])
+                                      for k in sa}
+    print(json.dumps(out))
+
+
 def compare(path_a: str, path_b: str) -> None:
     a = open(path_a).read().split()
     b = open(path_b).read().split()
@@ -181,9 +291,13 @@ def compare(path_a: str, path_b: str) -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--compare"]:
         compare(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--compare-ric"]:
+        compare_ric(*sys.argv[2:4])
     elif not torch.cuda.is_available():
         sys.exit("no CUDA device")
     elif sys.argv[3:4] == ["k2"]:
         measure_k2(*sys.argv[1:3])
+    elif sys.argv[3:4] == ["ric"]:
+        measure_ric(*sys.argv[1:3])
     else:
         measure(*sys.argv[1:3], ptxas=sys.argv[3:4] != ["noptxas"])

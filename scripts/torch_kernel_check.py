@@ -16,6 +16,7 @@ Run from the root of a checkout on a machine with an NVIDIA GPU::
     python3 scripts/torch_kernel_check.py --pivots        # K6 / K7's pivots
     python3 scripts/torch_kernel_check.py --tiers         # K1 / K2 tiers
     python3 scripts/torch_kernel_check.py --global        # K1's global tier
+    python3 scripts/torch_kernel_check.py --wide          # K6 / K7 device tier
 
 The default mode builds the kernel library (printing ``ptxas -v``), runs the
 structured IPM kernel (K1) on seeded inputs at the bench shape and two odd
@@ -571,6 +572,96 @@ def check_global() -> None:
         rep["resident"] = ik.global_occupancy(*shape, True)
         print(json.dumps(rep), flush=True)
     print(json.dumps({"global_cases_failed": bad}), flush=True)
+    if bad:
+        sys.exit(1)
+
+
+# K6 / K7's device tier: (B, V, K, forced tier, device-tier shared-memory
+# cap in bytes or None). V = 25 / 32 / 48 take the device tier by shape; V = 4
+# forced into it runs beside its shared tier; a cap of 0 runs the
+# instantiations with the small part in the workspace (the factor's from
+# V = 83 by shape: V = 90)
+WIDE_CASES = ((9, 25, 10, None, None), (4, 32, 20, None, None),
+              (3, 48, 8, None, None), (16, 4, 64, "device", None),
+              (2, 25, 6, "device", 0), (1, 90, 3, None, None))
+
+
+def check_wide() -> None:
+    """K6 / K7's device tier on seeded inputs: each output against the
+    plain version (float32) and the float64 oracle (the plain version on
+    the same inputs in float64), under ``chip_smoke.py``'s rule (the
+    kernel's distance from float64 at most twice the plain float32
+    version's + 1e-5 of the output's scale), one and two right-hand sides,
+    the launches by tier, and device ms by graph replay beside the plain
+    version's CUDA-event ms."""
+    from scp_tpu_torch.ops import _cuda_build, riccati
+    from scp_tpu_torch.ops import riccati_kernel as rk
+    from scp_tpu_torch.testing import riccati_inputs
+    _cuda_build.build_library(verbose=True)
+    bad = []
+    cap0 = rk.DEVICE_SMEM_BYTES
+    for B, V, K, tier, cap in WIDE_CASES:
+        rk.DEVICE_SMEM_BYTES = cap0 if cap is None else cap
+        t = {k: torch.as_tensor(v, device="cuda")
+             for k, v in riccati_inputs(B, V, K, seed=V).items()}
+        t["a_blk"] = (0.9 * t["a_blk"]).contiguous()
+        f_args = tuple(t[k] for k in ("a_blk", "b_blk", "hy", "hu"))
+        r2 = torch.stack([t["r"], t["r"].flip(1)]).contiguous()
+        rk.reset_launch_counts()
+        fk = rk.riccati_factor(*f_args, tier=tier)
+        du1 = rk.riccati_solve(*fk, t["a_blk"], t["b_blk"], t["r"],
+                               tier=tier)
+        du2 = rk.riccati_solve(*fk, t["a_blk"], t["b_blk"], r2, tier=tier)
+        torch.cuda.synchronize()
+        counts = dict(rk.launch_counts)
+        fp = riccati.riccati_factor_plain(*f_args)
+        fd = riccati.riccati_factor_plain(*[a.double() for a in f_args])
+        s_args = (*fk, t["a_blk"], t["b_blk"])
+        dp1 = riccati.riccati_solve_plain(*s_args, t["r"])
+        dp2 = riccati.riccati_solve_plain(*s_args, r2)
+        s64 = [a.double() for a in s_args]
+        dd1 = riccati.riccati_solve_plain(*s64, t["r"].double())
+        dd2 = riccati.riccati_solve_plain(*s64, r2.double())
+        torch.cuda.synchronize()
+        rep = {"case": f"wide_B{B}_V{V}_K{K}_tier{tier}_cap{cap}",
+               "factor_geometry": rk.factor_device_geometry(V)._asdict(),
+               "solve_geometry": rk.solve_device_geometry(V, 2)._asdict(),
+               "launches": counts}
+        for name, k, p_, d in (("f", fk[0], fp.f, fd.f),
+                               ("lh", fk[1], fp.lh, fd.lh),
+                               ("kg", fk[2], fp.kg, fd.kg),
+                               ("du_one", du1, dp1, dd1),
+                               ("du_two", du2, dp2, dd2)):
+            scale = max(float(d.abs().max()), 1e-30)
+            e_kp = float((k - p_).abs().max())
+            e_kd = float((k.double() - d).abs().max())
+            e_pd = float((p_.double() - d).abs().max())
+            rep[name] = {"kernel_vs_plain_rel": e_kp / scale,
+                         "kernel_vs_f64_rel": e_kd / scale,
+                         "plain_vs_f64_rel": e_pd / scale,
+                         "finite": bool(torch.isfinite(k).all())}
+            if (not rep[name]["finite"]
+                    or e_kd > 2 * e_pd + 1e-5 * scale):
+                bad.append(f"{rep['case']}_{name}")
+        rep["du_two_rhs0_vs_one_max_abs"] = float((du2[0] - du1).abs().max())
+        if counts["riccati_factor_device"] != 1 or \
+                counts["riccati_solve_device"] != 2:
+            bad.append(f"{rep['case']}_launches")
+        rep["ms"] = {
+            "factor": _graph_one(lambda: rk.riccati_factor(*f_args,
+                                                           tier=tier)),
+            "solve_one": _graph_one(lambda: rk.riccati_solve(
+                *fk, t["a_blk"], t["b_blk"], t["r"], tier=tier)),
+            "solve_two": _graph_one(lambda: rk.riccati_solve(
+                *fk, t["a_blk"], t["b_blk"], r2, tier=tier))}
+        if tier == "device" and cap is None:
+            rep["ms"]["factor_shared"] = _graph_one(
+                lambda: rk.riccati_factor(*f_args))
+            rep["ms"]["solve_two_shared"] = _graph_one(
+                lambda: rk.riccati_solve(*fk, t["a_blk"], t["b_blk"], r2))
+        print(json.dumps(rep), flush=True)
+    rk.DEVICE_SMEM_BYTES = cap0
+    print(json.dumps({"wide_cases_failed": bad}), flush=True)
     if bad:
         sys.exit(1)
 
@@ -1882,6 +1973,8 @@ def main() -> None:
                     help="build, then K1 / K2 in their device tier only")
     ap.add_argument("--global", dest="global_tier", action="store_true",
                     help="build, then K1's global tier")
+    ap.add_argument("--wide", action="store_true",
+                    help="build, then K6 / K7's device tier")
     args = ap.parse_args()
     if args.compare:            # two dumps: no device needed
         compare(*args.compare)
@@ -1896,6 +1989,8 @@ def main() -> None:
         pivot_check()
     elif args.global_tier:
         check_global()
+    elif args.wide:
+        check_wide()
     elif args.tiers:
         from scp_tpu_torch.ops import _cuda_build
         _cuda_build.build_library(verbose=True)

@@ -117,7 +117,9 @@ def test_entry_points_take_the_plain_versions_on_the_cpu():
         assert torch.equal(a, b)
     assert torch.equal(du, tric.riccati_solve_plain(*ref, t["a_blk"],
                                                     t["b_blk"], t["r"]))
-    assert trk.launch_counts == {"riccati_factor": 0, "riccati_solve": 0}
+    assert trk.launch_counts == dict.fromkeys(
+        ("riccati_factor", "riccati_solve", "riccati_factor_device",
+         "riccati_solve_device"), 0)
 
 
 def test_banded_solve_is_the_dense_solve():
@@ -264,16 +266,58 @@ def test_launch_geometry(B, V):
         assert blocks * ipc - B < ipc, name      # no CTA without an instance
 
 
+# The shared tier's launch at B = 256 for V = 1 ... 24, as the parent
+# computed it: (instances per CTA, threads, shared-memory bytes per CTA) of
+# the factor and of the solve at K = 64 with one and two right-hand sides.
+_SHARED_FACTOR_B256 = [
+    (2, 64, 1792), (2, 64, 3616), (2, 64, 7936), (2, 64, 13760),
+    (2, 64, 22496), (2, 64, 31264), (2, 64, 40832), (2, 64, 53952),
+    (2, 64, 66336), (2, 64, 82816), (2, 64, 97952), (2, 64, 117792),
+    (2, 64, 135744), (2, 64, 158944), (2, 64, 179648), (2, 64, 206208),
+    (2, 64, 229728), (1, 32, 129824), (1, 32, 142960), (1, 32, 159600),
+    (1, 32, 174144), (1, 32, 192464), (1, 32, 208384), (1, 32, 228384)]
+_SHARED_SOLVE1_B256 = [
+    (2, 64, 1792), (2, 64, 5248), (2, 64, 10368), (2, 64, 17152),
+    (2, 64, 25600), (2, 64, 20544), (2, 64, 26880), (2, 64, 34048),
+    (2, 64, 42048), (2, 64, 50880), (2, 64, 60544), (2, 64, 71040),
+    (2, 64, 82368), (2, 64, 94528), (2, 64, 107520), (2, 64, 121344),
+    (2, 64, 136000), (2, 64, 151488), (2, 64, 167808), (2, 64, 184960),
+    (2, 64, 202944), (2, 64, 221760), (1, 32, 120704), (1, 32, 130944)]
+_SHARED_SOLVE2_B256 = [
+    (2, 64, 2432), (2, 64, 6496), (2, 64, 12256), (2, 64, 19648),
+    (2, 64, 28736), (2, 64, 24096), (2, 64, 31040), (2, 64, 38784),
+    (2, 64, 47392), (2, 64, 56800), (2, 64, 67072), (2, 64, 78144),
+    (2, 64, 90080), (2, 64, 102816), (2, 64, 116416), (2, 64, 130816),
+    (2, 64, 146080), (2, 64, 162144), (2, 64, 179072), (2, 64, 196800),
+    (2, 64, 215392), (1, 32, 117392), (1, 32, 127520), (1, 32, 138048)]
+
+
 def test_gates_admit_every_vehicle_count_the_parent_admitted():
-    """Every V <= 21 launches (the first design's gate); the register
-    kernels end at V = 5 and the generic ones take the rest."""
-    for V in range(1, 22):
+    """Every V <= 24 stays in the shared tier with the parent's launch
+    (the register kernels end at V = 5, the generic ones take the rest);
+    V = 25 ... 64, which the parent refused, is taken by the device tier,
+    and only a forced shared tier refuses it."""
+    for V in range(1, 25):
         assert trk.check_factor_smem_gate(V) == trk.factor_smem_bytes(V)
-        for n_rhs in (1, 2):
+        assert trk.factor_tier(V) == "shared"
+        assert trk.factor_geometry(256, V) == _SHARED_FACTOR_B256[V - 1]
+        for n_rhs, want in ((1, _SHARED_SOLVE1_B256),
+                            (2, _SHARED_SOLVE2_B256)):
             assert trk.check_solve_smem_gate(V, 64, n_rhs) \
                 == trk.solve_smem_bytes(V, 64, n_rhs)
+            assert trk.solve_tier(V, 64, n_rhs) == "shared"
+            assert trk.solve_geometry(256, V, 64, n_rhs) == want[V - 1]
+    for V in range(25, 65):
+        assert trk.factor_tier(V) == "device"
+        assert trk.factor_device_geometry(V).smem_bytes \
+            <= trk.SMEM_LIMIT_BYTES
+        for n_rhs in (1, 2):
+            assert trk.solve_tier(V, 64, n_rhs) == "device"
+            assert trk.solve_device_geometry(V, n_rhs).smem_small
     with pytest.raises(NotImplementedError, match="V <= 24"):
-        trk.check_solve_smem_gate(25, 64)
+        trk.solve_tier(25, 64, tier="shared")
+    with pytest.raises(NotImplementedError, match="V <= 24"):
+        trk.factor_tier(25, tier="shared")
 
 
 def test_wrappers_check_shapes_and_gate_shared_memory():
