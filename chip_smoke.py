@@ -110,6 +110,19 @@ read just after:
   plain versions, whose feasible share floors the kernels'); (n3) ``cli
   run --scenario circle --n-veh 25 --steps 2``, one scenario and
   ``--mc 8``;
+* (o) K2's global tier, past its device tier's own carve (the step's
+  vectors in device memory too): (o1) forced beside its twins on identical
+  inputs, bit for bit the device tier at frog hp = 20 (B = 1,024), at
+  (l3)'s first QP and on frog side selection's first launch at hp = 155
+  (B = 64), and against the cluster tier at hp = 168 under the yardstick,
+  each timed beside its twin; (o2) the calibrated side-selection step at
+  frog, hp = hu = 180, B = 64 (two K2 launches a step in the global tier,
+  320 and 64 wide, mg = 4,320, n = 181; 2 chained steps, the first also
+  through the plain versions and float64, the feasible share against the
+  plain versions'; the first launch under the max-shared and the max-L1
+  carve-out); (o3) ``cli run --controller side_selection --scenario frog
+  --hp 180 --steps 2`` and ``cli run --scenario frog --hp 180 --kkt dense
+  --mc 8 --steps 2``;
 * (j) the entry points a user calls: ``scp_tpu_torch.bench.worker()`` at
   its own settings (K1 on its throughput steps, K3 / K4 on its latency
   steps; its solves/s and latency printed beside paths (a) and (c)), and
@@ -117,9 +130,11 @@ read just after:
   hp = 10, 50 steps; ``--out`` and ``--export-json`` read back: K3 / K4),
   ``run --mc 64 --noise`` (K1), frog under ``--controller side_selection``
   (K2, K5a) and circle-4 at ``--hp 64 --kkt banded`` (K6, K7) — each
-  call's launches counted; ``--kkt`` with side selection and ``--f64``
-  on the card refused before any launch; a checkpoint saved and resumed
-  mid-run at B = 64 with plant noise, bit for bit the straight run; and
+  call's launches counted; frog side selection again with ``--kkt
+  banded``, which has no effect there (the same launches and summary);
+  ``--f64`` on the card refused before any launch; a checkpoint saved and
+  resumed mid-run at B = 64 with plant noise, bit for bit the straight
+  run; and
   ``utils.debug.determinism_check`` of one calibrated step;
 * (k) scale-out (``scp_tpu_torch.parallel``), last: (k1) the data-parallel
   ``sweep`` under a one-rank NCCL process group at the bench shape
@@ -1340,8 +1355,14 @@ DENSE_WIDTHS = (1024, 256, 64)
 #    plain version's iterate): from the cold start every state entry but
 #    the slack's within ONE_ITER_LIMIT of its array's scale (at least 1: the
 #    residuals and duals run to ~10 there, where float32 keeps ~1e-6
-#    absolute) and the controls within twice the plain version's distance
-#    from float64 + 1e-4; from every later iterate, where two float32
+#    absolute), or within twice the plain version's own distance from
+#    float64 on those entries where that is larger (at long horizons the
+#    condensed P is itself ill-conditioned: at frog hp = 180 the plain
+#    float32 iterate lies ~7e-5 from float64 on the controls, the
+#    kernel's ~3e-5), the kernel no further from float64 on them than
+#    twice the plain version + ONE_ITER_LIMIT, and the controls within
+#    twice the plain version's distance from float64 + 1e-4; from every
+#    later iterate, where two float32
 #    factorizations differ by (condition) x (round-off) on single
 #    instances, what conditioning does not move: finite outputs, the same
 #    freeze flags as the plain version and the batch median of the
@@ -1584,8 +1605,13 @@ def dense_errors(args, kw, out_k, yardstick: bool = False) -> dict:
     # column, and the primal slacks are left out, as for K1)
     pairs = list(zip(out_k[:1] + out_k[4:], out_p[:1] + out_p[4:]))
     one_abs = [float((a - b)[:, :-1].abs().max()) for a, b in pairs]
-    one_rel = [e / max(1.0, _scale(b[:, :-1])) for e, (_, b) in
-               zip(one_abs, pairs)]
+    scales = [max(1.0, _scale(b[:, :-1])) for _, b in pairs]
+    one_rel = [e / sc for e, sc in zip(one_abs, scales)]
+    # ... and each of the two against float64, on the plain version's scales
+    vs64 = [max(float((t.double() - d)[:, :-1].abs().max()) / sc
+                for t, d, sc in zip(out[:1] + out[4:], out_d[:1] + out_d[4:],
+                                    scales))
+            for out in (out_k, out_p)]
     uk, up, ud = out_k[0][:, :nu], out_p[0][:, :nu], out_d[0][:, :nu]
     e_kp = (uk - up).abs().amax(dim=1)
     e_kd = (uk.double() - ud).abs().amax(dim=1)
@@ -1597,6 +1623,8 @@ def dense_errors(args, kw, out_k, yardstick: bool = False) -> dict:
            "finite": all(bool(torch.isfinite(t).all()) for t in out_k),
            "one_iter_max_abs_err": max(one_abs),
            "one_iter_max_rel_err": max(one_rel),
+           "one_iter_kernel_vs_f64_rel": vs64[0],
+           "one_iter_plain_vs_f64_rel": vs64[1],
            "u_kernel_vs_plain_max": float(e_kp.max()),
            "u_kernel_vs_plain_median": float(e_kp.median()),
            "u_kernel_vs_plain_p99": _q99(e_kp),
@@ -1662,7 +1690,10 @@ RUN_LIMITS = {
     "finite": True}
 DENSE_LIMITS = {
     "one_iteration": {
-        "cold_start": {"one_iter_rel": ONE_ITER_LIMIT,
+        "cold_start": {"one_iter_rel": f"max({ONE_ITER_LIMIT}, 2 x plain "
+                                       f"float32's distance from float64)",
+                       "one_iter_vs_f64": f"2 x plain float32's + "
+                                          f"{ONE_ITER_LIMIT}",
                        "vs_f64": "2 x plain float32's + 1e-4"},
         "every_iterate": {"u_median": U_MEDIAN_LIMIT,
                           "freeze_flags": "equal", "finite": True}},
@@ -1679,8 +1710,10 @@ def dense_off_limits(e) -> bool:
     if (not e["frozen_equal"]
             or e["u_kernel_vs_plain_median"] > U_MEDIAN_LIMIT):
         return True
+    p64 = e["one_iter_plain_vs_f64_rel"]
     return e["first_iteration"] and (
-        e["one_iter_max_rel_err"] > ONE_ITER_LIMIT
+        e["one_iter_max_rel_err"] > max(ONE_ITER_LIMIT, 2 * p64)
+        or e["one_iter_kernel_vs_f64_rel"] > 2 * p64 + ONE_ITER_LIMIT
         or e["u_kernel_vs_f64_max"] > 2 * e["u_plain_vs_f64_max"] + 1e-4)
 
 
@@ -1809,8 +1842,8 @@ def reset_counts() -> None:
 def launch_counts() -> dict:
     """Every kernel's launches since :func:`reset_counts` (K1 and K2 in
     their shared-memory tier under the wrappers' names, in their device
-    tier with ``_device``, in their cluster tier with ``_cluster``, K1 in
-    its global tier with ``_global``; the
+    tier with ``_device``, in their cluster tier with ``_cluster``, in
+    their global tier with ``_global``; the
     large-n factor over a cluster as ``cholesky_cluster``, the large-n
     solve on its staged triangle as ``cho_solve_staged``)."""
     from scp_tpu_torch.ops import ipm_kernel, linalg_kernel as lk
@@ -1823,6 +1856,7 @@ def launch_counts() -> dict:
             "ipm_iterate_dense_cluster":
                 ipm_kernel.dense_cluster_launch_count,
             "ipm_iterate_struct_global": ipm_kernel.global_launch_count,
+            "ipm_iterate_dense_global": ipm_kernel.dense_global_launch_count,
             **lk.launch_counts, **rk.launch_counts}
 
 
@@ -3335,8 +3369,10 @@ def side_selection_phases(dev, card, seed) -> dict:
 
 # ---- path (l): K1 and K2 past one block's shared memory ----
 # K1's launches of (l1) and (l2)'s full width and (l4)'s bench-shape inputs,
-# which path (m) holds the global tier against its twins on
+# which path (m) holds K1's global tier against its twins on; K2's launches
+# of (l3) and (l4), which path (o) holds K2's global tier against
 M_INPUTS: dict = {}
+O_INPUTS: dict = {}
 L_HP = 20                  # (l1) side selection at parallel-11, hp = hu = 20
 L_STEPS, L_TIMED_STEPS = 3, 1
 L_TIME_REPS = 3            # (l1) launches a graph when timing K1
@@ -3700,6 +3736,7 @@ def device_tier_phases(dev, card, seed) -> dict:
         fail(f"path l3: launches {got3}; one K2 launch in the cluster tier "
              f"wanted")
     a3, k3 = kept3["ipm_iterate_dense"][0]
+    O_INPUTS["l3"] = (a3, k3)
     tier3 = require_tier("l3", "ipm_iterate_dense", kept3, "cluster")[0]
     e3 = check_dense("l3_hp64_dense_cluster_tier_B256", a3, k3)
     vs3 = dense_tier_against("l3_hp64_dense_B256", a3, k3, "device", e3,
@@ -3752,6 +3789,7 @@ def device_tier_phases(dev, card, seed) -> dict:
                                                           device=dev)
              for k in DENSE_ARG_ORDER]
     kw4d = dict(tol=1e-6, reg_rel=3e-6, n_cor=0, n_iters=7, schur_slack=True)
+    O_INPUTS["l4"] = (dargs, kw4d)
     t4["k2_frog_shape"] = tiers_agree("ipm_iterate_dense", dargs, kw4d)
     t4["k2_frog_shape_cluster"] = dense_tier_against(
         "l4_k2_frog_shape", dargs, kw4d, "cluster",
@@ -4454,6 +4492,219 @@ def wide_banded_phases(dev, card, seed) -> dict:
     return entries
 
 
+# ---- path (o): K2's global tier (the step's vectors in device memory) ----
+O_HP = 180                 # single-vehicle frog at hp = hu = O_HP
+O_B = 64                   # (o2) scenarios: the first round 5 x O_B wide
+O_STEPS, O_TIMED_STEPS = 2, 1
+O_TIME_REPS = 1            # (o2) launches a graph when timing K2
+O_TWIN_REPS = 3            # (o1) ... and when timing the twins
+O_TWIN_B = 64              # (o1) side-selection launches cut to this width
+# (o1) frog side selection: the device tier's largest horizon and the
+# cluster tier's (no Gondzio corrector)
+O_DEVICE_HP, O_CLUSTER_HP = 155, 168
+O_CLI_MC, O_CLI_STEPS = 8, 2   # (o3)
+# the preferred shared-memory carve-outs (percent) the global tier's first
+# (o2) launch is timed under
+O_CARVEOUTS = {"max_shared": 100, "max_l1": 0}
+
+
+def dense_global_phases(dev, card, seed) -> dict:
+    """Path (o): K2's global tier, past its device tier's own carve (the
+    step's vectors and the factor in a device-memory workspace), each
+    path's launch counts set to 0 just before it and read just after:
+
+    (o1) the global tier forced beside its twins on identical inputs, both
+         timed: bit for bit the device tier at frog hp = 20, B = 1,024
+         (path (l4)'s inputs), at (l3)'s first QP (n = 257, B = 256) and on
+         the first side-selection launch of a calibrated frog step at
+         hp = O_DEVICE_HP (its first O_TWIN_B instances); at hp =
+         O_CLUSTER_HP, held to its plain version (``check_dense``) and
+         against the cluster tier (the shape's own, which sums its product
+         in another order) under ``dense_tier_against``;
+    (o2) the calibrated side-selection step at frog, hp = hu = O_HP, B =
+         O_B through ``mpc_step_batch`` (``SideSelectionChecks.batch_path``):
+         exactly two K2 launches a step, both in the global tier (5B wide
+         at 8 iterations, B wide at 12), every first-step launch against
+         its plain version and float64, O_STEPS chained steps and then
+         through the plain version (the feasible share no worse than its
+         less FROG_FEASIBLE_SLACK), step 0 three ways (the flags under the
+         yardstick); the first launch timed under each of O_CARVEOUTS;
+    (o3) ``cli run --controller side_selection --scenario frog --hp O_HP``
+         and ``cli run --scenario frog --hp O_HP --kkt dense --mc
+         O_CLI_MC`` (the SCP controller's QP, mg = 3,960), O_CLI_STEPS
+         steps each: exit 0, K2's global tier launched and no other tier
+         of K1 or K2.
+
+    Returns the ``kernels`` line's entry of the global tier."""
+    from scp_tpu_torch.ops import ipm_kernel
+    from scp_tpu_torch.scenarios import batch as batch_lib
+    from scp_tpu_torch.sim import engine
+
+    h = SideSelectionChecks(dev, card, seed)
+    real = h.real
+    k2, gl = "ipm_iterate_dense", "ipm_iterate_dense_global"
+
+    def first_ss_launch(hp):
+        """The first K2 launch (the candidates) of a calibrated frog
+        side-selection step at hp = hu = ``hp``, cut to its first O_TWIN_B
+        instances."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        cfg, data = batch_lib.make_batch(
+            "frog", -(-O_TWIN_B // SS_CANDIDATES), generator=gen,
+            dtype=torch.float32, device=dev)
+        cfg = ss_config(cfg, hp)
+        first: list = []
+
+        def capture(*a, **k):
+            first.append((a, k))
+            raise _FirstLaunch
+
+        try:
+            routed({k2: capture}, engine.mpc_step_batch, cfg, data,
+                   engine.init_carry(cfg, data))
+        except _FirstLaunch:
+            pass
+        if not first:
+            fail(f"path o1: no K2 launch at frog hp = {hp}")
+        a, k = first[0]
+        return [None if t is None else t[:O_TWIN_B].contiguous()
+                for t in a], k
+
+    # ---- (o1) the global tier beside its twins, identical inputs ----
+    t_path = time.perf_counter()
+    a4, k4 = O_INPUTS["l4"]
+    a3, k3 = O_INPUTS["l3"]
+    a155, k155 = first_ss_launch(O_DEVICE_HP)
+    o1 = {}
+    for name, (a, k) in {
+            f"l4_frog_hp20_B{a4[DENSE_G].shape[0]}": (a4, k4),
+            f"l3_n257_B{a3[DENSE_G].shape[0]}": (a3, k3),
+            f"frog_side_selection_hp{O_DEVICE_HP}_B{O_TWIN_B}":
+                (a155, k155)}.items():
+        r = tiers_agree(k2, a, {**k, "tier": "global"}, "device",
+                        reps=O_TWIN_REPS)
+        r["mg"], r["n"] = a[DENSE_G].shape[1:]
+        o1[f"{name}_vs_device"] = r
+    O_INPUTS.clear()
+    del a155
+    a168, k168 = first_ss_launch(O_CLUSTER_HP)
+    kg = {**k168, "tier": "global"}
+    e168 = check_dense(f"o1_frog_side_selection_hp{O_CLUSTER_HP}_global",
+                       a168, kg)
+    r = dense_tier_against(f"o1_frog_side_selection_hp{O_CLUSTER_HP}", a168,
+                           kg, "cluster", e168, reps=O_TWIN_REPS)
+    r["mg"], r["n"] = a168[DENSE_G].shape[1:]
+    o1[f"frog_side_selection_hp{O_CLUSTER_HP}_B{O_TWIN_B}_vs_cluster"] = r
+    del a168
+    emit({"phase": "dense_global_path_o1", "card": card, **o1,
+          "limits": {"vs_device": "bit-identical",
+                     "vs_cluster": "dense_tier_against's yardstick"},
+          "wall_s": time.perf_counter() - t_path})
+    for name, r in o1.items():
+        if r["tier"] != "global" or not (
+                r["bit_identical"] if r["other"] == "device"
+                else r["within_limits"]):
+            fail(f"path o1, {name}: the global tier against the "
+                 f"{r['other']} tier on identical inputs: {r}")
+    torch.cuda.empty_cache()
+
+    # ---- (o2) side selection at frog, hp = 180 ----
+    t_path = time.perf_counter()
+    _, _, _, kept, rep, ok = h.batch_path(
+        "o", "frog", O_B, k2, hp=O_HP, count_key=gl, steps=O_STEPS,
+        timed_steps=O_TIMED_STEPS)
+    tiers = [tier_of_launch(k2, a, k) for a, k in kept[k2]]
+    if any(t.tier != "global" for t in tiers):
+        fail(f"path o2: K2 launched in tiers {[t.tier for t in tiers]}, "
+             f"global wanted")
+    times, gmv_times = h.times("o", k2, kept, reps=O_TIME_REPS)
+    a0, k0 = kept[k2][0]
+    B0, mg0, n0 = a0[DENSE_G].shape
+    min_ctas = ipm_kernel.dense_min_ctas(B0, _sm_count())
+    chosen = ipm_kernel.DENSE_GLOBAL_CARVEOUT
+    carve = {}
+    try:
+        for name, pct in O_CARVEOUTS.items():
+            ipm_kernel.DENSE_GLOBAL_CARVEOUT = pct
+            carve[name] = {
+                "percent_shared": pct,
+                "ms": graph_ms(lambda: real[k2](*a0, **k0), O_TIME_REPS),
+                "resident_ctas_per_sm": ipm_kernel.dense_global_occupancy(
+                    min_ctas, pct)}
+    finally:
+        ipm_kernel.DENSE_GLOBAL_CARVEOUT = chosen
+    faster = min(carve, key=lambda c: carve[c]["ms"])
+    rep.update(
+        phase="dense_global_path_o2", k2_tiers=[t._asdict() for t in tiers],
+        k2_global_geometry=ipm_kernel.dense_global_geometry(
+            mg0, n0, k0["schur_slack"], k0["n_cor"])._asdict(),
+        k2_device_tier_carve_bytes=ipm_kernel.dense_smem_bytes(
+            mg0, n0, 1, O_HP, k0["schur_slack"], False, k0["n_cor"],
+            device=True),
+        k2_min_ctas=min_ctas,
+        k2_g_mib_first_launch=a0[DENSE_G].numel() * 4 / 2 ** 20,
+        k2_workspace_mib_first_launch=B0 * tiers[0].workspace_floats * 4
+        / 2 ** 20,
+        carveout_first_launch=carve, carveout_chosen_percent=chosen,
+        carveout_chosen_is_faster=O_CARVEOUTS[faster] == chosen,
+        times=times, gmv_times=gmv_times,
+        wall_s=time.perf_counter() - t_path)
+    emit(rep)
+    h.path_failures("o", rep, ok)
+    del kept, a0
+    torch.cuda.empty_cache()
+
+    # ---- (o3) the CLI at hp = 180 ----
+    t_path = time.perf_counter()
+    on_cpu = ["--cpu"] if dev.type == "cpu" else []
+    cli = {}
+    for name, argv in (
+            ("side_selection", ["run", "--controller", "side_selection",
+                                "--scenario", "frog", "--hp", str(O_HP),
+                                "--steps", str(O_CLI_STEPS)]),
+            ("scp_dense_mc", ["run", "--scenario", "frog", "--hp",
+                              str(O_HP), "--kkt", "dense", "--mc",
+                              str(O_CLI_MC), "--steps", str(O_CLI_STEPS)])):
+        r = run_cli(argv + on_cpu)
+        cli[name] = r
+        others = [k for k, v in r["launches"].items()
+                  if v and k.startswith("ipm_") and k != gl]
+        if r["exit_code"] or not r["launches"][gl] or others:
+            fail(f"path o3: cli {' '.join(argv)}: exit {r['exit_code']}, "
+                 f"launches {r['launches']}; K2's global tier only wanted")
+    emit({"phase": "dense_global_path_o3", "card": card, **cli,
+          "wall_s": time.perf_counter() - t_path})
+
+    per = rep["launches_per_step"]
+    w = f"o_B{SS_CANDIDATES * O_B}"
+    emit({"phase": "dense_global_summary", "card": card,
+          "launches_per_step_o2": per,
+          "chained_step_ms_o2": rep["chained_step_ms"],
+          "step_ms_o2": rep["step_ms"],
+          "peak_device_memory_mib_o2": rep["peak_device_memory_mib"],
+          "step_peak_above_resident_mib_o2":
+              rep["step_peak_above_resident_mib"],
+          "feasible_share_o2": rep["feasible_share"],
+          "feasible_share_plain_o2": rep["feasible_share_plain"],
+          "carveout_first_launch_ms": {k: v["ms"] for k, v in carve.items()},
+          "launches_o3_cli": {k: r["launches"][gl] for k, r in cli.items()}})
+    return {gl: {
+        "name": gl, "route": "cuda", "tier": "global",
+        "source": "scp_tpu_torch/csrc/ipm_dense_global.cu",
+        "also_source": "scp_tpu_torch/csrc/ipm_dense.cuh",
+        "replaces": "scp_tpu/ops/pallas_linalg.py:1107",
+        "launches": per[gl] * O_STEPS, "launches_per_step_o2": per[gl],
+        "max_abs_err": rep["kernel_vs_plain_max_abs_err"],
+        **{k: times[w][k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by")},
+        "library_ms": None,      # no single PyTorch call computes it
+        "times_o2": times, "carveout_ms_o2": carve,
+        "vs_twins_o1": {k: {key: r[key] for key in (
+            "B", "mg", "n", "n_iters", "other", "bit_identical", "ms",
+            "other_ms")} for k, r in o1.items()},
+        "cli_launches_o3": {k: r["launches"][gl] for k, r in cli.items()}}}
+
+
 # ---- path (j): the entry points (cli / bench) ----
 # Numbers other paths measured in this run, for path (j) to print beside
 # its own: path (a)'s solves/s, path (c)'s step latency.
@@ -4682,6 +4933,21 @@ def entry_point_phases(dev, card, seed, calibrated) -> dict:
         require_launches("cli run --controller side_selection",
                          r["launches"], ["ipm_iterate_dense", "gmv"])
 
+        # ---- --kkt with side selection: the same run as without it ----
+        r_k = run_cli(["run", "--scenario", "frog", "--controller",
+                       "side_selection", "--kkt", "banded", "--steps",
+                       str(J_SS_STEPS)] + on_cpu)
+        add(r_k["launches"])
+        timeless = ("wall_s", "steps_per_sec")
+        same = r_k["launches"] == r["launches"] and all(
+            r_k["summary"][k] == v for k, v in r["summary"].items()
+            if k not in timeless)
+        emit({"phase": "entry_cli_side_selection_kkt", **r_k,
+              "same_launches_and_summary_as_without": same})
+        if r_k["exit_code"] or not same:
+            fail(f"cli run --controller side_selection --kkt banded must run "
+                 f"as without --kkt: {r_k} against {r}")
+
         # ---- circle-4, hp = 64, banded (K6, K7) ----
         r = run_cli(["run", "--n-veh", "4", "--hp", "64", "--kkt", "banded",
                      "--steps", str(J_BANDED_STEPS)] + on_cpu)
@@ -4690,10 +4956,9 @@ def entry_point_phases(dev, card, seed, calibrated) -> dict:
         require_launches("cli run --hp 64 --kkt banded", r["launches"],
                          ["riccati_factor", "riccati_solve"])
 
-        # ---- the refusals: before any work, no launch ----
+        # ---- the refusal: before any work, no launch ----
         refusals = []
-        for argv in (["run", "--controller", "side_selection", "--kkt",
-                      "dense"], ["run", "--f64"]):
+        for argv in (["run", "--f64"],):
             r = run_cli(argv)
             refusals.append(r)
             if r["exit_code"] != 2 or any(r["launches"].values()) \
@@ -5472,6 +5737,10 @@ def main() -> None:
     wide_entries = wide_banded_phases(dev, card, SEED)
     phase_end["wide_banded"] = time.perf_counter()
 
+    # ---- path (o): K2's global tier, frog at hp = 180 ----
+    dense_global_entries = dense_global_phases(dev, card, SEED)
+    phase_end["dense_global_tier"] = time.perf_counter()
+
     # ---- path (j): the entry points, cli and bench ----
     entry_counts = entry_point_phases(dev, card, SEED,
                                       (cfg, data, carry0, PHASES))
@@ -5491,6 +5760,7 @@ def main() -> None:
                                       "ipm_iterate_dense_cluster",
                                       "ipm_iterate_dense_device")] + [
         global_entries["ipm_iterate_struct_global"],
+        dense_global_entries["ipm_iterate_dense_global"],
         wide_entries["riccati_factor_device"],
         wide_entries["riccati_solve_device"]]
     for r in reports:

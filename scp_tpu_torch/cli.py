@@ -50,6 +50,9 @@ def _configure(args, cfg, dtype):
         overrides["obst_as_qcqp"] = False
     if getattr(args, "kkt", ""):
         overrides["qp_kkt"] = args.kkt
+        if getattr(args, "controller", "scp") == "side_selection":
+            print("--kkt has no effect with --controller side_selection "
+                  "(its QPs always take the dense KKT)", file=sys.stderr)
     if args.hp:
         overrides.update(hp=args.hp, hu=args.hp)
     if getattr(args, "noise", False):
@@ -267,8 +270,8 @@ def main(argv=None):
                     default="",
                     help="inner-QP KKT formulation override (default: "
                          "the tuned-config choice; 'banded' forces the "
-                         "Riccati path; SCP controller only, refused with "
-                         "--controller side_selection)")
+                         "Riccati path; SCP controller only: no effect "
+                         "with --controller side_selection)")
     pr.add_argument("--seed", type=int, default=0)
     pr.add_argument("--f64", action="store_true",
                     help="float64 (with --cpu only: the kernels are "
@@ -324,10 +327,6 @@ def main(argv=None):
     pb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
-    if args.cmd == "run":
-        if args.kkt and args.controller == "side_selection":
-            pr.error("--kkt has no effect with --controller side_selection "
-                     "(its QPs always take the dense KKT); drop --kkt")
     if args.cmd in ("run", "sweep") and args.f64 and not args.cpu:
         (pr if args.cmd == "run" else ps).error(
             "--f64 runs on the CPU only: the CUDA kernels are float32, so "

@@ -130,23 +130,23 @@ __device__ inline void build_rhs(const Rows& g, const IpmVecs& v,
 // since inlined, the factor's register tiles spilled its step algebra under
 // its launch bounds (PERF.md); the structured kernel spilled more with it
 // out of line. kDevK: the factored matrix lies in device memory (a kernel's
-// device tier). Each value is a function of its own, so that an out-of-line
-// factor whose every caller passes shared memory keeps shared-memory loads
-// rather than generic ones.
+// device tier); kDevV: its dinv too (a global tier). Each combination is a
+// function of its own, so that an out-of-line factor whose every caller
+// passes shared memory keeps shared-memory loads rather than generic ones.
 #ifndef SCP_IPM_FACTOR_CALL
 #define SCP_IPM_FACTOR_CALL inline
 #endif
 
-template <bool kDevK>
+template <bool kDevK, bool kDevV = false>
 static __device__ SCP_IPM_FACTOR_CALL void ipm_factor(float* K, int n, int ld,
                                                       float* dinv, int* bad) {
   chol_blocked_smem<kIpmThreads>(K, n, ld, dinv, bad);
 }
 
-template <bool kDevK>
+template <bool kDevK, bool kDevV = false>
 __device__ inline void factor_kkt(const IpmVecs& v, const IpmDims& d) {
   if (threadIdx.x == 0) *v.bad = 0;
-  ipm_factor<kDevK>(v.K, d.nk, d.ldk, v.dinv, v.bad);
+  ipm_factor<kDevK, kDevV>(v.K, d.nk, d.ldk, v.dinv, v.bad);
   if (threadIdx.x == 0 && *v.bad) v.dinv[0] = CUDART_NAN_F;
 }
 

@@ -47,12 +47,12 @@ factor in the cluster's shared memory (16-row stripes dealt over the ranks,
 ``csrc/chol_cluster.cuh``), rank 0 holding the step's vectors and running
 the step. The arithmetic is the same in every tier, but for the order in
 which K2's cluster tier sums each entry of its product (it streams G
-through shared memory by rows; :func:`dense_cluster_geometry`). K1 has a
-fourth past its device tier's own shared memory (``"global"``,
-:func:`global_geometry`): the step's vectors in the device-memory workspace
-too, before the KKT matrix; K1 raises ``NotImplementedError`` only where a
-tier is forced at a shape it cannot hold, K2 past its device tier's own
-shared memory.
+through shared memory by rows; :func:`dense_cluster_geometry`). Both have
+a fourth past their device tier's own shared memory (``"global"``,
+:func:`global_geometry`, :func:`dense_global_geometry`): the step's vectors
+in the device-memory workspace too, before the KKT matrix. Each raises
+``NotImplementedError`` only where a tier is forced at a shape it cannot
+hold.
 """
 from __future__ import annotations
 
@@ -65,9 +65,9 @@ from scp_tpu_torch.ops import _cuda_build, linalg_kernel
 from scp_tpu_torch.ops._cuda_build import SMEM_LIMIT_BYTES
 
 # Launches of the structured kernel (K1) and of the dense-G kernel (K2) in
-# their shared-memory tier, of each in its device tier and in its cluster
-# tier, and of K1 in its global tier, since the last reset (incremented
-# where each kernel is launched and nowhere else).
+# their shared-memory tier, of each in its device, its cluster and its
+# global tier, since the last reset (incremented where each kernel is
+# launched and nowhere else).
 launch_count = 0
 dense_launch_count = 0
 device_launch_count = 0
@@ -75,6 +75,7 @@ dense_device_launch_count = 0
 cluster_launch_count = 0
 dense_cluster_launch_count = 0
 global_launch_count = 0
+dense_global_launch_count = 0
 
 # K1's and K2's cluster tiers: the cluster sizes tried, smallest first (the
 # first whose ranks each hold their carve is taken). A cluster holds one
@@ -82,10 +83,16 @@ global_launch_count = 0
 STRUCT_CLUSTER_SIZES = (2, 4, 8)
 DENSE_CLUSTER_SIZES = (2, 4, 8)
 TIERS = ("shared", "cluster", "device", "global")
-DENSE_TIERS = ("shared", "cluster", "device")
+DENSE_TIERS = ("shared", "cluster", "device", "global")
 # G rows a stage of K2's cluster tier streams (csrc/ipm_dense.cu::
 # kGStageRows)
 DENSE_STAGE_ROWS = 16
+# The preferred carve-out of the SM's unified L1 / shared memory for K2's
+# global tier, in percent of it as shared memory (-1: the CUDA
+# default): the largest L1, since its CTAs take 132 bytes of shared memory
+# and read G, the factor and the vectors through L1 (chip_smoke.py path
+# (o2) times both ends; PERF.md). It changes no result.
+DENSE_GLOBAL_CARVEOUT = 0
 
 _tables: dict = {}
 
@@ -94,6 +101,7 @@ def reset_launch_count() -> None:
     global launch_count, dense_launch_count, cluster_launch_count
     global device_launch_count, dense_device_launch_count
     global dense_cluster_launch_count, global_launch_count
+    global dense_global_launch_count
     launch_count = 0
     dense_launch_count = 0
     device_launch_count = 0
@@ -101,6 +109,7 @@ def reset_launch_count() -> None:
     cluster_launch_count = 0
     dense_cluster_launch_count = 0
     global_launch_count = 0
+    dense_global_launch_count = 0
 
 
 class Tier(NamedTuple):
@@ -110,10 +119,11 @@ class Tier(NamedTuple):
     :func:`cluster_geometry`, :func:`dense_cluster_geometry`),
     ``"device"`` (the KKT matrix and its factor in a device-memory
     workspace of ``workspace_floats`` floats per instance, 0 in the shared
-    and cluster tiers) or, for K1, ``"global"`` (the step's vectors and
-    the KKT matrix after them in a device-memory workspace of
-    ``workspace_floats`` floats per instance: :func:`global_geometry`,
-    :func:`global_layout`); ``smem_bytes``: the
+    and cluster tiers) or ``"global"`` (the step's vectors and the KKT
+    matrix after them in a device-memory workspace of ``workspace_floats``
+    floats per instance: :func:`global_geometry` / :func:`global_layout`,
+    :func:`dense_global_geometry` / :func:`dense_global_layout`);
+    ``smem_bytes``: the
     launch's dynamic shared memory per CTA; ``g_smem``: K2's G in shared
     memory (False for K1)."""
     tier: str
@@ -127,7 +137,7 @@ def kkt_ld(nk: int, device: bool) -> int:
     """Leading dimension of the factored KKT matrix (``nk`` columns): odd in
     shared memory, a multiple of 32 floats (128-byte rows) in the device
     tier's workspace (``csrc/ipm_struct.cu::kkt_ld``,
-    ``ipm_dense.cu::dense_kkt_ld``)."""
+    ``ipm_dense.cuh::dense_kkt_ld``)."""
     return (nk + 31) // 32 * 32 if device else nk | 1
 
 
@@ -235,7 +245,7 @@ def global_layout(P: int, S: int, hp: int, hu: int,
 
 
 class GlobalGeometry(NamedTuple):
-    """K1's global tier at a shape: ``smem_bytes`` a CTA (one an
+    """K1's or K2's global tier at a shape: ``smem_bytes`` a CTA (one an
     instance); ``vec_floats`` (the vectors, rounded up to 32) and
     ``workspace_floats`` (the vectors and the KKT matrix) an instance."""
     smem_bytes: int
@@ -776,7 +786,7 @@ def dense_smem_bytes(mg: int, n: int, nb: int, d: int, schur: bool,
                      g_smem: bool, n_cor: int = 1,
                      device: bool = False) -> int:
     """Dynamic shared memory of the dense-G kernel (mirrors the carve in
-    ``csrc/ipm_dense.cu::dense_smem_words``): the factor (none in the
+    ``csrc/ipm_dense.cuh::dense_smem_words``): the factor (none in the
     device tier, ``device``), the P blocks (``nb = 0``: a dense P, which
     stays in device memory and takes none), the step's vectors (one
     m-vector fewer without Gondzio correctors: ``n_cor = 0``) and, with
@@ -840,18 +850,62 @@ def dense_cluster_geometry(mg: int, n: int, schur: bool,
     return None
 
 
+def dense_global_smem_bytes() -> int:
+    """Dynamic shared memory of a CTA of K2's global tier (mirrors
+    ``csrc/ipm_dense.cuh::kGlobalSmemWords``): the reduction scratch and the
+    failure flag, at every shape."""
+    return 4 * (_RED_WORDS + 1)
+
+
+def dense_global_layout(mg: int, n: int, schur: bool,
+                        n_cor: int) -> dict[str, tuple[int, int]]:
+    """``name -> (offset, floats)`` of one instance's slot of K2's global
+    workspace (mirrors ``csrc/ipm_dense.cuh::carve_dense_global``): the
+    eight m-vectors (and ``dz`` with Gondzio correctors; without, the
+    final dz shares the predictor's ``a2``), the seven n-vectors, and the
+    ``nk x ldk`` factor ``K`` from the vectors' end rounded up to 32
+    floats. The P blocks (or the dense P), ``q`` and ``pdiag`` are read in
+    place from the inputs, G from device memory."""
+    nk = n - 1 if schur else n
+    m = mg + 2 * n
+    vecs = ["s", "z", "rp", "w", "a1", "a2", "a3", "ds"]
+    vecs += ["dz"] if n_cor > 0 else []
+    names = [(k, m) for k in vecs]
+    names += [(k, n) for k in ("x", "px", "dsc", "kb", "rhs", "dx", "dinv")]
+    out, at = {}, 0
+    for k, size in names:
+        out[k] = (at, size)
+        at += size
+    out["K"] = (-(-at // 32) * 32, nk * kkt_ld(nk, True))
+    return out
+
+
+def dense_global_geometry(mg: int, n: int, schur: bool,
+                          n_cor: int) -> GlobalGeometry:
+    """K2's global tier at a shape (:func:`dense_global_smem_bytes`,
+    :func:`dense_global_layout`). At frog's side-selection QP at hp = 180
+    (mg = 4,320, n = 181, no corrector) 73,312 floats an instance."""
+    off, size = dense_global_layout(mg, n, schur, n_cor)["K"]
+    return GlobalGeometry(dense_global_smem_bytes(), off, off + size)
+
+
 def dense_tier(mg: int, n: int, nb: int, d: int, schur: bool,
                n_cor: int = 1, tier: str | None = None) -> Tier:
     """The dense-G kernel's storage tier at a shape: the shared tier where
     :func:`fits_dense_smem` holds (G in shared memory too when that fits),
     else the cluster tier where a cluster holds the KKT matrix
     (:func:`dense_cluster_geometry`), else the device tier (the ``nk x
-    ldk`` factor in a device-memory workspace, G in device memory);
+    ldk`` factor in a device-memory workspace, G in device memory) where
+    its shared memory holds the vectors and the P blocks, else the global
+    tier (the vectors in device memory too, :func:`dense_global_geometry`);
     ``tier`` forces one of :data:`DENSE_TIERS` at any shape it holds.
-    Raises ``NotImplementedError``, naming the bytes, where the tier's own
-    shared memory exceeds a block's."""
+    Raises ``NotImplementedError``, naming the bytes, only where a forced
+    tier's own shared memory exceeds a block's (never the global
+    tier's)."""
     if tier not in (None,) + DENSE_TIERS:
         raise ValueError(f"unknown tier {tier!r}")
+    if tier == "global":
+        return _dense_global_tier(mg, n, schur, n_cor)
     fits = fits_dense_smem(mg, n, nb, d, schur)
     if tier == "cluster" or (tier is None and not fits):
         cl = dense_cluster_geometry(mg, n, schur, n_cor)
@@ -864,14 +918,16 @@ def dense_tier(mg: int, n: int, nb: int, d: int, schur: bool,
                 f"mg={mg}, n={n} with {DENSE_CLUSTER_SIZES[-1]} CTAs")
     dev = tier == "device" or (tier is None and not fits)
     need = dense_smem_bytes(mg, n, nb, d, schur, False, n_cor, dev)
+    if need > SMEM_LIMIT_BYTES and tier is None:
+        return _dense_global_tier(mg, n, schur, n_cor)
     if need > SMEM_LIMIT_BYTES:
         full = dense_smem_bytes(mg, n, nb, d, schur, False, n_cor)
         raise NotImplementedError(
             f"the dense-G fused IPM kernel needs {need} bytes of shared "
             f"memory per instance in its {'device' if dev else 'shared'} "
             f"tier at mg={mg}, n={n} ({full} with the factor; limit "
-            f"{SMEM_LIMIT_BYTES}); qp_kkt='auto' with a banded stage "
-            f"statement takes the banded KKT path there")
+            f"{SMEM_LIMIT_BYTES}); the global tier (tier='global' or none) "
+            f"keeps the vectors in device memory there")
     nk = n - 1 if schur else n
     if dev:
         return Tier("device", need, nk * kkt_ld(nk, True), False)
@@ -879,6 +935,11 @@ def dense_tier(mg: int, n: int, nb: int, d: int, schur: bool,
     if with_g <= SMEM_LIMIT_BYTES:
         return Tier("shared", with_g, 0, True)
     return Tier("shared", need, 0, False)
+
+
+def _dense_global_tier(mg, n, schur, n_cor) -> Tier:
+    g = dense_global_geometry(mg, n, schur, n_cor)
+    return Tier("global", g.smem_bytes, g.workspace_floats, False)
 
 
 def dense_min_ctas(B: int, sm_count: int) -> int:
@@ -905,6 +966,8 @@ def dense_resident_ctas_per_sm(mg: int, n: int, nb: int, d: int,
     t = dense_tier(mg, n, nb, d, schur, n_cor, tier)
     if t.tier == "cluster":
         return dense_cluster_occupancy(mg, n, nb, d, schur, n_cor)[0]
+    if t.tier == "global":
+        return dense_global_occupancy(min_ctas)
     fn = _cuda_build.load_library().ipm_dense_occupancy
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
@@ -935,6 +998,49 @@ def dense_cluster_occupancy(mg: int, n: int, nb: int, d: int, schur: bool,
         raise RuntimeError(f"ipm_dense_cluster_occupancy failed with CUDA "
                            f"error {err}")
     return ctas.value, clusters.value
+
+
+def dense_global_occupancy(min_ctas: int,
+                           carveout: int | None = None) -> int:
+    """CTAs of K2's global tier built for ``min_ctas`` CTAs an SM that one
+    SM holds (the CUDA occupancy calculator, with the tier's 132 bytes of
+    shared memory and the carve-out ``carveout``, by default
+    :data:`DENSE_GLOBAL_CARVEOUT`). Needs the card."""
+    fn = _cuda_build.load_library().ipm_dense_global_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    ctas = ctypes.c_int(0)
+    err = fn(min_ctas, DENSE_GLOBAL_CARVEOUT if carveout is None
+             else carveout, ctypes.byref(ctas))
+    if err != 0:
+        raise RuntimeError(f"ipm_dense_global_occupancy failed with CUDA "
+                           f"error {err}")
+    return ctas.value
+
+
+_STATE = ("x", "sg", "su", "sl", "zg", "zu", "zl", "rpg", "rpu", "rpl",
+          "scal")
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
+# ``csrc/ipm_dense_global.cu::ipm_dense_global_launch``'s arguments by name,
+# in the order of its prototype.
+DENSE_GLOBAL_LAUNCH_ARGS = (
+    *[(k, _P) for k in ("G", "P", "pb", "q", "pdiag", *_STATE)],
+    *[(k + "o", _P) for k in _STATE], ("ws", _P),
+    *[(k, _I) for k in ("B", "mg", "n", "nb", "d", "schur", "n_iters",
+                        "n_cor", "min_ctas", "carveout")],
+    ("tol", _F), ("tol_stall", _F), ("reg_rel", _F),
+    ("smem_bytes", _L), ("ws_floats", _L), ("stream", _P))
+
+
+def _dense_global_launch(**args) -> int:
+    """``ipm_dense_global_launch`` called with ``args`` by name
+    (:data:`DENSE_GLOBAL_LAUNCH_ARGS`)."""
+    fn = _cuda_build.load_library().ipm_dense_global_launch
+    if fn.argtypes is None:
+        fn.argtypes = [t for _, t in DENSE_GLOBAL_LAUNCH_ARGS]
+        fn.restype = ctypes.c_int
+    return fn(*[args[k] for k, _ in DENSE_GLOBAL_LAUNCH_ARGS])
 
 
 def _dense_launcher(cluster: bool = False):
@@ -1014,11 +1120,11 @@ def ipm_iterate_dense(G, P, pb, q, pdiag,
 
     CUDA tensors (float32, contiguous) go to the hand-written kernel in
     the storage tier :func:`dense_tier` picks for the shape (``tier``
-    forces one, for checking the tiers against each other), in the shared
-    and device tiers at the launch bound :func:`dense_min_ctas` picks for
-    ``B``; there is no fallback: a failing build, load or launch raises,
-    and so does a cluster that cannot be resident. CPU tensors go to
-    :func:`ipm_iterate_dense_plain`.
+    forces one, for checking the tiers against each other), in the shared,
+    device and global tiers at the launch bound :func:`dense_min_ctas`
+    picks for ``B``; there is no fallback: a failing build, load or launch
+    raises, and so does a cluster that cannot be resident. CPU tensors go
+    to :func:`ipm_iterate_dense_plain`.
     """
     state = (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)
     B, mg, n, nb, d = _check_dense(G, P, pb, q, pdiag, state)
@@ -1027,12 +1133,35 @@ def ipm_iterate_dense(G, P, pb, q, pdiag,
             G, P, pb, q, pdiag, *state, n_iters=n_iters, tol=tol,
             reg_rel=reg_rel, n_cor=n_cor, schur_slack=schur_slack)
     global dense_launch_count, dense_device_launch_count
-    global dense_cluster_launch_count
+    global dense_cluster_launch_count, dense_global_launch_count
     ins = [G, P, pb, q, pdiag, *state]
     _check_launchable(ins)
     t = dense_tier(mg, n, nb, d, schur_slack, n_cor, tier)
     outs = [torch.empty_like(o) for o in state]
     ptr = [0 if a is None else a.data_ptr() for a in ins]
+    if t.tier == "global":
+        min_ctas = dense_min_ctas(B, _sm_count(G.device))
+        ws = torch.empty((B, t.workspace_floats), dtype=torch.float32,
+                         device=G.device)
+        with torch.cuda.device(G.device):
+            err = _dense_global_launch(
+                **dict(zip(("G", "P", "pb", "q", "pdiag", *_STATE), ptr)),
+                **{k + "o": o.data_ptr() for k, o in zip(_STATE, outs)},
+                ws=ws.data_ptr(), B=B, mg=mg, n=n, nb=nb, d=d,
+                schur=int(schur_slack), n_iters=int(n_iters),
+                n_cor=int(n_cor), min_ctas=min_ctas,
+                carveout=DENSE_GLOBAL_CARVEOUT, tol=float(tol),
+                tol_stall=float(tol * 1e3), reg_rel=float(reg_rel),
+                smem_bytes=t.smem_bytes, ws_floats=B * t.workspace_floats,
+                stream=torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"ipm_dense_global_launch failed with CUDA error {err} "
+                f"(B={B}, mg={mg}, n={n}, nb={nb}, d={d}, "
+                f"min_ctas={min_ctas}, {B * t.workspace_floats} workspace "
+                f"floats)")
+        dense_global_launch_count += 1
+        return tuple(outs)
     if t.tier == "cluster":
         nk = n - 1 if schur_slack else n
         C, area, _ = dense_cluster_geometry(mg, n, schur_slack, n_cor)

@@ -766,9 +766,8 @@ def _route(q, h, G, *, fixed_iters, p_blocks, slack_schur, g_struct,
     banded KKT past it when a stage statement is given; without one, and
     under ``kkt="dense"``, a fused kernel runs in whichever storage tier
     holds the shape (``ipm_kernel.struct_tier`` / ``dense_tier``: past the
-    shared tier the cluster or device tier and, for K1, the global tier
-    past that, as ``scp_tpu`` falls back from its fused kernel to its XLA
-    path). For the adaptive branch the gate is
+    shared tier the cluster or device tier and the global tier past that,
+    as ``scp_tpu`` falls back from its fused kernel to its XLA path). For the adaptive branch the gate is
     ``linalg_kernel.fits_chol_smem`` (n < 240), although the dense factor
     and solve take any n (from n = 240 with the matrix in device memory),
     so ``kkt="dense"`` runs the adaptive branch at every n. The route
@@ -795,13 +794,11 @@ def _route(q, h, G, *, fixed_iters, p_blocks, slack_schur, g_struct,
     if kkt == "dense" or fits:
         return route
     if banded is None:
-        # past the shared tier the cluster, device or (K1) global tier;
-        # K2's tier function raises past its device tier, naming the bytes
-        # and the banded statement
+        # past the shared tier the cluster, device or global tier; K1's
+        # tier function raises only where its global tier's index tables
+        # exceed a block, naming the bytes (K2's never raises here)
         if route == "struct":
             ipm_kernel.struct_tier(*shape)
-        else:
-            ipm_kernel.dense_tier(*shape)
         return route
     return "banded"
 
@@ -859,8 +856,7 @@ def solve_qp_batched(P, q, G, h, lb, ub, *, max_iter: int = 30,
     shared-memory tier holds the shape (the adaptive branch where the
     shared-memory factor's does, n < 240, or wherever no ``banded`` is
     given) and the banded branch past them — without ``banded`` a fused
-    kernel's cluster or device tier, K1's global tier past those, while K2
-    raises past its device tier.
+    kernel's cluster or device tier, and its global tier past those.
     ``certificate=False`` takes the cheap convergence certificate of the
     fused branches (primal residual from the kernel's recurrence).
     """

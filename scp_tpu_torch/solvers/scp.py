@@ -297,18 +297,16 @@ def solve_scp(problem: SCPProblem, u_init: torch.Tensor, *,
     evaluation and the QP's rows run on the block; the QP is row-sharded
     (:func:`qp.solve_qp`'s ``axis_name``), and the violation / feasibility
     are reduced at the start and after every QP, so the loop runs in
-    lockstep on every rank. ``qp_kkt="banded"`` is refused there
-    (``ValueError``), where ``scp_tpu`` solves dense without a word;
-    ``"auto"`` is dense per instance anyway.
+    lockstep on every rank. The row-sharded QP forms the dense KKT, so
+    there ``qp_kkt="banded"`` solves dense, as ``scp_tpu`` does (its
+    ``use_banded`` requires ``axis_name is None``); ``"auto"`` is dense per
+    instance anyway.
     """
     if axis_name is not None:
         if n_con_total is None:
             raise ValueError("axis_name requires n_con_total")
         if qp_kkt == "banded":
-            raise ValueError(
-                "qp_kkt='banded' is not horizon-sharded: the row-sharded QP "
-                "forms the dense KKT; use qp_kkt='dense' or 'auto' with "
-                "axis_name")
+            qp_kkt = "dense"
     _check_kkt(problem, qp_kkt)
     sys = problem.sys
     dtype, device = u_init.dtype, u_init.device

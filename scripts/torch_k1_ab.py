@@ -11,6 +11,7 @@ parent unpacked into a git-ignored directory, this script given by path)::
     python3 /path/to/scripts/torch_k1_ab.py parent2 OUT noptxas  # again
     python3 /path/to/scripts/torch_k1_ab.py parent OUT ric   # K6 / K7's
     python3 scripts/torch_k1_ab.py --compare-ric OUT/sass_parent_ric.json OUT/sass_change_ric.json
+    python3 scripts/torch_k1_ab.py --compare-k2 OUT/sass_parent_k2.json OUT/sass_change_k2.json
 
 The first form builds the checkout's kernel library, times the structured
 IPM kernel (K1) in the tier its shape takes at P = 6, hp = hu = 20, V = 4,
@@ -28,8 +29,17 @@ differently; the predicates of ``K1_TIERS`` find each); ``noptxas`` skips
 the second compile (a repeated run of a checkout). With ``k2`` it times the dense-G kernel (K2) on
 one frog QP (mg = 440, n = 21, 7 iterations) at B = 1,024 and 256 (the
 launch bounds of four and two CTAs an SM that ``dense_min_ctas`` picks
-there) and writes the opcodes of its two shared-tier instantiations with
-G in shared memory to ``OUT/sass_<name>_k2_<bound>.txt``. ``--compare``
+there), writes the opcodes of its two shared-tier instantiations with
+G in shared memory to ``OUT/sass_<name>_k2_<bound>.txt`` and those of
+every instantiation of its shared, device and cluster tiers (and of the
+out-of-line factor they call; ``K2_LABELS``, by template arguments, so that
+checkouts that template them differently compare) to
+``OUT/sass_<name>_k2.json`` with their ``ptxas -v`` lines, and the first
+step of paths (f) (frog, hp = 20, B = 1,024), (i) (frog side selection,
+hp = 10, B = 1,024) and (iii) (one frog scenario's side-selection step)
+and a K2 launch in the cluster tier at (l3)'s shape (n = 257, B = 256,
+seeded inputs) to ``OUT/steps_<name>_k2.pt``; ``--compare-k2`` compares
+two such files as ``--compare-ric`` does. ``--compare``
 prints the two opcode counts, their similarity ratio and the number of
 differing blocks (``difflib``). With ``ric`` it times the Riccati
 sweeps (K6 / K7) in their shared tier at V = 4 and V = 16 (B = 256, K =
@@ -114,7 +124,92 @@ def measure_k2(name: str, out_dir: str) -> None:
                   "w") as f:
             f.write("\n".join(ops))
         rep[f"sass_instructions_{bound}"] = len(ops)
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
+                           str(lib)], capture_output=True, text=True).stdout
+    funcs = {}
+    for f in sass.split("Function : ")[1:]:
+        label = k2_label(f.split("\n")[0])
+        if label:
+            funcs[label] = _ops_of(f)
+    with open(os.path.join(out_dir, f"sass_{name}_k2.json"), "w") as fh:
+        json.dump(funcs, fh)
+    rep["sass_kernels"] = {k: len(v) for k, v in funcs.items()}
+    err = subprocess.run(
+        ["/usr/local/cuda/bin/nvcc", *_cuda_build.NVCC_FLAGS, "-Xptxas",
+         "-v", "-c", "-o", os.devnull, str(_cuda_build.CSRC / "ipm_dense.cu")],
+        capture_output=True, text=True).stderr.splitlines()
+    rep["ptxas"] = {}
+    for i, line in enumerate(err):
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            rep["ptxas"][k2_label(m.group(1)) or m.group(1)] = [
+                x.split(":", 1)[-1].strip() for x in err[i + 1:i + 4]
+                if "stack frame" in x or "registers" in x]
+    torch.save(dense_steps(), os.path.join(out_dir, f"steps_{name}_k2.pt"))
     print(json.dumps(rep))
+
+
+def k2_label(head: str):
+    """The template arguments of a K2 function of the shared, device or
+    cluster tier, or of the out-of-line factor they call, from its
+    mangled name, as ``ipm_dense_kernel<kGSmem, kMinCtas, kKDev>`` /
+    ``ipm_factor<kDevK>``; None for the global tier's (a fourth argument,
+    or a second of the factor's, true) and for every other function."""
+    m = re.search(r"ipm_dense_kernelILb([01])ELi([24])ELb([01])E"
+                  r"(?:Lb([01])E)?E", head)
+    if m:
+        return None if m.group(4) == "1" else \
+            f"ipm_dense_kernel<{m.group(1)}, {m.group(2)}, {m.group(3)}>"
+    if "ipm_dense_cluster_kernel" in head:
+        return "ipm_dense_cluster_kernel"
+    m = re.search(r"ipm_factorILb([01])E(?:Lb([01])E)?E", head)
+    if m:
+        return None if m.group(2) == "1" else f"ipm_factor<{m.group(1)}>"
+    return None
+
+
+def dense_steps() -> dict:
+    """The first step of paths (f), (i) and (iii) of ``chip_smoke.py``
+    (frog under ``tuned_f32`` at hp = 20, B = 1,024 with TUNED_F32_PHASES;
+    frog side selection at hp = 10, B = 1,024; one frog scenario's
+    side-selection step through ``mpc_step``), seed 42, and one K2 launch
+    at (l3)'s shape (mg = 384, n = 257, four 64 x 64 P blocks, B = 256, 7
+    iterations: the cluster tier) on seeded inputs: their tensors, for a
+    bitwise comparison of two checkouts."""
+    from scp_tpu_torch import config as config_lib
+    from scp_tpu_torch.ops import ipm_kernel
+    from scp_tpu_torch.scenarios import batch as batch_lib, builders
+    from scp_tpu_torch.sim import engine
+    from scp_tpu_torch.testing import DENSE_ARG_ORDER, dense_kernel_inputs
+    out = {}
+
+    def keep(tag, o):
+        out.update({f"{tag}_{k}": v.cpu() for k, v in o._asdict().items()
+                    if torch.is_tensor(v)})
+
+    ss = dict(controller="side_selection")
+    for tag, hp, over, extra in (
+            ("f", 20, {}, {}),
+            ("i", 10, ss, config_lib.TUNED_F32_SIDE_SELECTION)):
+        gen = torch.Generator(device="cuda").manual_seed(42)
+        cfg, data = batch_lib.make_batch("frog", 1024, generator=gen,
+                                         dtype=torch.float32, device="cuda")
+        cfg = config_lib.tuned_f32(cfg.replace(hp=hp, hu=hp, **over),
+                                   **extra)
+        keep(tag, engine.mpc_step_batch(
+            cfg, data, engine.init_carry(cfg, data),
+            phases=None if over else config_lib.TUNED_F32_PHASES)[1])
+    cfg, data = builders.frog(dtype=torch.float32, device="cuda")
+    cfg = config_lib.tuned_f32(cfg.replace(hp=10, hu=10, **ss),
+                               **config_lib.TUNED_F32_SIDE_SELECTION)
+    keep("iii", engine.mpc_step(cfg, data, engine.init_carry(cfg, data))[1])
+    a = dense_kernel_inputs(256, 384, 4, 64, seed=384)
+    t = [None if a[k] is None else torch.as_tensor(a[k], device="cuda")
+         for k in DENSE_ARG_ORDER]
+    res = ipm_kernel.ipm_iterate_dense(*t, n_iters=7, tol=1e-6, reg_rel=3e-6,
+                                       n_cor=0, schur_slack=True)
+    out.update({f"l3_{i}": r.cpu() for i, r in enumerate(res)})
+    return out
 
 
 # K1's shared, device and cluster kernels by mangled name: the shared
@@ -271,7 +366,7 @@ def compare_ric(path_a: str, path_b: str) -> None:
            "differ": [k for k in a if a[k] != b.get(k)],
            "only_in_b": [k for k in b if k not in a]}
     steps = [p.replace("sass_", "steps_").replace("_ric.json", ".pt")
-             for p in (path_a, path_b)]
+             .replace(".json", ".pt") for p in (path_a, path_b)]
     if all(os.path.exists(p) for p in steps):
         sa, sb = (torch.load(p) for p in steps)
         out["steps_bit_identical"] = {k: torch.equal(sa[k], sb[k])
@@ -291,7 +386,7 @@ def compare(path_a: str, path_b: str) -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--compare"]:
         compare(*sys.argv[2:4])
-    elif sys.argv[1:2] == ["--compare-ric"]:
+    elif sys.argv[1:2] in (["--compare-ric"], ["--compare-k2"]):
         compare_ric(*sys.argv[2:4])
     elif not torch.cuda.is_available():
         sys.exit("no CUDA device")

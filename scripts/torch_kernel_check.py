@@ -15,7 +15,7 @@ Run from the root of a checkout on a machine with an NVIDIA GPU::
     python3 scripts/torch_kernel_check.py --sections k2 k4 # K2's, K4's
     python3 scripts/torch_kernel_check.py --pivots        # K6 / K7's pivots
     python3 scripts/torch_kernel_check.py --tiers         # K1 / K2 tiers
-    python3 scripts/torch_kernel_check.py --global        # K1's global tier
+    python3 scripts/torch_kernel_check.py --global        # K1's, K2's global tier
     python3 scripts/torch_kernel_check.py --wide          # K6 / K7 device tier
 
 The default mode builds the kernel library (printing ``ptxas -v``), runs the
@@ -92,7 +92,12 @@ vectors and the KKT matrix in device memory) bit for bit against the
 cluster and device tiers forced on the same seeded inputs at the bench
 shape and at parallel-11's side-selection QP at hp = 20, and against the
 plain version there and at parallel-11 and circle-16, hp = 64, with the
-device times by graph replay and the CTAs resident an SM.
+device times by graph replay and the CTAs resident an SM; then K2's global
+tier (``K2_GLOBAL_CASES``) the same way: bit for bit the device tier forced
+at frog's shape (hp = 20), at (l3)'s (n = 257) and at frog side selection's
+QP at hp = 155, beside the cluster tier there and at hp = 168 (another
+summation order: to the plain-version limits), and against the plain
+version at hp = 180, under both carve-outs.
 ``--pivots`` compiles a test that
 includes ``csrc/riccati.cu`` and holds its branch-free pivot square root and
 reciprocal to ``__fsqrt_rn`` / ``__frcp_rn`` bit for bit on every float in
@@ -571,9 +576,84 @@ def check_global() -> None:
             rep["ms"][k] = _graph_one(lambda k=k: run(args, kw, k))
         rep["resident"] = ik.global_occupancy(*shape, True)
         print(json.dumps(rep), flush=True)
+    check_global_k2(bad)
     print(json.dumps({"global_cases_failed": bad}), flush=True)
     if bad:
         sys.exit(1)
+
+
+# K2's global tier: (B, mg, nb, d, seed) of seeded dense QPs (one slack
+# column, the slack eliminated, 8 iterations): frog's shape at hp = 20, (l3)'s
+# (n = 257), and frog side selection's QP (24 rows a step) at hp = 155 (the
+# device tier's largest), 168 (the cluster tier's) and 180 (the global
+# tier's by shape)
+K2_GLOBAL_CASES = ((1024, 440, 1, 20, 440), (256, 384, 4, 64, 384),
+                   (64, 3720, 1, 155, 155), (64, 4032, 1, 168, 168),
+                   (64, 4320, 1, 180, 180))
+
+
+def check_global_k2(bad: list) -> None:
+    """K2's global tier on seeded inputs (see the module docstring)."""
+    from scp_tpu_torch.ops import ipm_kernel as ik
+    n_iters = 8
+    for B, mg, nb, d, seed in K2_GLOBAL_CASES:
+        t = dense_inputs("cuda", (B, mg, nb, d), seed=seed)
+        n = nb * d + 1
+        taken = ik.dense_tier(mg, n, nb, d, True, 0)
+        geo = ik.dense_global_geometry(mg, n, True, 0)
+
+        def run(tier):
+            return dense_qp(t, {**DENSE_KW, "tier": tier}, n_iters)()
+
+        ik.reset_launch_count()
+        out_g = run("global")
+        rep = {"case": f"k2_global_B{B}_mg{mg}_n{n}", "taken": taken.tier,
+               "geometry": geo._asdict()}
+        twins = {}
+        for other in ("cluster", "device"):
+            try:
+                twins[other] = run(other)
+            except NotImplementedError:
+                continue
+        torch.cuda.synchronize()
+        rep["launches"] = {"global": ik.dense_global_launch_count,
+                           "cluster": ik.dense_cluster_launch_count,
+                           "device": ik.dense_device_launch_count}
+        out_p = ik.ipm_iterate_dense_plain(
+            t["G"], t.get("P"), t["pb"], t["q"], t["pdiag"],
+            *[t[k] for k in STATE], n_iters=n_iters, **DENSE_KW)
+        nu = n - 1
+        for k, o in twins.items():
+            same = all(torch.equal(x, y) for x, y in zip(out_g, o))
+            rep[f"bit_identical_{k}"] = same
+            rep[f"u_max_vs_{k}"] = float(
+                (out_g[0][:, :nu] - o[0][:, :nu]).abs().max())
+            if k == "device" and not same:
+                bad.append(f"{rep['case']}_vs_{k}")
+        du = (out_g[0][:, :nu] - out_p[0][:, :nu]).abs().amax(dim=1)
+        rep.update(u_max=float(du.max()), u_median=float(du.median()),
+                   finite=all(bool(torch.isfinite(x).all()) for x in out_g),
+                   frozen_kernel=float(out_g[10][:, 1].mean()),
+                   frozen_plain=float(out_p[10][:, 1].mean()))
+        if not rep["finite"] or rep["u_median"] > 20 * U_MEDIAN_LIMIT:
+            bad.append(rep["case"])
+        rep["ms"] = {}
+        chosen = ik.DENSE_GLOBAL_CARVEOUT
+        try:
+            for name, pct in (("global_max_shared", 100),
+                              ("global_max_l1", 0)):
+                ik.DENSE_GLOBAL_CARVEOUT = pct
+                rep["ms"][name] = _graph_one(lambda: run("global"))
+        finally:
+            ik.DENSE_GLOBAL_CARVEOUT = chosen
+        for k in twins:
+            rep["ms"][k] = _graph_one(lambda k=k: run(k))
+        min_ctas = ik.dense_min_ctas(B, _sm_count())
+        rep["min_ctas"] = min_ctas
+        rep["resident"] = ik.dense_global_occupancy(min_ctas)
+        print(json.dumps(rep), flush=True)
+        del t, out_g, out_p, twins
+        torch.cuda.empty_cache()
 
 
 # K6 / K7's device tier: (B, V, K, forced tier, device-tier shared-memory
@@ -1408,6 +1488,9 @@ def k3k4large_times(rnd, dev) -> None:
 # (l3)'s K2 shape: circle-4 at hp = 64, B = 256, mg = 384, n = 257, four
 # 64 x 64 P blocks, the slack eliminated, no Gondzio corrector
 K2_L3_SHAPE = (256, 384, 4, 64)
+# (B, mg, nb, d) of frog side selection's first-round QP at hp = 180, B = 64
+# (chip_smoke.py path (o2))
+K2_O2_SHAPE = (320, 4320, 1, 180)
 
 
 def _k2_tiers(shape) -> tuple:
@@ -1500,27 +1583,51 @@ def k4_width_times(rnd, dev) -> None:
 def k2_sections() -> None:
     """Clock cycles of block 0 of K2 by section, per IPM iteration, over
     one QP of the dense-G branch (7 iterations): frog's shape at B = 64 and
-    1024, and (l3)'s (``K2_L3_SHAPE``) at B = 256 in each tier past the
-    shared one (in the cluster tier block 0 is rank 0 of instance 0)."""
+    1024, (l3)'s (``K2_L3_SHAPE``) at B = 256 in each tier past the
+    shared one (in the cluster tier block 0 is rank 0 of instance 0), and
+    frog side selection's first-round QP at hp = 180 (``K2_O2_SHAPE``) in
+    the global tier, its shape's."""
     import ctypes
     import subprocess
     from scp_tpu_torch.ops import _cuda_build, ipm_kernel
     if "SCP_PROFILE_SECTIONS" not in _cuda_build.BUILD_DEFINES:
         _cuda_build.BUILD_DEFINES += ("SCP_PROFILE_SECTIONS",)
     lib = _cuda_build.load_library()
-    lib.ipm_dense_read_sections.argtypes = [ctypes.c_void_p]
-    lib.ipm_dense_read_sections.restype = ctypes.c_int
+    # the global tier's counters live in its own translation unit
+    readers = [getattr(lib, name) for name in (
+        "ipm_dense_read_sections", "ipm_dense_global_read_sections")
+        if hasattr(lib, name)]
+    for fn in readers:
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     buf = (ctypes.c_ulonglong * 24)()
+    part = (ctypes.c_ulonglong * 24)()
+
+    def read_sections() -> int:
+        """Every reader's counters summed into ``buf`` (each cleared)."""
+        for i in range(24):
+            buf[i] = 0
+        for fn in readers:
+            err = fn(part)
+            if err != 0:
+                return err
+            for i in range(24):
+                buf[i] += part[i]
+        return 0
+
     t_all = dense_inputs("cuda")
     t_l3 = dense_inputs("cuda", K2_L3_SHAPE, seed=K2_L3_SHAPE[1])
     cases = [(B, None, _cut(t_all, B)) for B in (64, 1024)] + [
         (K2_L3_SHAPE[0], tier, t_l3) for tier in _k2_tiers(K2_L3_SHAPE)]
+    if "global" in getattr(ipm_kernel, "DENSE_TIERS", ()):
+        cases.append((K2_O2_SHAPE[0], None,
+                      dense_inputs("cuda", K2_O2_SHAPE, seed=180)))
     for B, tier, t in cases:
         qp = dense_qp(t, DENSE_KW if tier is None
                       else {**DENSE_KW, "tier": tier})
         qp()
         torch.cuda.synchronize()
-        lib.ipm_dense_read_sections(buf)
+        read_sections()
         reps = 5
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1529,7 +1636,7 @@ def k2_sections() -> None:
             qp()
         end.record()
         torch.cuda.synchronize()
-        if lib.ipm_dense_read_sections(buf) != 0:
+        if read_sections() != 0:
             sys.exit("reading the section counters failed")
         fine = {k: buf[i] / reps / DENSE_ITERS
                 for i, k in enumerate(K2_FINE_SECTIONS)}
@@ -1972,7 +2079,7 @@ def main() -> None:
     ap.add_argument("--tiers", action="store_true",
                     help="build, then K1 / K2 in their device tier only")
     ap.add_argument("--global", dest="global_tier", action="store_true",
-                    help="build, then K1's global tier")
+                    help="build, then K1's and K2's global tiers")
     ap.add_argument("--wide", action="store_true",
                     help="build, then K6 / K7's device tier")
     args = ap.parse_args()

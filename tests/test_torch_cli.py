@@ -133,8 +133,6 @@ def test_run_export_json_measures_step_times(tmp_path):
 
 
 @pytest.mark.parametrize("argv,says", [
-    (["run", "--controller", "side_selection", "--kkt", "dense", "--cpu"],
-     "--kkt has no effect"),
     (["run", "--f64"], "--f64 runs on the CPU only"),
     (["sweep", "--f64"], "--f64 runs on the CPU only"),
 ])
@@ -147,6 +145,28 @@ def test_run_refusals_before_any_work(argv, says, capsys, monkeypatch):
         tcli.main(argv)
     assert e.value.code == 2
     assert says in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("cmd,kkt", [("run", "banded"), ("sweep", "dense")])
+def test_side_selection_runs_as_without_kkt(cmd, kkt, capsys):
+    """``--kkt`` has no effect on the side-selection controller (its QPs
+    always take the dense KKT; scp_tpu's CLI takes the flag and runs):
+    frog side selection on the CPU with ``--kkt`` gives the summary of the
+    same run without it, wall times aside, and one line on stderr says
+    so."""
+    base = [cmd, "--cpu", "--f64", "--scenario", "frog", "--controller",
+            "side_selection", "--hp", "4", "--steps", "2"]
+    if cmd == "sweep":
+        base += ["--batch", "2"]
+    timeless = ("wall_s", "steps_per_sec", "solves_per_sec")
+    want = tcli.main(base)
+    assert "--kkt" not in capsys.readouterr().err
+    got = tcli.main(base + ["--kkt", kkt])
+    assert "--kkt has no effect" in capsys.readouterr().err
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        if k not in timeless:
+            assert got[k] == v, k
 
 
 def test_sweep_names_the_scale_out_item(capsys, monkeypatch):

@@ -261,8 +261,9 @@ def test_dense_gate_admits_no_fewer_shapes(schur):
     shape (and every G in shared memory) the one-iteration kernel admitted;
     past it the cluster tier takes the shape where the smallest cluster
     holds it (the KKT matrix in its stripes), else the device tier (the
-    factor in device memory, G too) with the rest of the carve, and only
-    past that the tier function raises, naming the bytes."""
+    factor in device memory, G too) with the rest of the carve, and past
+    that the global tier (the vectors in device memory too: 132 bytes of
+    shared memory a CTA)."""
     ik = ipm_kernel
     limit = ik.SMEM_LIMIT_BYTES
     for mg in (12, 120, 440, 900, 2000, 6000, 20000):
@@ -293,9 +294,11 @@ def test_dense_gate_admits_no_fewer_shapes(schur):
                         continue
                     assert cl is None
                     if rest > limit:
-                        with pytest.raises(NotImplementedError,
-                                           match=f"{rest} bytes"):
-                            ik.dense_tier(mg, n, nb, d, schur, n_cor)
+                        assert ik.dense_tier(mg, n, nb, d, schur, n_cor) \
+                            == ("global", ik.dense_global_smem_bytes(),
+                                ik.dense_global_geometry(
+                                    mg, n, schur, n_cor).workspace_floats,
+                                False)
                         continue
                     assert ik.dense_tier(mg, n, nb, d, schur, n_cor) \
                         == ("device", rest, nk * ik.kkt_ld(nk, True), False)
@@ -364,12 +367,13 @@ def test_dense_cluster_carve_at_l3():
     assert_stripes_cover(256, 2)
 
 
-@pytest.mark.parametrize("tier", ["shared", "cluster", "device"])
+@pytest.mark.parametrize("tier", ["shared", "cluster", "device", "global"])
 def test_dense_tier_keyword_runs_the_plain_version_on_the_cpu(tier):
     """``tier`` only picks where the kernel keeps its KKT matrix: on CPU
     tensors the wrapper runs the plain version, bit for bit the call
     without it, and counts no launch; forced on the card past a tier's
-    capacity, the tier function raises, naming it."""
+    capacity, the tier function raises, naming it (the global tier, 132
+    bytes of shared memory a CTA, holds every shape)."""
     a = dense_kernel_inputs(3, 30, 4, 5, seed=21)
     t = [None if a[k] is None else torch.as_tensor(a[k])
          for k in DENSE_ARG_ORDER]
@@ -381,11 +385,17 @@ def test_dense_tier_keyword_runs_the_plain_version_on_the_cpu(tier):
     assert ipm_kernel.dense_launch_count == 0
     assert ipm_kernel.dense_cluster_launch_count == 0
     assert ipm_kernel.dense_device_launch_count == 0
+    assert ipm_kernel.dense_global_launch_count == 0
     assert ipm_kernel.dense_tier(30, 21, 4, 5, True, 0, tier).tier == tier
-    with pytest.raises(NotImplementedError, match=f"{tier} tier"):
-        ipm_kernel.dense_tier(60_000, 21, 4, 5, True, 0, tier)
+    if tier == "global":
+        assert ipm_kernel.dense_tier(60_000, 21, 4, 5, True, 0, tier) \
+            == ("global", 132, ipm_kernel.dense_global_geometry(
+                60_000, 21, True, 0).workspace_floats, False)
+    else:
+        with pytest.raises(NotImplementedError, match=f"{tier} tier"):
+            ipm_kernel.dense_tier(60_000, 21, 4, 5, True, 0, tier)
     with pytest.raises(ValueError, match="unknown tier"):
-        ipm_kernel.dense_tier(30, 21, 4, 5, True, 0, "global")
+        ipm_kernel.dense_tier(30, 21, 4, 5, True, 0, "stripes")
 
 
 def test_plain_k2_at_the_l3_shape_scaled_down():

@@ -74,6 +74,14 @@ def _job(name: str, out: str) -> None:
                                         **tengine._scp_kwargs(cfg))
         for f in RES_FIELDS:
             res[f"{case}_{n_data}x{n_model}_{f}"] = getattr(got, f).numpy()
+        if name == "two":
+            # qp_kkt="banded" under axis_name: the dense KKT, as scp_tpu
+            got = horizon.solve_scp_sharded(
+                cfg, problem, carry.u_warm, mesh,
+                **{**tengine._scp_kwargs(cfg), "qp_kkt": "banded"})
+            for f in RES_FIELDS:
+                res[f"{case}_{n_data}x{n_model}_banded_{f}"] = \
+                    getattr(got, f).numpy()
     if name == "two":
         mesh = mesh_lib.make_mesh(1, 2)
         cfg, data, carry, _ = _setup(*STEP_CASE)
@@ -166,8 +174,15 @@ def _check(got: dict, key: str, want, rows=slice(None)):
 @pytest.mark.parametrize("case", ["circle3", "parallel4"])
 def test_solve_scp_sharded_two_ranks_equals_scp_tpu(ranks, references,
                                                     case):
+    """Over two model ranks, and with qp_kkt="banded", which the
+    row-sharded QP solves dense as scp_tpu does: bit for bit the dense
+    run."""
     for res in ranks["two"]:
         _check(res, f"{case}_1x2", references[case, 2])
+        _check(res, f"{case}_1x2_banded", references[case, 2])
+        for f in RES_FIELDS:
+            np.testing.assert_array_equal(res[f"{case}_1x2_banded_{f}"],
+                                          res[f"{case}_1x2_{f}"])
 
 
 def test_solve_scp_sharded_four_way_equals_scp_tpu(ranks, references):

@@ -516,8 +516,10 @@ def test_library_is_keyed_by_a_hash_of_the_sources():
     assert path == cb.library_path()
     # every kernel source of csrc/ goes into the one library
     assert {p.name for p in cb.sources()} == {
-        "ipm_dense.cu", "ipm_struct.cu", "linalg.cu", "riccati.cu"}
-    for header in ("chol_blocked.cuh", "ipm_common.cuh", "smem.cuh"):
+        "ipm_dense.cu", "ipm_dense_global.cu", "ipm_struct.cu", "linalg.cu",
+        "riccati.cu"}
+    for header in ("chol_blocked.cuh", "ipm_common.cuh", "ipm_dense.cuh",
+                   "smem.cuh"):
         assert (cb.CSRC / header).exists()
     old = cb.BUILD_DEFINES
     cb.BUILD_DEFINES = ("SCP_PROFILE_SECTIONS",)

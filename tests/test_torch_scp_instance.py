@@ -153,20 +153,38 @@ def test_solve_scp_batch_per_instance_path(phases):
     (dict(qp_kkt="banded"), "item 8"),
     (dict(qp_cheap_k=True), "cheap_k"),
 ])
-def test_solve_scp_unported_options_raise(kw, item):
+def test_solve_scp_unported_options_raise(kw, item, monkeypatch):
     if item == "item 11":
         # roadmap item 11 is ported (tests/test_torch_horizon.py holds the
-        # horizon-sharded solve against scp_tpu); what stays refused is the
-        # banded KKT with axis_name, which scp_tpu solves dense without a
-        # word, and axis_name without the global row count
+        # horizon-sharded solve against scp_tpu, and with qp_kkt="banded"
+        # bit for bit the dense run): with axis_name the row-sharded QP
+        # takes the dense KKT under qp_kkt="banded" as under "dense", as
+        # scp_tpu's solve_scp does (its use_banded needs axis_name None),
+        # with or without the stage statement; what stays refused is
+        # axis_name without the global row count
         _, problem_t, _, u0_t, u_lim, skw = _setup(
             "circle", 2, 6, dict(qp_kkt="banded"), n_veh=2, radius=6.0)
-        with pytest.raises(ValueError, match="not horizon-sharded"):
-            tscp.solve_scp(problem_t, u0_t, u_lim=u_lim, **{**skw, **kw})
-        with pytest.raises(ValueError, match="requires n_con_total"):
-            tscp.solve_scp(problem_t, u0_t, u_lim=u_lim,
-                           **{**skw, "qp_kkt": "dense",
-                              "axis_name": kw["axis_name"]})
+        seen = []
+
+        def first_qp(problem, u_init, qp_solve, **_):
+            return qp_solve(u_init, None, None)
+
+        def solve_qp(*a, **k):
+            seen.append((k["banded"], k["axis_name"], k["mg_total"]))
+            return "solved"
+        monkeypatch.setattr(tscp, "_scp_loop", first_qp)
+        monkeypatch.setattr(tscp.qp, "solve_qp", solve_qp)
+        for kkt in ("banded", "dense"):
+            for pre in (problem_t, problem_t._replace(banded_pre=None)):
+                assert tscp.solve_scp(pre, u0_t, u_lim=u_lim,
+                                      **{**skw, "qp_kkt": kkt, **kw}) \
+                    == "solved"
+        assert seen == [(None, "model", 12)] * 4
+        for kkt in ("banded", "dense"):
+            with pytest.raises(ValueError, match="requires n_con_total"):
+                tscp.solve_scp(problem_t, u0_t, u_lim=u_lim,
+                               **{**skw, "qp_kkt": kkt,
+                                  "axis_name": kw["axis_name"]})
         return
     if item == "item 8":
         # roadmap item 8 is ported: with the stage statement that
