@@ -63,6 +63,7 @@ import torch
 
 from scp_tpu_torch.ops import _cuda_build, linalg_kernel
 from scp_tpu_torch.ops._cuda_build import SMEM_LIMIT_BYTES
+from scp_tpu_torch.utils import timing
 
 # Launches of the structured kernel (K1) and of the dense-G kernel (K2) in
 # their shared-memory tier, of each in its device, its cluster and its
@@ -459,91 +460,99 @@ def ipm_iterate_struct(gi, gj, gob, gsl, pb, q, pdiag,
     one, for checking the tiers against each other) — there is no
     fallback: a failing build, load or launch raises, and so does a
     cluster that cannot be resident. CPU tensors go to
-    :func:`ipm_iterate_struct_plain`.
+    :func:`ipm_iterate_struct_plain`. Each call is a ``k1`` span
+    (``utils.timing``) with its tier (``plain`` on the CPU) and shape.
     """
-    state = (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)
-    if gi.device.type != "cuda":
-        return ipm_iterate_struct_plain(
-            gi, gj, gob, gsl, pb, q, pdiag, *state, pairs=pairs,
-            obst_veh=obst_veh, tol=tol, reg_rel=reg_rel, n_cor=n_cor,
-            n_iters=n_iters, lower_tri=lower_tri)
     global launch_count, device_launch_count, cluster_launch_count
     global global_launch_count
-    B, P, S, hp, hu, V, n, mg = _check_shapes(
-        gi, gj, gob, gsl, pb, q, pdiag, state, pairs, obst_veh)
-    if gi.dtype != torch.float32:
-        raise TypeError(
-            f"the CUDA IPM kernel is float32 only, got {gi.dtype}")
-    ins = [gi, gj, gob, gsl, pb, q, pdiag, *state]
-    for t in ins:
-        if t is not None and not t.is_contiguous():
-            raise ValueError("the CUDA IPM kernel needs contiguous tensors")
-    tr = struct_tier(P, S, hp, hu, V, lower_tri, tier)
-    dev = tr.tier == "device"
-    pt, ot = _index_tables(pairs, obst_veh, gi.device)
-    outs = [torch.empty_like(o) for o in state]
-    ptr = [0 if a is None else a.data_ptr() for a in ins]
-    if tr.tier == "global":
-        g = global_geometry(P, S, hp, hu, V)
-        ws = torch.empty((B, g.workspace_floats), dtype=torch.float32,
-                         device=gi.device)
+    state = (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)
+    with timing.span("k1") as sp:
+        B, P, S, hp, hu, V, n, mg = _check_shapes(
+            gi, gj, gob, gsl, pb, q, pdiag, state, pairs, obst_veh)
+        sp.set(B=B, P=P, S=S, hp=hp, hu=hu, V=V, n_iters=int(n_iters),
+               n_cor=int(n_cor), lower_tri=bool(lower_tri))
+        if gi.device.type != "cuda":
+            sp.set(tier="plain")
+            return ipm_iterate_struct_plain(
+                gi, gj, gob, gsl, pb, q, pdiag, *state, pairs=pairs,
+                obst_veh=obst_veh, tol=tol, reg_rel=reg_rel, n_cor=n_cor,
+                n_iters=n_iters, lower_tri=lower_tri)
+        if gi.dtype != torch.float32:
+            raise TypeError(
+                f"the CUDA IPM kernel is float32 only, got {gi.dtype}")
+        ins = [gi, gj, gob, gsl, pb, q, pdiag, *state]
+        for t in ins:
+            if t is not None and not t.is_contiguous():
+                raise ValueError(
+                    "the CUDA IPM kernel needs contiguous tensors")
+        tr = struct_tier(P, S, hp, hu, V, lower_tri, tier)
+        sp.set(tier=tr.tier)
+        dev = tr.tier == "device"
+        pt, ot = _index_tables(pairs, obst_veh, gi.device)
+        outs = [torch.empty_like(o) for o in state]
+        ptr = [0 if a is None else a.data_ptr() for a in ins]
+        if tr.tier == "global":
+            g = global_geometry(P, S, hp, hu, V)
+            ws = torch.empty((B, g.workspace_floats), dtype=torch.float32,
+                             device=gi.device)
+            with torch.cuda.device(gi.device):
+                stream = torch.cuda.current_stream().cuda_stream
+                err = _global_launcher()(
+                    *ptr, pt.data_ptr(), ot.data_ptr() if S else 0,
+                    *[o.data_ptr() for o in outs], ws.data_ptr(),
+                    B, P, S, hp, hu, V, int(n_iters), int(n_cor),
+                    int(lower_tri), float(tol), float(tol * 1e3),
+                    float(reg_rel), g.smem_bytes,
+                    B * g.workspace_floats, stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"ipm_struct_global_launch failed with CUDA error {err} "
+                    f"(B={B}, P={P}, S={S}, hp={hp}, hu={hu}, V={V}, "
+                    f"{g.smem_bytes} bytes of shared memory a CTA)")
+            global_launch_count += 1
+            return tuple(outs)
+        if tr.tier == "cluster":
+            C, area, _ = cluster_geometry(P, S, hp, hu, V)
+            table = linalg_kernel.deal_tensor(
+                V * hu, C, linalg_kernel.stripe_deal(V * hu, C), gi.device)
+            with torch.cuda.device(gi.device):
+                stream = torch.cuda.current_stream().cuda_stream
+                err = _launcher(cluster=True)(
+                    *ptr, pt.data_ptr(), ot.data_ptr() if S else 0,
+                    *[o.data_ptr() for o in outs], table.data_ptr(),
+                    B, P, S, hp, hu, V, int(n_iters), int(n_cor),
+                    int(lower_tri), C, area, float(tol), float(tol * 1e3),
+                    float(reg_rel), tr.smem_bytes, stream)
+            if err != 0:
+                why = ("no cluster can be resident" if err == -2
+                       else f"CUDA error {err}")
+                raise RuntimeError(
+                    f"ipm_struct_cluster_launch failed: {why} (B={B}, P={P}, "
+                    f"S={S}, hp={hp}, hu={hu}, V={V}, cluster of {C} CTAs, "
+                    f"{tr.smem_bytes} bytes of shared memory each)")
+            cluster_launch_count += 1
+            return tuple(outs)
+        launch = _launcher()
+        ws = torch.empty((B, tr.workspace_floats), dtype=torch.float32,
+                         device=gi.device) if dev else None
         with torch.cuda.device(gi.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = _global_launcher()(
+            err = launch(
                 *ptr, pt.data_ptr(), ot.data_ptr() if S else 0,
-                *[o.data_ptr() for o in outs], ws.data_ptr(),
+                *[o.data_ptr() for o in outs], ws.data_ptr() if dev else 0,
                 B, P, S, hp, hu, V, int(n_iters), int(n_cor), int(lower_tri),
-                float(tol), float(tol * 1e3), float(reg_rel), g.smem_bytes,
-                B * g.workspace_floats, stream)
+                int(dev), float(tol), float(tol * 1e3), float(reg_rel),
+                tr.smem_bytes, B * tr.workspace_floats, stream)
         if err != 0:
             raise RuntimeError(
-                f"ipm_struct_global_launch failed with CUDA error {err} "
+                f"ipm_struct_launch failed with CUDA error {err} "
                 f"(B={B}, P={P}, S={S}, hp={hp}, hu={hu}, V={V}, "
-                f"{g.smem_bytes} bytes of shared memory a CTA)")
-        global_launch_count += 1
+                f"tier={tr.tier}, smem={tr.smem_bytes})")
+        if dev:
+            device_launch_count += 1
+        else:
+            launch_count += 1
         return tuple(outs)
-    if tr.tier == "cluster":
-        C, area, _ = cluster_geometry(P, S, hp, hu, V)
-        table = linalg_kernel.deal_tensor(
-            V * hu, C, linalg_kernel.stripe_deal(V * hu, C), gi.device)
-        with torch.cuda.device(gi.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = _launcher(cluster=True)(
-                *ptr, pt.data_ptr(), ot.data_ptr() if S else 0,
-                *[o.data_ptr() for o in outs], table.data_ptr(),
-                B, P, S, hp, hu, V, int(n_iters), int(n_cor), int(lower_tri),
-                C, area, float(tol), float(tol * 1e3),
-                float(reg_rel), tr.smem_bytes, stream)
-        if err != 0:
-            why = ("no cluster can be resident" if err == -2
-                   else f"CUDA error {err}")
-            raise RuntimeError(
-                f"ipm_struct_cluster_launch failed: {why} (B={B}, P={P}, "
-                f"S={S}, hp={hp}, hu={hu}, V={V}, cluster of {C} CTAs, "
-                f"{tr.smem_bytes} bytes of shared memory each)")
-        cluster_launch_count += 1
-        return tuple(outs)
-    launch = _launcher()
-    ws = torch.empty((B, tr.workspace_floats), dtype=torch.float32,
-                     device=gi.device) if dev else None
-    with torch.cuda.device(gi.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            *ptr, pt.data_ptr(), ot.data_ptr() if S else 0,
-            *[o.data_ptr() for o in outs], ws.data_ptr() if dev else 0,
-            B, P, S, hp, hu, V, int(n_iters), int(n_cor), int(lower_tri),
-            int(dev), float(tol), float(tol * 1e3), float(reg_rel),
-            tr.smem_bytes, B * tr.workspace_floats, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"ipm_struct_launch failed with CUDA error {err} "
-            f"(B={B}, P={P}, S={S}, hp={hp}, hu={hu}, V={V}, tier={tr.tier}, "
-            f"smem={tr.smem_bytes})")
-    if dev:
-        device_launch_count += 1
-    else:
-        launch_count += 1
-    return tuple(outs)
 
 
 def _scatter_dense(gi, gj, gob, pairs, obst_veh, V):
@@ -1124,88 +1133,94 @@ def ipm_iterate_dense(G, P, pb, q, pdiag,
     device and global tiers at the launch bound :func:`dense_min_ctas`
     picks for ``B``; there is no fallback: a failing build, load or launch
     raises, and so does a cluster that cannot be resident. CPU tensors go
-    to :func:`ipm_iterate_dense_plain`.
+    to :func:`ipm_iterate_dense_plain`. Each call is a ``k2`` span
+    (``utils.timing``) with its tier (``plain`` on the CPU) and shape.
     """
-    state = (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)
-    B, mg, n, nb, d = _check_dense(G, P, pb, q, pdiag, state)
-    if G.device.type != "cuda":
-        return ipm_iterate_dense_plain(
-            G, P, pb, q, pdiag, *state, n_iters=n_iters, tol=tol,
-            reg_rel=reg_rel, n_cor=n_cor, schur_slack=schur_slack)
     global dense_launch_count, dense_device_launch_count
     global dense_cluster_launch_count, dense_global_launch_count
-    ins = [G, P, pb, q, pdiag, *state]
-    _check_launchable(ins)
-    t = dense_tier(mg, n, nb, d, schur_slack, n_cor, tier)
-    outs = [torch.empty_like(o) for o in state]
-    ptr = [0 if a is None else a.data_ptr() for a in ins]
-    if t.tier == "global":
+    state = (x, sg, su, sl, zg, zu, zl, rpg, rpu, rpl, scal)
+    with timing.span("k2") as sp:
+        B, mg, n, nb, d = _check_dense(G, P, pb, q, pdiag, state)
+        sp.set(B=B, mg=mg, n=n, n_iters=int(n_iters), n_cor=int(n_cor))
+        if G.device.type != "cuda":
+            sp.set(tier="plain")
+            return ipm_iterate_dense_plain(
+                G, P, pb, q, pdiag, *state, n_iters=n_iters, tol=tol,
+                reg_rel=reg_rel, n_cor=n_cor, schur_slack=schur_slack)
+        ins = [G, P, pb, q, pdiag, *state]
+        _check_launchable(ins)
+        t = dense_tier(mg, n, nb, d, schur_slack, n_cor, tier)
+        sp.set(tier=t.tier)
+        outs = [torch.empty_like(o) for o in state]
+        ptr = [0 if a is None else a.data_ptr() for a in ins]
+        if t.tier == "global":
+            min_ctas = dense_min_ctas(B, _sm_count(G.device))
+            ws = torch.empty((B, t.workspace_floats), dtype=torch.float32,
+                             device=G.device)
+            with torch.cuda.device(G.device):
+                err = _dense_global_launch(
+                    **dict(zip(("G", "P", "pb", "q", "pdiag", *_STATE), ptr)),
+                    **{k + "o": o.data_ptr() for k, o in zip(_STATE, outs)},
+                    ws=ws.data_ptr(), B=B, mg=mg, n=n, nb=nb, d=d,
+                    schur=int(schur_slack), n_iters=int(n_iters),
+                    n_cor=int(n_cor), min_ctas=min_ctas,
+                    carveout=DENSE_GLOBAL_CARVEOUT, tol=float(tol),
+                    tol_stall=float(tol * 1e3), reg_rel=float(reg_rel),
+                    smem_bytes=t.smem_bytes, ws_floats=B * t.workspace_floats,
+                    stream=torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"ipm_dense_global_launch failed with CUDA error {err} "
+                    f"(B={B}, mg={mg}, n={n}, nb={nb}, d={d}, "
+                    f"min_ctas={min_ctas}, {B * t.workspace_floats} workspace "
+                    f"floats)")
+            dense_global_launch_count += 1
+            return tuple(outs)
+        if t.tier == "cluster":
+            nk = n - 1 if schur_slack else n
+            C, area, _ = dense_cluster_geometry(mg, n, schur_slack, n_cor)
+            table = linalg_kernel.deal_tensor(
+                nk, C, linalg_kernel.stripe_deal(nk, C), G.device)
+            with torch.cuda.device(G.device):
+                stream = torch.cuda.current_stream().cuda_stream
+                err = _dense_launcher(cluster=True)(
+                    *ptr, *[o.data_ptr() for o in outs], table.data_ptr(),
+                    B, mg, n, nb, d, int(schur_slack), int(n_iters),
+                    int(n_cor), C, area, float(tol), float(tol * 1e3),
+                    float(reg_rel), t.smem_bytes, stream)
+            if err != 0:
+                why = ("no cluster can be resident" if err == -2
+                       else f"CUDA error {err}")
+                raise RuntimeError(
+                    f"ipm_dense_cluster_launch failed: {why} (B={B}, mg={mg}, "
+                    f"n={n}, nb={nb}, d={d}, cluster of {C} CTAs, "
+                    f"{t.smem_bytes} bytes of shared memory each)")
+            dense_cluster_launch_count += 1
+            return tuple(outs)
+        dev = t.tier == "device"
         min_ctas = dense_min_ctas(B, _sm_count(G.device))
+        launch = _dense_launcher()
         ws = torch.empty((B, t.workspace_floats), dtype=torch.float32,
-                         device=G.device)
-        with torch.cuda.device(G.device):
-            err = _dense_global_launch(
-                **dict(zip(("G", "P", "pb", "q", "pdiag", *_STATE), ptr)),
-                **{k + "o": o.data_ptr() for k, o in zip(_STATE, outs)},
-                ws=ws.data_ptr(), B=B, mg=mg, n=n, nb=nb, d=d,
-                schur=int(schur_slack), n_iters=int(n_iters),
-                n_cor=int(n_cor), min_ctas=min_ctas,
-                carveout=DENSE_GLOBAL_CARVEOUT, tol=float(tol),
-                tol_stall=float(tol * 1e3), reg_rel=float(reg_rel),
-                smem_bytes=t.smem_bytes, ws_floats=B * t.workspace_floats,
-                stream=torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(
-                f"ipm_dense_global_launch failed with CUDA error {err} "
-                f"(B={B}, mg={mg}, n={n}, nb={nb}, d={d}, "
-                f"min_ctas={min_ctas}, {B * t.workspace_floats} workspace "
-                f"floats)")
-        dense_global_launch_count += 1
-        return tuple(outs)
-    if t.tier == "cluster":
-        nk = n - 1 if schur_slack else n
-        C, area, _ = dense_cluster_geometry(mg, n, schur_slack, n_cor)
-        table = linalg_kernel.deal_tensor(
-            nk, C, linalg_kernel.stripe_deal(nk, C), G.device)
+                         device=G.device) if dev else None
         with torch.cuda.device(G.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = _dense_launcher(cluster=True)(
-                *ptr, *[o.data_ptr() for o in outs], table.data_ptr(),
-                B, mg, n, nb, d, int(schur_slack), int(n_iters), int(n_cor),
-                C, area, float(tol), float(tol * 1e3), float(reg_rel),
-                t.smem_bytes, stream)
+            err = launch(
+                *ptr, *[o.data_ptr() for o in outs],
+                ws.data_ptr() if dev else 0,
+                B, mg, n, nb, d, int(schur_slack), int(t.g_smem), int(dev),
+                int(n_iters), int(n_cor), min_ctas, float(tol),
+                float(tol * 1e3), float(reg_rel), t.smem_bytes,
+                B * t.workspace_floats, stream)
         if err != 0:
-            why = ("no cluster can be resident" if err == -2
-                   else f"CUDA error {err}")
             raise RuntimeError(
-                f"ipm_dense_cluster_launch failed: {why} (B={B}, mg={mg}, "
-                f"n={n}, nb={nb}, d={d}, cluster of {C} CTAs, "
-                f"{t.smem_bytes} bytes of shared memory each)")
-        dense_cluster_launch_count += 1
+                f"ipm_dense_launch failed with CUDA error {err} "
+                f"(B={B}, mg={mg}, n={n}, nb={nb}, d={d}, tier={t.tier}, "
+                f"smem={t.smem_bytes}, min_ctas={min_ctas})")
+        if dev:
+            dense_device_launch_count += 1
+        else:
+            dense_launch_count += 1
         return tuple(outs)
-    dev = t.tier == "device"
-    min_ctas = dense_min_ctas(B, _sm_count(G.device))
-    launch = _dense_launcher()
-    ws = torch.empty((B, t.workspace_floats), dtype=torch.float32,
-                     device=G.device) if dev else None
-    with torch.cuda.device(G.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            *ptr, *[o.data_ptr() for o in outs], ws.data_ptr() if dev else 0,
-            B, mg, n, nb, d, int(schur_slack), int(t.g_smem), int(dev),
-            int(n_iters), int(n_cor), min_ctas, float(tol),
-            float(tol * 1e3), float(reg_rel), t.smem_bytes,
-            B * t.workspace_floats, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"ipm_dense_launch failed with CUDA error {err} "
-            f"(B={B}, mg={mg}, n={n}, nb={nb}, d={d}, tier={t.tier}, "
-            f"smem={t.smem_bytes}, min_ctas={min_ctas})")
-    if dev:
-        dense_device_launch_count += 1
-    else:
-        dense_launch_count += 1
-    return tuple(outs)
 
 
 def ipm_iterate_dense_plain(G, P, pb, q, pdiag,

@@ -46,6 +46,7 @@ from scp_tpu_torch.ops import (condensed, constraints as con, discretize,
 from scp_tpu_torch.scenarios.builders import (OBST_HEADING, OBST_SPEED,
                                               OBST_X, OBST_Y)
 from scp_tpu_torch.solvers import miqp, scp
+from scp_tpu_torch.utils import timing
 
 
 class SimCarry(NamedTuple):
@@ -193,47 +194,54 @@ def rollout_plant(cfg: SCPConfig, data: ScenarioData, state, u_prev2,
     return torch.stack(states, dim=1)
 
 
+@timing.spanned("pre")
 def controller_pre(cfg: SCPConfig, data: ScenarioData, carry: SimCarry):
     """Controller preprocessing (delay compensation, reference sampling,
     obstacle forecast, discretize, condense).
 
     Returns (problem, aux) where ``aux = (sys_, u_max, ref_pts, x0, obst_pos,
-    delay_traj)``.
+    delay_traj)``. Spans: ``pre`` and its five parts.
     """
-    # The steering limit uses the CURRENT state; delay compensation starts
-    # from the MEASURED state, ticks_delay_x in the past.
-    u_max = dynamic_steering_limit(cfg, data, carry.state)
-    x_meas = carry.state if carry.state_meas is None else carry.state_meas
+    with timing.span("pre.delay"):
+        # The steering limit uses the CURRENT state; delay compensation
+        # starts from the MEASURED state, ticks_delay_x in the past.
+        u_max = dynamic_steering_limit(cfg, data, carry.state)
+        x_meas = carry.state if carry.state_meas is None else carry.state_meas
+        x0, delay_traj = delay_compensate(cfg, data, x_meas, carry.u_prev1)
 
-    x0, delay_traj = delay_compensate(cfg, data, x_meas, carry.u_prev1)
-    step_sizes = x0[..., 3] * cfg.dt
-    ref_pts = reference_path.sample_reference_batch(
-        data.ref_points, data.ref_valid, x0[..., :2], step_sizes, cfg.hp,
-        True)
-    obst_pos = predict_obstacles(cfg, data, carry.step)
+    with timing.span("pre.reference"):
+        step_sizes = x0[..., 3] * cfg.dt
+        ref_pts = reference_path.sample_reference_batch(
+            data.ref_points, data.ref_valid, x0[..., :2], step_sizes, cfg.hp,
+            True)
+        obst_pos = predict_obstacles(cfg, data, carry.step)
 
-    A, B, E = discretize.linearize_and_discretize_batch(
-        x0, carry.u_prev1, data.params.lf, data.params.lr, cfg.dt)
+    with timing.span("pre.discretize"):
+        A, B, E = discretize.linearize_and_discretize_batch(
+            x0, carry.u_prev1, data.params.lf, data.params.lr, cfg.dt)
     b = x0.shape[0]
-    ref_stack = ref_pts.reshape(b, cfg.n_veh, cfg.hp * NY)
-    cm = condensed.build_condensed_batch(
-        A, B, E, x0, ref_stack, data.params.q, data.params.r,
-        data.params.q_final, cfg.hp, cfg.hu)
+    with timing.span("pre.condense"):
+        ref_stack = ref_pts.reshape(b, cfg.n_veh, cfg.hp * NY)
+        cm = condensed.build_condensed_batch(
+            A, B, E, x0, ref_stack, data.params.q, data.params.r,
+            data.params.q_final, cfg.hp, cfg.hu)
 
-    sys_ = con.make_system(cm.math_b, cm.const_term, obst_pos,
-                           data.dsafe_veh, data.dsafe_obst,
-                           cfg.dsafe_extra, cfg.hp, cfg.hu)
-    banded_pre = None
-    if cfg.qp_kkt != "dense":
-        # stage statement of the SAME problem for the banded (Riccati) KKT
-        # path: dynamics + the cost's stage decomposition
-        # (P == 2 blockdiag(B^T Q B + r I))
-        qy = 2.0 * data.params.q[:, :, None].expand(b, cfg.n_veh, cfg.hp)
-        qy = torch.cat([qy[:, :, :-1], 2.0 * data.params.q_final[:, :, None]],
-                       dim=2)
-        banded_pre = (A, B[..., 0], qy.to(data.x0.dtype), 2.0 * data.params.r)
-    problem = scp.SCPProblem(sys=sys_, phi0=cm.phi0, psi0=cm.psi0,
-                             gamma0=cm.gamma0, banded_pre=banded_pre)
+    with timing.span("pre.system"):
+        sys_ = con.make_system(cm.math_b, cm.const_term, obst_pos,
+                               data.dsafe_veh, data.dsafe_obst,
+                               cfg.dsafe_extra, cfg.hp, cfg.hu)
+        banded_pre = None
+        if cfg.qp_kkt != "dense":
+            # stage statement of the SAME problem for the banded (Riccati)
+            # KKT path: dynamics + the cost's stage decomposition
+            # (P == 2 blockdiag(B^T Q B + r I))
+            qy = 2.0 * data.params.q[:, :, None].expand(b, cfg.n_veh, cfg.hp)
+            qy = torch.cat([qy[:, :, :-1],
+                            2.0 * data.params.q_final[:, :, None]], dim=2)
+            banded_pre = (A, B[..., 0], qy.to(data.x0.dtype),
+                          2.0 * data.params.r)
+        problem = scp.SCPProblem(sys=sys_, phi0=cm.phi0, psi0=cm.psi0,
+                                 gamma0=cm.gamma0, banded_pre=banded_pre)
     return problem, (sys_, u_max, ref_pts, x0, obst_pos, delay_traj)
 
 
@@ -256,81 +264,92 @@ def _scp_kwargs(cfg: SCPConfig) -> dict:
         compat_q5=cfg.compat_q5)
 
 
+@timing.spanned("post")
 def step_post(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
               res, aux, sides_stable=None) -> tuple[SimCarry, StepOutput]:
-    """Post-solve half of the MPC step: clamps, plant rollout, metrics."""
+    """Post-solve half of the MPC step: clamps, plant rollout, metrics.
+    Spans: ``post`` and its three parts."""
     sys_, u_max, ref_pts, x0, obst_pos, delay_traj = aux
-    traj_pred, U_raw = scp.forward_u(sys_, res.u)        # (B,HP,NY,V),(B,HP,V)
-    U = clamp_controls(cfg, U_raw, carry.u_prev1, u_max)
-    u_cmd = U[:, 0]
+    with timing.span("post.forward"):
+        # (B, HP, NY, V), (B, HP, V)
+        traj_pred, U_raw = scp.forward_u(sys_, res.u)
+        U = clamp_controls(cfg, U_raw, carry.u_prev1, u_max)
+        u_cmd = U[:, 0]
 
-    # Steering-limit audit on the RAW prediction: counts of magnitude/rate
-    # excursions the clamps will remove.
-    audit_eps = 1e-3
-    mag_events = (U_raw.abs() > u_max[:, None, :] + audit_eps).sum(dim=(1, 2))
-    dU_raw = torch.diff(U_raw, dim=1, prepend=carry.u_prev1[:, None, :])
-    rate_events = (dU_raw.abs() > cfg.du_lim + audit_eps).sum(dim=(1, 2))
+        # Steering-limit audit on the RAW prediction: counts of
+        # magnitude/rate excursions the clamps will remove.
+        audit_eps = 1e-3
+        mag_events = (U_raw.abs() > u_max[:, None, :] + audit_eps).sum(
+            dim=(1, 2))
+        dU_raw = torch.diff(U_raw, dim=1, prepend=carry.u_prev1[:, None, :])
+        rate_events = (dU_raw.abs() > cfg.du_lim + audit_eps).sum(dim=(1, 2))
 
-    states = rollout_plant(
-        cfg, data, carry.state, carry.u_prev2, carry.u_prev1,
-        carry.generator, None if carry.noise_total is None
-        else (carry.noise_offset, carry.noise_total))
+    with timing.span("post.plant"):
+        states = rollout_plant(
+            cfg, data, carry.state, carry.u_prev2, carry.u_prev1,
+            carry.generator, None if carry.noise_total is None
+            else (carry.noise_offset, carry.noise_total))
 
-    # objective / feasibility re-evaluated on the predicted trajectory
-    sq_err = (ref_pts.permute(0, 2, 3, 1) - traj_pred) ** 2  # (B,HP,NY,V)
-    obj_x = torch.sum(data.params.q * sq_err[:, :-1].sum(dim=(1, 2)), 1) \
-        + torch.sum(data.params.q_final * sq_err[:, -1].sum(dim=1), 1)
-    obj_u = torch.sum(data.params.r * (U ** 2).sum(dim=1), 1)
-    pred_obj = obj_x + obj_u
-    pos_t = traj_pred.permute(0, 3, 1, 2)                # (B, V, HP, NY)
-    iu, ju = sys_.pair_i[0], sys_.pair_j[0]
-    d2 = torch.sum((pos_t[:, iu] - pos_t[:, ju]) ** 2, -1)   # (B, P, HP)
-    ci_v = data.dsafe_veh[:, iu, ju][:, :, None] ** 2 - d2
-    d2o = torch.sum((pos_t[:, :, None] - obst_pos[:, None]) ** 2, -1)
-    ci_o = data.dsafe_obst[:, :, :, None] ** 2 - d2o
-    pred_feasible = \
-        (con._max_or_neg_inf(ci_v) <= cfg.constraint_tolerance) \
-        & (con._max_or_neg_inf(ci_o) <= cfg.constraint_tolerance)
+    with timing.span("post.metrics"):
+        # objective / feasibility re-evaluated on the predicted trajectory
+        # (B, HP, NY, V)
+        sq_err = (ref_pts.permute(0, 2, 3, 1) - traj_pred) ** 2
+        obj_x = torch.sum(data.params.q * sq_err[:, :-1].sum(dim=(1, 2)), 1) \
+            + torch.sum(data.params.q_final * sq_err[:, -1].sum(dim=1), 1)
+        obj_u = torch.sum(data.params.r * (U ** 2).sum(dim=1), 1)
+        pred_obj = obj_x + obj_u
+        pos_t = traj_pred.permute(0, 3, 1, 2)            # (B, V, HP, NY)
+        iu, ju = sys_.pair_i[0], sys_.pair_j[0]
+        d2 = torch.sum((pos_t[:, iu] - pos_t[:, ju]) ** 2, -1)  # (B, P, HP)
+        ci_v = data.dsafe_veh[:, iu, ju][:, :, None] ** 2 - d2
+        d2o = torch.sum((pos_t[:, :, None] - obst_pos[:, None]) ** 2, -1)
+        ci_o = data.dsafe_obst[:, :, :, None] ** 2 - d2o
+        pred_feasible = \
+            (con._max_or_neg_inf(ci_v) <= cfg.constraint_tolerance) \
+            & (con._max_or_neg_inf(ci_o) <= cfg.constraint_tolerance)
 
-    d_ticks = cfg.ticks_delay_x
-    if carry.state_meas is None:
-        state_meas = state_hist = None
-    elif d_ticks == 0:
-        state_meas, state_hist = states[:, -1], None
-    else:
-        # Tick-resolution measurement history: ``full`` covers ticks
-        # T-D .. T+tps of the global tick grid (T = this step's start,
-        # D = ticks_delay_x); the measured state at the NEXT boundary is
-        # tick T+tps-D and the carried history the D ticks before it.
-        full = torch.cat(
-            [carry.state_hist, carry.state[:, None], states], dim=1)
-        state_meas = full[:, cfg.ticks_per_sim]
-        state_hist = full[:, cfg.ticks_per_sim:cfg.ticks_per_sim + d_ticks]
-    new_carry = SimCarry(
-        state=states[:, -1],
-        u_prev2=carry.u_prev1,
-        u_prev1=u_cmd,
-        u_warm=res.u,
-        step=carry.step + 1,
-        generator=carry.generator,
-        state_meas=state_meas,
-        state_hist=state_hist,
-        noise_offset=carry.noise_offset,
-        noise_total=carry.noise_total,
-    )
-    b = res.u.shape[0]
-    out = StepOutput(
-        states=states, u_applied=u_cmd, u_pred=U, traj_pred=traj_pred,
-        ref_points=ref_pts, x0_pred=x0,
-        feasible=res.feasible, converged=res.converged, obj=res.obj,
-        max_violation=res.max_violation, scp_iters=res.iters,
-        qp_iters=res.qp_iters, pred_obj=pred_obj,
-        pred_feasible=pred_feasible, delay_traj=delay_traj,
-        clamp_mag_events=mag_events, clamp_rate_events=rate_events,
-        feas_disagree=(res.feasible != pred_feasible).to(torch.int32),
-        sides_stable=(torch.ones((b,), dtype=torch.bool,
-                                 device=res.u.device)
-                      if sides_stable is None else sides_stable))
+        d_ticks = cfg.ticks_delay_x
+        if carry.state_meas is None:
+            state_meas = state_hist = None
+        elif d_ticks == 0:
+            state_meas, state_hist = states[:, -1], None
+        else:
+            # Tick-resolution measurement history: ``full`` covers ticks
+            # T-D .. T+tps of the global tick grid (T = this step's start,
+            # D = ticks_delay_x); the measured state at the NEXT boundary
+            # is tick T+tps-D and the carried history the D ticks before it.
+            full = torch.cat(
+                [carry.state_hist, carry.state[:, None], states], dim=1)
+            state_meas = full[:, cfg.ticks_per_sim]
+            state_hist = full[:, cfg.ticks_per_sim:
+                              cfg.ticks_per_sim + d_ticks]
+        new_carry = SimCarry(
+            state=states[:, -1],
+            u_prev2=carry.u_prev1,
+            u_prev1=u_cmd,
+            u_warm=res.u,
+            step=carry.step + 1,
+            generator=carry.generator,
+            state_meas=state_meas,
+            state_hist=state_hist,
+            noise_offset=carry.noise_offset,
+            noise_total=carry.noise_total,
+        )
+        b = res.u.shape[0]
+        out = StepOutput(
+            states=states, u_applied=u_cmd, u_pred=U,
+            traj_pred=traj_pred,
+            ref_points=ref_pts, x0_pred=x0,
+            feasible=res.feasible, converged=res.converged, obj=res.obj,
+            max_violation=res.max_violation, scp_iters=res.iters,
+            qp_iters=res.qp_iters, pred_obj=pred_obj,
+            pred_feasible=pred_feasible, delay_traj=delay_traj,
+            clamp_mag_events=mag_events, clamp_rate_events=rate_events,
+            feas_disagree=(res.feasible != pred_feasible).to(
+                torch.int32),
+            sides_stable=(torch.ones((b,), dtype=torch.bool,
+                                     device=res.u.device)
+                          if sides_stable is None else sides_stable))
     return new_carry, out
 
 
@@ -391,15 +410,22 @@ def mpc_controller(cfg: SCPConfig, data: ScenarioData, carry: SimCarry):
     return res, aux, None
 
 
+def _step_attrs(cfg: SCPConfig, data: ScenarioData, *args, **kw) -> dict:
+    """The ``step`` span's attrs."""
+    return {"B": data.x0.shape[0], "controller": cfg.controller}
+
+
+@timing.spanned("step", _step_attrs)
 def mpc_step(cfg: SCPConfig, data: ScenarioData,
              carry: SimCarry) -> tuple[SimCarry, StepOutput]:
     """One complete MPC step (controller + plant) through the per-instance
     path; ``data`` / ``carry`` carry a leading batch axis (size 1 for one
-    scenario)."""
+    scenario). Span: ``step``."""
     res, aux, sides_stable = mpc_controller(cfg, data, carry)
     return step_post(cfg, data, carry, res, aux, sides_stable=sides_stable)
 
 
+@timing.spanned("step", _step_attrs)
 def mpc_step_horizon(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
                      *, axis_name, n_shards: int
                      ) -> tuple[SimCarry, StepOutput]:
@@ -410,7 +436,7 @@ def mpc_step_horizon(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
     Pre- and post-processing run whole on every rank (per-vehicle work);
     the SCP solve sees this rank's horizon block of the constraint system
     (``parallel.horizon.shard_system``), its QP rows row-sharded, so every
-    rank comes out with the same result."""
+    rank comes out with the same result. Span: ``step``."""
     from scp_tpu_torch.parallel import horizon, mesh as mesh_lib
 
     if cfg.controller != "scp":
@@ -433,7 +459,8 @@ def mpc_step_batch(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
     """Batched MPC step with straggler repacking (see
     ``scp.solve_scp_batch``), or the side-selection step
     (:func:`_side_selection_step_batch`). ``data``/``carry`` carry a
-    leading batch axis. Runs on the device the tensors live on."""
+    leading batch axis. Runs on the device the tensors live on. Span:
+    ``step`` (under side selection :func:`mpc_step`'s)."""
     if cfg.controller == "side_selection":
         if phases is not None:
             # the side-selection controller runs a FIXED round count: a
@@ -446,14 +473,15 @@ def mpc_step_batch(cfg: SCPConfig, data: ScenarioData, carry: SimCarry,
     if cfg.controller != "scp":
         raise ValueError(f"unknown controller {cfg.controller!r}")
     assert_full_f32()
-    problem, aux = controller_pre(cfg, data, carry)
-    res = scp.solve_scp_batch(
-        problem, carry.u_warm,
-        max_scp_iter=cfg.max_scp_iter,
-        phase1_iters=phase1_iters, straggler_frac=straggler_frac,
-        phases=phases,
-        **_scp_kwargs(cfg))
-    return step_post(cfg, data, carry, res, aux)
+    with timing.span("step", **_step_attrs(cfg, data)):
+        problem, aux = controller_pre(cfg, data, carry)
+        res = scp.solve_scp_batch(
+            problem, carry.u_warm,
+            max_scp_iter=cfg.max_scp_iter,
+            phase1_iters=phase1_iters, straggler_frac=straggler_frac,
+            phases=phases,
+            **_scp_kwargs(cfg))
+        return step_post(cfg, data, carry, res, aux)
 
 
 def _side_selection_step_batch(cfg: SCPConfig, data: ScenarioData,

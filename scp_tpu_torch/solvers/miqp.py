@@ -35,6 +35,7 @@ import torch
 from scp_tpu_torch.config import tree_map
 from scp_tpu_torch.ops import constraints as con
 from scp_tpu_torch.solvers import qp
+from scp_tpu_torch.utils import timing
 
 # The four axis-aligned half-plane normals of the big-M formulation: +x, -x,
 # +y, -y (a host constant, moved to the device and dtype where it is used).
@@ -378,6 +379,7 @@ def solve_side_selection(sys: con.ConstraintSystem, ref_points, q_weight,
     return SideSelectionResult(*[t[0] for t in res])
 
 
+@timing.spanned("ss.select", lambda sys, *a, **k: {"width": sys.b3.shape[0]})
 def solve_side_selection_stacked(
         sys: con.ConstraintSystem,      # leading axis B on every field
         ref_points: torch.Tensor,       # (B, V, Hp, 2)
@@ -427,6 +429,10 @@ def solve_side_selection_stacked(
     selection and feasibility are evaluated at the same distances.
     ``qp_fixed_iters`` / ``qp_correctors``: the float32 calibration knobs
     (``config.TUNED_F32_SIDE_SELECTION``); None runs the adaptive IPM.
+
+    Spans: ``ss.select`` (the call), ``ss.candidates`` (the first round),
+    ``ss.round`` (each reselection round), ``ss.check`` (the fixed-point
+    check), each with its ``width``.
     """
     b, v, hp, _, hu = sys.b3.shape
     n = v * hu
@@ -526,36 +532,37 @@ def solve_side_selection_stacked(
 
     bi = torch.arange(b, device=device)
     if multi_candidate and n_obst > 0:
-        sel_pair0, sel_a = select(u_init, lat_commit=True)
-        _, sel_b = select(u_init, lat_commit="flip")
-        _, sel_lon = select(u_init, obst_sides=(0, 1))
-        _, sel_lat_c = _select_from_trajectory(
-            sys_sel, u_init, consistent_lateral=True, **rect)
-        _, sel_lat_f = _select_from_trajectory(
-            sys_sel, u_init, consistent_lateral="flip", **rect)
-        cand_obst = [sel_a, sel_b, sel_lon, sel_lat_c, sel_lat_f]
-        n_cand = len(cand_obst)
+        with timing.span("ss.candidates", width=5 * b):
+            sel_pair0, sel_a = select(u_init, lat_commit=True)
+            _, sel_b = select(u_init, lat_commit="flip")
+            _, sel_lon = select(u_init, obst_sides=(0, 1))
+            _, sel_lat_c = _select_from_trajectory(
+                sys_sel, u_init, consistent_lateral=True, **rect)
+            _, sel_lat_f = _select_from_trajectory(
+                sys_sel, u_init, consistent_lateral="flip", **rect)
+            cand_obst = [sel_a, sel_b, sel_lon, sel_lat_c, sel_lat_f]
+            n_cand = len(cand_obst)
 
-        def tile(x):
-            return x.repeat((n_cand,) + (1,) * (x.ndim - 1))
+            def tile(x):
+                return x.repeat((n_cand,) + (1,) * (x.ndim - 1))
 
-        # Candidate solves only need RANKING fidelity (the winner is refined
-        # by the reselection rounds; an unconverged objective overestimates,
-        # which is conservative for the incumbent), hence their own
-        # iteration count.
-        dense_c, h_c, slabs_c = build_rows(sel_pair0, cand_obst)
-        u5, obj5, sl5, cv5, it5 = solve_batch(
-            dense_c, h_c, tile(u_init), tile(q_qp), tile(lb), tile(ub),
-            tile(phi), fixed_iters=qp_candidate_iters, slabs=slabs_c)
-        pick = _arg_first(rank(obj5, sl5).reshape(n_cand, b), 0,
-                          largest=False)
-        u_0 = u5.reshape(n_cand, b, n)[pick, bi]
-        obj0 = obj5.reshape(n_cand, b)[pick, bi]
-        slack0 = sl5.reshape(n_cand, b)[pick, bi]
-        conv0 = cv5.reshape(n_cand, b)[pick, bi]
-        qp_its = it5.reshape(n_cand, b).sum(dim=0, dtype=torch.int32)
-        sel0 = (sel_pair0, torch.stack(cand_obst)[pick, bi])
-        n_reselect = n_rounds - 1
+            # Candidate solves only need RANKING fidelity (the winner is
+            # refined by the reselection rounds; an unconverged objective
+            # overestimates, which is conservative for the incumbent), hence
+            # their own iteration count.
+            dense_c, h_c, slabs_c = build_rows(sel_pair0, cand_obst)
+            u5, obj5, sl5, cv5, it5 = solve_batch(
+                dense_c, h_c, tile(u_init), tile(q_qp), tile(lb), tile(ub),
+                tile(phi), fixed_iters=qp_candidate_iters, slabs=slabs_c)
+            pick = _arg_first(rank(obj5, sl5).reshape(n_cand, b), 0,
+                              largest=False)
+            u_0 = u5.reshape(n_cand, b, n)[pick, bi]
+            obj0 = obj5.reshape(n_cand, b)[pick, bi]
+            slack0 = sl5.reshape(n_cand, b)[pick, bi]
+            conv0 = cv5.reshape(n_cand, b)[pick, bi]
+            qp_its = it5.reshape(n_cand, b).sum(dim=0, dtype=torch.int32)
+            sel0 = (sel_pair0, torch.stack(cand_obst)[pick, bi])
+            n_reselect = n_rounds - 1
     else:
         u_0 = u_init
         obj0 = torch.full((b,), big, dtype=dtype, device=device)
@@ -568,12 +575,14 @@ def solve_side_selection_stacked(
     rounds = [(u_0, obj0, slack0, conv0) + tuple(sel0)]
     u_ref = u_0
     for _ in range(n_reselect):
-        sel_pair_r, sel_obst_r = select(u_ref, lat_commit=True)
-        dense_r, h_r, slabs_r = build_rows(sel_pair_r, [sel_obst_r])
-        u_ref, obj_r, slack_r, conv_r, iters = solve_batch(
-            dense_r, h_r, u_ref, q_qp, lb, ub, phi, slabs=slabs_r)
-        qp_its = qp_its + iters
-        rounds.append((u_ref, obj_r, slack_r, conv_r, sel_pair_r, sel_obst_r))
+        with timing.span("ss.round", width=b):
+            sel_pair_r, sel_obst_r = select(u_ref, lat_commit=True)
+            dense_r, h_r, slabs_r = build_rows(sel_pair_r, [sel_obst_r])
+            u_ref, obj_r, slack_r, conv_r, iters = solve_batch(
+                dense_r, h_r, u_ref, q_qp, lb, ub, phi, slabs=slabs_r)
+            qp_its = qp_its + iters
+            rounds.append((u_ref, obj_r, slack_r, conv_r, sel_pair_r,
+                           sel_obst_r))
     if n_reselect > 0:
         # best incumbent across the initial pick and every reselection round
         # (branch-and-bound keeps its incumbent)
@@ -587,22 +596,25 @@ def solve_side_selection_stacked(
         u, obj, slack, conv = u_0, obj0, slack0, conv0
         sel_last = sel0
 
-    # fixed-point check: the kept assignment equals the one its solution
-    # induces, or the solution already satisfies every induced row
-    # (evaluated on the slabs: the dense scatter is never built)
-    sel_pair_f, sel_obst_f = select(u, lat_commit=True)
-    identical = ((sel_last[0] == sel_pair_f).flatten(1).all(dim=1)
-                 & (sel_last[1] == sel_obst_f).flatten(1).all(dim=1))
-    gi_f, gj_f, gob_f, hp_f, ho_f = build_slabs(sel_pair_f, sel_obst_f)
-    uv = u.reshape(b, v, hu)
-    iu, ju = sys.pair_i[0], sys.pair_j[0]
-    res_p = (torch.einsum("bpku,bpu->bpk", gi_f, uv[:, iu])
-             + torch.einsum("bpku,bpu->bpk", gj_f, uv[:, ju])) - hp_f
-    res_o = torch.einsum("bvoku,bvu->bvok", gob_f, uv) - ho_f
-    induced_ok = torch.maximum(con._max_or_neg_inf(res_p),
-                               con._max_or_neg_inf(res_o)) \
-        <= constraint_tolerance
-    ev = con.evaluate(sys_sel, u, constraint_tolerance, compat_q5=False)
+    with timing.span("ss.check", width=b):
+        # fixed-point check: the kept assignment equals the one its
+        # solution induces, or the solution already satisfies every induced
+        # row (evaluated on the slabs: the dense scatter is never built)
+        sel_pair_f, sel_obst_f = select(u, lat_commit=True)
+        identical = ((sel_last[0] == sel_pair_f).flatten(1).all(dim=1)
+                     & (sel_last[1] == sel_obst_f).flatten(1).all(dim=1))
+        gi_f, gj_f, gob_f, hp_f, ho_f = build_slabs(sel_pair_f,
+                                                     sel_obst_f)
+        uv = u.reshape(b, v, hu)
+        iu, ju = sys.pair_i[0], sys.pair_j[0]
+        res_p = (torch.einsum("bpku,bpu->bpk", gi_f, uv[:, iu])
+                 + torch.einsum("bpku,bpu->bpk", gj_f, uv[:, ju])) - hp_f
+        res_o = torch.einsum("bvoku,bvu->bvok", gob_f, uv) - ho_f
+        induced_ok = torch.maximum(con._max_or_neg_inf(res_p),
+                                   con._max_or_neg_inf(res_o)) \
+            <= constraint_tolerance
+        ev = con.evaluate(sys_sel, u, constraint_tolerance,
+                          compat_q5=False)
     return SideSelectionResult(
         u=u, obj=obj, slack=slack, feasible=ev.feasible, converged=conv,
         rounds=torch.full((b,), n_rounds, dtype=torch.int32, device=device),

@@ -46,7 +46,9 @@ and the slack is eliminated whenever ``slack_schur`` asks, with no
 ``(n-1) % 8 == 0`` condition.
 
 The adaptive loops read ``any(active)`` on the host once per IPM iteration
-— a device synchronisation each time, counted in :data:`host_sync_count`.
+— a device synchronisation each time, counted in :data:`host_sync_count`
+and marked by a ``sync`` span (``utils.timing``); :func:`solve_qp_batched`
+is a ``qp`` span.
 """
 from __future__ import annotations
 
@@ -57,6 +59,7 @@ import torch
 from scp_tpu_torch.ops import (constraints as con, ipm_kernel,
                                linalg_kernel, riccati)
 from scp_tpu_torch.parallel import mesh as mesh_lib
+from scp_tpu_torch.utils import timing
 
 # Host reads of a device value (device synchronisations) made by the adaptive
 # IPM loops since the last reset.
@@ -176,7 +179,9 @@ def _adaptive_loop(iterate, state, max_iter: int, tol: float, m: int,
     while True:
         active = (it < max_iter) & ~stop
         host_sync_count += 1
-        if not bool(active.any()):
+        with timing.span("sync", site="ipm"):
+            go = bool(active.any())
+        if not go:
             break
         x2, s2, z2, rp2, mu, rd, ok = iterate(x, s, z, rp)
         keep = active[:, None]
@@ -868,24 +873,30 @@ def solve_qp_batched(P, q, G, h, lb, ub, *, max_iter: int = 30,
     route = _route(q, h, G, fixed_iters=fixed_iters, p_blocks=p_blocks,
                    slack_schur=slack_schur, g_struct=g_struct,
                    g_slabs=g_slabs, banded=banded, kkt=kkt)
-    if route == "banded":
-        return _solve_qp_batched_banded(
-            P, q, G, h, lb, ub, max_iter=max_iter, tol=tol, x0=x0, z0=z0,
-            fixed_iters=fixed_iters, p_blocks=p_blocks, g_struct=g_struct,
-            g_slabs=g_slabs, g_slack_mask=g_slack_mask, banded=banded)
-    if route == "adaptive":
-        return _solve_qp_batched_adaptive(P, q, G, h, lb, ub,
-                                          max_iter=max_iter, tol=tol, x0=x0,
-                                          z0=z0, p_blocks=p_blocks)
-    if route == "struct":
-        return _solve_qp_batched_struct(
-            P, q, h, lb, ub, tol=tol, x0=x0, z0=z0, fixed_iters=fixed_iters,
-            p_blocks=p_blocks, correctors=correctors, certificate=certificate,
-            g_struct=g_struct, g_slabs=g_slabs, g_slack_mask=g_slack_mask)
-    return _solve_qp_batched_dense(
-        P, q, G, h, lb, ub, tol=tol, x0=x0, z0=z0, fixed_iters=fixed_iters,
-        p_blocks=p_blocks, correctors=correctors, slack_schur=slack_schur,
-        certificate=certificate)
+    with timing.span("qp", route=route, B=q.shape[0], n=q.shape[1],
+                     mg=h.shape[1], fixed_iters=fixed_iters or 0):
+        if route == "banded":
+            return _solve_qp_batched_banded(
+                P, q, G, h, lb, ub, max_iter=max_iter, tol=tol, x0=x0,
+                z0=z0, fixed_iters=fixed_iters, p_blocks=p_blocks,
+                g_struct=g_struct, g_slabs=g_slabs,
+                g_slack_mask=g_slack_mask, banded=banded)
+        if route == "adaptive":
+            return _solve_qp_batched_adaptive(
+                P, q, G, h, lb, ub, max_iter=max_iter, tol=tol, x0=x0,
+                z0=z0, p_blocks=p_blocks)
+        if route == "struct":
+            return _solve_qp_batched_struct(
+                P, q, h, lb, ub, tol=tol, x0=x0, z0=z0,
+                fixed_iters=fixed_iters, p_blocks=p_blocks,
+                correctors=correctors, certificate=certificate,
+                g_struct=g_struct, g_slabs=g_slabs,
+                g_slack_mask=g_slack_mask)
+        return _solve_qp_batched_dense(
+            P, q, G, h, lb, ub, tol=tol, x0=x0, z0=z0,
+            fixed_iters=fixed_iters, p_blocks=p_blocks,
+            correctors=correctors, slack_schur=slack_schur,
+            certificate=certificate)
 
 
 def _fused_start(q, h, lb, ub, d_row, cost_scale, gmv, x0, z0):

@@ -21,7 +21,8 @@ Where ``scp_tpu`` runs a ``lax.while_loop`` with per-lane freezing, this is
 a Python loop whose condition is ONE host read of ``any(not done)`` per SCP
 iteration — a device synchronisation each time, counted in
 :data:`host_sync_count` (the adaptive IPM loops count theirs in
-``qp.host_sync_count``).
+``qp.host_sync_count``) and marked by a ``sync`` span; each iteration that
+solves a QP is an ``scp.iter`` span (``utils.timing``).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from scp_tpu_torch.config import tree_map
 from scp_tpu_torch.ops import constraints as con
 from scp_tpu_torch.parallel import mesh as mesh_lib
 from scp_tpu_torch.solvers import qp
+from scp_tpu_torch.utils import timing
 
 # Host reads of a device value (device synchronisations) made by the SCP
 # loops since the last reset.
@@ -136,64 +138,73 @@ def _scp_loop(problem: SCPProblem, u_init: torch.Tensor, qp_solve, *,
     # rounds at most.
     for _ in range(max_scp_iter):
         host_sync_count += 1
-        if not bool((~done).any()):
+        with timing.span("sync", site="scp") as sp:
+            if sp.on:
+                # the same one read: the count of active instances in
+                # place of any()
+                active = int((~done).sum())
+                sp.set(active=active)
+            else:
+                active = bool((~done).any())
+        if not active:
             break
-        sel = ~done
-        x0 = torch.cat([u, torch.zeros((b, 1), dtype=dtype, device=device)],
-                       dim=1)
-        sol = qp_solve(u, x0, z if qp_warm_dual else None)
-        # NaN guard: a diverged inner solve must not poison the iterate
-        ok = torch.isfinite(sol.x).all(dim=1)
-        u_new = torch.where(ok[:, None], sol.x[:, :n], u)
-        ev = ev_fn(u_new)
-        obj_new = obj_fn(u_new)
-        merit_prev = obj + slack_weight * viol
-        merit_new = obj_new + slack_weight * ev.max_violation
-        delta = merit_prev - merit_new
-        thresh = delta_tol + delta_tol_rel * merit_new.abs()
-        small_delta = (delta.abs() < thresh) | ~ok
-        if u_step_tol > 0:
-            small_step = (u_new - u).abs().amax(dim=1) < u_step_tol
-            small_delta = small_delta | small_step
-        if merit_patience > 0:
-            improved = (best_merit - merit_new) >= thresh
-            stall_new = torch.where(improved, torch.zeros_like(stall),
-                                    stall + 1)
-            small_delta = small_delta | (stall_new >= merit_patience)
-        else:
-            stall_new = stall
-        best_merit_new = torch.minimum(best_merit, merit_new)
-        selc = sel[:, None]
-        if keep_best:
-            better = sel & (merit_new < best_merit)
-            cand = (u_new, obj_new, ev.max_violation, ev.feasible)
-            best = tuple(
-                torch.where(better[:, None] if new_v.ndim == 2 else better,
-                            new_v, old_v)
-                for new_v, old_v in zip(cand, best))
-        if single_veh:
-            stop = small_delta
-        else:
-            stop = small_delta & (ev.max_violation <= constraint_tolerance)
-        stop = mesh_lib.all_true(stop, group)
-        if trace:
-            records.append((sel,) + tuple(
-                torch.where(sel, e, torch.zeros_like(e))
-                for e in (obj_new, ev.max_violation, merit_new, delta,
-                          sol.converged)))
+        with timing.span("scp.iter", width=b):
+            sel = ~done
+            x0 = torch.cat([u, torch.zeros((b, 1), dtype=dtype,
+                                           device=device)], dim=1)
+            sol = qp_solve(u, x0, z if qp_warm_dual else None)
+            # NaN guard: a diverged inner solve must not poison the iterate
+            ok = torch.isfinite(sol.x).all(dim=1)
+            u_new = torch.where(ok[:, None], sol.x[:, :n], u)
+            ev = ev_fn(u_new)
+            obj_new = obj_fn(u_new)
+            merit_prev = obj + slack_weight * viol
+            merit_new = obj_new + slack_weight * ev.max_violation
+            delta = merit_prev - merit_new
+            thresh = delta_tol + delta_tol_rel * merit_new.abs()
+            small_delta = (delta.abs() < thresh) | ~ok
+            if u_step_tol > 0:
+                small_step = (u_new - u).abs().amax(dim=1) < u_step_tol
+                small_delta = small_delta | small_step
+            if merit_patience > 0:
+                improved = (best_merit - merit_new) >= thresh
+                stall_new = torch.where(improved, torch.zeros_like(stall),
+                                        stall + 1)
+                small_delta = small_delta | (stall_new >= merit_patience)
+            else:
+                stall_new = stall
+            best_merit_new = torch.minimum(best_merit, merit_new)
+            selc = sel[:, None]
+            if keep_best:
+                better = sel & (merit_new < best_merit)
+                cand = (u_new, obj_new, ev.max_violation, ev.feasible)
+                best = tuple(
+                    torch.where(better[:, None] if new_v.ndim == 2 else better,
+                                new_v, old_v)
+                    for new_v, old_v in zip(cand, best))
+            if single_veh:
+                stop = small_delta
+            else:
+                stop = small_delta & (ev.max_violation <= constraint_tolerance)
+            stop = mesh_lib.all_true(stop, group)
+            if trace:
+                records.append((sel,) + tuple(
+                    torch.where(sel, e, torch.zeros_like(e))
+                    for e in (obj_new, ev.max_violation, merit_new, delta,
+                              sol.converged)))
 
-        # freeze inactive instances
-        u = torch.where(selc, u_new, u)
-        obj = torch.where(sel, obj_new, obj)
-        viol = torch.where(sel, ev.max_violation, viol)
-        feasible = torch.where(sel, ev.feasible, feasible)
-        done = torch.where(sel, stop, done)
-        it = it + sel.to(torch.int32)
-        qp_iters = qp_iters + torch.where(sel, sol.iters, zero)
-        qp_fails = qp_fails + (sel & ~sol.converged).to(torch.int32)
-        best_merit = torch.where(sel, best_merit_new, best_merit)
-        stall = torch.where(sel, stall_new, stall)
-        z = torch.where(selc, sol.z, z)
+            # freeze inactive instances
+            u = torch.where(selc, u_new, u)
+            obj = torch.where(sel, obj_new, obj)
+            viol = torch.where(sel, ev.max_violation, viol)
+            feasible = torch.where(sel, ev.feasible, feasible)
+            done = torch.where(sel, stop, done)
+            it = it + sel.to(torch.int32)
+            qp_iters = qp_iters + torch.where(sel, sol.iters, zero)
+            qp_fails = qp_fails + (sel & ~sol.converged).to(torch.int32)
+            best_merit = torch.where(sel, best_merit_new, best_merit)
+            stall = torch.where(sel, stall_new, stall)
+            z = torch.where(selc, sol.z, z)
 
     if keep_best:
         u, obj, viol, feasible = best
@@ -453,6 +464,11 @@ def solve_scp_batch(problems: SCPProblem, u_init: torch.Tensor, *,
     ``stacked``: ``None`` / ``True`` run :func:`solve_scp_stacked` (the
     port's default on every device), ``False`` runs :func:`solve_scp` (the
     per-instance path on the same batch).
+
+    Spans: ``scp.phase`` for each phase, with ``k`` (its index), ``width``
+    (its sub-batch), ``iters`` (its cap), ``stragglers`` (the unconverged
+    instances entering it) and ``lanes_useful`` (the iterations run by the
+    lanes that carry a straggler).
     """
     b = u_init.shape[0]
     if phases is None:
@@ -466,30 +482,42 @@ def solve_scp_batch(problems: SCPProblem, u_init: torch.Tensor, *,
         solver = solve_scp if stacked is False else solve_scp_stacked
         return solver(p, u, u_lim=u_lim, max_scp_iter=iters, **kw2)
 
-    res = run(problems, u_init, phases[0][0], *phases[0][2:])
+    with timing.span("scp.phase", k=0, width=b, iters=phases[0][0],
+                     stragglers=b) as sp:
+        res = run(problems, u_init, phases[0][0], *phases[0][2:])
+        if sp.on:
+            sp.set(lanes_useful=res.iters.sum())
 
-    for iters_k, frac_k, *qp_over in phases[1:]:
+    for k, (iters_k, frac_k, *qp_over) in enumerate(phases[1:], 1):
         m = max(b // frac_k, 1)
-        # pack unconverged to the front (False sorts before True). The order
-        # decides which stragglers get capacity, so the sort must be stable.
-        order = torch.argsort(res.converged.to(torch.int8), stable=True)
-        idx = order[:m]
-        sub_problems = tree_map(lambda x: x[idx], problems)
-        res_k = run(sub_problems, res.u[idx], iters_k, *qp_over)
+        with timing.span("scp.phase", k=k, width=m, iters=iters_k) as sp:
+            if sp.on:
+                sp.set(stragglers=(~res.converged).sum())
+            # pack unconverged to the front (False sorts before True). The
+            # order decides which stragglers get capacity, so the sort must
+            # be stable.
+            order = torch.argsort(res.converged.to(torch.int8), stable=True)
+            idx = order[:m]
+            sub_problems = tree_map(lambda x: x[idx], problems)
+            res_k = run(sub_problems, res.u[idx], iters_k, *qp_over)
 
-        take = ~res.converged[idx]
-        res_k = res_k._replace(
-            iters=res_k.iters + res.iters[idx],
-            qp_iters=res_k.qp_iters + res.qp_iters[idx],
-            qp_fails=res_k.qp_fails + res.qp_fails[idx])
+            take = ~res.converged[idx]
+            if sp.on:
+                # the lanes that carry a straggler: the filler lanes'
+                # iterations are thrown away
+                sp.set(lanes_useful=(res_k.iters * take).sum())
+            res_k = res_k._replace(
+                iters=res_k.iters + res.iters[idx],
+                qp_iters=res_k.qp_iters + res.qp_iters[idx],
+                qp_fails=res_k.qp_fails + res.qp_fails[idx])
 
-        def merge(a, b_k):
-            sel = take.reshape((-1,) + (1,) * (b_k.ndim - 1))
-            out = a.clone()
-            out[idx] = torch.where(sel, b_k, a[idx])
-            return out
+            def merge(a, b_k):
+                sel = take.reshape((-1,) + (1,) * (b_k.ndim - 1))
+                out = a.clone()
+                out[idx] = torch.where(sel, b_k, a[idx])
+                return out
 
-        res = SCPResult(*[merge(a, b_k) for a, b_k in zip(res, res_k)])
+            res = SCPResult(*[merge(a, b_k) for a, b_k in zip(res, res_k)])
     return res
 
 

@@ -334,19 +334,24 @@ def test_determinism_check():
 
 
 def test_timing_helpers(tmp_path):
-    t = timing.Timer("x")
-    for _ in range(2):
-        with t:
-            pass
-    assert t.count == 2 and t.mean >= 0.0
-    out, secs = timing.timed_blocked(lambda a: (a + 1, [a * 2]),
-                                     torch.ones(3))
-    assert torch.equal(out[0], torch.full((3,), 2.0)) and secs >= 0.0
+    """``profile_trace`` writes a Chrome trace that holds the program's
+    spans (an ``scp.step`` range of one MPC step) beside the operators,
+    and its records are its own block's alone."""
+    cfg, data = tbuilders.circle(3, dtype=torch.float64, device="cpu")
+    cfg = cfg.replace(hp=5, hu=5)
+    carry = tengine.init_carry(cfg, data)
+    timing.clear()
+    with torch.profiler.profile():          # an earlier session's step
+        tengine.mpc_step(cfg, data, carry)
     with timing.profile_trace(str(tmp_path / "prof")) as prof:
         torch.ones(64, 64) @ torch.ones(64, 64)
-    assert (tmp_path / "prof" / "trace.json").exists()
+        tengine.mpc_step(cfg, data, carry)
+    assert [r["name"] for r in timing.recorded()].count("step") == 1
+    timing.clear()
+    with open(tmp_path / "prof" / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "scp.step" in names and "scp.pre" in names
     assert any("mm" in e.key for e in prof.key_averages())
-    assert timing.throughput(10, 2.0) == 5.0
 
 
 def _random_qp(n, m, seed):
